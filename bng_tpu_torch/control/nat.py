@@ -1,0 +1,398 @@
+"""Host-side CGNAT manager: the parts of `bng_tpu/control/nat.py:NATManager`
+the IPoE slice needs — port-block carving (single and bulk), RFC 4787
+endpoint-independent mapping, new-flow session/reverse row insertion and
+the device sync. Expiry, release, HA restore and checkpoints belong to
+later slices. Exhaustion is logged through the stdlib `logging` module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable
+
+import numpy as np
+
+from bng_tpu_torch.ops.nat44 import (
+    BV_IN_USE, BV_NEXT_PORT, BV_PORT_END, BV_PORT_START, BV_PUBLIC_IP, BV_SUB_ID,
+    FLAG_EIM, FLAG_PORT_PARITY, NAT_STATE_NEW, REVERSE_WORDS, SESSION_WORDS, SUBNAT_WORDS,
+    SV_BYTES_OUT, SV_CREATED, SV_DEST_IP, SV_DEST_PORT, SV_LAST_SEEN, SV_NAT_IP,
+    SV_NAT_PORT, SV_ORIG_IP, SV_ORIG_PORT, SV_PKTS_OUT, SV_PROTO, SV_STATE,
+    NATGeom, NATTables,
+)
+from bng_tpu_torch.ops.parse import PROTO_ICMP
+from bng_tpu_torch.ops.table import HostTable, TableGeom, words_to_device, apply_update
+
+log = logging.getLogger(__name__)
+
+(LOG_SESSION_CREATE, LOG_SESSION_DELETE, LOG_PORT_BLOCK_ASSIGN,
+ LOG_PORT_BLOCK_RELEASE, LOG_PORT_EXHAUSTION, LOG_HAIRPIN, LOG_ALG_TRIGGER) = range(1, 8)
+
+
+@dataclasses.dataclass
+class NATLogEntry:
+    timestamp: int
+    event_type: int
+    subscriber_id: int
+    private_ip: int
+    public_ip: int
+    private_port: int
+    public_port: int
+    dest_ip: int
+    dest_port: int
+    protocol: int
+    flags: int = 0
+
+
+def apply_nat_updates(tables: NATTables, upd: tuple) -> NATTables:
+    """Apply one NAT update batch in place."""
+    sessions, reverse, sub_nat, hairpin, alg, config = upd
+    apply_update(tables.sessions, sessions)
+    apply_update(tables.reverse, reverse)
+    apply_update(tables.sub_nat, sub_nat)
+    tables.hairpin_ips.copy_(hairpin)
+    tables.alg_ports.copy_(alg)
+    tables.config.copy_(config)
+    return tables
+
+
+class NATManager:
+    def __init__(self, public_ips: list[int], ports_per_subscriber: int = 1024,
+                 port_range: tuple[int, int] = (1024, 65535), flags: int = FLAG_EIM,
+                 sessions_nbuckets: int = 1 << 14, sub_nat_nbuckets: int = 1 << 10,
+                 stash: int = 64, update_slots: int = 512,
+                 log_sink: Callable[[NATLogEntry], None] | None = None):
+        self.sessions = HostTable(sessions_nbuckets, key_words=4, val_words=SESSION_WORDS,
+                                  stash=stash, name="nat_sessions")
+        self.reverse = HostTable(sessions_nbuckets, key_words=4, val_words=REVERSE_WORDS,
+                                 stash=stash, name="nat_reverse")
+        self.sub_nat = HostTable(sub_nat_nbuckets, key_words=1, val_words=SUBNAT_WORDS,
+                                 stash=stash, name="subscriber_nat")
+        self.hairpin = np.zeros((256,), dtype=np.uint32)
+        self.alg = np.zeros((64,), dtype=np.uint32)
+        self.flags = flags
+        self.port_range = port_range
+        self.ports_per_subscriber = ports_per_subscriber
+        self.public_ips = list(public_ips)
+        self.update_slots = update_slots
+        self.log_sink = log_sink
+        self.geom = NATGeom(
+            sessions=TableGeom(sessions_nbuckets, stash),
+            reverse=TableGeom(sessions_nbuckets, stash),
+            sub_nat=TableGeom(sub_nat_nbuckets, stash),
+        )
+        self._next_block: dict[int, int] = {ip: port_range[0] for ip in self.public_ips}
+        self._free_blocks: dict[int, list[int]] = {ip: [] for ip in self.public_ips}
+        self._ip_round_robin = 0
+        # EIM host authority: (int_ip, int_port, proto) -> [ext_ip, ext_port, refcount]
+        self.eim: dict[tuple[int, int, int], list[int]] = {}
+        self._ext_ports: dict[tuple[int, int, int], tuple] = {}
+        self.blocks: dict[int, dict] = {}
+        self._sub_id_seq = 1
+        self.exhausted = {"block": 0, "port": 0}
+
+    def _log(self, event: int, sub_id: int, priv_ip: int, pub_ip: int,
+             priv_port: int, pub_port: int, dest_ip: int, dest_port: int,
+             proto: int, now: int, flags: int = 0) -> None:
+        if self.log_sink:
+            self.log_sink(NATLogEntry(now, event, sub_id, priv_ip, pub_ip,
+                                      priv_port, pub_port, dest_ip, dest_port, proto, flags))
+
+    def _carve(self) -> tuple[int, int] | None:
+        """Next (public_ip, block start) under round-robin + free-list reuse."""
+        n = self.ports_per_subscriber
+        for _ in range(len(self.public_ips)):
+            pub_ip = self.public_ips[self._ip_round_robin % len(self.public_ips)]
+            if self._free_blocks[pub_ip]:
+                return pub_ip, self._free_blocks[pub_ip].pop()
+            start = self._next_block[pub_ip]
+            if start + n - 1 > self.port_range[1]:
+                self._ip_round_robin += 1
+                continue
+            self._next_block[pub_ip] = start + n
+            return pub_ip, start
+        return None
+
+    def allocate_nat(self, private_ip: int, now: int = 0) -> dict | None:
+        """Carve a port block for a subscriber and install subscriber_nat."""
+        if private_ip in self.blocks:
+            return self.blocks[private_ip]
+        got = self._carve()
+        if got is None:
+            self.exhausted["block"] += 1
+            log.warning("CGNAT allocator exhausted: no free port block for %#x across %d "
+                        "public IPs", private_ip, len(self.public_ips))
+            return None
+        pub_ip, start = got
+        n = self.ports_per_subscriber
+        sub_id = self._sub_id_seq
+        self._sub_id_seq += 1
+        block = {"public_ip": pub_ip, "port_start": start, "port_end": start + n - 1,
+                 "next_port": start, "subscriber_id": sub_id, "private_ip": private_ip}
+        self.blocks[private_ip] = block
+        row = np.zeros((SUBNAT_WORDS,), dtype=np.uint32)
+        row[BV_PUBLIC_IP] = pub_ip
+        row[BV_PORT_START] = start
+        row[BV_PORT_END] = start + n - 1
+        row[BV_NEXT_PORT] = start
+        row[BV_SUB_ID] = sub_id
+        self.sub_nat.insert([private_ip], row)
+        self._log(LOG_PORT_BLOCK_ASSIGN, sub_id, private_ip, pub_ip,
+                  0, start, 0, start + n - 1, 0, now)
+        return block
+
+    def bulk_allocate_nat(self, private_ips, now: int = 0) -> int:
+        """Carve blocks for many subscribers at once (1M-scale build; no
+        per-block logging). Returns the number of blocks created."""
+        fresh = [int(ip) for ip in private_ips if int(ip) not in self.blocks]
+        if not fresh:
+            return 0
+        n = self.ports_per_subscriber
+        keys = np.zeros((len(fresh), 1), dtype=np.uint32)
+        rows = np.zeros((len(fresh), SUBNAT_WORDS), dtype=np.uint32)
+        made = 0
+        for priv in fresh:
+            got = self._carve()
+            if got is None:
+                break  # pool exhausted; the remaining rows are trimmed
+            pub_ip, start = got
+            block = {"public_ip": pub_ip, "port_start": start, "port_end": start + n - 1,
+                     "next_port": start, "subscriber_id": self._sub_id_seq,
+                     "private_ip": priv}
+            self._sub_id_seq += 1
+            self.blocks[priv] = block
+            keys[made, 0] = priv
+            rows[made, BV_PUBLIC_IP] = pub_ip
+            rows[made, BV_PORT_START] = start
+            rows[made, BV_PORT_END] = start + n - 1
+            rows[made, BV_NEXT_PORT] = start
+            rows[made, BV_IN_USE] = 0
+            rows[made, BV_SUB_ID] = block["subscriber_id"]
+            made += 1
+        if made:
+            self.sub_nat.bulk_insert(keys[:made], rows[:made])
+        return made
+
+    def bulk_flows(self, src_ips, dst_ips, src_ports, dst_ports, protos,
+                   pkt_len: int, now: int):
+        """Vectorized session+reverse build for bench-scale flow setup.
+
+        Blocks must exist for every src_ip and the 5-tuples must be unique
+        and new. Under FLAG_EIM, flows sharing an internal endpoint share
+        one external mapping. Returns (nat_ips, nat_ports, ok)."""
+        src_ips = np.atleast_1d(np.asarray(src_ips, dtype=np.uint32))
+        nf = len(src_ips)
+        dst_ips = np.broadcast_to(np.asarray(dst_ips, dtype=np.uint32), (nf,))
+        src_ports = np.broadcast_to(np.asarray(src_ports, dtype=np.uint32), (nf,))
+        dst_ports = np.broadcast_to(np.asarray(dst_ports, dtype=np.uint32), (nf,))
+        protos = np.broadcast_to(np.asarray(protos, dtype=np.uint32), (nf,))
+        dstp = np.where(protos == PROTO_ICMP, 0, dst_ports).astype(np.uint32)
+
+        def _assign_sequential(ips_arr):
+            nu = len(ips_arr)
+            uq, inv = np.unique(ips_arr, return_inverse=True)
+            blks = [self.blocks.get(int(ip)) for ip in uq]
+            has = np.array([b is not None for b in blks], dtype=bool)
+            pub = np.array([b["public_ip"] if b else 0 for b in blks], dtype=np.uint32)
+            pend = np.array([b["port_end"] if b else 0 for b in blks], dtype=np.int64)
+            pnext = np.array([b["next_port"] if b else 0 for b in blks], dtype=np.int64)
+            counts = np.bincount(inv, minlength=len(uq))
+            order = np.argsort(inv, kind="stable")
+            group_starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+            ranks = np.empty((nu,), dtype=np.int64)
+            ranks[order] = np.arange(nu) - np.repeat(group_starts, counts)
+            port = pnext[inv] + ranks
+            u_ok = has[inv] & (port <= pend[inv])
+            u_ip = np.where(u_ok, pub[inv], 0).astype(np.uint32)
+            u_port = np.where(u_ok, port, 0).astype(np.uint32)
+            for i, b in enumerate(blks):
+                if b is not None and counts[i]:
+                    b["next_port"] = int(min(pnext[i] + counts[i], pend[i] + 1))
+            return u_ip, u_port, u_ok
+
+        if self.flags & FLAG_EIM:
+            ep = np.stack([src_ips, src_ports, protos], axis=1)
+            uq_ep, ep_inv = np.unique(ep, axis=0, return_inverse=True)
+            ep_inv = ep_inv.reshape(-1)
+            n_ep = len(uq_ep)
+            ep_ip = np.zeros((n_ep,), dtype=np.uint32)
+            ep_port = np.zeros((n_ep,), dtype=np.uint32)
+            reused = np.zeros((n_ep,), dtype=bool)
+            for j in range(n_ep):
+                m = self.eim.get((int(uq_ep[j, 0]), int(uq_ep[j, 1]), int(uq_ep[j, 2])))
+                if m is not None:
+                    reused[j] = True
+                    ep_ip[j], ep_port[j] = m[0], m[1]
+            ep_ok = reused.copy()
+            new_j = np.nonzero(~reused)[0]
+            if len(new_j):
+                n_ip, n_port, n_ok = _assign_sequential(uq_ep[new_j, 0])
+                ep_ip[new_j], ep_port[new_j], ep_ok[new_j] = n_ip, n_port, n_ok
+            nat_ip = ep_ip[ep_inv]
+            nat_port = ep_port[ep_inv]
+            ok = ep_ok[ep_inv]
+            ep_counts = np.bincount(ep_inv, minlength=n_ep)
+            for j in range(n_ep):
+                if not ep_ok[j]:
+                    continue
+                k = (int(uq_ep[j, 0]), int(uq_ep[j, 1]), int(uq_ep[j, 2]))
+                if reused[j]:
+                    self.eim[k][2] += int(ep_counts[j])
+                else:
+                    self.eim[k] = [int(ep_ip[j]), int(ep_port[j]), int(ep_counts[j])]
+                    self._ext_ports[(int(ep_ip[j]), int(ep_port[j]), k[2])] = k
+        else:
+            nat_ip, nat_port, ok = _assign_sequential(src_ips)
+
+        sel = np.nonzero(ok)[0]
+        if len(sel):
+            skey = np.stack(
+                [src_ips, dst_ips,
+                 ((src_ports & 0xFFFF) << np.uint32(16)) | (dstp & 0xFFFF),
+                 protos], axis=1).astype(np.uint32)
+            rows = np.zeros((nf, SESSION_WORDS), dtype=np.uint32)
+            rows[:, SV_NAT_IP] = nat_ip
+            rows[:, SV_NAT_PORT] = nat_port
+            rows[:, SV_ORIG_IP] = src_ips
+            rows[:, SV_ORIG_PORT] = src_ports
+            rows[:, SV_DEST_IP] = dst_ips
+            rows[:, SV_DEST_PORT] = dstp
+            rows[:, SV_CREATED] = now
+            rows[:, SV_LAST_SEEN] = now
+            rows[:, SV_STATE] = NAT_STATE_NEW
+            rows[:, SV_PROTO] = protos
+            rows[:, SV_PKTS_OUT] = 1
+            rows[:, SV_BYTES_OUT] = pkt_len
+            self.sessions.bulk_insert(skey[sel], rows[sel])
+            r_src = np.where(protos == PROTO_ICMP, 0, dstp).astype(np.uint32)
+            rkey = np.stack(
+                [dst_ips, nat_ip,
+                 ((r_src & 0xFFFF) << np.uint32(16)) | (nat_port & 0xFFFF),
+                 protos], axis=1).astype(np.uint32)
+            rrows = np.zeros((len(skey), REVERSE_WORDS), dtype=np.uint32)
+            rrows[:, :4] = skey
+            self.reverse.bulk_insert(rkey[sel], rrows[sel])
+        return nat_ip, nat_port, ok
+
+    def _allocate_port(self, block: dict, orig_port: int, proto: int) -> int:
+        parity = self.flags & FLAG_PORT_PARITY
+        start, end = block["port_start"], block["port_end"]
+        port = block["next_port"]
+        for _ in range(end - start + 1):
+            if port > end:
+                port = start
+            cand = port
+            port += 1
+            if parity and ((cand & 1) != (orig_port & 1)):
+                continue
+            if (block["public_ip"], cand, proto) in self._ext_ports:
+                continue
+            block["next_port"] = port
+            return cand
+        return 0  # exhaustion
+
+    def _get_eim(self, int_ip: int, int_port: int, proto: int, block: dict) -> tuple[int, int] | None:
+        key = (int_ip, int_port, proto)
+        m = self.eim.get(key)
+        if m is not None:
+            m[2] += 1
+            return m[0], m[1]
+        ext_port = self._allocate_port(block, int_port, proto)
+        if ext_port == 0:
+            return None
+        self.eim[key] = [block["public_ip"], ext_port, 1]
+        self._ext_ports[(block["public_ip"], ext_port, proto)] = key
+        return block["public_ip"], ext_port
+
+    @staticmethod
+    def _key(src_ip, dst_ip, src_port, dst_port, proto):
+        return [src_ip, dst_ip, ((src_port & 0xFFFF) << 16) | (dst_port & 0xFFFF), proto]
+
+    def handle_new_flow(self, src_ip: int, dst_ip: int, src_port: int, dst_port: int,
+                        proto: int, pkt_len: int, now: int,
+                        is_hairpin: bool = False) -> tuple[int, int] | None:
+        """Create session + reverse rows for a punted first packet.
+        Returns (nat_ip, nat_port) or None (no block / exhaustion)."""
+        block = self.blocks.get(src_ip)
+        if block is None:
+            return None
+        if proto == PROTO_ICMP:
+            dst_port = 0
+        skey = self._key(src_ip, dst_ip, src_port, dst_port, proto)
+        existing = self.sessions.lookup(skey)
+        if existing is not None:
+            return int(existing[SV_NAT_IP]), int(existing[SV_NAT_PORT])
+
+        if self.flags & FLAG_EIM:
+            got = self._get_eim(src_ip, src_port, proto, block)
+        else:
+            p = self._allocate_port(block, src_port, proto)
+            got = (block["public_ip"], p) if p else None
+        if got is None:
+            self._log(LOG_PORT_EXHAUSTION, block["subscriber_id"], src_ip,
+                      block["public_ip"], src_port, 0, dst_ip, dst_port, proto, now)
+            self.exhausted["port"] += 1
+            log.warning("CGNAT allocator exhausted: port block %d-%d full for subscriber %d",
+                        block["port_start"], block["port_end"], block["subscriber_id"])
+            return None
+        nat_ip, nat_port = got
+
+        row = np.zeros((SESSION_WORDS,), dtype=np.uint32)
+        row[SV_NAT_IP] = nat_ip
+        row[SV_NAT_PORT] = nat_port
+        row[SV_ORIG_IP] = src_ip
+        row[SV_ORIG_PORT] = src_port
+        row[SV_DEST_IP] = dst_ip
+        row[SV_DEST_PORT] = dst_port
+        row[SV_CREATED] = now
+        row[SV_LAST_SEEN] = now
+        row[SV_STATE] = NAT_STATE_NEW
+        row[SV_PROTO] = proto
+        row[SV_PKTS_OUT] = 1
+        row[SV_BYTES_OUT] = pkt_len
+        self.sessions.insert(skey, row)
+        r_src_port = 0 if proto == PROTO_ICMP else dst_port
+        rrow = np.zeros((REVERSE_WORDS,), dtype=np.uint32)
+        rrow[:4] = skey
+        self.reverse.insert(self._key(dst_ip, nat_ip, r_src_port, nat_port, proto), rrow)
+        self._log(LOG_SESSION_CREATE, block["subscriber_id"], src_ip, nat_ip,
+                  src_port, nat_port, dst_ip, dst_port, proto, now,
+                  flags=1 if is_hairpin else 0)
+        return nat_ip, nat_port
+
+    def add_hairpin_ip(self, ip: int) -> None:
+        free = np.nonzero(self.hairpin == 0)[0]
+        if len(free) == 0:
+            raise RuntimeError("hairpin table full")
+        self.hairpin[free[0]] = ip
+
+    def add_alg_port(self, port: int, proto: int) -> None:
+        free = np.nonzero(self.alg == 0)[0]
+        if len(free) == 0:
+            raise RuntimeError("alg table full")
+        self.alg[free[0]] = ((port & 0xFFFF) << 16) | (proto & 0xFF)
+
+    # -- device sync --
+    def config_array(self) -> np.ndarray:
+        return np.array([self.flags, self.port_range[0], self.port_range[1],
+                         self.ports_per_subscriber], dtype=np.uint32)
+
+    def device_tables(self, device) -> NATTables:
+        return NATTables(
+            sessions=self.sessions.device_state(device),
+            reverse=self.reverse.device_state(device),
+            sub_nat=self.sub_nat.device_state(device),
+            hairpin_ips=words_to_device(self.hairpin, device),
+            alg_ports=words_to_device(self.alg, device),
+            config=words_to_device(self.config_array(), device),
+        )
+
+    def make_updates(self, device) -> tuple:
+        return (
+            self.sessions.make_update(self.update_slots, device),
+            self.reverse.make_update(self.update_slots, device),
+            self.sub_nat.make_update(self.update_slots, device),
+            words_to_device(self.hairpin, device),
+            words_to_device(self.alg, device),
+            words_to_device(self.config_array(), device),
+        )

@@ -1,0 +1,385 @@
+"""Device cuckoo tables and their host mirrors (port of `bng_tpu/ops/table.py`).
+
+Device state is bucket-packed exactly as in the JAX package: one
+[WAYS*KW]-word probe row per bucket (each way's K key words, then the
+used flag at word K), a [stash, KW] stash, and [S, V] value rows with
+S = nbuckets*WAYS + stash. All words are int32 tensors holding the uint32
+bits (see the package docstring).
+
+The host is the single writer: `HostTable` (numpy) inserts, deletes and
+relocates, and drains bounded `TableUpdate` batches that `apply_update`
+scatters into the device tensors IN PLACE (the JAX step returns new
+arrays from a donated scatter instead). Lookups go through K1
+(`ops/probe.py`): `device_lookup` launches the CUDA kernel for a CUDA
+tensor and takes the plain version for a CPU tensor. The port has no
+implementation selector and no sharded lookup.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from bng_tpu_torch.ops.hashing import SEED1, SEED2, hash_words
+from bng_tpu_torch.ops.probe import WAYS, probe, probe_plain
+
+MAX_KICKS = 128  # bounded cuckoo eviction walk (host side)
+
+
+def way_stride(key_words: int) -> int:
+    """Words per way in the packed probe rows: key words + used flag,
+    rounded up to a multiple of 8."""
+    return ((key_words + 1 + 7) // 8) * 8
+
+
+class TableState(NamedTuple):
+    """Device-side table tensors (all int32 words)."""
+
+    krows: torch.Tensor  # [NB, WAYS*KW] packed bucket probe rows
+    stash_rows: torch.Tensor  # [stash, KW] packed stash probe rows
+    vals: torch.Tensor  # [S, V] value words
+
+
+class TableUpdate(NamedTuple):
+    """A bounded batch of dirty rows; indices >= the target's length are
+    padding and write nothing (JAX's mode="drop")."""
+
+    bidx: torch.Tensor  # [U] int64 bucket indices
+    brows: torch.Tensor  # [U, WAYS*KW] replacement bucket rows
+    sidx: torch.Tensor  # [U] int64 stash-local indices
+    srows: torch.Tensor  # [U, KW] replacement stash rows
+    idx: torch.Tensor  # [U] int64 global slots (value rows)
+    vals: torch.Tensor  # [U, V]
+
+
+class LookupResult(NamedTuple):
+    found: torch.Tensor  # [B] bool
+    slot: torch.Tensor  # [B] int32 (valid where found; b1*4 on a miss)
+    vals: torch.Tensor  # [B, V] int32 words (zeros where not found)
+
+
+class TableGeom(NamedTuple):
+    """Static geometry of one chip-local table."""
+
+    nbuckets: int
+    stash: int
+
+
+def scatter_set_drop(dst, idx, src, col: int | None = None):
+    """In place: dst[idx] = src (or dst[idx, col] = src) for in-range idx;
+    lanes whose idx is out of range write nothing.
+
+    A boolean-mask gather would need a host sync on the card. Instead the
+    out-of-range lanes are parked on the target of the first in-range
+    lane, carrying that lane's value (or, when no lane is in range, on
+    row 0 carrying row 0's current value). Correct whenever in-range lanes
+    that share a target carry the same value, which every caller
+    guarantees (the same condition under which the JAX scatter is
+    deterministic)."""
+    n = dst.shape[0]
+    if n == 0:
+        return dst
+    idx = idx.to(torch.int64)
+    keep = (idx >= 0) & (idx < n)
+    first = keep.to(torch.uint8).argmax()
+    any_keep = keep.any()
+    zero = torch.zeros((), dtype=torch.int64, device=idx.device)
+    park = torch.where(any_keep, idx[first], zero)
+    target = dst[:, col] if col is not None else dst
+    park_val = torch.where(any_keep, src[first], target[0])
+    idx = torch.where(keep, idx, park)
+    keep_b = keep.view(-1, *([1] * (src.dim() - 1)))
+    src = torch.where(keep_b, src, park_val)
+    if col is None:
+        dst.index_put_((idx,), src)
+    else:
+        dst.index_put_((idx, torch.full_like(idx, col)), src)
+    return dst
+
+
+def apply_update(state: TableState, upd: TableUpdate) -> TableState:
+    """Scatter dirty rows into the device table in place (three row scatters)."""
+    scatter_set_drop(state.krows, upd.bidx, upd.brows)
+    scatter_set_drop(state.stash_rows, upd.sidx, upd.srows)
+    scatter_set_drop(state.vals, upd.idx, upd.vals)
+    return state
+
+
+def device_lookup(state: TableState, query, nbuckets: int, stash: int) -> LookupResult:
+    """Batched probe through K1. query: [B, K] int32 key words."""
+    return LookupResult(*probe(state.krows, state.stash_rows, state.vals,
+                               query.to(torch.int32).contiguous(), nbuckets, stash))
+
+
+def lookup(state: TableState, query, g: TableGeom) -> LookupResult:
+    return device_lookup(state, query, g.nbuckets, g.stash)
+
+
+def xla_lookup(state: TableState, query, nbuckets: int, stash: int) -> LookupResult:
+    """The plain version of K1 on any device (the JAX `xla_lookup`)."""
+    return LookupResult(*probe_plain(state.krows, state.stash_rows, state.vals,
+                                     query.to(torch.int32).contiguous(), nbuckets, stash))
+
+
+def words_to_device(a: np.ndarray, device) -> torch.Tensor:
+    """uint32 numpy -> int32 word tensor (bit-identical) on `device`.
+    Always a copy: device tensors are written in place and must never
+    alias the host mirror."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device, copy=True)
+
+
+class HostTable:
+    """Host-authoritative mirror of one device table (numpy, single writer).
+
+    A copy of `bng_tpu/ops/table.py:HostTable` without checkpoint restore:
+    the same insert/delete sequence gives byte-identical rows, including
+    the cuckoo kick walk's `np.random.default_rng(0xB46)`.
+    """
+
+    def __init__(self, nbuckets: int, key_words: int, val_words: int,
+                 stash: int = 64, name: str = ""):
+        if nbuckets & (nbuckets - 1):
+            raise ValueError("nbuckets must be a power of two")
+        self.nbuckets = nbuckets
+        self.K = key_words
+        self.KW = way_stride(key_words)
+        self.V = val_words
+        self.stash = stash
+        self.name = name
+        S = nbuckets * WAYS + stash
+        self.S = S
+        self.keys = np.zeros((S, key_words), dtype=np.uint32)
+        self.vals = np.zeros((S, val_words), dtype=np.uint32)
+        self.used = np.zeros((S,), dtype=np.uint32)
+        self.count = 0
+        self._dirty: set[int] = set()
+        self._dirty_all = False  # set by large bulk_insert: full resync needed
+        self._rng = np.random.default_rng(0xB46)
+
+    def _buckets(self, key: np.ndarray) -> tuple[int, int]:
+        words = [key[k: k + 1].astype(np.int64) for k in range(self.K)]
+        m = self.nbuckets - 1
+        return int((hash_words(words, SEED1) & m)[0]), int((hash_words(words, SEED2) & m)[0])
+
+    def _find_slot(self, key: np.ndarray) -> int | None:
+        b1, b2 = self._buckets(key)
+        for b in (b1, b2):
+            for w in range(WAYS):
+                s = b * WAYS + w
+                if self.used[s] and np.array_equal(self.keys[s], key):
+                    return s
+        base = self.nbuckets * WAYS
+        for s in range(base, base + self.stash):
+            if self.used[s] and np.array_equal(self.keys[s], key):
+                return s
+        return None
+
+    def _place(self, s: int, key: np.ndarray, val: np.ndarray) -> None:
+        self.keys[s] = key
+        self.vals[s] = val
+        self.used[s] = 1
+        self._dirty.add(s)
+
+    def insert(self, key, val) -> int:
+        """Insert or update. Returns the slot index."""
+        key = np.asarray(key, dtype=np.uint32).reshape(self.K)
+        val = np.asarray(val, dtype=np.uint32).reshape(self.V)
+        s = self._find_slot(key)
+        if s is not None:  # update in place
+            self.vals[s] = val
+            self._dirty.add(s)
+            return s
+
+        cur_key, cur_val = key, val
+        moves: list[tuple[int, np.ndarray, np.ndarray]] = []  # for rollback
+        for _kick in range(MAX_KICKS):
+            b1, b2 = self._buckets(cur_key)
+            for b in (b1, b2):
+                for w in range(WAYS):
+                    slot = b * WAYS + w
+                    if not self.used[slot]:
+                        self._place(slot, cur_key, cur_val)
+                        self.count += 1
+                        return self._find_slot(key)
+            b = b1 if self._rng.integers(2) == 0 else b2
+            w = int(self._rng.integers(WAYS))
+            slot = b * WAYS + w
+            evict_key = self.keys[slot].copy()
+            evict_val = self.vals[slot].copy()
+            self._place(slot, cur_key, cur_val)
+            moves.append((slot, evict_key, evict_val))
+            cur_key, cur_val = evict_key, evict_val
+
+        base = self.nbuckets * WAYS
+        for s in range(base, base + self.stash):
+            if not self.used[s]:
+                self._place(s, cur_key, cur_val)
+                self.count += 1
+                return self._find_slot(key)
+
+        for slot, old_key, old_val in reversed(moves):
+            self._place(slot, old_key, old_val)
+        raise RuntimeError(f"table {self.name!r} full (count={self.count})")
+
+    def bulk_insert(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        """Vectorized initial build: 8 placement passes (2 buckets x 4 ways,
+        first wins per slot), then the cuckoo-kick path for the residue.
+        Keys must be unique and new. A large build abandons delta sync."""
+        keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint32).reshape(-1, self.K))
+        vals = np.ascontiguousarray(np.asarray(vals, dtype=np.uint32).reshape(-1, self.V))
+        n = len(keys)
+        if n == 0:
+            return
+        words = [keys[:, k].astype(np.int64) for k in range(self.K)]
+        m = self.nbuckets - 1
+        b1 = hash_words(words, SEED1) & m
+        b2 = hash_words(words, SEED2) & m
+
+        unplaced = np.ones((n,), dtype=bool)
+        placed_slots: list[np.ndarray] = []
+        for side in (b1, b2):
+            for w in range(WAYS):
+                idxs = np.nonzero(unplaced)[0]
+                if len(idxs) == 0:
+                    break
+                slot = side[idxs] * WAYS + w
+                free = self.used[slot] == 0
+                idxs, slot = idxs[free], slot[free]
+                if len(idxs) == 0:
+                    continue
+                uq_slot, first = np.unique(slot, return_index=True)
+                take = idxs[first]
+                self.keys[uq_slot] = keys[take]
+                self.vals[uq_slot] = vals[take]
+                self.used[uq_slot] = 1
+                unplaced[take] = False
+                placed_slots.append(uq_slot)
+        self.count += sum(len(s) for s in placed_slots)
+
+        for i in np.nonzero(unplaced)[0]:
+            self.insert(keys[i], vals[i])
+
+        if n > self.stash:
+            self._dirty.clear()
+            self._dirty_all = True
+        else:
+            for s in placed_slots:
+                self._dirty.update(int(x) for x in s)
+
+    def delete(self, key) -> bool:
+        key = np.asarray(key, dtype=np.uint32).reshape(self.K)
+        s = self._find_slot(key)
+        if s is None:
+            return False
+        self.used[s] = 0
+        self.keys[s] = 0
+        self.vals[s] = 0
+        self.count -= 1
+        self._dirty.add(s)
+        return True
+
+    def lookup(self, key) -> np.ndarray | None:
+        key = np.asarray(key, dtype=np.uint32).reshape(self.K)
+        s = self._find_slot(key)
+        return self.vals[s].copy() if s is not None else None
+
+    def update_val_words(self, key, word_idx: int, words) -> bool:
+        """Patch specific value words of an existing entry."""
+        key = np.asarray(key, dtype=np.uint32).reshape(self.K)
+        s = self._find_slot(key)
+        if s is None:
+            return False
+        words = np.atleast_1d(np.asarray(words, dtype=np.uint32))
+        self.vals[s, word_idx: word_idx + len(words)] = words
+        self._dirty.add(s)
+        return True
+
+    # -- device synchronization --
+    def _pack_bucket_rows(self, buckets: np.ndarray, mask_dirty: bool = False) -> np.ndarray:
+        """Packed [len(buckets), WAYS*KW] probe rows. mask_dirty: ways whose
+        slot is still dirty read used=0 (their value rows have not shipped)."""
+        nb = len(buckets)
+        rows = np.zeros((nb, WAYS * self.KW), dtype=np.uint32)
+        r3 = rows.reshape(nb, WAYS, self.KW)
+        slots = buckets[:, None] * WAYS + np.arange(WAYS)[None, :]
+        r3[:, :, : self.K] = self.keys[slots]
+        used = self.used[slots]
+        if mask_dirty and self._dirty:
+            still_dirty = np.isin(slots, np.fromiter(self._dirty, dtype=np.int64,
+                                                     count=len(self._dirty)))
+            used = np.where(still_dirty, 0, used)
+        r3[:, :, self.K] = used
+        return rows
+
+    def _pack_stash_rows(self, sidx: np.ndarray) -> np.ndarray:
+        rows = np.zeros((len(sidx), self.KW), dtype=np.uint32)
+        g = self.nbuckets * WAYS + sidx
+        rows[:, : self.K] = self.keys[g]
+        rows[:, self.K] = self.used[g]
+        return rows
+
+    def device_state(self, device) -> TableState:
+        """Full upload (startup / resync)."""
+        self._dirty.clear()
+        self._dirty_all = False
+        return TableState(
+            krows=words_to_device(self._pack_bucket_rows(np.arange(self.nbuckets)), device),
+            stash_rows=words_to_device(self._pack_stash_rows(np.arange(self.stash)), device),
+            vals=words_to_device(self.vals, device),
+        )
+
+    def dirty_count(self) -> int:
+        return self.S if self._dirty_all else len(self._dirty)
+
+    def make_update(self, max_slots: int, device) -> TableUpdate:
+        """Drain up to max_slots dirty slots into a fixed-size TableUpdate
+        (padding rows parked at NB / stash / S). The remainder stays queued."""
+        if self._dirty_all:
+            raise RuntimeError(
+                f"table {self.name!r}: bulk_insert invalidated delta sync; "
+                "call device_state() for a full upload first")
+        take = sorted(self._dirty)[:max_slots]
+        self._dirty.difference_update(take)
+        base = self.nbuckets * WAYS
+        b_take = sorted({s // WAYS for s in take if s < base})
+        s_take = [s - base for s in take if s >= base]
+
+        U = max_slots
+        bidx = np.full((U,), self.nbuckets, dtype=np.int64)
+        brows = np.zeros((U, WAYS * self.KW), dtype=np.uint32)
+        sidx = np.full((U,), self.stash, dtype=np.int64)
+        srows = np.zeros((U, self.KW), dtype=np.uint32)
+        idx = np.full((U,), self.S, dtype=np.int64)
+        vv = np.zeros((U, self.V), dtype=np.uint32)
+        if b_take:
+            bs = np.asarray(b_take, dtype=np.int64)
+            bidx[: len(bs)] = bs
+            brows[: len(bs)] = self._pack_bucket_rows(bs, mask_dirty=True)
+        if s_take:
+            ss = np.asarray(s_take, dtype=np.int64)
+            sidx[: len(ss)] = ss
+            srows[: len(ss)] = self._pack_stash_rows(ss)
+        n = len(take)
+        if n:
+            ts = np.asarray(take, dtype=np.int64)
+            idx[:n] = ts
+            vv[:n] = self.vals[ts]
+        return TableUpdate(
+            bidx=words_to_device(bidx, device), brows=words_to_device(brows, device),
+            sidx=words_to_device(sidx, device), srows=words_to_device(srows, device),
+            idx=words_to_device(idx, device), vals=words_to_device(vv, device),
+        )
+
+    def lookup_batch_host(self, queries: np.ndarray) -> np.ndarray:
+        """Reference host-side batched lookup (for tests)."""
+        out = np.zeros((len(queries), self.V), dtype=np.uint32)
+        for i, q in enumerate(queries):
+            v = self.lookup(q)
+            if v is not None:
+                out[i] = v
+        return out
