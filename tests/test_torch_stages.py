@@ -186,28 +186,29 @@ def jax_tables(d):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def stage_in():
     jd, td = deploy(JAX_PKG), deploy(PORT_PKG)
     assert jd.tcp_nat == td.tcp_nat and jd.udp_nat == td.udp_nat
     frames, fa = frame_mix(td.tcp_nat)
     pkt, length = batch(frames, 32)
-    return SimpleNamespace(jd=jd, td=td, pkt=pkt, length=length,
-                           jpkt=jnp.asarray(pkt), jlen=jnp.asarray(length),
-                           tpkt=torch.from_numpy(pkt), tlen=torch.from_numpy(length.astype(np.int64)))
+    return SimpleNamespace(jd=jd, td=td, jpkt=jnp.asarray(pkt), jlen=jnp.asarray(length),
+                           tpkt=torch.from_numpy(pkt),
+                           tlen=torch.from_numpy(length.astype(np.int64)))
 
 
-def test_parse_batch(setup):
-    assert_tuple_equal(t_parse(setup.tpkt, setup.tlen), j_parse(setup.jpkt, setup.jlen), "parsed")
-    for got, ref in zip(t_eth_vlan(setup.tpkt), j_eth_vlan(setup.jpkt)):
+def test_parse_batch(stage_in):
+    s = stage_in
+    assert_tuple_equal(t_parse(s.tpkt, s.tlen), j_parse(s.jpkt, s.jlen), "parsed")
+    for got, ref in zip(t_eth_vlan(s.tpkt), j_eth_vlan(s.jpkt)):
         assert np.array_equal(bits(got), bits(ref))
 
 
-def test_antispoof_kernel(setup):
-    jd, td = setup.jd, setup.td
-    ref = j_antispoof(setup.jpkt, j_parse(setup.jpkt, setup.jlen),
+def test_antispoof_kernel(stage_in):
+    jd, td = stage_in.jd, stage_in.td
+    ref = j_antispoof(stage_in.jpkt, j_parse(stage_in.jpkt, stage_in.jlen),
                       jax_tables(jd).spoof, jd.spoof.geom,
                       jnp.asarray(jd.spoof.ranges), jnp.asarray(jd.spoof.config))
-    got = t_antispoof(setup.tpkt, t_parse(setup.tpkt, setup.tlen),
+    got = t_antispoof(stage_in.tpkt, t_parse(stage_in.tpkt, stage_in.tlen),
                       td.spoof.bindings.device_state(CPU), td.spoof.geom,
                       torch.from_numpy(td.spoof.ranges.view(np.int32)),
                       torch.from_numpy(td.spoof.config.view(np.int32)))
@@ -215,11 +216,11 @@ def test_antispoof_kernel(setup):
     assert bool(np.asarray(ref.dropped).any()) and bool(np.asarray(ref.violation).any())
 
 
-def test_dhcp_fastpath(setup):
-    jd, td = setup.jd, setup.td
-    ref = j_dhcp(setup.jpkt, setup.jlen, j_parse(setup.jpkt, setup.jlen),
+def test_dhcp_fastpath(stage_in):
+    jd, td = stage_in.jd, stage_in.td
+    ref = j_dhcp(stage_in.jpkt, stage_in.jlen, j_parse(stage_in.jpkt, stage_in.jlen),
                  jax_tables(jd).dhcp, jd.fp.geom, jnp.uint32(NOW))
-    got = t_dhcp(setup.tpkt, setup.tlen, t_parse(setup.tpkt, setup.tlen),
+    got = t_dhcp(stage_in.tpkt, stage_in.tlen, t_parse(stage_in.tpkt, stage_in.tlen),
                  td.fp.device_tables(CPU), td.fp.geom, torch.tensor(NOW))
     assert_tuple_equal(got, ref, "dhcp")
     # the batch really exercises replies, misses, expiry and the pool error
@@ -228,22 +229,22 @@ def test_dhcp_fastpath(setup):
     assert st[2] > 0 and st[3] > 0 and st[4] > 0 and st[5] > 0
 
 
-def test_nat44_kernel_and_update_sessions(setup):
-    jd, td = setup.jd, setup.td
+def test_nat44_kernel_and_update_sessions(stage_in):
+    jd, td = stage_in.jd, stage_in.td
     jtab = jax_tables(jd).nat
     ttab = td.nat.device_tables(CPU)
-    jp, tp = j_parse(setup.jpkt, setup.jlen), t_parse(setup.tpkt, setup.tlen)
-    ref = j_nat(setup.jpkt, setup.jlen, jp, jtab, jd.nat.geom, jnp.uint32(NOW + 7))
-    got = t_nat(setup.tpkt, setup.tlen, tp, ttab, td.nat.geom, torch.tensor(NOW + 7))
+    jp, tp = j_parse(stage_in.jpkt, stage_in.jlen), t_parse(stage_in.tpkt, stage_in.tlen)
+    ref = j_nat(stage_in.jpkt, stage_in.jlen, jp, jtab, jd.nat.geom, jnp.uint32(NOW + 7))
+    got = t_nat(stage_in.tpkt, stage_in.tlen, tp, ttab, td.nat.geom, torch.tensor(NOW + 7))
     assert_tuple_equal(got, ref, "nat")
     assert int(np.asarray(ref.punted).sum()) >= 1
     assert int(np.asarray(ref.egress_hit).sum()) == 4  # UDP twice, TCP, ICMP
     assert int(np.asarray(ref.ingress_hit).sum()) == 2  # ACK and FIN|ACK, one slot
     keep = np.array(ref.translated)
     keep[10] = False  # one forwarded lane that a later stage dropped
-    new_sessions = j_nat_upd(jtab.sessions, ref, jp, setup.jlen, jnp.asarray(keep),
+    new_sessions = j_nat_upd(jtab.sessions, ref, jp, stage_in.jlen, jnp.asarray(keep),
                              jnp.uint32(NOW + 7))
-    out = t_nat_upd(ttab.sessions, got, tp, setup.tlen, torch.from_numpy(keep),
+    out = t_nat_upd(ttab.sessions, got, tp, stage_in.tlen, torch.from_numpy(keep),
                     torch.tensor(NOW + 7))
     assert out is ttab.sessions
     assert np.array_equal(bits(ttab.sessions.vals), np.asarray(new_sessions.vals))
