@@ -5,10 +5,13 @@
 // equality tiles against value tiles on the MXU, carrying each row block's
 // sum across the sequential j grid dimension.
 //
-// What bounds it on this card: operations. The bytes are O(B) (slot and
-// vec in, two f32 vectors out: 128 KiB at B = 8192), while the equality
-// formulation does B^2 compare-and-add steps (67 M at B = 8192). Outside
-// of that the floor is the launch itself.
+// What bounds it on this card: the function needs only its bytes, O(B)
+// (slot and vec in, two f32 vectors out: 128 KiB at B = 8192, ~0.04 us at
+// 3.35 TB/s), so in practice the launch itself is its floor. This first
+// design does not reach that floor: the equality formulation below does
+// B^2 compare-and-add steps (67 M at B = 8192), so it is bound by its own
+// operations. A segmented scan over the lanes sorted by slot is O(B) and
+// is the redesign.
 //
 // What the design does about it: a block owns 32 lanes i (one per thread
 // of a warp) and splits the j range across its 8 warps. All threads of a

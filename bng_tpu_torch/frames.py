@@ -129,6 +129,33 @@ def decode(raw: bytes) -> DecodedPacket:
     return p
 
 
+def _l4_with_pseudo(raw: bytes) -> tuple[DecodedPacket, int, bytes]:
+    """(decoded frame, offset of its L4 header, IPv4 pseudo-header + L4 bytes)."""
+    p = decode(raw)
+    off = 14 + 4 * len(p.vlans)
+    l4_off = off + (raw[off] & 0x0F) * 4
+    l4 = raw[l4_off: off + p.ip_total_len]
+    return p, l4_off, struct.pack("!IIBBH", p.src_ip, p.dst_ip, 0, p.proto, len(l4)) + l4
+
+
+def with_udp_checksum(raw: bytes) -> bytes:
+    """A UDP frame with its checksum computed (`udp_packet` leaves it 0, "none")."""
+    p, l4_off, data = _l4_with_pseudo(raw)
+    if p.proto != 17:
+        raise ValueError("with_udp_checksum: not a UDP frame")
+    csum = checksum16(data[:18] + b"\x00\x00" + data[20:]) or 0xFFFF  # 12-byte pseudo-header
+    return raw[: l4_off + 6] + struct.pack("!H", csum) + raw[l4_off + 8:]
+
+
+def l4_checksum_ok(raw: bytes) -> bool:
+    """Whether a UDP or TCP frame's checksum verifies over the IPv4
+    pseudo-header. A UDP checksum of 0 means none was computed."""
+    p, _, data = _l4_with_pseudo(raw)
+    if p.proto == 17 and p.l4_checksum == 0:
+        return True
+    return p.proto in (6, 17) and checksum16(data) == 0
+
+
 # ---- DHCPv4 (RFC 2131/2132) ----
 
 DHCP_MAGIC = 0x63825363

@@ -5,7 +5,7 @@ library with a plain C interface and loaded with `ctypes` (no PyTorch
 headers: a build takes seconds). Builds happen at first use, never at
 import, into `bng_tpu_torch/_build/`, keyed by a hash of the source and
 the flags, so a fresh checkout builds everything it needs by itself.
-All sources build in parallel (one `nvcc` per source, started together).
+The missing sources build together, one `nvcc` each, started at once.
 
 `LAUNCHES` counts kernel launches per kernel name: each wrapper adds one
 where it launches, and nowhere else.
@@ -18,7 +18,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 import torch
@@ -30,14 +29,20 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-SOURCES = ("probe", "seg_prefix")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# source name -> (C entry point, its argument types); every entry returns
+# cudaGetLastError() as an int
+SIGNATURES = {
+    # krows, stash_rows, vals, query, B, K, KW, V, nbuckets, stash,
+    # found, slot, out, stream
+    "probe": ("bng_probe", [_P] * 4 + [_I] * 6 + [_P] * 4),
+    # slot, vec, B, want_prefix, want_total, pref, tot, stream
+    "seg_prefix": ("bng_seg_prefix", [_P, _P, _I, _I, _I, _P, _P, _P]),
+}
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in SIGNATURES}
 
-_LIBS: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
-# (command, compiler output) per source of the last build in this process
-BUILD_LOG: dict[str, tuple[list[str], str]] = {}
+_ENTRIES = {}  # source name -> its loaded C entry point
 
 
 def reset_launches() -> None:
@@ -62,45 +67,44 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every source whose library is missing, all in parallel.
-    Raises with the compiler output if any build fails."""
+def build() -> dict[str, tuple[list[str], str]]:
+    """Compile every source whose library is missing, all at once.
+
+    Returns {name: (nvcc command, compiler output)} for what it compiled;
+    raises with the compiler output if any build fails."""
+    missing = [n for n in SIGNATURES if not _lib_path(n).exists()]
+    if not missing:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
+    nvcc = nvcc_path()
     procs = {}
-    paths = {}
-    for name in SOURCES:
-        out = _lib_path(name)
-        paths[name] = out
-        if out.exists():
-            continue
-        nvcc = nvcc or nvcc_path()
-        tmp = out.with_suffix(f".tmp{os.getpid()}")
+    for name in missing:
+        tmp = _lib_path(name).with_suffix(f".tmp{os.getpid()}")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
+    logs, failed = {}, []
     for name, (cmd, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = (cmd, log)
+        logs[name] = (cmd, proc.communicate()[0])
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, paths[name])
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{logs[name][1]}")
+        else:
+            os.replace(tmp, _lib_path(name))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return paths
+    return logs
 
 
-def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel source (builds on first use)."""
-    with _LOCK:
-        if name not in _LIBS:
-            paths = build_all()
-            for n, p in paths.items():
-                if n not in _LIBS:
-                    _LIBS[n] = ctypes.CDLL(str(p))
-        return _LIBS[name]
+def entry(name: str):
+    """The C entry point of one kernel source, its argument types declared
+    (builds the sources on first use)."""
+    if name not in _ENTRIES:
+        build()
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _ENTRIES[name] = fn
+    return _ENTRIES[name]
 
 
 def check(err: int, what: str) -> None:

@@ -17,8 +17,6 @@ from the kernel to the plain version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from bng_tpu_torch import kernels
@@ -90,10 +88,7 @@ def probe_cuda(krows, stash_rows, vals, query, nbuckets: int, stash: int):
     out = torch.empty((B, V), dtype=torch.int32, device=dev)
     if B == 0:
         return found, slot, out
-    fn = kernels.lib("probe").bng_probe
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    err = fn(krows.data_ptr(), stash_rows.data_ptr(), vals.data_ptr(), query.data_ptr(),
+    err = kernels.entry("probe")(krows.data_ptr(), stash_rows.data_ptr(), vals.data_ptr(), query.data_ptr(),
              B, K, KW, V, nbuckets, stash,
              found.data_ptr(), slot.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(err, "probe")

@@ -20,8 +20,6 @@ Unique negative slot ids group with nobody. `compute` is "prefix",
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from bng_tpu_torch import kernels
@@ -79,11 +77,7 @@ def seg_prefix_cuda(slot, vec, compute: str = "both"):
     tot = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
         return pref, tot
-    fn = kernels.lib("seg_prefix").bng_seg_prefix
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(slot.data_ptr(), vec.data_ptr(), B, int(compute != "total"),
+    err = kernels.entry("seg_prefix")(slot.data_ptr(), vec.data_ptr(), B, int(compute != "total"),
              int(compute != "prefix"), pref.data_ptr(), tot.data_ptr(),
              kernels.stream_ptr(dev))
     kernels.check(err, "seg_prefix")

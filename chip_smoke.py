@@ -20,12 +20,13 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    with unique negative ids, for prefix, total and both. Bit-equal or fail.
 4. The main path: counts set to 0, 20 batches through `Engine.process`
    (DISCOVER lanes TX with the subscriber's yiaddr, flow lanes FWD with
-   the SNAT source and a valid IP checksum, QoS drops, a fresh flow
-   punted and then forwarded), counts read: K1 8 and K2 4 per step.
+   the SNAT source and valid IP and UDP checksums, QoS drops, a fresh
+   flow punted and then forwarded), counts read: K1 8 and K2 4 per step.
 5. One GPU step against the same step on the CPU (plain versions) from
    copied tables: identical verdicts, bytes, stats and tables.
 6. Times with CUDA events: each kernel and its plain version at the main
-   path's shapes, the device step (Mpps, p50/p99), `Engine.process` per
+   path's shapes (device time: the stream is held while the host queues
+   the calls), the device step (Mpps, p50/p99), `Engine.process` per
    batch with the host, peak device memory.
 
 The line before the last is the card's name and power limit; the one
@@ -58,7 +59,6 @@ from bng_tpu_torch.runtime.tables import FastPathTables
 from bng_tpu_torch.utils.net import ip_to_u32
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 NOW = 1_753_000_000
 L = 512
 B = 8192
@@ -87,10 +87,18 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms over `iters` back-to-back calls."""
+    """Mean device time of fn() in ms over `iters` back-to-back calls.
+
+    A spin kernel holds the stream while the host queues the calls, so the
+    events time the device's work and not the host's rate of issuing it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    issue_s = time.perf_counter() - t  # at least one call's host time
+    torch.cuda._sleep(int(min(2 * iters * issue_s, 1.0) * 2e9))  # cycles at <= 2 GHz
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -167,7 +175,8 @@ def make_batch(rng, flows, fresh=()):
     """20% cached DISCOVERs, 80% established flows (+ `fresh` flows first)."""
     frames, expect = [], []
     for f in fresh:
-        frames.append(F.udp_packet(flow_mac(f[0]), b"\x04" * 6, f[0], f[1], f[2], 443, b"x" * 180))
+        frames.append(F.with_udp_checksum(
+            F.udp_packet(flow_mac(f[0]), b"\x04" * 6, f[0], f[1], f[2], 443, b"x" * 180)))
         expect.append(("fresh", f))
     n_dhcp = B // 5
     for row in range(len(frames), B):
@@ -177,15 +186,15 @@ def make_batch(rng, flows, fresh=()):
             expect.append(("dhcp", (10 << 24) + 2 + i))
         else:
             f = flows[int(rng.integers(len(flows)))]
-            frames.append(F.udp_packet(flow_mac(f[0]), b"\x04" * 6, int(f[0]), int(f[1]),
-                                       int(f[2]), 443, b"x" * 180))
+            frames.append(F.with_udp_checksum(F.udp_packet(
+                flow_mac(f[0]), b"\x04" * 6, int(f[0]), int(f[1]), int(f[2]), 443, b"x" * 180)))
             expect.append(("flow", f))
     return frames, expect
 
 
 def check_outputs(out, expect, drop_ips, fresh_ok: bool):
     """TX lanes carry the subscriber's yiaddr; flow lanes FWD with the SNAT
-    source and a valid IP checksum, or DROP for a policed subscriber."""
+    source and valid IP and UDP checksums, or DROP for a policed subscriber."""
     tx = dict(out["tx"])
     fwd = dict(out["fwd"])
     dropped = set(out["dropped"])
@@ -203,8 +212,9 @@ def check_outputs(out, expect, drop_ips, fresh_ok: bool):
                 continue
             check(lane in fwd, f"flow lane {lane} forwarded")
             d = F.decode(fwd[lane])
-            check(d.src_ip == int(info[3]) and d.src_port == int(info[4]) and d.ip_checksum_ok,
-                  f"SNAT rewrite and checksum, lane {lane}")
+            check(d.src_ip == int(info[3]) and d.src_port == int(info[4]) and d.ip_checksum_ok
+                  and d.l4_checksum != 0 and F.l4_checksum_ok(fwd[lane]),
+                  f"SNAT rewrite and IP and UDP checksums, lane {lane}")
         else:
             check((lane in fwd) if fresh_ok else (lane in slow), f"fresh flow lane {lane}")
     return n_drop
@@ -333,12 +343,13 @@ def probe_bound_ms(a) -> float:
 
 
 def seg_bound_ms(s, v, compute) -> float:
-    """Least K2 time: max(bytes over HBM, pair compares + adds over the f32 rate)."""
+    """Least K2 time: the function's bytes over HBM (slot and vec read, the
+    asked outputs written). A segmented scan does O(B) adds, far below the
+    bytes' time, so the bytes bound it (not the B^2 work of the kernel's
+    current equality sweep)."""
     Bq = s.shape[0]
     outs = 2 if compute == "both" else 1
-    nbytes = Bq * 8 + Bq * 4 * outs
-    pairs = Bq * Bq if compute != "prefix" else Bq * (Bq + 1) // 2
-    return max(nbytes / HBM_BYTES_PER_S, 2 * pairs / F32_OPS_PER_S) * 1e3
+    return (Bq * 8 + Bq * 4 * outs) / HBM_BYTES_PER_S * 1e3
 
 
 def profile_step(step, card: str, steps: int = 5) -> None:
@@ -383,6 +394,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    check(torch.cuda.device_count() == 1,
+          f"one visible card (found {torch.cuda.device_count()}; set CUDA_VISIBLE_DEVICES)")
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -390,15 +403,14 @@ def main(argv=None) -> int:
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    kernels.build_all()
-    for name, (cmd, log) in kernels.BUILD_LOG.items():
+    for name, (cmd, log) in kernels.build().items():
         print(" ".join(cmd))
         for line in log.splitlines():
             if "ptxas" in line or "error" in line:
                 print(f"  {line.strip()}")
-    for name in kernels.SOURCES:
-        kernels.lib(name)
-    say(f"built {list(kernels.SOURCES)} in {time.perf_counter() - t0:.1f}s")
+    for name in kernels.SIGNATURES:
+        kernels.entry(name)
+    say(f"built and loaded {list(kernels.SIGNATURES)} in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
     eng, flows, drop_ips = build_deployment(device)
@@ -450,7 +462,7 @@ def main(argv=None) -> int:
         kern["probe"]["plain"].append(pl)
         kern["probe"]["bound"].append(bd)
         say(f"  K1 call {j}: K={a[3].shape[1]} V={a[2].shape[1]} nbuckets={a[4]} "
-            f"stash={a[5]}: {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.4f} ms [{card}]")
+            f"stash={a[5]}: {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.6f} ms [{card}]")
     for j, (s, v, c) in enumerate(rec["seg_prefix"]):
         ms = cuda_ms(lambda: seg_mod.seg_prefix_cuda(s, v, c))
         pl = cuda_ms(lambda: seg_mod.seg_prefix_plain(s, v, c), iters=5)
@@ -458,7 +470,10 @@ def main(argv=None) -> int:
         kern["seg_prefix"]["ms"].append(ms)
         kern["seg_prefix"]["plain"].append(pl)
         kern["seg_prefix"]["bound"].append(bd)
-        say(f"  K2 call {j} ({c}): {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.4f} ms [{card}]")
+        say(f"  K2 call {j} ({c}): {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.6f} ms [{card}]")
+    s1, v1 = rec["seg_prefix"][0][0][:32].contiguous(), rec["seg_prefix"][0][1][:32].contiguous()
+    say(f"  K2 at B=32 (one block, the launch floor of this route): "
+        f"{cuda_ms(lambda: seg_mod.seg_prefix_cuda(s1, v1)):.4f} ms [{card}]")
 
     pkt_d, len_d = torch.from_numpy(pkt).to(device), torch.from_numpy(length).to(device)
     fa_d = torch.from_numpy(fa).to(device)
@@ -492,7 +507,7 @@ def main(argv=None) -> int:
          "launches": launches[name], "max_abs_err": max_err[name],
          "ms": float(np.mean(kern[name]["ms"])), "plain_ms": float(np.mean(kern[name]["plain"])),
          "bound_ms": float(np.mean(kern[name]["bound"])),
-         "bound_by": "bytes" if name == "probe" else "operations", "library_ms": None}
+         "bound_by": "bytes", "library_ms": None}
         for name in ("probe", "seg_prefix")]}
     print(json.dumps(line))
     print(card)

@@ -115,7 +115,8 @@ def _engine_flows(tcp_nat):
           F.tcp_packet(b"\x04" * 6, mac(0x11), rem, tcp_nat[0], 80, tcp_nat[1], b"",
                        flags=0x11),  # ingress FIN
           F.discover_frame(mac(2), 0xA3, vlans=[100])]
-    b3 = [udp(5000, 443, 300), new_flow, F.discover_frame(mac(3), 0xA4)]
+    b3 = [udp(5000, 443, 300), new_flow, F.discover_frame(mac(3), 0xA4),
+          F.with_udp_checksum(new_flow)]  # SNAT must rewrite a real UDP checksum
     return [(b1, True, NOW + 0.25), (b2, [True, False, True], NOW + 1.5),
             (b3, True, NOW + 2.75)]
 
@@ -144,6 +145,10 @@ def test_engines_give_identical_process_output():
     assert o1["dropped"] == [2, 3]  # QoS: 342-byte packets past a 600-byte burst
     assert 4 in [i for i, _ in o1["slow"]]  # the punted new flow
     assert 0 in [i for i, _ in o2["fwd"]]  # ... forwarded on the next batch
+    assert F.l4_checksum_ok(dict(o1["fwd"])[5])  # TCP SNAT keeps the checksum valid
+    udp_csum = F.decode(dict(o3["fwd"])[3])
+    assert udp_csum.src_ip != ip_to_u32("10.0.0.11") and udp_csum.l4_checksum != 0
+    assert F.l4_checksum_ok(dict(o3["fwd"])[3])
     for f in ("dhcp", "nat", "qos", "spoof"):
         assert np.array_equal(getattr(teng.stats, f), getattr(jeng.stats, f)), f
     for f in ("batches", "tx", "fwd", "dropped", "passed", "slow_errors"):
@@ -177,3 +182,19 @@ def test_frames_match_reference_codecs():
     da, db = F.decode_dhcp(F.decode(frame).payload), dhcp_codec.decode(packets.decode(frame).payload)
     for f in ("op", "xid", "yiaddr", "flags", "chaddr", "options", "msg_type"):
         assert getattr(da, f) == getattr(db, f), f
+
+
+@pytest.mark.parametrize("vlans", [None, [7], [5, 6]])
+def test_l4_checksum_helpers(vlans):
+    m = mac(0x43)
+    # the TCP checksum is the reference codec's (the builders are byte-equal)
+    tcp = packets.tcp_packet(m, m, 0x0A000001, 0x5DB80001, 40000, 443, b"abc", vlans=vlans)
+    udp = F.udp_packet(m, m, 0x0A000001, 0x5DB80001, 40000, 443, b"abcde", vlans=vlans)
+    filled = F.with_udp_checksum(udp)
+    assert F.l4_checksum_ok(tcp) and F.l4_checksum_ok(udp) and F.l4_checksum_ok(filled)
+    assert F.decode(udp).l4_checksum == 0 and F.decode(filled).l4_checksum != 0
+    assert len(filled) == len(udp)
+    assert sum(a != b for a, b in zip(udp, filled)) <= 2  # only the checksum field
+    for raw in (tcp, filled):
+        bad = raw[:-1] + bytes([raw[-1] ^ 0x01])  # one payload bit flipped
+        assert not F.l4_checksum_ok(bad)
