@@ -90,21 +90,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() in ms over `iters` back-to-back calls.
 
     A spin kernel holds the stream while the host queues the calls, so the
-    events time the device's work and not the host's rate of issuing it."""
+    events time the device's work and not the host's rate of issuing it.
+    If queueing outlasted the spin (a host stall), it is measured again
+    with a longer spin."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    issue_s = time.perf_counter() - t  # at least one call's host time
-    torch.cuda._sleep(int(min(2 * iters * issue_s, 1.0) * 2e9))  # cycles at <= 2 GHz
+    spin_s = max(0.02, 10 * iters * (time.perf_counter() - t))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    for _ in range(3):
+        spin_s = min(spin_s, 1.0)
+        torch.cuda._sleep(int(spin_s * 2e9))  # cycles; at most 2 GHz, so it spins >= spin_s
+        start.record()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        queued_s = time.perf_counter() - t
+        end.record()
+        torch.cuda.synchronize()
+        if queued_s < spin_s:
+            break
+        spin_s = 4 * queued_s
+    else:
+        say(f"note: queueing {iters} calls took {queued_s * 1e3:.1f} ms, longer than the spin; "
+            "this time includes host stalls")
     return start.elapsed_time(end) / iters
 
 
@@ -483,16 +495,15 @@ def main(argv=None) -> int:
         step()
     torch.cuda.synchronize()
     lat = []
-    for _ in range(30):
+    for _ in range(100):
         t1 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t1) * 1e3)
     lat = np.array(lat)
-    step_ms = cuda_ms(step, iters=10)
     say(f"device step B={B}: {B / (lat.mean() / 1e3) / 1e6:.4f} Mpps, p50 {np.percentile(lat, 50):.3f} ms, "
-        f"p99 {np.percentile(lat, 99):.3f} ms (host clock, synced); {step_ms:.3f} ms by CUDA events "
-        f"[{card}]")
+        f"p99 {np.percentile(lat, 99):.3f} ms, max {lat.max():.3f} ms over {len(lat)} steps "
+        f"(host clock, synced) [{card}]")
     say(f"Engine.process per batch (host included): mean {np.mean(proc_ms):.2f} ms, "
         f"p50 {np.percentile(proc_ms, 50):.2f} ms over {BATCHES} batches; "
         f"peak device memory {peak_gib:.3f} GiB [{card}]")
