@@ -16,6 +16,8 @@ Unique negative slot ids group with nobody. `compute` is "prefix",
 
 `seg_prefix_total` is the wrapper: a CUDA tensor launches
 `csrc/seg_prefix.cu` (or raises), a CPU tensor takes `seg_prefix_plain`.
+The kernel takes one of two routes by B alone: up to `B_ONE` lanes one
+CTA groups, sorts and scans the whole batch; above it an equality sweep.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from bng_tpu_torch import kernels
 from bng_tpu_torch.ops.hashing import u32
 
 COMPUTE = ("prefix", "total", "both")
+B_ONE = 8192  # largest B of the one-CTA route: kBOne in csrc/seg_prefix.cu
 
 
 def seg_prefix_plain(slot, vec, compute: str = "both"):

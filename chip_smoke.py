@@ -13,11 +13,13 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    10k QoS policies on flow subscribers (half with a burst below one
    packet), 10k strict antispoof bindings; B = 8192 frames in 512-byte
    slots, 20% cached DISCOVERs and 80% established UDP flows.
-3. Kernels against their plain PyTorch versions on the card: K1 (probe)
-   on the exact inputs of every probe of one main-path step plus a
-   stash-heavy table at each main-path (K, V) and a ragged batch; K2
-   (seg_prefix) on the step's inputs plus 1-, 40- and 8192-lane buckets
-   with unique negative ids, for prefix, total and both. Bit-equal or fail.
+3. Kernels against their plain PyTorch versions on the card: K1 (probe,
+   in both of its bucket-load orders) on the exact inputs of every probe
+   of one main-path step, a ragged batch and every shared edge case of
+   `bng_tpu_torch/kernel_cases.py` (scattered stash rows, no stash, an
+   empty table, K = 8, V = 16, B from 1 to 8192); K2 (seg_prefix) on the
+   step's inputs and every shared K2 case, which take both of its routes
+   (B up to and past B_ONE), for prefix, total and both. Bit-equal or fail.
 4. The main path: counts set to 0, 20 batches through `Engine.process`
    (DISCOVER lanes TX with the subscriber's yiaddr, flow lanes FWD with
    the SNAT source and valid IP and UDP checksums, QoS drops, a fresh
@@ -26,8 +28,11 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    copied tables: identical verdicts, bytes, stats and tables.
 6. Times with CUDA events: each kernel and its plain version at the main
    path's shapes (device time: the stream is held while the host queues
-   the calls), the device step (Mpps, p50/p99), `Engine.process` per
-   batch with the host, peak device memory.
+   the calls), K1's two load orders in turns, K2 at B = 32, K2's sweep
+   route past B_ONE, a one-thread launch floor, the device step (Mpps,
+   p50/p99), `Engine.process` per batch with the host, peak device memory.
+   `--profile` adds a torch.profiler trace of a few steps, `--breakdown`
+   K2's time phase by phase on the main path's inputs.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON; the last line the result JSON.
@@ -36,6 +41,7 @@ before it the kernels JSON; the last line the result JSON.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -44,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-from bng_tpu_torch import convert, kernels
+from bng_tpu_torch import convert, kernel_cases, kernels
 from bng_tpu_torch import frames as F
 from bng_tpu_torch.control.nat import NATManager
 from bng_tpu_torch.ops import probe as probe_mod
@@ -257,52 +263,34 @@ def record_kernel_inputs(eng, pkt, length, fa):
     return rec
 
 
-def overfull_table(K, V, device, seed):
-    """A small table whose stash holds entries (the stash path of K1)."""
-    rng = np.random.default_rng(seed)
-    t = table_mod.HostTable(32, K, V, stash=256, name="overfull")
-    keys = np.unique(rng.integers(0, 2**32, size=(200, K), dtype=np.uint32), axis=0)
-    for k in keys:
-        t.insert(k, rng.integers(0, 2**32, size=V, dtype=np.uint32))
-    check(int(t.used[32 * 4:].sum()) > 0, "overfull table uses its stash")
-    st = t.device_state(device)
-    q = keys[rng.integers(0, len(keys), B)]
-    miss = rng.random(B) < 0.3
-    q[miss] = rng.integers(0, 2**32, size=(int(miss.sum()), K), dtype=np.uint32)
-    return (st.krows, st.stash_rows, st.vals, torch.from_numpy(q.view(np.int32)).to(device),
-            32, 256)
-
-
 def kernels_vs_plain(rec, device):
+    """Both kernels against their plain versions on every main-path call
+    and every shared edge case, bit for bit; returns {kernel: max |err|}."""
     cases = [("main-path", a) for a in rec["probe"]]
-    for j, (K, V) in enumerate(((2, 8), (1, 8), (8, 8), (4, 16), (4, 8))):
-        cases.append((f"stash K={K} V={V}", overfull_table(K, V, device, seed=j)))
     args = rec["probe"][3]  # the DHCP subscriber-table probe, cut to a ragged batch
     cases.append(("ragged B=1000", args[:3] + (args[3][:1000].contiguous(),) + args[4:]))
+    for name in kernel_cases.PROBE_SPECS:
+        c = kernel_cases.probe_case(name)
+        cases.append((name, tuple(torch.from_numpy(a).to(device) for a in c[:4])
+                      + (c.nbuckets, c.stash)))
     err = {"probe": 0.0, "seg_prefix": 0.0}
     for name, a in cases:
-        got = probe_mod.probe_cuda(*a)
         ref = probe_mod.probe_plain(*a)
-        for g, r, f in zip(got, ref, ("found", "slot", "vals")):
-            d = (g.long() - r.long()).abs().max().item() if g.numel() else 0
-            err["probe"] = max(err["probe"], float(d))
-            check(torch.equal(g, r), f"K1 {name} K={a[3].shape[1]} {f} bit-equal")
-    say(f"K1 bit-equal to its plain version on {len(cases)} cases")
+        for ordered in (False, True):
+            got = probe_mod.probe_cuda(*a, ordered=ordered)
+            for g, r, f in zip(got, ref, ("found", "slot", "vals")):
+                d = (g.long() - r.long()).abs().max().item() if g.numel() else 0
+                err["probe"] = max(err["probe"], float(d))
+                check(torch.equal(g, r),
+                      f"K1 {name} K={a[3].shape[1]} ordered={ordered} {f} bit-equal")
+    say(f"K1 (both load orders) bit-equal to its plain version on {len(cases)} cases")
 
     seg_cases = [("main-path", s, v, c) for s, v, c in rec["seg_prefix"]]
-    rng = np.random.default_rng(7)
-    slot = np.empty(B, dtype=np.int32)
-    slot[: B // 4] = -1 - np.arange(B // 4)  # unique negatives
-    slot[B // 4: B // 2] = np.arange(B // 4) + 100_000  # 1-lane buckets
-    slot[B // 2:] = np.arange(B - B // 2) // 40  # 40-lane buckets
-    rng.shuffle(slot)
-    vec = rng.integers(60, 1500, size=B).astype(np.int32)
-    big = rng.integers(0, 2**31, size=B).astype(np.int32)  # sums far past 2^24
-    one = np.zeros(B, dtype=np.int32)  # one 8192-lane bucket
-    for sl, vv, label in ((slot, vec, "mixed"), (one, vec, "8192-lane"), (slot, big, "2^31 words")):
-        for c in seg_mod.COMPUTE:
-            seg_cases.append((label, torch.from_numpy(sl).to(device),
-                              torch.from_numpy(vv).to(device), c))
+    for name in kernel_cases.SEG_SPECS:
+        c = kernel_cases.seg_case(name)
+        seg_cases.append((name, torch.from_numpy(c.slot).to(device),
+                          torch.from_numpy(c.vec).to(device), c.compute))
+    check(max(s.shape[0] for _, s, _, _ in seg_cases) > seg_mod.B_ONE, "K2 sweep route covered")
     for name, s, v, c in seg_cases:
         got = seg_mod.seg_prefix_cuda(s, v, c)
         ref = seg_mod.seg_prefix_plain(s, v, c)
@@ -310,7 +298,7 @@ def kernels_vs_plain(rec, device):
             err["seg_prefix"] = max(err["seg_prefix"], (g - r).abs().max().item())
         check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
               f"K2 {name} {c} bit-equal")
-    say(f"K2 bit-equal to its plain version on {len(seg_cases)} cases")
+    say(f"K2 (both routes) bit-equal to its plain version on {len(seg_cases)} cases")
     return err
 
 
@@ -364,6 +352,45 @@ def seg_bound_ms(s, v, compute) -> float:
     return (Bq * 8 + Bq * 4 * outs) / HBM_BYTES_PER_S * 1e3
 
 
+# K2's phases, each cut from the kernel at the comment that starts the next
+K2_CUTS = (("launch, loads, first filter pass", "  unsigned cand = 0u;"),
+           ("+ second filter pass, lone lanes' outputs", "  // 2. compact"),
+           ("+ compaction, up to 32 candidates sorted and scanned", "  // 3. bitonic"))
+
+
+def k2_breakdown(rec, card: str) -> None:
+    """K2's device time per phase on the main path's inputs: csrc/seg_prefix.cu
+    built again with a `return` before each cut (the work after it is gone,
+    the work before it stays: atomics and stores cannot be dropped)."""
+    src = (kernels.CSRC / "seg_prefix.cu").read_text()
+    procs = []
+    for i, (_, mark) in enumerate(K2_CUTS):
+        check(src.count(mark) == 1, f"K2 phase mark {mark.strip()!r} in the source")
+        cu = kernels.BUILD_DIR / f"seg_cut{i}.cu"
+        cu.write_text(src.replace(mark, "  if (B > 0) return;\n" + mark))
+        procs.append(subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    cuts = []
+    for i, proc in enumerate(procs):
+        out = proc.communicate()[0]
+        check(proc.returncode == 0, f"K2 cut {i} builds:\n{out}")
+        fn = ctypes.CDLL(str(kernels.BUILD_DIR / f"seg_cut{i}.so")).bng_seg_prefix
+        fn.argtypes, fn.restype = kernels.SIGNATURES["seg_prefix"][2], ctypes.c_int
+        cuts.append(fn)
+    for j, (sl, v, c) in enumerate(rec["seg_prefix"]):
+        pref = torch.empty(sl.shape, dtype=torch.float32, device=sl.device)
+        tot = torch.empty_like(pref)
+        stream = kernels.stream_ptr(sl.device)
+        args = lambda: (sl.data_ptr(), v.data_ptr(), sl.shape[0], int(c != "total"),  # noqa: E731
+                        int(c != "prefix"), pref.data_ptr(), tot.data_ptr(), stream)
+        times = [cuda_ms(lambda: fn(*args())) for fn in cuts]
+        times.append(cuda_ms(lambda: seg_mod.seg_prefix_cuda(sl, v, c)))
+        names = [n for n, _ in K2_CUTS] + ["+ the rest (the whole kernel)"]
+        say(f"  K2 call {j} ({c}) by phase, cumulative: "
+            + "; ".join(f"{n} {t * 1e3:.2f} us" for n, t in zip(names, times)) + f" [{card}]")
+
+
 def profile_step(step, card: str, steps: int = 5) -> None:
     """torch.profiler over `steps` device steps: per-stage host and device
     time, the top kernels by device time, launches per step and the
@@ -402,6 +429,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few device steps with torch.profiler")
+    ap.add_argument("--breakdown", action="store_true",
+                    help="also time K2 phase by phase on the main path's inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -466,15 +495,23 @@ def main(argv=None) -> int:
     # ---- times ----
     kern = {"probe": {"ms": [], "plain": [], "bound": []},
             "seg_prefix": {"ms": [], "plain": [], "bound": []}}
+    ordered_ms = []
     for j, a in enumerate(rec["probe"]):
-        ms = cuda_ms(lambda: probe_mod.probe_cuda(*a))
+        # the two load orders in turns: both rows at once, b2 after b1, b2 after b1, both
+        turns = [cuda_ms(lambda: probe_mod.probe_cuda(*a, ordered=o))
+                 for o in (False, True, True, False)]
+        ms, om = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         pl = cuda_ms(lambda: probe_mod.probe_plain(*a), iters=5)
         bd = probe_bound_ms(a)
         kern["probe"]["ms"].append(ms)
         kern["probe"]["plain"].append(pl)
         kern["probe"]["bound"].append(bd)
+        ordered_ms.append(om)
         say(f"  K1 call {j}: K={a[3].shape[1]} V={a[2].shape[1]} nbuckets={a[4]} "
-            f"stash={a[5]}: {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.6f} ms [{card}]")
+            f"stash={a[5]}: {ms:.4f} ms (b2 after b1: {om:.4f} ms), plain {pl:.4f} ms, "
+            f"bound {bd:.6f} ms [{card}]")
+    say(f"  K1 load order, mean over the step's calls: both rows at once "
+        f"{np.mean(kern['probe']['ms']):.4f} ms, b2 after b1 {np.mean(ordered_ms):.4f} ms [{card}]")
     for j, (s, v, c) in enumerate(rec["seg_prefix"]):
         ms = cuda_ms(lambda: seg_mod.seg_prefix_cuda(s, v, c))
         pl = cuda_ms(lambda: seg_mod.seg_prefix_plain(s, v, c), iters=5)
@@ -484,8 +521,14 @@ def main(argv=None) -> int:
         kern["seg_prefix"]["bound"].append(bd)
         say(f"  K2 call {j} ({c}): {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.6f} ms [{card}]")
     s1, v1 = rec["seg_prefix"][0][0][:32].contiguous(), rec["seg_prefix"][0][1][:32].contiguous()
-    say(f"  K2 at B=32 (one block, the launch floor of this route): "
+    say(f"  K2 at B=32 (one CTA, the scan route's fixed work): "
         f"{cuda_ms(lambda: seg_mod.seg_prefix_cuda(s1, v1)):.4f} ms [{card}]")
+    big = kernel_cases.seg_case(f"mixed-B{seg_mod.B_ONE + 1}/both")
+    s2, v2 = torch.from_numpy(big.slot).to(device), torch.from_numpy(big.vec).to(device)
+    say(f"  K2 sweep route at B={seg_mod.B_ONE + 1}: "
+        f"{cuda_ms(lambda: seg_mod.seg_prefix_cuda(s2, v2)):.4f} ms [{card}]")
+    say(f"  one-block launch floor (torch.cuda._sleep(0), one thread): "
+        f"{cuda_ms(lambda: torch.cuda._sleep(0), iters=100):.4f} ms [{card}]")
 
     pkt_d, len_d = torch.from_numpy(pkt).to(device), torch.from_numpy(length).to(device)
     fa_d = torch.from_numpy(fa).to(device)
@@ -509,6 +552,8 @@ def main(argv=None) -> int:
         f"peak device memory {peak_gib:.3f} GiB [{card}]")
     if args.profile:
         profile_step(step, card)
+    if args.breakdown:
+        k2_breakdown(rec, card)
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

@@ -15,6 +15,7 @@ from bng_tpu.ops.pallas_qos import seg_prefix_total as j_seg_prefix_total
 from bng_tpu.ops.qtable import HostQTable as JHostQTable
 from bng_tpu.ops.qtable import QTableGeom as JGeom
 from bng_tpu.ops.qtable import QTableState as JQState
+from bng_tpu_torch import kernel_cases
 from bng_tpu_torch.ops import qos as tqos
 from bng_tpu_torch.ops.qtable import HostQTable as THostQTable
 from bng_tpu_torch.ops.qtable import QTableGeom as TGeom
@@ -57,6 +58,47 @@ def test_seg_prefix_plain_is_exact_past_2_24():
     expect = np.arange(1, 41, dtype=np.int64) * 1_000_001
     assert np.array_equal(tp.numpy(), expect.astype(np.float32))
     assert np.array_equal(tt.numpy(), np.full(40, expect[-1], dtype=np.float32))
+
+
+def _seg_oracle(slot, vec, compute):
+    """Independent numpy integer oracle: a stable argsort, a uint64 cumsum
+    per segment, each sum rounded once to f32 (exact in f64 below 2^53)."""
+    B = len(slot)
+    order = np.argsort(slot, kind="stable")
+    s = slot[order]
+    v = vec.view(np.uint32).astype(np.uint64)[order]
+    csum = np.cumsum(v)
+    head = np.r_[True, s[1:] != s[:-1]]
+    seg = np.cumsum(head) - 1
+    starts = np.nonzero(head)[0]
+    base = (csum - v)[starts][seg]
+    ends = np.r_[starts[1:], B] - 1
+    pref, tot = np.zeros(B, np.float32), np.zeros(B, np.float32)
+    if compute != "total":
+        pref[order] = (csum - base).astype(np.float64).astype(np.float32)
+    if compute != "prefix":
+        tot[order] = (csum[ends][seg] - base).astype(np.float64).astype(np.float32)
+    return pref, tot
+
+
+@pytest.mark.parametrize("name", kernel_cases.SEG_SPECS)
+def test_seg_prefix_plain_on_shared_edge_cases(name):
+    """The inputs chip_smoke.py holds K2 to on the card (both routes): the
+    plain version equals the integer oracle, and the Pallas kernel
+    (interpret mode) where its f32 sums are exact and B is small."""
+    c = kernel_cases.seg_case(name)
+    tp, ttot = seg_prefix_plain(torch.from_numpy(c.slot), torch.from_numpy(c.vec), c.compute)
+    op, ot = _seg_oracle(c.slot, c.vec, c.compute)
+    assert np.array_equal(bits(tp), bits(op))
+    assert np.array_equal(bits(ttot), bits(ot))
+    _, inverse = np.unique(c.slot, return_inverse=True)
+    sums = np.bincount(inverse.ravel(), weights=c.vec.view(np.uint32).astype(np.float64))
+    if len(c.slot) <= 1000 and sums.max() < 2**24:
+        jp, jtot = j_seg_prefix_total(jnp.asarray(c.slot),
+                                      jnp.asarray(c.vec.view(np.uint32).astype(np.float32)),
+                                      interpret=True, compute=c.compute)
+        assert np.array_equal(bits(tp), bits(jp))
+        assert np.array_equal(bits(ttot), bits(jtot))
 
 
 def _policies(n_subs, seed):

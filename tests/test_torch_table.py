@@ -12,8 +12,10 @@ import torch
 from bng_tpu.ops import qtable as jq
 from bng_tpu.ops import table as jt
 from bng_tpu.ops.pallas_table import pallas_probe
+from bng_tpu_torch import kernel_cases
 from bng_tpu_torch.ops import qtable as tq
 from bng_tpu_torch.ops import table as tt
+from bng_tpu_torch.ops.probe import probe, probe_plain
 
 from test_torch_words import bits
 
@@ -103,6 +105,49 @@ def test_probe_ragged_batch(B):
     assert np.array_equal(bits(got.found), np.asarray(ref.found))
     assert np.array_equal(bits(got.slot), bits(ref.slot))
     assert np.array_equal(bits(got.vals), bits(ref.vals))
+
+
+@pytest.mark.parametrize("name", list(kernel_cases.PROBE_SPECS))
+def test_probe_plain_on_shared_edge_cases(name):
+    """The inputs chip_smoke.py holds K1 to on the card: the plain version
+    equals `xla_lookup` and the Pallas probe (interpret mode)."""
+    c = kernel_cases.probe_case(name)
+    args = [torch.from_numpy(a) for a in (c.krows, c.stash_rows, c.vals, c.query)]
+    got = probe_plain(*args, c.nbuckets, c.stash)
+    ja = [jnp.asarray(a.view(np.uint32)) for a in (c.krows, c.stash_rows, c.vals, c.query)]
+    ref = jt.xla_lookup(jt.TableState(*ja[:3]), ja[3], c.nbuckets, c.stash)
+    pal = pallas_probe(*ja, c.nbuckets, c.stash, interpret=True)
+    for r in ((ref.found, ref.slot, ref.vals), pal):
+        for g, x in zip(got, r):
+            assert np.array_equal(bits(g), bits(x))
+    via = probe(*args, c.nbuckets, c.stash)  # the CPU dispatch is the plain version
+    assert all(torch.equal(a, b) for a, b in zip(via, got))
+
+
+def test_shared_probe_cases_cover_their_edges():
+    """Each case holds what its name promises: scattered used stash rows
+    with rows 0 and stash-1 used and holes between, lanes that hit the
+    stash, duplicate query rows, and the widths and batch sizes asked for."""
+    seen_B = set()
+    for name, (nbuckets, K, V, stash, fill, B) in kernel_cases.PROBE_SPECS.items():
+        c = kernel_cases.probe_case(name)
+        seen_B.add(B)
+        assert c.query.shape == (B, K) and c.vals.shape == (nbuckets * 4 + stash, V)
+        assert c.stash_rows.shape == (stash, tt.way_stride(K)) and c.stash == stash
+        used = c.stash_rows[:, K] != 0
+        found, slot, _ = probe_plain(*(torch.from_numpy(a) for a in c[:4]), nbuckets, stash)
+        stash_hits = int((slot[found] >= nbuckets * 4).sum())
+        if fill == "scattered":
+            assert used[0] and used[-1] and 0 < used.sum() < stash - 1, name
+            assert stash_hits > 0, name
+        else:
+            assert not used.any() and stash_hits == 0, name
+        if fill == "empty":
+            assert not found.any()
+        if B >= 1000:
+            assert len(np.unique(c.query, axis=0)) < B, name  # duplicate rows
+            assert 0 < int(found.sum()) < B or fill == "empty", name
+    assert seen_B >= {1, 7, 8, 9, 1000, 8192}
 
 
 def test_host_mirrors_after_deletes_and_stash_overflow():
