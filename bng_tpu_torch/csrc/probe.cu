@@ -21,9 +21,9 @@
 //   which keeps the reference's first-match order.
 // - Both bucket rows are read at once (speculatively): a lane pays one
 //   memory latency for both, and bytes beyond the bound only on a b1 hit.
-//   `bng_probe_ordered` reads b2 only after b1 missed; chip_smoke.py times
-//   the two on the main path's inputs, and the speculative order, the
-//   faster there, is `bng_probe`.
+//   Reading b2 only after b1 missed was timed against it on the main
+//   path's eight calls on the H100 and was about 10% slower, so that
+//   order was dropped.
 // - Each block compacts the used stash rows (word K != 0) into shared
 //   memory in stash order, with __ballot_sync/__popc prefixes, keeping
 //   each row's stash index; the count stays in the kernel (no host sync,
@@ -33,7 +33,8 @@
 //   a miss costs nothing more. The entries are 9 words apart, so the 8
 //   threads hit 8 different banks.
 // - The group copies the winning value row with 16-byte loads and stores
-//   (zeros on a miss); one thread writes found and slot. Ragged B is
+//   (V is a multiple of 4: 2 vectors for V = 8, 4 for V = 16; zeros on a
+//   miss); one thread writes found and slot. Ragged B is
 //   masked in-kernel: no lane padding as the TPU's 128-lane tiles needed.
 
 #include <cuda_runtime.h>
@@ -94,7 +95,6 @@ __device__ __forceinline__ bool way_matches(const uint32_t* way, const uint32_t 
   return m && used != 0u;
 }
 
-template <bool kOrdered>
 __global__ void __launch_bounds__(kBlock) probe_kernel(
     const uint32_t* __restrict__ krows, const uint32_t* __restrict__ stash_rows,
     const uint32_t* __restrict__ vals, const uint32_t* __restrict__ query,
@@ -140,14 +140,7 @@ __global__ void __launch_bounds__(kBlock) probe_kernel(
   const uint32_t b2 = hash_words(q, K, kSeed2) & mask;
   const uint32_t* way = krows + ((size_t)(c < kWays ? b1 : b2) * kWays + (c & 3)) * KW;
 
-  unsigned hits;
-  if (kOrdered) {
-    hits = (__ballot_sync(gmask, c < kWays && way_matches(way, q, K)) >> gshift) & 0xFFu;
-    if (hits == 0u)
-      hits = (__ballot_sync(gmask, c >= kWays && way_matches(way, q, K)) >> gshift) & 0xFFu;
-  } else {
-    hits = (__ballot_sync(gmask, way_matches(way, q, K)) >> gshift) & 0xFFu;
-  }
+  const unsigned hits = (__ballot_sync(gmask, way_matches(way, q, K)) >> gshift) & 0xFFu;
 
   long long slot = -1;
   if (hits != 0u) {
@@ -177,27 +170,10 @@ __global__ void __launch_bounds__(kBlock) probe_kernel(
     found_out[i] = hit;
     slot_out[i] = hit ? (int32_t)slot : (int32_t)(b1 * kWays);
   }
-  if ((V & 3) == 0) {
-    uint4* dst = reinterpret_cast<uint4*>(vals_out + (size_t)i * V);
-    const uint4* src = reinterpret_cast<const uint4*>(vals + (size_t)(hit ? slot : 0) * V);
-    for (int w = c; w < (V >> 2); w += kGroup)
-      dst[w] = hit ? __ldg(src + w) : make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    for (int w = c; w < V; w += kGroup)
-      vals_out[(size_t)i * V + w] = hit ? __ldg(vals + (size_t)slot * V + w) : 0u;
-  }
-}
-
-template <bool kOrdered>
-int launch(const void* krows, const void* stash_rows, const void* vals, const void* query,
-           int B, int K, int KW, int V, int nbuckets, int stash, void* found, void* slot,
-           void* vals_out, void* stream) {
-  const int grid = (B + kLanesPerBlock - 1) / kLanesPerBlock;
-  probe_kernel<kOrdered><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)krows, (const uint32_t*)stash_rows, (const uint32_t*)vals,
-      (const uint32_t*)query, B, K, KW, V, nbuckets, stash, (bool*)found,
-      (int32_t*)slot, (uint32_t*)vals_out);
-  return (int)cudaGetLastError();
+  uint4* dst = reinterpret_cast<uint4*>(vals_out + (size_t)i * V);  // V % 4 == 0
+  const uint4* src = reinterpret_cast<const uint4*>(vals + (size_t)(hit ? slot : 0) * V);
+  for (int w = c; w < (V >> 2); w += kGroup)
+    dst[w] = hit ? __ldg(src + w) : make_uint4(0u, 0u, 0u, 0u);
 }
 
 }  // namespace
@@ -205,14 +181,10 @@ int launch(const void* krows, const void* stash_rows, const void* vals, const vo
 extern "C" int bng_probe(const void* krows, const void* stash_rows, const void* vals,
                          const void* query, int B, int K, int KW, int V, int nbuckets,
                          int stash, void* found, void* slot, void* vals_out, void* stream) {
-  return launch<false>(krows, stash_rows, vals, query, B, K, KW, V, nbuckets, stash, found,
-                       slot, vals_out, stream);
-}
-
-extern "C" int bng_probe_ordered(const void* krows, const void* stash_rows, const void* vals,
-                                 const void* query, int B, int K, int KW, int V, int nbuckets,
-                                 int stash, void* found, void* slot, void* vals_out,
-                                 void* stream) {
-  return launch<true>(krows, stash_rows, vals, query, B, K, KW, V, nbuckets, stash, found,
-                      slot, vals_out, stream);
+  const int grid = (B + kLanesPerBlock - 1) / kLanesPerBlock;
+  probe_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)krows, (const uint32_t*)stash_rows, (const uint32_t*)vals,
+      (const uint32_t*)query, B, K, KW, V, nbuckets, stash, (bool*)found,
+      (int32_t*)slot, (uint32_t*)vals_out);
+  return (int)cudaGetLastError();
 }

@@ -27,8 +27,8 @@
 //      the second pair sees only it. A lane found alone writes its outputs
 //      at once; the others (shared slots plus a handful of double
 //      collisions) are the candidates. Shared-memory atomics that return a
-//      value are the costly part of this step (`chip_smoke.py --breakdown`
-//      times it), hence a single pass over all lanes.
+//      value are the costly part of this step, hence a single pass over
+//      all lanes.
 //   2. Candidates are compacted in lane order (ballots, and one warp's
 //      scan of the 256 per-warp counts).
 //   3. Up to 32 candidates (the main path's case): one warp sorts them by

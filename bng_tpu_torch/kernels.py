@@ -30,22 +30,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# krows, stash_rows, vals, query, B, K, KW, V, nbuckets, stash, found, slot, out, stream
-_PROBE_ARGS = [_P] * 4 + [_I] * 6 + [_P] * 4
-# entry name -> (source name, C entry point, its argument types); every
-# entry returns cudaGetLastError() as an int
+# source name -> (C entry point, its argument types); every entry returns
+# cudaGetLastError() as an int
 SIGNATURES = {
-    "probe": ("probe", "bng_probe", _PROBE_ARGS),
-    # K1 reading bucket b2 only after b1 missed: timed against `probe`
-    "probe_ordered": ("probe", "bng_probe_ordered", _PROBE_ARGS),
+    # krows, stash_rows, vals, query, B, K, KW, V, nbuckets, stash,
+    # found, slot, out, stream
+    "probe": ("bng_probe", [_P] * 4 + [_I] * 6 + [_P] * 4),
     # slot, vec, B, want_prefix, want_total, pref, tot, stream
-    "seg_prefix": ("seg_prefix", "bng_seg_prefix", [_P, _P, _I, _I, _I, _P, _P, _P]),
+    "seg_prefix": ("bng_seg_prefix", [_P, _P, _I, _I, _I, _P, _P, _P]),
 }
-SOURCES = ("probe", "seg_prefix")  # csrc/<name>.cu; also the kernels' names
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in SIGNATURES}
 
-_ENTRIES = {}  # entry name -> its loaded C entry point
+_ENTRIES = {}  # source name -> its loaded C entry point
 
 
 def reset_launches() -> None:
@@ -75,7 +72,7 @@ def build() -> dict[str, tuple[list[str], str]]:
 
     Returns {name: (nvcc command, compiler output)} for what it compiled;
     raises with the compiler output if any build fails."""
-    missing = [n for n in SOURCES if not _lib_path(n).exists()]
+    missing = [n for n in SIGNATURES if not _lib_path(n).exists()]
     if not missing:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -99,12 +96,12 @@ def build() -> dict[str, tuple[list[str], str]]:
 
 
 def entry(name: str):
-    """One C entry point, its argument types declared (builds the sources
-    on first use)."""
+    """The C entry point of one kernel source, its argument types declared
+    (builds the sources on first use)."""
     if name not in _ENTRIES:
         build()
-        source, symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(source))), symbol)
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _ENTRIES[name] = fn
     return _ENTRIES[name]

@@ -64,13 +64,8 @@ def _check(t, name, ndim, device):
         raise ValueError(f"probe: {name} must be a contiguous {ndim}-d tensor")
 
 
-def probe_cuda(krows, stash_rows, vals, query, nbuckets: int, stash: int, *,
-               ordered: bool = False):
-    """Launch K1 on the card. Raises for anything it does not take.
-
-    `ordered` launches the variant that reads bucket b2 only after b1
-    missed (the same outputs); chip_smoke.py times it against the default,
-    which reads both rows at once. The main path never asks for it."""
+def probe_cuda(krows, stash_rows, vals, query, nbuckets: int, stash: int):
+    """Launch K1 on the card. Raises for anything it does not take."""
     dev = query.device
     if dev.type != "cuda":
         raise ValueError(f"probe_cuda: query is on {dev}, not a CUDA device")
@@ -88,14 +83,15 @@ def probe_cuda(krows, stash_rows, vals, query, nbuckets: int, stash: int, *,
         raise ValueError("probe_cuda: stash/vals rows do not match the geometry")
     if stash > 256:
         raise ValueError(f"probe_cuda: stash {stash} > 256")
-    if krows.data_ptr() % 16 or vals.data_ptr() % 16:
-        raise ValueError("probe_cuda: krows and vals must start on a 16-byte boundary")
+    if V % 4 or krows.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError("probe_cuda: the kernel reads 16-byte vectors: V must be a multiple "
+                         "of 4, krows and vals must start on a 16-byte boundary")
     found = torch.empty((B,), dtype=torch.bool, device=dev)
     slot = torch.empty((B,), dtype=torch.int32, device=dev)
     out = torch.empty((B, V), dtype=torch.int32, device=dev)
     if B == 0:
         return found, slot, out
-    err = kernels.entry("probe_ordered" if ordered else "probe")(krows.data_ptr(), stash_rows.data_ptr(), vals.data_ptr(), query.data_ptr(),
+    err = kernels.entry("probe")(krows.data_ptr(), stash_rows.data_ptr(), vals.data_ptr(), query.data_ptr(),
              B, K, KW, V, nbuckets, stash,
              found.data_ptr(), slot.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(err, "probe")

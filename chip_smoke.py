@@ -13,9 +13,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    10k QoS policies on flow subscribers (half with a burst below one
    packet), 10k strict antispoof bindings; B = 8192 frames in 512-byte
    slots, 20% cached DISCOVERs and 80% established UDP flows.
-3. Kernels against their plain PyTorch versions on the card: K1 (probe,
-   in both of its bucket-load orders) on the exact inputs of every probe
-   of one main-path step, a ragged batch and every shared edge case of
+3. Kernels against their plain PyTorch versions on the card: K1 (probe)
+   on the exact inputs of every probe of one main-path step, a ragged batch and every shared edge case of
    `bng_tpu_torch/kernel_cases.py` (scattered stash rows, no stash, an
    empty table, K = 8, V = 16, B from 1 to 8192); K2 (seg_prefix) on the
    step's inputs and every shared K2 case, which take both of its routes
@@ -28,11 +27,10 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    copied tables: identical verdicts, bytes, stats and tables.
 6. Times with CUDA events: each kernel and its plain version at the main
    path's shapes (device time: the stream is held while the host queues
-   the calls), K1's two load orders in turns, K2 at B = 32, K2's sweep
-   route past B_ONE, a one-thread launch floor, the device step (Mpps,
-   p50/p99), `Engine.process` per batch with the host, peak device memory.
-   `--profile` adds a torch.profiler trace of a few steps, `--breakdown`
-   K2's time phase by phase on the main path's inputs.
+   the calls), K2 at B = 32, K2's sweep route past B_ONE, a one-thread
+   launch floor, the device step (Mpps, p50/p99), `Engine.process` per
+   batch with the host, peak device memory. `--profile` adds a
+   torch.profiler trace of a few steps.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON; the last line the result JSON.
@@ -41,7 +39,6 @@ before it the kernels JSON; the last line the result JSON.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -275,15 +272,13 @@ def kernels_vs_plain(rec, device):
                       + (c.nbuckets, c.stash)))
     err = {"probe": 0.0, "seg_prefix": 0.0}
     for name, a in cases:
+        got = probe_mod.probe_cuda(*a)
         ref = probe_mod.probe_plain(*a)
-        for ordered in (False, True):
-            got = probe_mod.probe_cuda(*a, ordered=ordered)
-            for g, r, f in zip(got, ref, ("found", "slot", "vals")):
-                d = (g.long() - r.long()).abs().max().item() if g.numel() else 0
-                err["probe"] = max(err["probe"], float(d))
-                check(torch.equal(g, r),
-                      f"K1 {name} K={a[3].shape[1]} ordered={ordered} {f} bit-equal")
-    say(f"K1 (both load orders) bit-equal to its plain version on {len(cases)} cases")
+        for g, r, f in zip(got, ref, ("found", "slot", "vals")):
+            d = (g.long() - r.long()).abs().max().item() if g.numel() else 0
+            err["probe"] = max(err["probe"], float(d))
+            check(torch.equal(g, r), f"K1 {name} K={a[3].shape[1]} {f} bit-equal")
+    say(f"K1 bit-equal to its plain version on {len(cases)} cases")
 
     seg_cases = [("main-path", s, v, c) for s, v, c in rec["seg_prefix"]]
     for name in kernel_cases.SEG_SPECS:
@@ -352,45 +347,6 @@ def seg_bound_ms(s, v, compute) -> float:
     return (Bq * 8 + Bq * 4 * outs) / HBM_BYTES_PER_S * 1e3
 
 
-# K2's phases, each cut from the kernel at the comment that starts the next
-K2_CUTS = (("launch, loads, first filter pass", "  unsigned cand = 0u;"),
-           ("+ second filter pass, lone lanes' outputs", "  // 2. compact"),
-           ("+ compaction, up to 32 candidates sorted and scanned", "  // 3. bitonic"))
-
-
-def k2_breakdown(rec, card: str) -> None:
-    """K2's device time per phase on the main path's inputs: csrc/seg_prefix.cu
-    built again with a `return` before each cut (the work after it is gone,
-    the work before it stays: atomics and stores cannot be dropped)."""
-    src = (kernels.CSRC / "seg_prefix.cu").read_text()
-    procs = []
-    for i, (_, mark) in enumerate(K2_CUTS):
-        check(src.count(mark) == 1, f"K2 phase mark {mark.strip()!r} in the source")
-        cu = kernels.BUILD_DIR / f"seg_cut{i}.cu"
-        cu.write_text(src.replace(mark, "  if (B > 0) return;\n" + mark))
-        procs.append(subprocess.Popen(
-            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    cuts = []
-    for i, proc in enumerate(procs):
-        out = proc.communicate()[0]
-        check(proc.returncode == 0, f"K2 cut {i} builds:\n{out}")
-        fn = ctypes.CDLL(str(kernels.BUILD_DIR / f"seg_cut{i}.so")).bng_seg_prefix
-        fn.argtypes, fn.restype = kernels.SIGNATURES["seg_prefix"][2], ctypes.c_int
-        cuts.append(fn)
-    for j, (sl, v, c) in enumerate(rec["seg_prefix"]):
-        pref = torch.empty(sl.shape, dtype=torch.float32, device=sl.device)
-        tot = torch.empty_like(pref)
-        stream = kernels.stream_ptr(sl.device)
-        args = lambda: (sl.data_ptr(), v.data_ptr(), sl.shape[0], int(c != "total"),  # noqa: E731
-                        int(c != "prefix"), pref.data_ptr(), tot.data_ptr(), stream)
-        times = [cuda_ms(lambda: fn(*args())) for fn in cuts]
-        times.append(cuda_ms(lambda: seg_mod.seg_prefix_cuda(sl, v, c)))
-        names = [n for n, _ in K2_CUTS] + ["+ the rest (the whole kernel)"]
-        say(f"  K2 call {j} ({c}) by phase, cumulative: "
-            + "; ".join(f"{n} {t * 1e3:.2f} us" for n, t in zip(names, times)) + f" [{card}]")
-
-
 def profile_step(step, card: str, steps: int = 5) -> None:
     """torch.profiler over `steps` device steps: per-stage host and device
     time, the top kernels by device time, launches per step and the
@@ -429,8 +385,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few device steps with torch.profiler")
-    ap.add_argument("--breakdown", action="store_true",
-                    help="also time K2 phase by phase on the main path's inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -495,23 +449,15 @@ def main(argv=None) -> int:
     # ---- times ----
     kern = {"probe": {"ms": [], "plain": [], "bound": []},
             "seg_prefix": {"ms": [], "plain": [], "bound": []}}
-    ordered_ms = []
     for j, a in enumerate(rec["probe"]):
-        # the two load orders in turns: both rows at once, b2 after b1, b2 after b1, both
-        turns = [cuda_ms(lambda: probe_mod.probe_cuda(*a, ordered=o))
-                 for o in (False, True, True, False)]
-        ms, om = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        ms = cuda_ms(lambda: probe_mod.probe_cuda(*a))
         pl = cuda_ms(lambda: probe_mod.probe_plain(*a), iters=5)
         bd = probe_bound_ms(a)
         kern["probe"]["ms"].append(ms)
         kern["probe"]["plain"].append(pl)
         kern["probe"]["bound"].append(bd)
-        ordered_ms.append(om)
         say(f"  K1 call {j}: K={a[3].shape[1]} V={a[2].shape[1]} nbuckets={a[4]} "
-            f"stash={a[5]}: {ms:.4f} ms (b2 after b1: {om:.4f} ms), plain {pl:.4f} ms, "
-            f"bound {bd:.6f} ms [{card}]")
-    say(f"  K1 load order, mean over the step's calls: both rows at once "
-        f"{np.mean(kern['probe']['ms']):.4f} ms, b2 after b1 {np.mean(ordered_ms):.4f} ms [{card}]")
+            f"stash={a[5]}: {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.6f} ms [{card}]")
     for j, (s, v, c) in enumerate(rec["seg_prefix"]):
         ms = cuda_ms(lambda: seg_mod.seg_prefix_cuda(s, v, c))
         pl = cuda_ms(lambda: seg_mod.seg_prefix_plain(s, v, c), iters=5)
@@ -552,8 +498,6 @@ def main(argv=None) -> int:
         f"peak device memory {peak_gib:.3f} GiB [{card}]")
     if args.profile:
         profile_step(step, card)
-    if args.breakdown:
-        k2_breakdown(rec, card)
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",
