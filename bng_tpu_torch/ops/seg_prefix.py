@@ -17,7 +17,8 @@ Unique negative slot ids group with nobody. `compute` is "prefix",
 `seg_prefix_total` is the wrapper: a CUDA tensor launches
 `csrc/seg_prefix.cu` (or raises), a CPU tensor takes `seg_prefix_plain`.
 The kernel takes one of two routes by B alone: up to `B_ONE` lanes one
-CTA groups, sorts and scans the whole batch; above it an equality sweep.
+CTA settles the lanes alone in their slot and sorts and scans the rest;
+above it an equality sweep.
 """
 
 from __future__ import annotations

@@ -14,11 +14,12 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    packet), 10k strict antispoof bindings; B = 8192 frames in 512-byte
    slots, 20% cached DISCOVERs and 80% established UDP flows.
 3. Kernels against their plain PyTorch versions on the card: K1 (probe)
-   on the exact inputs of every probe of one main-path step, a ragged batch and every shared edge case of
-   `bng_tpu_torch/kernel_cases.py` (scattered stash rows, no stash, an
-   empty table, K = 8, V = 16, B from 1 to 8192); K2 (seg_prefix) on the
-   step's inputs and every shared K2 case, which take both of its routes
-   (B up to and past B_ONE), for prefix, total and both. Bit-equal or fail.
+   on the exact inputs of every probe of one main-path step, a ragged
+   batch and every shared edge case of `bng_tpu_torch/kernel_cases.py`
+   (scattered stash rows, no stash, an empty table, K = 8, V = 16, B from
+   1 to 8192); K2 (seg_prefix) on the step's inputs and every shared K2
+   case, which take both of its routes (B up to and past B_ONE), for
+   prefix, total and both. Bit-equal or fail.
 4. The main path: counts set to 0, 20 batches through `Engine.process`
    (DISCOVER lanes TX with the subscriber's yiaddr, flow lanes FWD with
    the SNAT source and valid IP and UDP checksums, QoS drops, a fresh
@@ -467,7 +468,7 @@ def main(argv=None) -> int:
         kern["seg_prefix"]["bound"].append(bd)
         say(f"  K2 call {j} ({c}): {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.6f} ms [{card}]")
     s1, v1 = rec["seg_prefix"][0][0][:32].contiguous(), rec["seg_prefix"][0][1][:32].contiguous()
-    say(f"  K2 at B=32 (one CTA, the scan route's fixed work): "
+    say(f"  K2 at B=32 (the one-CTA route's fixed work): "
         f"{cuda_ms(lambda: seg_mod.seg_prefix_cuda(s1, v1)):.4f} ms [{card}]")
     big = kernel_cases.seg_case(f"mixed-B{seg_mod.B_ONE + 1}/both")
     s2, v2 = torch.from_numpy(big.slot).to(device), torch.from_numpy(big.vec).to(device)
