@@ -34,8 +34,7 @@
 //   3. Up to 32 candidates (the main path's case): one warp sorts them by
 //      (slot id, candidate index) with a bitonic network of shuffles and
 //      takes a segmented scan by shuffles, with no block barrier. More
-//      candidates: a block-wide bitonic sort (stages whose partners sit
-//      within a warp swap by shuffle, wider ones through shared memory),
+//      candidates: a bitonic sort in shared memory, one barrier a stage,
 //      then one CUB block scan with a segmented operator. Either way equal
 //      ids end up together, in lane order; grouping is by equality of the
 //      32 id bits alone.
@@ -62,10 +61,14 @@ namespace {
 
 // ---- route 1: one CTA; filter out lone slots, sort and scan the rest ----
 
+#ifndef BNG_B_ONE
+#error "build with -DBNG_B_ONE=<largest B of route 1> (bng_tpu_torch/kernels.py passes it)"
+#endif
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;                         // lanes per thread
-constexpr int kBOne = kThreads * kItems;          // 8192: largest B of route 1
+constexpr int kBOne = BNG_B_ONE;                  // largest B of route 1
+constexpr int kItems = kBOne / kThreads;          // lanes per thread
+static_assert(kItems * kThreads == kBOne, "route 1 takes kItems lanes a thread");
 constexpr int kBitsA = 19;                        // the first pair of filters: all lanes
 constexpr int kBitsB = 16;                        // the second pair: the first's candidates
 constexpr int kWordsA = 1 << (kBitsA - 5);
@@ -131,12 +134,12 @@ __device__ __forceinline__ void bitonic_stage(unsigned long long* v, int n2, int
   __syncthreads();
 }
 
-// Segmented scan of the n sorted candidates, I per thread (I = 1 when
-// n <= kThreads), and their outputs.
-template <int I>
+// Segmented scan of the n sorted candidates, kItems per thread, and their
+// outputs.
 __device__ __forceinline__ void scan_candidates(ScanSmem& sm, int n, int want_prefix,
                                                 int want_total, float* __restrict__ pref_out,
                                                 float* __restrict__ tot_out) {
+  constexpr int I = kItems;
   const int tid = threadIdx.x;
   SegItem it[I];
   uint32_t idx[I];
@@ -331,35 +334,11 @@ __global__ void __launch_bounds__(kThreads, 1) seg_scan_kernel(
 
   // 3. bitonic sort of (slot id, candidate index): equal ids end up
   //    together, in lane order
-  if (n2 <= kThreads) {  // entry i in thread i: partners within a warp swap by shuffle
-    unsigned long long x = tid < n2 ? sm.sorted[tid] : ~0ull;
-    for (int k = 2; k <= n2; k <<= 1) {
-      if (k >= 64) {  // stages with d >= 32 go through shared memory
-        if (tid < n2) sm.sorted[tid] = x;
-        __syncthreads();
-        for (int d = k >> 1; d >= 32; d >>= 1) bitonic_stage(sm.sorted, n2, k, d);
-        x = tid < n2 ? sm.sorted[tid] : ~0ull;
-      }
-      if (warp * 32 < n2) {  // warps past n2 hold only pads
-        for (int d = min(k >> 1, 16); d > 0; d >>= 1) {
-          const unsigned long long y = __shfl_xor_sync(0xFFFFFFFFu, x, d);
-          const bool take_min = ((tid & d) == 0) == ((tid & k) == 0);
-          x = take_min ? (y < x ? y : x) : (y > x ? y : x);
-        }
-      }
-    }
-    if (tid < n2) sm.sorted[tid] = x;
-    __syncthreads();
-  } else {
-    for (int k = 2; k <= n2; k <<= 1)
-      for (int d = k >> 1; d > 0; d >>= 1) bitonic_stage(sm.sorted, n2, k, d);
-  }
+  for (int k = 2; k <= n2; k <<= 1)
+    for (int d = k >> 1; d > 0; d >>= 1) bitonic_stage(sm.sorted, n2, k, d);
 
   // 4. segmented scan over the sorted candidates
-  if (n2 <= kThreads)
-    scan_candidates<1>(sm, n, want_prefix, want_total, pref_out, tot_out);
-  else
-    scan_candidates<kItems>(sm, n, want_prefix, want_total, pref_out, tot_out);
+  scan_candidates(sm, n, want_prefix, want_total, pref_out, tot_out);
 }
 
 // ---- route 2: the equality sweep, for B > kBOne ----
@@ -414,7 +393,8 @@ extern "C" int bng_seg_prefix(const void* slot, const void* vec, int B, int want
                               int want_total, void* pref, void* tot, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (B <= kBOne) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    // once per process: route 1 opts into more than 48 KiB of shared memory
+    static const cudaError_t e = cudaFuncSetAttribute(
         seg_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(ScanSmem));
     if (e != cudaSuccess) return (int)e;
     seg_scan_kernel<<<1, kThreads, sizeof(ScanSmem), s>>>(

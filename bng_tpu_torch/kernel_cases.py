@@ -55,8 +55,8 @@ PROBE_SPECS = {
     "scattered-stash256-B8192": (4, 2, 8, 256, "scattered", 8192),
     "scattered-k1": (4, 1, 8, 64, "scattered", 1000),
     "scattered-k4-v8": (4, 4, 8, 64, "scattered", 1000),
-    "scattered-k4-v16": (4, 4, 16, 64, "scattered", 1000),
-    "scattered-k8-kw16": (4, 8, 8, 64, "scattered", 1000),
+    "scattered-k4-v16": (4, 4, 16, 256, "scattered", 1000),
+    "scattered-k8-kw16": (4, 8, 8, 256, "scattered", 1000),
     "no-stash": (64, 2, 8, 0, "half", 1000),
     "empty-table": (64, 4, 16, 256, "empty", 1000),
     "half-load-empty-stash-B8192": (1024, 2, 8, 256, "half", 8192),

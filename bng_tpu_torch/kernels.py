@@ -40,6 +40,12 @@ SIGNATURES = {
     "seg_prefix": ("bng_seg_prefix", [_P, _P, _I, _I, _I, _P, _P, _P]),
 }
 
+# source name -> its -D macros; the Python side reads its numbers from here,
+# so the kernel and its callers agree on them by construction
+DEFINES = {
+    "seg_prefix": {"BNG_B_ONE": 8192},  # largest B of K2's one-CTA route
+}
+
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _ENTRIES = {}  # source name -> its loaded C entry point
@@ -61,9 +67,13 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str) -> list[str]:
+    return NVCC_FLAGS + [f"-D{k}={v}" for k, v in DEFINES.get(name, {}).items()]
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
@@ -80,7 +90,7 @@ def build() -> dict[str, tuple[list[str], str]]:
     procs = {}
     for name in missing:
         tmp = _lib_path(name).with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []

@@ -29,7 +29,7 @@ from bng_tpu_torch import kernels
 from bng_tpu_torch.ops.hashing import u32
 
 COMPUTE = ("prefix", "total", "both")
-B_ONE = 8192  # largest B of the one-CTA route: kBOne in csrc/seg_prefix.cu
+B_ONE = kernels.DEFINES["seg_prefix"]["BNG_B_ONE"]  # largest B of the one-CTA route
 
 
 def seg_prefix_plain(slot, vec, compute: str = "both"):

@@ -28,10 +28,11 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    copied tables: identical verdicts, bytes, stats and tables.
 6. Times with CUDA events: each kernel and its plain version at the main
    path's shapes (device time: the stream is held while the host queues
-   the calls), K2 at B = 32, K2's sweep route past B_ONE, a one-thread
-   launch floor, the device step (Mpps, p50/p99), `Engine.process` per
-   batch with the host, peak device memory. `--profile` adds a
-   torch.profiler trace of a few steps.
+   the calls; each kernel also with L2 flushed before every call), K2 at
+   B = 32, K2's sweep route past B_ONE, a one-thread launch floor, the
+   device step (Mpps, p50/p99), `Engine.process` per batch with the
+   host, peak device memory. `--profile` adds a torch.profiler trace of
+   a few steps.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON; the last line the result JSON.
@@ -90,30 +91,42 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
     """Mean device time of fn() in ms over `iters` back-to-back calls.
 
     A spin kernel holds the stream while the host queues the calls, so the
     events time the device's work and not the host's rate of issuing it.
     If queueing outlasted the spin (a host stall), it is measured again
-    with a longer spin."""
+    with a longer spin. With `flush` (a tensor larger than L2) each call
+    is timed alone after zeroing it, so the call starts with a cold L2."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
     fn()
+    if flush is not None:
+        flush.zero_()
     torch.cuda.synchronize()
     spin_s = max(0.02, 10 * iters * (time.perf_counter() - t))
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    n_ev = iters if flush is not None else 1
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(n_ev)]
     for _ in range(3):
         spin_s = min(spin_s, 1.0)
         torch.cuda._sleep(int(spin_s * 2e9))  # cycles; at most 2 GHz, so it spins >= spin_s
-        start.record()
         t = time.perf_counter()
-        for _ in range(iters):
-            fn()
+        if flush is None:
+            evs[0][0].record()
+            for _ in range(iters):
+                fn()
+            evs[0][1].record()
+        else:
+            for start, end in evs:
+                flush.zero_()
+                start.record()
+                fn()
+                end.record()
         queued_s = time.perf_counter() - t
-        end.record()
         torch.cuda.synchronize()
         if queued_s < spin_s:
             break
@@ -121,7 +134,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     else:
         say(f"note: queueing {iters} calls took {queued_s * 1e3:.1f} ms, longer than the spin; "
             "this time includes host stalls")
-    return start.elapsed_time(end) / iters
+    return sum(s.elapsed_time(e) for s, e in evs) / iters
 
 
 # ---------------------------------------------------------------- deployment
@@ -341,8 +354,7 @@ def probe_bound_ms(a) -> float:
 def seg_bound_ms(s, v, compute) -> float:
     """Least K2 time: the function's bytes over HBM (slot and vec read, the
     asked outputs written). A segmented scan does O(B) adds, far below the
-    bytes' time, so the bytes bound it (not the B^2 work of the kernel's
-    current equality sweep)."""
+    bytes' time, so the bytes bound it."""
     Bq = s.shape[0]
     outs = 2 if compute == "both" else 1
     return (Bq * 8 + Bq * 4 * outs) / HBM_BYTES_PER_S * 1e3
@@ -450,23 +462,30 @@ def main(argv=None) -> int:
     # ---- times ----
     kern = {"probe": {"ms": [], "plain": [], "bound": []},
             "seg_prefix": {"ms": [], "plain": [], "bound": []}}
+    # warm: repeated calls on one input; cold: L2 (50 MB) flushed before each call
+    flush = torch.empty(2**25, dtype=torch.int32, device=device)  # 128 MiB
     for j, a in enumerate(rec["probe"]):
         ms = cuda_ms(lambda: probe_mod.probe_cuda(*a))
+        cold = cuda_ms(lambda: probe_mod.probe_cuda(*a), flush=flush)
         pl = cuda_ms(lambda: probe_mod.probe_plain(*a), iters=5)
         bd = probe_bound_ms(a)
         kern["probe"]["ms"].append(ms)
         kern["probe"]["plain"].append(pl)
         kern["probe"]["bound"].append(bd)
         say(f"  K1 call {j}: K={a[3].shape[1]} V={a[2].shape[1]} nbuckets={a[4]} "
-            f"stash={a[5]}: {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.6f} ms [{card}]")
+            f"stash={a[5]}: {ms:.4f} ms (cold L2 {cold:.4f}), plain {pl:.4f} ms, "
+            f"bound {bd:.6f} ms [{card}]")
     for j, (s, v, c) in enumerate(rec["seg_prefix"]):
         ms = cuda_ms(lambda: seg_mod.seg_prefix_cuda(s, v, c))
+        cold = cuda_ms(lambda: seg_mod.seg_prefix_cuda(s, v, c), flush=flush)
         pl = cuda_ms(lambda: seg_mod.seg_prefix_plain(s, v, c), iters=5)
         bd = seg_bound_ms(s, v, c)
         kern["seg_prefix"]["ms"].append(ms)
         kern["seg_prefix"]["plain"].append(pl)
         kern["seg_prefix"]["bound"].append(bd)
-        say(f"  K2 call {j} ({c}): {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.6f} ms [{card}]")
+        say(f"  K2 call {j} ({c}): {ms:.4f} ms (cold L2 {cold:.4f}), plain {pl:.4f} ms, "
+            f"bound {bd:.6f} ms [{card}]")
+    del flush
     s1, v1 = rec["seg_prefix"][0][0][:32].contiguous(), rec["seg_prefix"][0][1][:32].contiguous()
     say(f"  K2 at B=32 (the one-CTA route's fixed work): "
         f"{cuda_ms(lambda: seg_mod.seg_prefix_cuda(s1, v1)):.4f} ms [{card}]")
