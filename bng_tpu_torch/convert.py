@@ -2,10 +2,11 @@
 
 `tables_from_numpy` turns a `PipelineTables` of the JAX package whose
 leaves were fetched with `np.asarray` (uint32 words) into the port's
-`PipelineTables` of int32 word tensors on `device`; `tables_to_numpy`
-goes back to uint32 numpy for comparison. The structures are matched by
-NamedTuple class and field names, so this module needs nothing of the
-JAX package.
+`PipelineTables` of int32 word tensors on `device`, every stage's leaves
+included (garden, PPPoE, edge; a stage left out stays None);
+`tables_to_numpy` goes back to uint32 numpy for comparison. The
+structures are matched by NamedTuple class and field names, so this
+module needs nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from bng_tpu_torch.ops.dhcp import DHCPTables
 from bng_tpu_torch.ops.nat44 import NATTables
-from bng_tpu_torch.ops.pipeline import LATER_STAGES, PipelineTables
+from bng_tpu_torch.ops.pipeline import PipelineTables
 from bng_tpu_torch.ops.qtable import QTableState
 from bng_tpu_torch.ops.table import TableState
 
@@ -34,11 +35,6 @@ def _leaf_to_tensor(a, device) -> torch.Tensor:
 
 def tables_from_numpy(tables, device) -> PipelineTables:
     """JAX-package PipelineTables (numpy uint32 leaves) -> the port's tensors."""
-    for name in LATER_STAGES:
-        if getattr(tables, name, None) is not None:
-            raise NotImplementedError(
-                f"table {name!r} belongs to a stage not ported yet (a later slice)")
-
     def conv(x):
         cls = _PORT_TYPES.get(type(x).__name__)
         if cls is None:

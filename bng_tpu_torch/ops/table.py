@@ -77,18 +77,19 @@ def scatter_set_drop(dst, idx, src, col: int | None = None):
     row 0 carrying row 0's current value). Correct whenever in-range lanes
     that share a target carry the same value, which every caller
     guarantees (the same condition under which the JAX scatter is
-    deterministic)."""
+    deterministic). The first lane is picked with `index_select`: indexing
+    with a 0-d CUDA tensor would read it back to the host."""
     n = dst.shape[0]
     if n == 0:
         return dst
     idx = idx.to(torch.int64)
     keep = (idx >= 0) & (idx < n)
-    first = keep.to(torch.uint8).argmax()
+    first = keep.to(torch.uint8).argmax().view(1)
     any_keep = keep.any()
     zero = torch.zeros((), dtype=torch.int64, device=idx.device)
-    park = torch.where(any_keep, idx[first], zero)
+    park = torch.where(any_keep, idx.index_select(0, first), zero)
     target = dst[:, col] if col is not None else dst
-    park_val = torch.where(any_keep, src[first], target[0])
+    park_val = torch.where(any_keep, src.index_select(0, first), target[:1])
     idx = torch.where(keep, idx, park)
     keep_b = keep.view(-1, *([1] * (src.dim() - 1)))
     src = torch.where(keep_b, src, park_val)
@@ -123,6 +124,25 @@ def xla_lookup(state: TableState, query, nbuckets: int, stash: int) -> LookupRes
                                      query.to(torch.int32).contiguous(), nbuckets, stash))
 
 
+PINNED_UPLOAD_MAX = 16 << 20  # bytes; larger uploads are startup table loads
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> a tensor on `device` that never aliases `a`.
+
+    On the card an array of at most PINNED_UPLOAD_MAX bytes is copied into
+    pinned host memory and sent with an async copy: the host does not
+    wait for work queued before it, and `a` may be rewritten as soon as
+    this returns (the pinned copy is the transfer's source, and the
+    caching host allocator holds it until the transfer is done). Larger
+    arrays take the plain copy, which waits for the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type == "cuda" and t.nbytes <= PINNED_UPLOAD_MAX:
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, copy=True)
+
+
 def words_to_device(a: np.ndarray, device) -> torch.Tensor:
     """uint32 numpy -> int32 word tensor (bit-identical) on `device`.
     Always a copy: device tensors are written in place and must never
@@ -130,7 +150,7 @@ def words_to_device(a: np.ndarray, device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(a).to(device, copy=True)
+    return to_device(a, device)
 
 
 class HostTable:

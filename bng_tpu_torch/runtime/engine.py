@@ -1,10 +1,26 @@
-"""Host runtime engine for the fused IPoE step (port of the `process` path
-of `bng_tpu/runtime/engine.py`).
+"""Host runtime engine (port of `bng_tpu/runtime/engine.py`: `process`,
+`process_dhcp`, `process_ring` and `process_ring_pipelined`).
 
-`Engine.process` packs frames into a [B, L] uint8 batch, drains the
-bounded host->device table updates, runs one `pipeline_step` and demuxes
-the verdicts: TX/FWD frames out, DROP counted, PASS lanes to the slow
-path, and new NAT flows punted to `NATManager.handle_new_flow`.
+The engine packs frames into a [B, L] uint8 batch, drains the bounded
+host->device table updates, runs one device program and demuxes the
+verdicts: TX/FWD frames out, DROP counted, PASS lanes to the slow path,
+new NAT flows punted to `NATManager.handle_new_flow`, mirrored lanes to
+`mirror_sink`. Its ways in:
+
+- `process(frames)`: one batch through the fused step, every stage the
+  engine was given (garden, PPPoE and edge are optional);
+- `process_dhcp(frames)`: the DHCP-only program (parse and the DHCP
+  responder on the dhcp tables alone, no K2 call), in pow2 batch
+  buckets;
+- `process_ring(ring)` / `process_ring_pipelined(ring)`: batches
+  assembled from a packet ring (`runtime/ring.py`); all-control batches
+  take the DHCP-only program. The pipelined loop dispatches batch k+1
+  before it retires batch k.
+
+A dispatch makes no host round trip: uploads go through pinned memory
+(`ops/table.to_device`), and the outputs come back through async copies
+queued behind the step with an event recorded after them (`_InFlight`).
+Only the retire waits, and only on its own batch's event.
 
 The engine owns its device tensors and updates them IN PLACE: applied
 host updates, NAT session counters and QoS token rows (the JAX engine
@@ -13,7 +29,7 @@ dirty the drain ships nothing (the dense config arrays are re-sent only
 when they changed). The engine runs on the card unless the caller asks
 for the CPU with `device="cpu"`.
 
-Telemetry spans, the scheduler, express/devloop lanes, the packet ring
+Telemetry spans, the scheduler, express/devloop lanes, the native ring
 and checkpoints belong to later slices of the port.
 """
 
@@ -22,7 +38,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -30,25 +46,40 @@ import torch
 from bng_tpu_torch import frames as F
 from bng_tpu_torch import resolve_device
 from bng_tpu_torch.control.nat import NATManager, apply_nat_updates
+from bng_tpu_torch.edge.ops import EDGE_NSTATS
+from bng_tpu_torch.edge.tables import EdgeTables
 from bng_tpu_torch.ops.antispoof import (
     AB_IPV4, AB_MODE, AB_V6_0, AB_VALIDS, ANTISPOOF_NSTATS, ANTISPOOF_WORDS, MODE_DISABLED,
     VALID_V4, VALID_V6,
 )
 from bng_tpu_torch.ops.dhcp import NSTATS as DHCP_NSTATS
+from bng_tpu_torch.ops.dhcp import dhcp_fastpath
+from bng_tpu_torch.ops.garden import GARDEN_NSTATS, GARDEN_WORDS, GV_FLAG
+from bng_tpu_torch.ops.hashing import MASK32
 from bng_tpu_torch.ops.nat44 import NAT_NSTATS
+from bng_tpu_torch.ops.parse import parse_batch
 from bng_tpu_torch.ops.pipeline import (
-    VERDICT_DROP, VERDICT_FWD, VERDICT_TX, PipelineGeom, PipelineResult, PipelineTables,
-    pipeline_step,
+    VERDICT_DROP, VERDICT_FWD, VERDICT_PASS, VERDICT_TX, PipelineGeom, PipelineResult,
+    PipelineTables, pipeline_step,
 )
+from bng_tpu_torch.ops.pppoe import PPPOE_NSTATS
 from bng_tpu_torch.ops.qos import QOS_NSTATS
 from bng_tpu_torch.ops.qtable import HostQTable, QTableGeom, apply_qupdate
-from bng_tpu_torch.ops.table import HostTable, TableGeom, words_to_device, apply_update
-from bng_tpu_torch.runtime.tables import FastPathTables, apply_fastpath_updates
+from bng_tpu_torch.ops.table import HostTable, TableGeom, apply_update, to_device, words_to_device
+from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS
+from bng_tpu_torch.runtime.tables import (
+    FastPathTables, PPPoEFastPathTables, apply_fastpath_updates,
+)
 from bng_tpu_torch.utils.net import mac_to_u64, split_u64
 
 log = logging.getLogger(__name__)
 
 PKT_SLOT = 1536  # default per-lane packet slot (full MTU + encap headroom)
+
+# EngineStats accumulator -> the result field it folds
+_STAT_FIELDS = (("dhcp", "dhcp_stats"), ("nat", "nat_stats"), ("qos", "qos_stats"),
+                ("spoof", "spoof_stats"), ("garden", "garden_stats"),
+                ("pppoe", "pppoe_stats"), ("edge", "edge_stats"))
 
 
 @dataclass
@@ -57,12 +88,61 @@ class EngineStats:
     nat: np.ndarray = field(default_factory=lambda: np.zeros(NAT_NSTATS, dtype=np.uint64))
     qos: np.ndarray = field(default_factory=lambda: np.zeros(QOS_NSTATS, dtype=np.uint64))
     spoof: np.ndarray = field(default_factory=lambda: np.zeros(ANTISPOOF_NSTATS, dtype=np.uint64))
+    # walled-garden gate: [gated_drops, allowed_hits]
+    garden: np.ndarray = field(default_factory=lambda: np.zeros(GARDEN_NSTATS, dtype=np.uint64))
+    # PPPoE decap + encap (ops/pppoe.py PST_*)
+    pppoe: np.ndarray = field(default_factory=lambda: np.zeros(PPPOE_NSTATS, dtype=np.uint64))
+    # tap mirror + route rewrite (edge/ops.py EST_*)
+    edge: np.ndarray = field(default_factory=lambda: np.zeros(EDGE_NSTATS, dtype=np.uint64))
     batches: int = 0
     tx: int = 0
     fwd: int = 0
     dropped: int = 0
     passed: int = 0
     slow_errors: int = 0
+
+
+class DhcpBatchResult(NamedTuple):
+    """Output of the DHCP-only program: TX where the device answered, else PASS."""
+
+    verdict: torch.Tensor  # [B] int32
+    out_pkt: torch.Tensor
+    out_len: torch.Tensor
+    dhcp_stats: torch.Tensor
+
+
+class _InFlight:
+    """A dispatched batch's outputs on their way to the host.
+
+    On the card every output is copied into pinned host memory by an async
+    copy queued behind the batch, and an event is recorded after the
+    copies; `wait` blocks on that event alone, so a batch dispatched
+    later keeps the card busy meanwhile. On the CPU the outputs are
+    already there."""
+
+    LANES = ("verdict", "out_pkt", "out_len", "nat_punt", "spoof_violation", "mirror")
+
+    def __init__(self, res):
+        present = [(name, getattr(res, f)) for name, f in _STAT_FIELDS
+                   if getattr(res, f, None) is not None]
+        self.stat_names = [name for name, _ in present]
+        leaves = {k: getattr(res, k) for k in self.LANES if getattr(res, k, None) is not None}
+        leaves["stats"] = torch.cat([t for _, t in present])
+        if leaves["stats"].device.type == "cuda":
+            self._host = {k: v.to("cpu", non_blocking=True) for k, v in leaves.items()}
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = leaves, None
+
+    def wait(self) -> dict[str, np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        host = {k: v.numpy() for k, v in self._host.items()}
+        B = host["verdict"].shape[0]
+        for k in ("nat_punt", "spoof_violation"):  # absent on the DHCP-only program
+            host.setdefault(k, np.zeros((B,), dtype=bool))
+        return host
 
 
 def _mac_key(mac) -> list[int]:
@@ -144,39 +224,125 @@ class AntispoofTables:
         self.ranges[free[0]] = (prefix_len, network)
 
 
+class GardenTables:
+    """Host side of the walled-garden gate (`ops/garden.py`): gardened
+    subscriber IPs and the allowed destinations (portal, DNS)."""
+
+    def __init__(self, nbuckets: int = 1 << 12, stash: int = 64, update_slots: int = 128,
+                 max_allowed: int = 64):
+        self.subscribers = HostTable(nbuckets, 1, GARDEN_WORDS, stash=stash,
+                                     name="garden_subscribers")
+        self.allowed = np.zeros((max_allowed, 3), dtype=np.uint32)
+        self.geom = TableGeom(nbuckets, stash)
+        self.update_slots = update_slots
+
+    def set_gardened(self, ip: int, gardened: bool) -> None:
+        """Mark or unmark a subscriber IP (idempotent: insert is an upsert)."""
+        if gardened:
+            row = np.zeros((GARDEN_WORDS,), dtype=np.uint32)
+            row[GV_FLAG] = 1
+            self.subscribers.insert([ip], row)
+        else:
+            self.subscribers.delete([ip])
+
+    def allow_destination(self, ip: int, port: int = 0, proto: int = 0) -> None:
+        """port/proto 0 = wildcard."""
+        free = np.nonzero(self.allowed[:, 0] == 0)[0]
+        if len(free) == 0:
+            raise RuntimeError("allowed-destinations table full")
+        self.allowed[free[0]] = (ip, port, proto)
+
+
+def _apply_all_updates(t: PipelineTables, upd) -> None:
+    """Apply one drained update batch in place. Layout: 7 entries, then the
+    tails of the stages present, in order: garden (delta, allowed rows),
+    PPPoE (by_sid delta, by_ip delta), edge (tap delta, filters, config,
+    route delta)."""
+    fp_upd, nat_upd, qup, qdown, sp_upd, sp_ranges, sp_config, *tails = upd
+    apply_fastpath_updates(t.dhcp, fp_upd)
+    apply_nat_updates(t.nat, nat_upd)
+    apply_qupdate(t.qos_up, qup)
+    apply_qupdate(t.qos_down, qdown)
+    apply_update(t.spoof, sp_upd)
+    t.spoof_ranges.copy_(sp_ranges)
+    t.spoof_config.copy_(sp_config)
+    tails = list(tails)
+    if t.garden is not None:
+        apply_update(t.garden, tails.pop(0))
+        t.garden_allowed.copy_(tails.pop(0))
+    if t.pppoe_by_sid is not None:
+        apply_update(t.pppoe_by_sid, tails.pop(0))
+        apply_update(t.pppoe_by_ip, tails.pop(0))
+    if t.tap is not None:
+        apply_update(t.tap, tails.pop(0))
+        t.tap_filters.copy_(tails.pop(0))
+        t.tap_config.copy_(tails.pop(0))
+        apply_update(t.route, tails.pop(0))
+
+
 class Engine:
+    # pow2 batch buckets of the DHCP-only lane (the reference's compile-shape
+    # budget); a larger control batch is split at the cap
+    DHCP_BATCH_FLOOR = 64
+    DHCP_BATCH_CAP = 8192
+
     def __init__(self, fastpath: FastPathTables, nat: NATManager,
                  qos: QoSTables | None = None, antispoof: AntispoofTables | None = None,
+                 garden: GardenTables | None = None, pppoe: PPPoEFastPathTables | None = None,
                  batch_size: int = 256, pkt_slot: int = PKT_SLOT,
                  slow_path: Callable[[bytes], bytes | None] | None = None,
                  violation_sink: Callable[[int, bytes], None] | None = None,
-                 clock: Callable[[], float] = time.time, device=None):
+                 clock: Callable[[], float] = time.time,
+                 edge: EdgeTables | None = None,
+                 mirror_sink: Callable[[int, bytes, int], None] | None = None,
+                 device=None):
         self.device = resolve_device(device)
         self.fastpath = fastpath
         self.nat = nat
         self.qos = qos or QoSTables()
         self.antispoof = antispoof or AntispoofTables()
+        # None = the stage is not in the step (an IPoE-only deployment pays nothing)
+        self.garden = garden
+        self.pppoe = pppoe
+        self.edge = edge
+        # retire hook for mirrored lanes: (lane, original frame, warrant id)
+        self.mirror_sink = mirror_sink
         self.B = batch_size
         self.L = pkt_slot
         self.slow_path = slow_path
         self.violation_sink = violation_sink
         self.clock = clock
         self.stats = EngineStats()
-        self.geom = PipelineGeom(dhcp=fastpath.geom, nat=nat.geom, qos=self.qos.geom,
-                                 spoof=self.antispoof.geom)
+        self._inflight = None  # the pipelined ring loop's dispatched batch
+        self._stage_bufs = [None, None]  # its ping-pong staging buffers
+        self._stage_idx = 0
+        self.geom = PipelineGeom(
+            dhcp=fastpath.geom, nat=nat.geom, qos=self.qos.geom, spoof=self.antispoof.geom,
+            garden=garden.geom if garden else None,
+            pppoe=pppoe.geom if pppoe else None,
+            tap=edge.geom if edge else None,
+            route=edge.geom if edge else None,
+        )
         self.tables: PipelineTables = self._device_tables()
 
     # -- device state --
     def _dense_host(self) -> dict[str, np.ndarray]:
         """The small dense config arrays the device copies wholesale."""
-        return {"pools": self.fastpath.pools, "server": self.fastpath.server,
-                "hairpin": self.nat.hairpin, "alg": self.nat.alg,
-                "nat_config": self.nat.config_array(),
-                "spoof_ranges": self.antispoof.ranges, "spoof_config": self.antispoof.config}
+        d = {"pools": self.fastpath.pools, "server": self.fastpath.server,
+             "hairpin": self.nat.hairpin, "alg": self.nat.alg,
+             "nat_config": self.nat.config_array(),
+             "spoof_ranges": self.antispoof.ranges, "spoof_config": self.antispoof.config}
+        if self.garden is not None:
+            d["garden_allowed"] = self.garden.allowed
+        if self.edge is not None:
+            d["tap_filters"] = self.edge.tap_filters
+            d["tap_config"] = self.edge.tap_config
+        return d
 
     def _device_tables(self) -> PipelineTables:
         self._dense_sent = {k: v.copy() for k, v in self._dense_host().items()}
         dev = self.device
+        g, p, e = self.garden, self.pppoe, self.edge
         return PipelineTables(
             dhcp=self.fastpath.device_tables(dev),
             nat=self.nat.device_tables(dev),
@@ -185,6 +351,15 @@ class Engine:
             spoof=self.antispoof.bindings.device_state(dev),
             spoof_ranges=words_to_device(self.antispoof.ranges, dev),
             spoof_config=words_to_device(self.antispoof.config, dev),
+            garden=g.subscribers.device_state(dev) if g else None,
+            garden_allowed=words_to_device(g.allowed, dev) if g else None,
+            pppoe_by_sid=p.by_sid.device_state(dev) if p else None,
+            pppoe_by_ip=p.by_ip.device_state(dev) if p else None,
+            pppoe_server_mac=words_to_device(p.server_mac, dev) if p else None,
+            tap=e.tap.device_state(dev) if e else None,
+            tap_filters=words_to_device(e.tap_filters, dev) if e else None,
+            tap_config=words_to_device(e.tap_config, dev) if e else None,
+            route=e.route.device_state(dev) if e else None,
         )
 
     def resync_tables(self) -> None:
@@ -193,20 +368,27 @@ class Engine:
         self.tables = self._device_tables()
 
     def _host_mirrors(self):
-        return (self.fastpath.sub, self.fastpath.vlan, self.fastpath.cid,
-                self.nat.sessions, self.nat.reverse, self.nat.sub_nat,
-                self.qos.up, self.qos.down, self.antispoof.bindings)
+        mirrors = [self.fastpath.sub, self.fastpath.vlan, self.fastpath.cid,
+                   self.nat.sessions, self.nat.reverse, self.nat.sub_nat,
+                   self.qos.up, self.qos.down, self.antispoof.bindings]
+        if self.garden is not None:
+            mirrors.append(self.garden.subscribers)
+        if self.pppoe is not None:
+            mirrors += [self.pppoe.by_sid, self.pppoe.by_ip]
+        if self.edge is not None:
+            mirrors += [self.edge.tap, self.edge.route]
+        return mirrors
 
     def pending_dirty(self) -> int:
         return sum(t.dirty_count() for t in self._host_mirrors())
 
-    def _dense_changed(self) -> bool:
-        return any(not np.array_equal(v, self._dense_sent[k])
-                   for k, v in self._dense_host().items())
+    def _dense_changed(self, keys=None) -> bool:
+        host = self._dense_host()
+        return any(not np.array_equal(host[k], self._dense_sent[k]) for k in keys or host)
 
     def _drain_updates(self):
-        """One bounded update batch, or None when there is nothing to ship
-        (no dirty slot and no changed config array)."""
+        """One bounded update batch for the fused step, or None when there is
+        nothing to ship (no dirty slot and no changed config array)."""
         if self.pending_dirty() == 0 and not self._dense_changed():
             return None
         if any(t._dirty_all for t in self._host_mirrors()):
@@ -215,7 +397,7 @@ class Engine:
             return None
         dev = self.device
         self._dense_sent = {k: v.copy() for k, v in self._dense_host().items()}
-        return (
+        upd = (
             self.fastpath.make_updates(dev),
             self.nat.make_updates(dev),
             self.qos.up.make_update(self.qos.update_slots, dev),
@@ -224,19 +406,88 @@ class Engine:
             words_to_device(self.antispoof.ranges, dev),
             words_to_device(self.antispoof.config, dev),
         )
+        if self.garden is not None:
+            upd += (self.garden.subscribers.make_update(self.garden.update_slots, dev),
+                    words_to_device(self.garden.allowed, dev))
+        if self.pppoe is not None:
+            upd += self.pppoe.make_updates(dev)
+        if self.edge is not None:
+            upd += self.edge.make_updates(dev)
+        return upd
 
-    def _apply_updates(self, upd) -> None:
-        fp_upd, nat_upd, qup, qdown, sp_upd, sp_ranges, sp_config = upd
-        t = self.tables
-        apply_fastpath_updates(t.dhcp, fp_upd)
-        apply_nat_updates(t.nat, nat_upd)
-        apply_qupdate(t.qos_up, qup)
-        apply_qupdate(t.qos_down, qdown)
-        apply_update(t.spoof, sp_upd)
-        t.spoof_ranges.copy_(sp_ranges)
-        t.spoof_config.copy_(sp_config)
+    def _drain_fastpath_updates(self):
+        """The DHCP-only program's drain: the fastpath tables alone (the
+        other tables' deltas wait for the next fused step), or None."""
+        fp = self.fastpath
+        if fp.dirty_count() == 0 and not self._dense_changed(("pools", "server")):
+            return None
+        if any(t._dirty_all for t in (fp.sub, fp.vlan, fp.cid)):
+            self.resync_tables()
+            return None
+        self._dense_sent["pools"] = fp.pools.copy()
+        self._dense_sent["server"] = fp.server.copy()
+        return fp.make_updates(self.device)
 
-    # -- the serving path --
+    # -- dispatch (no host round trip) --
+    def _now_tensors(self, now: float):
+        # fills, not host copies
+        dev = self.device
+        return (torch.full((), int(now) & MASK32, dtype=torch.int64, device=dev),
+                torch.full((), int(now * 1e6) & MASK32, dtype=torch.int64, device=dev))
+
+    def _dispatch_step(self, pkt: np.ndarray, length: np.ndarray, fa: np.ndarray,
+                       now: float) -> PipelineResult:
+        """Drain + apply updates and queue one fused step."""
+        upd = self._drain_updates()
+        if upd is not None:
+            _apply_all_updates(self.tables, upd)
+        dev = self.device
+        now_s, now_us = self._now_tensors(now)
+        res = pipeline_step(self.tables, to_device(pkt, dev), to_device(length, dev),
+                            to_device(fa, dev), self.geom, now_s, now_us)
+        self.stats.batches += 1
+        return res
+
+    def _run_dhcp_batch(self, pkt: np.ndarray, length: np.ndarray,
+                        now: float) -> DhcpBatchResult:
+        """Drain the fastpath tables and queue the DHCP-only program (parse +
+        the DHCP responder on the dhcp tables the fused step also uses):
+        3 K1 probes, no K2 call."""
+        upd = self._drain_fastpath_updates()
+        if upd is not None:
+            apply_fastpath_updates(self.tables.dhcp, upd)
+        dev = self.device
+        pkt_d, len_d = to_device(pkt, dev), to_device(length, dev)
+        now_s, _ = self._now_tensors(now)
+        res = dhcp_fastpath(pkt_d, len_d, parse_batch(pkt_d, len_d), self.tables.dhcp,
+                            self.geom.dhcp, now_s)
+        self.stats.batches += 1
+        verdict = torch.where(res.is_reply, VERDICT_TX, VERDICT_PASS).to(torch.int32)
+        return DhcpBatchResult(verdict=verdict, out_pkt=res.out_pkt, out_len=res.out_len,
+                               dhcp_stats=res.stats)
+
+    def _fold_stats(self, names, stats: np.ndarray) -> None:
+        off = 0
+        for name in names:
+            acc = getattr(self.stats, name)
+            acc += stats[off: off + len(acc)].astype(np.uint64)
+            off += len(acc)
+
+    def _collect(self, res) -> dict[str, np.ndarray]:
+        """Wait for one batch's outputs and fold its stats."""
+        fl = _InFlight(res)
+        host = fl.wait()
+        self._fold_stats(fl.stat_names, host["stats"])
+        return host
+
+    def step(self, pkt: np.ndarray, length: np.ndarray, fa: np.ndarray,
+             now: float) -> PipelineResult:
+        """Drain + apply updates, run one fused step, fold the stats."""
+        res = self._dispatch_step(pkt, length, fa, now)
+        self._collect(res)
+        return res
+
+    # -- frames in, verdicts out --
     def _pack_frames(self, frames: list[bytes], B: int):
         """Stage a frame list into [B, L] uint8 + [B] lengths (numpy)."""
         if len(frames) > B:
@@ -257,32 +508,31 @@ class Engine:
         length[: len(frames)] = lens
         return pkt, length
 
-    def _fold_stats(self, res: PipelineResult) -> None:
-        self.stats.dhcp += res.dhcp_stats.cpu().numpy().astype(np.uint64)
-        self.stats.nat += res.nat_stats.cpu().numpy().astype(np.uint64)
-        self.stats.qos += res.qos_stats.cpu().numpy().astype(np.uint64)
-        self.stats.spoof += res.spoof_stats.cpu().numpy().astype(np.uint64)
+    def _handle_slow_lanes(self, items: list) -> list:
+        """[(lane, frame)] through the slow-path handler -> [(lane, reply|None)];
+        a handler error is counted and logged, and the drain goes on."""
+        out = []
+        for lane, frame in items:
+            reply = None
+            if self.slow_path is not None:
+                try:
+                    reply = self.slow_path(frame)
+                except Exception:  # noqa: BLE001 — slow path is untrusted input
+                    self.stats.slow_errors += 1
+                    log.exception("slow path failed (lane %d)", lane)
+            out.append((lane, reply))
+        return out
 
-    def step(self, pkt: np.ndarray, length: np.ndarray, fa: np.ndarray,
-             now: float) -> PipelineResult:
-        """Drain + apply updates, run one device step, fold the stats."""
-        upd = self._drain_updates()
-        if upd is not None:
-            self._apply_updates(upd)
-        dev = self.device
-        # fills, not host copies: the step itself makes no host round trip
-        now_s = torch.full((), int(now) & 0xFFFFFFFF, dtype=torch.int64, device=dev)
-        now_us = torch.full((), int(now * 1e6) & 0xFFFFFFFF, dtype=torch.int64, device=dev)
-        res = pipeline_step(self.tables, torch.from_numpy(pkt).to(dev),
-                            torch.from_numpy(length).to(dev), torch.from_numpy(fa).to(dev),
-                            self.geom, now_s, now_us)
-        self.stats.batches += 1
-        self._fold_stats(res)
-        return res
+    def _punt(self, frame: bytes, now: float, lane: int) -> None:
+        try:
+            self._punt_new_flow(frame, int(now))
+        except Exception:  # noqa: BLE001 — untrusted frame: count, log, go on
+            self.stats.slow_errors += 1
+            log.exception("new-flow punt failed (lane %d)", lane)
 
     def process(self, frames: list[bytes], from_access: list[bool] | bool = True,
                 now: float | None = None) -> dict:
-        """Run one batch through the device pipeline and apply verdicts.
+        """Run one batch through the fused step and apply verdicts.
 
         Returns {"tx": [(lane, frame)], "fwd": [...], "dropped": [lanes],
         "slow": [(lane, reply_frame|None)]}.
@@ -295,17 +545,14 @@ class Engine:
             fa = np.zeros((self.B,), dtype=bool)
             fa[: len(from_access)] = from_access
 
-        res = self.step(pkt, length, fa, now)
+        h = self._collect(self._dispatch_step(pkt, length, fa, now))
         n = len(frames)
-        verdict = res.verdict[:n].cpu().numpy()
-        out_len = res.out_len[:n].cpu().numpy()
-        punt = res.nat_punt[:n].cpu().numpy()
-        viol = res.spoof_violation[:n].cpu().numpy()
-        send = (verdict == VERDICT_TX) | (verdict == VERDICT_FWD)
-        out_rows = res.out_pkt[:n].cpu().numpy() if send.any() else None
+        verdict, out_len, out_rows = h["verdict"][:n], h["out_len"], h["out_pkt"]
+        punt, viol = h["nat_punt"], h["spoof_violation"]
+        mir = h.get("mirror")
 
         out = {"tx": [], "fwd": [], "dropped": [], "slow": []}
-        slow_items = []
+        slow_items, punt_lanes = [], []
         for i, v in enumerate(verdict):
             if v == VERDICT_TX:
                 out["tx"].append((i, bytes(out_rows[i, : int(out_len[i])])))
@@ -319,30 +566,192 @@ class Engine:
             else:
                 self.stats.passed += 1
                 if punt[i]:
-                    try:
-                        self._punt_new_flow(frames[i], int(now))
-                    except Exception:  # noqa: BLE001 — untrusted frame: count, log, go on
-                        self.stats.slow_errors += 1
-                        log.exception("new-flow punt failed (lane %d)", i)
-                    out["slow"].append((i, None))
+                    self._punt(frames[i], now, i)
+                    punt_lanes.append(i)
                 else:
                     slow_items.append((i, frames[i]))
             if viol[i] and self.violation_sink is not None:
                 self.violation_sink(i, frames[i])
-        for i, frame in slow_items:
-            reply = None
-            if self.slow_path is not None:
-                try:
-                    reply = self.slow_path(frame)
-                except Exception:  # noqa: BLE001 — slow path is untrusted input
-                    self.stats.slow_errors += 1
-                    log.exception("slow path failed (lane %d)", i)
-            out["slow"].append((i, reply))
-        out["slow"].sort(key=lambda t: t[0])
+            if mir is not None and mir[i] and self.mirror_sink is not None:
+                # interception sees the ORIGINAL frame, whatever the verdict
+                self.mirror_sink(i, frames[i], int(mir[i]))
+        out["slow"] = sorted([(i, None) for i in punt_lanes]
+                             + self._handle_slow_lanes(slow_items), key=lambda t: t[0])
         return out
+
+    @classmethod
+    def dhcp_batch_bucket(cls, n: int) -> int:
+        """Pow2 bucket (floor 64, cap 8192) for a DHCP-only batch of n frames."""
+        b = max(cls.DHCP_BATCH_FLOOR, 1 << max(0, n - 1).bit_length())
+        return min(b, cls.DHCP_BATCH_CAP)
+
+    def process_dhcp(self, frames: list[bytes], now: float | None = None,
+                     batch: int | None = None) -> dict:
+        """The DHCP-only lane: a pre-classified control batch through the
+        DHCP-only program. Frames it does not answer come back as "slow".
+        Returns {"tx": [(lane, frame)], "slow": [(lane, reply|None)]}."""
+        if batch is None and len(frames) > self.DHCP_BATCH_CAP:
+            out = {"tx": [], "slow": []}
+            for base in range(0, len(frames), self.DHCP_BATCH_CAP):
+                part = self.process_dhcp(frames[base: base + self.DHCP_BATCH_CAP], now=now)
+                for k in ("tx", "slow"):
+                    out[k].extend((base + i, v) for i, v in part[k])
+            return out
+        B = batch if batch is not None else self.dhcp_batch_bucket(len(frames))
+        now = now if now is not None else self.clock()
+        pkt, length = self._pack_frames(frames, B)
+        h = self._collect(self._run_dhcp_batch(pkt, length, now))
+        out = {"tx": [], "slow": []}
+        slow_items = []
+        for i, v in enumerate(h["verdict"][: len(frames)]):
+            if v == VERDICT_TX:
+                out["tx"].append((i, bytes(h["out_pkt"][i, : int(h["out_len"][i])])))
+                self.stats.tx += 1
+            else:
+                self.stats.passed += 1
+                slow_items.append((i, frames[i]))
+        out["slow"] = self._handle_slow_lanes(slow_items)
+        return out
+
+    # -- the packet-ring loops --
+    def _dispatch_ring_batch(self, pkt, length, flags, n: int, now: float):
+        """All-control batches take the DHCP-only program; mixed ones the
+        fused step (one dispatch beats two)."""
+        if bool(((flags[:n] & FLAG_DHCP_CTRL) != 0).all()):
+            return self._run_dhcp_batch(pkt, length, now)
+        return self._dispatch_step(pkt, length, (flags & FLAG_FROM_ACCESS) != 0, now)
+
+    def process_ring(self, ring, now: float | None = None) -> int:
+        """Drain one batch from a packet ring through the device and apply
+        its verdicts back to the ring (TX/FWD out, PASS frames to the slow
+        path, slow-path replies injected on TX). Returns frames processed."""
+        if self._inflight is not None:
+            # a pipelined batch holds one of its ring's assemble windows
+            self.flush_pipeline()
+        pkt = np.zeros((self.B, self.L), dtype=np.uint8)
+        length = np.zeros((self.B,), dtype=np.int64)
+        flags = np.zeros((self.B,), dtype=np.int64)
+        n = ring.assemble(pkt, length, flags)
+        if n == 0:
+            return 0
+        now = now if now is not None else self.clock()
+        h = self._collect(self._dispatch_ring_batch(pkt, length, flags, n, now))
+        self._apply_ring_verdicts(ring, h, pkt, length, n, now)
+        return n
+
+    def _apply_ring_verdicts(self, ring, h: dict, pkt, length, n: int, now: float) -> None:
+        """Demux one batch's host outputs back to the ring it came from."""
+        vv = h["verdict"][:n]
+        ring.complete(vv.astype(np.uint8), h["out_pkt"], h["out_len"], n)
+        self.stats.tx += int((vv == VERDICT_TX).sum())
+        self.stats.fwd += int((vv == VERDICT_FWD).sum())
+        self.stats.dropped += int((vv == VERDICT_DROP).sum())
+        self.stats.passed += int((vv == VERDICT_PASS).sum())
+
+        if self.violation_sink is not None:
+            for lane in np.nonzero(h["spoof_violation"][:n])[0]:
+                self.violation_sink(int(lane), bytes(pkt[lane, : int(length[lane])]))
+        mir = h.get("mirror")
+        if mir is not None and self.mirror_sink is not None:
+            for lane in np.nonzero(mir[:n])[0]:
+                # the frame as it arrived, whatever the verdict
+                self.mirror_sink(int(lane), bytes(pkt[lane, : int(length[lane])]),
+                                 int(mir[lane]))
+
+        # The slow ring holds PASS frames in lane order: pop one per PASS lane
+        # to recover its punt flag. Every PASS frame is popped even when a
+        # handler fails, or later batches would misalign.
+        punt = h["nat_punt"][:n]
+        slow_items, slow_fa = [], {}
+        for lane in np.nonzero(vv == VERDICT_PASS)[0]:
+            got = ring.slow_pop()
+            if got is None:
+                break  # the slow ring overflowed during complete()
+            frame, fl = got
+            if punt[lane]:
+                self._punt(frame, now, int(lane))
+            else:
+                slow_items.append((int(lane), frame))
+                slow_fa[int(lane)] = (fl & FLAG_FROM_ACCESS) != 0
+        for lane, reply in self._handle_slow_lanes(slow_items):
+            if reply is not None:
+                ring.tx_inject(reply, from_access=slow_fa[lane])
+
+    def _staging(self, idx: int):
+        """Ping-pong staging buffers (allocated once): the in-flight batch
+        keeps its frames in one while the next assembles into the other.
+        Their upload copies them into pinned memory before it returns, so
+        a buffer is never rewritten under an unfinished transfer."""
+        if self._stage_bufs[idx] is None:
+            self._stage_bufs[idx] = (np.zeros((self.B, self.L), dtype=np.uint8),
+                                     np.zeros((self.B,), dtype=np.int64),
+                                     np.zeros((self.B,), dtype=np.int64))
+        return self._stage_bufs[idx]
+
+    def process_ring_pipelined(self, ring, now: float | None = None) -> int:
+        """Double-buffered ring loop: assemble and dispatch batch k+1, THEN
+        retire batch k, so the host's demux overlaps the card's work. The
+        dispatch makes no host round trip. Call flush_pipeline() before
+        reading final state. Returns frames retired this call."""
+        now = now if now is not None else self.clock()
+        prev, self._inflight = self._inflight, None
+        try:
+            idx = 1 - self._stage_idx
+            pkt, length, flags = self._staging(idx)
+            n = ring.assemble(pkt, length, flags)
+            if n:
+                try:
+                    fl = _InFlight(self._dispatch_ring_batch(pkt, length, flags, n, now))
+                except BaseException:
+                    # fail closed: complete() retires FIFO, so the older window
+                    # retires first, then this one drops
+                    self._retire(prev)
+                    prev = None
+                    ring.complete(np.full((n,), VERDICT_DROP, dtype=np.uint8), pkt, length, n)
+                    raise
+                self._inflight = (ring, fl, pkt, length, n, now)
+                self._stage_idx = idx
+        finally:
+            retired = self._retire(prev)
+        return retired
+
+    def _retire(self, entry) -> int:
+        """Wait for a pipelined batch and apply its verdicts to its ring."""
+        if entry is None:
+            return 0
+        ring, fl, pkt, length, n, now = entry
+        h = fl.wait()
+        self._apply_ring_verdicts(ring, h, pkt, length, n, now)
+        self._fold_stats(fl.stat_names, h["stats"])
+        return n
+
+    def flush_pipeline(self, ring=None) -> int:
+        """Retire the in-flight pipelined batch, if any, against the ring it
+        came from (the argument is accepted for call-site symmetry)."""
+        entry, self._inflight = self._inflight, None
+        return self._retire(entry)
+
+    # -- the host side of punts --
+    @staticmethod
+    def _strip_pppoe_host(frame: bytes) -> bytes:
+        """The host twin of the device decap, for punted frames (the punt
+        handler sees the original bytes): the inner Ethernet+IPv4 view of
+        a PPPoE session IPv4 frame, else the frame unchanged."""
+        off = 12
+        et = int.from_bytes(frame[off: off + 2], "big")
+        while et in (0x8100, 0x88A8) and len(frame) >= off + 8:
+            off += 4
+            et = int.from_bytes(frame[off: off + 2], "big")
+        if et != 0x8864 or len(frame) < off + 10:
+            return frame
+        if int.from_bytes(frame[off + 8: off + 10], "big") != 0x0021:
+            return frame
+        return frame[:off] + b"\x08\x00" + frame[off + 10:]
 
     def _punt_new_flow(self, frame: bytes, now: int) -> None:
         """Device egress-miss: create the session host-side."""
+        if self.pppoe is not None:
+            frame = self._strip_pppoe_host(frame)
         try:
             d = F.decode(frame)
         except Exception:  # noqa: BLE001 — a truncated frame is simply not a flow

@@ -1,10 +1,13 @@
-"""Host-side fast-path table management (port of the DHCP half of
-`bng_tpu/runtime/tables.py`, without checkpoint/restore).
+"""Host-side fast-path table management (port of
+`bng_tpu/runtime/tables.py`: the DHCP tables and the PPPoE session
+tables, without checkpoint/restore).
 
 Numpy mirrors of the subscriber / VLAN / circuit-ID cuckoo tables plus
 the dense pool and server-config arrays; the device copies are uploaded
 with `device_tables(device)` and kept current by bounded update batches
-that `apply_fastpath_updates` scatters in place.
+that `apply_fastpath_updates` scatters in place. `PPPoEFastPathTables`
+holds the two PPPoE session tables (by session id, by subscriber IP)
+and the access concentrator's MAC.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from bng_tpu_torch.ops.dhcp import (
     CID_KEY_LEN, POOL_WORDS, PV_DNS1, PV_DNS2, PV_GATEWAY, PV_LEASE_T, PV_NETWORK,
     PV_PREFIX, PV_VALID, SC_IP, SC_MAC_HI, SC_MAC_LO, SERVER_WORDS, DHCPGeom, DHCPTables,
 )
+from bng_tpu_torch.ops.pppoe import PPPOE_WORDS, PS_IP, PS_MAC_HI, PS_MAC_LO, PS_SESSION_ID
 from bng_tpu_torch.ops.table import HostTable, TableGeom, TableUpdate, words_to_device, apply_update
 from bng_tpu_torch.utils.net import mac_to_u64, split_u64
 
@@ -178,3 +182,61 @@ class FastPathTables:
 
     def dirty_count(self) -> int:
         return self.sub.dirty_count() + self.vlan.dirty_count() + self.cid.dirty_count()
+
+
+class PPPoEFastPathTables:
+    """Host side of the device PPPoE session tables (`ops/pppoe.py`).
+
+    The PPPoE control plane negotiates sessions on the host; an OPEN
+    session is published here (`session_up`, the server's on_open hook)
+    so its session-stage DATA frames decap and encap on the device, and
+    withdrawn by `session_down` (on_close, given a teardown event or the
+    session)."""
+
+    def __init__(self, nbuckets: int = 1 << 12, stash: int = 64, update_slots: int = 128,
+                 server_mac: bytes = b"\x02\xbb\x00\x00\x00\x01"):
+        self.by_sid = HostTable(nbuckets, key_words=1, val_words=PPPOE_WORDS, stash=stash,
+                                name="pppoe_by_sid")
+        self.by_ip = HostTable(nbuckets, key_words=1, val_words=PPPOE_WORDS, stash=stash,
+                               name="pppoe_by_ip")
+        self.geom = TableGeom(nbuckets, stash)
+        self.update_slots = update_slots
+        # AC MAC as (hi16, lo32) words: the L2 source of every encapped frame
+        self.server_mac = np.array([int.from_bytes(server_mac[:2], "big"),
+                                    int.from_bytes(server_mac[2:], "big")], dtype=np.uint32)
+
+    def session_up(self, sess) -> None:
+        """Publish an OPEN session (any object with session_id, client_mac
+        and assigned_ip)."""
+        row = np.zeros((PPPOE_WORDS,), dtype=np.uint32)
+        row[PS_SESSION_ID] = sess.session_id
+        row[PS_MAC_HI] = int.from_bytes(sess.client_mac[:2], "big")
+        row[PS_MAC_LO] = int.from_bytes(sess.client_mac[2:], "big")
+        row[PS_IP] = sess.assigned_ip or 0
+        self.by_sid.insert([sess.session_id], row)
+        if sess.assigned_ip:
+            self.by_ip.insert([sess.assigned_ip], row)
+
+    def session_down(self, event) -> None:
+        sess = getattr(event, "session", event)
+        self.by_sid.delete([sess.session_id])
+        if sess.assigned_ip:
+            self.by_ip.delete([sess.assigned_ip])
+
+    def bulk_sessions_up(self, session_ids, client_macs_u64, ips) -> None:
+        """Vectorized install of many new sessions (ids, MACs and IPs unique,
+        IPs non-zero). Follow with a full upload (the engine resyncs)."""
+        sids = np.asarray(session_ids, dtype=np.uint32)
+        macs = np.asarray(client_macs_u64, dtype=np.uint64)
+        rows = np.zeros((len(sids), PPPOE_WORDS), dtype=np.uint32)
+        rows[:, PS_SESSION_ID] = sids
+        rows[:, PS_MAC_HI] = (macs >> np.uint64(32)).astype(np.uint32)
+        rows[:, PS_MAC_LO] = (macs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        rows[:, PS_IP] = np.asarray(ips, dtype=np.uint32)
+        self.by_sid.bulk_insert(sids[:, None], rows)
+        self.by_ip.bulk_insert(rows[:, PS_IP: PS_IP + 1], rows)
+
+    def make_updates(self, device):
+        """(by_sid delta, by_ip delta): the PPPoE tail of the engine's update batch."""
+        return (self.by_sid.make_update(self.update_slots, device),
+                self.by_ip.make_update(self.update_slots, device))

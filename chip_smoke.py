@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's IPoE main path on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero; no phase's error is swallowed):
 
@@ -14,25 +14,58 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    packet), 10k strict antispoof bindings; B = 8192 frames in 512-byte
    slots, 20% cached DISCOVERs and 80% established UDP flows.
 3. Kernels against their plain PyTorch versions on the card: K1 (probe)
-   on the exact inputs of every probe of one main-path step, a ragged
-   batch and every shared edge case of `bng_tpu_torch/kernel_cases.py`
+   on the exact inputs of every probe of one IPoE step, a ragged batch
+   and every shared edge case of `bng_tpu_torch/kernel_cases.py`
    (scattered stash rows, no stash, an empty table, K = 8, V = 16, B from
    1 to 8192); K2 (seg_prefix) on the step's inputs and every shared K2
    case, which take both of its routes (B up to and past B_ONE), for
    prefix, total and both. Bit-equal or fail.
-4. The main path: counts set to 0, 20 batches through `Engine.process`
+4. The IPoE path: counts set to 0, 20 batches through `Engine.process`
    (DISCOVER lanes TX with the subscriber's yiaddr, flow lanes FWD with
    the SNAT source and valid IP and UDP checksums, QoS drops, a fresh
    flow punted and then forwarded), counts read: K1 8 and K2 4 per step.
-5. One GPU step against the same step on the CPU (plain versions) from
-   copied tables: identical verdicts, bytes, stats and tables.
-6. Times with CUDA events: each kernel and its plain version at the main
-   path's shapes (device time: the stream is held while the host queues
+5. One IPoE GPU step against the same step on the CPU (plain versions)
+   from copied tables: identical verdicts, bytes, stats and tables.
+6. IPoE times with CUDA events: each kernel and its plain version at the
+   step's shapes (device time: the stream is held while the host queues
    the calls; each kernel also with L2 flushed before every call), K2 at
    B = 32, K2's sweep route past B_ONE, a one-thread launch floor, the
-   device step (Mpps, p50/p99), `Engine.process` per batch with the
-   host, peak device memory. `--profile` adds a torch.profiler trace of
-   a few steps.
+   device step (Mpps, p50/p99), `Engine.process` per batch with the host
+   (split into pack / dispatch / wait / demux).
+7. The full-stack deployment, on the headline's host tables (the IPoE
+   engine is retired first): 65,534 PPPoE sessions under one access
+   concentrator, each with one NAT44 flow; 10,000 gardened subscribers
+   with 4 allowed destinations; 64 armed intercept taps (half filtered);
+   a next-hop route for each of the 250k flow subscribers over 4
+   gateways. The batch mixes cached DISCOVERs, IPoE flows (some tapped),
+   QinQ PPPoE upstream data, downstream data to PPPoE subscribers,
+   gardened traffic, PPPoE discovery/LCP and unknown sessions.
+8. Both kernels against their plain versions, bit-equal, on the exact
+   inputs of all 13 K1 and 4 K2 calls of one full-stack step and the 3
+   K1 calls of one DHCP-only batch.
+9. The full-stack path: counts 0, 10 batches through `Engine.process`,
+   every lane checked (TX yiaddr; decapped and SNAT'd bytes; DNAT'd and
+   encapped bytes; garden drops; mirror-sink calls with the warrant id;
+   the routed dst MAC; PASS for control and unknown sessions), counts
+   read: K1 13 and K2 4 per step.
+10. One full-stack GPU step against the same step on the CPU: every
+    result leaf (mirror and the garden, PPPoE and edge stats too) and
+    every table word identical. Then a full-stack and a DHCP-only
+    dispatch, each shipping a dirty table row, under torch's sync debug
+    mode: no synchronizing CUDA call.
+11. The DHCP-only lane: counts 0, `process_dhcp` on 8192 cached
+    DISCOVERs per batch, counts read: K1 3 and K2 0 per batch.
+12. The ring loops through the port's `PyRing`: an all-control batch
+    (the DHCP-only program) and the full-stack mix through `process_ring`
+    and `process_ring_pipelined` + `flush_pipeline`; TX/FWD frames and
+    ring stats equal `process` on the same frames; counts read.
+13. Full-stack times: the device step in turns with the IPoE-only step
+    on the same tables and batch (Mpps, p50/p99, their ratio);
+    `Engine.process`, `process_dhcp` and `process_ring_pipelined` per
+    batch, each split into pack / dispatch / wait / demux; every K1/K2
+    call of the full-stack step (the five new call sites printed apart);
+    peak device memory. `--profile` adds torch.profiler traces of a few
+    IPoE and full-stack steps.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON; the last line the result JSON.
@@ -41,10 +74,13 @@ before it the kernels JSON; the last line the result JSON.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
 import time
+import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -52,15 +88,19 @@ import torch
 from bng_tpu_torch import convert, kernel_cases, kernels
 from bng_tpu_torch import frames as F
 from bng_tpu_torch.control.nat import NATManager
+from bng_tpu_torch.edge.tables import EdgeTables
 from bng_tpu_torch.ops import probe as probe_mod
 from bng_tpu_torch.ops import qos as qos_mod
 from bng_tpu_torch.ops import seg_prefix as seg_mod
 from bng_tpu_torch.ops import table as table_mod
 from bng_tpu_torch.ops.antispoof import MODE_LOOSE, MODE_STRICT
+from bng_tpu_torch.ops.garden import GARDEN_WORDS, GV_FLAG
 from bng_tpu_torch.ops.hashing import SEED1, hash_words, u32
 from bng_tpu_torch.ops.pipeline import pipeline_step
-from bng_tpu_torch.runtime.engine import AntispoofTables, Engine, QoSTables
-from bng_tpu_torch.runtime.tables import FastPathTables
+from bng_tpu_torch.runtime import engine as engine_mod
+from bng_tpu_torch.runtime.engine import AntispoofTables, Engine, GardenTables, QoSTables
+from bng_tpu_torch.runtime.ring import PyRing
+from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
 from bng_tpu_torch.utils.net import ip_to_u32
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
@@ -73,6 +113,19 @@ N_NAT_SUBS = 250_000
 N_QOS = 10_000
 N_BINDINGS = 10_000
 BATCHES = 20
+# the full-stack deployment, on top of the headline
+N_PPPOE = 65_534  # RFC 2516's 16-bit SESSION_ID, 0xFFFF reserved
+N_GARDEN = 10_000
+N_TAPS = 64
+FULL_BATCHES = 10
+DHCP_BATCHES = 5
+RING_BATCHES = 3
+AC_MAC = bytes.fromhex("02aabbccdd01")  # the access concentrator (and DHCP server) MAC
+PPPOE_BASE = ip_to_u32("10.32.0.1")  # PPPoE addresses, beyond the DHCP range
+PORTAL, DNS = ip_to_u32("100.64.0.10"), ip_to_u32("100.64.0.53")
+GARDEN_ALLOWED = ((PORTAL, 80, 6), (PORTAL, 443, 6), (DNS, 53, 17), (DNS, 53, 6))
+GATEWAYS = [bytes([0x02, 0x47, 0x57, 0, 0, k]) for k in range(4)]
+NEW_SITES = ("garden", "pppoe by_sid", "pppoe by_ip", "tap", "route")  # this slice's K1 sites
 
 
 def say(msg: str) -> None:
@@ -137,6 +190,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in evs) / iters
 
 
+def nbuckets_for(n: int) -> int:
+    """Power-of-two bucket count holding n keys at about 50% of 4 ways."""
+    return 1 << max(10, (n * 2 // 4).bit_length())
+
+
 # ---------------------------------------------------------------- deployment
 
 def sub_mac(i: int) -> bytes:
@@ -147,28 +205,36 @@ def flow_mac(ip: int) -> bytes:
     return b"\x02\x00" + int(ip).to_bytes(4, "big")
 
 
+def session_mac(k: int) -> bytes:
+    return (0x02BB00000000 + int(k)).to_bytes(6, "big")
+
+
+def sub_ip(i):
+    return (10 << 24) + 2 + i
+
+
 def build_deployment(device):
     """The headline deployment, built through the port's host API."""
-    sub_nb = 1 << max(10, (N_SUBS * 2 // 4).bit_length())  # ~50% load, 4-way
+    sub_nb = nbuckets_for(N_SUBS)
     fp = FastPathTables(sub_nbuckets=sub_nb, vlan_nbuckets=1 << 10, cid_nbuckets=1 << 10,
                         max_pools=64, stash=256)
-    fp.set_server_config(bytes.fromhex("02aabbccdd01"), ip_to_u32("10.0.0.1"))
+    fp.set_server_config(AC_MAC, ip_to_u32("10.0.0.1"))
     for pid in range(max(1, (N_SUBS >> 16) + 1)):  # /16 pools holding N addresses
         fp.add_pool(pid + 1, ip_to_u32(f"10.{pid}.0.0") & 0xFFFF0000, 16, ip_to_u32("10.0.0.1"),
                     ip_to_u32("1.1.1.1"), ip_to_u32("8.8.8.8"), 86400)
     idx = np.arange(N_SUBS, dtype=np.uint64)
     fp.add_subscribers_bulk(idx + 0x02AA00000000,
                             pool_ids=(idx >> np.uint64(16)).astype(np.uint32) + 1,
-                            ips=((10 << 24) + 2 + idx).astype(np.uint32),
+                            ips=sub_ip(idx).astype(np.uint32),
                             lease_expiries=np.uint32(NOW + 86400))
 
-    sess_nb = 1 << max(10, (N_FLOWS * 2 // 4).bit_length())
-    n_pub = max(4, -(-N_NAT_SUBS // 1008) + 1)
+    # public addresses for the flow subscribers and the full stack's PPPoE ones
+    n_pub = max(4, -(-(N_NAT_SUBS + N_PPPOE) // 1008) + 1)
     nat = NATManager(public_ips=[ip_to_u32("203.0.113.1") + i for i in range(n_pub)],
-                     ports_per_subscriber=64, sessions_nbuckets=sess_nb,
+                     ports_per_subscriber=64, sessions_nbuckets=nbuckets_for(N_FLOWS),
                      sub_nat_nbuckets=sub_nb, stash=256)
     fi = np.arange(N_FLOWS, dtype=np.int64)
-    src_ips = ((10 << 24) + 2 + fi % N_NAT_SUBS).astype(np.uint32)
+    src_ips = sub_ip(fi % N_NAT_SUBS).astype(np.uint32)
     dst_ips = (ip_to_u32("93.184.0.0") + fi // N_NAT_SUBS).astype(np.uint32)
     sports = (20000 + fi // N_NAT_SUBS).astype(np.uint32)
     made = nat.bulk_allocate_nat(np.unique(src_ips), NOW)
@@ -178,7 +244,7 @@ def build_deployment(device):
     flows = np.stack([src_ips, dst_ips, sports, nat_ip, nat_port], axis=1).astype(np.int64)
 
     qos = QoSTables(nbuckets=1 << 13)
-    pol = (10 << 24) + 2 + np.arange(N_QOS, dtype=np.int64) * (N_NAT_SUBS // N_QOS)
+    pol = sub_ip(np.arange(N_QOS, dtype=np.int64) * (N_NAT_SUBS // N_QOS))
     # half with a burst below one 222-byte frame (every lane drops), half generous
     qos.bulk_set_subscribers(pol[: N_QOS // 2], down_bps=64_000, up_bps=64_000,
                              down_burst=150, up_burst=150)
@@ -187,7 +253,7 @@ def build_deployment(device):
     spoof = AntispoofTables(nbuckets=1 << 14, stash=64)
     spoof.set_config(MODE_LOOSE, False)
     spoof.add_allowed_range(ip_to_u32("10.0.0.0"), 8)
-    bound = (10 << 24) + 2 + np.arange(N_BINDINGS, dtype=np.int64) * 7
+    bound = sub_ip(np.arange(N_BINDINGS, dtype=np.int64) * 7)
     keys = np.array([[int.from_bytes(flow_mac(ip)[:2], "big"),
                       int.from_bytes(flow_mac(ip)[2:], "big")] for ip in bound], dtype=np.uint32)
     rows = np.zeros((N_BINDINGS, 8), dtype=np.uint32)
@@ -200,23 +266,26 @@ def build_deployment(device):
     return eng, flows, set(int(x) for x in pol[: N_QOS // 2])
 
 
+def flow_frame(f) -> bytes:
+    return F.with_udp_checksum(F.udp_packet(flow_mac(f[0]), b"\x04" * 6, int(f[0]), int(f[1]),
+                                            int(f[2]), 443, b"x" * 180))
+
+
 def make_batch(rng, flows, fresh=()):
     """20% cached DISCOVERs, 80% established flows (+ `fresh` flows first)."""
     frames, expect = [], []
     for f in fresh:
-        frames.append(F.with_udp_checksum(
-            F.udp_packet(flow_mac(f[0]), b"\x04" * 6, f[0], f[1], f[2], 443, b"x" * 180)))
+        frames.append(flow_frame(f))
         expect.append(("fresh", f))
     n_dhcp = B // 5
     for row in range(len(frames), B):
         if row < n_dhcp:
             i = int(rng.integers(N_SUBS))
             frames.append(F.discover_frame(sub_mac(i), 0x1000 + row))
-            expect.append(("dhcp", (10 << 24) + 2 + i))
+            expect.append(("dhcp", sub_ip(i)))
         else:
             f = flows[int(rng.integers(len(flows)))]
-            frames.append(F.with_udp_checksum(F.udp_packet(
-                flow_mac(f[0]), b"\x04" * 6, int(f[0]), int(f[1]), int(f[2]), 443, b"x" * 180)))
+            frames.append(flow_frame(f))
             expect.append(("flow", f))
     return frames, expect
 
@@ -231,32 +300,230 @@ def check_outputs(out, expect, drop_ips, fresh_ok: bool):
     n_drop = 0
     for lane, (kind, info) in enumerate(expect):
         if kind == "dhcp":
-            check(lane in tx, f"DISCOVER lane {lane} answered on the device")
-            reply = F.decode_dhcp(F.decode(tx[lane]).payload)
-            check(reply.msg_type == F.OFFER and reply.yiaddr == info, f"OFFER yiaddr lane {lane}")
+            check_offer(tx, lane, info)
         elif kind == "flow":
             if int(info[0]) in drop_ips:
                 check(lane in dropped, f"policed flow lane {lane} dropped")
                 n_drop += 1
                 continue
-            check(lane in fwd, f"flow lane {lane} forwarded")
-            d = F.decode(fwd[lane])
-            check(d.src_ip == int(info[3]) and d.src_port == int(info[4]) and d.ip_checksum_ok
-                  and d.l4_checksum != 0 and F.l4_checksum_ok(fwd[lane]),
-                  f"SNAT rewrite and IP and UDP checksums, lane {lane}")
+            check_snat(fwd, lane, info)
         else:
             check((lane in fwd) if fresh_ok else (lane in slow), f"fresh flow lane {lane}")
     return n_drop
 
 
+def check_offer(tx, lane, yiaddr):
+    check(lane in tx, f"DISCOVER lane {lane} answered on the device")
+    reply = F.decode_dhcp(F.decode(tx[lane]).payload)
+    check(reply.msg_type == F.OFFER and reply.yiaddr == yiaddr, f"OFFER yiaddr lane {lane}")
+
+
+def check_snat(fwd, lane, f):
+    check(lane in fwd, f"flow lane {lane} forwarded")
+    d = F.decode(fwd[lane])
+    check(d.src_ip == int(f[3]) and d.src_port == int(f[4]) and d.ip_checksum_ok
+          and d.l4_checksum != 0 and F.l4_checksum_ok(fwd[lane]),
+          f"SNAT rewrite and IP and UDP checksums, lane {lane}")
+    return d
+
+
+# ------------------------------------------------------ full-stack deployment
+
+def build_full_stack(hosts, flows, device):
+    """The headline's host tables (fastpath, nat, qos, antispoof) plus PPPoE,
+    garden, taps and routes, and a full-stack engine over them. The caller
+    retires the headline's engine first: two engines draining one set of
+    host mirrors would corrupt each other."""
+    fp, nat, qos, spoof = hosts
+    s = N_NAT_SUBS // N_QOS  # subscriber i is policed where i % s == 0
+    check(s >= 3 and N_GARDEN <= N_QOS and N_TAPS <= N_QOS, "garden and taps fit the stride")
+
+    k = np.arange(N_PPPOE, dtype=np.int64)
+    p_ip = (PPPOE_BASE + k).astype(np.uint32)
+    pppoe = PPPoEFastPathTables(nbuckets=nbuckets_for(N_PPPOE), stash=256, server_mac=AC_MAC)
+    pppoe.bulk_sessions_up(k + 1, (0x02BB00000000 + k).astype(np.uint64), p_ip)
+    made = nat.bulk_allocate_nat(p_ip, NOW)
+    p_dst = (ip_to_u32("93.185.0.0") + k % 4096).astype(np.uint32)
+    p_sport = (30000 + k % 20000).astype(np.uint32)
+    nat_ip, nat_port, ok = nat.bulk_flows(p_ip, p_dst, p_sport, np.uint32(443), np.uint32(17),
+                                          100, NOW)
+    check(made == N_PPPOE and bool(ok.all()), "every PPPoE session has its NAT44 flow")
+    sessions = np.stack([k + 1, p_ip, p_dst, p_sport, nat_ip, nat_port], axis=1).astype(np.int64)
+
+    garden = GardenTables(nbuckets=nbuckets_for(N_GARDEN), stash=64)
+    g_i = 1 + s * np.arange(N_GARDEN, dtype=np.int64)
+    rows = np.zeros((N_GARDEN, GARDEN_WORDS), dtype=np.uint32)
+    rows[:, GV_FLAG] = 1
+    garden.subscribers.bulk_insert(sub_ip(g_i).astype(np.uint32)[:, None], rows)
+    for dst in GARDEN_ALLOWED:
+        garden.allow_destination(*dst)
+
+    edge = EdgeTables(nbuckets=nbuckets_for(N_NAT_SUBS), stash=64)
+    i = np.arange(N_NAT_SUBS, dtype=np.int64)
+    gw_rows = np.stack([EdgeTables.route_row(g, 100 + j) for j, g in enumerate(GATEWAYS)])
+    edge.route.bulk_insert(sub_ip(i).astype(np.uint32)[:, None], gw_rows[i % len(GATEWAYS)])
+    taps = {}  # tapped subscriber ip -> the warrant id its UDP/443 lanes mirror for (or None)
+    for t in range(N_TAPS):
+        ip, wid = int(sub_ip(2 + s * t)), 1000 + t
+        filters = () if t < N_TAPS // 2 else [(443, 17, 0)] if t % 2 == 0 else [(80, 6, 0)]
+        edge.arm_tap(ip, wid, filters)
+        taps[ip] = wid if not filters or filters[0][0] == 443 else None
+
+    mirrors = []
+    eng_full = Engine(fp, nat, qos, spoof, garden, pppoe, batch_size=B, pkt_slot=L, edge=edge,
+                      mirror_sink=lambda lane, frame, wid: mirrors.append((lane, wid)),
+                      device=device)
+    fi = flows[:, 0] - sub_ip(0)
+    gardened = (fi % s == 1) & (fi // s < N_GARDEN)
+    tapped = (fi % s == 2) & (fi // s < N_TAPS)
+    return eng_full, SimpleNamespace(
+        sessions=sessions, g_ip=sub_ip(g_i), taps=taps, mirrors=mirrors,
+        plain_flows=flows[~gardened], tap_flows=flows[tapped])
+
+
+def make_full_batch(rng, ctx):
+    """The full-stack mix in a shuffled lane order: (frames, from_access, expect)."""
+    share = {"dhcp": 0.15, "flow": 0.45, "pppoe_up": 0.15, "pppoe_down": 0.10,
+             "garden": 0.05, "ctrl": 0.05}
+    count = {k: int(B * v) for k, v in share.items()}
+    count["unknown"] = B - sum(count.values())
+    items = []
+    for _ in range(count["dhcp"]):
+        i = int(rng.integers(N_SUBS))
+        items.append((F.discover_frame(sub_mac(i), int(rng.integers(1 << 31))), True,
+                      ("dhcp", sub_ip(i))))
+    n_tap = min(32, len(ctx.tap_flows))
+    for j in range(count["flow"]):
+        pool = ctx.tap_flows if j < n_tap else ctx.plain_flows
+        f = pool[int(rng.integers(len(pool)))]
+        items.append((flow_frame(f), True, ("flow", f)))
+    for _ in range(count["pppoe_up"]):
+        k = int(rng.integers(N_PPPOE))
+        sid, ip, dst, sport, _, _ = (int(x) for x in ctx.sessions[k])
+        inner = F.with_udp_checksum(F.udp_packet(session_mac(k), AC_MAC, ip, dst, sport, 443,
+                                                 b"u" * 150))[14:]
+        vlans = [100 + k % 1000, 1 + (k // 1000) % 4000]
+        frame = F.pppoe_session_frame(AC_MAC, session_mac(k), sid, F.PROTO_IPV4, inner, vlans)
+        items.append((frame, True, ("pppoe_up", (k, vlans, len(frame)))))
+    for _ in range(count["pppoe_down"]):
+        k = int(rng.integers(N_PPPOE))
+        _, _, dst, _, nip, nport = (int(x) for x in ctx.sessions[k])
+        frame = F.with_udp_checksum(F.udp_packet(b"\x04" * 6, AC_MAC, dst, nip, 443, nport,
+                                                 b"d" * 200))
+        items.append((frame, False, ("pppoe_down", (k, len(frame)))))
+    for _ in range(count["garden"]):
+        ip = int(ctx.g_ip[int(rng.integers(len(ctx.g_ip)))])
+        if rng.random() < 0.5:
+            dst, port, proto = GARDEN_ALLOWED[int(rng.integers(len(GARDEN_ALLOWED)))]
+        else:
+            dst, port, proto = ip_to_u32("93.184.7.7"), 443, 17
+        build = F.tcp_packet if proto == 6 else F.udp_packet
+        frame = build(flow_mac(ip), b"\x04" * 6, ip, dst, 40000 + int(rng.integers(1000)),
+                      port, b"g" * 40)
+        items.append((frame, True, ("garden", (ip, dst != ip_to_u32("93.184.7.7")))))
+    for j in range(count["ctrl"]):
+        k = int(rng.integers(N_PPPOE))
+        if j % 2:
+            frame = F.pppoe_padi_frame(session_mac(k), host_uniq=b"hu")
+        else:
+            lcp = F.CPPacket(F.CP_ECHO_REQ, j & 0xFF, data=b"\x00\x00\x00\x01").encode()
+            frame = F.pppoe_session_frame(AC_MAC, session_mac(k), k + 1, F.PROTO_LCP, lcp)
+        items.append((frame, True, ("pass", "control")))
+    for _ in range(count["unknown"]):
+        k = int(rng.integers(N_PPPOE))
+        inner = F.udp_packet(session_mac(k), AC_MAC, PPPOE_BASE + k, 1, 2, 3, b"z" * 40)[14:]
+        frame = F.pppoe_session_frame(AC_MAC, session_mac(k), 0xFFFF, F.PROTO_IPV4, inner)
+        items.append((frame, True, ("pass", "unknown session")))
+    order = rng.permutation(len(items))
+    return ([items[o][0] for o in order], [items[o][1] for o in order],
+            [items[o][2] for o in order])
+
+
+def check_full_outputs(out, expect, ctx, drop_ips, mirrors):
+    """Every lane of a full-stack batch got its expected outcome; returns
+    {kind: lanes} counts."""
+    tx, fwd, dropped, slow = dict(out["tx"]), dict(out["fwd"]), set(out["dropped"]), dict(out["slow"])
+    want_mirror = set()
+    seen = {}
+    for lane, (kind, info) in enumerate(expect):
+        seen[kind] = seen.get(kind, 0) + 1
+        if kind == "dhcp":
+            check_offer(tx, lane, info)
+        elif kind == "flow":
+            src = int(info[0])
+            if ctx.taps.get(src):
+                want_mirror.add((lane, ctx.taps[src]))
+            if src in drop_ips:
+                check(lane in dropped, f"policed flow lane {lane} dropped")
+                continue
+            d = check_snat(fwd, lane, info)
+            check(d.dst_mac == GATEWAYS[(src - sub_ip(0)) % len(GATEWAYS)],
+                  f"next-hop dst MAC, lane {lane}")
+        elif kind == "pppoe_up":
+            k, vlans, n = info
+            _, _, dst, sport, nip, nport = (int(x) for x in ctx.sessions[k])
+            check(lane in fwd, f"PPPoE upstream lane {lane} forwarded")
+            raw = fwd[lane]
+            d = F.decode(raw)
+            check(len(raw) == n - 8 and d.vlans == vlans and d.ethertype == 0x0800
+                  and d.dst_mac == AC_MAC and d.src_mac == session_mac(k),
+                  f"PPPoE decap keeps the L2 header and tags, lane {lane}")
+            check(d.src_ip == nip and d.src_port == nport and d.dst_ip == dst
+                  and d.ip_checksum_ok and F.l4_checksum_ok(raw), f"PPPoE SNAT, lane {lane}")
+        elif kind == "pppoe_down":
+            k, n = info
+            sid, ip, _, sport, _, _ = (int(x) for x in ctx.sessions[k])
+            check(lane in fwd, f"PPPoE downstream lane {lane} forwarded")
+            raw = fwd[lane]
+            hdr = F.PPPoEPacket.decode(raw[14:])
+            check(len(raw) == n + 8 and raw[:6] == session_mac(k) and raw[6:12] == AC_MAC
+                  and raw[12:14] == b"\x88\x64" and hdr.session_id == sid
+                  and hdr.payload[:2] == b"\x00\x21", f"PPPoE encap, lane {lane}")
+            inner = raw[:12] + b"\x08\x00" + raw[22:]
+            d = F.decode(inner)
+            check(d.dst_ip == ip and d.dst_port == sport and d.ip_checksum_ok
+                  and F.l4_checksum_ok(inner), f"DNAT under the encap, lane {lane}")
+        elif kind == "garden":
+            ip, allowed = info
+            if not allowed:
+                check(lane in dropped, f"garden drop, lane {lane}")
+                continue
+            check(lane in fwd, f"gardened lane {lane} to an allowed destination forwarded")
+            d = F.decode(fwd[lane])
+            check(d.src_ip == ip and d.dst_mac == GATEWAYS[(ip - sub_ip(0)) % len(GATEWAYS)],
+                  f"gardened lane routed, not translated, lane {lane}")
+        else:
+            check(lane in slow, f"{info} lane {lane} passed to the slow path")
+    check(set(mirrors) == want_mirror and len(mirrors) == len(want_mirror),
+          f"mirror-sink calls {sorted(mirrors)[:4]}... == expected {sorted(want_mirror)[:4]}...")
+    check(len(want_mirror) > 0, "some lanes mirrored")
+    return seen
+
+
 # ------------------------------------------------------------------- phases
 
-def record_kernel_inputs(eng, pkt, length, fa):
-    """Run one main-path step and keep the exact inputs of every kernel call."""
-    rec = {"probe": [], "seg_prefix": []}
+def table_names(tables) -> dict[int, str]:
+    """{probe-row tensor address: table name} over a PipelineTables."""
+    out = {}
+    for name, t in (("antispoof", tables.spoof), ("dhcp vlan", tables.dhcp.vlan),
+                    ("dhcp cid", tables.dhcp.cid), ("dhcp sub", tables.dhcp.sub),
+                    ("nat sessions", tables.nat.sessions), ("nat reverse", tables.nat.reverse),
+                    ("nat sub_nat", tables.nat.sub_nat), ("garden", tables.garden),
+                    ("pppoe by_sid", tables.pppoe_by_sid), ("pppoe by_ip", tables.pppoe_by_ip),
+                    ("tap", tables.tap), ("route", tables.route)):
+        if t is not None:
+            out[t.krows.data_ptr()] = name
+    return out
+
+
+def record_kernel_inputs(run, n_probe: int, n_seg: int, what: str, names=None):
+    """Run `run()` once and keep the exact inputs of every kernel call (and,
+    given `table_names`, the table each probe read)."""
+    rec = {"probe": [], "seg_prefix": [], "table": []}
     orig_probe, orig_seg = table_mod.probe, qos_mod.seg_prefix_total
 
     def probe_rec(*args):
+        rec["table"].append((names or {}).get(args[0].data_ptr(), "?"))
         rec["probe"].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
         return orig_probe(*args)
 
@@ -266,25 +533,17 @@ def record_kernel_inputs(eng, pkt, length, fa):
 
     table_mod.probe, qos_mod.seg_prefix_total = probe_rec, seg_rec
     try:
-        eng.step(pkt, length, fa, NOW + 1)
+        run()
     finally:
         table_mod.probe, qos_mod.seg_prefix_total = orig_probe, orig_seg
     torch.cuda.synchronize()
-    check(len(rec["probe"]) == 8 and len(rec["seg_prefix"]) == 4, "8 probes + 4 seg calls per step")
+    check(len(rec["probe"]) == n_probe and len(rec["seg_prefix"]) == n_seg,
+          f"{what}: {n_probe} probes + {n_seg} seg calls (got {len(rec['probe'])}, "
+          f"{len(rec['seg_prefix'])})")
     return rec
 
 
-def kernels_vs_plain(rec, device):
-    """Both kernels against their plain versions on every main-path call
-    and every shared edge case, bit for bit; returns {kernel: max |err|}."""
-    cases = [("main-path", a) for a in rec["probe"]]
-    args = rec["probe"][3]  # the DHCP subscriber-table probe, cut to a ragged batch
-    cases.append(("ragged B=1000", args[:3] + (args[3][:1000].contiguous(),) + args[4:]))
-    for name in kernel_cases.PROBE_SPECS:
-        c = kernel_cases.probe_case(name)
-        cases.append((name, tuple(torch.from_numpy(a).to(device) for a in c[:4])
-                      + (c.nbuckets, c.stash)))
-    err = {"probe": 0.0, "seg_prefix": 0.0}
+def probes_vs_plain(cases, err):
     for name, a in cases:
         got = probe_mod.probe_cuda(*a)
         ref = probe_mod.probe_plain(*a)
@@ -292,6 +551,29 @@ def kernels_vs_plain(rec, device):
             d = (g.long() - r.long()).abs().max().item() if g.numel() else 0
             err["probe"] = max(err["probe"], float(d))
             check(torch.equal(g, r), f"K1 {name} K={a[3].shape[1]} {f} bit-equal")
+
+
+def segs_vs_plain(cases, err):
+    for name, s, v, c in cases:
+        got = seg_mod.seg_prefix_cuda(s, v, c)
+        ref = seg_mod.seg_prefix_plain(s, v, c)
+        for g, r in zip(got, ref):
+            err["seg_prefix"] = max(err["seg_prefix"], (g - r).abs().max().item())
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"K2 {name} {c} bit-equal")
+
+
+def kernels_vs_plain(rec, device, err):
+    """Both kernels against their plain versions on every IPoE-step call and
+    every shared edge case, bit for bit; keeps the max |err| in `err`."""
+    cases = [("main-path", a) for a in rec["probe"]]
+    args = rec["probe"][3]  # the DHCP subscriber-table probe, cut to a ragged batch
+    cases.append(("ragged B=1000", args[:3] + (args[3][:1000].contiguous(),) + args[4:]))
+    for name in kernel_cases.PROBE_SPECS:
+        c = kernel_cases.probe_case(name)
+        cases.append((name, tuple(torch.from_numpy(a).to(device) for a in c[:4])
+                      + (c.nbuckets, c.stash)))
+    probes_vs_plain(cases, err)
     say(f"K1 bit-equal to its plain version on {len(cases)} cases")
 
     seg_cases = [("main-path", s, v, c) for s, v, c in rec["seg_prefix"]]
@@ -300,18 +582,11 @@ def kernels_vs_plain(rec, device):
         seg_cases.append((name, torch.from_numpy(c.slot).to(device),
                           torch.from_numpy(c.vec).to(device), c.compute))
     check(max(s.shape[0] for _, s, _, _ in seg_cases) > seg_mod.B_ONE, "K2 sweep route covered")
-    for name, s, v, c in seg_cases:
-        got = seg_mod.seg_prefix_cuda(s, v, c)
-        ref = seg_mod.seg_prefix_plain(s, v, c)
-        for g, r in zip(got, ref):
-            err["seg_prefix"] = max(err["seg_prefix"], (g - r).abs().max().item())
-        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
-              f"K2 {name} {c} bit-equal")
+    segs_vs_plain(seg_cases, err)
     say(f"K2 (both routes) bit-equal to its plain version on {len(seg_cases)} cases")
-    return err
 
 
-def gpu_step_equals_cpu_step(eng, pkt, length, fa):
+def gpu_step_equals_cpu_step(eng, pkt, length, fa, what: str):
     dev = eng.device
     cpu_tables = convert.tables_from_numpy(convert.tables_to_numpy(eng.tables), "cpu")
     now_s, now_us = torch.tensor(NOW + 100), torch.tensor((NOW + 100) * 10**6 & 0xFFFFFFFF)
@@ -322,18 +597,19 @@ def gpu_step_equals_cpu_step(eng, pkt, length, fa):
     for f in g._fields:
         if f == "tables":
             continue
-        check(torch.equal(getattr(g, f).cpu(), getattr(c, f)), f"GPU step {f} == CPU step")
+        a, b = getattr(g, f), getattr(c, f)
+        check((a is None and b is None) or torch.equal(a.cpu(), b), f"{what} GPU step {f} == CPU step")
     gt, ct = convert.tables_to_numpy(eng.tables), convert.tables_to_numpy(cpu_tables)
 
     def walk(a, b, path):
         if isinstance(a, np.ndarray):
-            check(np.array_equal(a, b), f"GPU tables {path} == CPU tables")
+            check(np.array_equal(a, b), f"{what} GPU tables {path} == CPU tables")
         elif a is not None:
             for name, x, y in zip(a._fields, a, b):
                 walk(x, y, f"{path}.{name}")
 
     walk(gt, ct, "tables")
-    say("GPU step == CPU step: verdicts, bytes, stats and tables identical")
+    say(f"{what}: GPU step == CPU step: every result leaf, byte, stat and table word identical")
 
 
 def probe_bound_ms(a) -> float:
@@ -360,7 +636,62 @@ def seg_bound_ms(s, v, compute) -> float:
     return (Bq * 8 + Bq * 4 * outs) / HBM_BYTES_PER_S * 1e3
 
 
-def profile_step(step, card: str, steps: int = 5) -> None:
+def time_kernels(rec, card: str, what: str):
+    """Warm, L2-cold and plain device times of every recorded call, with its
+    bound: {kernel: {"ms": [...], "plain": [...], "bound": [...]}}."""
+    kern = {"probe": {"ms": [], "plain": [], "bound": []},
+            "seg_prefix": {"ms": [], "plain": [], "bound": []}}
+    flush = torch.empty(2**25, dtype=torch.int32, device="cuda")  # 128 MiB > 50 MB L2
+    for j, a in enumerate(rec["probe"]):
+        ms = cuda_ms(lambda: probe_mod.probe_cuda(*a))
+        cold = cuda_ms(lambda: probe_mod.probe_cuda(*a), flush=flush)
+        pl = cuda_ms(lambda: probe_mod.probe_plain(*a), iters=5)
+        bd = probe_bound_ms(a)
+        for key, x in (("ms", ms), ("plain", pl), ("bound", bd)):
+            kern["probe"][key].append(x)
+        say(f"  {what} K1 call {j} ({rec['table'][j]}): K={a[3].shape[1]} V={a[2].shape[1]} nbuckets={a[4]} "
+            f"stash={a[5]}: {ms:.4f} ms (cold L2 {cold:.4f}), plain {pl:.4f} ms, "
+            f"bound {bd:.6f} ms [{card}]")
+    for j, (s, v, c) in enumerate(rec["seg_prefix"]):
+        ms = cuda_ms(lambda: seg_mod.seg_prefix_cuda(s, v, c))
+        cold = cuda_ms(lambda: seg_mod.seg_prefix_cuda(s, v, c), flush=flush)
+        pl = cuda_ms(lambda: seg_mod.seg_prefix_plain(s, v, c), iters=5)
+        bd = seg_bound_ms(s, v, c)
+        for key, x in (("ms", ms), ("plain", pl), ("bound", bd)):
+            kern["seg_prefix"][key].append(x)
+        say(f"  {what} K2 call {j} ({c}): {ms:.4f} ms (cold L2 {cold:.4f}), plain {pl:.4f} ms, "
+            f"bound {bd:.6f} ms [{card}]")
+    del flush
+    return kern
+
+
+def time_device_steps(steps: dict, card: str, n: int = 100) -> dict:
+    """Host-clock latency of each synchronised device step, the steps taken
+    in turns (ABBA...) so a drift of the host's speed falls on all alike;
+    returns {name: p50 ms}."""
+    for step in steps.values():
+        for _ in range(3):
+            step()
+    torch.cuda.synchronize()
+    lat = {name: [] for name in steps}
+    names = list(steps)
+    for r in range(n):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            t1 = time.perf_counter()
+            steps[name]()
+            torch.cuda.synchronize()
+            lat[name].append((time.perf_counter() - t1) * 1e3)
+    p50 = {}
+    for name, ms in lat.items():
+        ms = np.array(ms)
+        p50[name] = float(np.percentile(ms, 50))
+        say(f"{name} device step B={B}: {B / (ms.mean() / 1e3) / 1e6:.4f} Mpps, "
+            f"p50 {p50[name]:.3f} ms, p99 {np.percentile(ms, 99):.3f} ms, "
+            f"max {ms.max():.3f} ms over {len(ms)} steps (host clock, synced) [{card}]")
+    return p50
+
+
+def profile_step(step, card: str, what: str, steps: int = 5) -> None:
     """torch.profiler over `steps` device steps: per-stage host and device
     time, the top kernels by device time, launches per step and the
     device's busy share of the wall time."""
@@ -381,7 +712,7 @@ def profile_step(step, card: str, steps: int = 5) -> None:
     dev = sum(e.self_device_time_total for e in ka if not e.key.startswith("bng::"))
     launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                     "cudaLaunchKernelExC", "cuLaunchKernelEx"))
-    say(f"profile over {steps} steps [{card}]: wall {wall_us / steps / 1e3:.3f} ms/step, "
+    say(f"{what} profile over {steps} steps [{card}]: wall {wall_us / steps / 1e3:.3f} ms/step, "
         f"device busy {dev / steps / 1e3:.3f} ms/step ({100 * dev / wall_us:.1f}% busy), "
         f"{launches / steps:.0f} kernel launches/step")
     for e in sorted((e for e in ka if e.key.startswith("bng::") and e.cpu_time_total > 0),
@@ -392,6 +723,332 @@ def profile_step(step, card: str, steps: int = 5) -> None:
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:12]:
         say(f"  op {e.key[:60]}: device {e.self_device_time_total / steps / 1e3:.4f} ms/step, "
             f"{e.count / steps:.0f} calls/step")
+
+
+def staged_step(eng, pkt, length, fa, ipoe_only: bool = False):
+    """One device step on a staged batch; `ipoe_only` runs the same tables
+    with the garden, PPPoE and edge stages left out."""
+    dev = eng.device
+    pkt_d, len_d = torch.from_numpy(pkt).to(dev), torch.from_numpy(length).to(dev)
+    fa_d = torch.from_numpy(fa).to(dev)
+    now_s, now_us = torch.tensor(NOW + 200, device=dev), torch.tensor(5, device=dev)
+    tables, geom = eng.tables, eng.geom
+    if ipoe_only:
+        tables = tables._replace(garden=None, garden_allowed=None, pppoe_by_sid=None,
+                                 pppoe_by_ip=None, pppoe_server_mac=None, tap=None,
+                                 tap_filters=None, tap_config=None, route=None)
+        geom = geom._replace(garden=None, pppoe=None, tap=None, route=None)
+    return lambda: pipeline_step(tables, pkt_d, len_d, fa_d, geom, now_s, now_us)
+
+
+class HostSplit:
+    """Host time the serving calls made inside the block spend packing (or
+    assembling) frames, dispatching the device work (the drain, uploads,
+    the ops and the queued result copies), waiting for the results, and,
+    the rest of each call, demuxing verdicts."""
+
+    PARTS = ("pack", "dispatch", "wait")
+
+    def __init__(self, eng, ring=None):
+        self.sites = [(eng, "_pack_frames", "pack"), (eng, "_dispatch_step", "dispatch"),
+                      (eng, "_run_dhcp_batch", "dispatch"),
+                      (engine_mod._InFlight, "__init__", "dispatch"),
+                      (engine_mod._InFlight, "wait", "wait")]
+        if ring is not None:
+            self.sites.append((ring, "assemble", "pack"))
+        self.ms = {k: 0.0 for k in self.PARTS}
+
+    def __enter__(self):
+        self.saved = []
+        for obj, name, part in self.sites:
+            orig = getattr(obj, name)
+            self.saved.append((obj, name, obj.__dict__.get(name)))
+
+            def timed(*a, _orig=orig, _part=part, **kw):
+                t = time.perf_counter()
+                try:
+                    return _orig(*a, **kw)
+                finally:
+                    self.ms[_part] += (time.perf_counter() - t) * 1e3
+            setattr(obj, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in reversed(self.saved):
+            if orig is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, orig)
+
+    def report(self, call_ms) -> str:
+        n = len(call_ms)
+        parts = {k: v / n for k, v in self.ms.items()}
+        parts["demux"] = float(np.mean(call_ms)) - sum(parts.values())
+        return ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + " ms per call"
+
+
+def check_dispatch_makes_no_sync(eng, pkt, length, fa, dpkt, dlen):
+    """A dispatch (a drain that ships dirty rows, the uploads, the fused
+    step or the DHCP-only program, the queued result copies) makes no
+    host round trip: torch's sync debug mode reports every synchronizing
+    CUDA call made inside it."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.edge.set_route(int(sub_ip(0)), GATEWAYS[0], 100)  # a dirty row for each drain
+            flights = [engine_mod._InFlight(eng._dispatch_step(pkt, length, fa, NOW + 4))]
+            eng.fastpath.touch_lease(sub_mac(0), NOW + 86400)
+            flights.append(engine_mod._InFlight(eng._run_dhcp_batch(dpkt, dlen, NOW + 4)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for fl in flights:
+        fl.wait()
+    syncs = [str(w.message) for w in seen if "called a synchronizing" in str(w.message)]
+    check(not syncs, f"a dispatch synchronised the host: {syncs[:3]}")
+    check(eng.pending_dirty() == 0, "the dirty rows shipped with the dispatches")
+    say("a full-stack dispatch and a DHCP-only dispatch, each shipping a dirty row, made no "
+        "synchronizing CUDA call (torch.cuda sync debug mode)")
+
+
+def check_launches(got, steps: int, per_step: dict, what: str):
+    for name, n in per_step.items():
+        check(got[name] == n * steps, f"{what}: {name} launched {n} per step x {steps} ({got})")
+
+
+# ------------------------------------------------------------- the IPoE path
+
+def ipoe_phases(eng, flows, drop_ips, card, device, profile: bool, err):
+    rng = np.random.default_rng(42)
+    frames, _ = make_batch(rng, flows)
+    pkt, length = eng._pack_frames(frames, B)
+    fa = np.ones((B,), dtype=bool)
+    rec = record_kernel_inputs(lambda: eng.step(pkt, length, fa, NOW + 1), 8, 4, "IPoE step",
+                               table_names(eng.tables))
+    kernels_vs_plain(rec, device, err)
+
+    torch.cuda.reset_peak_memory_stats()
+    batches = [make_batch(rng, flows) for _ in range(BATCHES)]
+    fresh_ids = rng.integers(len(flows), size=8)
+    fresh = [(int(flows[i, 0]), int(flows[i, 1]), 31000 + k) for k, i in enumerate(fresh_ids)
+             if int(flows[i, 0]) not in drop_ips]
+    batches[3] = make_batch(rng, flows, fresh)
+    batches[4] = make_batch(rng, flows, fresh)
+    kernels.reset_launches()
+    proc_ms, n_drop = [], 0
+    split = HostSplit(eng)
+    for k, (frames, expect) in enumerate(batches):
+        with split:
+            t1 = time.perf_counter()
+            out = eng.process(frames, from_access=True, now=NOW + 2 + k * 0.01)
+            proc_ms.append((time.perf_counter() - t1) * 1e3)
+        n_drop += check_outputs(out, expect, drop_ips, fresh_ok=(k == 4))
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check_launches(launches, BATCHES, {"probe": 8, "seg_prefix": 4}, "IPoE path")
+    check(n_drop > 0 and eng.stats.dropped == n_drop, "QoS drops on policed subscribers")
+    check(len(fresh) > 0, "fresh flows present")
+    say(f"IPoE path: {BATCHES} batches of {B}; tx {eng.stats.tx} fwd {eng.stats.fwd} "
+        f"dropped {eng.stats.dropped} passed {eng.stats.passed}; launches {launches}")
+
+    gpu_step_equals_cpu_step(eng, pkt, length, fa, "IPoE")
+
+    time_kernels(rec, card, "IPoE")
+    s1, v1 = rec["seg_prefix"][0][0][:32].contiguous(), rec["seg_prefix"][0][1][:32].contiguous()
+    say(f"  K2 at B=32 (the one-CTA route's fixed work): "
+        f"{cuda_ms(lambda: seg_mod.seg_prefix_cuda(s1, v1)):.4f} ms [{card}]")
+    big = kernel_cases.seg_case(f"mixed-B{seg_mod.B_ONE + 1}/both")
+    s2, v2 = torch.from_numpy(big.slot).to(device), torch.from_numpy(big.vec).to(device)
+    say(f"  K2 sweep route at B={seg_mod.B_ONE + 1}: "
+        f"{cuda_ms(lambda: seg_mod.seg_prefix_cuda(s2, v2)):.4f} ms [{card}]")
+    say(f"  one-block launch floor (torch.cuda._sleep(0), one thread): "
+        f"{cuda_ms(lambda: torch.cuda._sleep(0), iters=100):.4f} ms [{card}]")
+    step = staged_step(eng, pkt, length, fa)
+    time_device_steps({"IPoE": step}, card)
+    say(f"IPoE Engine.process per batch (host included): mean {np.mean(proc_ms):.2f} ms, "
+        f"p50 {np.percentile(proc_ms, 50):.2f} ms over {BATCHES} batches ({split.report(proc_ms)}); "
+        f"peak device memory {peak_gib:.3f} GiB [{card}]")
+    if profile:
+        profile_step(step, card, "IPoE")
+    return launches
+
+
+# ------------------------------------------------------- the full-stack paths
+
+def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
+    t0 = time.perf_counter()
+    eng, ctx = build_full_stack(hosts, flows, device)
+    torch.cuda.synchronize()
+    say(f"full-stack deployment built and uploaded in {time.perf_counter() - t0:.1f}s "
+        f"(device tables {torch.cuda.memory_allocated() / 2**30:.3f} GiB; {N_PPPOE} PPPoE "
+        f"sessions, {N_GARDEN} gardened, {N_TAPS} taps, {N_NAT_SUBS} routes)")
+    rng = np.random.default_rng(7)
+    frames, fa_list, expect = make_full_batch(rng, ctx)
+    pkt, length = eng._pack_frames(frames, B)
+    fa = np.array(fa_list, dtype=bool)
+
+    # ---- kernels against their plain versions on every call of both programs
+    rec = record_kernel_inputs(lambda: eng.step(pkt, length, fa, NOW + 1), 13, 4,
+                               "full-stack step", table_names(eng.tables))
+    check(sorted(set(rec["table"])) == sorted(table_names(eng.tables).values()),
+          f"the full-stack step probed every table ({rec['table']})")
+    dhcp_frames = [F.discover_frame(sub_mac(i), 0x7000 + j)
+                   for j, i in enumerate(rng.integers(N_SUBS, size=B))]
+    dpkt, dlen = eng._pack_frames(dhcp_frames, B)
+    drec = record_kernel_inputs(lambda: eng._collect(eng._run_dhcp_batch(dpkt, dlen, NOW + 1)),
+                                3, 0, "DHCP-only batch")
+    probes_vs_plain([("full-stack", a) for a in rec["probe"]]
+                    + [("DHCP-only", a) for a in drec["probe"]], err)
+    segs_vs_plain([("full-stack", s, v, c) for s, v, c in rec["seg_prefix"]], err)
+    say(f"K1 bit-equal on all {len(rec['probe'])} calls of a full-stack step and "
+        f"{len(drec['probe'])} of a DHCP-only batch; K2 on the step's {len(rec['seg_prefix'])}")
+
+    # ---- the full stack through Engine.process
+    torch.cuda.reset_peak_memory_stats()
+    batches = [make_full_batch(rng, ctx) for _ in range(FULL_BATCHES)]
+    kernels.reset_launches()
+    proc_ms, seen = [], {}
+    split = HostSplit(eng)
+    for k, (bf, bfa, bexp) in enumerate(batches):
+        ctx.mirrors.clear()
+        with split:
+            t1 = time.perf_counter()
+            out = eng.process(bf, from_access=bfa, now=NOW + 2 + k * 0.01)
+            proc_ms.append((time.perf_counter() - t1) * 1e3)
+        for kind, n in check_full_outputs(out, bexp, ctx, drop_ips, ctx.mirrors).items():
+            seen[kind] = seen.get(kind, 0) + n
+    launches_full = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check_launches(launches_full, FULL_BATCHES, {"probe": 13, "seg_prefix": 4}, "full-stack path")
+    st = eng.stats
+    check(st.pppoe[0] > 0 and st.pppoe[1] > 0 and st.garden[0] > 0 and st.edge[0] > 0
+          and st.edge[1] > 0 and st.edge[2] > 0, "every stage counted work")
+    say(f"full-stack path: {FULL_BATCHES} batches of {B}, every lane as expected ({seen}); "
+        f"tx {st.tx} fwd {st.fwd} dropped {st.dropped} passed {st.passed}; pppoe {st.pppoe.tolist()} "
+        f"garden {st.garden.tolist()} edge {st.edge.tolist()}; launches {launches_full}")
+
+    gpu_step_equals_cpu_step(eng, pkt, length, fa, "full stack")
+    check_dispatch_makes_no_sync(eng, pkt, length, fa, dpkt, dlen)
+
+    # ---- the DHCP-only lane
+    kernels.reset_launches()
+    dhcp_ms = []
+    dsplit = HostSplit(eng)
+    for k in range(DHCP_BATCHES):
+        ids = rng.integers(N_SUBS, size=B)
+        dframes = [F.discover_frame(sub_mac(i), 0x8000 + j) for j, i in enumerate(ids)]
+        with dsplit:
+            t1 = time.perf_counter()
+            out = eng.process_dhcp(dframes, now=NOW + 3 + k)
+            dhcp_ms.append((time.perf_counter() - t1) * 1e3)
+        tx = dict(out["tx"])
+        for lane, i in enumerate(ids):
+            check_offer(tx, lane, sub_ip(int(i)))
+    launches_dhcp = dict(kernels.LAUNCHES)
+    check_launches(launches_dhcp, DHCP_BATCHES, {"probe": 3, "seg_prefix": 0}, "DHCP-only lane")
+    say(f"DHCP-only lane: {DHCP_BATCHES} batches of {B} DISCOVERs, all OFFERed on the device; "
+        f"launches {launches_dhcp}")
+
+    # ---- the ring loops against process on the same frames
+    ring_ms, ring_split, launches_ring = ring_phases(eng, ctx, rng)
+
+    # ---- times
+    kern = time_kernels(rec, card, "full-stack")
+    new = [j for j, t in enumerate(rec["table"]) if t in NEW_SITES]
+    say(f"  K1 at this slice's {len(new)} call sites ({', '.join(rec['table'][j] for j in new)}): "
+        f"mean {np.mean([kern['probe']['ms'][j] for j in new]):.4f} ms, plain "
+        f"{np.mean([kern['probe']['plain'][j] for j in new]):.4f} ms, bound "
+        f"{np.mean([kern['probe']['bound'][j] for j in new]):.6f} ms [{card}]")
+    step = staged_step(eng, pkt, length, fa)
+    p50 = time_device_steps({"full-stack": step,  # and the same tables and batch, stages off
+                             "IPoE-only": staged_step(eng, pkt, length, fa, ipoe_only=True)}, card)
+    say(f"full-stack p50 / IPoE-only p50, timed in turns: "
+        f"{p50['full-stack'] / p50['IPoE-only']:.3f} [{card}]")
+    say(f"full-stack Engine.process per batch (host included): mean {np.mean(proc_ms):.2f} ms, "
+        f"p50 {np.percentile(proc_ms, 50):.2f} ms over {FULL_BATCHES} batches "
+        f"({split.report(proc_ms)}); peak device memory {peak_gib:.3f} GiB [{card}]")
+    say(f"process_dhcp per batch of {B}: mean {np.mean(dhcp_ms):.2f} ms, "
+        f"p50 {np.percentile(dhcp_ms, 50):.2f} ms over {DHCP_BATCHES} batches "
+        f"({dsplit.report(dhcp_ms)}) [{card}]")
+    say(f"process_ring_pipelined per call (assemble, dispatch, retire the previous batch): "
+        f"mean {np.mean(ring_ms):.2f} ms over {len(ring_ms)} calls "
+        f"({ring_split.report(ring_ms)}) [{card}]")
+    if profile:
+        profile_step(step, card, "full-stack")
+    return kern, {"full": launches_full, "dhcp_only": launches_dhcp, **launches_ring}
+
+
+def ring_phases(eng, ctx, rng):
+    """process_ring (an all-control batch, then the mix) and
+    process_ring_pipelined over RING_BATCHES mixed batches, each against
+    `process` on the same frames: the same TX/FWD frames, drops and PASS
+    lanes, and ring stats that count them."""
+    batches = [make_full_batch(rng, ctx) for _ in range(RING_BATCHES)]
+    want = []
+    for k, (bf, bfa, _) in enumerate(batches):
+        out = eng.process(bf, from_access=bfa, now=NOW + 10 + k)
+        want.append(out)
+
+    def pops(ring):
+        got = {"tx": [], "fwd": []}
+        for key, pop in (("tx", ring.tx_pop), ("fwd", ring.fwd_pop)):
+            while (item := pop()) is not None:
+                got[key].append(item[0])
+        return got
+
+    def expected(outs):
+        return ([f for o in outs for _, f in o["tx"]], [f for o in outs for _, f in o["fwd"]])
+
+    kernels.reset_launches()
+    ring = PyRing(nframes=6 * B, frame_size=L, depth=4 * B)  # holds 3 undrained batches
+    ctrl = [F.discover_frame(sub_mac(i), 0x9000 + j)
+            for j, i in enumerate(rng.integers(N_SUBS, size=B))]
+    check(ring.rx_push_batch(ctrl) == B, "control batch pushed")
+    check(eng.process_ring(ring, now=NOW + 10) == B, "process_ring took the control batch")
+    check(ring.tx_pending() == B and ring.stats()["slow"] == 0, "every DISCOVER OFFERed")
+    pops(ring)
+    launches_ctrl = dict(kernels.LAUNCHES)
+    check_launches(launches_ctrl, 1, {"probe": 3, "seg_prefix": 0}, "ring control batch")
+
+    kernels.reset_launches()
+    for k, (bf, bfa, _) in enumerate(batches):
+        for f, a in zip(bf, bfa):
+            check(ring.rx_push(f, from_access=a), "ring push")
+        check(eng.process_ring(ring, now=NOW + 10 + k) == B, "process_ring took the batch")
+    got = pops(ring)
+    check((got["tx"], got["fwd"]) == expected(want), "process_ring TX/FWD == process")
+    launches_sync = dict(kernels.LAUNCHES)
+    check_launches(launches_sync, RING_BATCHES, {"probe": 13, "seg_prefix": 4}, "process_ring")
+
+    kernels.reset_launches()
+    ring = PyRing(nframes=6 * B, frame_size=L, depth=4 * B)  # holds 3 undrained batches
+    call_ms, retired = [], 0
+    split = HostSplit(eng, ring)
+    for k, (bf, bfa, _) in enumerate(batches):
+        for f, a in zip(bf, bfa):
+            check(ring.rx_push(f, from_access=a), "ring push")
+        with split:
+            t1 = time.perf_counter()
+            retired += eng.process_ring_pipelined(ring, now=NOW + 10 + k)
+            call_ms.append((time.perf_counter() - t1) * 1e3)
+    retired += eng.flush_pipeline()
+    check(retired == RING_BATCHES * B, "every pipelined batch retired")
+    got = pops(ring)
+    check((got["tx"], got["fwd"]) == expected(want), "process_ring_pipelined TX/FWD == process")
+    stats = ring.stats()
+    n = {v: sum(len(o[v]) for o in want) for v in ("tx", "fwd", "dropped", "slow")}
+    check(stats["rx"] == RING_BATCHES * B and stats["tx"] == n["tx"] and stats["fwd"] == n["fwd"]
+          and stats["drop"] == n["dropped"] and stats["slow"] == n["slow"],
+          f"ring stats {stats} count process's verdicts {n}")
+    launches_pipe = dict(kernels.LAUNCHES)
+    check_launches(launches_pipe, RING_BATCHES, {"probe": 13, "seg_prefix": 4},
+                   "process_ring_pipelined")
+    say(f"ring loops: control batch on the DHCP-only program {launches_ctrl}; process_ring and "
+        f"process_ring_pipelined on {RING_BATCHES} mixed batches each equal process "
+        f"(stats {stats}); launches {launches_sync} and {launches_pipe}")
+    return call_ms, split, {"ring_control": launches_ctrl, "ring_sync": launches_sync,
+                            "ring_pipelined": launches_pipe}
 
 
 def main(argv=None) -> int:
@@ -426,108 +1083,26 @@ def main(argv=None) -> int:
     say(f"deployment built and uploaded in {time.perf_counter() - t0:.1f}s "
         f"(device tables {torch.cuda.memory_allocated() / 2**30:.3f} GiB)")
 
-    rng = np.random.default_rng(42)
-    frames, expect = make_batch(rng, flows)
-    pkt, length = eng._pack_frames(frames, B)
-    fa = np.ones((B,), dtype=bool)
-    rec = record_kernel_inputs(eng, pkt, length, fa)
-    max_err = kernels_vs_plain(rec, device)  # {kernel: max |kernel - plain|}
-
-    # ---- the main path: counts 0, drive, read ----
-    torch.cuda.reset_peak_memory_stats()
-    batches = [make_batch(rng, flows) for _ in range(BATCHES)]
-    fresh_ids = rng.integers(len(flows), size=8)
-    fresh = [(int(flows[i, 0]), int(flows[i, 1]), 31000 + k) for k, i in enumerate(fresh_ids)
-             if int(flows[i, 0]) not in drop_ips]
-    batches[3] = make_batch(rng, flows, fresh)
-    batches[4] = make_batch(rng, flows, fresh)
-    kernels.reset_launches()
-    proc_ms, n_drop = [], 0
-    for k, (frames, expect) in enumerate(batches):
-        t1 = time.perf_counter()
-        out = eng.process(frames, from_access=True, now=NOW + 2 + k * 0.01)
-        proc_ms.append((time.perf_counter() - t1) * 1e3)
-        n_drop += check_outputs(out, expect, drop_ips, fresh_ok=(k == 4))
-    launches = dict(kernels.LAUNCHES)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    check(launches["probe"] == 8 * BATCHES, f"K1 launched 8 per step ({launches})")
-    check(launches["seg_prefix"] == 4 * BATCHES, f"K2 launched 4 per step ({launches})")
-    check(n_drop > 0 and eng.stats.dropped == n_drop, "QoS drops on policed subscribers")
-    check(len(fresh) > 0, "fresh flows present")
-    say(f"main path: {BATCHES} batches of {B}; tx {eng.stats.tx} fwd {eng.stats.fwd} "
-        f"dropped {eng.stats.dropped} passed {eng.stats.passed}; launches {launches}")
-
-    gpu_step_equals_cpu_step(eng, pkt, length, fa)
-
-    # ---- times ----
-    kern = {"probe": {"ms": [], "plain": [], "bound": []},
-            "seg_prefix": {"ms": [], "plain": [], "bound": []}}
-    # warm: repeated calls on one input; cold: L2 (50 MB) flushed before each call
-    flush = torch.empty(2**25, dtype=torch.int32, device=device)  # 128 MiB
-    for j, a in enumerate(rec["probe"]):
-        ms = cuda_ms(lambda: probe_mod.probe_cuda(*a))
-        cold = cuda_ms(lambda: probe_mod.probe_cuda(*a), flush=flush)
-        pl = cuda_ms(lambda: probe_mod.probe_plain(*a), iters=5)
-        bd = probe_bound_ms(a)
-        kern["probe"]["ms"].append(ms)
-        kern["probe"]["plain"].append(pl)
-        kern["probe"]["bound"].append(bd)
-        say(f"  K1 call {j}: K={a[3].shape[1]} V={a[2].shape[1]} nbuckets={a[4]} "
-            f"stash={a[5]}: {ms:.4f} ms (cold L2 {cold:.4f}), plain {pl:.4f} ms, "
-            f"bound {bd:.6f} ms [{card}]")
-    for j, (s, v, c) in enumerate(rec["seg_prefix"]):
-        ms = cuda_ms(lambda: seg_mod.seg_prefix_cuda(s, v, c))
-        cold = cuda_ms(lambda: seg_mod.seg_prefix_cuda(s, v, c), flush=flush)
-        pl = cuda_ms(lambda: seg_mod.seg_prefix_plain(s, v, c), iters=5)
-        bd = seg_bound_ms(s, v, c)
-        kern["seg_prefix"]["ms"].append(ms)
-        kern["seg_prefix"]["plain"].append(pl)
-        kern["seg_prefix"]["bound"].append(bd)
-        say(f"  K2 call {j} ({c}): {ms:.4f} ms (cold L2 {cold:.4f}), plain {pl:.4f} ms, "
-            f"bound {bd:.6f} ms [{card}]")
-    del flush
-    s1, v1 = rec["seg_prefix"][0][0][:32].contiguous(), rec["seg_prefix"][0][1][:32].contiguous()
-    say(f"  K2 at B=32 (the one-CTA route's fixed work): "
-        f"{cuda_ms(lambda: seg_mod.seg_prefix_cuda(s1, v1)):.4f} ms [{card}]")
-    big = kernel_cases.seg_case(f"mixed-B{seg_mod.B_ONE + 1}/both")
-    s2, v2 = torch.from_numpy(big.slot).to(device), torch.from_numpy(big.vec).to(device)
-    say(f"  K2 sweep route at B={seg_mod.B_ONE + 1}: "
-        f"{cuda_ms(lambda: seg_mod.seg_prefix_cuda(s2, v2)):.4f} ms [{card}]")
-    say(f"  one-block launch floor (torch.cuda._sleep(0), one thread): "
-        f"{cuda_ms(lambda: torch.cuda._sleep(0), iters=100):.4f} ms [{card}]")
-
-    pkt_d, len_d = torch.from_numpy(pkt).to(device), torch.from_numpy(length).to(device)
-    fa_d = torch.from_numpy(fa).to(device)
-    now_s, now_us = torch.tensor(NOW + 200, device=device), torch.tensor(5, device=device)
-    step = lambda: pipeline_step(eng.tables, pkt_d, len_d, fa_d, eng.geom, now_s, now_us)  # noqa: E731
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    lat = []
-    for _ in range(100):
-        t1 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t1) * 1e3)
-    lat = np.array(lat)
-    say(f"device step B={B}: {B / (lat.mean() / 1e3) / 1e6:.4f} Mpps, p50 {np.percentile(lat, 50):.3f} ms, "
-        f"p99 {np.percentile(lat, 99):.3f} ms, max {lat.max():.3f} ms over {len(lat)} steps "
-        f"(host clock, synced) [{card}]")
-    say(f"Engine.process per batch (host included): mean {np.mean(proc_ms):.2f} ms, "
-        f"p50 {np.percentile(proc_ms, 50):.2f} ms over {BATCHES} batches; "
-        f"peak device memory {peak_gib:.3f} GiB [{card}]")
-    if args.profile:
-        profile_step(step, card)
+    err = {"probe": 0.0, "seg_prefix": 0.0}  # max |kernel - plain| over every comparison
+    launches = {"ipoe": ipoe_phases(eng, flows, drop_ips, card, device, args.profile, err)}
+    # the full-stack engine drains the same host tables: retire this one first
+    hosts = (eng.fastpath, eng.nat, eng.qos, eng.antispoof)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern, more = full_stack_phases(hosts, flows, drop_ips, card, device, args.profile, err)
+    launches.update(more)
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",
                           "bng_tpu/ops/pallas_qos.py:127")}
     line = {"kernels": [
         {"name": name, "route": src[name][0], "source": src[name][1], "replaces": src[name][2],
-         "launches": launches[name], "max_abs_err": max_err[name],
+         "launches": launches["full"][name], "max_abs_err": err[name],
          "ms": float(np.mean(kern[name]["ms"])), "plain_ms": float(np.mean(kern[name]["plain"])),
          "bound_ms": float(np.mean(kern[name]["bound"])),
-         "bound_by": "bytes", "library_ms": None}
+         "bound_by": "bytes", "library_ms": None,
+         "launches_by_path": {p: v[name] for p, v in launches.items()}}
         for name in ("probe", "seg_prefix")]}
     print(json.dumps(line))
     print(card)

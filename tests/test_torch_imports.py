@@ -29,8 +29,16 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "bng_tpu."))
              or m == "bng_tpu")
+print(sorted(mods))
 print(len(mods), bad)
 """
+
+# the modules each slice added; the subprocess probe must import every one
+SLICE_MODULES = (
+    "bng_tpu_torch.entry", "bng_tpu_torch.ops.pppoe", "bng_tpu_torch.ops.garden",
+    "bng_tpu_torch.edge.ops", "bng_tpu_torch.edge.tables", "bng_tpu_torch.runtime.ring",
+    "bng_tpu_torch.runtime.tables", "bng_tpu_torch.runtime.engine", "bng_tpu_torch.ops.pipeline",
+)
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -40,9 +48,11 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 20  # every module of the package was imported
+    lines = out.stdout.strip().splitlines()
+    n, bad = lines[-1].split(" ", 1)
+    assert int(n) >= 26  # every module of the package was imported
     assert bad == "[]", bad
+    assert set(SLICE_MODULES) <= set(eval(lines[-2]))  # noqa: S307 — our own repr
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):
@@ -59,6 +69,29 @@ def test_engine_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(fp, nat)
     assert Engine(fp, nat, device="cpu").device == torch.device("cpu")
+
+
+def test_entry_and_full_stack_engine_need_cuda_unless_cpu(monkeypatch):
+    from bng_tpu_torch.edge.tables import EdgeTables
+    from bng_tpu_torch.entry import entry
+    from bng_tpu_torch.control.nat import NATManager
+    from bng_tpu_torch.runtime.engine import Engine, GardenTables
+    from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+    fn, args = entry(device="cpu")
+    assert all(t.device.type == "cpu" for t in args[1:])
+    fp = FastPathTables(sub_nbuckets=64, vlan_nbuckets=16, cid_nbuckets=16, max_pools=4)
+    nat = NATManager(public_ips=[1], sessions_nbuckets=64, sub_nat_nbuckets=16)
+    stages = dict(garden=GardenTables(nbuckets=16), pppoe=PPPoEFastPathTables(nbuckets=16),
+                  edge=EdgeTables(nbuckets=16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(fp, nat, **stages)
+    eng = Engine(fp, nat, **stages, device="cpu")
+    assert eng.tables.route.vals.device.type == "cpu"
+    assert eng.tables.pppoe_server_mac.device.type == "cpu"
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
