@@ -396,3 +396,16 @@ class NATManager:
             words_to_device(self.alg, device),
             words_to_device(self.config_array(), device),
         )
+
+    def empty_updates(self, device) -> tuple:
+        """No-op table deltas (dirty tracking untouched) for the scheduler's
+        no-drain bulk steps; hairpin/alg/config are re-read every call, since
+        the step applies them wholesale."""
+        return (
+            self.sessions.empty_update(self.update_slots, device),
+            self.reverse.empty_update(self.update_slots, device),
+            self.sub_nat.empty_update(self.update_slots, device),
+            words_to_device(self.hairpin, device),
+            words_to_device(self.alg, device),
+            words_to_device(self.config_array(), device),
+        )

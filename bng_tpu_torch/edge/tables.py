@@ -112,5 +112,13 @@ class EdgeTables:
                 words_to_device(self.tap_config, device),
                 self.route.make_update(self.update_slots, device))
 
+    def empty_updates(self, device):
+        """No-op deltas that leave dirty tracking alone (the scheduler's bulk
+        lane); the dense arrays are re-read, since they apply wholesale."""
+        return (self.tap.empty_update(self.update_slots, device),
+                words_to_device(self.tap_filters, device),
+                words_to_device(self.tap_config, device),
+                self.route.empty_update(self.update_slots, device))
+
     def dirty_count(self) -> int:
         return self.tap.dirty_count() + self.route.dirty_count()

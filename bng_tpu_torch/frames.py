@@ -2,17 +2,24 @@
 and PPPoE session and discovery frames.
 
 The port's own copy of the subset of `bng_tpu/control/packets.py`
-(`udp_packet`, `tcp_packet`, `decode`), `bng_tpu/control/dhcp_codec.py`
-(`build_request`, `DHCPPacket.encode`, `decode`) and
+(`udp_packet`, `tcp_packet`, `decode`) and
 `bng_tpu/control/pppoe/codec.py` (`eth_frame`, `PPPoEPacket`, tags,
 `CPPacket`, `ppp_frame`) that the engine's new-flow punt,
-`chip_smoke.py` and the tests use. Byte-identical output.
+`chip_smoke.py` and the tests use, with the DHCP codec's packet,
+builder and decoder re-exported from `control/dhcp_codec.py`.
+Byte-identical output.
 """
 
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
+
+from bng_tpu_torch.control.dhcp_codec import (  # noqa: F401 — re-exported
+    ACK, DISCOVER, OFFER, OPT_PARAM_REQ_LIST, REQUEST, build_request,
+)
+from bng_tpu_torch.control.dhcp_codec import decode as decode_dhcp  # noqa: F401
+from bng_tpu_torch.utils.net import ipv4_header
 
 ETH_P_IP = 0x0800
 ETH_P_8021Q = 0x8100
@@ -41,17 +48,6 @@ def eth_header(dst: bytes, src: bytes, ethertype: int, vlans: list[int] | None =
             hdr += struct.pack("!HH", ETH_P_8021Q, vlans[0])
     hdr += struct.pack("!H", ethertype)
     return hdr
-
-
-def ipv4_header(src_ip: int, dst_ip: int, payload_len: int, proto: int, ttl: int = 64,
-                ident: int = 0, tos: int = 0) -> bytes:
-    total = 20 + payload_len
-    s = ((0x4500 | tos) + total + ident + ((ttl << 8) | proto)
-         + (src_ip >> 16) + (src_ip & 0xFFFF) + (dst_ip >> 16) + (dst_ip & 0xFFFF))
-    s = (s & 0xFFFF) + (s >> 16)
-    s = (s & 0xFFFF) + (s >> 16)
-    return struct.pack("!BBHHHBBHII", 0x45, tos, total, ident, 0, ttl, proto,
-                       (~s) & 0xFFFF, src_ip, dst_ip)
 
 
 def udp_packet(src_mac: bytes, dst_mac: bytes, src_ip: int, dst_ip: int, src_port: int,
@@ -159,116 +155,7 @@ def l4_checksum_ok(raw: bytes) -> bool:
     return p.proto in (6, 17) and checksum16(data) == 0
 
 
-# ---- DHCPv4 (RFC 2131/2132) ----
-
-DHCP_MAGIC = 0x63825363
-DISCOVER, OFFER, REQUEST, DECLINE, ACK, NAK, RELEASE, INFORM = range(1, 9)
-
-OPT_PAD = 0
-OPT_REQUESTED_IP = 50
-OPT_MSG_TYPE = 53
-OPT_SERVER_ID = 54
-OPT_PARAM_REQ_LIST = 55
-OPT_RELAY_AGENT_INFO = 82
-OPT_END = 255
-OPT82_CIRCUIT_ID = 1
-OPT82_REMOTE_ID = 2
-
-
-@dataclass
-class DHCPPacket:
-    op: int = 1
-    htype: int = 1
-    hlen: int = 6
-    hops: int = 0
-    xid: int = 0
-    secs: int = 0
-    flags: int = 0
-    ciaddr: int = 0
-    yiaddr: int = 0
-    siaddr: int = 0
-    giaddr: int = 0
-    chaddr: bytes = b"\x00" * 6
-    sname: bytes = b""
-    file: bytes = b""
-    options: list[tuple[int, bytes]] = field(default_factory=list)
-
-    def opt(self, code: int) -> bytes | None:
-        for c, v in self.options:
-            if c == code:
-                return v
-        return None
-
-    @property
-    def msg_type(self) -> int:
-        v = self.opt(OPT_MSG_TYPE)
-        return v[0] if v else 0
-
-    def encode(self) -> bytes:
-        fixed = struct.pack("!BBBBIHHIIII", self.op, self.htype, self.hlen, self.hops,
-                            self.xid, self.secs, self.flags,
-                            self.ciaddr, self.yiaddr, self.siaddr, self.giaddr)
-        chaddr = (self.chaddr + b"\x00" * 16)[:16]
-        sname = (self.sname + b"\x00" * 64)[:64]
-        bfile = (self.file + b"\x00" * 128)[:128]
-        parts = [b"\x00" if code == OPT_PAD else bytes((code, len(val))) + val
-                 for code, val in self.options]
-        opts = b"".join(parts) + bytes((OPT_END,))
-        return fixed + chaddr + sname + bfile + struct.pack("!I", DHCP_MAGIC) + opts
-
-
-def decode_dhcp(data: bytes) -> DHCPPacket:
-    if len(data) < 240:
-        raise ValueError(f"DHCP packet too short: {len(data)}")
-    p = DHCPPacket()
-    (p.op, p.htype, p.hlen, p.hops, p.xid, p.secs, p.flags,
-     p.ciaddr, p.yiaddr, p.siaddr, p.giaddr) = struct.unpack_from("!BBBBIHHIIII", data, 0)
-    p.chaddr = data[28: 28 + max(p.hlen, 6)][:16]
-    p.sname = data[44:108].rstrip(b"\x00")
-    p.file = data[108:236].rstrip(b"\x00")
-    magic = struct.unpack_from("!I", data, 236)[0]
-    if magic != DHCP_MAGIC:
-        raise ValueError(f"bad DHCP magic: {magic:#x}")
-    i = 240
-    while i < len(data):
-        code = data[i]
-        if code == OPT_END:
-            break
-        if code == OPT_PAD:
-            i += 1
-            continue
-        if i + 1 >= len(data):
-            break
-        ln = data[i + 1]
-        p.options.append((code, data[i + 2: i + 2 + ln]))
-        i += 2 + ln
-    return p
-
-
-def build_request(mac: bytes, msg_type: int, xid: int = 0x12345678, requested_ip: int = 0,
-                  server_id: int = 0, ciaddr: int = 0, giaddr: int = 0,
-                  broadcast: bool = False, circuit_id: bytes = b"", remote_id: bytes = b"",
-                  extra_options: list[tuple[int, bytes]] | None = None) -> DHCPPacket:
-    """A client DISCOVER/REQUEST/... packet."""
-    p = DHCPPacket(op=1, xid=xid, chaddr=mac, ciaddr=ciaddr, giaddr=giaddr)
-    if broadcast:
-        p.flags = 0x8000
-    p.options.append((OPT_MSG_TYPE, bytes([msg_type])))
-    if requested_ip:
-        p.options.append((OPT_REQUESTED_IP, struct.pack("!I", requested_ip)))
-    if server_id:
-        p.options.append((OPT_SERVER_ID, struct.pack("!I", server_id)))
-    if extra_options:
-        p.options.extend(extra_options)
-    if circuit_id or remote_id:
-        sub = b""
-        if circuit_id:
-            sub += bytes([OPT82_CIRCUIT_ID, len(circuit_id)]) + circuit_id
-        if remote_id:
-            sub += bytes([OPT82_REMOTE_ID, len(remote_id)]) + remote_id
-        p.options.append((OPT_RELAY_AGENT_INFO, sub))
-    return p
-
+# ---- DHCPv4 (RFC 2131/2132): the codec lives in control/dhcp_codec.py ----
 
 def discover_frame(mac: bytes, xid: int, vlans: list[int] | None = None, giaddr: int = 0,
                    circuit_id: bytes = b"", msg_type: int = DISCOVER, pad: int = 300) -> bytes:

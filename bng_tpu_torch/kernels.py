@@ -8,7 +8,9 @@ the flags, so a fresh checkout builds everything it needs by itself.
 The missing sources build together, one `nvcc` each, started at once.
 
 `LAUNCHES` counts kernel launches per kernel name: each wrapper adds one
-where it launches, and nowhere else.
+where it launches, and a captured CUDA graph (`runtime/engine.py`'s
+`ExpressProgram`) adds the launches it recorded each time it replays
+(the capture itself counts none).
 """
 
 from __future__ import annotations

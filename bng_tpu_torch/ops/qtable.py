@@ -129,6 +129,7 @@ class HostQTable:
         self.count = 0
         self._dirty: set[int] = set()
         self._dirty_all = False
+        self._empty_updates: dict = {}  # (max_slots, device) -> QTableUpdate
         self._rng = np.random.default_rng(0xB46)
 
     def _buckets(self, ip: int) -> tuple[int, int]:
@@ -299,3 +300,15 @@ class HostQTable:
             slot[:n] = ss
             rows[:n] = self.rows[ss]
         return QTableUpdate(slot=words_to_device(slot, device), rows=words_to_device(rows, device))
+
+    def empty_update(self, max_slots: int, device) -> QTableUpdate:
+        """An all-padding QTableUpdate (a no-op scatter), built without
+        touching dirty tracking and kept per (size, device) (see
+        `HostTable.empty_update`)."""
+        key = (max_slots, str(device))
+        upd = self._empty_updates.get(key)
+        if upd is None:
+            upd = self._empty_updates[key] = QTableUpdate(
+                slot=words_to_device(np.full((max_slots,), self.S, dtype=np.int64), device),
+                rows=words_to_device(np.zeros((max_slots, SLOT_W), dtype=np.uint32), device))
+        return upd

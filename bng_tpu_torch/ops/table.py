@@ -180,6 +180,7 @@ class HostTable:
         self._dirty: set[int] = set()
         self._dirty_all = False  # set by large bulk_insert: full resync needed
         self._rng = np.random.default_rng(0xB46)
+        self._empty_updates: dict = {}  # (max_slots, device) -> TableUpdate
 
     def _buckets(self, key: np.ndarray) -> tuple[int, int]:
         words = [key[k: k + 1].astype(np.int64) for k in range(self.K)]
@@ -394,6 +395,25 @@ class HostTable:
             sidx=words_to_device(sidx, device), srows=words_to_device(srows, device),
             idx=words_to_device(idx, device), vals=words_to_device(vv, device),
         )
+
+    def empty_update(self, max_slots: int, device) -> TableUpdate:
+        """An all-padding TableUpdate (applying it writes nothing), built
+        without touching dirty tracking and kept per (size, device): the
+        scheduler's no-drain bulk steps ship it so that pending deltas wait
+        for the next drain, at no host-to-device traffic."""
+        key = (max_slots, str(device))
+        upd = self._empty_updates.get(key)
+        if upd is None:
+            U = max_slots
+            upd = self._empty_updates[key] = TableUpdate(
+                bidx=words_to_device(np.full((U,), self.nbuckets, dtype=np.int64), device),
+                brows=words_to_device(np.zeros((U, WAYS * self.KW), dtype=np.uint32), device),
+                sidx=words_to_device(np.full((U,), self.stash, dtype=np.int64), device),
+                srows=words_to_device(np.zeros((U, self.KW), dtype=np.uint32), device),
+                idx=words_to_device(np.full((U,), self.S, dtype=np.int64), device),
+                vals=words_to_device(np.zeros((U, self.V), dtype=np.uint32), device),
+            )
+        return upd
 
     def lookup_batch_host(self, queries: np.ndarray) -> np.ndarray:
         """Reference host-side batched lookup (for tests)."""

@@ -29,13 +29,19 @@ dirty the drain ships nothing (the dense config arrays are re-sent only
 when they changed). The engine runs on the card unless the caller asks
 for the CPU with `device="cpu"`.
 
-Telemetry spans, the scheduler, express/devloop lanes, the native ring
-and checkpoints belong to later slices of the port.
+The latency-tiered scheduler (`runtime/scheduler.py`) drives the engine
+through two more ways in: the express program (`compile_express_aot` /
+`run_express_aot`: the `ops/express.py` probe cascade over admission
+descriptors, captured once per key as a CUDA graph on the card) and the
+bulk lane (`dispatch_scheduled_bulk`: the fused step over a read replica
+of the DHCP tables, with the drain cadence the scheduler sets).
+
+Telemetry spans, the devloop, the native ring and checkpoints belong to
+later slices of the port.
 """
 
 from __future__ import annotations
 
-import logging
 import time
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple
@@ -44,7 +50,7 @@ import numpy as np
 import torch
 
 from bng_tpu_torch import frames as F
-from bng_tpu_torch import resolve_device
+from bng_tpu_torch import kernels, resolve_device
 from bng_tpu_torch.control.nat import NATManager, apply_nat_updates
 from bng_tpu_torch.edge.ops import EDGE_NSTATS
 from bng_tpu_torch.edge.tables import EdgeTables
@@ -54,6 +60,7 @@ from bng_tpu_torch.ops.antispoof import (
 )
 from bng_tpu_torch.ops.dhcp import NSTATS as DHCP_NSTATS
 from bng_tpu_torch.ops.dhcp import dhcp_fastpath
+from bng_tpu_torch.ops.express import XD_WORDS, express_verdicts
 from bng_tpu_torch.ops.garden import GARDEN_NSTATS, GARDEN_WORDS, GV_FLAG
 from bng_tpu_torch.ops.hashing import MASK32
 from bng_tpu_torch.ops.nat44 import NAT_NSTATS
@@ -71,8 +78,7 @@ from bng_tpu_torch.runtime.tables import (
     FastPathTables, PPPoEFastPathTables, apply_fastpath_updates,
 )
 from bng_tpu_torch.utils.net import mac_to_u64, split_u64
-
-log = logging.getLogger(__name__)
+from bng_tpu_torch.utils.structlog import ErrorLog
 
 PKT_SLOT = 1536  # default per-lane packet slot (full MTU + encap headroom)
 
@@ -111,16 +117,82 @@ class DhcpBatchResult(NamedTuple):
     dhcp_stats: torch.Tensor
 
 
+class ExpressAotResult(NamedTuple):
+    """Output of the express program: the verdict block and the DHCP stats
+    (no packet bytes; the scheduler patches replies from templates)."""
+
+    block: torch.Tensor  # [B, XD_WORDS] int32 words (ops/express VB_* columns)
+    dhcp_stats: torch.Tensor
+
+
+class ExpressProgram:
+    """The express program for one fixed batch, over one engine's DHCP tables.
+
+    On the card it is a CUDA graph of `express_verdicts` (three K1 launches
+    and the selects) captured over static buffers: the descriptor rows,
+    `now`, and the block and stats it writes. The table tensors are baked
+    in by address, which in-place drains keep and `resync_tables` does not:
+    `key` carries the engine's resync count, and a program whose key is
+    stale is never replayed. A replay calls no wrapper, so the kernel
+    launches counted while it was captured are added to `kernels.LAUNCHES`
+    on every replay instead. On the CPU it is a plain call."""
+
+    def __init__(self, eng: "Engine", batch: int, key: tuple):
+        self.key, self.batch = key, batch
+        dev = eng.device
+        self.desc = torch.zeros((batch, XD_WORDS), dtype=torch.int32, device=dev)
+        self.now = torch.zeros((), dtype=torch.int64, device=dev)
+        self.tables, self.geom = eng.tables.dhcp, eng.geom.dhcp
+        self.graph, self.launches = None, {}
+        if dev.type == "cuda":
+            self._capture(dev)
+
+    def _run(self):
+        return express_verdicts(self.tables, self.desc, self.geom, self.now)
+
+    def _capture(self, dev) -> None:
+        # warm on a side stream first (builds and loads K1, fills the
+        # caching allocator), as CUDA graph capture asks
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self._run()
+        # the capture recorded these launches; they run at each replay
+        self.launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        kernels.LAUNCHES.update(before)
+        self.graph = graph
+
+    def __call__(self, desc: np.ndarray, now: float):
+        host = torch.from_numpy(np.ascontiguousarray(desc).view(np.int32))
+        if self.graph is None:
+            self.desc.copy_(host)
+            self.now.fill_(int(now) & MASK32)
+            return self._run()
+        # pinned source, async copy: the host does not wait for the stream
+        self.desc.copy_(host.pin_memory(), non_blocking=True)
+        self.now.fill_(int(now) & MASK32)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            kernels.LAUNCHES[k] += n
+        return self.out
+
+
 class _InFlight:
     """A dispatched batch's outputs on their way to the host.
 
     On the card every output is copied into pinned host memory by an async
     copy queued behind the batch, and an event is recorded after the
     copies; `wait` blocks on that event alone, so a batch dispatched
-    later keeps the card busy meanwhile. On the CPU the outputs are
-    already there."""
+    later keeps the card busy meanwhile, and `ready` asks the event
+    without blocking. On the CPU the outputs are already there."""
 
-    LANES = ("verdict", "out_pkt", "out_len", "nat_punt", "spoof_violation", "mirror")
+    LANES = ("verdict", "out_pkt", "out_len", "nat_punt", "spoof_violation", "mirror", "block")
 
     def __init__(self, res):
         present = [(name, getattr(res, f)) for name, f in _STAT_FIELDS
@@ -135,13 +207,17 @@ class _InFlight:
         else:
             self._host, self._event = leaves, None
 
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
     def wait(self) -> dict[str, np.ndarray]:
         if self._event is not None:
             self._event.synchronize()
         host = {k: v.numpy() for k, v in self._host.items()}
-        B = host["verdict"].shape[0]
-        for k in ("nat_punt", "spoof_violation"):  # absent on the DHCP-only program
-            host.setdefault(k, np.zeros((B,), dtype=bool))
+        if "verdict" in host:  # the express program has a block instead
+            B = host["verdict"].shape[0]
+            for k in ("nat_punt", "spoof_violation"):  # absent on the DHCP-only program
+                host.setdefault(k, np.zeros((B,), dtype=bool))
         return host
 
 
@@ -259,7 +335,8 @@ def _apply_all_updates(t: PipelineTables, upd) -> None:
     PPPoE (by_sid delta, by_ip delta), edge (tap delta, filters, config,
     route delta)."""
     fp_upd, nat_upd, qup, qdown, sp_upd, sp_ranges, sp_config, *tails = upd
-    apply_fastpath_updates(t.dhcp, fp_upd)
+    if t.dhcp is not None:  # None: a bulk batch applied outside a step
+        apply_fastpath_updates(t.dhcp, fp_upd)
     apply_nat_updates(t.nat, nat_upd)
     apply_qupdate(t.qos_up, qup)
     apply_qupdate(t.qos_down, qdown)
@@ -310,6 +387,13 @@ class Engine:
         self.B = batch_size
         self.L = pkt_slot
         self.slow_path = slow_path
+        # a batched slow-path handler ([(lane, frame)] -> [(lane, reply)]):
+        # the reference's slow-path fleet hook; it stays None until the
+        # fleet is ported
+        self.slow_path_batch = None
+        # slow-path failures are counted and logged, rate-limited
+        self._slow_err_log = ErrorLog("slowpath", "slow-path handler failed", level="error",
+                                      component="engine")
         self.violation_sink = violation_sink
         self.clock = clock
         self.stats = EngineStats()
@@ -323,6 +407,11 @@ class Engine:
             tap=edge.geom if edge else None,
             route=edge.geom if edge else None,
         )
+        # bumped by resync_tables (new device tensors): the scheduler's bulk
+        # replica and the captured express programs watch it
+        self.resync_count = 0
+        self._express_programs: dict[tuple, ExpressProgram] = {}
+        self.express_captures = 0  # express programs built (graphs captured on the card)
         self.tables: PipelineTables = self._device_tables()
 
     # -- device state --
@@ -364,8 +453,14 @@ class Engine:
 
     def resync_tables(self) -> None:
         """Full device re-upload after a bulk host-table build (device-written
-        QoS tokens and NAT counters reset to the host view)."""
+        QoS tokens and NAT counters reset to the host view). The new tensors
+        invalidate every captured express program: each is dropped and
+        built again over them, under a key with the new resync count."""
         self.tables = self._device_tables()
+        self.resync_count += 1
+        stale, self._express_programs = self._express_programs, {}
+        for prog in stale.values():  # rebuilt (re-captured) over the new tensors
+            self.compile_express_aot(prog.batch)
 
     def _host_mirrors(self):
         mirrors = [self.fastpath.sub, self.fastpath.vlan, self.fastpath.cid,
@@ -395,24 +490,40 @@ class Engine:
             # a bulk build abandoned delta tracking: answer with one full upload
             self.resync_tables()
             return None
-        dev = self.device
         self._dense_sent = {k: v.copy() for k, v in self._dense_host().items()}
+        return self._update_batch(drain_fastpath=True, drain_rest=True)
+
+    def _update_batch(self, drain_fastpath: bool, drain_rest: bool):
+        """One update batch for the fused step: for each table its real
+        delta (which drains the table's dirty slots) or its empty one (which
+        leaves them queued), and the dense config arrays, which the step
+        copies wholesale. The fastpath's part is chosen apart: only the
+        express lane drains it when the scheduler runs the engine."""
+        dev = self.device
+
+        def delta(t, slots):
+            return t.make_update(slots, dev) if drain_rest else t.empty_update(slots, dev)
+
+        def deltas(owner):
+            return owner.make_updates(dev) if drain_rest else owner.empty_updates(dev)
+
+        fp = self.fastpath
         upd = (
-            self.fastpath.make_updates(dev),
-            self.nat.make_updates(dev),
-            self.qos.up.make_update(self.qos.update_slots, dev),
-            self.qos.down.make_update(self.qos.update_slots, dev),
-            self.antispoof.bindings.make_update(self.antispoof.update_slots, dev),
+            fp.make_updates(dev) if drain_fastpath else fp.empty_updates(dev),
+            deltas(self.nat),
+            delta(self.qos.up, self.qos.update_slots),
+            delta(self.qos.down, self.qos.update_slots),
+            delta(self.antispoof.bindings, self.antispoof.update_slots),
             words_to_device(self.antispoof.ranges, dev),
             words_to_device(self.antispoof.config, dev),
         )
         if self.garden is not None:
-            upd += (self.garden.subscribers.make_update(self.garden.update_slots, dev),
+            upd += (delta(self.garden.subscribers, self.garden.update_slots),
                     words_to_device(self.garden.allowed, dev))
         if self.pppoe is not None:
-            upd += self.pppoe.make_updates(dev)
+            upd += deltas(self.pppoe)
         if self.edge is not None:
-            upd += self.edge.make_updates(dev)
+            upd += deltas(self.edge)
         return upd
 
     def _drain_fastpath_updates(self):
@@ -487,6 +598,107 @@ class Engine:
         self._collect(res)
         return res
 
+    # -- the express program (runtime/scheduler.py's express lane) --
+    def _express_device(self, device):
+        """The express lane shares the engine's device and stream; another
+        device (the reference's second-chip express lane) is not ported."""
+        if device is None:
+            return self.device
+        want, dev = torch.device(device), self.device
+        index = dev.index
+        if dev.type == "cuda" and index is None:
+            index = torch.cuda.current_device()
+        if want.type != dev.type or want.index not in (None, index):
+            raise NotImplementedError(
+                f"an express lane on {want}, apart from the engine's {dev}, is not ported "
+                "(ROADMAP Queue 1, item 5a)")
+        return dev
+
+    def _express_aot_key(self, batch: int, device=None) -> tuple:
+        # the table shapes and update-batch shapes the program reads, the
+        # batch, the device, and the resync count: a resync uploads new
+        # tensors, which a captured graph's baked addresses would not see
+        return (self.fastpath.geom, len(self.fastpath.pools), self.fastpath.update_slots,
+                batch, str(self._express_device(device)), self.resync_count)
+
+    def express_aot(self, batch: int, device=None) -> ExpressProgram | None:
+        """The express program for `batch`, or None: a None is the geometry
+        miss the scheduler falls back from, loudly. It never captures."""
+        return self._express_programs.get(self._express_aot_key(batch, device))
+
+    def compile_express_aot(self, batch: int, device=None) -> ExpressProgram:
+        """Build the express program for one fixed batch (on the card:
+        capture its CUDA graph), at scheduler init, never on the dispatch
+        path. Kept per key, so a second call captures nothing new. A
+        capture that fails raises."""
+        key = self._express_aot_key(batch, device)
+        prog = self._express_programs.get(key)
+        if prog is None:
+            prog = self._express_programs[key] = ExpressProgram(self, batch, key)
+            self.express_captures += 1
+        return prog
+
+    def run_express_aot(self, prog: ExpressProgram, desc: np.ndarray, now: float,
+                        device=None) -> ExpressAotResult:
+        """Dispatch one staged descriptor batch ([batch, XD_WORDS] uint32)
+        to the express program: the fastpath delta drains first (an OFFER
+        sees the newest lease), then the descriptors go up and the program
+        runs (the graph replays). A resync inside the drain re-keys: the
+        program is rebuilt for the new tables and the stale one never
+        replays. The outputs are the program's own buffers, rewritten by
+        the next dispatch: take them with `_InFlight` before that."""
+        upd = self._drain_fastpath_updates()
+        if upd is not None:
+            apply_fastpath_updates(self.tables.dhcp, upd)
+        if prog.key != self._express_aot_key(prog.batch, device):
+            prog = self.compile_express_aot(prog.batch, device)
+        res = prog(desc, now)
+        self.stats.batches += 1
+        return ExpressAotResult(block=res.block, dhcp_stats=res.stats)
+
+    # -- the bulk lane (runtime/scheduler.py) --
+    #
+    # The scheduler runs the fused step over a READ REPLICA of the DHCP
+    # tables and owns the drain cadence: the express lane alone drains the
+    # fastpath deltas, the bulk lane ships empty fastpath deltas and the
+    # other tables' real deltas every `drain_every` dispatches.
+    def prefetch_bulk_updates(self):
+        """Build and start uploading the next bulk drain while the current
+        step runs (overlap drain). It consumes the host dirty sets as the
+        in-dispatch drain would. The caller owns the batch: it must reach
+        the device through `dispatch_scheduled_bulk(upd=...)` or
+        `apply_updates_now`, or host and device tables diverge. A bulk
+        build that abandoned delta tracking answers with a full resync."""
+        bulk_mirrors = self._host_mirrors()[3:]  # all but the fastpath's sub/vlan/cid
+        if any(t._dirty_all for t in bulk_mirrors):
+            self.resync_tables()
+        return self._update_batch(drain_fastpath=False, drain_rest=True)
+
+    def apply_updates_now(self, upd) -> None:
+        """Apply one built bulk update batch with no packet batch (a
+        prefetched drain that no later step consumed). The authoritative
+        DHCP tables are left out, as the bulk step leaves them out."""
+        _apply_all_updates(self.tables._replace(dhcp=None), upd)
+
+    def dispatch_scheduled_bulk(self, pkt: np.ndarray, length: np.ndarray, fa: np.ndarray,
+                                now: float, dhcp_replica, drain: bool = True, upd=None):
+        """The bulk lane's dispatch: the fused step over `dhcp_replica`
+        instead of the authoritative DHCP tables. drain=False ships the
+        no-op batch; a prefetched batch (`upd`) takes the drain's place.
+        Returns (result, replica); the outputs are not waited for."""
+        if upd is None:
+            upd = (self.prefetch_bulk_updates() if drain
+                   else self._update_batch(drain_fastpath=False, drain_rest=False))
+        # read self.tables after the drain: a resync rebinds it
+        tables_in = self.tables._replace(dhcp=dhcp_replica)
+        _apply_all_updates(tables_in, upd)
+        dev = self.device
+        now_s, now_us = self._now_tensors(now)
+        res = pipeline_step(tables_in, to_device(pkt, dev), to_device(length, dev),
+                            to_device(fa, dev), self.geom, now_s, now_us)
+        self.stats.batches += 1
+        return res, dhcp_replica
+
     # -- frames in, verdicts out --
     def _pack_frames(self, frames: list[bytes], B: int):
         """Stage a frame list into [B, L] uint8 + [B] lengths (numpy)."""
@@ -508,27 +720,41 @@ class Engine:
         length[: len(frames)] = lens
         return pkt, length
 
-    def _handle_slow_lanes(self, items: list) -> list:
-        """[(lane, frame)] through the slow-path handler -> [(lane, reply|None)];
-        a handler error is counted and logged, and the drain goes on."""
-        out = []
-        for lane, frame in items:
+    def _handle_slow_lanes(self, items: list, path: str) -> list:
+        """PASS-lane frames through the slow path: the batched handler when
+        one is set, else the per-frame one. items: [(lane, frame)] or
+        [(lane, frame, enq_t)] (the scheduler passes each frame's enqueue
+        time along) -> [(lane, reply|None)] in ascending lane order. A
+        handler error is counted and reported with its `path`, and the
+        drain goes on."""
+        if not items:
+            return []
+        if self.slow_path_batch is not None:
+            try:
+                out = self.slow_path_batch(items)
+            except Exception as e:  # noqa: BLE001 — the batched handler can fail whole
+                self.stats.slow_errors += 1
+                self._slow_err_log.report(e, path=path, lane=-1)
+                return [(item[0], None) for item in items]
+            return sorted(out, key=lambda t: t[0])
+        results = []
+        for lane, frame in ((item[0], item[1]) for item in items):
             reply = None
-            if self.slow_path is not None:
-                try:
+            try:
+                if self.slow_path is not None:
                     reply = self.slow_path(frame)
-                except Exception:  # noqa: BLE001 — slow path is untrusted input
-                    self.stats.slow_errors += 1
-                    log.exception("slow path failed (lane %d)", lane)
-            out.append((lane, reply))
-        return out
+            except Exception as e:  # noqa: BLE001 — slow path is untrusted input
+                self.stats.slow_errors += 1
+                self._slow_err_log.report(e, path=path, lane=lane)
+            results.append((lane, reply))
+        return results
 
-    def _punt(self, frame: bytes, now: float, lane: int) -> None:
+    def _punt(self, frame: bytes, now: float, lane: int, path: str = "punt") -> None:
         try:
             self._punt_new_flow(frame, int(now))
-        except Exception:  # noqa: BLE001 — untrusted frame: count, log, go on
+        except Exception as e:  # noqa: BLE001 — untrusted frame: count, log, go on
             self.stats.slow_errors += 1
-            log.exception("new-flow punt failed (lane %d)", lane)
+            self._slow_err_log.report(e, path=path, lane=lane)
 
     def process(self, frames: list[bytes], from_access: list[bool] | bool = True,
                 now: float | None = None) -> dict:
@@ -576,7 +802,8 @@ class Engine:
                 # interception sees the ORIGINAL frame, whatever the verdict
                 self.mirror_sink(i, frames[i], int(mir[i]))
         out["slow"] = sorted([(i, None) for i in punt_lanes]
-                             + self._handle_slow_lanes(slow_items), key=lambda t: t[0])
+                             + self._handle_slow_lanes(slow_items, "process"),
+                             key=lambda t: t[0])
         return out
 
     @classmethod
@@ -610,7 +837,7 @@ class Engine:
             else:
                 self.stats.passed += 1
                 slow_items.append((i, frames[i]))
-        out["slow"] = self._handle_slow_lanes(slow_items)
+        out["slow"] = self._handle_slow_lanes(slow_items, "process_dhcp")
         return out
 
     # -- the packet-ring loops --
@@ -673,7 +900,7 @@ class Engine:
             else:
                 slow_items.append((int(lane), frame))
                 slow_fa[int(lane)] = (fl & FLAG_FROM_ACCESS) != 0
-        for lane, reply in self._handle_slow_lanes(slow_items):
+        for lane, reply in self._handle_slow_lanes(slow_items, "ring"):
             if reply is not None:
                 ring.tx_inject(reply, from_access=slow_fa[lane])
 

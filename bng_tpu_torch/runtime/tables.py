@@ -180,6 +180,20 @@ class FastPathTables:
             server=words_to_device(self.server, device),
         )
 
+    def empty_updates(self, device) -> FastPathUpdates:
+        """A no-op delta batch that does not consume dirty tracking: the
+        scheduler's bulk lane ships it, because the express lane alone
+        drains the fastpath deltas. pools/server are re-read every call (the
+        step copies them wholesale), so the bulk replica follows live pool
+        and server config between refreshes."""
+        return FastPathUpdates(
+            sub=self.sub.empty_update(self.update_slots, device),
+            vlan=self.vlan.empty_update(self.update_slots, device),
+            cid=self.cid.empty_update(self.update_slots, device),
+            pools=words_to_device(self.pools, device),
+            server=words_to_device(self.server, device),
+        )
+
     def dirty_count(self) -> int:
         return self.sub.dirty_count() + self.vlan.dirty_count() + self.cid.dirty_count()
 
@@ -240,3 +254,8 @@ class PPPoEFastPathTables:
         """(by_sid delta, by_ip delta): the PPPoE tail of the engine's update batch."""
         return (self.by_sid.make_update(self.update_slots, device),
                 self.by_ip.make_update(self.update_slots, device))
+
+    def empty_updates(self, device):
+        """No-op PPPoE deltas (dirty tracking untouched)."""
+        return (self.by_sid.empty_update(self.update_slots, device),
+                self.by_ip.empty_update(self.update_slots, device))

@@ -1,6 +1,10 @@
-"""Address helpers (copy of the parts of `bng_tpu/utils/net.py` the port uses)."""
+"""Address and header helpers (copy of the parts of `bng_tpu/utils/net.py`
+and of `ipv4_header`/`udp_header` from `bng_tpu/control/packets.py` that
+the port uses)."""
 
 from __future__ import annotations
+
+import struct
 
 _U32 = 0xFFFFFFFF
 
@@ -45,3 +49,27 @@ def u32_to_ip(v: int) -> str:
 def split_u64(v: int) -> tuple[int, int]:
     """u64 -> (lo32, hi32) for storage in table key words."""
     return v & _U32, (v >> 32) & _U32
+
+
+def prefix_to_mask(prefix_len: int) -> int:
+    """CIDR prefix length to host-order netmask u32."""
+    if prefix_len <= 0:
+        return 0
+    if prefix_len >= 32:
+        return _U32
+    return (_U32 << (32 - prefix_len)) & _U32
+
+
+def ipv4_header(src_ip: int, dst_ip: int, payload_len: int, proto: int, ttl: int = 64,
+                ident: int = 0, tos: int = 0) -> bytes:
+    total = 20 + payload_len
+    s = ((0x4500 | tos) + total + ident + ((ttl << 8) | proto)
+         + (src_ip >> 16) + (src_ip & 0xFFFF) + (dst_ip >> 16) + (dst_ip & 0xFFFF))
+    s = (s & 0xFFFF) + (s >> 16)
+    s = (s & 0xFFFF) + (s >> 16)
+    return struct.pack("!BBHHHBBHII", 0x45, tos, total, ident, 0, ttl, proto,
+                       (~s) & 0xFFFF, src_ip, dst_ip)
+
+
+def udp_header(src_port: int, dst_port: int, payload_len: int, csum: int = 0) -> bytes:
+    return struct.pack("!HHHH", src_port, dst_port, 8 + payload_len, csum)

@@ -66,6 +66,31 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     call of the full-stack step (the five new call sites printed apart);
     peak device memory. `--profile` adds torch.profiler traces of a few
     IPoE and full-stack steps.
+14. The serving stack on the headline's host tables (the full-stack engine
+    retired first): a `DHCPServer` with a /16 pool of its own (pool 17,
+    10.48.0.0/16), `Engine(slow_path=server.handle_frame)` and a
+    `TieredScheduler` at the CLI defaults (express batch 64, 200 us
+    deadline, express program on, bulk batch 8192 at depth 2, a drain
+    every bulk step). The express program must be a captured CUDA graph of
+    3 K1 and 0 K2 launches; K1 bit-equal to its plain version on its three
+    probes (K = 1, 8, 2 at B = 64); one graph replay equal to the same
+    dispatch on the CPU from copied tables.
+15. The DORA storm: counts 0, 8192 new clients in waves of 64 (DISCOVER,
+    REQUEST once the OFFER is back, a renewal once the ACK is back) with
+    cached DISCOVERs and batches of phase 4's IPoE mix, all submitted and
+    polled. Every OFFER and ACK from pool 17 with one yiaddr per client,
+    every renewal answered on the device with the slow path's bytes,
+    cached DISCOVERs with the table's yiaddr, the bulk lanes as in phase 4,
+    no express miss or fallback, and the counts: 3 K1 per express
+    dispatch, 8 K1 and 4 K2 per bulk step. Then an express and a bulk
+    dispatch under torch's sync debug mode: no synchronising call.
+16. Express OFFER latency (submit -> retire) with the bulk lane idle (counts
+    0: 3 K1, 0 K2 per dispatch), for a lone frame, and right after a bulk
+    dispatch; the express dispatch split (admission, drain, upload,
+    replay, wait, render, slow path) and, idle and busy, each lane's
+    dispatch and retire time per round; DORAs/s; bulk frames/s with the
+    host.
+17. The express graph's device time and K1's at each express probe.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON; the last line the result JSON.
@@ -87,19 +112,23 @@ import torch
 
 from bng_tpu_torch import convert, kernel_cases, kernels
 from bng_tpu_torch import frames as F
+from bng_tpu_torch.control.dhcp_server import DHCPServer
 from bng_tpu_torch.control.nat import NATManager
+from bng_tpu_torch.control.pool import Pool, PoolManager
 from bng_tpu_torch.edge.tables import EdgeTables
 from bng_tpu_torch.ops import probe as probe_mod
 from bng_tpu_torch.ops import qos as qos_mod
 from bng_tpu_torch.ops import seg_prefix as seg_mod
 from bng_tpu_torch.ops import table as table_mod
 from bng_tpu_torch.ops.antispoof import MODE_LOOSE, MODE_STRICT
+from bng_tpu_torch.ops.express import XD_WORDS, express_verdicts, parse_express
 from bng_tpu_torch.ops.garden import GARDEN_WORDS, GV_FLAG
 from bng_tpu_torch.ops.hashing import SEED1, hash_words, u32
 from bng_tpu_torch.ops.pipeline import pipeline_step
 from bng_tpu_torch.runtime import engine as engine_mod
 from bng_tpu_torch.runtime.engine import AntispoofTables, Engine, GardenTables, QoSTables
 from bng_tpu_torch.runtime.ring import PyRing
+from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
 from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
 from bng_tpu_torch.utils.net import ip_to_u32
 
@@ -125,7 +154,18 @@ PPPOE_BASE = ip_to_u32("10.32.0.1")  # PPPoE addresses, beyond the DHCP range
 PORTAL, DNS = ip_to_u32("100.64.0.10"), ip_to_u32("100.64.0.53")
 GARDEN_ALLOWED = ((PORTAL, 80, 6), (PORTAL, 443, 6), (DNS, 53, 17), (DNS, 53, 6))
 GATEWAYS = [bytes([0x02, 0x47, 0x57, 0, 0, k]) for k in range(4)]
-NEW_SITES = ("garden", "pppoe by_sid", "pppoe by_ip", "tap", "route")  # this slice's K1 sites
+NEW_SITES = ("garden", "pppoe by_sid", "pppoe by_ip", "tap", "route")  # PR 3's K1 sites
+# the serving stack, on the headline's host tables
+SERVER_IP = ip_to_u32("10.0.0.1")  # the deployment's DHCP server address
+STACK_POOL = 17  # the DHCP server's own /16, which no deployment address uses
+STACK_NET = ip_to_u32("10.48.0.0")
+STORM_CLIENTS = 8192  # new clients in the DORA storm
+STORM_WAVE = 64  # clients per storm cycle: one express batch of each DORA step
+STORM_CACHED = 16  # cached DISCOVERs per storm cycle
+STORM_BULK_EVERY = 16  # storm cycles per bulk batch of the IPoE mix
+LAT_ROUNDS = 200  # express batches of 64 cached DISCOVERs, the bulk lane idle
+LONE_ROUNDS = 50  # lone cached DISCOVERs (each closed by the deadline)
+BUSY_ROUNDS = 8  # express batches right after a bulk dispatch of B flows
 
 
 def say(msg: str) -> None:
@@ -1051,6 +1091,366 @@ def ring_phases(eng, ctx, rng):
                             "ring_pipelined": launches_pipe}
 
 
+# ------------------------------------------------------- the serving stack
+
+def client_mac(k: int) -> bytes:
+    return (0x02CC00000000 + int(k)).to_bytes(6, "big")
+
+
+def storm_request(m: bytes, xid: int, ip: int) -> bytes:
+    """A REQUEST for an offered address (the renewal sends the same bytes)."""
+    p = F.build_request(m, F.REQUEST, xid=xid, requested_ip=ip, server_id=SERVER_IP)
+    p.options.append((F.OPT_PARAM_REQ_LIST, bytes([1, 3, 6, 51, 54])))
+    return F.udp_packet(m, b"\xff" * 6, 0, 0xFFFFFFFF, 68, 67, p.encode().ljust(300, b"\x00"))
+
+
+def build_serving_stack(hosts, device):
+    """DHCPServer -> Engine(slow_path=server.handle_frame) -> TieredScheduler
+    at the CLI defaults, on the headline's host tables (the caller retired
+    every other engine over them). The server leases from a /16 of its own."""
+    fp, nat, qos, spoof = hosts
+    t0 = time.perf_counter()
+
+    def clock():  # the deployment's epoch, advancing with the host clock
+        return NOW + 20 + (time.perf_counter() - t0)
+
+    pools = PoolManager(fp)
+    pools.add_pool(Pool(pool_id=STACK_POOL, network=STACK_NET, prefix_len=16,
+                        gateway=STACK_NET + 1, dns_primary=ip_to_u32("1.1.1.1"),
+                        dns_secondary=ip_to_u32("8.8.8.8"), lease_time=86400))
+    server = DHCPServer(AC_MAC, SERVER_IP, pools, fastpath_tables=fp, clock=clock)
+    eng = Engine(fp, nat, qos, spoof, batch_size=B, pkt_slot=L, slow_path=server.handle_frame,
+                 clock=clock, device=device)
+    t1 = time.perf_counter()
+    sched = TieredScheduler(eng, SchedulerConfig(
+        express_batch=64, express_max_wait_us=200.0, express_aot=True, bulk_batch=B,
+        bulk_depth=2, drain_every=1))
+    return sched, server, time.perf_counter() - t1
+
+
+def run_until(sched, n: int, timeout_s: float = 120.0) -> list:
+    """Poll until n completions have arrived (partial batches close on
+    their deadlines); returns them."""
+    got, t0 = [], time.perf_counter()
+    while len(got) < n:
+        sched.poll()
+        got += sched.drain_completions()
+        check(time.perf_counter() - t0 < timeout_s, f"{n} completions within {timeout_s}s")
+    check(len(got) == n, f"{n} completions (got {len(got)})")
+    return got
+
+
+def check_express_program(eng) -> None:
+    """The express program is a CUDA graph whose replay makes 3 K1 and 0 K2
+    launches."""
+    prog = eng.express_aot(64)
+    check(prog is not None and prog.graph is not None, "the express program is a captured graph")
+    check(prog.launches == {"probe": 3, "seg_prefix": 0},
+          f"the express graph holds 3 K1 and 0 K2 launches ({prog.launches})")
+
+
+def express_graph_ms(eng) -> float:
+    """Device time of one express graph replay."""
+    return cuda_ms(eng.express_aot(64).graph.replay)
+
+
+def express_desc(frames) -> np.ndarray:
+    desc = np.zeros((64, XD_WORDS), dtype=np.uint32)
+    for i, f in enumerate(frames):
+        desc[i] = parse_express(f).words
+    return desc
+
+
+def express_vs_plain_and_cpu(eng, rng, err):
+    """K1 against its plain version on the express program's three probes
+    (K = 1, 8, 2 at B = 64), and one graph replay against the same dispatch
+    on the CPU from copied tables. Returns the probes' recorded inputs and
+    the descriptor batch."""
+    # MAC hits, some VLAN-tagged and some with an option-82 circuit-ID
+    # (neither cached, so the MAC tier answers them too)
+    frames = [F.discover_frame(sub_mac(i), 0xA000 + j, vlans=[5] if j % 8 == 0 else None,
+                               circuit_id=b"cid-%d" % j if j % 8 == 1 else b"", pad=320)
+              for j, i in enumerate(rng.integers(N_SUBS, size=64))]
+    desc = express_desc(frames)
+    dev = eng.device
+    now = NOW + 30
+    desc_d = torch.from_numpy(desc.view(np.int32)).to(dev)
+    rec = record_kernel_inputs(lambda: express_verdicts(eng.tables.dhcp, desc_d, eng.geom.dhcp,
+                                                        torch.tensor(now, device=dev)),
+                               3, 0, "express program", table_names(eng.tables))
+    check([a[3].shape for a in rec["probe"]] == [(64, 1), (64, 8), (64, 2)],
+          "the express probes: VLAN K=1, circuit-ID K=8, MAC K=2 at B=64")
+    probes_vs_plain([("express", a) for a in rec["probe"]], err)
+
+    prog = eng.express_aot(64)
+    got = prog(desc, now)
+    block, stats = got.block.cpu(), got.stats.cpu()
+    cpu = convert.tables_from_numpy(convert.tables_to_numpy(eng.tables), "cpu")
+    want = express_verdicts(cpu.dhcp, torch.from_numpy(desc.view(np.int32).copy()), eng.geom.dhcp,
+                            torch.tensor(now))
+    check(torch.equal(block, want.block) and torch.equal(stats, want.stats),
+          "the express graph's block and stats == the CPU dispatch")
+    check(int(block[:, 0].sum()) == 64, "every cached DISCOVER answered by the express program")
+    say("express program: K1 bit-equal to its plain version on its 3 probes (K=1, 8, 2; B=64); "
+        "one graph replay's block and stats == the same dispatch on the CPU")
+    return rec
+
+
+def check_serving_dispatch_makes_no_sync(sched, rng, flows) -> None:
+    """An express dispatch (the fastpath drain shipping a dirty lease row,
+    the descriptor upload, the graph replay, the queued result copies) and a
+    bulk dispatch (the replica refresh, the drain shipping a dirty binding,
+    the fused step, the prefetched next drain) make no synchronising CUDA
+    call."""
+    eng = sched.engine
+    eng.fastpath.touch_lease(sub_mac(1), NOW + 86400)  # a dirty row for the express drain
+    eng.antispoof.add_binding(b"\x02\x99\x00\x00\x00\x01", ip_to_u32("10.200.0.1"), MODE_LOOSE)
+    for j, i in enumerate(rng.integers(N_SUBS, size=64)):
+        sched.submit(F.discover_frame(sub_mac(i), 0xB000 + j), True, tag=("sync", j))
+    for j in range(B):
+        sched.submit(flow_frame(flows[int(rng.integers(len(flows)))]), True, tag=("sync-bulk", j))
+    now = sched.clock()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pend, reason = sched.express.close_batch(now)
+            check(sched._dispatch_express(pend, now, reason) == 0,
+                  "express dispatch retired nothing")
+            pend, reason = sched.bulk.close_batch(now)
+            check(sched._dispatch_bulk(pend, now, reason) is None, "bulk dispatch retired nothing")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sched.flush()
+    done = sched.drain_completions()
+    check(len(done) == 64 + B, "the checked dispatches retired")
+    syncs = [str(w.message) for w in seen if "called a synchronizing" in str(w.message)]
+    check(not syncs, f"a scheduler dispatch synchronised the host: {syncs[:3]}")
+    check(eng.pending_dirty() == 0, "the dirty rows shipped with the dispatches")
+    say("an express dispatch (its drain shipping a dirty lease row) and a bulk dispatch (the "
+        "prefetched drain applied, the next one, with a dirty binding, built) made no "
+        "synchronizing CUDA call (torch.cuda sync debug mode)")
+
+
+def bulk_out(done, n: int) -> dict:
+    """Completions tagged (kind, batch, lane) -> an Engine.process-shaped dict."""
+    out = {"tx": [], "fwd": [], "dropped": [], "slow": []}
+    for c in done:
+        lane = c.tag[-1]
+        key = {"tx": "tx", "fwd": "fwd", "drop": "dropped", "slow": "slow"}[c.verdict]
+        out[key].append(lane if key == "dropped" else (lane, c.frame))
+    check(sum(len(v) for v in out.values()) == n, "every lane of the batch completed")
+    return out
+
+
+def dora_storm(sched, rng, flows, drop_ips):
+    """STORM_CLIENTS new clients, STORM_WAVE per cycle: cycle c sends the
+    renewals of wave c-2 (first, so the cycle's first dispatch drains their
+    leases), the REQUESTs of wave c-1, the DISCOVERs of wave c and a few
+    cached DISCOVERs; every STORM_BULK_EVERY cycles a batch of the IPoE mix
+    too. Every lane is checked; returns (seconds, bulk batches)."""
+    n_waves = STORM_CLIENTS // STORM_WAVE
+    offers, requests, acks = {}, {}, {}
+    n_bulk = 0
+    t0 = time.perf_counter()
+    for cyc in range(n_waves + 2):
+        items = []
+        if cyc >= 2:
+            items += [(requests[k], ("renew", k)) for k in range((cyc - 2) * STORM_WAVE,
+                                                                  (cyc - 1) * STORM_WAVE)]
+        if 1 <= cyc <= n_waves:
+            for k in range((cyc - 1) * STORM_WAVE, cyc * STORM_WAVE):
+                requests[k] = storm_request(client_mac(k), 0x5000000 + k, offers[k])
+                items.append((requests[k], ("req", k)))
+        if cyc < n_waves:
+            items += [(F.discover_frame(client_mac(k), 0x4000000 + k), ("disc", k))
+                      for k in range(cyc * STORM_WAVE, (cyc + 1) * STORM_WAVE)]
+            items += [(F.discover_frame(sub_mac(i), 0x6000000 + j), ("cached", int(i)))
+                      for j, i in enumerate(rng.integers(N_SUBS, size=STORM_CACHED))]
+        for f, tag in items:
+            check(sched.submit(f, True, tag=tag) == "express", f"{tag} on the express lane")
+        expect = None
+        if cyc % STORM_BULK_EVERY == STORM_BULK_EVERY // 2:
+            frames, expect = make_batch(rng, flows)
+            for lane, f in enumerate(frames):
+                sched.submit(f, True, tag=("bulk", lane))
+            n_bulk += 1
+        done = run_until(sched, len(items) + (B if expect is not None else 0))
+        for c in done:
+            kind = c.tag[0]
+            if kind == "bulk":
+                continue
+            check(c.lane == "express", f"{c.tag} served by the express lane")
+            if kind == "disc":
+                check(c.verdict == "slow" and c.frame is not None, f"new client {c.tag} OFFERed")
+                r = F.decode_dhcp(F.decode(c.frame).payload)
+                check(r.msg_type == F.OFFER and (r.yiaddr >> 16) == (STACK_NET >> 16),
+                      f"OFFER from pool {STACK_POOL} for {c.tag}")
+                offers[c.tag[1]] = r.yiaddr
+            elif kind == "req":
+                check(c.verdict == "slow" and c.frame is not None, f"REQUEST {c.tag} ACKed")
+                r = F.decode_dhcp(F.decode(c.frame).payload)
+                check(r.msg_type == F.ACK and r.yiaddr == offers[c.tag[1]],
+                      f"ACK with the OFFER's yiaddr for {c.tag}")
+                acks[c.tag[1]] = c.frame
+            elif kind == "renew":
+                check(c.verdict == "tx" and c.frame == acks[c.tag[1]],
+                      f"renewal {c.tag} answered on the device with the slow path's bytes")
+            else:
+                check(c.verdict == "tx", f"cached DISCOVER {c.tag} answered on the device")
+                check_offer({0: c.frame}, 0, sub_ip(c.tag[1]))
+        if expect is not None:
+            check_outputs(bulk_out([c for c in done if c.tag[0] == "bulk"], B), expect, drop_ips,
+                          fresh_ok=False)
+    check(len(acks) == STORM_CLIENTS and len(set(offers.values())) == STORM_CLIENTS,
+          "every new client got an OFFER and an ACK with one address of its own")
+    return time.perf_counter() - t0, n_bulk
+
+
+def express_latency(sched, rng, rounds: int, per_round: int, busy_flows=None):
+    """Submit -> retire ms of cached DISCOVERs, `per_round` at a time; with
+    `busy_flows`, each round first dispatches a bulk batch of them. Returns
+    (latencies, bulk frames retired per second)."""
+    lat, bulk_frames, t0 = [], 0, time.perf_counter()
+    for r in range(rounds):
+        if busy_flows is not None:
+            for lane, f in enumerate(busy_flows):
+                sched.submit(f, True, tag=("busy-bulk", lane))
+            sched.poll()  # the bulk lane closes full and dispatches
+        for j, i in enumerate(rng.integers(N_SUBS, size=per_round)):
+            sched.submit(F.discover_frame(sub_mac(i), 0x7000000 + j), True, tag=("lat", int(i)))
+        done = []
+        while sum(c.tag[0] == "lat" for c in done) < per_round:
+            sched.poll()
+            done += sched.drain_completions()
+        bulk_frames += sum(c.tag[0] == "busy-bulk" for c in done)
+        for c in done:
+            if c.tag[0] == "lat":
+                check(c.lane == "express" and c.verdict == "tx",
+                      "cached DISCOVER answered on the device")
+                check_offer({0: c.frame}, 0, sub_ip(c.tag[1]))
+                lat.append(c.latency_s * 1e3)
+    if busy_flows is not None:
+        sched.flush()
+        bulk_frames += sum(c.tag[0] == "busy-bulk" for c in sched.drain_completions())
+        check(bulk_frames == rounds * len(busy_flows), "every bulk frame retired")
+    return np.array(lat), bulk_frames / (time.perf_counter() - t0)
+
+
+class ExpressSplit(HostSplit):
+    """Host time of the express dispatches and retires inside the block:
+    admission parse, fastpath drain, descriptor upload, graph replay, the
+    wait for the outputs, the template render, and the slow path."""
+
+    PARTS = ("admit", "drain", "upload", "replay", "wait", "render", "slow")
+
+    def __init__(self, sched):
+        import bng_tpu_torch.runtime.scheduler as sched_mod
+
+        eng = sched.engine
+        self.sites = [(sched_mod, "parse_express", "admit"),
+                      (eng, "_drain_fastpath_updates", "drain"),
+                      (engine_mod.ExpressProgram, "__call__", "upload"),
+                      (torch.cuda.CUDAGraph, "replay", "replay"),
+                      (engine_mod._InFlight, "wait", "wait"),
+                      (TieredScheduler, "_express_reply", "render"),
+                      (eng, "_handle_slow_lanes", "slow")]
+        self.ms = {k: 0.0 for k in self.PARTS}
+
+    def report(self, n_dispatch: int) -> str:
+        ms = dict(self.ms)
+        ms["upload"] -= ms["replay"]  # the program call holds the replay
+        return ", ".join(f"{k} {v / n_dispatch:.4f}" for k, v in ms.items()) + " ms per dispatch"
+
+
+class BeatSplit(HostSplit):
+    """Host time inside the block of each lane's dispatch and retire (a
+    retire holds the wait for the batch's outputs)."""
+
+    PARTS = ("express dispatch", "express retire", "bulk dispatch", "bulk retire")
+
+    def __init__(self):
+        self.sites = [(TieredScheduler, "_dispatch_express", "express dispatch"),
+                      (TieredScheduler, "_retire_express", "express retire"),
+                      (TieredScheduler, "_dispatch_bulk", "bulk dispatch"),
+                      (TieredScheduler, "_retire_bulk", "bulk retire")]
+        self.ms = {k: 0.0 for k in self.PARTS}
+
+    def report(self, rounds: int) -> str:
+        return ", ".join(f"{k} {v / rounds:.3f}" for k, v in self.ms.items()) + " ms per round"
+
+
+def serving_stack_phases(hosts, flows, drop_ips, card, device, err):
+    t0 = time.perf_counter()
+    sched, server, capture_s = build_serving_stack(hosts, device)
+    eng = sched.engine
+    torch.cuda.synchronize()
+    say(f"serving stack built in {time.perf_counter() - t0:.1f}s (the express graph captured in "
+        f"{capture_s * 1e3:.1f} ms at scheduler init); DHCP server pool {STACK_POOL} "
+        f"{STACK_NET >> 24}.{(STACK_NET >> 16) & 0xFF}.0.0/16")
+    check_express_program(eng)
+    rng = np.random.default_rng(11)
+    rec = express_vs_plain_and_cpu(eng, rng, err)
+
+    # ---- the DORA storm with cached DISCOVERs and the IPoE mix
+    snap0 = sched.stats_snapshot()
+    kernels.reset_launches()
+    storm_s, n_bulk = dora_storm(sched, rng, flows, drop_ips)
+    launches_storm = dict(kernels.LAUNCHES)
+    snap = sched.stats_snapshot()
+    ex = snap["express"]
+    n_aot = ex["aot_dispatches"] - snap0["express"]["aot_dispatches"]
+    n_bdisp = snap["bulk"]["batches"] - snap0["bulk"]["batches"]
+    check(ex["aot_misses"] == 0 and ex["jit_dispatches"] == 0 and ex["fallbacks"] == {},
+          f"the graph served every express batch ({ex})")
+    check(n_aot == snap["express"]["batches"] - snap0["express"]["batches"],
+          "aot_dispatches == the express batches")
+    check(n_bdisp == n_bulk, f"{n_bulk} bulk batches dispatched ({n_bdisp})")
+    check_launches(launches_storm, 1, {"probe": 3 * n_aot + 8 * n_bdisp, "seg_prefix": 4 * n_bdisp},
+                   "serving stack (3 K1 per express dispatch, 8 K1 + 4 K2 per bulk step)")
+    say(f"serving stack: DORA storm of {STORM_CLIENTS} new clients (OFFER and ACK from pool "
+        f"{STACK_POOL}, renewals answered on the device with the slow path's bytes), "
+        f"cached DISCOVERs and {n_bulk} IPoE batches: {n_aot} express dispatches, {n_bdisp} bulk; "
+        f"launches {launches_storm}; server {server.stats}")
+    say(f"DORA storm: {STORM_CLIENTS / storm_s:.1f} DORAs/s through the scheduler and the slow "
+        f"path ({storm_s:.2f} s, cached DISCOVERs and IPoE batches interleaved) [{card}]")
+
+    check_serving_dispatch_makes_no_sync(sched, rng, flows)
+
+    # ---- express OFFER latency, the bulk lane idle: counts 0, express only
+    kernels.reset_launches()
+    split, beat = ExpressSplit(sched), BeatSplit()
+    n0 = sched.express_aot_dispatches
+    with split, beat:
+        lat, _ = express_latency(sched, rng, LAT_ROUNDS, 64)
+    n_lat = sched.express_aot_dispatches - n0
+    launches_express = dict(kernels.LAUNCHES)
+    check(n_lat == LAT_ROUNDS, f"one express dispatch per round ({n_lat})")
+    check_launches(launches_express, n_lat, {"probe": 3, "seg_prefix": 0}, "express lane")
+    lone, _ = express_latency(sched, rng, LONE_ROUNDS, 1)
+    flow_frames = [flow_frame(flows[int(i)]) for i in rng.integers(len(flows), size=B)]
+    busy_beat = BeatSplit()
+    with busy_beat:
+        busy, bulk_fps = express_latency(sched, rng, BUSY_ROUNDS, 64, busy_flows=flow_frames)
+    for name, x in (("64 cached DISCOVERs, bulk idle", lat), ("a lone cached DISCOVER", lone),
+                    ("64 cached DISCOVERs right after a bulk dispatch", busy)):
+        say(f"express OFFER latency submit->retire, {name}: p50 {np.percentile(x, 50):.3f} ms, "
+            f"p99 {np.percentile(x, 99):.3f} ms, max {x.max():.3f} ms over {len(x)} frames "
+            f"[{card}]")
+    say(f"express dispatch split over {n_lat} dispatches: {split.report(n_lat)} [{card}]")
+    say(f"beat split, bulk idle: {beat.report(LAT_ROUNDS)}; right after a bulk dispatch: "
+        f"{busy_beat.report(BUSY_ROUNDS)} [{card}]")
+    say(f"bulk lane with the host (submit, dispatch, retire, {BUSY_ROUNDS} batches of {B} flows "
+        f"with an express batch each): {bulk_fps:.0f} frames/s [{card}]")
+
+    # ---- device times
+    say(f"express graph replay (3 K1 + selects, B=64): {express_graph_ms(eng):.4f} ms "
+        f"device [{card}]")
+    time_kernels(rec, card, "express")
+    return {"express": launches_express, "serving_stack": launches_storm}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1092,6 +1492,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kern, more = full_stack_phases(hosts, flows, drop_ips, card, device, args.profile, err)
     launches.update(more)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serving_stack_phases(hosts, flows, drop_ips, card, device, err))
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",
