@@ -12,8 +12,7 @@ optional hooks (authenticator, QoS, NAT, release, accounting, a
 distributed allocator), per-MAC lease-time jitter, the expiry sweep and
 the lease book's JSON export/restore are those of the reference. Reply
 bytes come from `ReplyTemplate` renders, byte-identical to the reference.
-
-The reference's chaos fault point in `cleanup_expired` is not ported.
+`cleanup_expired` carries the chaos point `dhcp.expire` (kind `skew`).
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from bng_tpu_torch import frames as F
+from bng_tpu_torch.chaos.faults import fault_point
 from bng_tpu_torch.control import dhcp_codec
 from bng_tpu_torch.control.dhcp_codec import (
     ACK, DECLINE, DISCOVER, INFORM, NAK, OFFER, RELEASE, REQUEST, DHCPPacket,
@@ -452,6 +452,11 @@ class DHCPServer:
         """Reap expired leases, at most `max_reaps` per sweep (the rest
         stay expired and owned everywhere until the next sweep)."""
         now = now if now is not None else self._now()
+        fp = fault_point("dhcp.expire")
+        if fp is not None and fp.kind == "skew":
+            # chaos: a skewed expiry clock; early expiry costs a re-DORA, never
+            # a double allocation
+            now = int(now + fp.arg)
         dead = []
         for mk, l in self.leases.items():
             if l.expiry < now:

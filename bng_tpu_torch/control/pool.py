@@ -3,14 +3,15 @@
 
 `Pool` allocates sequentially, then from its free list; `PoolManager`
 registers pools, mirrors each into the device pool table
-(`FastPathTables.add_pool`) and classifies clients. The reference's
-chaos fault point in `Pool.allocate` is not ported.
+(`FastPathTables.add_pool`) and classifies clients. `Pool.allocate`
+carries the chaos point `pool.allocate` (kind `exhaust`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from bng_tpu_torch.chaos.faults import fault_point
 from bng_tpu_torch.utils.net import prefix_to_mask, u32_to_ip
 
 
@@ -56,6 +57,10 @@ class Pool:
 
     def allocate(self, owner: str) -> int:
         """Sequential, then free-list allocation."""
+        fp = fault_point("pool.allocate")
+        if fp is not None and fp.kind == "exhaust":
+            # chaos: simulated exhaustion; every caller already handles it
+            raise PoolExhaustedError(f"pool {self.pool_id}: chaos-injected exhaustion")
         while self._next <= self.last:
             ip = self._next
             self._next += 1

@@ -1,0 +1,288 @@
+/* bngring — AF_XDP-style zero-copy packet ring for the TPU dataplane.
+ *
+ * This is the native host runtime the build plan calls for (SURVEY.md §7
+ * "I/O: C++ host runtime implementing the AF_XDP zero-copy ring — the new
+ * pkg/ebpf role"). The reference's pkg/ebpf loads BPF programs and talks to
+ * kernel maps (pkg/ebpf/loader.go:74-661); here the "program" runs on the
+ * TPU, so the native layer's job is moving frames:
+ *
+ *   NIC/driver -> UMEM frames -> RX ring -> batch assembler -> [B,L] buffer
+ *       -> (TPU pipeline, Python/JAX) -> verdicts -> TX/forward/slow rings
+ *
+ * Layout mirrors AF_XDP (if_xdp.h): one UMEM frame area + descriptor
+ * rings, power-of-two sized, lock-free.
+ *
+ * THREADING CONTRACT. The directional rings are SPSC — exactly one thread
+ * per side:
+ *
+ *     ring   producer side                 consumer side
+ *     rx     wire thread (rx_submit/push)  engine thread (batch_assemble)
+ *     tx     engine thread (complete,      wire thread (tx_pop, wire_pump)
+ *            tx_inject)
+ *     fwd    engine thread (complete)      wire thread (fwd_pop, wire_pump)
+ *     slow   engine thread (complete)      slow-path thread (slow_pop)
+ *
+ * The FILL pool is the exception: frame alloc/free crosses all three
+ * threads (wire allocates + recycles rx-full rejects; engine frees drops
+ * and allocates for tx_inject; slow-path recycles after slow_pop), so it
+ * is a bounded MPMC ring (per-slot sequence numbers) and every API is
+ * fill-safe from any thread. Single-threaded drivers (the Python engine
+ * loop, tests) trivially satisfy the contract.
+ *
+ * The batch assembler writes frames into a caller-provided contiguous
+ * [B, slot] buffer — the same buffer handed to jax.device_put — so the
+ * only copy on the hot path is the unavoidable host->HBM DMA staging.
+ * Verdict application (bng_batch_complete) is the XDP_TX / XDP_PASS /
+ * TC_ACT_SHOT demux of the reference's hook returns (SURVEY.md §1 L0).
+ *
+ * C ABI throughout: consumed from Python via ctypes (no pybind11 in the
+ * image) and from any future C++ driver (AF_XDP socket, DPDK port).
+ */
+#ifndef BNGRING_H
+#define BNGRING_H
+
+#include <stddef.h>
+#include <stdint.h>
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+/* Verdicts — must match bng_tpu/ops/pipeline.py VERDICT_*. */
+enum bng_verdict {
+  BNG_VERDICT_PASS = 0, /* slow path (XDP_PASS role) */
+  BNG_VERDICT_DROP = 1, /* TC_ACT_SHOT role */
+  BNG_VERDICT_TX = 2,   /* device-built reply out same port (XDP_TX role) */
+  BNG_VERDICT_FWD = 3,  /* rewritten, forward out the other port */
+};
+
+/* Frame descriptor — the xdp_desc role (addr is a UMEM byte offset). */
+typedef struct bng_desc {
+  uint64_t addr;
+  uint32_t len;
+  uint32_t flags; /* bit0: from_access; bit1: DHCP control frame */
+} bng_desc;
+
+#define BNG_DESC_F_FROM_ACCESS 0x1u
+/* Set by the ring on RX submit for ACCESS-SIDE frames that parse as
+ * genuine DHCP: IPv4 non-fragment UDP dst:67 with BOOTREQUEST op and the
+ * DHCP magic cookie (0-2 VLAN tags). The consumer may route an
+ * all-control batch through the DHCP-only device program (the
+ * reference's standalone-XDP hook order, where a DHCP reply never
+ * traverses the TC chain); everything else keeps the fused pipeline's
+ * NAT/antispoof/QoS treatment. */
+#define BNG_DESC_F_DHCP_CTRL 0x2u
+
+typedef struct bng_ring_stats {
+  uint64_t rx;          /* frames assembled into batches */
+  uint64_t tx;          /* TX verdict frames queued */
+  uint64_t fwd;         /* FWD verdict frames queued */
+  uint64_t drop;        /* DROP verdict frames recycled */
+  uint64_t slow;        /* PASS verdict frames queued for slow path */
+  uint64_t fill_empty;  /* producer stalls: no free frame in fill ring */
+  uint64_t rx_full;     /* producer stalls: rx ring full */
+  uint64_t tx_full;     /* tx/fwd/slow ring full -> frame dropped */
+  uint64_t bad_desc;    /* descriptor validation failures */
+} bng_ring_stats;
+
+typedef struct bng_ring bng_ring; /* opaque */
+
+/* ---- lifecycle ---- */
+
+/* Create a ring pair over a private UMEM.
+ * nframes, depth: power of two. frame_size: bytes per UMEM slot (>= 64). */
+bng_ring *bng_ring_create(uint32_t nframes, uint32_t frame_size,
+                          uint32_t depth);
+
+/* Sharded variant: n_shards (1..64) per-shard RX queues of `depth` each.
+ * rx_submit steers every frame to its owner shard (the pkg/pool/peer.go
+ * owner-routing role, re-hosted at the host ring so each chip's batch is
+ * its own subscribers' traffic — the placement invariant chip-local
+ * NAT/QoS state depends on, bng_tpu/parallel/sharded.py).
+ *
+ * STEERING SPEC (bit-for-bit mirror: bng_tpu/runtime/ring.py shard_of):
+ *   - DHCP control frames (BNG_DESC_F_DHCP_CTRL): FNV-1a32(src MAC) % n.
+ *     Any shard is CORRECT for DHCP (tables are hash-sharded with
+ *     all-to-all exchange); MAC keeps a subscriber's control traffic
+ *     sticky for cache locality.
+ *   - access-side IPv4: FNV-1a32(4 src-IP bytes, wire order) % n —
+ *     the subscriber's private IP, matching the control plane's
+ *     affinity placement of NAT/QoS/antispoof state.
+ *   - network-side IPv4: public-IP exact-match table (set per shard via
+ *     bng_ring_steer_pub_ip — downstream NAT state lives on the shard
+ *     that owns the public IP); miss -> FNV-1a32(4 dst-IP bytes) % n.
+ *   - access-side PPPoE session DATA (ethertype 0x8864, ver_type 0x11,
+ *     code 0, PPP proto 0x0021, inner version 4): FNV-1a32(4 INNER
+ *     src-IP bytes) % n — the decap'd packet's affinity key, so the
+ *     chip-local PPPoE session/NAT/QoS state and the traffic meet.
+ *     PPPoE control (discovery/LCP/auth/IPCP) falls to the MAC hash.
+ *   - non-IPv4 / unparseable: FNV-1a32(src MAC) % n (len<14: shard 0).
+ */
+bng_ring *bng_ring_create_sharded(uint32_t nframes, uint32_t frame_size,
+                                  uint32_t depth, uint32_t n_shards);
+void bng_ring_destroy(bng_ring *r);
+
+uint32_t bng_ring_n_shards(bng_ring *r);
+
+/* Register a NAT public IP (host byte order) as owned by `shard`.
+ * Bounded-probe open addressing; returns 0, or -1 when the map is full /
+ * shard out of range. Updating an existing IP's shard is allowed. */
+int bng_ring_steer_pub_ip(bng_ring *r, uint32_t ip, uint32_t shard);
+
+/* Steering decision for a frame (exposed for parity tests and
+ * non-UMEM producers). flags: the would-be descriptor flags AFTER
+ * classification (FROM_ACCESS + DHCP_CTRL). */
+uint32_t bng_ring_shard_of(bng_ring *r, const uint8_t *data, uint32_t len,
+                           uint32_t flags);
+
+/* Raw UMEM view (for tests / zero-copy producers). */
+uint8_t *bng_ring_umem(bng_ring *r);
+uint64_t bng_ring_umem_size(bng_ring *r);
+uint32_t bng_ring_frame_size(bng_ring *r);
+
+/* ---- producer side (driver / wire) ---- */
+
+/* Push one frame: grabs a free UMEM slot, copies data, enqueues on RX.
+ * Returns 0 on success, -1 if no free frame or RX full. */
+int bng_ring_rx_push(bng_ring *r, const uint8_t *data, uint32_t len,
+                     uint32_t flags);
+
+/* Zero-copy producer path: reserve a free frame (returns UMEM offset or
+ * UINT64_MAX), write into bng_ring_umem()+off, then submit. */
+uint64_t bng_ring_rx_reserve(bng_ring *r);
+int bng_ring_rx_submit(bng_ring *r, uint64_t addr, uint32_t len,
+                       uint32_t flags);
+
+/* ---- batch wire verbs (the vector wire pump, ISSUE 15) ----
+ *
+ * The AF_XDP pump moves frames in batches; these verbs make one ctypes
+ * call cover what the scalar pump did per frame. Descriptors on this
+ * path are HEADROOM-AWARE: the kernel reports chunk_base + headroom for
+ * copy-mode RX, and rx_submit_batch accepts that address as-is (no
+ * normalizing memmove) — the descriptor carries the offset address all
+ * the way through assemble/complete/TX, and every fill-pool recycle
+ * normalizes back to the chunk base. */
+
+/* Pop up to n free frames into out_addrs. Counts ONE fill_empty when
+ * the pool runs dry mid-batch (the scalar reserve loop's break counts
+ * one per pump round). Returns frames reserved. */
+uint32_t bng_ring_rx_reserve_batch(bng_ring *r, uint64_t *out_addrs,
+                                   uint32_t n);
+
+/* Submit n received frames (addr may carry a headroom offset inside its
+ * chunk). Per frame: classify (access side), steer, enqueue. EVERY
+ * failed frame returns to the fill pool (normalized to its chunk base):
+ * rx-full counts stats.rx_full; a length that does not fit the chunk
+ * room (frame_size - headroom) is dropped without a ring stat — the
+ * scalar pump pre-validates the same way, so the two paths' pump_stats
+ * agree. out_ok[i] = 1 submitted / 0 dropped. Returns count submitted.
+ * An addr outside the UMEM counts bad_desc and cannot be recycled. */
+uint32_t bng_ring_rx_submit_batch(bng_ring *r, const uint64_t *addrs,
+                                  const uint32_t *lens, uint32_t flags,
+                                  uint8_t *out_ok, uint32_t n);
+
+/* Return n UMEM frames to the fill pool, each normalized to its chunk
+ * base (kernel TX completions report the headroom-offset address that
+ * was queued). Returns count freed; invalid addrs count bad_desc. */
+uint32_t bng_ring_frame_free_batch(bng_ring *r, const uint64_t *addrs,
+                                   uint32_t n);
+
+/* Drain up to cap output descriptors — the tx ring first, then fwd
+ * (the scalar pump's per-frame pop order) — into addrs/lens. Frames
+ * stay in UMEM (zero-copy TX); recycle via frame_free_batch after the
+ * kernel completion ring reports them. Returns count popped. */
+uint32_t bng_ring_out_pop_desc_batch(bng_ring *r, uint64_t *addrs,
+                                     uint32_t *lens, uint32_t cap);
+
+/* ---- consumer side (TPU engine) ---- */
+
+/* Pop up to max_batch RX frames into out[b*slot .. b*slot+len) and
+ * out_len[b]/out_flags[b]; parks the popped descriptors in the in-flight
+ * table. Frames longer than slot are truncated (slot bytes staged; full
+ * frame stays in UMEM for TX-side use). Returns number of frames. */
+uint32_t bng_batch_assemble(bng_ring *r, uint8_t *out, uint32_t *out_len,
+                            uint32_t *out_flags, uint32_t max_batch,
+                            uint32_t slot);
+
+/* Sharded assemble: fixed per-shard lane ranges. Shard s's frames land
+ * in rows [s*b_per_shard, s*b_per_shard + k_s); unfilled rows are zeroed
+ * (len 0, flags 0) so the device pipeline sees invalid lanes (verdict
+ * PASS) and complete() recycles nothing for them. The batch's row layout
+ * matches ShardedCluster.step's contract (shard i's lanes at rows
+ * i*b..(i+1)*b). Opens one in-flight window of n_shards*b_per_shard rows
+ * — complete() must be called with n = n_shards*b_per_shard. Returns the
+ * number of REAL frames staged (0 = nothing pending, no window opened). */
+uint32_t bng_batch_assemble_sharded(bng_ring *r, uint8_t *out,
+                                    uint32_t *out_len, uint32_t *out_flags,
+                                    uint32_t b_per_shard, uint32_t slot);
+
+/* Apply per-lane verdicts to the in-flight batch from the last assemble.
+ * For TX/FWD lanes, rewritten bytes come from out[b*slot..] with
+ * out_len[b] (device-rewritten packet); the frame is updated in UMEM and
+ * queued on the tx/fwd ring. PASS lanes go to the slow ring; DROP lanes
+ * are recycled to the fill pool. n must equal the last assemble count.
+ * Returns 0, or -1 if no batch is in flight / n mismatch. */
+int bng_batch_complete(bng_ring *r, const uint8_t *verdict,
+                       const uint8_t *out, const uint32_t *out_len,
+                       uint32_t n, uint32_t slot);
+
+/* Inject a host-built frame onto the TX ring (slow-path replies: the
+ * reference's Go server answers via its own socket, pkg/dhcp/server.go;
+ * here replies leave through the same wire as device TX). Returns 0, or
+ * -1 if no free frame / ring full. */
+int bng_ring_tx_inject(bng_ring *r, const uint8_t *data, uint32_t len,
+                       uint32_t flags);
+
+/* Descriptor-based output pops for the AF_XDP wire: the frame stays in
+ * UMEM (zero-copy TX); return it to the fill pool with
+ * bng_ring_frame_free once the kernel's completion ring reports it
+ * sent. Returns 1 with addr/len/flags filled, 0 when empty. */
+int bng_ring_tx_pop_desc(bng_ring *r, uint64_t *addr, uint32_t *len,
+                         uint32_t *flags);
+int bng_ring_fwd_pop_desc(bng_ring *r, uint64_t *addr, uint32_t *len,
+                          uint32_t *flags);
+/* Return a UMEM frame to the fill pool (post-TX-completion, or an
+ * unused rx_reserve). Returns 0, or -1 on an invalid address. */
+int bng_ring_frame_free(bng_ring *r, uint64_t addr);
+
+/* Drain one frame from the tx / fwd / slow ring into buf (cap bytes).
+ * Returns frame length, 0 if empty, or -1 on truncation (frame bigger
+ * than cap; frame is consumed). Recycles the UMEM frame. */
+int bng_ring_tx_pop(bng_ring *r, uint8_t *buf, uint32_t cap,
+                    uint32_t *flags);
+int bng_ring_fwd_pop(bng_ring *r, uint8_t *buf, uint32_t cap,
+                     uint32_t *flags);
+int bng_ring_slow_pop(bng_ring *r, uint8_t *buf, uint32_t cap,
+                      uint32_t *flags);
+
+/* Pending counts (consumer-visible). rx_pending sums all shards;
+ * shard_rx_pending reads one shard's queue. */
+uint32_t bng_ring_rx_pending(bng_ring *r);
+uint32_t bng_ring_shard_rx_pending(bng_ring *r, uint32_t shard);
+uint32_t bng_ring_tx_pending(bng_ring *r);
+uint32_t bng_ring_fwd_pending(bng_ring *r);
+uint32_t bng_ring_slow_pending(bng_ring *r);
+uint32_t bng_ring_free_frames(bng_ring *r);
+
+void bng_ring_get_stats(bng_ring *r, bng_ring_stats *out);
+
+/* ---- loopback wire (tests / demo) ----
+ * Connect two rings so a's TX+FWD output is delivered into b's RX and
+ * vice versa; bng_wire_pump moves up to budget frames per direction.
+ * This is the stub-platform role of the reference's _stub.go backends
+ * (SURVEY.md §4.6) — same API as a real port, memory transport. */
+int bng_wire_pump(bng_ring *a, bng_ring *b, uint32_t budget);
+
+/* ---- ABI self-description (layout tests, test/ebpf/maps_test.go role) */
+uint32_t bng_abi_desc_size(void);
+uint32_t bng_abi_desc_addr_off(void);
+uint32_t bng_abi_desc_len_off(void);
+uint32_t bng_abi_desc_flags_off(void);
+uint32_t bng_abi_stats_size(void);
+uint32_t bng_abi_version(void);
+
+#ifdef __cplusplus
+} /* extern "C" */
+#endif
+
+#endif /* BNGRING_H */

@@ -143,6 +143,56 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device, copy=True)
 
 
+class PinnedStage:
+    """A persistent host staging buffer that uploads copy from.
+
+    On the card the buffer is pinned and an upload is an async copy with an
+    event recorded behind it; `acquire()` hands the host view back for
+    rewriting only once that event has passed, so a batch whose copy is
+    still queued is never overwritten (a rewrite that had to wait counts in
+    `waits`). On the CPU it is a plain buffer and an upload a copy. `host`
+    is the numpy view; uint32 words travel as int32 (the same bits)."""
+
+    def __init__(self, shape, dtype, device):
+        self.device = torch.device(device)
+        host = np.zeros(shape, dtype=dtype)
+        t = torch.from_numpy(host.view(np.int32) if host.dtype == np.uint32 else host)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        self.tensor = t
+        self.host = t.numpy().view(host.dtype)
+        # one event, recorded again behind each upload
+        self._event = torch.cuda.Event() if self.device.type == "cuda" else None
+        self._pending = False
+        self.waits = 0
+
+    def acquire(self) -> np.ndarray:
+        """The host view, once the last upload from it has run."""
+        if self._pending:
+            self._pending = False
+            if not self._event.query():
+                self.waits += 1
+                self._event.synchronize()
+        return self.host
+
+    def _guard(self) -> None:
+        if self._event is not None:
+            self._event.record()
+            self._pending = True
+
+    def upload_into(self, dst: torch.Tensor) -> torch.Tensor:
+        """Copy the buffer into the device tensor `dst` (same shape and dtype)."""
+        dst.copy_(self.tensor, non_blocking=True)
+        self._guard()
+        return dst
+
+    def upload(self) -> torch.Tensor:
+        """A new device tensor holding the buffer (never aliasing it)."""
+        out = self.tensor.to(self.device, non_blocking=True, copy=True)
+        self._guard()
+        return out
+
+
 def words_to_device(a: np.ndarray, device) -> torch.Tensor:
     """uint32 numpy -> int32 word tensor (bit-identical) on `device`.
     Always a copy: device tensors are written in place and must never

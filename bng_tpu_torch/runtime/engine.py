@@ -30,14 +30,24 @@ when they changed). The engine runs on the card unless the caller asks
 for the CPU with `device="cpu"`.
 
 The latency-tiered scheduler (`runtime/scheduler.py`) drives the engine
-through two more ways in: the express program (`compile_express_aot` /
+through three more ways in: the express program (`compile_express_aot` /
 `run_express_aot`: the `ops/express.py` probe cascade over admission
-descriptors, captured once per key as a CUDA graph on the card) and the
-bulk lane (`dispatch_scheduled_bulk`: the fused step over a read replica
-of the DHCP tables, with the drain cadence the scheduler sets).
+descriptors, captured once per key as a CUDA graph on the card), the
+devloop's ring program (`compile_devloop_aot` / `prepare_devloop_dispatch`
+/ `call_devloop_aot` / `adopt_devloop_chain`: k express batches per
+dispatch, `devloop/`) and the bulk lane (`dispatch_scheduled_bulk`: the
+fused step over a read replica of the DHCP tables, with the drain
+cadence the scheduler sets).
 
-Telemetry spans, the devloop, the native ring and checkpoints belong to
-later slices of the port.
+Host path (`BNG_HOST_PATH`, resolved at construction): `vector` packs
+frames through a `runtime/hostpath.StagingPool`, whose pinned buffers
+the upload copies from directly; `scalar` packs into fresh arrays. The
+ring loops serve a `NativeRing` as they serve a `PyRing`.
+
+Chaos points (`chaos/faults.py`): `engine.dispatch` (fail | delay) before
+every dispatch of the fused step, the DHCP-only program, the express
+program and a devloop ring, and `engine.slow_drain` (fail) on a slow-lane
+batch. Telemetry spans and checkpoints belong to later slices.
 """
 
 from __future__ import annotations
@@ -51,6 +61,8 @@ import torch
 
 from bng_tpu_torch import frames as F
 from bng_tpu_torch import kernels, resolve_device
+from bng_tpu_torch.chaos.faults import FaultInjectedError, fault_point
+from bng_tpu_torch.devloop import kernel as devloop_kernel
 from bng_tpu_torch.control.nat import NATManager, apply_nat_updates
 from bng_tpu_torch.edge.ops import EDGE_NSTATS
 from bng_tpu_torch.edge.tables import EdgeTables
@@ -72,7 +84,10 @@ from bng_tpu_torch.ops.pipeline import (
 from bng_tpu_torch.ops.pppoe import PPPOE_NSTATS
 from bng_tpu_torch.ops.qos import QOS_NSTATS
 from bng_tpu_torch.ops.qtable import HostQTable, QTableGeom, apply_qupdate
-from bng_tpu_torch.ops.table import HostTable, TableGeom, apply_update, to_device, words_to_device
+from bng_tpu_torch.ops.table import (
+    HostTable, PinnedStage, TableGeom, apply_update, to_device, words_to_device,
+)
+from bng_tpu_torch.runtime import hostpath
 from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS
 from bng_tpu_torch.runtime.tables import (
     FastPathTables, PPPoEFastPathTables, apply_fastpath_updates,
@@ -135,7 +150,13 @@ class ExpressProgram:
     `key` carries the engine's resync count, and a program whose key is
     stale is never replayed. A replay calls no wrapper, so the kernel
     launches counted while it was captured are added to `kernels.LAUNCHES`
-    on every replay instead. On the CPU it is a plain call."""
+    on every replay instead. On the CPU it is a plain call.
+
+    The descriptors go up from a few persistent pinned buffers, cycled, each
+    rewritten only after the event behind its last copy (`PinnedStage`): a
+    dispatch neither pins a fresh buffer nor waits for the stream."""
+
+    STAGES = 4  # the express lane's dispatches in flight, and one staging
 
     def __init__(self, eng: "Engine", batch: int, key: tuple):
         self.key, self.batch = key, batch
@@ -144,6 +165,8 @@ class ExpressProgram:
         self.now = torch.zeros((), dtype=torch.int64, device=dev)
         self.tables, self.geom = eng.tables.dhcp, eng.geom.dhcp
         self.graph, self.launches = None, {}
+        self.stages = [PinnedStage((batch, XD_WORDS), np.uint32, dev) for _ in range(self.STAGES)]
+        self._stage_i = 0
         if dev.type == "cuda":
             self._capture(dev)
 
@@ -169,14 +192,13 @@ class ExpressProgram:
         self.graph = graph
 
     def __call__(self, desc: np.ndarray, now: float):
-        host = torch.from_numpy(np.ascontiguousarray(desc).view(np.int32))
-        if self.graph is None:
-            self.desc.copy_(host)
-            self.now.fill_(int(now) & MASK32)
-            return self._run()
-        # pinned source, async copy: the host does not wait for the stream
-        self.desc.copy_(host.pin_memory(), non_blocking=True)
+        stage = self.stages[self._stage_i]
+        self._stage_i = (self._stage_i + 1) % len(self.stages)
+        np.copyto(stage.acquire(), desc)
+        stage.upload_into(self.desc)
         self.now.fill_(int(now) & MASK32)
+        if self.graph is None:
+            return self._run()
         self.graph.replay()
         for k, n in self.launches.items():
             kernels.LAUNCHES[k] += n
@@ -412,7 +434,13 @@ class Engine:
         self.resync_count = 0
         self._express_programs: dict[tuple, ExpressProgram] = {}
         self.express_captures = 0  # express programs built (graphs captured on the card)
+        self._devloop_programs: dict = {}  # devloop/kernel.py's ring programs, per key
+        self.devloop_captures = 0
         self.tables: PipelineTables = self._device_tables()
+        # host path, resolved once: vector packs through pooled pinned buffers
+        self.host_path = hostpath.resolved_host_path()
+        self._stage_pool = (hostpath.StagingPool(self.L, device=self.device)
+                            if self.host_path == "vector" else None)
 
     # -- device state --
     def _dense_host(self) -> dict[str, np.ndarray]:
@@ -546,15 +574,37 @@ class Engine:
         return (torch.full((), int(now) & MASK32, dtype=torch.int64, device=dev),
                 torch.full((), int(now * 1e6) & MASK32, dtype=torch.int64, device=dev))
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A staged array on the device: straight from its pinned pool buffer
+        when the vector host path staged it, else through `to_device`."""
+        if self._stage_pool is not None:
+            t = self._stage_pool.upload(a)
+            if t is not None:
+                return t
+        return to_device(a, self.device)
+
+    @staticmethod
+    def _dispatch_fault() -> None:
+        """The chaos point on every device dispatch: `delay` sleeps (a slow
+        device, at most 50 ms), `fail` raises before the update drain, so
+        no table delta is lost with the batch. Disarmed: one no-op call."""
+        fp = fault_point("engine.dispatch")
+        if fp is not None:
+            if fp.kind == "fail":
+                raise FaultInjectedError("chaos: injected device dispatch failure")
+            if fp.kind == "delay":
+                time.sleep(min(max(fp.arg, 0.0), 0.05))
+
     def _dispatch_step(self, pkt: np.ndarray, length: np.ndarray, fa: np.ndarray,
                        now: float) -> PipelineResult:
         """Drain + apply updates and queue one fused step."""
+        self._dispatch_fault()
         upd = self._drain_updates()
         if upd is not None:
             _apply_all_updates(self.tables, upd)
         dev = self.device
         now_s, now_us = self._now_tensors(now)
-        res = pipeline_step(self.tables, to_device(pkt, dev), to_device(length, dev),
+        res = pipeline_step(self.tables, self._upload(pkt), self._upload(length),
                             to_device(fa, dev), self.geom, now_s, now_us)
         self.stats.batches += 1
         return res
@@ -564,11 +614,11 @@ class Engine:
         """Drain the fastpath tables and queue the DHCP-only program (parse +
         the DHCP responder on the dhcp tables the fused step also uses):
         3 K1 probes, no K2 call."""
+        self._dispatch_fault()
         upd = self._drain_fastpath_updates()
         if upd is not None:
             apply_fastpath_updates(self.tables.dhcp, upd)
-        dev = self.device
-        pkt_d, len_d = to_device(pkt, dev), to_device(length, dev)
+        pkt_d, len_d = self._upload(pkt), self._upload(length)
         now_s, _ = self._now_tensors(now)
         res = dhcp_fastpath(pkt_d, len_d, parse_batch(pkt_d, len_d), self.tables.dhcp,
                             self.geom.dhcp, now_s)
@@ -647,6 +697,7 @@ class Engine:
         program is rebuilt for the new tables and the stale one never
         replays. The outputs are the program's own buffers, rewritten by
         the next dispatch: take them with `_InFlight` before that."""
+        self._dispatch_fault()
         upd = self._drain_fastpath_updates()
         if upd is not None:
             apply_fastpath_updates(self.tables.dhcp, upd)
@@ -655,6 +706,52 @@ class Engine:
         res = prog(desc, now)
         self.stats.batches += 1
         return ExpressAotResult(block=res.block, dhcp_stats=res.stats)
+
+    # -- the devloop's ring program (devloop/host.py's pump) --
+    #
+    # The ring program reads its own leading copy of the DHCP tables; the
+    # published tables (self.tables.dhcp) take each ring's drained deltas
+    # only when the ring retires, which is when the reference publishes a
+    # ring's output chain.
+    def devloop_aot(self, k: int, batch: int, device=None):
+        """The ring program for this (k, batch), or None: the geometry miss
+        the pump falls back from. It never captures."""
+        return devloop_kernel.get_compiled(self, k, batch, device)
+
+    def compile_devloop_aot(self, k: int, batch: int, device=None):
+        """Build the ring program (capture its graph on the card), at
+        scheduler init or engine adoption, never on the dispatch path."""
+        return devloop_kernel.compile_devloop(self, k, batch, device)
+
+    def prepare_devloop_dispatch(self):
+        """The ordered half of a ring dispatch: the `engine.dispatch` chaos
+        point and the fastpath drain. Returns (deltas or None, resynced):
+        `resynced` says a resync inside the drain replaced the published
+        tables, so the pump must re-seed the leading copy."""
+        self._dispatch_fault()
+        before = self.tables.dhcp
+        upd = self._drain_fastpath_updates()
+        return upd, self.tables.dhcp is not before
+
+    @staticmethod
+    def call_devloop_aot(prog, upd, stage, n_slots: int, now: float):
+        """Apply the drained deltas to the program's leading copy, upload the
+        staged ring and run it (replay the graph). Touches no engine state;
+        returns the program's `DevloopResult` buffers."""
+        if upd is not None:
+            apply_fastpath_updates(prog.tables, upd)
+        return prog(stage, n_slots, now)
+
+    def adopt_devloop_chain(self, upd, published, count: bool = True) -> None:
+        """Publish a retired ring: its deltas go into the published DHCP
+        tables, unless a resync has replaced them since the ring was
+        dispatched (`published` is the tables it was dispatched against):
+        the fresh upload already holds every host write. `count=False`
+        publishes without claiming a ring dispatch."""
+        if upd is not None and self.tables.dhcp is published:
+            apply_fastpath_updates(published, upd)
+        if count:
+            self.stats.batches += 1
 
     # -- the bulk lane (runtime/scheduler.py) --
     #
@@ -692,18 +789,27 @@ class Engine:
         # read self.tables after the drain: a resync rebinds it
         tables_in = self.tables._replace(dhcp=dhcp_replica)
         _apply_all_updates(tables_in, upd)
-        dev = self.device
         now_s, now_us = self._now_tensors(now)
-        res = pipeline_step(tables_in, to_device(pkt, dev), to_device(length, dev),
-                            to_device(fa, dev), self.geom, now_s, now_us)
+        res = pipeline_step(tables_in, self._upload(pkt), self._upload(length),
+                            to_device(fa, self.device), self.geom, now_s, now_us)
         self.stats.batches += 1
         return res, dhcp_replica
 
     # -- frames in, verdicts out --
     def _pack_frames(self, frames: list[bytes], B: int):
-        """Stage a frame list into [B, L] uint8 + [B] lengths (numpy)."""
+        """Stage a frame list into [B, L] uint8 + [B] lengths (numpy): the
+        vector host path packs into a pooled pinned pair with one ragged
+        gather, the scalar path into fresh arrays with one scatter."""
         if len(frames) > B:
             raise ValueError(f"batch of {len(frames)} exceeds batch size {B}")
+        if self._stage_pool is not None:
+            if not frames:
+                return self._stage_pool.stage(frames, B)
+            lens = hostpath.frame_lens(frames)
+            if int(lens.max()) > self.L:
+                raise ValueError(
+                    f"frame of {int(lens.max())} bytes exceeds engine pkt_slot {self.L}")
+            return self._stage_pool.stage(frames, B, lens=lens)
         pkt = np.zeros((B, self.L), dtype=np.uint8)
         length = np.zeros((B,), dtype=np.int64)
         if not frames:
@@ -729,6 +835,12 @@ class Engine:
         drain goes on."""
         if not items:
             return []
+        fp = fault_point("engine.slow_drain")
+        if fp is not None and fp.kind == "fail":
+            # chaos: the whole slow batch is lost before any handler runs (no
+            # half-allocation); clients retransmit
+            self.stats.slow_errors += 1
+            return [(item[0], None) for item in items]
         if self.slow_path_batch is not None:
             try:
                 out = self.slow_path_batch(items)
@@ -843,7 +955,9 @@ class Engine:
     # -- the packet-ring loops --
     def _dispatch_ring_batch(self, pkt, length, flags, n: int, now: float):
         """All-control batches take the DHCP-only program; mixed ones the
-        fused step (one dispatch beats two)."""
+        fused step (one dispatch beats two). The ring stages lengths as
+        uint32; the programs take the port's int64 lanes."""
+        length = length.astype(np.int64)
         if bool(((flags[:n] & FLAG_DHCP_CTRL) != 0).all()):
             return self._run_dhcp_batch(pkt, length, now)
         return self._dispatch_step(pkt, length, (flags & FLAG_FROM_ACCESS) != 0, now)
@@ -856,8 +970,8 @@ class Engine:
             # a pipelined batch holds one of its ring's assemble windows
             self.flush_pipeline()
         pkt = np.zeros((self.B, self.L), dtype=np.uint8)
-        length = np.zeros((self.B,), dtype=np.int64)
-        flags = np.zeros((self.B,), dtype=np.int64)
+        length = np.zeros((self.B,), dtype=np.uint32)
+        flags = np.zeros((self.B,), dtype=np.uint32)
         n = ring.assemble(pkt, length, flags)
         if n == 0:
             return 0
@@ -869,7 +983,8 @@ class Engine:
     def _apply_ring_verdicts(self, ring, h: dict, pkt, length, n: int, now: float) -> None:
         """Demux one batch's host outputs back to the ring it came from."""
         vv = h["verdict"][:n]
-        ring.complete(vv.astype(np.uint8), h["out_pkt"], h["out_len"], n)
+        ring.complete(vv.astype(np.uint8), np.ascontiguousarray(h["out_pkt"]),
+                      h["out_len"].astype(np.uint32), n)
         self.stats.tx += int((vv == VERDICT_TX).sum())
         self.stats.fwd += int((vv == VERDICT_FWD).sum())
         self.stats.dropped += int((vv == VERDICT_DROP).sum())
@@ -911,8 +1026,8 @@ class Engine:
         a buffer is never rewritten under an unfinished transfer."""
         if self._stage_bufs[idx] is None:
             self._stage_bufs[idx] = (np.zeros((self.B, self.L), dtype=np.uint8),
-                                     np.zeros((self.B,), dtype=np.int64),
-                                     np.zeros((self.B,), dtype=np.int64))
+                                     np.zeros((self.B,), dtype=np.uint32),
+                                     np.zeros((self.B,), dtype=np.uint32))
         return self._stage_bufs[idx]
 
     def process_ring_pipelined(self, ring, now: float | None = None) -> int:

@@ -21,10 +21,21 @@ of `bng_tpu/runtime/scheduler.py`).
   dispatches (with `overlap_drain`, built and uploaded right after the
   previous dispatch) and empty deltas in between.
 
+- **Express loop** (`express_loop`, overridden by `BNG_EXPRESS_LOOP`):
+  `aot` dispatches each express batch; `devloop` stages k of them
+  (`devloop_k`, `BNG_DEVLOOP_K`) in a descriptor ring that one dispatch of
+  the ring program serves (`devloop/`), with up to `devloop_depth` rings
+  in flight; `auto` takes the devloop when its program builds and `aot`
+  otherwise. An explicit `devloop` that cannot arm degrades to `aot`
+  loudly (counted in `express_fallbacks`), `auto` quietly.
+- **Host path** (`BNG_HOST_PATH=vector`): the express retire renders the
+  replies of each group of lanes that share a template in one vectorized
+  patch (`ExpressWireTemplate.render_batch`), byte-identical to the
+  per-frame render.
+
 With one card the express lane shares the engine's device and stream.
 The reference's telemetry spans, flight-recorder triggers and metrics
-families, its vector host path, its second-device express lane and the
-devloop are not ported (`express_loop` other than "aot" raises); every
+families and its second-device express lane are not ported; every
 counter stays. Single-threaded and poll-driven: `submit()` frames and
 `poll()` each beat, or call `process()`, the batch-synchronous facade.
 """
@@ -32,6 +43,7 @@ counter stays. Single-threaded and poll-driven: `submit()` frames and
 from __future__ import annotations
 
 import logging
+import os
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
@@ -40,19 +52,21 @@ import numpy as np
 import torch
 
 from bng_tpu_torch.control.dhcp_codec import ACK, DISCOVER, OFFER, ExpressTemplateCache
+from bng_tpu_torch.devloop.host import DevloopPump
 from bng_tpu_torch.ops.dhcp import (
-    PV_DNS1, PV_DNS2, PV_GATEWAY, PV_PREFIX, SC_IP, SC_MAC_HI, SC_MAC_LO, DHCPTables,
+    PV_DNS1, PV_DNS2, PV_GATEWAY, PV_PREFIX, SC_IP, SC_MAC_HI, SC_MAC_LO,
 )
 from bng_tpu_torch.ops.express import (
     VB_LEASE_T, VB_POOL, VB_VERDICT, VB_YIADDR, XD_WORDS, parse_express,
 )
 from bng_tpu_torch.ops.pipeline import VERDICT_DROP, VERDICT_FWD, VERDICT_TX
-from bng_tpu_torch.ops.table import TableState
+from bng_tpu_torch.runtime import hostpath
 from bng_tpu_torch.runtime.engine import _InFlight
 from bng_tpu_torch.runtime.lanes import (
     CLOSE_FLUSH, LANE_BULK, LANE_EXPRESS, CompletionRing, InflightEntry, Lane, LaneConfig,
 )
 from bng_tpu_torch.runtime.ring import classify_dhcp
+from bng_tpu_torch.runtime.tables import clone_dhcp
 from bng_tpu_torch.utils.net import prefix_to_mask
 
 log = logging.getLogger("bng.scheduler")
@@ -81,9 +95,12 @@ class SchedulerConfig:
     # None or -1: the express lane shares the engine's device; i: cuda:i,
     # which must be the engine's device (a second-device lane is not ported)
     express_device_index: int | None = None
-    # "aot" = the per-batch express program; "devloop" and "auto" (the
-    # reference's device-resident loop) are not ported
+    # "aot" = the per-batch express program, "devloop" = k batches per ring
+    # dispatch (devloop/), "auto" = devloop when its program builds, else
+    # aot. BNG_EXPRESS_LOOP overrides.
     express_loop: str = "aot"
+    devloop_k: int = 8  # ring slots per dispatch (BNG_DEVLOOP_K overrides)
+    devloop_depth: int = 2  # rings in flight
 
 
 class Completion(NamedTuple):
@@ -97,14 +114,6 @@ class Completion(NamedTuple):
     latency_s: float  # submit -> retire (queue wait + device + demux)
 
 
-def _clone_dhcp(t: DHCPTables) -> DHCPTables:
-    """A copy of the DHCP tables on their device (the bulk lane's replica)."""
-    def st(x: TableState) -> TableState:
-        return TableState(*(a.clone() for a in x))
-    return DHCPTables(sub=st(t.sub), vlan=st(t.vlan), cid=st(t.cid),
-                      pools=t.pools.clone(), server=t.server.clone())
-
-
 class TieredScheduler:
     """The steady-state device loop over an Engine's programs."""
 
@@ -114,13 +123,6 @@ class TieredScheduler:
                  clock: Callable[[], float] | None = None):
         self.engine = engine
         self.cfg = cfg or SchedulerConfig()
-        if self.cfg.express_loop != "aot":
-            if self.cfg.express_loop in ("devloop", "auto"):
-                raise NotImplementedError(
-                    f"express_loop={self.cfg.express_loop!r}: the devloop is not ported yet "
-                    "(ROADMAP Queue 1, item 6)")
-            raise ValueError(
-                f"express_loop must be aot|devloop|auto, got {self.cfg.express_loop!r}")
         self.clock = clock or engine.clock
         bulk_batch = self.cfg.bulk_batch or engine.B
         self.express = Lane(LaneConfig(LANE_EXPRESS, self.cfg.express_batch,
@@ -154,15 +156,28 @@ class TieredScheduler:
         self.express_jit_dispatches = 0
         self._aot_enabled = self.cfg.express_aot
         self.express_fallbacks: dict[str, int] = {}  # reason -> count
-        self.express_loop = "aot"
+        self._devloop = None  # the DevloopPump while the loop is live
+        self.express_loop = "aot"  # the resolved loop
         # whether submit() parses descriptors: only while a program exists
         self._aot_ready = False
         self._express_templates = ExpressTemplateCache()
-        # descriptor staging: run_express_aot copies it into pinned memory
-        # before it returns, so one buffer serves every dispatch
+        # vector host path: batched template render at the express retire
+        self._vec = hostpath.resolved_host_path() == "vector"
+        # descriptor staging: the express program copies it into its own
+        # pinned buffer before it returns, so one buffer serves every dispatch
         self._desc_buf = np.zeros((self.cfg.express_batch, XD_WORDS), dtype=np.uint32)
+        self._ensure_engine_staging()
         if self._aot_enabled:
             self._compile_express_aot()
+        self._setup_devloop()
+
+    def _ensure_engine_staging(self) -> None:
+        """Declare the dispatches this scheduler may keep in flight to the
+        engine's staging pool (vector host path), so a pooled buffer comes
+        round only after them."""
+        pool = self.engine._stage_pool
+        if pool is not None:
+            pool.ensure_depth(self.cfg.express_depth + self.cfg.bulk_depth + 2)
 
     def _compile_express_aot(self) -> None:
         self._aot_ready = False
@@ -173,6 +188,37 @@ class TieredScheduler:
             self._note_fallback("compile_failed",
                                 f"express program build failed, the DHCP-only program will "
                                 f"serve: {type(e).__name__}: {e}")
+
+    def _setup_devloop(self) -> None:
+        """Resolve and arm the express loop. The ring program is built here
+        (init or engine adoption), never on the dispatch path; an explicit
+        devloop that cannot arm falls back to the per-batch lane loudly."""
+        self._devloop = None
+        want = os.environ.get("BNG_EXPRESS_LOOP", self.cfg.express_loop)
+        if want not in ("aot", "devloop", "auto"):
+            raise ValueError(
+                f"BNG_EXPRESS_LOOP/express_loop must be aot|devloop|auto, got {want!r}")
+        self.express_loop = "aot"
+        if want == "aot":
+            return
+        if not (self._aot_enabled and self._aot_ready):
+            # no descriptors at admission: nothing to stage in a ring
+            if want == "devloop":
+                self._note_fallback("devloop_unavailable",
+                                    "the devloop needs the express program (descriptor "
+                                    "admission); serving per batch")
+            return
+        k = int(os.environ.get("BNG_DEVLOOP_K", self.cfg.devloop_k))
+        try:
+            self.engine.compile_devloop_aot(k, self.express.cfg.batch, self._express_dev)
+        except Exception as e:  # noqa: BLE001 — the per-batch lane serves, counted
+            self._note_fallback("devloop_compile_failed",
+                                f"ring program k={k} batch={self.express.cfg.batch} failed to "
+                                f"build, the per-batch express program will serve: "
+                                f"{type(e).__name__}: {e}")
+            return
+        self._devloop = DevloopPump(self, k, self.cfg.devloop_depth)
+        self.express_loop = "devloop"
 
     def _note_fallback(self, reason: str, detail: str) -> None:
         """One express fallback: counted per reason and logged."""
@@ -224,6 +270,10 @@ class TieredScheduler:
             reason = self.express.close_reason(now) or CLOSE_FLUSH
             pend, reason = self.express.close_batch(now, reason)
             retired += self._dispatch_express(pend, now, reason)
+        if self._devloop is not None:
+            # the partial ring ships and every ring retires before the
+            # per-batch ring drains: a devloop miss dispatches slots there
+            retired += self._devloop.flush(now)
         retired += self._retire_express_all()
         while len(self.bulk):
             reason = self.bulk.close_reason(now) or CLOSE_FLUSH
@@ -264,8 +314,10 @@ class TieredScheduler:
         self.engine = engine
         self._bulk_dhcp = None
         self._replica_resync = -1
+        self._ensure_engine_staging()
         if self._aot_enabled:
             self._compile_express_aot()
+        self._setup_devloop()  # the ring program for the new engine, built here
         return retired
 
     # -- express lane --
@@ -278,9 +330,23 @@ class TieredScheduler:
                 break
             pend, reason = self.express.close_batch(now, reason)
             retired += self._dispatch_express(pend, now, reason)
+        if self._devloop is not None:
+            # the loop's own beat: retire finished rings, close a partial
+            # ring past its deadline
+            retired += self._devloop.poll(now)
         return retired + self._retire_express_all()
 
     def _dispatch_express(self, pend, now: float, reason: str) -> int:
+        """Route one closed express batch: the devloop stages it as a ring
+        slot, the per-batch lane dispatches it now. Returns frames retired
+        as a side effect (a ring overflowing its depth)."""
+        if not pend:
+            return 0
+        if self._devloop is not None:
+            return self._devloop.add_batch(pend, now, reason)
+        return self._dispatch_express_direct(pend, now, reason)
+
+    def _dispatch_express_direct(self, pend, now: float, reason: str) -> int:
         """Dispatch one express batch; returns frames retired because the
         completion ring overflowed its depth."""
         if not pend:
@@ -332,9 +398,14 @@ class TieredScheduler:
             block = h["block"][:n].view(np.uint32)
             answered = block[:, VB_VERDICT] != 0
             pools, server = entry.meta
+            if self._vec:
+                txr = self._express_replies_vec(entry.pending, block, pools, server)
 
-            def reply(i, p):
-                return self._express_reply(p, block[i], pools, server)
+                def reply(i, p):
+                    return txr[i]
+            else:
+                def reply(i, p):
+                    return self._express_reply(p, block[i], pools, server)
         else:  # the DHCP-only program's reply frames
             answered = h["verdict"][:n] == VERDICT_TX
 
@@ -352,6 +423,34 @@ class TieredScheduler:
                 eng.stats.passed += 1
                 self._complete(p, LANE_EXPRESS, "slow", replies.get(i), now)
         return n
+
+    def _express_replies_vec(self, pend, block: np.ndarray, pools: np.ndarray,
+                             server: np.ndarray) -> dict[int, bytes]:
+        """The batched render: TX lanes grouped by template and addressing
+        (a storm batch is typically one group), each group's per-client
+        words patched in one vectorized pass, byte-identical to
+        `_express_reply`. Returns lane -> bytes."""
+        server_ip0 = int(server[SC_IP])
+        server_mac = (int(server[SC_MAC_HI]).to_bytes(2, "big")
+                      + int(server[SC_MAC_LO]).to_bytes(4, "big"))
+        groups: dict[tuple, list] = {}
+        for i, p in enumerate(pend):
+            if block[i, VB_VERDICT]:
+                d = p.desc
+                groups.setdefault((int(block[i, VB_POOL]), int(block[i, VB_LEASE_T]), d.msg_type,
+                                   d.vlan_off, d.dhcp_off, d.relayed, d.use_bcast), []).append(i)
+        out: dict[int, bytes] = {}
+        for (pool_id, lease_t, msg, vlan_off, dhcp_off, relayed, use_bcast), lanes in groups.items():
+            prow = pools[pool_id]
+            tmpl = self._express_templates.get(
+                server_mac, server_ip0 or int(prow[PV_GATEWAY]), int(prow[PV_GATEWAY]),
+                int(prow[PV_DNS1]), int(prow[PV_DNS2]), lease_t,
+                prefix_to_mask(int(prow[PV_PREFIX])), OFFER if msg == DISCOVER else ACK)
+            fmat, _ = hostpath.pack_rows([pend[i].frame for i in lanes])
+            reps = tmpl.render_batch(fmat, vlan_off, dhcp_off, relayed, use_bcast,
+                                     block[np.asarray(lanes, dtype=np.int64), VB_YIADDR])
+            out.update(zip(lanes, reps))
+        return out
 
     def _express_reply(self, p, row: np.ndarray, pools: np.ndarray, server: np.ndarray) -> bytes:
         """One verdict row -> reply bytes, from the dispatch's pool and
@@ -397,7 +496,7 @@ class TieredScheduler:
         if (self._bulk_dhcp is not None and not refresh_due
                 and self._replica_resync == eng.resync_count):
             return
-        self._bulk_dhcp = _clone_dhcp(eng.tables.dhcp)
+        self._bulk_dhcp = clone_dhcp(eng.tables.dhcp)
         self._replica_resync = eng.resync_count
         self._replica_refreshes += 1
 
@@ -518,6 +617,8 @@ class TieredScheduler:
         out["express"]["aot_misses"] = self.express_aot_misses
         out["express"]["loop"] = self.express_loop
         out["express"]["fallbacks"] = dict(self.express_fallbacks)
+        if self._devloop is not None:
+            out["express"]["devloop"] = self._devloop.stats()
         out["completions_dropped"] = self.completions_dropped
         out["oversize_dropped"] = self.oversize_dropped
         return out

@@ -23,7 +23,9 @@ from bng_tpu_torch.ops.dhcp import (
     PV_PREFIX, PV_VALID, SC_IP, SC_MAC_HI, SC_MAC_LO, SERVER_WORDS, DHCPGeom, DHCPTables,
 )
 from bng_tpu_torch.ops.pppoe import PPPOE_WORDS, PS_IP, PS_MAC_HI, PS_MAC_LO, PS_SESSION_ID
-from bng_tpu_torch.ops.table import HostTable, TableGeom, TableUpdate, words_to_device, apply_update
+from bng_tpu_torch.ops.table import (
+    HostTable, TableGeom, TableState, TableUpdate, apply_update, words_to_device,
+)
 from bng_tpu_torch.utils.net import mac_to_u64, split_u64
 
 
@@ -49,6 +51,23 @@ def apply_fastpath_updates(tables: DHCPTables, upd: FastPathUpdates) -> DHCPTabl
     tables.pools.copy_(upd.pools)
     tables.server.copy_(upd.server)
     return tables
+
+
+def clone_dhcp(t: DHCPTables) -> DHCPTables:
+    """A copy of the DHCP tables on their device (the bulk lane's replica,
+    the devloop's leading copy)."""
+    def st(x: TableState) -> TableState:
+        return TableState(*(a.clone() for a in x))
+    return DHCPTables(sub=st(t.sub), vlan=st(t.vlan), cid=st(t.cid),
+                      pools=t.pools.clone(), server=t.server.clone())
+
+
+def copy_dhcp_(dst: DHCPTables, src: DHCPTables) -> DHCPTables:
+    """dst <- src in place, tensor by tensor (dst keeps its storage)."""
+    for a, b in zip((*dst.sub, *dst.vlan, *dst.cid, dst.pools, dst.server),
+                    (*src.sub, *src.vlan, *src.cid, src.pools, src.server)):
+        a.copy_(b)
+    return dst
 
 
 class FastPathTables:

@@ -73,3 +73,16 @@ def ipv4_header(src_ip: int, dst_ip: int, payload_len: int, proto: int, ttl: int
 
 def udp_header(src_port: int, dst_port: int, payload_len: int, csum: int = 0) -> bytes:
     return struct.pack("!HHHH", src_port, dst_port, 8 + payload_len, csum)
+
+
+FNV1A32_OFFSET = 0x811C9DC5
+FNV1A32_PRIME = 0x01000193
+
+
+def fnv1a32(data: bytes, seed: int = FNV1A32_OFFSET) -> int:
+    """FNV-1a 32-bit hash (the ring's shard steering key)."""
+    h = seed
+    for b in data:
+        h ^= b
+        h = (h * FNV1A32_PRIME) & _U32
+    return h

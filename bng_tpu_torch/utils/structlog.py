@@ -1,5 +1,6 @@
 """Rate-limited error reporting (the part of `bng_tpu/utils/structlog.py`
-that the DHCP server and the engine use: `RateLimiter` and `ErrorLog`).
+that the DHCP server, the engine and the chaos injector use:
+`get_logger`, `RateLimiter` and `ErrorLog`).
 
 A per-frame failure under a flood of malformed packets must be neither
 silent nor a log firehose: `ErrorLog.report` writes one line (with the
@@ -13,6 +14,44 @@ from __future__ import annotations
 
 import logging
 import time
+
+
+class BoundLogger:
+    """A stdlib logger with bound fields: each call's keyword arguments join
+    them, ride on the record as `bng_fields` and are appended to the message
+    as `key=value` pairs."""
+
+    def __init__(self, logger: logging.Logger, fields: dict):
+        self._logger = logger
+        self._fields = fields
+
+    def bind(self, **fields) -> "BoundLogger":
+        return BoundLogger(self._logger, {**self._fields, **fields})
+
+    def _log(self, level: int, msg: str, kw: dict) -> None:
+        if self._logger.isEnabledFor(level):
+            exc_info = kw.pop("exc_info", None)
+            fields = {**self._fields, **kw}
+            tail = "".join(f" {k}={v}" for k, v in fields.items())
+            self._logger.log(level, "%s%s", msg, tail, exc_info=exc_info,
+                             extra={"bng_fields": fields})
+
+    def debug(self, msg: str, **kw) -> None:
+        self._log(logging.DEBUG, msg, kw)
+
+    def info(self, msg: str, **kw) -> None:
+        self._log(logging.INFO, msg, kw)
+
+    def warning(self, msg: str, **kw) -> None:
+        self._log(logging.WARNING, msg, kw)
+
+    def error(self, msg: str, **kw) -> None:
+        self._log(logging.ERROR, msg, kw)
+
+
+def get_logger(name: str, **fields) -> BoundLogger:
+    """The logger `bng.<name>` with `fields` bound."""
+    return BoundLogger(logging.getLogger(f"bng.{name}"), fields)
 
 
 class RateLimiter:

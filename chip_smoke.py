@@ -7,7 +7,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 
 1. Build: compile every CUDA source of `bng_tpu_torch/csrc/` for sm_90a
    (all nvcc processes started together) and print the nvcc commands and
-   the `-Xptxas -v` report, plus the card's name and power limit.
+   the `-Xptxas -v` report, plus the card's name and power limit. (The
+   native ring, `csrc/bngring.cpp`, is built with g++ at its first use in
+   phase 12.)
 2. Build the headline deployment through the port's own host API: 1M
    DHCP subscribers, 1M established NAT44 flows over 250k subscribers,
    10k QoS policies on flow subscribers (half with a burst below one
@@ -31,7 +33,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    the calls; each kernel also with L2 flushed before every call), K2 at
    B = 32, K2's sweep route past B_ONE, a one-thread launch floor, the
    device step (Mpps, p50/p99), `Engine.process` per batch with the host
-   (split into pack / dispatch / wait / demux).
+   (split into pack / dispatch / wait / demux). Then IPoE batches through
+   `Engine.process` under the scalar and the vector host path in turns
+   (`runtime/hostpath.StagingPool`): identical outputs, the split of each.
 7. The full-stack deployment, on the headline's host tables (the IPoE
    engine is retired first): 65,534 PPPoE sessions under one access
    concentrator, each with one NAT44 flow; 10,000 gardened subscribers
@@ -55,14 +59,17 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     mode: no synchronizing CUDA call.
 11. The DHCP-only lane: counts 0, `process_dhcp` on 8192 cached
     DISCOVERs per batch, counts read: K1 3 and K2 0 per batch.
-12. The ring loops through the port's `PyRing`: an all-control batch
-    (the DHCP-only program) and the full-stack mix through `process_ring`
-    and `process_ring_pipelined` + `flush_pipeline`; TX/FWD frames and
-    ring stats equal `process` on the same frames; counts read.
+12. The ring loops: an all-control batch (the DHCP-only program) and the
+    full-stack mix through `process_ring` and `process_ring_pipelined` +
+    `flush_pipeline`, the latter over the scalar `PyRing`, the vector
+    `PyRing` and the `NativeRing` (built by g++ into
+    `bng_tpu_torch/_build/` and loaded, or the run fails); TX/FWD frames
+    equal `process` on the same frames, and frames and stats are identical
+    across the three rings; counts read.
 13. Full-stack times: the device step in turns with the IPoE-only step
     on the same tables and batch (Mpps, p50/p99, their ratio);
-    `Engine.process`, `process_dhcp` and `process_ring_pipelined` per
-    batch, each split into pack / dispatch / wait / demux; every K1/K2
+    `Engine.process`, `process_dhcp` and `process_ring_pipelined` (over
+    each ring) per batch, each split into pack / dispatch / wait / demux; every K1/K2
     call of the full-stack step (the five new call sites printed apart);
     peak device memory. `--profile` adds torch.profiler traces of a few
     IPoE and full-stack steps.
@@ -89,8 +96,28 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     dispatch; the express dispatch split (admission, drain, upload,
     replay, wait, render, slow path) and, idle and busy, each lane's
     dispatch and retire time per round; DORAs/s; bulk frames/s with the
-    host.
+    host; the express descriptor upload, a fresh pinned buffer against the
+    program's persistent ones; the render of bursts under the scalar and
+    the vector host path (identical bytes), for one template group and
+    for many.
 17. The express graph's device time and K1's at each express probe.
+18. The devloop (`express_loop="devloop"`, k = 8): two fresh serving
+    stacks, the aot lane's and the devloop's, from the same host tables
+    and a held clock, give the same reply bytes for a DORA storm of new
+    clients and 200 bursts of 64 cached DISCOVERs; the ring program is a
+    captured graph of 3k K1 and 0 K2 launches; K1 bit-equal to its plain
+    version on every probe of one eager ring; one graph replay's blocks,
+    stats and cursors equal the same ring on the CPU from copied tables.
+19. An injected `devloop.dispatch` fail: the ring's slots served per
+    batch, counted, the same bytes; a ring dispatch shipping a dirty lease
+    row makes no synchronising CUDA call and no staging wait.
+20. The devloop's DORA storm (counts 0: 3k K1 per ring, 8 K1 + 4 K2 per
+    bulk step; DORAs/s, the per-ring host split), its OFFER latency (bursts
+    with the bulk lane idle, lone DISCOVERs, bursts right after a bulk
+    dispatch), the cursor audit after quiesce.
+21. Full rings at k = 8, 1 and 16: one device dispatch per k express
+    batches and 3k K1 per ring by the counts; the ring graph's device time
+    per replay at each k, and K1's at the probes of one slot.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON; the last line the result JSON.
@@ -127,6 +154,11 @@ from bng_tpu_torch.ops.hashing import SEED1, hash_words, u32
 from bng_tpu_torch.ops.pipeline import pipeline_step
 from bng_tpu_torch.runtime import engine as engine_mod
 from bng_tpu_torch.runtime.engine import AntispoofTables, Engine, GardenTables, QoSTables
+from bng_tpu_torch.chaos import faults
+from bng_tpu_torch.devloop.host import DevloopPump
+from bng_tpu_torch.ops.table import PinnedStage
+from bng_tpu_torch.runtime import hostpath, nativelib
+from bng_tpu_torch.runtime import ring as ring_mod
 from bng_tpu_torch.runtime.ring import PyRing
 from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
 from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
@@ -142,6 +174,7 @@ N_NAT_SUBS = 250_000
 N_QOS = 10_000
 N_BINDINGS = 10_000
 BATCHES = 20
+HOST_AB_BATCHES = 6  # IPoE batches run under both host paths
 # the full-stack deployment, on top of the headline
 N_PPPOE = 65_534  # RFC 2516's 16-bit SESSION_ID, 0xFFFF reserved
 N_GARDEN = 10_000
@@ -166,6 +199,14 @@ STORM_BULK_EVERY = 16  # storm cycles per bulk batch of the IPoE mix
 LAT_ROUNDS = 200  # express batches of 64 cached DISCOVERs, the bulk lane idle
 LONE_ROUNDS = 50  # lone cached DISCOVERs (each closed by the deadline)
 BUSY_ROUNDS = 8  # express batches right after a bulk dispatch of B flows
+RENDER_ROUNDS = 50  # express bursts rendered under each host path
+UPLOAD_ROUNDS = 500  # express descriptor uploads timed each way
+RELAY_IP = ip_to_u32("10.9.9.9")  # a relay agent's giaddr (a template group of its own)
+DL_CLIENT0 = 1 << 20  # first client MAC of the devloop phases (apart from the storm's)
+DL_CLIENTS = 1024  # new clients of the two-stack comparison
+DL_BURSTS = 200  # bursts of 64 cached DISCOVERs in the comparison
+DL_STORM_CLIENTS = 4096  # new clients of the devloop's DORA storm
+DL_ROUNDS = 4  # full rings per k for the dispatch counts
 
 
 def say(msg: str) -> None:
@@ -893,6 +934,7 @@ def ipoe_phases(eng, flows, drop_ips, card, device, profile: bool, err):
         f"dropped {eng.stats.dropped} passed {eng.stats.passed}; launches {launches}")
 
     gpu_step_equals_cpu_step(eng, pkt, length, fa, "IPoE")
+    host_path_ab(eng, batches[5:5 + HOST_AB_BATCHES], card)
 
     time_kernels(rec, card, "IPoE")
     s1, v1 = rec["seg_prefix"][0][0][:32].contiguous(), rec["seg_prefix"][0][1][:32].contiguous()
@@ -912,6 +954,38 @@ def ipoe_phases(eng, flows, drop_ips, card, device, profile: bool, err):
     if profile:
         profile_step(step, card, "IPoE")
     return launches
+
+
+def set_host_path(eng, path: str, pool) -> None:
+    """Point the engine at a host path. The engine resolves BNG_HOST_PATH
+    once, at construction; the smoke compares both paths on one engine and
+    one set of device tables, so it swaps the staging here."""
+    eng.host_path = path
+    eng._stage_pool = pool if path == "vector" else None
+
+
+def host_path_ab(eng, batches, card) -> None:
+    """Each batch through `Engine.process` under the scalar and the vector
+    host path in turns, at one `now`: identical outputs; the host split
+    (pack, dispatch, wait, demux) of each path."""
+    split = {p: HostSplit(eng) for p in ("scalar", "vector")}
+    ms = {p: [] for p in split}
+    pool = hostpath.StagingPool(eng.L, device=eng.device)
+    for k, (frames, _) in enumerate(batches):
+        outs = {}
+        for path in (("scalar", "vector") if k % 2 == 0 else ("vector", "scalar")):
+            set_host_path(eng, path, pool)
+            with split[path]:
+                t1 = time.perf_counter()
+                outs[path] = eng.process(frames, from_access=True, now=NOW + 5 + k * 0.01)
+                ms[path].append((time.perf_counter() - t1) * 1e3)
+        check(outs["vector"] == outs["scalar"], f"IPoE batch {k}: vector host path == scalar")
+    check(pool.waits == 0, "no vector staging waited for an upload")
+    set_host_path(eng, "scalar", pool)
+    for path in ("scalar", "vector"):
+        say(f"IPoE Engine.process, {path} host path: mean {np.mean(ms[path]):.2f} ms over "
+            f"{len(batches)} batches, outputs identical across the paths "
+            f"({split[path].report(ms[path])}) [{card}]")
 
 
 # ------------------------------------------------------- the full-stack paths
@@ -991,7 +1065,7 @@ def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
         f"launches {launches_dhcp}")
 
     # ---- the ring loops against process on the same frames
-    ring_ms, ring_split, launches_ring = ring_phases(eng, ctx, rng)
+    ring_runs, launches_ring = ring_phases(eng, ctx, rng)
 
     # ---- times
     kern = time_kernels(rec, card, "full-stack")
@@ -1011,19 +1085,47 @@ def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
     say(f"process_dhcp per batch of {B}: mean {np.mean(dhcp_ms):.2f} ms, "
         f"p50 {np.percentile(dhcp_ms, 50):.2f} ms over {DHCP_BATCHES} batches "
         f"({dsplit.report(dhcp_ms)}) [{card}]")
-    say(f"process_ring_pipelined per call (assemble, dispatch, retire the previous batch): "
-        f"mean {np.mean(ring_ms):.2f} ms over {len(ring_ms)} calls "
-        f"({ring_split.report(ring_ms)}) [{card}]")
+    for kind, (ring_ms, ring_split, _, _) in ring_runs.items():
+        say(f"process_ring_pipelined over the {kind} ring, per call (assemble, dispatch, retire "
+            f"the previous batch): mean {np.mean(ring_ms):.2f} ms over {len(ring_ms)} calls "
+            f"({ring_split.report(ring_ms)}) [{card}]")
     if profile:
         profile_step(step, card, "full-stack")
     return kern, {"full": launches_full, "dhcp_only": launches_dhcp, **launches_ring}
 
 
+RING_KINDS = ("PyRing scalar", "PyRing vector", "NativeRing")
+
+
+def make_ring_of(kind: str):
+    """A ring holding 3 undrained batches (the native ring takes pow2 sizes)."""
+    kw = dict(nframes=1 << 16, frame_size=L, depth=1 << 15)
+    if kind == "NativeRing":
+        lib = ring_mod.load_native()
+        check(lib is not None and str(nativelib.lib_path("bngring")) == lib._name,
+              "the port's bngring built by g++ into bng_tpu_torch/_build/ and loaded")
+        return ring_mod.NativeRing(**kw)
+    return ring_mod.PyRing(host_path=kind.split()[1], **kw)
+
+
+def push_runs(ring, frames, fa) -> int:
+    """Push in order, one `rx_push_batch` per run of equal direction."""
+    n, i = 0, 0
+    while i < len(frames):
+        j = i
+        while j < len(frames) and fa[j] == fa[i]:
+            j += 1
+        n += ring.rx_push_batch(frames[i:j], from_access=fa[i])
+        i = j
+    return n
+
+
 def ring_phases(eng, ctx, rng):
     """process_ring (an all-control batch, then the mix) and
-    process_ring_pipelined over RING_BATCHES mixed batches, each against
-    `process` on the same frames: the same TX/FWD frames, drops and PASS
-    lanes, and ring stats that count them."""
+    process_ring_pipelined over RING_BATCHES mixed batches through each of
+    RING_KINDS, each against `process` on the same frames: the same TX/FWD
+    frames, drops and PASS lanes, and ring stats that count them, identical
+    across the three rings."""
     batches = [make_full_batch(rng, ctx) for _ in range(RING_BATCHES)]
     want = []
     for k, (bf, bfa, _) in enumerate(batches):
@@ -1062,33 +1164,41 @@ def ring_phases(eng, ctx, rng):
     check_launches(launches_sync, RING_BATCHES, {"probe": 13, "seg_prefix": 4}, "process_ring")
 
     kernels.reset_launches()
-    ring = PyRing(nframes=6 * B, frame_size=L, depth=4 * B)  # holds 3 undrained batches
-    call_ms, retired = [], 0
-    split = HostSplit(eng, ring)
-    for k, (bf, bfa, _) in enumerate(batches):
-        for f, a in zip(bf, bfa):
-            check(ring.rx_push(f, from_access=a), "ring push")
-        with split:
-            t1 = time.perf_counter()
-            retired += eng.process_ring_pipelined(ring, now=NOW + 10 + k)
-            call_ms.append((time.perf_counter() - t1) * 1e3)
-    retired += eng.flush_pipeline()
-    check(retired == RING_BATCHES * B, "every pipelined batch retired")
-    got = pops(ring)
-    check((got["tx"], got["fwd"]) == expected(want), "process_ring_pipelined TX/FWD == process")
-    stats = ring.stats()
+    runs = {}
+    for kind in RING_KINDS:
+        ring = make_ring_of(kind)
+        call_ms, retired = [], 0
+        split = HostSplit(eng, ring)
+        for k, (bf, bfa, _) in enumerate(batches):
+            check(push_runs(ring, bf, bfa) == len(bf), f"{kind} ring push")
+            with split:
+                t1 = time.perf_counter()
+                retired += eng.process_ring_pipelined(ring, now=NOW + 10 + k)
+                call_ms.append((time.perf_counter() - t1) * 1e3)
+        retired += eng.flush_pipeline()
+        check(retired == RING_BATCHES * B, f"every pipelined batch retired ({kind} ring)")
+        got = pops(ring)
+        check((got["tx"], got["fwd"]) == expected(want),
+              f"process_ring_pipelined over the {kind} ring: TX/FWD == process")
+        runs[kind] = (call_ms, split, ring.stats(), got)
+        ring.close()
+    launches_pipe = dict(kernels.LAUNCHES)
+    check_launches(launches_pipe, RING_BATCHES * len(RING_KINDS), {"probe": 13, "seg_prefix": 4},
+                   "process_ring_pipelined")
+    stats = runs["PyRing scalar"][2]
     n = {v: sum(len(o[v]) for o in want) for v in ("tx", "fwd", "dropped", "slow")}
     check(stats["rx"] == RING_BATCHES * B and stats["tx"] == n["tx"] and stats["fwd"] == n["fwd"]
           and stats["drop"] == n["dropped"] and stats["slow"] == n["slow"],
           f"ring stats {stats} count process's verdicts {n}")
-    launches_pipe = dict(kernels.LAUNCHES)
-    check_launches(launches_pipe, RING_BATCHES, {"probe": 13, "seg_prefix": 4},
-                   "process_ring_pipelined")
+    for kind, (_, _, st, got) in runs.items():
+        check(st == stats and got == runs["PyRing scalar"][3],
+              f"the {kind} ring's frames and stats == the scalar PyRing's ({st})")
     say(f"ring loops: control batch on the DHCP-only program {launches_ctrl}; process_ring and "
-        f"process_ring_pipelined on {RING_BATCHES} mixed batches each equal process "
-        f"(stats {stats}); launches {launches_sync} and {launches_pipe}")
-    return call_ms, split, {"ring_control": launches_ctrl, "ring_sync": launches_sync,
-                            "ring_pipelined": launches_pipe}
+        f"process_ring_pipelined on {RING_BATCHES} mixed batches each equal process, over "
+        f"{', '.join(RING_KINDS)} alike (stats {stats}); launches {launches_sync} and "
+        f"{launches_pipe}")
+    return runs, {"ring_control": launches_ctrl, "ring_sync": launches_sync,
+                  "ring_pipelined": launches_pipe}
 
 
 # ------------------------------------------------------- the serving stack
@@ -1104,16 +1214,24 @@ def storm_request(m: bytes, xid: int, ip: int) -> bytes:
     return F.udp_packet(m, b"\xff" * 6, 0, 0xFFFFFFFF, 68, 67, p.encode().ljust(300, b"\x00"))
 
 
-def build_serving_stack(hosts, device):
+class StackClock:
+    """The deployment's epoch: advancing with the host clock, or held at
+    `fixed` while two stacks must give the same bytes."""
+
+    def __init__(self, fixed: float | None = None):
+        self.t0, self.fixed = time.perf_counter(), fixed
+
+    def __call__(self) -> float:
+        return self.fixed if self.fixed is not None else NOW + 20 + (time.perf_counter() - self.t0)
+
+
+def build_serving_stack(hosts, device, clock=None, **cfg):
     """DHCPServer -> Engine(slow_path=server.handle_frame) -> TieredScheduler
-    at the CLI defaults, on the headline's host tables (the caller retired
-    every other engine over them). The server leases from a /16 of its own."""
+    at the CLI defaults (`cfg` overrides), on the headline's host tables (the
+    caller retired every other engine over them). The server leases from a
+    /16 of its own."""
     fp, nat, qos, spoof = hosts
-    t0 = time.perf_counter()
-
-    def clock():  # the deployment's epoch, advancing with the host clock
-        return NOW + 20 + (time.perf_counter() - t0)
-
+    clock = clock or StackClock()
     pools = PoolManager(fp)
     pools.add_pool(Pool(pool_id=STACK_POOL, network=STACK_NET, prefix_len=16,
                         gateway=STACK_NET + 1, dns_primary=ip_to_u32("1.1.1.1"),
@@ -1122,9 +1240,9 @@ def build_serving_stack(hosts, device):
     eng = Engine(fp, nat, qos, spoof, batch_size=B, pkt_slot=L, slow_path=server.handle_frame,
                  clock=clock, device=device)
     t1 = time.perf_counter()
-    sched = TieredScheduler(eng, SchedulerConfig(
-        express_batch=64, express_max_wait_us=200.0, express_aot=True, bulk_batch=B,
-        bulk_depth=2, drain_every=1))
+    sched = TieredScheduler(eng, SchedulerConfig(**{
+        "express_batch": 64, "express_max_wait_us": 200.0, "express_aot": True, "bulk_batch": B,
+        "bulk_depth": 2, "drain_every": 1, **cfg}))
     return sched, server, time.perf_counter() - t1
 
 
@@ -1244,13 +1362,13 @@ def bulk_out(done, n: int) -> dict:
     return out
 
 
-def dora_storm(sched, rng, flows, drop_ips):
-    """STORM_CLIENTS new clients, STORM_WAVE per cycle: cycle c sends the
+def dora_storm(sched, rng, flows, drop_ips, clients: int = STORM_CLIENTS, first: int = 0):
+    """`clients` new clients (MACs from `first`), STORM_WAVE per cycle: cycle c sends the
     renewals of wave c-2 (first, so the cycle's first dispatch drains their
     leases), the REQUESTs of wave c-1, the DISCOVERs of wave c and a few
     cached DISCOVERs; every STORM_BULK_EVERY cycles a batch of the IPoE mix
     too. Every lane is checked; returns (seconds, bulk batches)."""
-    n_waves = STORM_CLIENTS // STORM_WAVE
+    n_waves = clients // STORM_WAVE
     offers, requests, acks = {}, {}, {}
     n_bulk = 0
     t0 = time.perf_counter()
@@ -1261,10 +1379,10 @@ def dora_storm(sched, rng, flows, drop_ips):
                                                                   (cyc - 1) * STORM_WAVE)]
         if 1 <= cyc <= n_waves:
             for k in range((cyc - 1) * STORM_WAVE, cyc * STORM_WAVE):
-                requests[k] = storm_request(client_mac(k), 0x5000000 + k, offers[k])
+                requests[k] = storm_request(client_mac(first + k), 0x5000000 + k, offers[k])
                 items.append((requests[k], ("req", k)))
         if cyc < n_waves:
-            items += [(F.discover_frame(client_mac(k), 0x4000000 + k), ("disc", k))
+            items += [(F.discover_frame(client_mac(first + k), 0x4000000 + k), ("disc", k))
                       for k in range(cyc * STORM_WAVE, (cyc + 1) * STORM_WAVE)]
             items += [(F.discover_frame(sub_mac(i), 0x6000000 + j), ("cached", int(i)))
                       for j, i in enumerate(rng.integers(N_SUBS, size=STORM_CACHED))]
@@ -1303,7 +1421,7 @@ def dora_storm(sched, rng, flows, drop_ips):
         if expect is not None:
             check_outputs(bulk_out([c for c in done if c.tag[0] == "bulk"], B), expect, drop_ips,
                           fresh_ok=False)
-    check(len(acks) == STORM_CLIENTS and len(set(offers.values())) == STORM_CLIENTS,
+    check(len(acks) == clients and len(set(offers.values())) == clients,
           "every new client got an OFFER and an ACK with one address of its own")
     return time.perf_counter() - t0, n_bulk
 
@@ -1355,6 +1473,7 @@ class ExpressSplit(HostSplit):
                       (torch.cuda.CUDAGraph, "replay", "replay"),
                       (engine_mod._InFlight, "wait", "wait"),
                       (TieredScheduler, "_express_reply", "render"),
+                      (TieredScheduler, "_express_replies_vec", "render"),
                       (eng, "_handle_slow_lanes", "slow")]
         self.ms = {k: 0.0 for k in self.PARTS}
 
@@ -1362,6 +1481,75 @@ class ExpressSplit(HostSplit):
         ms = dict(self.ms)
         ms["upload"] -= ms["replay"]  # the program call holds the replay
         return ", ".join(f"{k} {v / n_dispatch:.4f}" for k, v in ms.items()) + " ms per dispatch"
+
+
+class RenderSplit(HostSplit):
+    """Host time of the express retire's template render, per host path."""
+
+    PARTS = ("scalar", "vector")
+
+    def __init__(self):
+        self.sites = [(TieredScheduler, "_express_reply", "scalar"),
+                      (TieredScheduler, "_express_replies_vec", "vector")]
+        self.ms = {k: 0.0 for k in self.PARTS}
+
+
+def express_render_ab(sched, rng, card, rounds: int, one_group: bool) -> None:
+    """The same bursts of 64 cached DISCOVERs through the express lane under
+    the scalar render (a template patch per frame) and the vector one (one
+    batched patch per template group), in turns: identical reply bytes; the
+    render's host ms per dispatch of 64 for each. `one_group`: untagged
+    subscribers of one pool (one template group); else subscribers of every
+    pool, a quarter VLAN-tagged and an eighth relayed (many small groups)."""
+    split = RenderSplit()
+    with split:
+        for r in range(rounds):
+            if one_group:
+                frames = [F.discover_frame(sub_mac(i), 0x7A00000 + j)
+                          for j, i in enumerate(rng.integers(min(N_SUBS, 1 << 16), size=64))]
+            else:
+                frames = [F.discover_frame(sub_mac(i), 0x7A00000 + j,
+                                           vlans=[5] if j % 4 == 0 else None,
+                                           giaddr=RELAY_IP if j % 8 == 1 else 0)
+                          for j, i in enumerate(rng.integers(N_SUBS, size=64))]
+            got = {}
+            for path in (("scalar", "vector") if r % 2 == 0 else ("vector", "scalar")):
+                sched._vec = path == "vector"
+                got[path] = sched.process(frames)
+            check(got["vector"] == got["scalar"] and len(got["scalar"]["tx"]) == 64,
+                  f"burst {r}: the vector render's bytes == the scalar render's")
+    sched._vec = False
+    what = "one template group" if one_group else "every pool, tagged and relayed lanes mixed"
+    say(f"express render per dispatch of 64 ({what}), bytes identical over {rounds} bursts: "
+        f"scalar {split.ms['scalar'] / rounds:.4f} ms, vector {split.ms['vector'] / rounds:.4f} ms "
+        f"[{card}]")
+
+
+def express_upload_ab(eng, card, rounds: int) -> None:
+    """The express program's descriptor upload, host time per call, in
+    turns: a fresh pinned buffer per upload (the way before this slice) and
+    the program's persistent pinned buffers, each reused after the event
+    behind its last copy."""
+    prog = eng.express_aot(64)
+    desc = np.random.default_rng(5).integers(0, 1 << 32, size=(64, XD_WORDS), dtype=np.uint32)
+    ms = {"fresh": 0.0, "persistent": 0.0}
+    waits = sum(st.waits for st in prog.stages)
+    torch.cuda.synchronize()
+    for r in range(rounds):
+        for way in (("fresh", "persistent") if r % 2 == 0 else ("persistent", "fresh")):
+            t1 = time.perf_counter()
+            if way == "fresh":
+                prog.desc.copy_(torch.from_numpy(desc.view(np.int32)).pin_memory(), non_blocking=True)
+            else:
+                st = prog.stages[r % len(prog.stages)]
+                np.copyto(st.acquire(), desc)
+                st.upload_into(prog.desc)
+            ms[way] += (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    say(f"express descriptor upload per dispatch (host, {rounds} of each in turns): a fresh "
+        f"pinned buffer {ms['fresh'] / rounds:.4f} ms, the persistent pinned buffers "
+        f"{ms['persistent'] / rounds:.4f} ms ({sum(st.waits for st in prog.stages) - waits} "
+        f"waits) [{card}]")
 
 
 class BeatSplit(HostSplit):
@@ -1443,12 +1631,294 @@ def serving_stack_phases(hosts, flows, drop_ips, card, device, err):
         f"{busy_beat.report(BUSY_ROUNDS)} [{card}]")
     say(f"bulk lane with the host (submit, dispatch, retire, {BUSY_ROUNDS} batches of {B} flows "
         f"with an express batch each): {bulk_fps:.0f} frames/s [{card}]")
+    express_upload_ab(eng, card, UPLOAD_ROUNDS)
+    express_render_ab(sched, rng, card, RENDER_ROUNDS, one_group=False)
+    express_render_ab(sched, rng, card, RENDER_ROUNDS, one_group=True)
 
     # ---- device times
     say(f"express graph replay (3 K1 + selects, B=64): {express_graph_ms(eng):.4f} ms "
         f"device [{card}]")
     time_kernels(rec, card, "express")
     return {"express": launches_express, "serving_stack": launches_storm}
+
+
+# ------------------------------------------------------------- the devloop
+
+def stack_workload(sched, seed: int) -> list:
+    """The comparison workload, through the `process` facade (each call
+    flushes, so two stacks give the same bytes): DORA waves of DL_CLIENTS new
+    clients (a cycle sends the renewals of wave c-2, the REQUESTs of wave
+    c-1 and the DISCOVERs of wave c), then DL_BURSTS bursts of 64 cached
+    DISCOVERs. Returns every call's output."""
+    rng = np.random.default_rng(seed)
+    out, offers, requests = [], {}, {}
+    n_waves, W = DL_CLIENTS // STORM_WAVE, STORM_WAVE
+    for cyc in range(n_waves + 2):
+        renew = list(range((cyc - 2) * W, (cyc - 1) * W)) if cyc >= 2 else []
+        req = list(range((cyc - 1) * W, cyc * W)) if 1 <= cyc <= n_waves else []
+        disc = list(range(cyc * W, (cyc + 1) * W)) if cyc < n_waves else []
+        frames = [requests[k] for k in renew]
+        for k in req:
+            requests[k] = storm_request(client_mac(DL_CLIENT0 + k), 0x5800000 + k, offers[k])
+            frames.append(requests[k])
+        frames += [F.discover_frame(client_mac(DL_CLIENT0 + k), 0x4800000 + k) for k in disc]
+        res = sched.process(frames)
+        check([i for i, _ in res["tx"]] == list(range(len(renew))),
+              f"cycle {cyc}: the renewals, and only they, answered on the device")
+        slow = dict(res["slow"])
+        for j, k in enumerate(disc):
+            offers[k] = F.decode_dhcp(F.decode(slow[len(renew) + len(req) + j]).payload).yiaddr
+        out.append(res)
+    for _ in range(DL_BURSTS):
+        frames = [F.discover_frame(sub_mac(i), 0x7800000 + j)
+                  for j, i in enumerate(rng.integers(N_SUBS, size=64))]
+        res = sched.process(frames)
+        check(len(res["tx"]) == 64, "every cached DISCOVER of a burst answered on the device")
+        out.append(res)
+    return out
+
+
+def devloop_vs_plain_and_cpu(eng, k: int, rng, err):
+    """K1 against its plain version on every probe of one eager ring of k
+    slots over the ring program's tables, and one graph replay's blocks,
+    stats and cursors against the same ring on the CPU from copied tables.
+    Returns the probes' recorded inputs."""
+    prog = eng.devloop_aot(k, 64)
+    dev = eng.device
+    now = NOW + 40
+    stage = PinnedStage((k, 64, XD_WORDS), np.uint32, dev)
+    for slot in range(k):
+        stage.host[slot] = express_desc(
+            [F.discover_frame(sub_mac(i), 0xC000 + slot * 64 + j,
+                              vlans=[5] if j % 8 == 0 else None,
+                              circuit_id=b"cid-%d" % j if j % 8 == 1 else b"", pad=320)
+             for j, i in enumerate(rng.integers(N_SUBS, size=64))])
+    ring_d = torch.from_numpy(stage.host.view(np.int32).copy()).to(dev)
+    now_d = torch.tensor(now, device=dev)
+    rec = record_kernel_inputs(
+        lambda: [express_verdicts(prog.tables, ring_d[s], eng.geom.dhcp, now_d) for s in range(k)],
+        3 * k, 0, f"devloop ring k={k}", table_names(eng.tables._replace(dhcp=prog.tables)))
+    probes_vs_plain([("devloop", a) for a in rec["probe"]], err)
+
+    cpu = convert.tables_from_numpy(convert.tables_to_numpy(prog.tables), "cpu")
+    saved = prog.cursors.clone()
+    res = eng.call_devloop_aot(prog, None, stage, k, now)
+    blocks, stats, cur = (t.cpu().clone() for t in (res.blocks, res.dhcp_stats, res.cursors))
+    base = saved.cpu()
+    prog.cursors.copy_(saved)  # the pump's slot accounting does not count this replay
+    ring_c = torch.from_numpy(stage.host.view(np.int32).copy())
+    want = [express_verdicts(cpu, ring_c[s], eng.geom.dhcp, torch.tensor(now)) for s in range(k)]
+    want_stats = sum(w.stats for w in want) & 0xFFFFFFFF
+    check(torch.equal(blocks, torch.stack([w.block for w in want]))
+          and torch.equal(stats, want_stats), f"the k={k} ring graph's blocks and stats == the CPU ring")
+    check(cur.tolist()[:3] == [k, (int(base[1]) + k) & 0xFFFFFFFF, (int(base[2]) + 1) & 0xFFFFFFFF],
+          f"the ring graph advanced the cursors (tail, seq, epoch) by one ring ({cur.tolist()})")
+    check(int(blocks[:, :, 0].sum()) == 64 * k, "every cached DISCOVER of the ring answered")
+    say(f"devloop ring k={k}: K1 bit-equal to its plain version on the {3 * k} probes of one eager "
+        f"ring; one graph replay's blocks, stats and cursors == the same ring on the CPU")
+    return rec
+
+
+def check_devloop_program(eng, k: int) -> None:
+    prog = eng.devloop_aot(k, 64)
+    check(prog is not None and prog.graph is not None, f"the k={k} ring program is a captured graph")
+    check(prog.launches == {"probe": 3 * k, "seg_prefix": 0},
+          f"the k={k} ring graph holds {3 * k} K1 and 0 K2 launches ({prog.launches})")
+
+
+def check_ring_dispatch_makes_no_sync(sched, rng) -> None:
+    """A ring dispatch (the fastpath drain shipping a dirty lease row into
+    the leading copy, the ring upload from pinned memory, the graph replay,
+    the queued result copies) makes no synchronising CUDA call, and no
+    staging buffer waits for its last upload."""
+    eng, pump = sched.engine, sched._devloop
+    k = pump.ring.k
+    eng.fastpath.touch_lease(sub_mac(3), NOW + 86400)
+    for j, i in enumerate(rng.integers(N_SUBS, size=64 * k)):
+        sched.submit(F.discover_frame(sub_mac(i), 0xD000 + j), True, tag=("sync", j))
+    now, waits, d0 = sched.clock(), pump.ring.staging_waits, pump.dispatches
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(k):
+                pend, reason = sched.express.close_batch(now)
+                check(sched._dispatch_express(pend, now, reason) == 0, "the ring retired nothing")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    check(pump.dispatches == d0 + 1, "the k-th batch dispatched the ring")
+    sched.flush()
+    check(len(sched.drain_completions()) == 64 * k, "the checked ring retired")
+    syncs = [str(w.message) for w in seen if "called a synchronizing" in str(w.message)]
+    check(not syncs, f"a ring dispatch synchronised the host: {syncs[:3]}")
+    check(pump.ring.staging_waits == waits, "no ring staging buffer waited for its upload")
+    check(eng.pending_dirty() == 0, "the dirty lease row shipped with the ring")
+    say(f"a ring dispatch of k={k} (its drain shipping a dirty lease row) made no synchronizing "
+        f"CUDA call (torch.cuda sync debug mode) and no staging wait")
+
+
+def ring_dispatch_counts(sched, rng, rounds: int) -> dict:
+    """`rounds` full rings of k batches of 64 cached DISCOVERs, submitted and
+    polled: one device dispatch per k express batches, 3k K1 per ring."""
+    pump = sched._devloop
+    k = pump.ring.k
+    d0, b0 = pump.dispatches, pump.batches
+    kernels.reset_launches()
+    for r in range(rounds):
+        for j, i in enumerate(rng.integers(N_SUBS, size=64 * k)):
+            sched.submit(F.discover_frame(sub_mac(i), 0xE000 + j), True, tag=("count", int(i)))
+        for c in run_until(sched, 64 * k):
+            check(c.verdict == "tx", "cached DISCOVER answered by the ring")
+    launches = dict(kernels.LAUNCHES)
+    nd, nb = pump.dispatches - d0, pump.batches - b0
+    check(nd == rounds and nb == rounds * k, f"k={k}: {rounds} ring dispatches for {nb} batches")
+    check_launches(launches, nd, {"probe": 3 * k, "seg_prefix": 0}, f"devloop k={k}")
+    sched.quiesce()
+    audit = pump.audit()
+    check(audit["consistent"], f"k={k} cursor audit after quiesce ({audit})")
+    say(f"devloop k={k}: {nd} device dispatches for {nb} express batches "
+        f"({nd / nb:.4f} per batch); launches {launches}; cursors {pump.ring.read_cursors().tolist()}")
+    return launches
+
+
+class DevloopSplit(HostSplit):
+    """Host time of the devloop's dispatches and retires inside the block:
+    admission parse, fastpath drain, ring upload, graph replay, the wait for
+    the ring's outputs, the rest of the retire, the template render and
+    the slow path."""
+
+    PARTS = ("admit", "drain", "upload", "replay", "wait", "retire", "render", "slow")
+
+    def __init__(self, sched):
+        import bng_tpu_torch.runtime.scheduler as sched_mod
+
+        eng = sched.engine
+        self.sites = [(sched_mod, "parse_express", "admit"),
+                      (eng, "_drain_fastpath_updates", "drain"),
+                      (PinnedStage, "upload_into", "upload"),
+                      (torch.cuda.CUDAGraph, "replay", "replay"),
+                      (engine_mod._InFlight, "wait", "wait"),
+                      (DevloopPump, "_retire", "retire"),
+                      (TieredScheduler, "_express_reply", "render"),
+                      (TieredScheduler, "_express_replies_vec", "render"),
+                      (eng, "_handle_slow_lanes", "slow")]
+        self.ms = {k: 0.0 for k in self.PARTS}
+
+    def report(self, n_rings: int) -> str:
+        ms = dict(self.ms)
+        ms["retire"] -= ms["wait"] + ms["render"] + ms["slow"]  # the retire holds them
+        return ", ".join(f"{k} {v / n_rings:.4f}" for k, v in ms.items()) + " ms per ring"
+
+
+def devloop_phases(hosts, flows, drop_ips, card, device, err):
+    fp = hosts[0]
+    # ---- two fresh stacks, the per-batch lane's and the devloop's, same bytes
+    outs = {}
+    for loop in ("aot", "devloop"):
+        clock = StackClock(fixed=NOW + 30)
+        t0 = time.perf_counter()
+        sched, server, setup_s = build_serving_stack(hosts, device, clock, express_loop=loop)
+        check(sched.express_loop == loop, f"the {loop} stack resolved its loop")
+        say(f"{loop} serving stack built in {time.perf_counter() - t0:.1f}s (scheduler init, "
+            f"its graphs captured, {setup_s * 1e3:.1f} ms)")
+        outs[loop] = stack_workload(sched, seed=21)
+        if loop == "aot":
+            # back to the host state the devloop stack starts from
+            for mk in list(server.leases):
+                fp.remove_subscriber(mk)
+            del sched, server
+            gc.collect()
+            torch.cuda.empty_cache()
+    check(outs["devloop"] == outs["aot"],
+          f"two fresh stacks: the devloop's reply bytes == the aot lane's ({DL_CLIENTS} DORAs, "
+          f"{DL_BURSTS} bursts of 64)")
+    eng, pump = sched.engine, sched._devloop
+    sched.quiesce()
+    check(pump.audit()["consistent"], "cursor audit after the comparison")
+    say(f"devloop k={pump.ring.k}: reply bytes of {DL_CLIENTS} DORAs (OFFER, ACK, renewal on the "
+        f"device) and {DL_BURSTS} bursts of 64 cached DISCOVERs == the aot lane's, from two fresh "
+        f"stacks; pump {pump.stats()}")
+    clock.fixed = None  # host time from here on: latencies and rates
+
+    # ---- the program on the card: its tally, K1 against plain, a replay against the CPU
+    check_devloop_program(eng, 8)
+    rec = devloop_vs_plain_and_cpu(eng, 8, np.random.default_rng(23), err)
+
+    # ---- an injected devloop.dispatch fail: served per batch, counted, the same bytes
+    rng = np.random.default_rng(29)
+    frames = [F.discover_frame(sub_mac(i), 0xF000 + j)
+              for j, i in enumerate(rng.integers(N_SUBS, size=64 * pump.ring.k))]
+    clean = sched.process(frames)
+    miss0, slots0 = sched.express_fallbacks.get("devloop_miss", 0), pump.fallback_slots
+    with faults.armed(faults.FaultPlan(0, [faults.FaultSpec("devloop.dispatch", faults.FAIL)]),
+                      log=False) as inj:
+        faulted = sched.process(frames)
+    check(faulted == clean and inj.injected == [("devloop.dispatch", "fail", 1)]
+          and sched.express_fallbacks["devloop_miss"] == miss0 + 1
+          and pump.fallback_slots == slots0 + pump.ring.k,
+          "an injected devloop.dispatch fail: the ring's slots served per batch, counted, "
+          "identical bytes")
+    say(f"devloop.dispatch fail injected: {pump.ring.k} slots served per batch, counted "
+        f"(fallbacks {sched.express_fallbacks}), bytes identical to the clean ring")
+    check_ring_dispatch_makes_no_sync(sched, rng)
+
+    # ---- the DORA storm and the latencies through the devloop (counts 0)
+    snap0 = sched.stats_snapshot()
+    d0 = pump.dispatches
+    kernels.reset_launches()
+    split = DevloopSplit(sched)
+    with split:
+        storm_s, n_bulk = dora_storm(sched, rng, flows, drop_ips, clients=DL_STORM_CLIENTS,
+                                     first=DL_CLIENT0 + DL_CLIENTS)
+    launches_storm = dict(kernels.LAUNCHES)
+    n_ring, snap = pump.dispatches - d0, sched.stats_snapshot()
+    n_bdisp = snap["bulk"]["batches"] - snap0["bulk"]["batches"]
+    check(snap["express"]["fallbacks"] == snap0["express"]["fallbacks"]
+          and snap["express"]["jit_dispatches"] == 0, "the rings served the storm")
+    check_launches(launches_storm, 1, {"probe": 3 * pump.ring.k * n_ring + 8 * n_bdisp,
+                                       "seg_prefix": 4 * n_bdisp},
+                   "devloop storm (3k K1 per ring, 8 K1 + 4 K2 per bulk step)")
+    say(f"devloop DORA storm: {DL_STORM_CLIENTS / storm_s:.1f} DORAs/s ({DL_STORM_CLIENTS} new "
+        f"clients, {storm_s:.2f} s, cached DISCOVERs and {n_bulk} IPoE batches interleaved); "
+        f"{n_ring} ring dispatches for "
+        f"{snap['express']['batches'] - snap0['express']['batches']} express batches; "
+        f"launches {launches_storm} [{card}]")
+    say(f"devloop per-ring host split in the storm: {split.report(n_ring)} [{card}]")
+    lat, _ = express_latency(sched, rng, LAT_ROUNDS, 64)
+    lone, _ = express_latency(sched, rng, LONE_ROUNDS, 1)
+    flow_frames = [flow_frame(flows[int(i)]) for i in rng.integers(len(flows), size=B)]
+    busy, _ = express_latency(sched, rng, BUSY_ROUNDS, 64, busy_flows=flow_frames)
+    for name, x in (("64 cached DISCOVERs, bulk idle", lat), ("a lone cached DISCOVER", lone),
+                    ("64 cached DISCOVERs right after a bulk dispatch", busy)):
+        say(f"devloop k={pump.ring.k} OFFER latency submit->retire, {name}: p50 "
+            f"{np.percentile(x, 50):.3f} ms, p99 {np.percentile(x, 99):.3f} ms, max {x.max():.3f} "
+            f"ms over {len(x)} frames [{card}]")
+    sched.quiesce()
+    check(pump.audit()["consistent"], f"cursor audit after the storm ({pump.audit()})")
+
+    # ---- dispatches per express batch at k = 8, 1, 16 (rings that fill)
+    launches = {"devloop_storm": launches_storm}
+    launches["devloop_k8"] = ring_dispatch_counts(sched, rng, DL_ROUNDS)
+
+    # ---- device times: the graph per replay, K1 inside it
+    prog = eng.devloop_aot(8, 64)
+    saved = prog.cursors.clone()
+    graph_ms = cuda_ms(lambda: prog.graph.replay())
+    prog.cursors.copy_(saved)
+    say(f"devloop ring graph k=8 (24 K1 + selects over 8 slots of 64): {graph_ms:.4f} ms device "
+        f"per replay, {graph_ms / 24:.5f} ms per K1 launch of it at most [{card}]")
+    slot0 = {"probe": rec["probe"][:3], "seg_prefix": [], "table": rec["table"][:3]}
+    time_kernels(slot0, card, "devloop ring slot 0")
+    for k in (1, 16):
+        other = TieredScheduler(eng, SchedulerConfig(
+            express_batch=64, express_max_wait_us=200.0, bulk_batch=B, bulk_depth=2,
+            drain_every=1, express_loop="devloop", devloop_k=k))
+        check_devloop_program(eng, k)
+        launches[f"devloop_k{k}"] = ring_dispatch_counts(other, rng, DL_ROUNDS)
+        say(f"devloop ring graph k={k}: {cuda_ms(lambda: eng.devloop_aot(k, 64).graph.replay()):.4f} ms "
+            f"device per replay [{card}]")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1495,6 +1965,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(serving_stack_phases(hosts, flows, drop_ips, card, device, err))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(devloop_phases(hosts, flows, drop_ips, card, device, err))
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

@@ -29,6 +29,7 @@ from bng_tpu_torch import convert
 from bng_tpu_torch import frames as F
 from bng_tpu_torch.ops.nat44 import SV_NAT_IP, SV_NAT_PORT
 from bng_tpu_torch.runtime.engine import Engine as TEngine
+from bng_tpu_torch.runtime.ring import VERDICT_FWD
 from bng_tpu_torch.runtime.ring import PyRing as TRing
 from bng_tpu_torch.runtime.ring import classify_dhcp as t_classify
 from bng_tpu_torch.utils.net import ip_to_u32
@@ -98,6 +99,30 @@ def test_pyring_matches_reference():
     assert got[0] == got[1]
     stats = got[1][-1][-1]
     assert stats["bad_desc"] and stats["fill_empty"] and stats["drop"] and stats["slow"]
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_vector_pyring_and_shard_steering_match_reference(n_shards):
+    """The port's vector `PyRing` and the reference's, on this file's corpus
+    pushed in batches (one vectorized classify and steer per push), then
+    drained through `assemble_sharded` windows and `rx_pop`."""
+    corpus = classify_corpus()
+    got = []
+    for cls in (JRing, TRing):
+        r = cls(nframes=64, frame_size=400, depth=16, n_shards=n_shards, host_path="vector")
+        r.steer_pub_ip(ip_to_u32(REMOTE), n_shards - 1)
+        rec = [r.rx_push_batch(corpus, from_access=True),
+               r.rx_push_batch(corpus[:6], from_access=False),
+               [r.shard_rx_pending(s) for s in range(n_shards)]]
+        pkt = np.zeros((4 * n_shards, 300), np.uint8)
+        ln, fl = np.zeros(4 * n_shards, np.uint32), np.zeros(4 * n_shards, np.uint32)
+        n = r.assemble_sharded(pkt, ln, fl)
+        rec.append((n, pkt.tobytes(), ln.tolist(), fl.tolist()))
+        r.complete(np.full(4 * n_shards, VERDICT_FWD, np.uint8), pkt, ln, 4 * n_shards)
+        rec += [r.rx_pop() for _ in range(4)]
+        rec.append((r.tx_pop_batch(), r.fwd_pending(), r.free_frames(), r.stats()))
+        got.append(rec)
+    assert got[1] == got[0]
 
 
 def test_dhcp_batch_buckets_match_reference():

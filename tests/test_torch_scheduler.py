@@ -312,3 +312,10 @@ def test_quiesce_and_adopt_engine():
     assert got[1][:2] == (3, 1) and [i for i, _ in got[1][3]["tx"]] == [0]
     engines_equal(*both)
     assert both[1][0].engine.express_captures == 1
+
+
+def test_scheduler_config_matches_reference():
+    """The same knobs with the same defaults, the devloop's included."""
+    fields = [(f.name, f.default) for f in dataclasses.fields(TConfig)]
+    assert fields == [(f.name, f.default) for f in dataclasses.fields(JConfig)]
+    assert dict(fields)["express_loop"] == "aot" and dict(fields)["devloop_k"] == 8
