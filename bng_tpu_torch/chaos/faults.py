@@ -25,9 +25,11 @@ The points the port carries, and the kinds each site honours:
     engine.slow_drain fail     (runtime/engine.py: a slow-lane batch)
     devloop.dispatch  fail     (devloop/host.py: the ring's staged slots
                                re-dispatch per batch, loudly)
+    nat.expire        skew     (control/nat.py NATManager.expire_sessions:
+                               the expiry clock jumps by `arg` seconds)
 
 The reference's other points (the fleet, admission, checkpoints, HA,
-NAT expiry, blue/green swaps) wait for the modules that carry them.
+blue/green swaps) wait for the modules that carry them.
 Chaos events log through the rate-limited logger (`utils/structlog.py`)
 and count into a `metrics` sink when one is given.
 """

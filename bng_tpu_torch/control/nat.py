@@ -1,29 +1,38 @@
-"""Host-side CGNAT manager: the parts of `bng_tpu/control/nat.py:NATManager`
-the IPoE slice needs — port-block carving (single and bulk), RFC 4787
-endpoint-independent mapping, new-flow session/reverse row insertion and
-the device sync. Expiry, release, HA restore and checkpoints belong to
-later slices. Exhaustion is logged through the stdlib `logging` module.
+"""Host-side CGNAT manager (port of `bng_tpu/control/nat.py:NATManager`):
+port-block carving (single and bulk), RFC 4787 endpoint-independent
+mapping, new-flow session/reverse row insertion, the block release that
+purges a subscriber's mappings and rows, the idle-session expiry sweep
+over the device-authoritative rows (chaos point `nat.expire`, kind
+`skew`), per-subscriber octets, and the device sync. Every refused block
+or port is counted in `exhausted` and reported through the rate-limited
+`ErrorLog("cgnat")`, as in the reference. HA restore and checkpoints
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import Callable
 
 import numpy as np
 
+from bng_tpu_torch.chaos.faults import fault_point
 from bng_tpu_torch.ops.nat44 import (
     BV_IN_USE, BV_NEXT_PORT, BV_PORT_END, BV_PORT_START, BV_PUBLIC_IP, BV_SUB_ID,
-    FLAG_EIM, FLAG_PORT_PARITY, NAT_STATE_NEW, REVERSE_WORDS, SESSION_WORDS, SUBNAT_WORDS,
-    SV_BYTES_OUT, SV_CREATED, SV_DEST_IP, SV_DEST_PORT, SV_LAST_SEEN, SV_NAT_IP,
-    SV_NAT_PORT, SV_ORIG_IP, SV_ORIG_PORT, SV_PKTS_OUT, SV_PROTO, SV_STATE,
-    NATGeom, NATTables,
+    FLAG_EIM, FLAG_PORT_PARITY, NAT_STATE_CLOSING, NAT_STATE_NEW, REVERSE_WORDS,
+    SESSION_WORDS, SUBNAT_WORDS, SV_BYTES_IN, SV_BYTES_OUT, SV_CREATED, SV_DEST_IP,
+    SV_DEST_PORT, SV_LAST_SEEN, SV_NAT_IP, SV_NAT_PORT, SV_ORIG_IP, SV_ORIG_PORT,
+    SV_PKTS_IN, SV_PKTS_OUT, SV_PROTO, SV_STATE, NATGeom, NATTables,
 )
-from bng_tpu_torch.ops.parse import PROTO_ICMP
+from bng_tpu_torch.ops.parse import PROTO_ICMP, PROTO_TCP
 from bng_tpu_torch.ops.table import HostTable, TableGeom, words_to_device, apply_update
+from bng_tpu_torch.utils.structlog import ErrorLog
 
-log = logging.getLogger(__name__)
+# idle timeouts in seconds (the reference's nat44.c values)
+UDP_TIMEOUT_S = 120
+TCP_TRANSIENT_TIMEOUT_S = 240
+TCP_EST_TIMEOUT_S = 7200
+ICMP_TIMEOUT_S = 60
 
 (LOG_SESSION_CREATE, LOG_SESSION_DELETE, LOG_PORT_BLOCK_ASSIGN,
  LOG_PORT_BLOCK_RELEASE, LOG_PORT_EXHAUSTION, LOG_HAIRPIN, LOG_ALG_TRIGGER) = range(1, 8)
@@ -54,6 +63,11 @@ def apply_nat_updates(tables: NATTables, upd: tuple) -> NATTables:
     tables.alg_ports.copy_(alg)
     tables.config.copy_(config)
     return tables
+
+
+class NATExhaustedError(Exception):
+    """Carrier for the rate-limited exhaustion log lines (the allocator
+    itself returns None/0: degraded service, not an exception path)."""
 
 
 class NATManager:
@@ -89,7 +103,11 @@ class NATManager:
         self._ext_ports: dict[tuple[int, int, int], tuple] = {}
         self.blocks: dict[int, dict] = {}
         self._sub_id_seq = 1
+        # a refused block carve or port allocation drops the flow by design;
+        # it is counted and reported rate-limited, never silent
         self.exhausted = {"block": 0, "port": 0}
+        self._exhaust_log = ErrorLog(
+            "cgnat", "CGNAT allocator exhausted — flow/subscriber refused")
 
     def _log(self, event: int, sub_id: int, priv_ip: int, pub_ip: int,
              priv_port: int, pub_port: int, dest_ip: int, dest_port: int,
@@ -120,8 +138,10 @@ class NATManager:
         got = self._carve()
         if got is None:
             self.exhausted["block"] += 1
-            log.warning("CGNAT allocator exhausted: no free port block for %#x across %d "
-                        "public IPs", private_ip, len(self.public_ips))
+            self._exhaust_log.report(
+                NATExhaustedError(f"no free port block for {private_ip:#x} "
+                                  f"across {len(self.public_ips)} public IPs"),
+                resource="block")
             return None
         pub_ip, start = got
         n = self.ports_per_subscriber
@@ -274,6 +294,33 @@ class NATManager:
             self.reverse.bulk_insert(rkey[sel], rrows[sel])
         return nat_ip, nat_port, ok
 
+    def release_nat(self, private_ip: int, now: int = 0) -> bool:
+        """Return a subscriber's port block: its EIM mappings and its live
+        session and reverse rows go first, so a reused block never meets a
+        stale reverse row (which would DNAT the next subscriber's inbound
+        traffic to the old private IP)."""
+        block = self.blocks.pop(private_ip, None)
+        if block is None:
+            return False
+        self.sub_nat.delete([private_ip])
+        for key in [k for k in self.eim if k[0] == private_ip]:
+            ext_ip, ext_port, _ = self.eim.pop(key)
+            self._ext_ports.pop((ext_ip, ext_port, key[2]), None)
+        for s in np.nonzero(self.sessions.used)[0]:
+            key = self.sessions.keys[s]
+            if int(key[0]) != private_ip:
+                continue
+            v = self.sessions.vals[s]
+            dst_ip, ports, proto_k = int(key[1]), int(key[2]), int(key[3])
+            r_src_port = 0 if proto_k == PROTO_ICMP else ports & 0xFFFF
+            nat_ip, nat_port = int(v[SV_NAT_IP]), int(v[SV_NAT_PORT])
+            self.sessions.delete(key.copy())
+            self.reverse.delete(self._key(dst_ip, nat_ip, r_src_port, nat_port, proto_k))
+        self._free_blocks.setdefault(block["public_ip"], []).append(block["port_start"])
+        self._log(LOG_PORT_BLOCK_RELEASE, block["subscriber_id"], private_ip,
+                  block["public_ip"], 0, block["port_start"], 0, block["port_end"], 0, now)
+        return True
+
     def _allocate_port(self, block: dict, orig_port: int, proto: int) -> int:
         parity = self.flags & FLAG_PORT_PARITY
         start, end = block["port_start"], block["port_end"]
@@ -332,8 +379,11 @@ class NATManager:
             self._log(LOG_PORT_EXHAUSTION, block["subscriber_id"], src_ip,
                       block["public_ip"], src_port, 0, dst_ip, dst_port, proto, now)
             self.exhausted["port"] += 1
-            log.warning("CGNAT allocator exhausted: port block %d-%d full for subscriber %d",
-                        block["port_start"], block["port_end"], block["subscriber_id"])
+            self._exhaust_log.report(
+                NATExhaustedError(f"port block {block['port_start']}-"
+                                  f"{block['port_end']} full for subscriber "
+                                  f"{block['subscriber_id']}"),
+                resource="port")
             return None
         nat_ip, nat_port = got
 
@@ -359,6 +409,72 @@ class NATManager:
                   src_port, nat_port, dst_ip, dst_port, proto, now,
                   flags=1 if is_hairpin else 0)
         return nat_ip, nat_port
+
+    # -- expiry (a host sweep over the device-authoritative last_seen words) --
+    def expire_sessions(self, now: int, device_vals: np.ndarray | None = None) -> int:
+        """Remove idle sessions by per-protocol/state timeout. device_vals:
+        the fetched session value rows (uint32; the device writes the
+        counters and last_seen), else the host mirror. The candidates come
+        from one numpy pass; the Python loop runs over expired slots only.
+        Returns the number expired."""
+        fp = fault_point("nat.expire")
+        if fp is not None and fp.kind == "skew":
+            # chaos: the expiry clock jumps (an NTP step, a host suspend)
+            now = int(now + fp.arg)
+        vals = device_vals if device_vals is not None else self.sessions.vals
+        occupied = np.nonzero(self.sessions.used)[0]
+        if len(occupied) == 0:
+            return 0
+        rows = vals[occupied]
+        proto_c = rows[:, SV_PROTO]
+        state_c = rows[:, SV_STATE]
+        last_c = rows[:, SV_LAST_SEEN].astype(np.int64)
+        timeout_c = np.full(len(occupied), UDP_TIMEOUT_S, dtype=np.int64)
+        timeout_c[proto_c == PROTO_ICMP] = ICMP_TIMEOUT_S
+        timeout_c[proto_c == PROTO_TCP] = np.where(
+            state_c[proto_c == PROTO_TCP] == 1, TCP_EST_TIMEOUT_S, TCP_TRANSIENT_TIMEOUT_S)
+        timeout_c = np.where(state_c == NAT_STATE_CLOSING,
+                             np.minimum(timeout_c, TCP_TRANSIENT_TIMEOUT_S), timeout_c)
+        expired = 0
+        for s in occupied[(now - last_c) > timeout_c]:
+            v = vals[s]
+            key = self.sessions.keys[s].copy()
+            src_ip, dst_ip, ports, proto_k = int(key[0]), int(key[1]), int(key[2]), int(key[3])
+            src_port, dst_port = ports >> 16, ports & 0xFFFF
+            nat_ip, nat_port = int(v[SV_NAT_IP]), int(v[SV_NAT_PORT])
+            self.sessions.delete(key)
+            r_src_port = 0 if proto_k == PROTO_ICMP else dst_port
+            self.reverse.delete(self._key(dst_ip, nat_ip, r_src_port, nat_port, proto_k))
+            # EIM refcount; the port frees when nothing references it
+            ekey = (src_ip, src_port, proto_k)
+            m = self.eim.get(ekey)
+            if m is not None:
+                m[2] -= 1
+                if m[2] <= 0:
+                    self.eim.pop(ekey)
+                    self._ext_ports.pop((m[0], m[1], proto_k), None)
+            blk = self.blocks.get(src_ip)
+            self._log(LOG_SESSION_DELETE, blk["subscriber_id"] if blk else 0,
+                      src_ip, nat_ip, src_port, nat_port, dst_ip, dst_port, proto_k, now)
+            expired += 1
+        return expired
+
+    def subscriber_octets(self, device_vals: np.ndarray | None = None
+                          ) -> dict[int, tuple[int, int, int, int]]:
+        """Per-subscriber (bytes_in, bytes_out, pkts_in, pkts_out) summed over
+        live sessions, from the fetched device rows (`Engine.fetch_session_vals`)
+        or the host mirror."""
+        vals = device_vals if device_vals is not None else self.sessions.vals
+        occ = np.nonzero(self.sessions.used)[0]
+        if len(occ) == 0:
+            return {}
+        rows = vals[occ]
+        uniq, inv = np.unique(rows[:, SV_ORIG_IP].astype(np.int64), return_inverse=True)
+        sums = [np.bincount(inv, weights=rows[:, w].astype(np.float64),
+                            minlength=len(uniq)).astype(np.int64)
+                for w in (SV_BYTES_IN, SV_BYTES_OUT, SV_PKTS_IN, SV_PKTS_OUT)]
+        return {int(ip): (int(sums[0][i]), int(sums[1][i]), int(sums[2][i]), int(sums[3][i]))
+                for i, ip in enumerate(uniq)}
 
     def add_hairpin_ip(self, ip: int) -> None:
         free = np.nonzero(self.hairpin == 0)[0]

@@ -58,6 +58,12 @@ def qos_kernel(ip_key, pkt_len, active, table: QTableState, geom: QTableGeom,
                now_us) -> QoSResult:
     """ip_key, pkt_len: [B] int64; active: [B] bool; now_us: int64 scalar
     tensor (uint32 value, wraps)."""
+    # QoS writes its token rows back at res.slot, which under a sharded
+    # geometry would be an owner-local slot: QoS tables stay chip-local,
+    # placed by subscriber affinity
+    if geom.axis is not None and geom.n_shards > 1:
+        raise ValueError("qos_kernel requires a chip-local table (geom.axis=None); "
+                         "QoS state is placed by subscriber affinity, not hash-sharding")
     res = qlookup(table, ip_key, geom)
     has_policy = res.found & active
     limited = has_policy & ((res.rate_lo | res.rate_hi) != 0)

@@ -54,7 +54,13 @@ class QTableUpdate(NamedTuple):
 
 
 class QTableGeom(NamedTuple):
+    """Static geometry. axis/n_shards mirror TableGeom so the chip-local
+    guard in `ops/qos.py` reads the same fields (QoS tables are placed by
+    subscriber affinity, never hash-sharded)."""
+
     nbuckets: int
+    axis: str | None = None
+    n_shards: int = 1
 
 
 class QLookup(NamedTuple):

@@ -12,7 +12,13 @@ scatters into the device tensors IN PLACE (the JAX step returns new
 arrays from a donated scatter instead). Lookups go through K1
 (`ops/probe.py`): `device_lookup` launches the CUDA kernel for a CUDA
 tensor and takes the plain version for a CPU tensor. The port has no
-implementation selector and no sharded lookup.
+implementation selector.
+
+A table may be hash-sharded over N shards (`TableGeom.axis`/`n_shards`,
+as in the reference): each shard holds an independent cuckoo table of
+the keys `shard_owner` gives it, and `sharded_lookup` probes each key on
+its owner through a bounded exchange (`parallel/exchange.py`), with the
+reference's per-destination capacity and punt semantics.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bng_tpu_torch.ops.hashing import SEED1, SEED2, hash_words
+from bng_tpu_torch.ops.hashing import MASK32, SEED1, SEED2, hash_words, u32
 from bng_tpu_torch.ops.probe import WAYS, probe, probe_plain
 
 MAX_KICKS = 128  # bounded cuckoo eviction walk (host side)
@@ -60,11 +66,64 @@ class LookupResult(NamedTuple):
     vals: torch.Tensor  # [B, V] int32 words (zeros where not found)
 
 
+class ShardedLookupResult(NamedTuple):
+    found: torch.Tensor  # [B] bool
+    slot: torch.Tensor  # [B] int32, owner-local
+    vals: torch.Tensor  # [B, V] int32 words (zeros where not found)
+    # the lane overflowed its destination's exchange capacity and was not
+    # probed (found=False there too): the slow path treats it as a miss to
+    # retry, not a definitive miss
+    punted: torch.Tensor
+
+
 class TableGeom(NamedTuple):
-    """Static geometry of one chip-local table."""
+    """Static geometry of one table, plus optional hash-sharding.
+
+    axis=None: the table is local to its shard. axis set: the table is
+    hash-sharded over `n_shards` shards and a lookup rides the bounded
+    key/result exchange (`sharded_lookup`)."""
 
     nbuckets: int
     stash: int
+    axis: str | None = None
+    n_shards: int = 1
+    # per-destination exchange capacity = ceil(b/N) * capacity_factor,
+    # rounded up to 8 lanes; lanes past it punt. factor >= N reproduces
+    # the never-punting worst-case exchange
+    capacity_factor: float = 2.0
+
+
+class ShardedTable(NamedTuple):
+    """One shard's handle on a hash-sharded table during a sharded step:
+    every shard's state (each on its own device), the index of the shard
+    whose lanes look up, and the exchange that carries keys to their
+    owners and results back."""
+
+    shards: tuple  # TableState per shard
+    index: int
+    exchange: object  # parallel/exchange.py
+
+
+# shard-owner hash seed, distinct from the cuckoo bucket seeds so shard
+# routing and in-table placement are independent
+SEED_SHARD = 0xC2B2AE35
+
+
+def shard_owner(query_words, n_shards: int):
+    """Owner shard of each key: mix(key) % n_shards. Host (numpy uint32 or
+    int64 arrays) and device (int32 word tensors) both call this; routing
+    agrees with the reference bit for bit. Returns int64."""
+    if isinstance(query_words[0], torch.Tensor):
+        words = [u32(w) for w in query_words]
+    else:
+        words = [np.asarray(w).astype(np.int64) & MASK32 for w in query_words]
+    return hash_words(words, SEED_SHARD) % n_shards
+
+
+def exchange_capacity(b: int, g: TableGeom) -> int:
+    """Per-destination lane capacity of the sharded exchange for a local
+    batch of b lanes: factor x the balanced share, 8-aligned, capped at b."""
+    return min(b, max(8, int(-(-b // g.n_shards) * g.capacity_factor + 7) & ~7))
 
 
 def scatter_set_drop(dst, idx, src, col: int | None = None):
@@ -114,8 +173,56 @@ def device_lookup(state: TableState, query, nbuckets: int, stash: int) -> Lookup
                                query.to(torch.int32).contiguous(), nbuckets, stash))
 
 
-def lookup(state: TableState, query, g: TableGeom) -> LookupResult:
-    return device_lookup(state, query, g.nbuckets, g.stash)
+def lookup(state, query, g: TableGeom) -> LookupResult:
+    """Local probe, or the sharded exchange when `g` names a shard axis."""
+    if g.axis is None or g.n_shards == 1:
+        return device_lookup(state, query, g.nbuckets, g.stash)
+    return sharded_lookup(state, query, g)
+
+
+def sharded_lookup(state: ShardedTable, query, g: TableGeom) -> ShardedLookupResult:
+    """The reference's `sharded_lookup` for the lanes of shard `state.index`.
+
+    1. owner = shard_owner(key) per lane;
+    2. keys pack into an [N, C, K] per-destination buffer, C =
+       exchange_capacity(b). A lane's position counts the earlier lanes of
+       this shard bound for the same owner; lanes at position >= C punt
+       (found=False, punted=True) and are not probed;
+    3. the exchange carries each owner its [C, K] rows, the owner probes
+       its own table with K1 (padding rows are zero keys, probed too), and
+       the results come back packed as V+2 words (vals, found, slot);
+    4. lane i reads its (owner, position) cell.
+    Bit for bit the reference's result, slot words of punted lanes
+    included (the cell at position C-1)."""
+    b, K = query.shape
+    N = g.n_shards
+    C = exchange_capacity(b, g)
+    dev = query.device
+    query = query.to(torch.int32)
+    owner = shard_owner([query[:, k] for k in range(K)], N)
+    onehot = (owner[:, None] == torch.arange(N, device=dev)[None, :]).to(torch.int64)
+    pos = (onehot.cumsum(0) - 1).gather(1, owner[:, None])[:, 0]
+    fits = pos < C
+    flat = torch.where(fits, owner * C + pos, N * C)  # overflow lanes land on a spare row
+    req = torch.zeros((N * C + 1, K), dtype=torch.int32, device=dev)
+    req.index_copy_(0, flat, query)
+    recv = state.exchange.send(state.index, req[: N * C].view(N, C, K))
+    resp = []
+    for o, rows in enumerate(recv):
+        s = state.shards[o]
+        found, slot, vals = probe(s.krows, s.stash_rows, s.vals, rows.contiguous(),
+                                  g.nbuckets, g.stash)
+        resp.append(torch.cat([vals, found.to(torch.int32)[:, None], slot[:, None]], dim=1))
+    packed = state.exchange.receive(state.index, resp)  # [N, C, V+2] on this shard's device
+    V = packed.shape[2] - 2
+    cell = packed[owner, pos.clamp(max=C - 1)]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return ShardedLookupResult(
+        found=(cell[:, V] != 0) & fits,
+        slot=cell[:, V + 1],
+        vals=torch.where(fits[:, None], cell[:, :V], zero),
+        punted=~fits,
+    )
 
 
 def xla_lookup(state: TableState, query, nbuckets: int, stash: int) -> LookupResult:

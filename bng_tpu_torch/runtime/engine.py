@@ -47,7 +47,9 @@ ring loops serve a `NativeRing` as they serve a `PyRing`.
 Chaos points (`chaos/faults.py`): `engine.dispatch` (fail | delay) before
 every dispatch of the fused step, the DHCP-only program, the express
 program and a devloop ring, and `engine.slow_drain` (fail) on a slow-lane
-batch. Telemetry spans and checkpoints belong to later slices.
+batch. `fetch_session_vals` and `expire` are the maintenance verbs: the
+NAT expiry sweep over the device's session rows, outside any dispatch.
+Telemetry spans and checkpoints belong to later slices.
 """
 
 from __future__ import annotations
@@ -1072,6 +1074,19 @@ class Engine:
         came from (the argument is accepted for call-site symmetry)."""
         entry, self._inflight = self._inflight, None
         return self._retire(entry)
+
+    # -- maintenance --
+    def fetch_session_vals(self) -> np.ndarray:
+        """The device-authoritative NAT session rows (counters, last_seen) as
+        host uint32 words. The one sync a maintenance call makes: never
+        called from a dispatch."""
+        return self.tables.nat.sessions.vals.to("cpu", copy=True).numpy().view(np.uint32)
+
+    def expire(self, now: float | None = None) -> int:
+        """NAT idle-session sweep against the device's last_seen words; the
+        deletions drain to the device with the next step's updates."""
+        now = int(now if now is not None else self.clock())
+        return self.nat.expire_sessions(now, device_vals=self.fetch_session_vals())
 
     # -- the host side of punts --
     @staticmethod

@@ -119,6 +119,35 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     batches and 3k K1 per ring by the counts; the ring graph's device time
     per replay at each k, and K1's at the probes of one slot.
 
+22. The sharded deployment (the headline's host tables retired first):
+    `ShardedCluster` of 8 logical shards on the card, 8 x 1024 lanes, built
+    on the headline's host data (1M DHCP subscribers hash-sharded through
+    `add_subscribers_bulk`; 1M NAT44 flows over 250k subscribers, each on
+    its affinity shard, 2,000 of them created 1,000 s early; 10k QoS
+    policies and 10k strict bindings on their affinity shards; the garden
+    on). Batches come from the sharded `NativeRing`: per shard 204 cached
+    DISCOVERs the ring steers there (owned anywhere) and 820 flows it
+    steers to their owner. One batch through `step`: every lane (OFFER
+    with the yiaddr from any shard, SNAT, QoS drop), the summed stats, and
+    K1 and K2 bit-equal to their plain versions on all 240 and 32 calls;
+    a DHCP-only step: 8192 OFFERs, K1 bit-equal on its 192 calls.
+23. A skewed batch (every DISCOVER owned by shard 0): each region's lanes
+    up to the exchange capacity get the right OFFER, the rest PASS.
+24. The sharded step on the card against the same step on the CPU from
+    copied tables, two batches: every result leaf and every shard's table
+    words identical; a sharded fused and a sharded DHCP-only dispatch,
+    each shipping dirty rows, make no synchronising CUDA call.
+25. `process_ring_pipelined` over 6 mixed batches (counts 0: N x (6 + 3N)
+    = 240 K1 and 4N = 32 K2 per step) and an all-control batch through
+    `process_ring` (3N x N = 192 K1, 0 K2).
+26. Times: the staged sharded step (Mpps, p50/p99), the pipelined loop
+    per batch split into assemble / drain / dispatch / wait / demux, a
+    torch.profiler count of launches per sharded step and the device's
+    busy share, shard 0's K1/K2 calls; `expire` sweeping the 2,000 aged
+    flows on every shard (their deletions drain with the next batch);
+    peak device memory.
+27. `dryrun_multichip(8)` on the card, its MULTICHIP-TELEMETRY line printed.
+
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON; the last line the result JSON.
 """
@@ -162,7 +191,10 @@ from bng_tpu_torch.runtime import ring as ring_mod
 from bng_tpu_torch.runtime.ring import PyRing
 from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
 from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
-from bng_tpu_torch.utils.net import ip_to_u32
+from bng_tpu_torch import entry as entry_mod
+from bng_tpu_torch.parallel.exchange import DeviceLocalExchange
+from bng_tpu_torch.parallel.sharded import ShardedCluster, sharded_step
+from bng_tpu_torch.utils.net import fnv1a32, ip_to_u32
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 NOW = 1_753_000_000
@@ -1921,6 +1953,445 @@ def devloop_phases(hosts, flows, drop_ips, card, device, err):
     return launches
 
 
+# ------------------------------------------------------------- the sharded step
+
+N_SHARDS = 8  # the reference's multichip default
+B_SHARD = B // N_SHARDS  # lanes per shard
+SH_BATCHES = 6  # ring batches through process_ring_pipelined, timed
+SH_STEPS = 10  # staged device steps timed
+N_AGED = 2000  # flows created long before the traffic, swept by expire
+NAT_IPS_PER_SHARD = 34  # 64-port blocks for ~31k NAT subscribers per shard
+SH_DISC = B_SHARD // 5  # cached DISCOVERs per shard region
+
+
+def build_sharded(device):
+    """The sharded deployment on the headline's host data, built through
+    `ShardedCluster`: 1M DHCP subscribers hash-sharded over 8 shards
+    (`add_subscribers_bulk`, sub_nbuckets = nbuckets_for(1M / 8)), 1M NAT44
+    UDP flows over 250k subscribers each on its affinity shard (the first
+    N_AGED flows created 1000 s before the rest), 10k QoS policies (half
+    with a burst below one frame) and 10k strict antispoof bindings on
+    their subscribers' affinity shards, the walled garden on."""
+    cl = ShardedCluster(
+        N_SHARDS, batch_per_shard=B_SHARD, sub_nbuckets=nbuckets_for(N_SUBS // N_SHARDS),
+        vlan_nbuckets=1 << 10, cid_nbuckets=1 << 10, max_pools=64,
+        nat_sessions_nbuckets=nbuckets_for(N_FLOWS // N_SHARDS), nat_ports_per_subscriber=64,
+        nat_sub_nbuckets=nbuckets_for(N_NAT_SUBS // N_SHARDS), qos_nbuckets=1 << 13,
+        spoof_nbuckets=1 << 12,
+        public_ips=[ip_to_u32("203.0.113.1") + i for i in range(N_SHARDS * NAT_IPS_PER_SHARD)],
+        public_ips_per_shard=NAT_IPS_PER_SHARD, device=device)
+    cl.set_server_config_all(AC_MAC, SERVER_IP)
+    for pid in range(max(1, (N_SUBS >> 16) + 1)):
+        cl.add_pool_all(pid + 1, ip_to_u32(f"10.{pid}.0.0") & 0xFFFF0000, 16, SERVER_IP,
+                        ip_to_u32("1.1.1.1"), ip_to_u32("8.8.8.8"), 86400)
+    idx = np.arange(N_SUBS, dtype=np.uint64)
+    owners = cl.add_subscribers_bulk(idx + 0x02AA00000000,
+                                     pool_ids=(idx >> np.uint64(16)).astype(np.uint32) + 1,
+                                     ips=sub_ip(idx).astype(np.uint32),
+                                     lease_expiries=np.uint32(NOW + 86400))
+
+    aff = np.array([cl.affinity_shard_ip(int(ip)) for ip in sub_ip(np.arange(N_NAT_SUBS))])
+    fi = np.arange(N_FLOWS, dtype=np.int64)
+    src = sub_ip(fi % N_NAT_SUBS).astype(np.uint32)
+    dst = (ip_to_u32("93.184.0.0") + fi // N_NAT_SUBS).astype(np.uint32)
+    sport = (20000 + fi // N_NAT_SUBS).astype(np.uint32)
+    shard = aff[fi % N_NAT_SUBS]
+    aged = fi < N_AGED
+    nat_ip = np.zeros(N_FLOWS, dtype=np.int64)
+    nat_port = np.zeros(N_FLOWS, dtype=np.int64)
+    for s in range(N_SHARDS):
+        m = shard == s
+        cl.nat[s].bulk_allocate_nat(np.unique(src[m]), NOW)
+        for sel, t in ((m & aged, NOW - 1000), (m & ~aged, NOW)):
+            ip, port, ok = cl.nat[s].bulk_flows(src[sel], dst[sel], sport[sel], np.uint32(443),
+                                                np.uint32(17), 100, t)
+            check(bool(ok.all()), f"shard {s}: every NAT flow allocated")
+            nat_ip[sel], nat_port[sel] = ip, port
+    flows = np.stack([src, dst, sport, nat_ip, nat_port, shard, aged], axis=1).astype(np.int64)
+
+    pol = sub_ip(np.arange(N_QOS, dtype=np.int64) * (N_NAT_SUBS // N_QOS))
+    pol_aff = aff[np.arange(N_QOS) * (N_NAT_SUBS // N_QOS)]
+    half = np.arange(N_QOS) < N_QOS // 2
+    bound = sub_ip(np.arange(N_BINDINGS, dtype=np.int64) * 7)
+    bound_aff = aff[(np.arange(N_BINDINGS) * 7) % N_NAT_SUBS]
+    keys = np.array([[int.from_bytes(flow_mac(ip)[:2], "big"), int.from_bytes(flow_mac(ip)[2:], "big")]
+                     for ip in bound], dtype=np.uint32)
+    rows = np.zeros((N_BINDINGS, 8), dtype=np.uint32)
+    rows[:, 0], rows[:, 5], rows[:, 6] = bound, 1, MODE_STRICT  # AB_IPV4, AB_VALIDS, AB_MODE
+    for s in range(N_SHARDS):
+        q = pol_aff == s
+        cl.qos[s].bulk_set_subscribers(pol[q & half], down_bps=64_000, up_bps=64_000,
+                                       down_burst=150, up_burst=150)
+        cl.qos[s].bulk_set_subscribers(pol[q & ~half], down_bps=10_000_000, up_bps=2_000_000)
+        cl.spoof[s].set_config(MODE_LOOSE, False)
+        cl.spoof[s].add_allowed_range(ip_to_u32("10.0.0.0"), 8)
+        cl.spoof[s].bindings.bulk_insert(keys[bound_aff == s], rows[bound_aff == s])
+    cl.sync_tables()
+    return cl, flows, set(int(x) for x in pol[half]), np.asarray(owners)
+
+
+def steer_groups(macs_idx) -> dict[int, list[int]]:
+    """Subscriber indices grouped by the ring shard their DISCOVER is
+    steered to (FNV-1a32 of the source MAC for DHCP control)."""
+    out = {s: [] for s in range(N_SHARDS)}
+    for i in macs_idx:
+        out[fnv1a32(sub_mac(int(i))) % N_SHARDS].append(int(i))
+    return out
+
+
+def sharded_frames(rng, flows, groups):
+    """One full 8 x 1024 batch in push order: per shard n_disc cached
+    DISCOVERs the ring steers there (their owners anywhere) and flows of
+    that shard's subscribers (none aged). Returns (frames, expect by lane)."""
+    n_disc = SH_DISC
+    live = np.nonzero(flows[:, 6] == 0)[0]
+    by_shard = [live[flows[live, 5] == s] for s in range(N_SHARDS)]
+    frames, expect = [], {}
+    for s in range(N_SHARDS):
+        for r in range(B_SHARD):
+            lane = s * B_SHARD + r
+            if r < n_disc:
+                i = groups[s][int(rng.integers(len(groups[s])))]
+                frames.append(F.discover_frame(sub_mac(i), 0x2000 + lane))
+                expect[lane] = ("dhcp", sub_ip(i))
+            else:
+                f = flows[by_shard[s][int(rng.integers(len(by_shard[s])))]]
+                frames.append(flow_frame(f))
+                expect[lane] = ("flow", f)
+    return frames, expect
+
+
+def assemble_full(cl, ring, frames):
+    """Push a batch's frames into the steering ring and assemble one window:
+    every shard's region must come back full, in push order."""
+    check(ring.rx_push_batch(frames, from_access=True) == len(frames), "ring took the batch")
+    pkt, length, flags = (np.zeros((B, L), np.uint8), np.zeros((B,), np.uint32),
+                          np.zeros((B,), np.uint32))
+    check(ring.assemble_sharded(pkt, length, flags) == B, "sharded assemble filled every region")
+    for lane, f in enumerate(frames):
+        if lane % 997 == 0:
+            check(bytes(pkt[lane, : length[lane]]) == f, f"ring lane {lane} holds its frame")
+    return pkt, length, flags
+
+
+def drain_ring(ring) -> None:
+    while ring.tx_pop() is not None:
+        pass
+    while ring.fwd_pop() is not None:
+        pass
+    while ring.slow_pop() is not None:
+        pass
+
+
+def check_sharded_outputs(out, expect, drop_ips) -> int:
+    """Per lane: DISCOVERs TX with the subscriber's yiaddr, flows FWD with
+    their SNAT rewrite (or DROP for a policed subscriber)."""
+    n_drop = 0
+    v = out["verdict"]
+    for lane, (kind, info) in expect.items():
+        frame = bytes(out["out_pkt"][lane, : int(out["out_len"][lane])])
+        if kind == "dhcp":
+            check(v[lane] == 2, f"sharded DISCOVER lane {lane} TX")
+            check_offer({lane: frame}, lane, info)
+        elif int(info[0]) in drop_ips:
+            check(v[lane] == 1, f"sharded policed flow lane {lane} DROP")
+            n_drop += 1
+        else:
+            check(v[lane] == 3, f"sharded flow lane {lane} FWD")
+            check_snat({lane: frame}, lane, info)
+    return n_drop
+
+
+def sharded_names(cl) -> dict[int, str]:
+    out = {}
+    for i, t in enumerate(cl.tables):
+        out.update({k: f"shard {i} {v}" for k, v in table_names(t).items()})
+    return out
+
+
+def sharded_launches(n: int, local: int) -> dict:
+    """K1 and K2 launches of one sharded fused step: each shard's local
+    probes plus one probe per owner shard for each of the three DHCP
+    lookups; two K2 per QoS direction per shard."""
+    return {"probe": n * (local + 3 * n), "seg_prefix": 4 * n}
+
+
+def staged_lanes(cl, pkt, length, fa, device):
+    b = cl.b
+    return ([torch.from_numpy(pkt[i * b:(i + 1) * b]).to(device) for i in range(cl.n)],
+            [torch.from_numpy(length[i * b:(i + 1) * b].astype(np.int64)).to(device)
+             for i in range(cl.n)],
+            [torch.from_numpy(fa[i * b:(i + 1) * b]).to(device) for i in range(cl.n)])
+
+
+def sharded_gpu_equals_cpu(cl, batches, device):
+    """The sharded step on the card and on the CPU (plain versions, a copy of
+    every shard's tables, the CPU exchange), batch after batch: every result
+    leaf and every shard's table words identical."""
+    cpu_tables = [convert.tables_from_numpy(convert.tables_to_numpy(t), "cpu") for t in cl.tables]
+    cpu_ex = DeviceLocalExchange(["cpu"] * cl.n)
+    for k, (pkt, length, fa) in enumerate(batches):
+        now = [NOW + 40 + k, (NOW + 40 + k) * 10**6 & 0xFFFFFFFF]
+        g = sharded_step(cl.tables, cl.exchange, *staged_lanes(cl, pkt, length, fa, device),
+                         cl.geom_sharded, *(torch.tensor(x, device=device) for x in now))
+        c = sharded_step(cpu_tables, cpu_ex, *staged_lanes(cl, pkt, length, fa, "cpu"),
+                         cl.geom_sharded, *(torch.tensor(x) for x in now))
+        for f in g._fields:
+            a, b = getattr(g, f), getattr(c, f)
+            if f == "tables" or (a is None and b is None):
+                continue
+            check(torch.equal(a.cpu(), b), f"sharded batch {k}: GPU {f} == CPU {f}")
+        for i, (gt, ct) in enumerate(zip(cl.tables, cpu_tables)):
+            ga, ca = convert.tables_to_numpy(gt), convert.tables_to_numpy(ct)
+
+            def walk(a, b, path):
+                if isinstance(a, np.ndarray):
+                    check(np.array_equal(a, b), f"sharded batch {k}: shard {i} {path} GPU == CPU")
+                elif a is not None:
+                    for name, x, y in zip(a._fields, a, b):
+                        walk(x, y, f"{path}.{name}")
+
+            walk(ga, ca, "tables")
+    say(f"sharded step: GPU == CPU on {len(batches)} batches (verdicts, bytes, lengths, summed "
+        f"stats, punts, violations and every word of all {cl.n} shards' tables)")
+
+
+def check_sharded_dispatch_makes_no_sync(cl, pkt, length, fa, dpkt, dlen):
+    """A sharded fused dispatch and a sharded DHCP-only dispatch, each
+    draining dirty rows on every shard, make no synchronizing CUDA call."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(0, 64, 8):
+                cl.touch_lease(sub_mac(i), NOW + 86400)
+            flights = [engine_mod._InFlight(cl._dispatch_fused(pkt, length, fa, NOW + 45, 0))]
+            for i in range(1, 64, 8):
+                cl.touch_lease(sub_mac(i), NOW + 86400)
+            flights.append(engine_mod._InFlight(cl._dispatch_dhcp(dpkt, dlen, NOW + 45)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for fl in flights:
+        fl.wait()
+    syncs = [str(w.message) for w in seen if "called a synchronizing" in str(w.message)]
+    check(not syncs, f"a sharded dispatch synchronised the host: {syncs[:3]}")
+    check(cl.pending_dirty() == 0, "the dirty rows shipped with the sharded dispatches")
+    say("a sharded fused dispatch and a sharded DHCP-only dispatch, each shipping dirty rows, "
+        "made no synchronizing CUDA call (torch.cuda sync debug mode)")
+
+
+class ShardSplit:
+    """Host time of `process_ring_pipelined` over the sharded ring: the
+    ring's assemble, the update drain of every shard, the rest of the
+    dispatch (uploads, queueing N shards' steps and the output copies), the
+    wait for the outputs, and the rest (the demux to the ring and the slow
+    path)."""
+
+    def __init__(self, cl, ring):
+        self.sites = [(ring, "assemble_sharded", "assemble"), (cl, "_drain_updates", "drain"),
+                      (cl, "_drain_fastpath", "drain"), (cl, "_dispatch_ring_batch", "dispatch"),
+                      (engine_mod._InFlight, "wait", "wait")]
+        self.ms = {"assemble": 0.0, "drain": 0.0, "dispatch": 0.0, "wait": 0.0}
+
+    __enter__ = HostSplit.__enter__
+    __exit__ = HostSplit.__exit__
+
+    def report(self, call_ms) -> str:
+        n = len(call_ms)
+        parts = {k: v / n for k, v in self.ms.items()}
+        parts["dispatch"] -= parts["drain"]  # the drain runs inside the dispatch
+        parts["demux"] = float(np.mean(call_ms)) - sum(parts.values())
+        return ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + " ms per call"
+
+
+def sharded_phases(card, device, err):
+    """The sharded deployment: per-lane outcomes and kernels on every call,
+    GPU == CPU, the skewed batch's punts, no sync in a dispatch, launch
+    counts, times, expire and dryrun_multichip(8)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cl, flows, drop_ips, owners = build_sharded(device)
+    torch.cuda.synchronize()
+    say(f"sharded deployment ({N_SHARDS} shards x {B_SHARD} lanes; {N_SUBS} DHCP subscribers "
+        f"hash-sharded, per shard {np.bincount(owners, minlength=N_SHARDS).tolist()}; "
+        f"{N_FLOWS} NAT flows on affinity shards, per shard "
+        f"{np.bincount(flows[:, 5], minlength=N_SHARDS).tolist()}) built and uploaded in "
+        f"{time.perf_counter() - t0:.1f}s (device tables {torch.cuda.memory_allocated() / 2**30:.3f} GiB)")
+    rng = np.random.default_rng(8)
+    groups = steer_groups(rng.integers(N_SUBS, size=40_000))
+    ring = cl.make_ring(nframes=4 * B, frame_size=L, depth=2 * B)
+    check(type(ring).__name__ == "NativeRing", "the sharded ring is the NativeRing")
+    local = 6  # antispoof 1, NAT44 4, garden 1
+    per = sharded_launches(N_SHARDS, local)
+
+    # 1. one ring-assembled batch through step(): every lane, every kernel call
+    frames, expect = sharded_frames(rng, flows, groups)
+    pkt, length, flags = assemble_full(cl, ring, frames)
+    fa = (flags & ring_mod.FLAG_FROM_ACCESS) != 0
+    box = {}
+    rec = record_kernel_inputs(lambda: box.update(out=cl.step(pkt, length, fa, NOW + 1, 1000)),
+                               per["probe"], per["seg_prefix"], "sharded step", sharded_names(cl))
+    out = box["out"]
+    ring.complete(out["verdict"].astype(np.uint8), np.ascontiguousarray(out["out_pkt"]),
+                  out["out_len"].astype(np.uint32), B)
+    drain_ring(ring)
+    n_drop = check_sharded_outputs(out, expect, drop_ips)
+    check(n_drop > 0 and int(out["qos_stats"][1]) == n_drop, "sharded QoS drops, summed")
+    check(int(out["dhcp_stats"][1]) == N_SHARDS * SH_DISC, "summed DHCP hits = DISCOVER lanes")
+    probes_vs_plain([("sharded", a) for a in rec["probe"]], err)
+    segs_vs_plain([("sharded", s, v, c) for s, v, c in rec["seg_prefix"]], err)
+    cross = sum(1 for t in rec["table"] if t.startswith("shard") and "dhcp" in t)
+    # shard 0's calls are timed later; the rest of the recorded inputs (a
+    # copy of the probed table per call) are let go
+    srec = {"probe": rec["probe"][: local + 3 * N_SHARDS], "seg_prefix": rec["seg_prefix"][:4],
+            "table": rec["table"][: local + 3 * N_SHARDS]}
+    n_rec = (len(rec["probe"]), len(rec["seg_prefix"]))
+    del rec
+    say(f"sharded step: every lane as the deployment implies ({N_SHARDS * SH_DISC} OFFERs from "
+        f"any shard, {n_drop} QoS drops, the rest SNAT); K1 bit-equal on its {n_rec[0]} "
+        f"calls ({cross} of them the exchange's owner probes), K2 on its {n_rec[1]}")
+
+    dframes = [F.discover_frame(sub_mac(groups[s][j]), 0x3000 + s * B_SHARD + j)
+               for s in range(N_SHARDS) for j in range(B_SHARD)]
+    dpkt, dlen, _ = assemble_full(cl, ring, dframes)
+    box = {}
+    drec = record_kernel_inputs(lambda: box.update(out=cl.dhcp_step(dpkt, dlen, NOW + 2)),
+                                3 * N_SHARDS * N_SHARDS, 0, "sharded DHCP step")
+    ring.complete(np.where(box["out"]["is_reply"], 2, 0).astype(np.uint8),
+                  np.ascontiguousarray(box["out"]["out_pkt"]),
+                  box["out"]["out_len"].astype(np.uint32), B)
+    drain_ring(ring)
+    check(bool(box["out"]["is_reply"].all()), "the sharded DHCP-only step answered every lane")
+    probes_vs_plain([("sharded dhcp", a) for a in drec["probe"]], err)
+    say(f"sharded DHCP-only step: {B} OFFERs; K1 bit-equal on its {len(drec['probe'])} calls")
+    del drec
+
+    # 2. the skewed batch: every DISCOVER's owner is shard 0, so each
+    # region's lanes past the exchange capacity punt: PASS, never a reply
+    cap = table_mod.exchange_capacity(B_SHARD, cl.geom_sharded.dhcp.sub)
+    skew_groups = steer_groups(np.nonzero(owners == 0)[0][:60_000])
+    sframes = [F.discover_frame(sub_mac(skew_groups[s][j]), 0x4000 + j)
+               for s in range(N_SHARDS) for j in range(B_SHARD)]
+    spkt, slen, sflags = assemble_full(cl, ring, sframes)
+    sout = cl.step(spkt, slen, (sflags & ring_mod.FLAG_FROM_ACCESS) != 0, NOW + 3, 2000)
+    ring.complete(sout["verdict"].astype(np.uint8), np.ascontiguousarray(sout["out_pkt"]),
+                  sout["out_len"].astype(np.uint32), B)
+    drain_ring(ring)
+    for s in range(N_SHARDS):
+        v = sout["verdict"][s * B_SHARD:(s + 1) * B_SHARD]
+        check((v[:cap] == 2).all() and (v[cap:] == 0).all(),
+              f"skewed region {s}: {cap} OFFERs, the rest PASS")
+        for r in range(0, cap, 37):
+            lane = s * B_SHARD + r
+            check_offer({lane: bytes(sout["out_pkt"][lane, : int(sout["out_len"][lane])])}, lane,
+                        sub_ip(skew_groups[s][r]))
+    say(f"skewed batch (every DISCOVER owned by shard 0): exchange capacity {cap} of {B_SHARD} "
+        f"lanes; per region {cap} OFFERs with the right yiaddr, {B_SHARD - cap} punted (PASS)")
+
+    # 3. GPU == CPU on two batches, then no sync in a sharded dispatch
+    two = []
+    for _ in range(2):
+        fr, _ = sharded_frames(rng, flows, groups)
+        p_, l_, f_ = assemble_full(cl, ring, fr)
+        ring.complete(np.zeros((B,), np.uint8), p_, l_, B)
+        drain_ring(ring)
+        two.append((p_, l_.astype(np.int64), (f_ & ring_mod.FLAG_FROM_ACCESS) != 0))
+    sharded_gpu_equals_cpu(cl, two, device)
+    check_sharded_dispatch_makes_no_sync(cl, two[0][0], two[0][1], two[0][2], dpkt, dlen)
+
+    # 4. the ring loops: counts 0, the pipelined loop over mixed batches,
+    # then an all-control batch (the sharded DHCP-only program)
+    mixed = [sharded_frames(rng, flows, groups)[0] for _ in range(SH_BATCHES)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    split = ShardSplit(cl, ring)
+    call_ms, done = [], 0
+    for k, fr in enumerate(mixed):
+        check(ring.rx_push_batch(fr, from_access=True) == B, "ring took the batch")
+        with split:
+            t1 = time.perf_counter()
+            done += cl.process_ring_pipelined(ring, NOW + 10 + k, (10 + k) * 10**6, pkt_slot=L)
+            call_ms.append((time.perf_counter() - t1) * 1e3)
+        drain_ring(ring)
+    done += cl.flush_pipeline()
+    drain_ring(ring)
+    sh = dict(kernels.LAUNCHES)
+    check(done == SH_BATCHES * B, f"pipelined loop retired every frame ({done})")
+    check_launches(sh, SH_BATCHES, per, "sharded path")
+    kernels.reset_launches()
+    check(ring.rx_push_batch(dframes, from_access=True) == B, "ring took the control batch")
+    check(cl.process_ring(ring, NOW + 30, 30 * 10**6, pkt_slot=L) == B, "control batch retired")
+    drain_ring(ring)
+    shd = dict(kernels.LAUNCHES)
+    check_launches(shd, 1, {"probe": 3 * N_SHARDS * N_SHARDS, "seg_prefix": 0}, "sharded DHCP path")
+    say(f"sharded launches: {per['probe']} K1 + {per['seg_prefix']} K2 per fused step "
+        f"(N x (6 local + 3N) and 4N at N = {N_SHARDS}), {3 * N_SHARDS * N_SHARDS} K1 per DHCP-only "
+        f"step; counts {sh} over {SH_BATCHES} steps, {shd} over one")
+    snap = cl.telemetry.snapshot()
+    say(f"sharded telemetry: {snap['steps']} steps, {snap['psum_dhcp_hits']} summed hits, "
+        f"pass_total {snap['pass_total']}, missteers {snap['missteer_total']}")
+    check(snap["missteer_total"] == 0, "no missteer on the steering ring")
+
+    # 5. times
+    lanes = staged_lanes(cl, *two[0], device)
+    tn = (torch.tensor(NOW + 50, device=device), torch.tensor(50 * 10**6, device=device))
+
+    def step():
+        return sharded_step(cl.tables, cl.exchange, *lanes, cl.geom_sharded, *tn)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(SH_STEPS):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+    lat = np.array(lat)
+    say(f"sharded device step N={N_SHARDS} x {B_SHARD} = {B} lanes: "
+        f"{B / (lat.mean() / 1e3) / 1e6:.4f} Mpps, p50 {np.percentile(lat, 50):.3f} ms, "
+        f"p99 {np.percentile(lat, 99):.3f} ms over {SH_STEPS} steps (host clock, synced) [{card}]")
+    say(f"sharded process_ring_pipelined per batch of {B}: mean {np.mean(call_ms):.2f} ms, "
+        f"p50 {np.percentile(call_ms, 50):.2f}, p99 {np.percentile(call_ms, 99):.2f} ms, "
+        f"{B / (np.mean(call_ms) / 1e3) / 1e6:.4f} Mpps with the host ({split.report(call_ms)}) [{card}]")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"sharded peak device memory over the ring loops and the timed steps: {peak:.3f} GiB "
+        f"(tables {torch.cuda.memory_allocated() / 2**30:.3f} GiB held with shard 0's recorded "
+        f"kernel inputs) [{card}]")
+    profile_step(step, card, "sharded", steps=2)
+    time_kernels(srec, card, "sharded (shard 0)")
+
+    # 6. expire: the aged flows (never in the traffic) on every shard
+    before = [cl.nat[s].sessions.count for s in range(N_SHARDS)]
+    aged_per = np.bincount(flows[flows[:, 6] == 1, 5], minlength=N_SHARDS)
+    t1 = time.perf_counter()
+    n_exp = cl.expire(NOW + 100)
+    exp_ms = (time.perf_counter() - t1) * 1e3
+    gone = [b - cl.nat[s].sessions.count for s, b in enumerate(before)]
+    check(n_exp == N_AGED and gone == aged_per.tolist() and min(gone) > 0,
+          f"expire swept the aged flows on every shard ({n_exp}, {gone})")
+    fr, _ = sharded_frames(rng, flows, groups)
+    check(ring.rx_push_batch(fr, from_access=True) == B, "ring took the batch")
+    cl.process_ring(ring, NOW + 101, 101 * 10**6, pkt_slot=L)
+    drain_ring(ring)
+    check(cl.pending_dirty() == 0, "the expired rows drained to every shard's device tables")
+    say(f"sharded expire: {n_exp} aged flows swept over {N_SHARDS} shards ({gone}) in "
+        f"{exp_ms:.1f} ms (device rows fetched, {sum(before)} sessions scanned) [{card}]")
+    del cl, ring, lanes, srec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. the reference's dryrun on the card
+    kernels.reset_launches()
+    snap = entry_mod.dryrun_multichip(N_SHARDS)
+    check(snap["steps"] == 7 and snap["psum_dhcp_hits"] == 4 * N_SHARDS, "dryrun_multichip(8)")
+    return {"sharded": sh, "sharded_dhcp": shd}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1968,6 +2439,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(devloop_phases(hosts, flows, drop_ips, card, device, err))
+    del hosts
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(sharded_phases(card, device, err))
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

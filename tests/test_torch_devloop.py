@@ -14,6 +14,9 @@
   falls while a ring is in flight reads the same DHCP words in both
   packages (the ring's lease is not yet published), and the lease serves
   on the bulk lane only after a later refresh.
+- A resync with a ring in flight: the port's published tables end equal
+  to the host's full state; the reference's lack the row the resync
+  brought (the two outputs are pinned, ROADMAP Queue 3).
 - Fallbacks, each with the reference's counters and bytes: an injected
   `devloop.dispatch` fail mid-storm, a geometry miss, `express_loop=
   "auto"` with the express program disabled, the devloop asked for with
@@ -166,6 +169,67 @@ def test_published_chain_lags_the_ring_in_flight():
     assert_tuple_equal(convert.tables_to_numpy(trep), jrep, "bulk replica")
     assert trest == jrest
     assert trest[0][0] == "slow" and [i for i, _ in trest[2]["tx"]] == [0]
+
+
+def _host_dhcp_words(fp) -> list:
+    """The full host state of the three DHCP tables, packed as the device
+    holds it (read without touching dirty tracking)."""
+    out = []
+    for t in (fp.sub, fp.vlan, fp.cid):
+        out += [t._pack_bucket_rows(np.arange(t.nbuckets)), t._pack_stash_rows(np.arange(t.stash)),
+                t.vals.copy()]
+    return out
+
+
+def _published_dhcp_words(sched, mods) -> list:
+    d = sched.engine.tables.dhcp
+    if mods is JAX:
+        d = jax.tree_util.tree_map(lambda a: np.array(a), d)
+    else:
+        d = convert.tables_to_numpy(d)
+    return [np.asarray(a) for t in (d.sub, d.vlan, d.cid) for a in t]
+
+
+def test_resync_with_a_ring_in_flight():
+    """The engine resyncs (a full upload from the host mirrors) while a ring
+    is in flight, then one more ring runs. The port retires the rings in
+    flight and re-seeds its leading copy from the fresh upload, so the
+    published tables end equal to the host's full state. The reference's
+    pump keeps threading its pre-resync chain and publishes it over the
+    fresh upload at retire: the lease written just before the resync is
+    missing from its published tables (ROADMAP Queue 3)."""
+    x, y = mac(0x71), mac(0x72)
+    got = {}
+    for sched, server, fp, mods in (_stack(JAX), _stack(PORT)):
+        now = T0
+        sched.process(_burst(BATCH * 3), now=now)  # a first ring round trip
+        fp.add_subscriber(x, 1, ip_to_u32("10.0.0.71"), int(T0) + 900)
+        for i in range(BATCH * 3):  # a full ring: its dispatch drains x's lease
+            sched.submit(dhcp(mac(i % 4), F.DISCOVER, 0x4300 + i), True, now=now)
+        for _ in range(3):
+            pend, reason = sched.express.close_batch(now)
+            assert sched._dispatch_express(pend, now, reason) == 0
+        assert len(sched._devloop._inflight) == 1 and fp.dirty_count() == 0
+        fp.add_subscriber(y, 1, ip_to_u32("10.0.0.72"), int(T0) + 900)
+        sched.engine.resync_tables()  # y reaches the device only through this upload
+        assert fp.dirty_count() == 0
+        out = sched.process(_burst(BATCH * 3, base=0x100) + [dhcp(y, F.DISCOVER, 0x4400)],
+                            now=now)
+        sched.quiesce(now=now)
+        host, pub = _host_dhcp_words(fp), _published_dhcp_words(sched, mods)
+        lane_y = BATCH * 3
+        got[mods is JAX] = ([np.array_equal(h, p) for h, p in zip(host, pub)],
+                            lane_y in [i for i, _ in out["tx"]],
+                            lane_y in [i for i, _ in out["slow"]])
+    # the port's published tables hold every host row, y's included
+    assert got[False][0] == [True] * 9
+    # the reference's published MAC table lacks y (its bucket rows and value
+    # row); VLAN and circuit-ID tables are untouched
+    assert got[True][0] == [False, True, False, True, True, True, True, True, True]
+    # the ring that ran after the resync: the port's answered y's DISCOVER
+    # on the device, the reference's missed it (its chain lacks y) and sent
+    # it to the slow path
+    assert got[False][1:] == (True, False) and got[True][1:] == (False, True)
 
 
 def _storm_pair(**cfg):

@@ -44,6 +44,8 @@ SLICE_MODULES = (
     "bng_tpu_torch.chaos", "bng_tpu_torch.chaos.faults", "bng_tpu_torch.runtime.hostpath",
     "bng_tpu_torch.runtime.nativelib", "bng_tpu_torch.devloop", "bng_tpu_torch.devloop.ring",
     "bng_tpu_torch.devloop.kernel", "bng_tpu_torch.devloop.host",
+    "bng_tpu_torch.parallel", "bng_tpu_torch.parallel.sharded", "bng_tpu_torch.parallel.exchange",
+    "bng_tpu_torch.control.nat_logging", "bng_tpu_torch.telemetry", "bng_tpu_torch.telemetry.hist",
 )
 
 
@@ -56,7 +58,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     n, bad = lines[-1].split(" ", 1)
-    assert int(n) >= 41  # every module of the package was imported
+    assert int(n) >= 47  # every module of the package was imported
     assert bad == "[]", bad
     assert set(SLICE_MODULES) <= set(eval(lines[-2]))  # noqa: S307 — our own repr
 
@@ -98,6 +100,23 @@ def test_entry_and_full_stack_engine_need_cuda_unless_cpu(monkeypatch):
     eng = Engine(fp, nat, **stages, device="cpu")
     assert eng.tables.route.vals.device.type == "cpu"
     assert eng.tables.pppoe_server_mac.device.type == "cpu"
+
+
+def test_sharded_cluster_and_dryrun_need_cuda_unless_cpu(monkeypatch):
+    from bng_tpu_torch.entry import dryrun_multichip
+    from bng_tpu_torch.parallel.exchange import DeviceLocalExchange
+    from bng_tpu_torch.parallel.sharded import ShardedCluster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedCluster(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2)
+    cl = ShardedCluster(2, device="cpu")
+    assert cl.shard_devices == [torch.device("cpu")] * 2
+    # the exchange keeps every shard on one device
+    with pytest.raises(NotImplementedError, match="several devices"):
+        DeviceLocalExchange(["cpu", "meta"])
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
