@@ -5,8 +5,10 @@ purges a subscriber's mappings and rows, the idle-session expiry sweep
 over the device-authoritative rows (chaos point `nat.expire`, kind
 `skew`), per-subscriber octets, and the device sync. Every refused block
 or port is counted in `exhausted` and reported through the rate-limited
-`ErrorLog("cgnat")`, as in the reference. HA restore and checkpoints
-are not ported yet.
+`ErrorLog("cgnat")`, as in the reference. `restore_block` re-installs an
+exact port block; `checkpoint_state` / `parse_checkpoint_meta` /
+`restore_state` carry the tables and all of the allocator bookkeeping
+through a checkpoint (`runtime/checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -78,8 +80,10 @@ class NATManager:
                  log_sink: Callable[[NATLogEntry], None] | None = None):
         self.sessions = HostTable(sessions_nbuckets, key_words=4, val_words=SESSION_WORDS,
                                   stash=stash, name="nat_sessions")
+        # 8-word reverse rows are a zero-pad of the older bare 4-word key
+        # rows: such checkpoints restore padded
         self.reverse = HostTable(sessions_nbuckets, key_words=4, val_words=REVERSE_WORDS,
-                                 stash=stash, name="nat_reverse")
+                                 stash=stash, name="nat_reverse", compat_val_pad_from=(4,))
         self.sub_nat = HostTable(sub_nat_nbuckets, key_words=1, val_words=SUBNAT_WORDS,
                                  stash=stash, name="subscriber_nat")
         self.hairpin = np.zeros((256,), dtype=np.uint32)
@@ -160,6 +164,46 @@ class NATManager:
         self._log(LOG_PORT_BLOCK_ASSIGN, sub_id, private_ip, pub_ip,
                   0, start, 0, start + n - 1, 0, now)
         return block
+
+    def restore_block(self, private_ip: int, public_ip: int, port_start: int,
+                      port_end: int, now: int = 0) -> bool:
+        """Re-install a subscriber's exact port block (a promoted node must
+        answer for the public mappings the failed one advertised). False
+        when the block is foreign, of the wrong size or already carved."""
+        if private_ip in self.blocks:
+            return True  # idempotent
+        if public_ip not in self._next_block:
+            return False  # not one of our public IPs
+        if port_end - port_start + 1 != self.ports_per_subscriber:
+            return False
+        # carve the range out of the allocator so no later allocation
+        # hands the same ports out again
+        if port_start in self._free_blocks[public_ip]:
+            self._free_blocks[public_ip].remove(port_start)
+        elif port_start >= self._next_block[public_ip]:
+            # advance the cursor past it; skipped blocks go to the free list
+            cur = self._next_block[public_ip]
+            while cur < port_start:
+                self._free_blocks[public_ip].append(cur)
+                cur += self.ports_per_subscriber
+            self._next_block[public_ip] = port_start + self.ports_per_subscriber
+        else:
+            return False  # inside an already-allocated region
+        sub_id = self._sub_id_seq
+        self._sub_id_seq += 1
+        self.blocks[private_ip] = {"public_ip": public_ip, "port_start": port_start,
+                                   "port_end": port_end, "next_port": port_start,
+                                   "subscriber_id": sub_id, "private_ip": private_ip}
+        row = np.zeros((SUBNAT_WORDS,), dtype=np.uint32)
+        row[BV_PUBLIC_IP] = public_ip
+        row[BV_PORT_START] = port_start
+        row[BV_PORT_END] = port_end
+        row[BV_NEXT_PORT] = port_start
+        row[BV_SUB_ID] = sub_id
+        self.sub_nat.insert([private_ip], row)
+        self._log(LOG_PORT_BLOCK_ASSIGN, sub_id, private_ip, public_ip,
+                  0, port_start, 0, port_end, 0, now)
+        return True
 
     def bulk_allocate_nat(self, private_ips, now: int = 0) -> int:
         """Carve blocks for many subscribers at once (1M-scale build; no
@@ -512,6 +556,90 @@ class NATManager:
             words_to_device(self.alg, device),
             words_to_device(self.config_array(), device),
         )
+
+    # -- checkpoint (runtime/checkpoint.py) --
+    _CKPT_TABLES = ("sessions", "reverse", "sub_nat")
+
+    def checkpoint_state(self) -> tuple[dict, dict]:
+        """(meta, arrays): the three mirrors slot-exact, hairpin/alg, and
+        all of the allocator bookkeeping (cursors, free lists, EIM, blocks):
+        rows alone would re-hand out ports that live sessions still map.
+        The meta's lists follow the dicts' insertion order, as the
+        reference's do, so the same state encodes to the same bytes."""
+        meta = {
+            "geom": {t: getattr(self, t).checkpoint_geom() for t in self._CKPT_TABLES},
+            "flags": int(self.flags),
+            "port_range": list(self.port_range),
+            "ports_per_subscriber": int(self.ports_per_subscriber),
+            "public_ips": [int(ip) for ip in self.public_ips],
+            "next_block": [[int(ip), int(p)] for ip, p in self._next_block.items()],
+            "free_blocks": [[int(ip), [int(s) for s in starts]]
+                            for ip, starts in self._free_blocks.items()],
+            "ip_round_robin": int(self._ip_round_robin),
+            "sub_id_seq": int(self._sub_id_seq),
+            "eim": [[int(k[0]), int(k[1]), int(k[2]), int(m[0]), int(m[1]), int(m[2])]
+                    for k, m in self.eim.items()],
+            "blocks": [[int(ip), int(b["public_ip"]), int(b["port_start"]), int(b["port_end"]),
+                        int(b["next_port"]), int(b["subscriber_id"])]
+                       for ip, b in self.blocks.items()],
+        }
+        arrays = {f"{t}.{k}": v
+                  for t in self._CKPT_TABLES
+                  for k, v in getattr(self, t).checkpoint_arrays().items()}
+        arrays["hairpin"] = self.hairpin
+        arrays["alg"] = self.alg
+        return meta, arrays
+
+    @staticmethod
+    def parse_checkpoint_meta(meta: dict) -> dict:
+        """The checkpointed bookkeeping as plain structures, touching no
+        manager: the restore gate runs it before any mirror changes
+        (KeyError/ValueError/TypeError propagate)."""
+        return {
+            "flags": int(meta["flags"]),
+            "port_range": (int(meta["port_range"][0]), int(meta["port_range"][1])),
+            "ports_per_subscriber": int(meta["ports_per_subscriber"]),
+            "public_ips": [int(ip) for ip in meta["public_ips"]],
+            "next_block": {int(ip): int(p) for ip, p in meta["next_block"]},
+            "free_blocks": {int(ip): [int(s) for s in starts]
+                            for ip, starts in meta["free_blocks"]},
+            "ip_round_robin": int(meta["ip_round_robin"]),
+            "sub_id_seq": int(meta["sub_id_seq"]),
+            "eim": {(int(a), int(b), int(c)): [int(d), int(e), int(f)]
+                    for a, b, c, d, e, f in meta["eim"]},
+            "blocks": {
+                int(ip): {"public_ip": int(pub), "port_start": int(start), "port_end": int(end),
+                          "next_port": int(nxt), "subscriber_id": int(sid), "private_ip": int(ip)}
+                for ip, pub, start, end, nxt, sid in meta["blocks"]},
+        }
+
+    def restore_state(self, meta: dict, arrays: dict) -> dict[str, int]:
+        """Hydrate from a checkpoint (ValueError on a table geometry
+        mismatch). The NAT policy (flags, port range, public IPs) comes from
+        the checkpoint: its mappings hold only under the policy that made
+        them. A full device upload must follow."""
+        parsed = self.parse_checkpoint_meta(meta)  # parse before mutating
+        rows = {}
+        for t in self._CKPT_TABLES:
+            rows[t] = getattr(self, t).restore_arrays(
+                {k: arrays[f"{t}.{k}"] for k in ("keys", "vals", "used")}, meta["geom"][t])
+        self.hairpin[:] = arrays["hairpin"]
+        self.alg[:] = arrays["alg"]
+        self.flags = parsed["flags"]
+        self.port_range = parsed["port_range"]
+        self.ports_per_subscriber = parsed["ports_per_subscriber"]
+        self.public_ips = parsed["public_ips"]
+        self._next_block = parsed["next_block"]
+        self._free_blocks = parsed["free_blocks"]
+        self._ip_round_robin = parsed["ip_round_robin"]
+        self._sub_id_seq = parsed["sub_id_seq"]
+        self.eim = parsed["eim"]
+        # _ext_ports is derived: rebuilt, never carried
+        self._ext_ports = {(m[0], m[1], k[2]): k for k, m in self.eim.items()}
+        self.blocks = parsed["blocks"]
+        rows["blocks"] = len(self.blocks)
+        rows["eim"] = len(self.eim)
+        return rows
 
     def empty_updates(self, device) -> tuple:
         """No-op table deltas (dirty tracking untouched) for the scheduler's

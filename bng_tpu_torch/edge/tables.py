@@ -1,10 +1,11 @@
-"""Host side of the edge-protection tables (port of `bng_tpu/edge/tables.py`
-without checkpoints).
+"""Host side of the edge-protection tables (port of `bng_tpu/edge/tables.py`).
 
 `EdgeTables` is the single writer for the tap-match and next-hop route
 tables: numpy mirrors of the device cuckoo tables plus the dense tap
 filter and config arrays, drained through the engine's update tail as
-(tap delta, filters, config, route delta).
+(tap delta, filters, config, route delta). `tap_rows` / `route_rows` are
+the audit and re-shard walk surface; `checkpoint_state` / `restore_state`
+the checkpoint component.
 """
 
 from __future__ import annotations
@@ -103,6 +104,20 @@ class EdgeTables:
     def get_route(self, subscriber_ip: int):
         return self.route.lookup([subscriber_ip])
 
+    # -- row walks (the audit and the re-shard surface) --
+    def tap_rows(self) -> list[tuple[int, np.ndarray]]:
+        """[(subscriber_ip, row)] of every live tap row, by IP."""
+        return self._rows(self.tap)
+
+    def route_rows(self) -> list[tuple[int, np.ndarray]]:
+        return self._rows(self.route)
+
+    @staticmethod
+    def _rows(table: HostTable) -> list[tuple[int, np.ndarray]]:
+        out = [(int(table.keys[s, 0]), table.vals[s].copy()) for s in np.nonzero(table.used)[0]]
+        out.sort(key=lambda kv: kv[0])
+        return out
+
     # -- device sync --
     def make_updates(self, device):
         """(tap delta, filters, config, route delta): the edge tail of the
@@ -122,3 +137,30 @@ class EdgeTables:
 
     def dirty_count(self) -> int:
         return self.tap.dirty_count() + self.route.dirty_count()
+
+    # -- checkpoint (runtime/checkpoint.py) --
+    def checkpoint_state(self) -> tuple[dict, dict]:
+        meta = {"geom": {"tap": self.tap.checkpoint_geom(), "route": self.route.checkpoint_geom()},
+                "max_filters": len(self.tap_filters)}
+        arrays = {f"{t}.{k}": v
+                  for t in ("tap", "route")
+                  for k, v in getattr(self, t).checkpoint_arrays().items()}
+        arrays["tap_filters"] = self.tap_filters
+        arrays["tap_config"] = self.tap_config
+        return meta, arrays
+
+    def restore_state(self, meta: dict, arrays: dict) -> dict[str, int]:
+        """Hydrate both tables and the dense arrays; the armed predicate is
+        re-armed from the restored tap row count."""
+        rows = {}
+        for t in ("tap", "route"):
+            rows[t] = getattr(self, t).restore_arrays(
+                {k: arrays[f"{t}.{k}"] for k in ("keys", "vals", "used")}, meta["geom"][t])
+        if arrays["tap_filters"].shape != self.tap_filters.shape:
+            raise ValueError(f"checkpoint tap_filters shape {arrays['tap_filters'].shape} != "
+                             f"{self.tap_filters.shape}")
+        self.tap_filters[:] = arrays["tap_filters"]
+        self.tap_config[:] = arrays["tap_config"]
+        self._armed = rows["tap"]
+        self.tap_config[TC_ARMED] = self._armed
+        return rows

@@ -123,7 +123,7 @@ def write_token_rows(state: QTableState, wslot, row, tokens, now_us) -> QTableSt
 
 class HostQTable:
     """Host-authoritative mirror of one QoS table (numpy, single writer);
-    a copy of `bng_tpu/ops/qtable.py:HostQTable` without checkpoint restore."""
+    a copy of `bng_tpu/ops/qtable.py:HostQTable`."""
 
     def __init__(self, nbuckets: int, name: str = ""):
         if nbuckets & (nbuckets - 1):
@@ -281,6 +281,33 @@ class HostQTable:
             self._dirty.clear()
             self._dirty_all = True
 
+    # -- checkpoint (runtime/checkpoint.py) --
+    def checkpoint_geom(self) -> dict:
+        return {"nbuckets": self.nbuckets}
+
+    def checkpoint_arrays(self) -> dict[str, np.ndarray]:
+        """The packed way rows carry policy and token state: one array is
+        the whole mirror."""
+        return {"rows": self.rows}
+
+    def restore_arrays(self, arrays: dict[str, np.ndarray], geom: dict) -> int:
+        """Overwrite the mirror from a checkpoint (ValueError on a mismatch;
+        a full upload must follow). Returns the restored policy count."""
+        if geom != self.checkpoint_geom():
+            raise ValueError(
+                f"qos table {self.name!r}: checkpoint geometry {geom} != "
+                f"live geometry {self.checkpoint_geom()}")
+        src = arrays["rows"]
+        if src.shape != self.rows.shape or src.dtype != self.rows.dtype:
+            raise ValueError(
+                f"qos table {self.name!r}: checkpoint rows are {src.dtype}{src.shape}, "
+                f"expected {self.rows.dtype}{self.rows.shape}")
+        self.rows[:] = src
+        self.count = int(np.count_nonzero(self.rows[:, QW_FLAGS] & 1))
+        self._dirty.clear()
+        self._dirty_all = True
+        return self.count
+
     # -- device synchronization --
     def device_state(self, device) -> QTableState:
         self._dirty.clear()
@@ -289,6 +316,13 @@ class HostQTable:
 
     def dirty_count(self) -> int:
         return self.S if self._dirty_all else len(self._dirty)
+
+    def mark_dirty(self, slots) -> int:
+        """Queue way rows for the next bounded drain without touching them
+        (see `HostTable.mark_dirty`). Returns the newly queued count."""
+        before = len(self._dirty)
+        self._dirty.update(int(s) for s in slots)
+        return len(self._dirty) - before
 
     def make_update(self, max_slots: int, device) -> QTableUpdate:
         """Drain up to max_slots dirty way rows."""

@@ -313,13 +313,18 @@ def words_to_device(a: np.ndarray, device) -> torch.Tensor:
 class HostTable:
     """Host-authoritative mirror of one device table (numpy, single writer).
 
-    A copy of `bng_tpu/ops/table.py:HostTable` without checkpoint restore:
-    the same insert/delete sequence gives byte-identical rows, including
-    the cuckoo kick walk's `np.random.default_rng(0xB46)`.
+    A copy of `bng_tpu/ops/table.py:HostTable`: the same insert/delete
+    sequence gives byte-identical rows, including the cuckoo kick walk's
+    `np.random.default_rng(0xB46)`, and the same checkpoint arrays.
+
+    `compat_val_pad_from` lists older value widths this table's layout is
+    a pure zero-pad of: a checkpoint with such rows restores zero-padded
+    (`restore_arrays`).
     """
 
     def __init__(self, nbuckets: int, key_words: int, val_words: int,
-                 stash: int = 64, name: str = ""):
+                 stash: int = 64, name: str = "",
+                 compat_val_pad_from: tuple[int, ...] = ()):
         if nbuckets & (nbuckets - 1):
             raise ValueError("nbuckets must be a power of two")
         self.nbuckets = nbuckets
@@ -328,6 +333,7 @@ class HostTable:
         self.V = val_words
         self.stash = stash
         self.name = name
+        self.compat_val_pad_from = tuple(compat_val_pad_from)
         S = nbuckets * WAYS + stash
         self.S = S
         self.keys = np.zeros((S, key_words), dtype=np.uint32)
@@ -461,6 +467,28 @@ class HostTable:
         self._dirty.add(s)
         return True
 
+    def find_slots(self, keys, chunk: int = 1 << 16) -> np.ndarray:
+        """`_find_slot` over many keys at once: each key's slot (the first
+        match in its b1 ways, then its b2 ways, then the stash) or -1."""
+        keys = np.asarray(keys, dtype=np.uint32).reshape(-1, self.K)
+        out = np.full((len(keys),), -1, dtype=np.int64)
+        m = self.nbuckets - 1
+        ways = np.arange(WAYS)
+        base = self.nbuckets * WAYS
+        for lo in range(0, len(keys), chunk):
+            q = keys[lo: lo + chunk]
+            words = [q[:, k].astype(np.int64) for k in range(self.K)]
+            b1, b2 = hash_words(words, SEED1) & m, hash_words(words, SEED2) & m
+            cand = np.concatenate([b1[:, None] * WAYS + ways, b2[:, None] * WAYS + ways], axis=1)
+            hit = (self.used[cand] != 0) & (self.keys[cand] == q[:, None, :]).all(axis=2)
+            got = np.where(hit.any(axis=1), cand[np.arange(len(q)), hit.argmax(axis=1)], -1)
+            for i in np.nonzero(got < 0)[0]:  # the few misses: try the stash
+                st = np.nonzero((self.used[base:] != 0) & (self.keys[base:] == q[i]).all(axis=1))[0]
+                if len(st):
+                    got[i] = base + st[0]
+            out[lo: lo + len(q)] = got
+        return out
+
     def lookup(self, key) -> np.ndarray | None:
         key = np.asarray(key, dtype=np.uint32).reshape(self.K)
         s = self._find_slot(key)
@@ -513,6 +541,14 @@ class HostTable:
 
     def dirty_count(self) -> int:
         return self.S if self._dirty_all else len(self._dirty)
+
+    def mark_dirty(self, slots) -> int:
+        """Queue slots for the next bounded drain without touching their
+        rows (the delta replay of a blue/green swap). Returns the number
+        of newly queued slots."""
+        before = len(self._dirty)
+        self._dirty.update(int(s) for s in slots)
+        return len(self._dirty) - before
 
     def make_update(self, max_slots: int, device) -> TableUpdate:
         """Drain up to max_slots dirty slots into a fixed-size TableUpdate
@@ -571,6 +607,55 @@ class HostTable:
                 vals=words_to_device(np.zeros((U, self.V), dtype=np.uint32), device),
             )
         return upd
+
+    # -- checkpoint (runtime/checkpoint.py) --
+    def checkpoint_geom(self) -> dict:
+        """The geometry a checkpoint must match: slots mean nothing at
+        another shape."""
+        return {"nbuckets": self.nbuckets, "key_words": self.K,
+                "val_words": self.V, "stash": self.stash}
+
+    def checkpoint_arrays(self) -> dict[str, np.ndarray]:
+        """The whole mirror, slot-exact (a restore needs no rehash)."""
+        return {"keys": self.keys, "vals": self.vals, "used": self.used}
+
+    def restore_arrays(self, arrays: dict[str, np.ndarray], geom: dict) -> int:
+        """Overwrite the mirror from checkpoint arrays; ValueError on any
+        geometry, shape or dtype mismatch. The one sanctioned mismatch: a
+        val_words listed in `compat_val_pad_from` restores its rows
+        zero-padded. Abandons delta tracking like a bulk build, so a full
+        upload must follow. Returns the restored row count."""
+        live = self.checkpoint_geom()
+        pad_vals_from = None
+        if geom != live:
+            narrow = dict(geom)
+            vw = narrow.pop("val_words", None)
+            wide = dict(live)
+            wide.pop("val_words")
+            if narrow == wide and vw in self.compat_val_pad_from:
+                pad_vals_from = int(vw)
+            else:
+                raise ValueError(
+                    f"table {self.name!r}: checkpoint geometry {geom} != "
+                    f"live geometry {live}")
+        for name, target in (("keys", self.keys), ("vals", self.vals), ("used", self.used)):
+            src = arrays[name]
+            expect = target.shape
+            if name == "vals" and pad_vals_from is not None:
+                expect = (target.shape[0], pad_vals_from)
+            if src.shape != expect or src.dtype != target.dtype:
+                raise ValueError(
+                    f"table {self.name!r}: checkpoint array {name!r} is "
+                    f"{src.dtype}{src.shape}, expected {target.dtype}{expect}")
+            if name == "vals" and pad_vals_from is not None:
+                target[:] = 0
+                target[:, :pad_vals_from] = src
+            else:
+                target[:] = src
+        self.count = int(np.count_nonzero(self.used))
+        self._dirty.clear()
+        self._dirty_all = True
+        return self.count
 
     def lookup_batch_host(self, queries: np.ndarray) -> np.ndarray:
         """Reference host-side batched lookup (for tests)."""

@@ -34,8 +34,11 @@ serves `step`, `dhcp_step`, `process_ring` and `process_ring_pipelined`
 (outputs through `_InFlight`: a dispatch makes no host round trip), and
 the maintenance verbs (`quiesce`, `resync_tables`, `fetch_session_vals`,
 `expire`). `ShardTelemetry` keeps per-shard stage histograms and verdict
-counters. Checkpoint and swap (`fold_device_authoritative`,
-`clone_empty`, `shard_components`) are not ported yet.
+counters. Checkpoint and swap (`runtime/checkpoint.py`, `runtime/ops.py`)
+use `fold_device_authoritative` (each shard's engine folds its own rows),
+`shard_components`, `clone_empty(n_shards)` (an empty cluster of the same
+per-shard geometry: the swap's standby and the re-shard target) and
+`adopt_authorities`; `tap_rows` / `route_rows` are the merged audit walk.
 """
 
 from __future__ import annotations
@@ -279,6 +282,8 @@ class ShardedCluster:
         nat_sub_nbuckets: int = 256,
         public_ips_per_shard: int = 1,
     ):
+        # every argument but the shard count, for clone_empty
+        self._ctor_kwargs = {k: v for k, v in locals().items() if k not in ("self", "n_shards")}
         self.n = n_shards
         self.b = batch_per_shard
         self.device = resolve_device(device)
@@ -447,6 +452,15 @@ class ShardedCluster:
 
     def get_route(self, private_ip: int):
         return self._edge_or_raise()[self.affinity_shard_ip(private_ip)].get_route(private_ip)
+
+    def tap_rows(self):
+        """Every shard's tap rows, by IP (the audit surface)."""
+        return sorted((kv for e in self._edge_or_raise() for kv in e.tap_rows()),
+                      key=lambda kv: kv[0])
+
+    def route_rows(self):
+        return sorted((kv for e in self._edge_or_raise() for kv in e.route_rows()),
+                      key=lambda kv: kv[0])
 
     def pub_ip_map(self) -> dict[int, int]:
         """NAT public IP -> owner shard (downstream steering). Raises when two
@@ -893,6 +907,47 @@ class ShardedCluster:
             dev = self.fetch_session_vals(i) if self.engines is not None else None
             total += self.nat[i].expire_sessions(int(now), device_vals=dev)
         return total
+
+    def fold_device_authoritative(self) -> None:
+        """Every shard's device-written words (NAT session counters and
+        last_seen, QoS tokens) into its host mirrors, shipped slots only
+        (`Engine.fold_device_authoritative` per shard). Behind quiesce()."""
+        for e in self.engines or ():
+            e.fold_device_authoritative()
+
+    def shard_components(self, i: int) -> dict:
+        """Shard i's host authorities under the checkpoint's component names."""
+        out = {"fastpath": self.fastpath[i], "nat": self.nat[i],
+               "qos": self.qos[i], "antispoof": self.spoof[i]}
+        if self.garden is not None:
+            out["garden"] = self.garden[i]
+        if self.pppoe is not None:
+            out["pppoe"] = self.pppoe[i]
+        if self.edge is not None:
+            out["edge"] = self.edge[i]
+        return out
+
+    def clone_empty(self, n_shards: int | None = None) -> "ShardedCluster":
+        """An empty cluster with this one's per-shard geometry (nothing is
+        uploaded until its first step or sync): the swap's standby, the
+        re-shard target. Auto-derived public IPs regenerate for a new shard
+        count; an explicit list must still cover it."""
+        kw = dict(self._ctor_kwargs)
+        n = self.n if n_shards is None else n_shards
+        if kw["public_ips"] is not None and len(kw["public_ips"]) < n * kw["public_ips_per_shard"]:
+            raise ValueError(f"cannot re-shard to {n} shards: only "
+                             f"{len(kw['public_ips'])} public IPs configured")
+        return ShardedCluster(n, **kw)
+
+    def adopt_authorities(self, other: "ShardedCluster") -> None:
+        """Take a hydrated clone's host authorities wholesale. The shard
+        engines are dropped with the old mirrors: the next sync builds them
+        over the adopted ones."""
+        self.fastpath, self.nat, self.qos, self.spoof = (other.fastpath, other.nat,
+                                                         other.qos, other.spoof)
+        self.garden, self.pppoe, self.edge = other.garden, other.pppoe, other.edge
+        self.engines = None
+        self._pub_owner_cache = None
 
     def pending_dirty(self) -> int:
         """Dirty slots across every shard's host mirrors (0: the device is current)."""

@@ -49,7 +49,15 @@ every dispatch of the fused step, the DHCP-only program, the express
 program and a devloop ring, and `engine.slow_drain` (fail) on a slow-lane
 batch. `fetch_session_vals` and `expire` are the maintenance verbs: the
 NAT expiry sweep over the device's session rows, outside any dispatch.
-Telemetry spans and checkpoints belong to later slices.
+
+Checkpoint and swap (`runtime/checkpoint.py`, `runtime/ops.py`) use the
+barrier verbs: `quiesce` (retire the pipelined batch, synchronise the
+stream), `fold_device_authoritative` (the device-written NAT counters and
+QoS token words back into the host mirrors, as bits), `host_mirror_tables`
+and `adopt_device_tables` (a standby takes a snapshot-built device chain;
+like `resync_tables` this re-captures the express programs and moves
+`resync_count`, so the devloop re-seeds). `Engine(..., device_tables=...)`
+adopts such a chain through it at construction, with no upload of its own.
 """
 
 from __future__ import annotations
@@ -85,7 +93,9 @@ from bng_tpu_torch.ops.pipeline import (
 )
 from bng_tpu_torch.ops.pppoe import PPPOE_NSTATS
 from bng_tpu_torch.ops.qos import QOS_NSTATS
-from bng_tpu_torch.ops.qtable import HostQTable, QTableGeom, apply_qupdate
+from bng_tpu_torch.ops.qtable import (
+    QW_FLAGS, QW_LAST_US, QW_TOKENS, HostQTable, QTableGeom, apply_qupdate,
+)
 from bng_tpu_torch.ops.table import (
     HostTable, PinnedStage, TableGeom, apply_update, to_device, words_to_device,
 )
@@ -396,7 +406,7 @@ class Engine:
                  clock: Callable[[], float] = time.time,
                  edge: EdgeTables | None = None,
                  mirror_sink: Callable[[int, bytes, int], None] | None = None,
-                 device=None):
+                 device=None, device_tables: PipelineTables | None = None):
         self.device = resolve_device(device)
         self.fastpath = fastpath
         self.nat = nat
@@ -438,7 +448,12 @@ class Engine:
         self.express_captures = 0  # express programs built (graphs captured on the card)
         self._devloop_programs: dict = {}  # devloop/kernel.py's ring programs, per key
         self.devloop_captures = 0
-        self.tables: PipelineTables = self._device_tables()
+        if device_tables is not None:
+            # a standby's snapshot-built chain, in place of the init upload
+            # (two engines' tables already share the card during a swap)
+            self.adopt_device_tables(device_tables)
+        else:
+            self.tables: PipelineTables = self._device_tables()
         # host path, resolved once: vector packs through pooled pinned buffers
         self.host_path = hostpath.resolved_host_path()
         self._stage_pool = (hostpath.StagingPool(self.L, device=self.device)
@@ -481,28 +496,60 @@ class Engine:
             route=e.route.device_state(dev) if e else None,
         )
 
+    def _dense_of(self, t: PipelineTables) -> dict[str, np.ndarray]:
+        """The dense config arrays a device chain holds, read back as uint32
+        (what the next drain compares the host arrays with)."""
+        d = {"pools": t.dhcp.pools, "server": t.dhcp.server, "hairpin": t.nat.hairpin_ips,
+             "alg": t.nat.alg_ports, "nat_config": t.nat.config,
+             "spoof_ranges": t.spoof_ranges, "spoof_config": t.spoof_config}
+        if self.garden is not None:
+            d["garden_allowed"] = t.garden_allowed
+        if self.edge is not None:
+            d["tap_filters"] = t.tap_filters
+            d["tap_config"] = t.tap_config
+        return {k: v.to("cpu", copy=True).numpy().view(np.uint32) for k, v in d.items()}
+
     def resync_tables(self) -> None:
         """Full device re-upload after a bulk host-table build (device-written
-        QoS tokens and NAT counters reset to the host view). The new tensors
-        invalidate every captured express program: each is dropped and
-        built again over them, under a key with the new resync count."""
-        self.tables = self._device_tables()
+        QoS tokens and NAT counters reset to the host view)."""
+        self._rebind(self._device_tables())
+
+    def _rebind(self, tables: PipelineTables) -> None:
+        """New device tensors invalidate every captured express program: each
+        is dropped and built again over them, under a key with the new
+        resync count (which also tells the devloop to re-seed)."""
+        self.tables = tables
         self.resync_count += 1
         stale, self._express_programs = self._express_programs, {}
         for prog in stale.values():  # rebuilt (re-captured) over the new tensors
             self.compile_express_aot(prog.batch)
 
-    def _host_mirrors(self):
-        mirrors = [self.fastpath.sub, self.fastpath.vlan, self.fastpath.cid,
-                   self.nat.sessions, self.nat.reverse, self.nat.sub_nat,
-                   self.qos.up, self.qos.down, self.antispoof.bindings]
+    def host_mirror_tables(self) -> dict:
+        """{name: HostTable | HostQTable} of every sparse mirror the engine
+        drains, in drain order (the delta replay's walk)."""
+        out = {
+            "fastpath/sub": self.fastpath.sub,
+            "fastpath/vlan": self.fastpath.vlan,
+            "fastpath/cid": self.fastpath.cid,
+            "nat/sessions": self.nat.sessions,
+            "nat/reverse": self.nat.reverse,
+            "nat/sub_nat": self.nat.sub_nat,
+            "qos/up": self.qos.up,
+            "qos/down": self.qos.down,
+            "antispoof/bindings": self.antispoof.bindings,
+        }
         if self.garden is not None:
-            mirrors.append(self.garden.subscribers)
+            out["garden/subscribers"] = self.garden.subscribers
         if self.pppoe is not None:
-            mirrors += [self.pppoe.by_sid, self.pppoe.by_ip]
+            out["pppoe/by_sid"] = self.pppoe.by_sid
+            out["pppoe/by_ip"] = self.pppoe.by_ip
         if self.edge is not None:
-            mirrors += [self.edge.tap, self.edge.route]
-        return mirrors
+            out["edge/tap"] = self.edge.tap
+            out["edge/route"] = self.edge.route
+        return out
+
+    def _host_mirrors(self):
+        return list(self.host_mirror_tables().values())
 
     def pending_dirty(self) -> int:
         return sum(t.dirty_count() for t in self._host_mirrors())
@@ -1087,6 +1134,56 @@ class Engine:
         deletions drain to the device with the next step's updates."""
         now = int(now if now is not None else self.clock())
         return self.nat.expire_sessions(now, device_vals=self.fetch_session_vals())
+
+    # -- checkpoint and swap (runtime/checkpoint.py, runtime/ops.py) --
+    def quiesce(self) -> int:
+        """The drain barrier: retire the pipelined batch, then wait until
+        the stream has applied every queued table write, so a checkpoint
+        reads no row mid-scatter. Returns the frames retired."""
+        n = self.flush_pipeline()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return n
+
+    def adopt_device_tables(self, tables: PipelineTables) -> None:
+        """Take a geometry-identical device chain built from a snapshot (the
+        blue/green standby), with the dense arrays it holds as the last
+        shipped ones: a config change made after the snapshot then ships
+        with the next drain. Like a resync, it re-captures the express
+        programs and moves `resync_count`. The delta since the snapshot is
+        replayed afterwards (`ops.replay_delta_since`)."""
+        self._dense_sent = self._dense_of(tables)
+        self._rebind(tables)
+
+    @staticmethod
+    def _uploaded_mask(table, live: np.ndarray) -> np.ndarray:
+        """Slots whose host row has shipped to the device: `live` less the
+        pending dirty set (a row the drain has not scattered reads back
+        stale, and folding it would destroy the newer host row). A
+        `_dirty_all` table has shipped nothing since its bulk build."""
+        if table._dirty_all:
+            return np.zeros_like(live)
+        if not table._dirty:
+            return live
+        mask = live.copy()
+        mask[np.fromiter(table._dirty, dtype=np.int64, count=len(table._dirty))] = False
+        return mask
+
+    def fold_device_authoritative(self) -> None:
+        """Copy the device-written words into the host mirrors: the NAT
+        session rows (counters, last_seen) and the QoS tokens/last_us words,
+        bit for bit (the token word is an f32 pattern; it never passes
+        through a float). Only shipped slots are folded. A synchronising
+        read: call it behind `quiesce()`, never from a dispatch."""
+        dev = self.fetch_session_vals()
+        mask = self._uploaded_mask(self.nat.sessions, self.nat.sessions.used.astype(bool))
+        self.nat.sessions.vals[mask] = dev[mask]
+        for host, dev_rows in ((self.qos.up, self.tables.qos_up.rows),
+                               (self.qos.down, self.tables.qos_down.rows)):
+            rows = dev_rows.to("cpu", copy=True).numpy().view(np.uint32)
+            live = self._uploaded_mask(host, (host.rows[:, QW_FLAGS] & 1) != 0)
+            host.rows[live, QW_TOKENS] = rows[live, QW_TOKENS]
+            host.rows[live, QW_LAST_US] = rows[live, QW_LAST_US]
 
     # -- the host side of punts --
     @staticmethod

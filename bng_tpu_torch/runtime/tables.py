@@ -1,13 +1,14 @@
 """Host-side fast-path table management (port of
 `bng_tpu/runtime/tables.py`: the DHCP tables and the PPPoE session
-tables, without checkpoint/restore).
+tables, with their checkpoint state).
 
 Numpy mirrors of the subscriber / VLAN / circuit-ID cuckoo tables plus
 the dense pool and server-config arrays; the device copies are uploaded
 with `device_tables(device)` and kept current by bounded update batches
 that `apply_fastpath_updates` scatters in place. `PPPoEFastPathTables`
 holds the two PPPoE session tables (by session id, by subscriber IP)
-and the access concentrator's MAC.
+and the access concentrator's MAC. `checkpoint_state` / `restore_state`
+are the components `runtime/checkpoint.py` snapshots.
 """
 
 from __future__ import annotations
@@ -216,6 +217,36 @@ class FastPathTables:
     def dirty_count(self) -> int:
         return self.sub.dirty_count() + self.vlan.dirty_count() + self.cid.dirty_count()
 
+    # -- checkpoint (runtime/checkpoint.py) --
+    _CKPT_TABLES = ("sub", "vlan", "cid")
+
+    def checkpoint_state(self) -> tuple[dict, dict]:
+        """(meta, arrays): the three cuckoo mirrors slot-exact and the dense
+        pool/server config, arrays named '<table>.<array>'."""
+        meta = {"geom": {t: getattr(self, t).checkpoint_geom() for t in self._CKPT_TABLES},
+                "max_pools": len(self.pools)}
+        arrays = {f"{t}.{k}": v
+                  for t in self._CKPT_TABLES
+                  for k, v in getattr(self, t).checkpoint_arrays().items()}
+        arrays["pools"] = self.pools
+        arrays["server"] = self.server
+        return meta, arrays
+
+    def restore_state(self, meta: dict, arrays: dict) -> dict[str, int]:
+        """Hydrate from a checkpoint (ValueError on a geometry mismatch); a
+        full device upload must follow."""
+        rows = {}
+        for t in self._CKPT_TABLES:
+            rows[t] = getattr(self, t).restore_arrays(
+                {k: arrays[f"{t}.{k}"] for k in ("keys", "vals", "used")}, meta["geom"][t])
+        if arrays["pools"].shape != self.pools.shape:
+            raise ValueError(
+                f"checkpoint pools shape {arrays['pools'].shape} != {self.pools.shape}")
+        self.pools[:] = arrays["pools"]
+        self.server[:] = arrays["server"]
+        rows["pools"] = int(np.count_nonzero(self.pools[:, PV_VALID]))
+        return rows
+
 
 class PPPoEFastPathTables:
     """Host side of the device PPPoE session tables (`ops/pppoe.py`).
@@ -228,10 +259,12 @@ class PPPoEFastPathTables:
 
     def __init__(self, nbuckets: int = 1 << 12, stash: int = 64, update_slots: int = 128,
                  server_mac: bytes = b"\x02\xbb\x00\x00\x00\x01"):
+        # 8-word session rows are a zero-pad of the older 6-word layout
+        # (PS_* unchanged): such checkpoints restore padded
         self.by_sid = HostTable(nbuckets, key_words=1, val_words=PPPOE_WORDS, stash=stash,
-                                name="pppoe_by_sid")
+                                name="pppoe_by_sid", compat_val_pad_from=(6,))
         self.by_ip = HostTable(nbuckets, key_words=1, val_words=PPPOE_WORDS, stash=stash,
-                               name="pppoe_by_ip")
+                               name="pppoe_by_ip", compat_val_pad_from=(6,))
         self.geom = TableGeom(nbuckets, stash)
         self.update_slots = update_slots
         # AC MAC as (hi16, lo32) words: the L2 source of every encapped frame
@@ -278,3 +311,21 @@ class PPPoEFastPathTables:
         """No-op PPPoE deltas (dirty tracking untouched)."""
         return (self.by_sid.empty_update(self.update_slots, device),
                 self.by_ip.empty_update(self.update_slots, device))
+
+    # -- checkpoint (runtime/checkpoint.py) --
+    def checkpoint_state(self) -> tuple[dict, dict]:
+        meta = {"geom": {"by_sid": self.by_sid.checkpoint_geom(),
+                         "by_ip": self.by_ip.checkpoint_geom()}}
+        arrays = {f"{t}.{k}": v
+                  for t in ("by_sid", "by_ip")
+                  for k, v in getattr(self, t).checkpoint_arrays().items()}
+        arrays["server_mac"] = self.server_mac
+        return meta, arrays
+
+    def restore_state(self, meta: dict, arrays: dict) -> dict[str, int]:
+        rows = {}
+        for t in ("by_sid", "by_ip"):
+            rows[t] = getattr(self, t).restore_arrays(
+                {k: arrays[f"{t}.{k}"] for k in ("keys", "vals", "used")}, meta["geom"][t])
+        self.server_mac[:] = arrays["server_mac"]
+        return rows

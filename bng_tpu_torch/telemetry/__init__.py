@@ -1,1 +1,1 @@
-"""Telemetry: the mergeable latency histograms (`hist.py`)."""
+"""Telemetry: the mergeable latency histograms (`hist.py`) and the span hooks (`spans.py`)."""

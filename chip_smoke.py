@@ -118,8 +118,34 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 21. Full rings at k = 8, 1 and 16: one device dispatch per k express
     batches and 3k K1 per ring by the counts; the ring graph's device time
     per replay at each k, and K1's at the probes of one slot.
+22. Warm restart of the headline deployment (the devloop stacks retired
+    first): an engine over the headline's host tables serves 3 batches (NAT
+    counters and QoS tokens become device-written), then `quiesce`, the
+    fold, `build_checkpoint`, `encode_checkpoint`, a save through
+    `control/statestore.CheckpointStore` into a temporary directory and
+    `load_latest` (read, CRC verify, decode). The file restores into fresh
+    host mirrors of the same geometry and a fresh `Engine` (one upload).
+    Counts 0: 3 batches and 8192 renewals on the restored engine (8 K1 and
+    4 K2 per step), every lane checked, no slow-path call; the original
+    engine on the same batches gives every lane and table word equal; K1
+    and K2 bit-equal to their plain versions on every call of a restored
+    step; a CPU engine restored from the same bytes gives the GPU engine's
+    outputs and table words. Printed: the checkpoint's bytes, the seconds
+    of each step, the time-to-serve (from the start of `load_latest` to
+    the first batch retired; the temporary directory's clean-up between
+    the read and the hydrate is left out) and the peak device memory.
+23. Blue/green swap of a devloop serving stack (k = 8) under traffic: 256
+    cached DISCOVERs and 2,048 flows in flight at the barrier, 256 new
+    subscriber rows written between the snapshot and the flip
+    (`runtime/ops.blue_green_swap`, audit on). The report's fields, the
+    express burst latency just before and just after; the standby's
+    express graph and ring program captured anew, its bursts' bytes equal
+    to the active's before, the new rows answered on its device, no sync
+    in a ring dispatch after the flip, its ring graph against the CPU. Then
+    an armed `ops.swap` fail: rolled back, the active engine healed and
+    serving the same bytes, K1/K2 bit-equal on every call of the replay.
 
-22. The sharded deployment (the headline's host tables retired first):
+24. The sharded deployment (the headline's host tables retired first):
     `ShardedCluster` of 8 logical shards on the card, 8 x 1024 lanes, built
     on the headline's host data (1M DHCP subscribers hash-sharded through
     `add_subscribers_bulk`; 1M NAT44 flows over 250k subscribers, each on
@@ -131,22 +157,32 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     with the yiaddr from any shard, SNAT, QoS drop), the summed stats, and
     K1 and K2 bit-equal to their plain versions on all 240 and 32 calls;
     a DHCP-only step: 8192 OFFERs, K1 bit-equal on its 192 calls.
-23. A skewed batch (every DISCOVER owned by shard 0): each region's lanes
+25. A skewed batch (every DISCOVER owned by shard 0): each region's lanes
     up to the exchange capacity get the right OFFER, the rest PASS.
-24. The sharded step on the card against the same step on the CPU from
+26. The sharded step on the card against the same step on the CPU from
     copied tables, two batches: every result leaf and every shard's table
     words identical; a sharded fused and a sharded DHCP-only dispatch,
     each shipping dirty rows, make no synchronising CUDA call.
-25. `process_ring_pipelined` over 6 mixed batches (counts 0: N x (6 + 3N)
+27. `process_ring_pipelined` over 6 mixed batches (counts 0: N x (6 + 3N)
     = 240 K1 and 4N = 32 K2 per step) and an all-control batch through
     `process_ring` (3N x N = 192 K1, 0 K2).
-26. Times: the staged sharded step (Mpps, p50/p99), the pipelined loop
+28. Times: the staged sharded step (Mpps, p50/p99), the pipelined loop
     per batch split into assemble / drain / dispatch / wait / demux, a
     torch.profiler count of launches per sharded step and the device's
     busy share, shard 0's K1/K2 calls; `expire` sweeping the 2,000 aged
     flows on every shard (their deletions drain with the next batch);
     peak device memory.
-27. `dryrun_multichip(8)` on the card, its MULTICHIP-TELEMETRY line printed.
+29. The sharded checkpoint at full size: fold, `build_sharded_checkpoint`,
+    encode and decode, a slot-exact restore into `clone_empty()`: every word
+    of the 8 shards' tables equal; the next step on both (counts 0: 240 K1
+    and 32 K2, bit-equal to their plain versions) gives equal outputs and
+    tables. `sharded_blue_green_swap` with its report. Then an 8 -> 4
+    re-shard of a reduced deployment (16,384 subscribers, 4,096 NAT blocks
+    whose 16,384 flows re-establish by punt, 1,024 QoS policies and
+    bindings; cut because the walk inserts row by row on the host): its
+    seconds, per row too, and every row on the shard a 4-shard cluster
+    built from the same rows holds it.
+30. `dryrun_multichip(8)` on the card, its MULTICHIP-TELEMETRY line printed.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON; the last line the result JSON.
@@ -159,6 +195,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from types import SimpleNamespace
@@ -184,6 +221,9 @@ from bng_tpu_torch.ops.pipeline import pipeline_step
 from bng_tpu_torch.runtime import engine as engine_mod
 from bng_tpu_torch.runtime.engine import AntispoofTables, Engine, GardenTables, QoSTables
 from bng_tpu_torch.chaos import faults
+from bng_tpu_torch.control.statestore import CheckpointStore
+from bng_tpu_torch.runtime import checkpoint as ckpt_mod
+from bng_tpu_torch.runtime import ops as ops_mod
 from bng_tpu_torch.devloop.host import DevloopPump
 from bng_tpu_torch.ops.table import PinnedStage
 from bng_tpu_torch.runtime import hostpath, nativelib
@@ -629,7 +669,7 @@ def table_names(tables) -> dict[int, str]:
     return out
 
 
-def record_kernel_inputs(run, n_probe: int, n_seg: int, what: str, names=None):
+def record_kernel_inputs(run, n_probe: int | None, n_seg: int, what: str, names=None):
     """Run `run()` once and keep the exact inputs of every kernel call (and,
     given `table_names`, the table each probe read)."""
     rec = {"probe": [], "seg_prefix": [], "table": []}
@@ -650,9 +690,10 @@ def record_kernel_inputs(run, n_probe: int, n_seg: int, what: str, names=None):
     finally:
         table_mod.probe, qos_mod.seg_prefix_total = orig_probe, orig_seg
     torch.cuda.synchronize()
-    check(len(rec["probe"]) == n_probe and len(rec["seg_prefix"]) == n_seg,
-          f"{what}: {n_probe} probes + {n_seg} seg calls (got {len(rec['probe'])}, "
-          f"{len(rec['seg_prefix'])})")
+    if n_probe is not None:  # None: the caller checks the counts
+        check(len(rec["probe"]) == n_probe and len(rec["seg_prefix"]) == n_seg,
+              f"{what}: {n_probe} probes + {n_seg} seg calls (got {len(rec['probe'])}, "
+              f"{len(rec['seg_prefix'])})")
     return rec
 
 
@@ -2381,7 +2422,9 @@ def sharded_phases(card, device, err):
     check(cl.pending_dirty() == 0, "the expired rows drained to every shard's device tables")
     say(f"sharded expire: {n_exp} aged flows swept over {N_SHARDS} shards ({gone}) in "
         f"{exp_ms:.1f} ms (device rows fetched, {sum(before)} sessions scanned) [{card}]")
-    del cl, ring, lanes, srec
+    del lanes, srec
+    more = sharded_checkpoint_phases(cl, flows, groups, ring, rng, per, card, device, err)
+    del cl, ring
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2389,7 +2432,458 @@ def sharded_phases(card, device, err):
     kernels.reset_launches()
     snap = entry_mod.dryrun_multichip(N_SHARDS)
     check(snap["steps"] == 7 and snap["psum_dhcp_hits"] == 4 * N_SHARDS, "dryrun_multichip(8)")
-    return {"sharded": sh, "sharded_dhcp": shd}
+    return {"sharded": sh, "sharded_dhcp": shd, **more}
+
+
+# ------------------------------------------- checkpoint, warm restart and swap
+
+RS_BATCHES = 3  # headline batches before the snapshot, and after the restore
+SWAP_ROUNDS = 50  # express bursts of 64 timed just before and just after the swap
+SWAP_WRITES = 256  # subscriber rows written between the snapshot and the flip
+SW_CLIENT0 = 1 << 21  # first client MAC of those rows
+RESHARD_SUBS = 16_384  # the re-shard's reduced deployment (the walk inserts row by row)
+RESHARD_FLOWS = 16_384
+RESHARD_NAT_SUBS = 4_096
+
+
+def host_words(tables):
+    """A copy of a PipelineTables' words on the host (uint32 leaves)."""
+    def copy(x):
+        if isinstance(x, np.ndarray):
+            return x.copy()
+        return None if x is None else type(x)(*(copy(v) for v in x))
+
+    return copy(convert.tables_to_numpy(tables))
+
+
+def words_equal(x, y, what: str, path: str = "tables") -> None:
+    """Every word of two host copies of PipelineTables, equal."""
+    if isinstance(x, np.ndarray):
+        check(np.array_equal(x, y), f"{what}: {path} equal")
+    elif x is not None:
+        for name, u, v in zip(x._fields, x, y):
+            words_equal(u, v, what, f"{path}.{name}")
+
+
+def tables_equal(a, b, what: str) -> None:
+    """Every word of two PipelineTables, equal."""
+    words_equal(convert.tables_to_numpy(a), convert.tables_to_numpy(b), what)
+
+
+def renew_frame(i: int, xid: int) -> bytes:
+    """A bound client's renewal: REQUEST with ciaddr, unicast to the server."""
+    m, ip = sub_mac(i), int(sub_ip(i))
+    p = F.build_request(m, F.REQUEST, xid=xid, ciaddr=ip)
+    p.options.append((F.OPT_PARAM_REQ_LIST, bytes([1, 3, 6, 51, 54])))
+    return F.udp_packet(m, b"\xff" * 6, ip, SERVER_IP, 68, 67, p.encode().ljust(320, b"\x00"))
+
+
+def check_acks(out, subs) -> None:
+    tx = dict(out["tx"])
+    check(len(tx) == len(subs), f"every renewal answered on the device ({len(tx)} of {len(subs)})")
+    for lane, i in enumerate(subs):
+        reply = F.decode_dhcp(F.decode(tx[lane]).payload)
+        check(reply.msg_type == F.ACK and reply.yiaddr == int(sub_ip(int(i))), f"ACK lane {lane}")
+
+
+def restart_phases(hosts, flows, drop_ips, card, device, err):
+    """Warm restart of the headline deployment: traffic (device-written NAT
+    counters and QoS tokens), quiesce, fold, snapshot through the state
+    store, then a fresh engine restored from the file and one upload."""
+    fp, nat, qos, spoof = hosts
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(fp, nat, qos, spoof, batch_size=B, pkt_slot=L, device=device)
+    rng = np.random.default_rng(41)
+    for k in range(RS_BATCHES):
+        frames, expect = make_batch(rng, flows)
+        check_outputs(eng.process(frames, now=NOW + 40 + k), expect, drop_ips, False)
+    t = {}
+    t0 = time.perf_counter()
+    eng.quiesce()
+    eng.fold_device_authoritative()
+    t["fold"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck = ckpt_mod.build_checkpoint(1, float(NOW + 45), fastpath=fp, nat=nat, qos=qos,
+                                   antispoof=spoof, node_id="chip-smoke")
+    t["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = ckpt_mod.encode_checkpoint(ck)
+    t["encode"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="bng-ckpt-") as d:
+        store = CheckpointStore(d)
+        t0 = time.perf_counter()
+        path = store.save(ck)
+        t["save"] = time.perf_counter() - t0
+        size = path.stat().st_size
+        t0 = time.perf_counter()
+        ck2, got = store.load_latest()
+        t["read"] = time.perf_counter() - t0
+    check(got == path and size == len(data), "the store's newest file is the one saved")
+    del ck
+
+    # restore: fresh host mirrors of the same geometry, one upload, serve
+    nows = [NOW + 50 + k for k in range(RS_BATCHES)]
+    batches = [make_batch(rng, flows) for _ in range(RS_BATCHES)]
+    ren_subs = rng.integers(N_SUBS, size=B)
+    ren = [renew_frame(int(i), 0x9000000 + j) for j, i in enumerate(ren_subs)]
+    slow_calls = []
+    t0 = time.perf_counter()
+    tmp = ops_mod.clone_mirrors(eng)
+    rows = ckpt_mod.restore_checkpoint(ck2, **tmp)
+    t["hydrate"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    eng2 = Engine(tmp["fastpath"], tmp["nat"], tmp["qos"], tmp["antispoof"], batch_size=B,
+                  pkt_slot=L, slow_path=slow_calls.append, device=device)
+    torch.cuda.synchronize()
+    t["upload"] = time.perf_counter() - t1
+    kernels.reset_launches()
+    outs2 = [eng2.process(batches[0][0], now=nows[0])]
+    t["serve"] = t["read"] + time.perf_counter() - t0
+    first_tables = host_words(eng2.tables)
+    outs2 += [eng2.process(f, now=n) for (f, _), n in zip(batches[1:], nows[1:])]
+    out_ren2 = eng2.process(ren, now=NOW + 60)
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, RS_BATCHES + 1, {"probe": 8, "seg_prefix": 4}, "restored engine")
+    for out, (_, expect) in zip(outs2, batches):
+        check_outputs(out, expect, drop_ips, False)
+    check_acks(out_ren2, ren_subs)
+    check(not slow_calls, f"no slow-path call on the restored engine ({len(slow_calls)})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the original engine on the same batches: every lane and every table word equal
+    outs1 = [eng.process(f, now=n) for (f, _), n in zip(batches, nows)]
+    out_ren1 = eng.process(ren, now=NOW + 60)
+    check(outs1 == outs2 and out_ren1 == out_ren2, "restored engine == original, every lane")
+    tables_equal(eng.tables, eng2.tables, "restored engine tables == the original's")
+
+    # K1 and K2 against their plain versions on every call of a restored step
+    frames, expect = make_batch(rng, flows)
+    box = {}
+    rec = record_kernel_inputs(lambda: box.update(out=eng2.process(frames, now=NOW + 61)),
+                               8, 4, "restored step", table_names(eng2.tables))
+    check_outputs(box["out"], expect, drop_ips, False)
+    probes_vs_plain([("restored", a) for a in rec["probe"]], err)
+    segs_vs_plain([("restored", *c) for c in rec["seg_prefix"]], err)
+    del rec
+
+    # a CPU engine of the port restored from the same bytes: GPU == CPU
+    tmpc = ops_mod.clone_mirrors(eng)
+    ckpt_mod.restore_checkpoint(ckpt_mod.decode_checkpoint(data), **tmpc)
+    cpu = Engine(tmpc["fastpath"], tmpc["nat"], tmpc["qos"], tmpc["antispoof"], batch_size=B,
+                 pkt_slot=L, device="cpu")
+    check(cpu.process(batches[0][0], now=nows[0]) == outs2[0],
+          "the CPU engine restored from the same bytes == the GPU engine, every lane")
+    words_equal(first_tables, convert.tables_to_numpy(cpu.tables), "GPU == CPU restored tables")
+    del cpu, tmpc, first_tables
+
+    say(f"warm restart of the headline deployment: checkpoint {size} bytes "
+        f"({size / 2**20:.1f} MiB, {len(ck2.arrays)} arrays; restored rows "
+        f"sub {rows['fastpath.sub']}, nat sessions {rows['nat.sessions']}, blocks "
+        f"{rows['nat.blocks']}, eim {rows['nat.eim']}, qos {rows['qos.up']}+{rows['qos.down']}, "
+        f"bindings {rows['antispoof.bindings']}) [{card}]")
+    say("warm restart seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in (("fold", t["fold"]), ("build", t["build"]),
+                                    ("encode", t["encode"]),
+                                    ("save (encode + write + fsync)", t["save"]),
+                                    ("read (read + CRC verify + decode)", t["read"]),
+                                    ("host hydrate", t["hydrate"]), ("upload", t["upload"])))
+        + f"; time-to-serve (read + hydrate + upload + first batch of {B} retired) "
+        f"{t['serve']:.3f} s; "
+        f"peak device memory {peak:.3f} GiB [{card}]")
+    say(f"restored engine: {RS_BATCHES} headline batches and {B} renewals == the original engine "
+        f"(every lane and table word), cached DISCOVERs and renewals answered on the device with "
+        f"0 slow-path calls; K1/K2 bit-equal on a restored step; the CPU engine restored from "
+        f"the same bytes == the GPU engine; launches {launches}")
+    del eng2, tmp, ck2, data, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"restore": launches}
+
+
+def swap_phases(hosts, flows, drop_ips, card, device, err):
+    """Blue/green swap of the serving stack (the express lane and the
+    devloop at k = 8) under traffic, with rows written between the snapshot
+    and the flip; then an armed `ops.swap` fail that rolls back."""
+    fp = hosts[0]
+    sched, server, _ = build_serving_stack(hosts, device, express_loop="devloop")
+    eng, pump = sched.engine, sched._devloop
+    check(sched.express_loop == "devloop" and pump.ring.k == 8, "the devloop stack at k = 8")
+    # the deployment's rows are bulk installs with no lease book: the audit
+    # runs without the server's book (its row-vs-lease clause has nothing to hold)
+    comps = {"engine": eng, "scheduler": sched}
+    rng = np.random.default_rng(43)
+    burst = [F.discover_frame(sub_mac(int(i)), 0xE000000 + j)
+             for j, i in enumerate(rng.integers(N_SUBS, size=64 * 8))]
+    ref = sched.process(burst)
+    lat_before, _ = express_latency(sched, rng, SWAP_ROUNDS, 64)
+
+    # traffic in flight at the barrier: express rings and a bulk batch, not polled
+    inflight = [F.discover_frame(sub_mac(int(i)), 0xE100000 + j)
+                for j, i in enumerate(rng.integers(N_SUBS, size=64 * 4))]
+    inflight += [flow_frame(flows[int(i)]) for i in rng.integers(len(flows), size=B // 4)]
+    for j, f in enumerate(inflight):
+        sched.submit(f, True, tag=("swap-traffic", j))
+
+    def writes(first):
+        return [(client_mac(SW_CLIENT0 + first + j), STACK_NET + 0xF000 + first + j)
+                for j in range(SWAP_WRITES)]
+
+    def patched(rows, record):
+        """clone_mirrors (called after the snapshot) first writes `rows`;
+        the delta replay's kernel inputs are recorded when asked."""
+        real_clone, real_replay = ops_mod.clone_mirrors, ops_mod.replay_delta_since
+        box = {}
+
+        def clone_then_write(e):
+            for m, ip in rows:
+                fp.add_subscriber(m, pool_id=STACK_POOL, ip=ip, lease_expiry=NOW + 86400)
+            return real_clone(e)
+
+        def replay(e, arrays, *a, **kw):
+            if not record:
+                return real_replay(e, arrays, *a, **kw)
+            box["rec"] = record_kernel_inputs(
+                lambda: box.update(d=real_replay(e, arrays, *a, **kw)), None, 0, "delta replay")
+            return box["d"]
+
+        ops_mod.clone_mirrors, ops_mod.replay_delta_since = clone_then_write, replay
+        return box, (real_clone, real_replay)
+
+    new = writes(0)
+    snap0, d_old = sched.stats_snapshot(), pump.dispatches
+    kernels.reset_launches()
+    box, real = patched(new, record=False)
+    try:
+        rep = ops_mod.blue_green_swap(comps)
+    finally:
+        ops_mod.clone_mirrors, ops_mod.replay_delta_since = real
+    check(rep["outcome"] == "ok" and rep["audit_ok"], f"the swap flipped ({rep})")
+    standby = comps["engine"]
+    check(standby is not eng and sched.engine is standby, "the scheduler serves the standby")
+    check(standby.express_captures == 1 and standby.devloop_captures == 1,
+          "the express graph and the ring program were captured for the standby")
+    check(sched._devloop is not pump and sched._devloop._seeded is None,
+          "a fresh pump for the standby; its leading copy seeds at the first ring")
+    check(rep["frames_deferred"] == len(inflight), f"the barrier retired the frames in flight "
+          f"({rep['frames_deferred']} of {len(inflight)})")
+    done = {c.tag[1]: c for c in sched.drain_completions() if c.tag[0] == "swap-traffic"}
+    check(len(done) == len(inflight) and all(c.verdict in ("tx", "fwd", "drop")
+                                             for c in done.values()),
+          "every frame in flight at the barrier answered on the device")
+    # the written rows are still dirty at the replay (no drain ran since), so
+    # they ship with its steps; delta_rows counts only slots it newly marks
+    check(rep["delta_steps"] >= 1 and not rep["delta_resync"],
+          f"the delta replay shipped the rows written after the snapshot ({rep})")
+    after = sched.process(burst)
+    check(after == ref, "cached-DISCOVER bursts: the standby's bytes == the active's before")
+    probe = sched.process([F.discover_frame(m, 0xE200000 + j) for j, (m, _) in enumerate(new)])
+    tx = dict(probe["tx"])
+    check(len(tx) == SWAP_WRITES and all(
+        F.decode_dhcp(F.decode(tx[j]).payload).yiaddr == ip for j, (_, ip) in enumerate(new)),
+        "the rows written between the snapshot and the flip answer on the standby's device")
+    lat_after, _ = express_latency(sched, rng, SWAP_ROUNDS, 64)
+    check_ring_dispatch_makes_no_sync(sched, rng)
+    launches = dict(kernels.LAUNCHES)
+    snap = sched.stats_snapshot()
+    n_bulk = snap["bulk"]["batches"] - snap0["bulk"]["batches"]
+    check(launches["seg_prefix"] == 4 * (rep["delta_steps"] + n_bulk)
+          and launches["probe"] > 8 * rep["delta_steps"],
+          f"swap path: 4 K2 per replay step and bulk step, K1 above 8 per replay step ({launches})")
+    say(f"blue/green swap under traffic: outcome {rep['outcome']}, frames_deferred "
+        f"{rep['frames_deferred']}, quiesce_s {rep['quiesce_s']:.3f}, hydrate_s "
+        f"{rep['hydrate_s']:.3f}, delta_rows {rep['delta_rows']} / delta_steps "
+        f"{rep['delta_steps']}, audit {rep['audit_s']:.3f} s (ok, {rep['violations']}), flip_s "
+        f"{rep['flip_s']:.6f}, duration_s {rep['duration_s']:.3f}; launches {launches} "
+        f"(old pump {pump.dispatches - d_old} rings, new pump {sched._devloop.dispatches}, "
+        f"{n_bulk} bulk steps) [{card}]")
+    for name, x in (("just before the swap", lat_before), ("just after the swap", lat_after)):
+        say(f"express burst of 64 cached DISCOVERs (devloop k=8), {name}: p50 "
+            f"{np.percentile(x, 50):.3f} ms, p99 {np.percentile(x, 99):.3f} ms over {len(x)} "
+            f"frames [{card}]")
+    devloop_vs_plain_and_cpu(standby, 8, rng, err)
+
+    # an armed ops.swap fail: rolled back, the active engine healed and serving alike
+    burst2 = [F.discover_frame(sub_mac(int(i)), 0xE300000 + j)
+              for j, i in enumerate(rng.integers(N_SUBS, size=64 * 8))]
+    before2 = sched.process(burst2)
+    new2 = writes(SWAP_WRITES)
+    box, real = patched(new2, record=True)
+    try:
+        with faults.armed(faults.FaultPlan(0, [faults.FaultSpec("ops.swap", faults.FAIL)]),
+                          log=False) as inj:
+            rb = ops_mod.blue_green_swap(comps)
+    finally:
+        ops_mod.clone_mirrors, ops_mod.replay_delta_since = real
+    check(rb["outcome"] == "rolled_back" and inj.injected == [("ops.swap", "fail", 1)]
+          and comps["engine"] is standby and sched.engine is standby,
+          f"an armed ops.swap fail rolled back ({rb})")
+    check(sched.process(burst2) == before2, "after the rollback the active engine's bytes == before")
+    probe = sched.process([F.discover_frame(m, 0xE400000 + j) for j, (m, _) in enumerate(new2)])
+    check(len(probe["tx"]) == SWAP_WRITES, "the heal shipped the rows written during the swap")
+    rec = box["rec"]
+    n_steps = rb["delta_steps"]
+    check(len(rec["probe"]) == 8 * n_steps and len(rec["seg_prefix"]) == 4 * n_steps,
+          f"the replay ran {n_steps} fused steps (8 K1 + 4 K2 each)")
+    probes_vs_plain([("delta replay", a) for a in rec["probe"]], err)
+    segs_vs_plain([("delta replay", *c) for c in rec["seg_prefix"]], err)
+    say(f"armed ops.swap fail: outcome {rb['outcome']} after the replay of {rb['delta_rows']} rows "
+        f"in {n_steps} steps (K1/K2 bit-equal on its {len(rec['probe'])} + "
+        f"{len(rec['seg_prefix'])} calls), the active engine healed (one upload) and serving the "
+        f"same bytes; duration_s {rb['duration_s']:.3f} [{card}]")
+    del rec, box, sched, server, eng, standby, comps, pump
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"swap": launches}
+
+
+def build_reshard_cluster(n: int, device, flows: bool = True):
+    """The re-shard's reduced deployment on n shards: 16,384 DHCP subscribers,
+    NAT blocks for 4,096 of them (with 16,384 flows when `flows`), 1,024 QoS
+    policies and 1,024 strict bindings, each on its affinity shard."""
+    k = 2  # public IPs per shard: 64-port blocks for the shard's NAT subscribers
+    cl = ShardedCluster(
+        n, batch_per_shard=B_SHARD, sub_nbuckets=nbuckets_for(RESHARD_SUBS),
+        vlan_nbuckets=1 << 10, cid_nbuckets=1 << 10, max_pools=64,
+        nat_sessions_nbuckets=nbuckets_for(RESHARD_FLOWS), nat_ports_per_subscriber=64,
+        nat_sub_nbuckets=nbuckets_for(RESHARD_NAT_SUBS), qos_nbuckets=1 << 12,
+        spoof_nbuckets=1 << 12,
+        public_ips=[ip_to_u32("203.0.113.1") + i for i in range(N_SHARDS * k)],
+        public_ips_per_shard=k, device=device)
+    cl.set_server_config_all(AC_MAC, SERVER_IP)
+    cl.add_pool_all(1, ip_to_u32("10.0.0.0"), 16, SERVER_IP, ip_to_u32("1.1.1.1"), 0, 86400)
+    idx = np.arange(RESHARD_SUBS, dtype=np.uint64)
+    cl.add_subscribers_bulk(idx + 0x02AA00000000, pool_ids=1, ips=sub_ip(idx).astype(np.uint32),
+                            lease_expiries=np.uint32(NOW + 86400))
+    subs = sub_ip(np.arange(RESHARD_NAT_SUBS, dtype=np.int64))
+    aff = np.array([cl.affinity_shard_ip(int(ip)) for ip in subs])
+    fi = np.arange(RESHARD_FLOWS, dtype=np.int64)
+    src = subs[fi % RESHARD_NAT_SUBS].astype(np.uint32)
+    for s in range(n):
+        check(cl.nat[s].bulk_allocate_nat(subs[aff == s], NOW) == int((aff == s).sum()),
+              f"re-shard source shard {s}: every NAT block carved")
+        m = aff[fi % RESHARD_NAT_SUBS] == s
+        if flows and m.any():
+            _, _, ok = cl.nat[s].bulk_flows(
+                src[m], (ip_to_u32("93.184.0.0") + fi[m] // RESHARD_NAT_SUBS).astype(np.uint32),
+                (20000 + fi[m] // RESHARD_NAT_SUBS).astype(np.uint32), np.uint32(443),
+                np.uint32(17), 100, NOW)
+            check(bool(ok.all()), f"re-shard source shard {s}: every flow allocated")
+    for j, ip in enumerate(subs[::4]):
+        cl.set_qos(int(ip), down_bps=10_000_000, up_bps=2_000_000)
+        cl.add_spoof_binding(flow_mac(int(ip)), int(ip), MODE_STRICT)
+    cl.sync_tables()
+    return cl
+
+
+def placement(cl) -> list:
+    """Per shard, which keys it holds: DHCP rows, NAT blocks, QoS policies,
+    antispoof bindings (sets; slots differ with the insert order)."""
+    out = []
+    for i in range(cl.n):
+        def keys(t):
+            return {tuple(r) for r in t.keys[t.used != 0].tolist()}
+        out.append((keys(cl.fastpath[i].sub), set(cl.nat[i].blocks),
+                    {int(r[0]) for r in cl.qos[i].up.rows if r[1] & 1},
+                    keys(cl.spoof[i].bindings)))
+    return out
+
+
+def sharded_checkpoint_phases(cl, flows, groups, ring, rng, per, card, device, err):
+    """The sharded deployment's checkpoint: a same-N snapshot restored
+    slot-exact into `clone_empty()`, the next step on both; the sharded
+    blue/green swap; then an 8 -> 4 re-shard of a reduced deployment."""
+    t = {}
+    t0 = time.perf_counter()
+    cl.quiesce()
+    cl.fold_device_authoritative()
+    t["fold"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck = ckpt_mod.build_sharded_checkpoint(cl, 1, float(NOW + 200), quiesce=False,
+                                           node_id="chip-smoke")
+    t["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = ckpt_mod.encode_checkpoint(ck)
+    t["encode"] = time.perf_counter() - t0
+    del ck
+    t0 = time.perf_counter()
+    ck2 = ckpt_mod.decode_checkpoint(data)
+    t["decode"] = time.perf_counter() - t0
+    twin = cl.clone_empty()
+    t0 = time.perf_counter()
+    rows = ckpt_mod.restore_sharded_checkpoint(ck2, twin, now=NOW + 200)
+    torch.cuda.synchronize()
+    t["restore"] = time.perf_counter() - t0
+    del ck2
+    for i in range(N_SHARDS):
+        tables_equal(cl.tables[i], twin.tables[i], f"shard {i} restored slot-exact")
+
+    fr, _ = sharded_frames(rng, flows, groups)
+    pkt, length, flags = assemble_full(cl, ring, fr)
+    ring.complete(np.zeros((B,), np.uint8), pkt, length, B)
+    drain_ring(ring)
+    fa = (flags & ring_mod.FLAG_FROM_ACCESS) != 0
+    kernels.reset_launches()
+    box = {}
+    rec = record_kernel_inputs(lambda: box.update(out=twin.step(pkt, length, fa, NOW + 201, 1000)),
+                               per["probe"], per["seg_prefix"], "restored sharded step",
+                               sharded_names(twin))
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, 1, per, "restored sharded step")
+    ref = cl.step(pkt, length, fa, NOW + 201, 1000)
+    for k, v in ref.items():
+        check(np.array_equal(v, box["out"][k]), f"restored cluster's step {k} == the original's")
+    for i in range(N_SHARDS):
+        tables_equal(cl.tables[i], twin.tables[i], f"shard {i} after the next step")
+    probes_vs_plain([("restored sharded", a) for a in rec["probe"]], err)
+    segs_vs_plain([("restored sharded", *c) for c in rec["seg_prefix"]], err)
+    say(f"sharded checkpoint N={N_SHARDS} same-N: {len(data)} bytes ({len(data) / 2**20:.1f} MiB); "
+        f"fold {t['fold']:.3f} s, build {t['build']:.3f} s, encode {t['encode']:.3f} s, decode "
+        f"(CRC verify) {t['decode']:.3f} s, restore into clone_empty() (hydrate + upload) "
+        f"{t['restore']:.3f} s; every word of the {N_SHARDS} shards' tables equal, the next step's "
+        f"outputs and tables equal, K1/K2 bit-equal on its {len(rec['probe'])} + "
+        f"{len(rec['seg_prefix'])} calls; {len(rows)} row counts [{card}]")
+    del rec, twin, data, box
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    comps = {"cluster": cl}
+    rep = ops_mod.sharded_blue_green_swap(comps, clock=lambda: float(NOW + 210))
+    check(rep["outcome"] == "ok" and rep["audit_ok"], f"the sharded swap flipped ({rep})")
+    standby = comps["cluster"]
+    out_s = standby.step(pkt, length, fa, NOW + 211, 2000)
+    out_c = cl.step(pkt, length, fa, NOW + 211, 2000)
+    for k, v in out_c.items():
+        check(np.array_equal(v, out_s[k]), f"the standby cluster's step {k} == the retired one's")
+    say(f"sharded blue/green swap N={N_SHARDS}: outcome {rep['outcome']}, frames_deferred "
+        f"{rep['frames_deferred']}, quiesce_s {rep['quiesce_s']:.3f}, hydrate_s "
+        f"{rep['hydrate_s']:.3f}, audit {rep['audit_s']:.3f} s ({rep['violations']}), flip_s "
+        f"{rep['flip_s']:.6f}, duration_s {rep['duration_s']:.3f}; the standby's next step == "
+        f"the retired cluster's [{card}]")
+    del standby, comps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the 8 -> 4 re-shard of a reduced deployment: the walk inserts row by row
+    src = build_reshard_cluster(N_SHARDS, device)
+    ck = ckpt_mod.decode_checkpoint(ckpt_mod.encode_checkpoint(
+        ckpt_mod.build_sharded_checkpoint(src, 1, float(NOW))))
+    dst = src.clone_empty(4)
+    t0 = time.perf_counter()
+    got = ckpt_mod.restore_sharded_checkpoint(ck, dst, now=NOW)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    n_rows = sum(v for k, v in got.items() if not k.startswith("resharded"))
+    direct = build_reshard_cluster(4, device, flows=False)
+    check(placement(dst) == placement(direct),
+          "re-shard 8 -> 4: every row on the shard a 4-shard cluster built from the rows holds it")
+    say(f"re-shard {N_SHARDS} -> 4 of {RESHARD_SUBS} subscribers, {RESHARD_NAT_SUBS} NAT blocks "
+        f"({RESHARD_FLOWS} flows re-establish by punt), {RESHARD_NAT_SUBS // 4} QoS policies and "
+        f"bindings: {walk_s:.3f} s for {n_rows} rows ({walk_s / n_rows * 1e6:.1f} us per row, "
+        f"upload included; {got}) [{card}]")
+    del src, dst, direct, ck
+    return {"sharded_restore": launches}
 
 
 def main(argv=None) -> int:
@@ -2439,6 +2933,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(devloop_phases(hosts, flows, drop_ips, card, device, err))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(restart_phases(hosts, flows, drop_ips, card, device, err))
+    launches.update(swap_phases(hosts, flows, drop_ips, card, device, err))
     del hosts
     gc.collect()
     torch.cuda.empty_cache()

@@ -161,6 +161,16 @@ def test_host_mirrors_after_deletes_and_stash_overflow():
         assert np.array_equal(np.asarray(a), bits(b))
 
 
+@pytest.mark.parametrize("nbuckets,K,V,stash,n,B", GEOMETRIES)
+def test_find_slots_equals_the_row_by_row_lookup(nbuckets, K, V, stash, n, B):
+    """The vectorized `find_slots` (the invariant audit's lookup) gives
+    `_find_slot`'s slot, stash hits and misses included, on every geometry."""
+    _, ttab, keys = build_pair(nbuckets, K, V, stash, n, seed=nbuckets + n, deletes=n // 10)
+    q = query_mix(keys, K, B, seed=n)
+    want = [ttab._find_slot(k) for k in q]
+    assert ttab.find_slots(q, chunk=97).tolist() == [-1 if w is None else w for w in want]
+
+
 def test_bulk_insert_matches():
     rng = np.random.default_rng(21)
     keys = np.unique(rng.integers(0, 2**32, size=(3000, 2), dtype=np.uint32), axis=0)
