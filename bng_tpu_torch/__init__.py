@@ -33,15 +33,4 @@ a CUDA tensor and take their plain PyTorch version only for a CPU tensor.
 
 from __future__ import annotations
 
-import torch
-
-
-def resolve_device(device=None) -> torch.device:
-    """`None` -> the CUDA card; raises when none is present."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch path on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+from bng_tpu_torch.utils.devenv import resolve_device  # noqa: F401 — the one device choice

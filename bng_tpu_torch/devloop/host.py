@@ -20,8 +20,11 @@ Fallbacks are loud: a geometry miss or an injected `devloop.dispatch`
 fault serves every staged slot through the per-batch express path and
 counts `express_fallbacks["devloop_miss"]`. Two barriers keep the
 reference's order of table writes: before any per-batch dispatch writes
-the published tables (`_barrier`), and before a resync seeds a new chain
-(the update slots would overflow, or a resync already happened).
+the published tables (`_barrier`), and before a drain that would overflow
+the update slots seeds a new chain. A resync made outside the pump does
+not re-seed: the leading copy keeps threading its pre-resync chain, and
+each ring retired from it publishes that chain over the fresh upload, as
+the reference's pump does.
 
 Quiesce contract: `flush()` ships any partial ring and retires every
 ring in flight; afterwards `audit()` can prove the device cursors agree
@@ -38,7 +41,9 @@ from bng_tpu_torch.chaos.faults import fault_point
 from bng_tpu_torch.devloop.ring import CUR_SEQ, DescriptorRing
 from bng_tpu_torch.ops.dhcp import NSTATS
 from bng_tpu_torch.runtime.engine import ExpressAotResult, _InFlight
-from bng_tpu_torch.runtime.lanes import CLOSE_DEADLINE, CLOSE_FLUSH, CompletionRing, InflightEntry
+from bng_tpu_torch.runtime.lanes import (
+    CLOSE_DEADLINE, CLOSE_FLUSH, LANE_EXPRESS, CompletionRing, InflightEntry,
+)
 
 
 class _RingInflight(NamedTuple):
@@ -49,6 +54,7 @@ class _RingInflight(NamedTuple):
     cursors: object   # the ring program's cursor tensor
     upd: object       # the fastpath deltas drained for this ring (or None)
     published: object  # the published DHCP tables it was dispatched against
+    chain: object     # the leading copy, when seeded before the last resync (else None)
     slots: list       # [n_slots] lists of PendingFrame
     reason: str       # why the ring was dispatched (full, deadline, flush)
     dispatch_t: float
@@ -166,12 +172,11 @@ class DevloopPump:
                 retired += sched._dispatch_express_direct(pend, now, reason)
             return retired
         retired = 0
-        # resync barrier: a drain that would overflow the update slots (or a
-        # resync since the seed) rebuilds the published tables from the full
-        # host state; every ring in flight publishes before that
-        if self._seeded is not None and (
-                eng.fastpath.dirty_count() > eng.fastpath.update_slots
-                or self._seed_resync != eng.resync_count):
+        # resync barrier: a drain that would overflow the update slots
+        # rebuilds the published tables from the full host state; every ring
+        # in flight publishes before that
+        if (self._seeded is not None
+                and eng.fastpath.dirty_count() > eng.fastpath.update_slots):
             retired += self._barrier()
             self._seeded = None
         upd, resynced = eng.prepare_devloop_dispatch()
@@ -185,14 +190,19 @@ class DevloopPump:
             prog.seed(eng.tables.dhcp)
             prog.seed_cursors(self.ring.cursors)
             self._seeded, self._seed_resync = prog, eng.resync_count
+        # a leading copy seeded before the engine's last resync publishes
+        # itself whole at retire (the reference publishes its ring chain)
+        chain = prog.tables if self._seed_resync != eng.resync_count else None
         res = eng.call_devloop_aot(prog, upd, stage, n_slots, now)
         fl = _InFlight(ExpressAotResult(block=res.blocks, dhcp_stats=res.dhcp_stats))
         # the retire renders from the pool and server rows this ring saw
         cfg_epoch = (eng.fastpath.pools.copy(), eng.fastpath.server.copy())
         self.dispatches += 1
         sched.express_aot_dispatches += n_slots
+        for pend in slots:
+            sched._observe_dispatch(LANE_EXPRESS, len(pend), reason)
         over = self._inflight.push(_RingInflight(
-            fl, res.cursors, upd, eng.tables.dhcp, slots, reason, now, cfg_epoch))
+            fl, res.cursors, upd, eng.tables.dhcp, chain, slots, reason, now, cfg_epoch))
         if over is not None:
             retired += self._retire(over)
         return retired
@@ -205,7 +215,7 @@ class DevloopPump:
         path is shared, not cloned)."""
         h = entry.fl.wait()
         self.ring.adopt_cursors(entry.cursors)
-        self.sched.engine.adopt_devloop_chain(entry.upd, entry.published)
+        self.sched.engine.adopt_devloop_chain(entry.upd, entry.published, chain=entry.chain)
         zero = np.zeros((NSTATS,), dtype=h["stats"].dtype)
         retired, folded = 0, False
         for s, pend in enumerate(entry.slots):

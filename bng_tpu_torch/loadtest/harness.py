@@ -1,0 +1,474 @@
+"""DHCP load/benchmark harness — the test/load framework re-hosted.
+
+The port's copy of `bng_tpu/loadtest/harness.py`: the same traffic, the
+same counts. `WireLoopTarget` (the AF_XDP wire loop) is not ported.
+
+Parity with the reference's load framework (SURVEY.md §4.5;
+test/load/dhcp_benchmark.go): configurable unique-MAC cardinality to
+steer the fast/slow path split, warmup phase excluded from measurement,
+renewal ratio after warmup, P50/P95/P99/min/max latency, achieved RPS,
+and target validation with the published thresholds (50k+ RPS, P99
+<10ms slow path, >95% cache hit after warmup — README.md Performance
+table; targets restated in test/load/dhcp_benchmark.go:1-9).
+
+Device twist: instead of blasting UDP sockets at a server process, the
+harness drives the Engine's batch interface directly — the measured
+quantity is the device pipeline + slow-path control plane, which is the
+system under test. Cache-hit rate here is exact (device ST_HIT/ST_MISS
+counters), not the reference's latency-threshold estimate
+(dhcp_benchmark.go:114-121) — the estimate is still computed for
+output parity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import struct
+import time
+from typing import Callable
+
+import numpy as np
+
+from bng_tpu_torch import frames as packets
+from bng_tpu_torch.control import dhcp_codec
+from bng_tpu_torch.ops.dhcp import SC_IP, ST_HIT, ST_MISS
+from bng_tpu_torch.telemetry.hist import LatencyHist
+
+
+@dataclasses.dataclass
+class BenchmarkConfig:
+    """BenchmarkConfig parity (dhcp_benchmark.go:25-54)."""
+
+    batch_size: int = 256
+    duration_s: float = 10.0
+    warmup_s: float = 1.0
+    unique_macs: int = 10_000
+    enable_renewals: bool = True
+    renewal_ratio: float = 0.8  # DefaultConfig: 80% renewals after warmup
+    rps_limit: int = 0  # 0 = unlimited
+    seed: int = 42
+
+    # validation targets (README.md Performance table)
+    target_rps: float = 50_000.0
+    target_p99_ms: float = 10.0
+    target_cache_hit: float = 0.95
+    target_fastpath_p99_us: float = 100.0
+
+    # run the pre-classified DHCP stream through the engine's DHCP-only
+    # device program (reference parity: dhcp_fastpath.c is its own XDP
+    # program and replies never traverse the TC chain). False = the fused
+    # full-pipeline step.
+    dhcp_only_program: bool = True
+
+    # label for the traffic shape that drove the run ("" = the default
+    # steady DORA/renewal mix); storm scenarios stamp their name here so
+    # bench_runs.jsonl lines are diffable per scenario
+    scenario: str = ""
+
+
+@dataclasses.dataclass
+class BenchmarkResult:
+    """BenchmarkResult parity (dhcp_benchmark.go:71-121)."""
+
+    duration_s: float = 0.0
+    requests: int = 0
+    responses: int = 0
+    errors: int = 0
+    rps: float = 0.0
+    latency_p50_us: float = 0.0
+    latency_p95_us: float = 0.0
+    latency_p99_us: float = 0.0
+    latency_p999_us: float = 0.0
+    latency_min_us: float = 0.0
+    latency_max_us: float = 0.0
+    # per-request latency percentiles from the telemetry histogram
+    # (telemetry/hist.py — log-bucketed, mergeable): batch wall time
+    # amortized over the batch, which is what each client in the batch
+    # actually waited. A p999 exists here because the histogram keeps
+    # the whole distribution, not three pre-picked quantiles.
+    request_p50_us: float = 0.0
+    request_p99_us: float = 0.0
+    request_p999_us: float = 0.0
+    request_mean_us: float = 0.0
+    fastpath_hits: int = 0  # exact device counter
+    slowpath_hits: int = 0
+    cache_hit_rate: float = 0.0
+    # per-request (batch-amortized) latency estimate for reference parity
+    # (<1ms == fast path, dhcp_benchmark.go:114-121)
+    est_fastpath_hits: int = 0
+    est_cache_hit_rate: float = 0.0
+    # p99 over per-request latency of batches with NO slow lanes — the
+    # fast-path-only latency the <100us target gates
+    fastpath_p99_us: float = 0.0
+    batches: int = 0
+    # which device program served the run: "dhcp_fastpath" (DHCP-only fast
+    # lane) or "fused_pipeline" — numbers are not comparable across the two
+    program: str = ""
+    # traffic shape that drove the run (BenchmarkConfig.scenario) — storm
+    # runs stamp their name so bench_runs.jsonl lines diff per scenario
+    scenario: str = ""
+    # admission shed counts by reason (inbox_full / deadline /
+    # request_overflow / chaos) — every shed is a COUNTED degradation
+    shed: dict = dataclasses.field(default_factory=dict)
+    # degraded-but-not-failed verdicts by resource (dhcp_pool /
+    # nat_block / nat_port ... exhaustion): the server stayed up and
+    # answered what it could; these count what it could NOT
+    degraded: dict = dataclasses.field(default_factory=dict)
+    # per-stage SLO verdict (telemetry/slo.py evaluate over the armed
+    # tracer's breakdown): {"ok": bool, "breaches": [stage...]} — empty
+    # when the run was untraced. Rides to_dict so loadtest JSON and
+    # --bench-log ledger lines are perf-gate-consumable.
+    slo: dict = dataclasses.field(default_factory=dict)
+
+    def meets_targets(self, cfg: BenchmarkConfig) -> list[str]:
+        """Returns failed-target descriptions (empty == pass), the
+        MeetsTargets role (dhcp_benchmark.go:578-596)."""
+        failures = []
+        if self.rps < cfg.target_rps:
+            failures.append(f"RPS {self.rps:.0f} < {cfg.target_rps:.0f}")
+        if self.latency_p99_us > cfg.target_p99_ms * 1000:
+            failures.append(
+                f"P99 {self.latency_p99_us / 1000:.2f}ms > {cfg.target_p99_ms}ms")
+        if self.cache_hit_rate < cfg.target_cache_hit:
+            failures.append(
+                f"cache hit {self.cache_hit_rate:.1%} < {cfg.target_cache_hit:.0%}")
+        if self.fastpath_p99_us and self.fastpath_p99_us > cfg.target_fastpath_p99_us:
+            failures.append(
+                f"fast-path P99 {self.fastpath_p99_us:.0f}us > "
+                f"{cfg.target_fastpath_p99_us:.0f}us")
+        return failures
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def summary(self) -> str:
+        lines = [
+            "--- DHCP Load Test Results ---",
+            f"Duration:          {self.duration_s:.2f}s",
+            f"Requests:          {self.requests}",
+            f"Responses:         {self.responses}",
+            f"Errors:            {self.errors}",
+            f"Requests/sec:      {self.rps:,.0f}",
+            f"Latency P50:       {self.latency_p50_us:.0f}us",
+            f"Latency P95:       {self.latency_p95_us:.0f}us",
+            f"Latency P99:       {self.latency_p99_us:.0f}us",
+            f"Latency P999:      {self.latency_p999_us:.0f}us",
+            f"Per-request P50/P99/P999: {self.request_p50_us:.0f}/"
+            f"{self.request_p99_us:.0f}/{self.request_p999_us:.0f}us",
+            f"Latency Min/Max:   {self.latency_min_us:.0f}us / {self.latency_max_us:.0f}us",
+            f"Fast Path (dev):   {self.fastpath_hits} "
+            f"({self.cache_hit_rate:.2%})",
+            f"Slow Path:         {self.slowpath_hits}",
+            f"Cache Hit Rate:    {self.cache_hit_rate:.2%}",
+        ]
+        if self.scenario:
+            lines.insert(1, f"Scenario:          {self.scenario}")
+        if self.shed:
+            lines.append("Shed:              " + ", ".join(
+                f"{k}={v}" for k, v in sorted(self.shed.items()) if v))
+        if self.degraded:
+            lines.append("Degraded:          " + ", ".join(
+                f"{k}={v}" for k, v in sorted(self.degraded.items()) if v))
+        return "\n".join(lines)
+
+
+class DHCPBenchmark:
+    """Drives an Engine with synthetic DHCP traffic and measures.
+
+    The MAC working set cycles through `unique_macs` addresses; during
+    warmup DORA establishes leases (populating the device cache via the
+    slow path, exactly the reference's warmup role), then the measured
+    phase sends DISCOVER/renewal REQUEST mixes whose fast/slow split
+    follows cache coverage.
+    """
+
+    def __init__(self, engine, cfg: BenchmarkConfig | None = None,
+                 clock: Callable[[], float] = time.perf_counter,
+                 sleep: Callable[[float], None] = time.sleep,
+                 log: Callable[[str], None] | None = None):
+        self.engine = engine
+        self.cfg = cfg or BenchmarkConfig()
+        self.clock = clock
+        self.sleep = sleep  # injected with clock so RPS pacing stays consistent
+        self.log = log or (lambda s: None)
+        self._rng = np.random.default_rng(self.cfg.seed)
+        self._macs = [
+            (0x02B0 << 32 | i).to_bytes(6, "big")
+            for i in range(self.cfg.unique_macs)
+        ]
+        self._leased: dict[bytes, int] = {}  # mac -> yiaddr
+
+    def _program(self) -> str:
+        """Which device program _process will use (recorded in the result —
+        a fused-step fallback must be visible, not silent)."""
+        if getattr(self.engine, "is_scheduler", False):
+            # the tiered scheduler classifies per frame: pure-DHCP load
+            # all rides its express lane (the DHCP-only program)
+            return "tiered_scheduler"
+        if self.cfg.dhcp_only_program and hasattr(self.engine, "process_dhcp"):
+            return "dhcp_fastpath"
+        return "fused_pipeline"
+
+    def _process(self, frames: list[bytes]) -> dict:
+        """Route the batch to the configured device program."""
+        program = self._program()
+        if program == "tiered_scheduler":
+            return self.engine.process(frames)
+        if program == "dhcp_fastpath":
+            return self.engine.process_dhcp(frames, batch=self.cfg.batch_size)
+        return self.engine.process(frames)
+
+    # -- frame builders --
+    def _discover(self, mac: bytes, xid: int) -> bytes:
+        p = dhcp_codec.build_request(mac, dhcp_codec.DISCOVER, xid=xid)
+        p.options.append((dhcp_codec.OPT_PARAM_REQ_LIST, bytes([1, 3, 6, 51, 54])))
+        return packets.udp_packet(mac, b"\xff" * 6, 0, 0xFFFFFFFF, 68, 67,
+                                  p.encode().ljust(320, b"\x00"))
+
+    def _renew_request(self, mac: bytes, ip: int, server_ip: int, xid: int) -> bytes:
+        # RENEW: unicast REQUEST with ciaddr set (RFC 2131 §4.3.2)
+        p = dhcp_codec.build_request(mac, dhcp_codec.REQUEST, xid=xid, ciaddr=ip)
+        p.options.append((dhcp_codec.OPT_PARAM_REQ_LIST, bytes([1, 3, 6, 51, 54])))
+        return packets.udp_packet(mac, b"\xff" * 6, ip, server_ip, 68, 67,
+                                  p.encode().ljust(320, b"\x00"))
+
+    def _full_request(self, mac: bytes, offer_frame: bytes, xid: int) -> bytes:
+        od = packets.decode(offer_frame)
+        offer = dhcp_codec.decode(od.payload)
+        p = dhcp_codec.build_request(mac, dhcp_codec.REQUEST, xid=xid,
+                                     requested_ip=offer.yiaddr, server_id=od.src_ip)
+        p.options.append((dhcp_codec.OPT_PARAM_REQ_LIST, bytes([1, 3, 6, 51, 54])))
+        return packets.udp_packet(mac, b"\xff" * 6, 0, 0xFFFFFFFF, 68, 67,
+                                  p.encode().ljust(320, b"\x00"))
+
+    # -- phases --
+    def warmup(self, deadline_s: float | None = None) -> int:
+        """DORA every MAC through the slow path until the cache holds the
+        working set (or the warmup budget runs out). Returns # leased."""
+        cfg = self.cfg
+        t_end = self.clock() + (deadline_s if deadline_s is not None else cfg.warmup_s)
+        B = cfg.batch_size
+        xid = 1
+        i = 0
+        while i < len(self._macs) and self.clock() < t_end:
+            chunk = self._macs[i : i + B]
+            frames = [self._discover(m, xid + k) for k, m in enumerate(chunk)]
+            res = self._process(frames)
+            offers = {lane: f for lane, f in res["slow"] if f is not None}
+            offers.update({lane: f for lane, f in res["tx"]})
+            req_frames, req_macs = [], []
+            for k, m in enumerate(chunk):
+                if k in offers:
+                    req_frames.append(self._full_request(m, offers[k], xid + k))
+                    req_macs.append(m)
+            if req_frames:
+                # a lease only counts once the server ACKs it — NAK'd or
+                # dropped REQUESTs must not become renewal targets
+                res2 = self._process(req_frames)
+                acks = {lane: f for lane, f in res2["slow"] if f is not None}
+                acks.update({lane: f for lane, f in res2["tx"]})
+                for lane, m in enumerate(req_macs):
+                    f = acks.get(lane)
+                    if f is None:
+                        continue
+                    rep = dhcp_codec.decode(packets.decode(f).payload)
+                    if rep.msg_type == dhcp_codec.ACK:
+                        self._leased[m] = rep.yiaddr
+            xid += 2 * B
+            i += B
+        return len(self._leased)
+
+    def run(self) -> BenchmarkResult:
+        cfg = self.cfg
+        self.log(f"warmup {cfg.warmup_s}s over {cfg.unique_macs} MACs...")
+        leased = self.warmup()
+        self.log(f"warmup done: {leased} leases cached; measuring {cfg.duration_s}s...")
+
+        # measurement deltas start from here (warmup excluded)
+        start_dhcp = self.engine.stats.dhcp.copy()
+        start_slow_errors = self.engine.stats.slow_errors
+        res = BenchmarkResult(program=self._program(), scenario=cfg.scenario)
+        lat_us: list[float] = []  # whole-batch wall time
+        fast_lat_us: list[float] = []  # per-request, pure-fastpath batches
+        req_hist = LatencyHist()  # per-request (batch-amortized) latency
+        B = cfg.batch_size
+        xid = 1 << 20
+        server_ip = int(self.engine.fastpath.server[SC_IP])
+        t0 = self.clock()
+        t_end = t0 + cfg.duration_s
+        macs = self._macs
+        leased_macs = list(self._leased.items())
+        while self.clock() < t_end:
+            frames = []
+            for k in range(B):
+                renew = (cfg.enable_renewals and leased_macs
+                         and self._rng.random() < cfg.renewal_ratio)
+                if renew:
+                    mac, ip = leased_macs[int(self._rng.integers(len(leased_macs)))]
+                    # RFC 2131 §4.3.2 renewal: unicast REQUEST w/ ciaddr,
+                    # answered on device (fast path handles REQUEST too)
+                    frames.append(self._renew_request(mac, ip, server_ip, xid + k))
+                else:
+                    mac = macs[int(self._rng.integers(len(macs)))]
+                    frames.append(self._discover(mac, xid + k))
+            t1 = self.clock()
+            out = self._process(frames)
+            dt_us = (self.clock() - t1) * 1e6
+            lat_us.append(dt_us)
+            # one histogram sample per REQUEST at its amortized share of
+            # the batch wall time (all requests in a batch wait the same
+            # wall clock; B samples weight the distribution by traffic)
+            req_hist.record_many(np.full(len(frames), dt_us / len(frames)))
+            if not out["slow"]:
+                fast_lat_us.append(dt_us / B)
+            res.batches += 1
+            res.requests += len(frames)
+            res.responses += len(out["tx"]) + sum(
+                1 for _, f in out["slow"] if f is not None)
+            xid += B
+            if cfg.rps_limit:
+                # pace to the target rate (token-bucket-ish sleep)
+                expected = res.requests / cfg.rps_limit
+                ahead = expected - (self.clock() - t0)
+                if ahead > 0:
+                    self.sleep(min(ahead, 0.1))
+
+        res.duration_s = self.clock() - t0
+        res.rps = res.requests / res.duration_s if res.duration_s else 0.0
+        if lat_us:
+            arr = np.asarray(lat_us)
+            # latency percentiles report the full batch wall time — the
+            # worst-case client-observed response time; the reference's
+            # per-request <1ms fast/slow estimate is applied to the
+            # batch-amortized per-request latency
+            res.latency_p50_us = float(np.percentile(arr, 50))
+            res.latency_p95_us = float(np.percentile(arr, 95))
+            res.latency_p99_us = float(np.percentile(arr, 99))
+            res.latency_p999_us = float(np.percentile(arr, 99.9))
+            res.latency_min_us = float(arr.min())
+            res.latency_max_us = float(arr.max())
+        if req_hist.n:
+            res.request_p50_us = round(req_hist.percentile(50), 1)
+            res.request_p99_us = round(req_hist.percentile(99), 1)
+            res.request_p999_us = round(req_hist.percentile(99.9), 1)
+            res.request_mean_us = round(req_hist.mean_us, 1)
+            per_req = arr / B
+            res.est_fastpath_hits = int((per_req < 1000).sum()) * B
+            res.est_cache_hit_rate = float((per_req < 1000).mean())
+        if fast_lat_us:
+            res.fastpath_p99_us = float(np.percentile(np.asarray(fast_lat_us), 99))
+        d = self.engine.stats.dhcp - start_dhcp
+        res.fastpath_hits = int(d[ST_HIT])
+        res.slowpath_hits = int(d[ST_MISS])
+        total = res.fastpath_hits + res.slowpath_hits
+        res.cache_hit_rate = res.fastpath_hits / total if total else 0.0
+        # errors: requests that never got a reply (pool exhaustion and
+        # other swallowed slow-path failures) + handler exceptions
+        res.errors = (res.requests - res.responses
+                      + int(self.engine.stats.slow_errors - start_slow_errors))
+        return res
+
+
+def result_json(res: BenchmarkResult) -> str:
+    return json.dumps(res.to_dict(), indent=2)
+
+
+# ---------------------------------------------------------------------------
+# storm traffic generation (the DUMB half of the Jepsen split: generators
+# know how to build traffic shapes, checkers — chaos/storms.py — carry
+# all the intelligence about what must still be true afterwards)
+# ---------------------------------------------------------------------------
+
+class StormFrameFactory:
+    """Preassembled client-frame prototypes with per-subscriber patch-in.
+
+    The flash-crowd storm builds >=100k DISCOVER frames per retry round;
+    at codec speed (~25us/frame: packet object, option encode, ljust,
+    header pack) the GENERATOR would dominate the scenario's wall time.
+    This is dhcp_codec.ReplyTemplate's idea pointed the other way: build
+    one frame per (kind, geometry) through the real codec, then patch
+    only the per-subscriber words. Patching is exact, not approximate —
+    `tests/test_storms.py` pins byte-identity against codec-built frames
+    for every kind.
+
+    Checksum safety: v4 client frames carry UDP checksum 0 (legal in
+    IPv4, and what packets.udp_packet emits), and the IPv4 header
+    checksum covers no patched field except the renew frame's source
+    address — renew() refolds the header checksum the same way
+    udp_packet does.
+    """
+
+    # untagged Eth(14) + IPv4(20) + UDP(8)
+    _BOOTP = 42
+
+    def __init__(self, server_ip: int, pad: int = 300):
+        self.server_ip = server_ip
+        self.pad = pad
+        self._proto: dict[str, bytes] = {}
+
+    # -- prototype construction (once per kind, through the real codec) --
+
+    def _build(self, kind: str) -> bytes:
+        mac0 = b"\x00" * 6
+        if kind == "discover":
+            p = dhcp_codec.build_request(mac0, dhcp_codec.DISCOVER, xid=0)
+            return packets.udp_packet(mac0, b"\xff" * 6, 0, 0xFFFFFFFF,
+                                      68, 67, p.encode().ljust(self.pad,
+                                                               b"\x00"))
+        if kind == "request":
+            p = dhcp_codec.build_request(mac0, dhcp_codec.REQUEST, xid=0,
+                                         requested_ip=1,
+                                         server_id=self.server_ip)
+            return packets.udp_packet(mac0, b"\xff" * 6, 0, 0xFFFFFFFF,
+                                      68, 67, p.encode().ljust(self.pad,
+                                                               b"\x00"))
+        if kind == "renew":
+            p = dhcp_codec.build_request(mac0, dhcp_codec.REQUEST, xid=0,
+                                         ciaddr=1)
+            return packets.udp_packet(mac0, b"\xff" * 6, 1, self.server_ip,
+                                      68, 67, p.encode().ljust(self.pad,
+                                                               b"\x00"))
+        raise ValueError(kind)
+
+    def _template(self, kind: str) -> bytearray:
+        proto = self._proto.get(kind)
+        if proto is None:
+            proto = self._proto[kind] = self._build(kind)
+        return bytearray(proto)
+
+    # -- per-subscriber renders ------------------------------------------
+
+    def discover(self, mac: bytes, xid: int) -> bytes:
+        f = self._template("discover")
+        f[6:12] = mac
+        b = self._BOOTP
+        f[b + 4: b + 8] = struct.pack("!I", xid & 0xFFFFFFFF)
+        f[b + 28: b + 34] = mac
+        return bytes(f)
+
+    def request(self, mac: bytes, ip: int, xid: int) -> bytes:
+        f = self._template("request")
+        f[6:12] = mac
+        b = self._BOOTP
+        f[b + 4: b + 8] = struct.pack("!I", xid & 0xFFFFFFFF)
+        f[b + 28: b + 34] = mac
+        # options: magic(236..240) | (53,1,t) | (50,4,ip) | (54,4,sid)
+        # — build_request's layout; the requested-ip VALUE sits at +245
+        f[b + 245: b + 249] = struct.pack("!I", ip)
+        return bytes(f)
+
+    def renew(self, mac: bytes, ip: int, xid: int) -> bytes:
+        f = self._template("renew")
+        f[6:12] = mac
+        b = self._BOOTP
+        f[b + 4: b + 8] = struct.pack("!I", xid & 0xFFFFFFFF)
+        f[b + 12: b + 16] = struct.pack("!I", ip)  # ciaddr
+        f[b + 28: b + 34] = mac
+        f[26:30] = struct.pack("!I", ip)  # IP src — checksum input
+        # refold the IPv4 header checksum from the actual header bytes
+        # (udp_packet's arithmetic fold would desync silently if its
+        # header fields ever change)
+        f[24:26] = b"\x00\x00"
+        f[24:26] = struct.pack("!H", packets.checksum16(bytes(f[14:34])))
+        return bytes(f)

@@ -321,29 +321,21 @@ def _resolve_component_meta(ckpt: Checkpoint, comps: dict, name: str):
 
 def _check_table(table, arrays: dict, geom: dict, label: str) -> None:
     """Geometry + array shape/dtype pre-check for one cuckoo/QoS mirror,
-    mutating nothing. A value width the table declares in
-    `compat_val_pad_from` passes with rows of that width (the restore pads
-    them); the reference's gate rejects those before its tables' own
-    padding restore is reached."""
-    live_geom = table.checkpoint_geom()
-    pad_from = None
-    if geom != live_geom:
-        narrow = {k: v for k, v in geom.items() if k != "val_words"}
-        wide = {k: v for k, v in live_geom.items() if k != "val_words"}
-        if narrow == wide and geom.get("val_words") in getattr(table, "compat_val_pad_from", ()):
-            pad_from = int(geom["val_words"])
-        else:
-            raise CheckpointError(
-                f"{label}: checkpoint geometry {geom} != live {live_geom}")
+    mutating nothing. Any geometry other than the live one is refused,
+    also a value width the table's own restore would pad
+    (`compat_val_pad_from`): the gate is the reference's."""
+    if geom != table.checkpoint_geom():
+        raise CheckpointError(
+            f"{label}: checkpoint geometry {geom} != live "
+            f"{table.checkpoint_geom()}")
     for k, live in table.checkpoint_arrays().items():
         src = arrays.get(k)
         if src is None:
             raise CheckpointError(f"{label}: checkpoint missing array {k!r}")
-        shape = (live.shape[0], pad_from) if (k == "vals" and pad_from) else live.shape
-        if src.shape != shape or src.dtype != live.dtype:
+        if src.shape != live.shape or src.dtype != live.dtype:
             raise CheckpointError(
                 f"{label}: checkpoint array {k!r} is {src.dtype}{src.shape},"
-                f" expected {live.dtype}{shape}")
+                f" expected {live.dtype}{live.shape}")
 
 
 def _check_dense(arrays: dict, name: str, live: np.ndarray,

@@ -56,7 +56,8 @@ stream), `fold_device_authoritative` (the device-written NAT counters and
 QoS token words back into the host mirrors, as bits), `host_mirror_tables`
 and `adopt_device_tables` (a standby takes a snapshot-built device chain;
 like `resync_tables` this re-captures the express programs and moves
-`resync_count`, so the devloop re-seeds). `Engine(..., device_tables=...)`
+`resync_count`; a devloop ring in service keeps threading its leading
+copy and publishes it whole at retire). `Engine(..., device_tables=...)`
 adopts such a chain through it at construction, with no upload of its own.
 """
 
@@ -71,6 +72,7 @@ import torch
 
 from bng_tpu_torch import frames as F
 from bng_tpu_torch import kernels, resolve_device
+from bng_tpu_torch.analysis.sanitize import owned_by
 from bng_tpu_torch.chaos.faults import FaultInjectedError, fault_point
 from bng_tpu_torch.devloop import kernel as devloop_kernel
 from bng_tpu_torch.control.nat import NATManager, apply_nat_updates
@@ -102,7 +104,7 @@ from bng_tpu_torch.ops.table import (
 from bng_tpu_torch.runtime import hostpath
 from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS
 from bng_tpu_torch.runtime.tables import (
-    FastPathTables, PPPoEFastPathTables, apply_fastpath_updates,
+    FastPathTables, PPPoEFastPathTables, apply_fastpath_updates, copy_dhcp_,
 )
 from bng_tpu_torch.utils.net import mac_to_u64, split_u64
 from bng_tpu_torch.utils.structlog import ErrorLog
@@ -391,6 +393,7 @@ def _apply_all_updates(t: PipelineTables, upd) -> None:
         apply_update(t.route, tails.pop(0))
 
 
+@owned_by("loop", attrs=("tables",))
 class Engine:
     # pow2 batch buckets of the DHCP-only lane (the reference's compile-shape
     # budget); a larger control batch is split at the cap
@@ -517,7 +520,8 @@ class Engine:
     def _rebind(self, tables: PipelineTables) -> None:
         """New device tensors invalidate every captured express program: each
         is dropped and built again over them, under a key with the new
-        resync count (which also tells the devloop to re-seed)."""
+        resync count (which also marks a devloop leading copy seeded before
+        it, so its retires publish it whole)."""
         self.tables = tables
         self.resync_count += 1
         stale, self._express_programs = self._express_programs, {}
@@ -791,13 +795,17 @@ class Engine:
             apply_fastpath_updates(prog.tables, upd)
         return prog(stage, n_slots, now)
 
-    def adopt_devloop_chain(self, upd, published, count: bool = True) -> None:
+    def adopt_devloop_chain(self, upd, published, count: bool = True, chain=None) -> None:
         """Publish a retired ring: its deltas go into the published DHCP
         tables, unless a resync has replaced them since the ring was
         dispatched (`published` is the tables it was dispatched against):
-        the fresh upload already holds every host write. `count=False`
-        publishes without claiming a ring dispatch."""
-        if upd is not None and self.tables.dhcp is published:
+        the fresh upload already holds every host write. A `chain` (a
+        leading copy seeded before the last resync) is copied whole over
+        the published tables instead, as the reference publishes its ring
+        chain. `count=False` publishes without claiming a ring dispatch."""
+        if chain is not None:
+            copy_dhcp_(self.tables.dhcp, chain)
+        elif upd is not None and self.tables.dhcp is published:
             apply_fastpath_updates(published, upd)
         if count:
             self.stats.batches += 1

@@ -18,9 +18,10 @@
    snapshot arrays, exactly the changed slots are marked dirty, and they
    ship through the bounded update drain (`engine.process([])`, one full
    fused step of empty lanes per drain); a bulk build falls back to one
-   full upload. A dense config change since the snapshot takes a drain
-   step too: the reference re-ships those arrays on every drain, the
-   port only when they differ from what the device holds.
+   full upload. Steps run only while a slot is dirty, as the reference's
+   do: a dense config change since the snapshot with no dirty slot
+   reaches the standby at the next drain after the flip, and the audit
+   before the flip finds it.
 
 4. **audit, then flip or roll back**: the standby must pass the invariant
    audit before it serves. The flip re-points the composition root and
@@ -33,8 +34,9 @@
 `sharded_blue_green_swap` does the same for a `ShardedCluster`: a
 standby from `clone_empty()` hydrated through the sharded restore,
 audited, and flipped, or dropped with the active cluster untouched.
-The edge stage goes with the standby too (the reference's swap leaves
-it out of the standby engine).
+The standby engine is built without the edge stage, as the reference's
+is: the snapshot leaves the tap and route tables out, and they leave
+the dataplane at the flip.
 """
 
 from __future__ import annotations
@@ -64,7 +66,6 @@ def clone_mirrors(engine) -> dict:
     Only components the engine actually has are cloned (restore rejects
     a component with no target, and rightly so)."""
     from bng_tpu_torch.control.nat import NATManager
-    from bng_tpu_torch.edge.tables import EdgeTables
     from bng_tpu_torch.runtime.engine import AntispoofTables, GardenTables, QoSTables
     from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
 
@@ -100,11 +101,6 @@ def clone_mirrors(engine) -> dict:
             nbuckets=engine.pppoe.by_sid.nbuckets,
             stash=engine.pppoe.by_sid.stash,
             update_slots=engine.pppoe.update_slots)
-    if engine.edge is not None:
-        out["edge"] = EdgeTables(
-            nbuckets=engine.edge.tap.nbuckets, stash=engine.edge.tap.stash,
-            update_slots=engine.edge.update_slots,
-            max_filters=engine.edge.tap_filters.shape[0])
     return out
 
 
@@ -152,11 +148,10 @@ def replay_delta_since(engine, arrays: dict,
         engine.resync_tables()
         return {"rows": rows, "steps": 0, "resync": True}
     steps = 0
-    # a dense config array (pools, server, garden allowed, ...) changed
-    # since the snapshot needs a drain too, even with no dirty slot: the
-    # engine ships those arrays only when they differ from what the
-    # device holds
-    while (engine.pending_dirty() > 0 or engine._dense_changed()) and steps < max_steps:
+    # the reference's loop: steps run only while a slot is dirty, so a
+    # dense config array changed since the snapshot with no dirty slot
+    # stays at the snapshot's words (the audit then finds it)
+    while engine.pending_dirty() > 0 and steps < max_steps:
         # an empty batch runs the full update drain and nothing else —
         # the cheapest way to ship deltas without a second drain path
         engine.process([])
@@ -198,7 +193,7 @@ def blue_green_swap(components, *, node_id: str = "bluegreen") -> dict:
         ckpt = build_checkpoint(
             0, eng.clock(), fastpath=eng.fastpath, nat=eng.nat, qos=eng.qos,
             antispoof=eng.antispoof, garden=eng.garden, pppoe=eng.pppoe,
-            edge=eng.edge, node_id=node_id)
+            node_id=node_id)
         ckpt = roundtrip_checkpoint(ckpt)  # ops.snapshot chaos point
         report["quiesce_s"] = time.perf_counter() - t_q
         tele.lap(tele.OPS, t0)
@@ -214,14 +209,16 @@ def blue_green_swap(components, *, node_id: str = "bluegreen") -> dict:
         hydrator = Engine(
             tmp["fastpath"], tmp["nat"], qos=tmp["qos"],
             antispoof=tmp["antispoof"], garden=tmp.get("garden"),
-            pppoe=tmp.get("pppoe"), edge=tmp.get("edge"), batch_size=eng.B,
-            pkt_slot=eng.L, clock=eng.clock, device=eng.device)
+            pppoe=tmp.get("pppoe"), batch_size=eng.B, pkt_slot=eng.L,
+            clock=eng.clock, device=eng.device)
+        # the standby is built without the edge stage, as the
+        # reference's is: taps and routes leave the dataplane at the flip
         standby = Engine(
             eng.fastpath, eng.nat, qos=eng.qos, antispoof=eng.antispoof,
-            garden=eng.garden, pppoe=eng.pppoe, edge=eng.edge, batch_size=eng.B,
+            garden=eng.garden, pppoe=eng.pppoe, batch_size=eng.B,
             pkt_slot=eng.L, slow_path=eng.slow_path,
-            violation_sink=eng.violation_sink, mirror_sink=eng.mirror_sink,
-            clock=eng.clock, device=eng.device, device_tables=hydrator.tables)
+            violation_sink=eng.violation_sink, clock=eng.clock,
+            device=eng.device, device_tables=hydrator.tables)
         standby.slow_path_batch = eng.slow_path_batch
         standby.stats = eng.stats  # operational counters never reset
         report["hydrate_s"] = time.perf_counter() - t_h

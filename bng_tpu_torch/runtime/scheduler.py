@@ -118,6 +118,7 @@ class TieredScheduler:
     """The steady-state device loop over an Engine's programs."""
 
     _COMPLETIONS_CAP = 1 << 17
+    is_scheduler = True  # what DHCPBenchmark reads to route its batches here
 
     def __init__(self, engine, cfg: SchedulerConfig | None = None,
                  clock: Callable[[], float] | None = None):
@@ -135,6 +136,11 @@ class TieredScheduler:
         self.completions: deque[Completion] = deque()
         self.completions_dropped = 0
         self.oversize_dropped = 0
+        # what the dispatch and retire hooks count, per lane: dispatches,
+        # frames dispatched, frames retired (the counts behind the
+        # reference's bng_sched_* families, which are not ported)
+        self.observed = {lane: {"dispatches": 0, "frames": 0, "retired": 0}
+                         for lane in (LANE_EXPRESS, LANE_BULK)}
         self._seq = 0
         # the bulk lane's DHCP read replica (refreshed on cadence and resync)
         self._bulk_dhcp = None
@@ -376,6 +382,7 @@ class TieredScheduler:
             pkt, length = eng._pack_frames([p.frame for p in pend], self.express.cfg.batch)
             res = _InFlight(eng._run_dhcp_batch(pkt, length, now))
             self.express_jit_dispatches += 1
+        self._observe_dispatch(LANE_EXPRESS, len(pend), reason)
         over = self._express_ring.push(InflightEntry(res, pend, now, reason, meta=cfg_epoch))
         return self._retire_express(over) if over is not None else 0
 
@@ -422,6 +429,7 @@ class TieredScheduler:
             else:
                 eng.stats.passed += 1
                 self._complete(p, LANE_EXPRESS, "slow", replies.get(i), now)
+        self._observe_retire(LANE_EXPRESS, entry, now)
         return n
 
     def _express_replies_vec(self, pend, block: np.ndarray, pools: np.ndarray,
@@ -534,6 +542,7 @@ class TieredScheduler:
                                        or self._bulk_seq % self.cfg.drain_every == 0):
             self._prefetched_upd = eng.prefetch_bulk_updates()
             self._drains_prefetched += 1
+        self._observe_dispatch(LANE_BULK, len(pend), reason)
         return self._bulk_ring.push(InflightEntry(_InFlight(res), pend, now, reason))
 
     def _retire_bulk(self, entry: InflightEntry) -> int:
@@ -572,6 +581,7 @@ class TieredScheduler:
                 self._complete(p, LANE_BULK, "slow", replies.get(i), now)
             if viol[i] and eng.violation_sink is not None:
                 eng.violation_sink(i, p.frame)
+        self._observe_retire(LANE_BULK, entry, now)
         return n
 
     # -- completions and counters --
@@ -587,6 +597,17 @@ class TieredScheduler:
         out = list(self.completions)
         self.completions.clear()
         return out
+
+    def _observe_dispatch(self, lane: str, n: int, reason: str) -> None:
+        """The reference's metrics hook at a dispatch; here it only counts
+        (the `bng_sched_*` families are not ported)."""
+        obs = self.observed[lane]
+        obs["dispatches"] += 1
+        obs["frames"] += n
+
+    def _observe_retire(self, lane: str, entry: InflightEntry, now: float) -> None:
+        """The reference's metrics hook at a retire; here it only counts."""
+        self.observed[lane]["retired"] += len(entry.pending)
 
     def stats_snapshot(self) -> dict:
         """The lanes' counters."""
@@ -624,6 +645,16 @@ class TieredScheduler:
         return out
 
     # -- the batch-synchronous facade --
+
+    # Engine.process-shaped surface so DHCPBenchmark can drive the
+    # scheduler unmodified (it reads .stats and .fastpath for counters)
+    @property
+    def stats(self):
+        return self.engine.stats
+
+    @property
+    def fastpath(self):
+        return self.engine.fastpath
 
     def process(self, frames: list[bytes], from_access: list[bool] | bool = True,
                 now: float | None = None) -> dict:

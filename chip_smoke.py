@@ -143,7 +143,11 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     to the active's before, the new rows answered on its device, no sync
     in a ring dispatch after the flip, its ring graph against the CPU. Then
     an armed `ops.swap` fail: rolled back, the active engine healed and
-    serving the same bytes, K1/K2 bit-equal on every call of the replay.
+    serving the same bytes, K1/K2 bit-equal on every call of the replay;
+    the rows written during that swap reach the published tables through
+    the heal's upload but not the devloop's leading copy (the reference's
+    pump keeps its chain over a resync), so their DISCOVERs take the slow
+    path.
 
 24. The sharded deployment (the headline's host tables retired first):
     `ShardedCluster` of 8 logical shards on the card, 8 x 1024 lanes, built
@@ -183,15 +187,56 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     seconds, per row too, and every row on the shard a 4-shard cluster
     built from the same rows holds it.
 30. `dryrun_multichip(8)` on the card, its MULTICHIP-TELEMETRY line printed.
+31. The kernel gate: `runtime/verify.verify_cuda_kernels(cuda=True)`, every
+    check passes (K1 and K2 against their plain versions on every case of
+    `kernel_cases.py`, the express graph and the ring graph at k = 1 and 8
+    against their eager replays and the CPU, the QoS stage, the fused
+    step and the sharded step at N = 2 against the CPU).
+32. The profiler: `utils/profiling.profile_step_durations` (CUDA events) on
+    the IPoE device step of the headline deployment, its p50/p99 printed
+    beside `time_device_steps`' host-clock figures. It runs inside phase
+    6, where that deployment lives (it is retired before phase 24).
+33. `loadtest` in-process through `bng_tpu_torch.cli.main` at the
+    reference's `dhcp_benchmark.go` defaults (batch 256, 10,000 MACs,
+    renewal ratio 0.8, pool /16; `--duration 10 --warmup 2 --json
+    --bench-log`), once on the engine and once with `--scheduler`, counts
+    0 before each: 0 errors, a response to every request, fast-path hits,
+    3 K1 and 0 K2 per device dispatch, the ledger line of class `gpu`
+    with the card's name; K1 bit-equal to its plain version on the first
+    calls of the engine run. Printed: rps, p50/p99, cache hit rate and the
+    fast-path p99.
+34. `run` serving: `BNGApp` on the card with the scheduler, the `run`
+    default geometry (2^15 subscriber buckets, pool /16) and 8,192
+    synthetic subscribers, on a held clock stepped 1 ms a beat (`tick()`
+    every simulated second). Its first beats give the same TX bytes as a
+    `device="cpu"` app driven the same way. 70 NAT public addresses give
+    every leased subscriber a port block. Then beats until every
+    synthetic MAC has had a slow-path OFFER, REQUESTs for the first 2,048
+    offered addresses (ACKs from the slow path, leases in the device
+    tables; each takes a NAT block, and the default NAT table holds about
+    4,060), and counts 0 for one more pass of the source with a bulk
+    batch of flows from the leased addresses: the leased MACs' DISCOVERs
+    answered on the device by the express lane, the rest by the slow
+    path, 3 K1 per express dispatch and 9 K1 + 4 K2 per bulk step (the
+    IPoE step's 8 and the garden gate's, on by default in `run`); K1 and
+    K2 bit-equal to their plain versions on the express program's and
+    the bulk step's calls. Between the leases and that pass,
+    `engine_swap()` under the ring (frames in the express lane and in
+    the RX ring) passes its audit, and the standby serves the pass.
+    Printed: beats/s, frames/s, express and slow counts, K1/K2 per path.
+35. One subprocess `python -m bng_tpu_torch run --once ...` exits 0.
 
 The line before the last is the card's name and power limit; the one
-before it the kernels JSON; the last line the result JSON.
+before it the kernels JSON (each kernel's launches by path, `loadtest`
+and `run` among them); the last line the result JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -235,6 +280,7 @@ from bng_tpu_torch import entry as entry_mod
 from bng_tpu_torch.parallel.exchange import DeviceLocalExchange
 from bng_tpu_torch.parallel.sharded import ShardedCluster, sharded_step
 from bng_tpu_torch.utils.net import fnv1a32, ip_to_u32
+from bng_tpu_torch.utils.profiling import profile_step_durations
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 NOW = 1_753_000_000
@@ -1020,7 +1066,11 @@ def ipoe_phases(eng, flows, drop_ips, card, device, profile: bool, err):
     say(f"  one-block launch floor (torch.cuda._sleep(0), one thread): "
         f"{cuda_ms(lambda: torch.cuda._sleep(0), iters=100):.4f} ms [{card}]")
     step = staged_step(eng, pkt, length, fa)
-    time_device_steps({"IPoE": step}, card)
+    p50 = time_device_steps({"IPoE": step}, card)["IPoE"]
+    d = profile_step_durations(step, iters=100, device=device)
+    say(f"IPoE profile_step_durations ({d.source}, CUDA events, 100 steps): "
+        f"p50 {d.percentile(50) / 1e3:.3f} ms, p99 {d.percentile(99) / 1e3:.3f} ms; "
+        f"time_device_steps p50 {p50:.3f} ms (host clock, synced) [{card}]")
     say(f"IPoE Engine.process per batch (host included): mean {np.mean(proc_ms):.2f} ms, "
         f"p50 {np.percentile(proc_ms, 50):.2f} ms over {BATCHES} batches ({split.report(proc_ms)}); "
         f"peak device memory {peak_gib:.3f} GiB [{card}]")
@@ -2721,7 +2771,12 @@ def swap_phases(hosts, flows, drop_ips, card, device, err):
           f"an armed ops.swap fail rolled back ({rb})")
     check(sched.process(burst2) == before2, "after the rollback the active engine's bytes == before")
     probe = sched.process([F.discover_frame(m, 0xE400000 + j) for j, (m, _) in enumerate(new2)])
-    check(len(probe["tx"]) == SWAP_WRITES, "the heal shipped the rows written during the swap")
+    # the heal's upload does not reach the devloop: its leading copy, seeded
+    # before it, keeps threading its own chain, as the reference's pump does
+    # (ROADMAP Queue 3), so the rows written during the swap are not in it
+    check(not probe["tx"] and len(probe["slow"]) == SWAP_WRITES,
+          "the rows written during the swap take the slow path after the heal, as in the "
+          f"reference ({len(probe['tx'])} on the device)")
     rec = box["rec"]
     n_steps = rb["delta_steps"]
     check(len(rec["probe"]) == 8 * n_steps and len(rec["seg_prefix"]) == 4 * n_steps,
@@ -2886,6 +2941,307 @@ def sharded_checkpoint_phases(cl, flows, groups, ring, rng, per, card, device, e
     return {"sharded_restore": launches}
 
 
+# ------------------------------------------------- the operator's entry points
+
+LT_ARGS = ["--duration", "10", "--warmup", "2", "--batch-size", "256", "--macs", "10000",
+           "--renewal-ratio", "0.8", "--pool-cidr", "10.0.0.0/16", "--json"]
+RUN_SUBS = 8192  # synthetic subscribers of the `run` phase
+# of them given a lease (REQUEST after the OFFER): half the ~4,060
+# subscriber NAT blocks the `run` default NAT table holds, since every
+# ACK allocates one
+RUN_LEASED = 2048
+RUN_CMP_BEATS = 24  # beats driven on the card and on the CPU, TX compared
+RUN_FLOWS = 1024  # flows from leased addresses through the bulk lane
+WORKING_FLAGS = ["--no-dhcpv6-enabled", "--no-slaac-enabled", "--no-metrics-enabled",
+                 "--no-coa-enabled"]
+
+
+def gate_phase(card) -> None:
+    """The port's kernel gate, every check on the card."""
+    from bng_tpu_torch.runtime.verify import verify_cuda_kernels
+
+    t0 = time.perf_counter()
+    res = verify_cuda_kernels(verbose=False, cuda=True)
+    bad = [(n, e) for n, e in res if e]
+    check(not bad, f"kernel gate: {bad}")
+    say(f"kernel gate: {len(res)} checks passed in {time.perf_counter() - t0:.1f}s "
+        f"({', '.join(n for n, _ in res)}) [{card}]")
+
+
+@contextlib.contextmanager
+def first_probe_calls(n: int):
+    """Keep the inputs of the first n K1 calls made through `ops/table.probe`."""
+    rec, orig = [], table_mod.probe
+
+    def probe_rec(*args):
+        if len(rec) < n:
+            rec.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return orig(*args)
+
+    table_mod.probe = probe_rec
+    try:
+        yield rec
+    finally:
+        table_mod.probe = orig
+
+
+def loadtest_phases(card, err) -> dict:
+    """`loadtest` in-process through the port's `cli.main`, engine and
+    scheduler; returns {path: launches}."""
+    from bng_tpu_torch import cli
+    from bng_tpu_torch.telemetry import ledger
+
+    out = {}
+    name = torch.cuda.get_device_name(0)
+    for path, extra in (("loadtest", []), ("loadtest_scheduler", ["--scheduler"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            log = f"{tmp}/bench.jsonl"
+            buf = io.StringIO()
+            kernels.reset_launches()
+            with first_probe_calls(6) as rec, contextlib.redirect_stdout(buf):
+                rc = cli.main(["loadtest", *LT_ARGS, "--bench-log", log, *extra])
+            launches = dict(kernels.LAUNCHES)
+            line = ledger.read(log)[-1]
+        check(rc == 0, f"{path}: exit code {rc}")
+        res = json.loads(buf.getvalue())
+        served = res["served"]
+        check(res["errors"] == 0 and res["responses"] == res["requests"] > 0,
+              f"{path}: no errors, a response to every request ({res['errors']}, "
+              f"{res['responses']}/{res['requests']})")
+        check(res["fastpath_hits"] > 0, f"{path}: fast-path hits after warmup")
+        # the scheduler's express graph is captured before the run starts:
+        # its two warm-up runs (3 K1 each) fall in our count, not the run's
+        warm = 6 if extra else 0
+        check(served["launches"]["probe"] == 3 * served["dispatches"] > 0
+              and launches["probe"] == served["launches"]["probe"] + warm
+              and launches["seg_prefix"] == served["launches"]["seg_prefix"] == 0,
+              f"{path}: 3 K1 and 0 K2 per device dispatch ({launches}, {served})")
+        check(ledger.backend_class(line) == "gpu" and line["env"]["device_kind"] == name
+              and line["env"]["table_impl"] == "cuda",
+              f"{path}: the ledger line is class gpu on {name} ({line['env']})")
+        if rec:  # the engine run's DHCP-only program calls K1 through the wrapper
+            probes_vs_plain([(path, a) for a in rec], err)
+        say(f"{path}{' (K1 bit-equal on its first ' + str(len(rec)) + ' calls)' if rec else ''}: "
+            f"{res['rps']:.1f} req/s, batch p50 {res['latency_p50_us']:.1f} / p99 "
+            f"{res['latency_p99_us']:.1f} us, per request p50 {res['request_p50_us']} / p99 "
+            f"{res['request_p99_us']} us, cache hit {res['cache_hit_rate']:.4f}, fast-path p99 "
+            f"{res['fastpath_p99_us']:.1f} us, {res['requests']} requests in {res['batches']} "
+            f"batches, {served['dispatches']} device dispatches, launches {launches}, "
+            f"program {res['program']} [{card}]")
+        out[path] = launches
+    return out
+
+
+class BeatClock:
+    """The app's clock: held, stepped by the phase that drives it."""
+
+    def __init__(self, t: float):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def pop_tx(ring) -> list:
+    out = []
+    while (got := ring.tx_pop()) is not None:
+        out.append(bytes(got[0]) if isinstance(got, tuple) else bytes(got))
+    return out
+
+
+def drive_app(app, clock, beats: int, step_s: float = 0.001) -> list:
+    """`beats` beats of the app, the clock stepped each beat and `tick()`
+    each simulated second; returns the TX frames."""
+    ring, out = app.components["ring"], []
+    for _ in range(beats):
+        before = int(clock.t)
+        clock.t += step_s
+        app.drive_once()
+        if int(clock.t) != before:
+            app.tick(clock.t)
+        out += pop_tx(ring)
+    return out
+
+
+def settle(app) -> list:
+    """Retire everything in flight and put its frames on the TX ring."""
+    sched, ring = app.components["scheduler"], app.components["ring"]
+    sched.flush()
+    for c in sched.drain_completions():
+        if c.frame is not None and c.verdict in ("tx", "fwd", "slow"):
+            ring.tx_inject(c.frame, from_access=c.from_access)
+    return pop_tx(ring)
+
+
+def dhcp_replies(frames) -> list:
+    """(msg type, client MAC, yiaddr) of each DHCP reply."""
+    out = []
+    for f in frames:
+        d = F.decode(f)
+        if d.dst_port == 68:
+            m = F.decode_dhcp(d.payload)
+            out.append((m.msg_type, bytes(m.chaddr[:6]), m.yiaddr))
+    return out
+
+
+def synthetic_mac(i: int) -> bytes:
+    return (0x02B70000 << 16 | i).to_bytes(6, "big")
+
+
+def run_app(device, clock):
+    from bng_tpu_torch.cli import BNGApp, BNGConfig
+
+    # 70 public addresses: a 1,024-port block for each leased subscriber
+    # (63 a public address)
+    cfg = BNGConfig(scheduler_enabled=True, synthetic_subs=RUN_SUBS, dhcpv6_enabled=False,
+                    slaac_enabled=False, metrics_enabled=False, coa_enabled=False,
+                    nat_public_ips=[f"203.0.113.{k}" for k in range(1, 71)])
+    return BNGApp(cfg, clock=clock, device=device)
+
+
+def run_phases(card, device, err) -> dict:
+    """`run` serving on the card (the scheduler over the engine, the
+    synthetic source, the slow path); returns {"run": launches}."""
+    outs = []
+    for dev in (device, "cpu"):
+        clk = BeatClock(float(NOW))
+        app = run_app(dev, clk)
+        try:
+            outs.append(drive_app(app, clk, RUN_CMP_BEATS) + settle(app))
+        finally:
+            app.close()
+    check(outs[0] == outs[1] and len(outs[0]) == 16 * RUN_CMP_BEATS,
+          f"run: the card's first {RUN_CMP_BEATS} beats' TX bytes == the CPU app's "
+          f"({len(outs[0])} vs {len(outs[1])} frames)")
+    say(f"run: the first {RUN_CMP_BEATS} beats on the card gave the CPU app's TX bytes "
+        f"({len(outs[0])} OFFERs)")
+
+    clk = BeatClock(float(NOW))
+    app = run_app(device, clk)
+    try:
+        c = app.components
+        sched, ring, dhcp = c["scheduler"], c["ring"], c["dhcp"]
+        eng = c["engine"]
+        check(eng.fastpath.sub.nbuckets == 1 << 15, "the run default geometry: 2^15 buckets")
+        # pass 1: every synthetic MAC gets a slow-path OFFER
+        t0, offers, beats = time.perf_counter(), {}, 0
+        while len(offers) < RUN_SUBS:
+            for t, m, ip in dhcp_replies(drive_app(app, clk, 16)):
+                if t == F.OFFER:
+                    offers[m] = ip
+            beats += 16
+            check(beats < 4 * RUN_SUBS // 16, f"every synthetic MAC offered ({len(offers)})")
+        offers.update((m, ip) for t, m, ip in dhcp_replies(settle(app)) if t == F.OFFER)
+        t1 = time.perf_counter()
+        say(f"run pass 1: {RUN_SUBS} synthetic MACs offered by the slow path in {beats} beats, "
+            f"{beats / (t1 - t0):.1f} beats/s, {16 * beats / (t1 - t0):.1f} frames/s [{card}]")
+        # REQUESTs for the first RUN_LEASED offered addresses
+        acks = {}
+        for base in range(0, RUN_LEASED, 256):
+            for i in range(base, base + 256):
+                m = synthetic_mac(i)
+                ok = ring.rx_push(storm_request(m, 0x5000 + i, offers[m]), from_access=True)
+                check(ok, "the ring takes the REQUESTs")
+            for t, m, ip in dhcp_replies(drive_app(app, clk, 8) + settle(app)):
+                if t == F.ACK:
+                    acks[m] = ip
+        check(len(acks) == RUN_LEASED and all(acks[m] == offers[m] for m in acks)
+              and len(dhcp.leases) == RUN_LEASED,
+              f"{RUN_LEASED} ACKs with the offered addresses ({len(acks)}, {len(dhcp.leases)})")
+        while eng.fastpath.dirty_count():  # the express drain ships the lease rows
+            drive_app(app, clk, 1)
+        settle(app)
+
+        # a blue/green swap under the ring: two beats' DISCOVERs wait in the
+        # express lane and two more in the RX ring; the standby serves pass 2
+        drive_app(app, clk, 2)
+        app._push_synthetic(ring)
+        rep = app.engine_swap()
+        check(rep["outcome"] == "ok" and rep["audit_ok"], f"run: engine_swap ({rep})")
+        check(c["engine"] is not eng and sched.engine is c["engine"], "the standby is in service")
+        eng = c["engine"]
+        drive_app(app, clk, 1)  # the frames left in the RX ring, served by the standby
+        settle(app)
+        say(f"run: engine_swap ok, audit ok, {rep['frames_deferred']} frames deferred, "
+            f"{rep['duration_s']:.3f}s (quiesce {rep['quiesce_s']:.3f}, hydrate "
+            f"{rep['hydrate_s']:.3f}, audit {rep['audit_s']:.3f}, flip {rep['flip_s']:.3f}), "
+            f"{rep['delta_rows']} delta rows in {rep['delta_steps']} steps [{card}]")
+
+        # pass 2, counted: one more cycle of the source and flows through the bulk lane
+        flows = [F.udp_packet(m, AC_MAC, ip, ip_to_u32("93.184.216.34"), 30000 + k, 53, b"q" * 64)
+                 for k, (m, ip) in enumerate(sorted(acks.items()))]
+        obs0 = {k: dict(v) for k, v in sched.observed.items()}
+        tx0, disc0 = eng.stats.tx, dhcp.stats.discover
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for k in range(0, RUN_FLOWS, 64):
+            for f in flows[k: k + 64]:
+                ring.rx_push(f, from_access=True)
+            drive_app(app, clk, 2)
+        tx = drive_app(app, clk, RUN_SUBS // 16 - 2 * (RUN_FLOWS // 64)) + settle(app)
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n_ex = sched.observed["express"]["dispatches"] - obs0["express"]["dispatches"]
+        n_bulk = sched.observed["bulk"]["dispatches"] - obs0["bulk"]["dispatches"]
+        device_answered, slow = eng.stats.tx - tx0, dhcp.stats.discover - disc0
+        check(device_answered == RUN_LEASED and slow == RUN_SUBS - RUN_LEASED,
+              f"run pass 2: leased MACs answered on the standby's device, the rest by the slow "
+              f"path ({device_answered}, {slow})")
+        # the run default has the walled garden on: its gate adds one K1 to
+        # the IPoE step's 8
+        check(n_ex > 0 and n_bulk > 0 and launches["probe"] == 3 * n_ex + 9 * n_bulk
+              and launches["seg_prefix"] == 4 * n_bulk,
+              f"run: 3 K1 per express dispatch, 9 K1 + 4 K2 per bulk step "
+              f"({launches}, {n_ex} express, {n_bulk} bulk)")
+        beats = RUN_SUBS // 16
+        say(f"run pass 2: {beats} beats in {dt:.3f}s ({beats / dt:.1f} beats/s, "
+            f"{(RUN_SUBS + RUN_FLOWS) / dt:.1f} frames/s); DISCOVERs answered on the device "
+            f"{device_answered}, by the slow path {slow}; {n_ex} express dispatches "
+            f"({3 * n_ex} K1), {n_bulk} bulk steps ({9 * n_bulk} K1, {4 * n_bulk} K2); "
+            f"launches {launches}; {len(tx)} TX frames [{card}]")
+        # the app's first expire sweep (the tick at simulated second 1, inside
+        # pass 2) reads the device's session words, which are zeros for rows
+        # the drain has not shipped yet: those sessions go and their reverse
+        # rows stay, as in the reference (ROADMAP Queue 3)
+        nat = eng.nat
+        say(f"run: after the first expire sweep: {nat.sessions.count} NAT sessions, "
+            f"{int(np.count_nonzero(nat.reverse.used))} reverse rows of {RUN_FLOWS} flows")
+
+        # both kernels on this path's calls: the express program, a bulk step
+        dev = eng.device
+        desc = express_desc([F.discover_frame(synthetic_mac(i), 0x6000 + i, pad=320)
+                             for i in range(64)])
+        desc_d = torch.from_numpy(desc.view(np.int32)).to(dev)
+        rec = record_kernel_inputs(lambda: express_verdicts(eng.tables.dhcp, desc_d, eng.geom.dhcp,
+                                                            torch.tensor(int(clk.t), device=dev)),
+                                   3, 0, "run express program", table_names(eng.tables))
+        probes_vs_plain([("run express", a) for a in rec["probe"]], err)
+        pkt, length = eng._pack_frames(flows[:eng.B], eng.B)
+        rec = record_kernel_inputs(lambda: eng.step(pkt, length, np.ones((eng.B,), dtype=bool),
+                                                    clk.t), 9, 4, "run bulk step",
+                                   table_names(eng.tables))
+        probes_vs_plain([("run bulk", a) for a in rec["probe"]], err)
+        segs_vs_plain([("run bulk", *a) for a in rec["seg_prefix"]], err)
+        say("run: K1 and K2 bit-equal to their plain versions on the express program's 3 "
+            "and the bulk step's 9 + 4 calls")
+        return {"run": launches}
+    finally:
+        app.close()
+
+
+def module_entry_phase(card) -> None:
+    """`python -m bng_tpu_torch run --once` in a subprocess."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "bng_tpu_torch", "run", "--once", *WORKING_FLAGS],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"python -m bng_tpu_torch run --once: rc {out.returncode}\n"
+          f"{out.stderr[-2000:]}")
+    st = json.loads(out.stdout)
+    check(st["device"] == "cuda", f"run --once on the card ({st['device']})")
+    say(f"python -m bng_tpu_torch run --once: rc 0 in {time.perf_counter() - t0:.1f}s, "
+        f"device {st['device']} [{card}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2941,6 +3297,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(sharded_phases(card, device, err))
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate_phase(card)
+    launches.update(loadtest_phases(card, err))
+    launches.update(run_phases(card, device, err))
+    module_entry_phase(card)
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

@@ -416,9 +416,9 @@ def test_reference_only_components_are_refused(component):
 def test_narrow_rows_restore_zero_padded(component):
     """A checkpoint with the older narrow value rows (4-word NAT reverse rows,
     6-word PPPoE rows): both packages' component restores pad them with
-    zeros to the same words. The port's `restore_checkpoint` takes such a
-    checkpoint whole; the reference's verify gate rejects its geometry
-    before the padding restore is reached (ROADMAP Queue 3)."""
+    zeros to the same words, and both packages' `restore_checkpoint`
+    refuse the whole checkpoint at the verify gate ("geometry"), the live
+    tables untouched."""
     table, width = ("reverse", 4) if component == "nat" else ("by_sid", 6)
     got = []
     for p in PKGS:
@@ -442,12 +442,10 @@ def test_narrow_rows_restore_zero_padded(component):
         assert np.array_equal(t.vals[:, :width], full[:, :width]) and not t.vals[:, width:].any()
         got.append(t.vals.copy())
         whole = getattr(stack(p, populate=False), component)
-        if p is PORT:
+        before = getattr(whole, table).vals.copy()
+        with pytest.raises(p.ck.CheckpointError, match="geometry"):
             p.ck.restore_checkpoint(ck, **{component: whole})
-            assert np.array_equal(getattr(whole, table).vals, t.vals)
-        else:
-            with pytest.raises(p.ck.CheckpointError, match="geometry"):
-                p.ck.restore_checkpoint(ck, **{component: whole})
+        assert np.array_equal(getattr(whole, table).vals, before)
     assert np.array_equal(got[0], got[1])
 
 

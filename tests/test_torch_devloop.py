@@ -14,9 +14,9 @@
   falls while a ring is in flight reads the same DHCP words in both
   packages (the ring's lease is not yet published), and the lease serves
   on the bulk lane only after a later refresh.
-- A resync with a ring in flight: the port's published tables end equal
-  to the host's full state; the reference's lack the row the resync
-  brought (the two outputs are pinned, ROADMAP Queue 3).
+- A resync with a ring in flight: both pumps publish their pre-resync
+  chain over the fresh upload, so the published tables equal the
+  reference's word for word and lack the row the resync brought.
 - Fallbacks, each with the reference's counters and bytes: an injected
   `devloop.dispatch` fail mid-storm, a geometry miss, `express_loop=
   "auto"` with the express program disabled, the devloop asked for with
@@ -192,12 +192,11 @@ def _published_dhcp_words(sched, mods) -> list:
 
 def test_resync_with_a_ring_in_flight():
     """The engine resyncs (a full upload from the host mirrors) while a ring
-    is in flight, then one more ring runs. The port retires the rings in
-    flight and re-seeds its leading copy from the fresh upload, so the
-    published tables end equal to the host's full state. The reference's
-    pump keeps threading its pre-resync chain and publishes it over the
-    fresh upload at retire: the lease written just before the resync is
-    missing from its published tables (ROADMAP Queue 3)."""
+    is in flight, then one more ring runs. Both pumps keep threading their
+    pre-resync chain and publish it over the fresh upload at retire: the
+    published tables equal the reference's word for word, the lease written
+    just before the resync is missing from the published MAC table, and y's
+    DISCOVER goes to the slow path in both packages."""
     x, y = mac(0x71), mac(0x72)
     got = {}
     for sched, server, fp, mods in (_stack(JAX), _stack(PORT)):
@@ -218,18 +217,18 @@ def test_resync_with_a_ring_in_flight():
         sched.quiesce(now=now)
         host, pub = _host_dhcp_words(fp), _published_dhcp_words(sched, mods)
         lane_y = BATCH * 3
-        got[mods is JAX] = ([np.array_equal(h, p) for h, p in zip(host, pub)],
+        got[mods is JAX] = (pub, [np.array_equal(h, p) for h, p in zip(host, pub)],
                             lane_y in [i for i, _ in out["tx"]],
-                            lane_y in [i for i, _ in out["slow"]])
-    # the port's published tables hold every host row, y's included
-    assert got[False][0] == [True] * 9
-    # the reference's published MAC table lacks y (its bucket rows and value
-    # row); VLAN and circuit-ID tables are untouched
-    assert got[True][0] == [False, True, False, True, True, True, True, True, True]
-    # the ring that ran after the resync: the port's answered y's DISCOVER
-    # on the device, the reference's missed it (its chain lacks y) and sent
-    # it to the slow path
-    assert got[False][1:] == (True, False) and got[True][1:] == (False, True)
+                            lane_y in [i for i, _ in out["slow"]], out)
+    ref, port = got[True], got[False]
+    assert all(np.array_equal(a, b) for a, b in zip(port[0], ref[0]))
+    # the published MAC table lacks y (its bucket rows and value row); VLAN
+    # and circuit-ID tables are untouched
+    assert port[1] == ref[1] == [False, True, False, True, True, True, True, True, True]
+    # the ring that ran after the resync missed y (its chain lacks y) and
+    # sent it to the slow path
+    assert port[2:4] == ref[2:4] == (False, True)
+    assert port[4] == ref[4]
 
 
 def _storm_pair(**cfg):

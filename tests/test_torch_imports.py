@@ -49,6 +49,15 @@ SLICE_MODULES = (
     "bng_tpu_torch.runtime.checkpoint", "bng_tpu_torch.runtime.ops",
     "bng_tpu_torch.control.statestore", "bng_tpu_torch.chaos.invariants",
     "bng_tpu_torch.telemetry.spans", "bng_tpu_torch.edge.compile",
+    "bng_tpu_torch.cli", "bng_tpu_torch.__main__", "bng_tpu_torch.loadtest",
+    "bng_tpu_torch.loadtest.harness", "bng_tpu_torch.runtime.verify",
+    "bng_tpu_torch.utils.devenv", "bng_tpu_torch.utils.profiling", "bng_tpu_torch.analysis",
+    "bng_tpu_torch.analysis.sanitize", "bng_tpu_torch.telemetry.ledger",
+    "bng_tpu_torch.control.intercept", "bng_tpu_torch.control.routing",
+    "bng_tpu_torch.control.walledgarden", "bng_tpu_torch.control.subscriber",
+    "bng_tpu_torch.control.radius", "bng_tpu_torch.control.radius.policy",
+    "bng_tpu_torch.control.nexus", "bng_tpu_torch.parallel.hashring",
+    "bng_tpu_torch.control.opsctl",
 )
 
 

@@ -15,19 +15,18 @@ table words. With a tracer armed, the swap's phases record the same
 number of `ops` laps in both packages.
 
 Port-only: `adopt_device_tables` (the path a standby built with
-`device_tables=` takes) on an engine whose express program and
-devloop ring program were built re-captures and re-seeds them: after
-adopting a snapshot's chain, a lease written after the snapshot misses on
-both lanes until the delta replay ships it (a stale program would still
-answer from the old tensors).
+`device_tables=` takes) on an engine whose express program was built
+re-captures it: after adopting a snapshot's chain, a lease written after
+the snapshot misses on the per-batch lane until the delta replay ships it
+(a stale program would still answer from the old tensors). A devloop ring
+keeps threading its leading copy, as the reference's pump keeps its
+chain, until the scheduler takes the engine again.
 
-Where the port differs from the reference on purpose, both outputs are
-pinned (ROADMAP Queue 3): a dense config change (a pool, a hairpin
-address) made between the snapshot and the flip with no slot dirty
-reaches the port's standby and the swap flips, while the reference's
-standby keeps the snapshot's pools and rolls back on the audit; and the
-edge stage goes with the port's standby, while the reference builds its
-standby without one.
+Two cases the port once answered differently are held to the
+reference's result: a dense config change (a pool, a hairpin address)
+made between the snapshot and the flip with no slot dirty stays out of
+the standby, whose audit finds it and the swap rolls back; and the
+standby is built without the edge stage.
 
 Sharded (N = 2 and 4): `sharded_blue_green_swap` flips, and an `ops.swap`
 crash keeps the active cluster, with the reference's report.
@@ -262,10 +261,12 @@ def test_delta_replay_ships_post_snapshot_rows():
 @pytest.mark.parametrize("loop", ["aot", "devloop"])
 def test_adopt_recaptures_express_and_reseeds_devloop(loop):
     """Adopting a snapshot's chain rolls the device back to the snapshot: a
-    lease written after it misses on the express lane (per-batch program or
-    devloop ring) until the replay ships it and the scheduler takes the
-    engine again. A program left over the old tensors, or a leading copy
-    not re-seeded, would still answer it right after the adoption."""
+    lease written after it misses on the per-batch express program until
+    the replay ships it (a program left over the old tensors would still
+    answer it right after the adoption). A devloop ring in service keeps
+    threading its leading copy, as the reference's pump keeps its chain
+    over an adopted one, and answers it; the scheduler taking the engine
+    again re-seeds a new pump from the replayed chain."""
     from test_torch_scheduler import PORT as SP, T0, FakeClock, build_stack, dhcp, mac
 
     cfg = {"express_loop": loop, "devloop_k": 3} if loop == "devloop" else {}
@@ -291,25 +292,25 @@ def test_adopt_recaptures_express_and_reseeds_devloop(loop):
     assert eng.resync_count == resyncs + 1 and eng.express_captures == captures + 1
     assert eng.express_aot(8).tables is eng.tables.dhcp
     out = sched.process(probe, now=T0)
-    assert not out["tx"] and len(out["slow"]) == 24  # the snapshot has no x
+    if loop == "aot":
+        assert not out["tx"] and len(out["slow"]) == 24  # the snapshot has no x
+    else:
+        assert len(out["tx"]) == 24  # the leading copy's pre-adoption chain has x
     assert len(sched.process(hits, now=T0)["tx"]) == 24  # the snapshot's rows serve
     d = t_ops.replay_delta_since(eng, ck.arrays)
     assert d["rows"] >= 1 and not d["resync"]
     sched.adopt_engine(eng)  # the replayed chain serves the lanes, as the swap's flip does
+    if loop == "devloop":
+        assert sched._devloop._seeded is None  # a new pump, seeded at its first ring
     assert len(sched.process(probe, now=T0)["tx"]) == 24
     if loop == "devloop":
         assert sched.stats_snapshot()["express"]["devloop"]["fallback_slots"] == 0
 
 
-@pytest.mark.parametrize("p", PKGS, ids=lambda p: p.name)
-def test_dense_change_between_snapshot_and_flip(p, monkeypatch):
+def dense_change_swap(p, monkeypatch):
     """A pool and a hairpin address added after the snapshot (the clone runs
-    after it, before the standby is built), with no dirty slot anywhere.
-    The port's standby holds the snapshot's arrays and records them as last
-    shipped, so its replay ships the change and the swap flips. The
-    reference's replay runs only while slots are dirty, none here: its
-    standby keeps the snapshot's pools, the audit finds them and the swap
-    rolls back (ROADMAP Queue 3)."""
+    after it, before the standby is built), with no dirty slot anywhere;
+    returns the report, the stack and the components after the swap."""
     st = engine_stack(p)
     clock, server, pools, fp, nat, eng, leased = st
     eng.process([])  # the last lease's row ships: nothing is dirty at the snapshot
@@ -323,36 +324,46 @@ def test_dense_change_between_snapshot_and_flip(p, monkeypatch):
 
     monkeypatch.setattr(OPS[p.name], "clone_mirrors", clone_then_change)
     rep = OPS[p.name].blue_green_swap(comps)
-    if p is JAX:
-        assert rep["outcome"] == "rolled_back" and rep["delta_steps"] == 0
-        assert rep["violations"] == {"mirror-mismatch": 1} and comps["engine"] is eng
-        return
-    assert rep["outcome"] == "ok" and rep["audit_ok"], rep
-    assert rep["delta_rows"] == 0 and rep["delta_steps"] == 1
-    got = words(comps["engine"])
-    assert np.array_equal(got.dhcp.pools, fp.pools)
-    assert np.array_equal(got.nat.hairpin_ips, nat.hairpin)
+    monkeypatch.undo()
+    return rep, st, comps
+
+
+@pytest.mark.parametrize("p", PKGS, ids=lambda p: p.name)
+def test_dense_change_between_snapshot_and_flip(p, monkeypatch):
+    """A dense config change between the snapshot and the flip: the replay
+    runs only while slots are dirty (none here), so the standby keeps the
+    snapshot's pools, the audit finds them (`mirror-mismatch` 1) and the
+    swap rolls back; the healed active engine serves the same bytes and
+    table words as the reference's."""
+    got = [dense_change_swap(q, monkeypatch) for q in (JAX, p)]
+    rep, st, comps = got[1]
+    assert strip(rep) == strip(got[0][0])
+    assert rep["outcome"] == "rolled_back" and rep["delta_steps"] == 0
+    assert rep["violations"] == {"mirror-mismatch": 1} and comps["engine"] is st[5]
+    next_batches_agree(got, 0xA06)
 
 
 @pytest.mark.parametrize("p", PKGS, ids=lambda p: p.name)
 def test_edge_stage_goes_with_the_standby(p):
-    """The port's standby keeps the active's edge stage (taps, routes); the
-    reference's standby is built without one (ROADMAP Queue 3)."""
-    st = engine_stack(p, edge=True)
-    clock, server, pools, fp, nat, eng, leased = st
-    comps = {"engine": eng, "pools": pools, "dhcp": server}
-    rep = OPS[p.name].blue_green_swap(comps)
+    """The standby is built without the active's edge stage, as the
+    reference's is: the snapshot restores no tap or route row, and after
+    the flip the standby has no tap or route table in its dataplane; the
+    next batches give the reference's bytes and table words."""
+    got = []
+    for q in (JAX, p):
+        st = engine_stack(q, edge=True)
+        clock, server, pools, fp, nat, eng, leased = st
+        assert eng.edge is not None and eng.geom.tap is not None
+        comps = {"engine": eng, "pools": pools, "dhcp": server}
+        got.append((OPS[q.name].blue_green_swap(comps), st, comps))
+    rep, st, comps = got[1]
+    assert strip(rep) == strip(got[0][0])
     assert rep["outcome"] == "ok" and rep["audit_ok"], rep
-    standby = comps["engine"]
-    if p is JAX:
-        assert standby.edge is None and standby.geom.tap is None
-        assert not any(k.startswith("edge.") for k in rep["restored_rows"])
-        return
-    assert standby.edge is eng.edge and standby.geom.tap is not None
-    assert rep["restored_rows"]["edge.tap"] == 1 and rep["restored_rows"]["edge.route"] == 1
-    audit = t_invariants.audit_invariants(engine=standby, pools=pools, dhcp=server, nat=nat)
-    assert audit.ok and audit.checks["edge_tap_rows"] == 1 and audit.checks["edge_route_rows"] == 1
-    assert audit.checks["mirror_buckets.edge.tap"] == 64
+    assert not any(k.startswith("edge.") for k in rep["restored_rows"])
+    for _, _, c in got:
+        standby = c["engine"]
+        assert standby.edge is None and standby.geom.tap is None and standby.geom.route is None
+    next_batches_agree(got, 0xA07)
 
 
 @pytest.mark.parametrize("n", [2, 4])
