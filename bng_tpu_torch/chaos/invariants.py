@@ -7,7 +7,8 @@ the NAT manager's allocator, EIM map and tables. A bug in any writer
 shows as two authorities disagreeing. `audit_invariants` proves, at the
 quiesce barrier the checkpoint uses:
 
-  - no IP is leased twice, and every leased IP is allocated in its pool;
+  - no IP is leased twice, and every leased IP is allocated in its pool
+    (the DHCPv4 and DHCPv6 books, the PPPoE sessions);
   - no fast-path row outlives or contradicts its lease;
   - after a drain, every device table equals its host mirror bit for bit
     (DHCP, edge, the dense config, and the QoS config words; the
@@ -19,10 +20,11 @@ quiesce barrier the checkpoint uses:
 
 Findings come back as structured `Finding`s, bounded per kind;
 `AuditReport.to_dict()` is sorted, so reports diff clean. Components the
-port does not have (DHCPv6, the HA pair, the cluster of BNGs, the
-slow-path fleet) are accepted as None and audit nothing; any other value
-raises. Their audits come with those components, and the composition
-root's `audit_app` with that root.
+port does not have (the HA pair, the cluster of BNGs, the slow-path
+fleet) are accepted as None and audit nothing; any other value raises.
+Their audits come with those components. `audit_app` audits a composed
+`BNGApp`; the reference's `metrics` and `epoch` arguments come with the
+metrics subsystem.
 """
 
 from __future__ import annotations
@@ -553,8 +555,56 @@ def _audit_nat(report: AuditReport, nat) -> None:
 
 
 # ---------------------------------------------------------------------------
-# PPPoE: sessions vs the pools
+# DHCPv6 / PPPoE: lease books vs their pools
 # ---------------------------------------------------------------------------
+
+def _audit_dhcpv6(report: AuditReport, dhcpv6) -> None:
+    """v6 lease book vs pool bitmaps, both directions: every IA_NA/IA_PD
+    binding must be allocated in its pool (a binding outside the bitmap
+    can be re-granted -> v6 double-lease), and every allocated address
+    must have a binding (an orphan allocation is an address leak the
+    pool can never hand out again). Advertise-only allocations release
+    before the server returns, so the book and the bitmaps agree exactly
+    at every quiesce point."""
+    if dhcpv6 is None:
+        return
+    leased_na: dict[bytes, list] = {}
+    leased_pd: dict[bytes, list] = {}
+    for (duid, iaid, is_pd), lease in dhcpv6.leases.items():
+        (leased_pd if is_pd else leased_na).setdefault(
+            lease.address, []).append((duid.hex(), iaid))
+    report.checks["v6_leases_na"] = len(leased_na)
+    report.checks["v6_leases_pd"] = len(leased_pd)
+    for addr, owners in leased_na.items():
+        if len(owners) > 1:
+            report.add("v6-double-lease", _ip6(addr),
+                       f"IA_NA address bound to {len(owners)} clients")
+    for addr, owners in leased_pd.items():
+        if len(owners) > 1:
+            report.add("v6-double-lease", _ip6(addr),
+                       f"IA_PD prefix delegated to {len(owners)} clients")
+    for pool, book, kind in ((dhcpv6.addr_pool, leased_na, "IA_NA"),
+                             (dhcpv6.prefix_pool, leased_pd, "IA_PD")):
+        if pool is None:
+            continue
+        allocated = set(pool._allocated)
+        for addr in book:
+            if addr not in allocated:
+                report.add("v6-lease-not-allocated", _ip6(addr),
+                           f"{kind} binding not marked allocated in its "
+                           f"pool — re-grantable while bound")
+        for addr in allocated - set(book):
+            report.add("v6-alloc-orphan", _ip6(addr),
+                       f"{kind} pool allocation with no binding — the "
+                       f"address leaked out of circulation")
+        # free-list hygiene: a free offset that is also allocated would
+        # double-grant on the next allocate()
+        alloc_offs = set(pool._allocated.values())
+        for off in pool._free:
+            if off in alloc_offs:
+                report.add("v6-free-allocated-overlap", f"{kind}+{off}",
+                           "pool offset is both free and allocated")
+
 
 def _audit_pppoe(report: AuditReport, pppoe, pools) -> None:
     """PPPoE session store vs the v4 pools: every established session's
@@ -588,6 +638,15 @@ def _audit_pppoe(report: AuditReport, pppoe, pools) -> None:
             report.add("pppoe-double-lease", _ip(ip),
                        f"IP assigned to sessions {sorted(sids)}")
     report.checks["pppoe_sessions"] = n
+
+
+def _ip6(addr: bytes) -> str:
+    import ipaddress
+
+    try:
+        return str(ipaddress.IPv6Address(int.from_bytes(addr, "big")))
+    except Exception:  # noqa: BLE001 — a bad value is still a subject
+        return addr.hex()
 
 
 # ---------------------------------------------------------------------------
@@ -834,11 +893,11 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
     (scheduler.quiesce() when a scheduler owns the loop, else
     engine.quiesce()) and includes the host-vs-device mirror proof;
     fastpath/nat default from the engine. The reference's `fleet`,
-    `dhcpv6`, `ha_pair` and `bng_cluster` name components the port does
-    not have: None is accepted and audits nothing, anything else raises.
+    `ha_pair` and `bng_cluster` name components the port does not have:
+    None is accepted and audits nothing, anything else raises.
     """
-    given = [k for k, v in (("fleet", fleet), ("dhcpv6", dhcpv6),
-                            ("ha_pair", ha_pair), ("bng_cluster", bng_cluster))
+    given = [k for k, v in (("fleet", fleet), ("ha_pair", ha_pair),
+                            ("bng_cluster", bng_cluster))
              if v is not None]
     if given:
         raise ValueError(f"audit_invariants: no such component in the port: {given}")
@@ -865,6 +924,7 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
     _audit_fastpath_rows(report, fastpath, dhcp)
     _audit_device_mirror(report, engine)
     _audit_nat(report, nat)
+    _audit_dhcpv6(report, dhcpv6)
     _audit_pppoe(report, pppoe, pools)
     if edge is None and engine is not None:
         edge = getattr(engine, "edge", None)
@@ -883,3 +943,15 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
         # Disarmed: one global load + None compare.
         tele.trigger("invariant_violation", str(report.violations_by_kind()))
     return report
+
+
+def audit_app(app) -> AuditReport:
+    """Audit a composed BNGApp (the `checkpoint restore --audit` entry):
+    pulls the live components out of the composition root and runs the
+    full invariant set."""
+    c = app.components
+    return audit_invariants(
+        engine=c.get("engine"), scheduler=c.get("scheduler"),
+        fastpath=c.get("fastpath"), pools=c.get("pools"),
+        dhcp=c.get("dhcp"), nat=c.get("nat"),
+        dhcpv6=c.get("dhcpv6"), pppoe=c.get("pppoe"))

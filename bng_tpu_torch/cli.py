@@ -4,19 +4,21 @@ version (port of `bng_tpu/cli.py` at the serving stack's scope).
 `BNGConfig` is the reference's flag surface, field for field, with the
 same YAML overlay where the command line wins (`load_config_file`).
 `BNGApp` builds what the reference's `run` builds for the subsystems the
-port has: the fast-path tables, pools, NAT with its compliance logger,
-QoS, antispoof, the walled garden (host manager and device gate), the
-DHCP server and the engine on the card, the tiered scheduler when
-asked, the packet ring with a memory-rung wire attachment for the
+port has: the fast-path tables, pools, the RADIUS client with its
+authenticator and accounting, NAT with its compliance logger, QoS,
+antispoof, the walled garden (host manager and device gate), the DHCP
+server and the engine on the card (with the PPPoE session tables when
+PPPoE is on), the tiered scheduler when asked, the DHCPv6 and SLAAC
+servers, the PPPoE server, the slow-path demux over them, the CoA
+listener, the packet ring with a memory-rung wire attachment for the
 synthetic source, routing, Nexus, subscribers, policies and the ops
-controller. A config that turns on a subsystem the port lacks (`UNPORTED`)
-is refused at construction with one error naming each one and the flag
-that turns it off; nothing degrades silently. The reference's defaults
-turn on DHCPv6, SLAAC, metrics and CoA, so a bare `run` refuses; the
+controller. A config that turns on a subsystem the port lacks
+(`UNPORTED`) is refused at construction with one error naming each one
+and the flag that turns it off; nothing degrades silently. The
+reference's defaults turn on metrics, so a bare `run` refuses; the
 working line is
 
-    python -m bng_tpu_torch run --once --no-dhcpv6-enabled \
-        --no-slaac-enabled --no-metrics-enabled --no-coa-enabled
+    python -m bng_tpu_torch run --once --no-metrics-enabled
 
 Everything runs on the card unless `--device cpu` (or `device="cpu"`)
 asks for the CPU; with no card and no such request the entry points
@@ -166,6 +168,12 @@ class BNGConfig:
 
 
 
+def pppoe_sid(sess) -> str:
+    """One Acct-Session-Id format for a PPPoE session, shared by
+    accounting start/stop and the CoA locator."""
+    return f"pppoe-{sess.session_id:04x}-{sess.client_mac.hex()}"
+
+
 def resolve_secret(value: str, file_path: str) -> str:
     """main.go:1567: prefer --*-file so secrets stay out of ps."""
     if file_path:
@@ -192,12 +200,7 @@ def load_config_file(path: str, cli_set: set[str],
 # The subsystems `run` can turn on that the port does not have yet:
 # (is it on?, what it is, the flag that turns it off).
 UNPORTED = (
-    (lambda c: c.dhcpv6_enabled, "DHCPv6 server", "--no-dhcpv6-enabled"),
-    (lambda c: c.slaac_enabled, "SLAAC", "--no-slaac-enabled"),
     (lambda c: c.metrics_enabled, "metrics", "--no-metrics-enabled"),
-    (lambda c: c.coa_enabled, "RADIUS CoA listener", "--no-coa-enabled"),
-    (lambda c: bool(c.radius_server), "RADIUS client and accounting", "--radius-server ''"),
-    (lambda c: c.pppoe_enabled, "PPPoE server", "--no-pppoe-enabled"),
     (lambda c: bool(c.ha_role), "HA pair", "--ha-role ''"),
     (lambda c: bool(c.cluster_listen) or c.store_mode != "memory" or bool(c.store_peers),
      "cluster listener and replicated store",
@@ -253,9 +256,12 @@ class BNGApp:
     other context (the ctl handler) must hold `_ctl` to mutate it."""
 
     # maintenance cadences (seconds) when tick() runs every second: lease
-    # cleanup and NAT expiry 60 s, the garden expiry checker 30 s
+    # cleanup and NAT expiry 60 s, the garden expiry checker 30 s, the
+    # accounting octet bridge 60 s, interims and spool retries 30 s
     EXPIRE_EVERY_S = 60.0
     GARDEN_EVERY_S = 30.0
+    ACCT_SYNC_EVERY_S = 60.0
+    ACCT_RETRY_EVERY_S = 30.0
 
     def __init__(self, config: BNGConfig, clock=time.time, device=None):
         check_ported(config)
@@ -265,6 +271,10 @@ class BNGApp:
         self._cleanup = []
         self._last_expire = 0.0
         self._last_garden = 0.0
+        self._last_acct_sync = 0.0
+        self._last_acct_retry = 0.0
+        # serializes the CoA listener thread's actions against the loop's
+        # slow path and maintenance sweeps
         self._ctl = threading.Lock()
         self._syn_i = 0
         self.components: dict[str, object] = {}
@@ -291,8 +301,8 @@ class BNGApp:
         from bng_tpu_torch.control.routing import IPRoute2Platform, RoutingManager, StubPlatform
         from bng_tpu_torch.control.subscriber import SubscriberManager
         from bng_tpu_torch.runtime.engine import AntispoofTables, Engine, GardenTables, QoSTables
-        from bng_tpu_torch.runtime.tables import FastPathTables
-        from bng_tpu_torch.utils.net import ip_to_u32, parse_mac
+        from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
+        from bng_tpu_torch.utils.net import ip_to_u32, parse_mac, u32_to_ip
         from bng_tpu_torch.utils.structlog import get_logger
 
         cfg = self.config
@@ -334,6 +344,34 @@ class BNGApp:
         c["nexus"] = NexusClient(node_id=cfg.node_id, clock=self.clock)
         c["subscribers"] = SubscriberManager(clock=self.clock)
 
+        # 5. RADIUS client and the DHCP authenticator
+        authenticator = None
+        if cfg.radius_server:
+            from bng_tpu_torch.control.radius.client import RadiusClient, RadiusServerConfig
+
+            secret = resolve_secret(cfg.radius_secret, cfg.radius_secret_file)
+            host, _, port = cfg.radius_server.partition(":")
+            radius = c["radius"] = RadiusClient(servers=[RadiusServerConfig(
+                host=host, auth_port=int(port or 1812), secret=secret.encode())])
+
+            def authenticator(username="", password="", mac=b"", circuit_id=b"", **kw):
+                """A RADIUS Access-Request per new subscriber: the profile
+                on an Accept, None on a Reject or when every server timed
+                out. The reference serves a timeout from its resilience
+                manager's cached profile; that manager comes with the
+                Nexus allocator, which the port refuses, so a timeout
+                refuses here."""
+                res = radius.authenticate(username, password, mac=mac, circuit_id=circuit_id)
+                if res is None or not res.success:
+                    return None
+                # the keys DHCPServer._request consumes: qos_policy (Filter-Id)
+                # and lease_time (Session-Timeout caps the lease)
+                profile = {"qos_policy": res.policy_name, "framed_ip": res.framed_ip,
+                           **res.attributes}
+                if res.session_timeout:
+                    profile["lease_time"] = res.session_timeout
+                return profile
+
         # 6. QoS
         qos = c["qos"] = QoSTables()
         policies = c["policies"] = PolicyManager()
@@ -363,18 +401,46 @@ class BNGApp:
             nat = NATManager(public_ips=[ip_to_u32("203.0.113.1")],
                              sessions_nbuckets=256, sub_nat_nbuckets=64)
 
+        # 7b. RADIUS accounting: start/stop ride the DHCP lease lifecycle,
+        # interims and retries fire from tick(); its hook goes in before the
+        # garden's, whose chain keeps it
+        acct = None
+        if "radius" in c:
+            from bng_tpu_torch.control.radius.accounting import AccountingManager
+
+            acct = c["accounting"] = AccountingManager(
+                c["radius"], interim_interval_s=cfg.acct_interim_interval,
+                spool_path=cfg.acct_spool_path or None, clock=self.clock)
+
         # 8. DHCP server
         dhcp = c["dhcp"] = DHCPServer(
             server_mac=parse_mac(cfg.server_mac), server_ip=ip_to_u32(cfg.server_ip),
-            pool_manager=pool_mgr, fastpath_tables=fastpath,
+            pool_manager=pool_mgr, fastpath_tables=fastpath, authenticator=authenticator,
             qos_hook=qos_hook, nat_hook=nat_hook, clock=self.clock,
             lease_jitter_frac=cfg.lease_jitter_frac)
+        if acct is not None:
+            prev_acct_hook = dhcp.accounting_hook
 
-        # 9. the engine on the device; the garden gate compiles in only when
-        # the walled garden is enabled
+            def _acct_lease(event, lease, sid, _acct=acct):
+                if prev_acct_hook is not None:
+                    prev_acct_hook(event, lease, sid)
+                if event == "start":
+                    _acct.start(sid, username=lease.username or u32_to_ip(lease.ip),
+                                framed_ip=lease.ip, mac="-".join(f"{b:02X}" for b in lease.mac))
+                elif event == "stop":
+                    _acct.stop(sid)  # a renew extends, it never stops
+
+            dhcp.accounting_hook = _acct_lease
+
+        # 9. the engine on the device; the garden gate and the PPPoE stage
+        # compile in only when the walled garden and PPPoE are enabled
+        pppoe_tables = None
+        if cfg.pppoe_enabled:
+            pppoe_tables = c["pppoe_tables"] = PPPoEFastPathTables(
+                server_mac=parse_mac(cfg.server_mac))
         c["engine"] = Engine(
             fastpath=fastpath, nat=nat, qos=qos, antispoof=c["antispoof"],
-            garden=GardenTables() if cfg.walled_garden_enabled else None,
+            garden=GardenTables() if cfg.walled_garden_enabled else None, pppoe=pppoe_tables,
             batch_size=cfg.batch_size, slow_path=dhcp.handle_frame, clock=self.clock,
             device=self.device)
         self.log.info("engine built", batch_size=cfg.batch_size, device=str(self.device),
@@ -433,6 +499,44 @@ class BNGApp:
 
             dhcp.accounting_hook = _lease_sync
 
+        # 10. DHCPv6 + SLAAC
+        if cfg.dhcpv6_enabled:
+            from bng_tpu_torch.control.dhcpv6.server import (AddressPool6, DHCPv6Server,
+                                                             DHCPv6ServerConfig)
+
+            server_ip6 = b""
+            if cfg.dhcpv6_server_ip:
+                server_ip6 = ipaddress.IPv6Address(cfg.dhcpv6_server_ip).packed
+            c["dhcpv6"] = DHCPv6Server(
+                DHCPv6ServerConfig(server_mac=parse_mac(cfg.server_mac), server_ip6=server_ip6),
+                address_pool=AddressPool6(cfg.dhcpv6_prefix, cfg.lease_time, cfg.lease_time * 2),
+                clock=self.clock)
+        if cfg.slaac_enabled:
+            from bng_tpu_torch.control.slaac import SLAACConfig, SLAACServer
+
+            c["slaac"] = SLAACServer(SLAACConfig())
+
+        # 10c. the PPPoE server: negotiation on the host through the PASS
+        # lanes; an OPEN session is published to the device session tables,
+        # so its DATA frames decap and encap in the fused step
+        if cfg.pppoe_enabled:
+            self._build_pppoe(pool_mgr, pppoe_tables, qos_hook, nat, acct)
+
+        # 10b. the slow-path demux: every PASSed frame lands on the one slow
+        # queue, so the engine's slow path dispatches over the enabled servers
+        if cfg.dhcpv6_enabled or cfg.slaac_enabled or cfg.pppoe_enabled:
+            from bng_tpu_torch.control.slowpath import SlowPathDemux
+
+            demux = c["slowpath"] = SlowPathDemux(
+                dhcp=dhcp, dhcpv6=c.get("dhcpv6"), slaac=c.get("slaac"),
+                pppoe=c.get("pppoe"), clock=self.clock)
+            c["engine"].slow_path = demux
+
+        # 10d. the CoA/Disconnect listener (RFC 5176), over the DHCP leases
+        # and the PPPoE sessions
+        if cfg.radius_server and cfg.coa_enabled:
+            self._build_coa(qos_hook)
+
         # 11c. the packet ring, for the synthetic source: the memory rung of
         # the attach ladder (the scheduler consumes frames through rx_pop,
         # which only PyRing has, so it takes the Python ring)
@@ -457,6 +561,183 @@ class BNGApp:
 
         # 15. zero-downtime ops: the transition queue the run loop drains
         c["ops"] = OpsController(self)
+
+    def _build_pppoe(self, pool_mgr, pppoe_tables, qos_hook, nat, acct) -> None:
+        """The PPPoE server with its hooks: IP from the first pool, and on
+        open the device session tables, QoS, NAT and accounting start (the
+        reverse on close)."""
+        from bng_tpu_torch.control.pppoe.auth import LocalVerifier, RadiusVerifier
+        from bng_tpu_torch.control.pppoe.codec import PROTO_CHAP, PROTO_PAP
+        from bng_tpu_torch.control.pppoe.server import PPPoEServer, PPPoEServerConfig
+        from bng_tpu_torch.utils.net import ip_to_u32, parse_mac
+
+        cfg, c = self.config, self.components
+        if "radius" in c:
+            verifier = RadiusVerifier(c["radius"])
+        else:
+            creds = {str(u["username"]): str(u["password"]).encode()
+                     for u in cfg.pppoe_users if isinstance(u, dict)}
+            verifier = LocalVerifier(creds)
+        auth_proto = {"chap": PROTO_CHAP, "pap": PROTO_PAP, "none": 0}.get(cfg.pppoe_auth)
+        if auth_proto is None:
+            raise ValueError(f"pppoe_auth={cfg.pppoe_auth!r}: expected 'chap', 'pap' or 'none'")
+
+        def _pppoe_alloc(username, mac):
+            pool = pool_mgr.classify(0)
+            if pool is None:
+                return None
+            try:
+                return pool.allocate(f"pppoe:{mac.hex()}")
+            except Exception:  # noqa: BLE001 — exhaustion: Service-Unavailable PADT
+                return None
+
+        def _pppoe_release(ip, mac):
+            pool = pool_mgr.pool_for_ip(ip)
+            if pool is not None:
+                pool.release(ip)
+
+        def _pppoe_open(sess):
+            # a RADIUS Framed-IP-Address bypasses _pppoe_alloc: reserve it in
+            # its pool or DHCP could hand the same address out (idempotent
+            # for the same owner)
+            pool = pool_mgr.pool_for_ip(sess.assigned_ip)
+            if pool is not None:
+                pool.allocate_specific(sess.assigned_ip, f"pppoe:{sess.client_mac.hex()}")
+            pppoe_tables.session_up(sess)
+            if cfg.qos_enabled:
+                qos_hook(sess.assigned_ip, sess.radius_attributes.get("qos_policy"))
+            if cfg.nat_enabled:
+                nat.allocate_nat(sess.assigned_ip, int(self.clock()))
+            if acct is not None:
+                acct.start(pppoe_sid(sess), username=sess.username, framed_ip=sess.assigned_ip,
+                           mac="-".join(f"{b:02X}" for b in sess.client_mac))
+
+        def _pppoe_close(event):
+            sess = event.session
+            pppoe_tables.session_down(event)
+            if cfg.qos_enabled and sess.assigned_ip:
+                c["qos"].remove_subscriber(sess.assigned_ip)
+            if cfg.nat_enabled and sess.assigned_ip:
+                nat.release_nat(sess.assigned_ip, int(self.clock()))
+            if acct is not None:
+                acct.stop(pppoe_sid(sess))
+
+        c["pppoe"] = PPPoEServer(
+            PPPoEServerConfig(
+                ac_name=cfg.pppoe_ac_name, service_name=cfg.pppoe_service_name,
+                server_mac=parse_mac(cfg.server_mac), our_ip=ip_to_u32(cfg.server_ip),
+                dns_primary=ip_to_u32(cfg.dns_primary),
+                dns_secondary=ip_to_u32(cfg.dns_secondary), auth_proto=auth_proto),
+            verifier, _pppoe_alloc, release_ip=_pppoe_release,
+            on_open=_pppoe_open, on_close=_pppoe_close)
+        self.log.info("pppoe server", ac_name=cfg.pppoe_ac_name, auth=cfg.pppoe_auth,
+                      backend="radius" if "radius" in c else "local")
+
+    def _build_coa(self, qos_hook) -> None:
+        """The CoA listener: locate by Acct-Session-Id, Framed-IP or
+        Calling-Station-Id over the DHCP leases, then the PPPoE sessions;
+        a policy change rewrites the subscriber's QoS rows, a disconnect
+        expires the lease or tears the session down (its PADT and LCP
+        frames ride the demux's pending queue to the TX ring). Every verb
+        runs under `_ctl`."""
+        from bng_tpu_torch.control.pppoe.session import TerminateCause
+        from bng_tpu_torch.control.radius.coa import CoAProcessor, CoAServer
+        from bng_tpu_torch.utils.net import mac_to_u64
+
+        cfg, c = self.config, self.components
+        dhcp, pppoe_srv = c["dhcp"], c.get("pppoe")
+
+        def _find_by_ip(ip):
+            for lease in dhcp.leases.values():
+                if lease.ip == ip:
+                    return ("dhcp", lease)
+            if pppoe_srv is not None:
+                for s in pppoe_srv.sessions.all():
+                    if s.assigned_ip == ip:
+                        return ("pppoe", s)
+            return None
+
+        def _find_by_sid(sid):
+            for lease in dhcp.leases.values():
+                if lease.session_id == sid:
+                    return ("dhcp", lease)
+            if pppoe_srv is not None and sid.startswith("pppoe-"):
+                try:  # the inverse of pppoe_sid()
+                    num = int(sid.split("-")[1], 16)
+                except (IndexError, ValueError):
+                    return None
+                s = pppoe_srv.sessions.get(num)
+                if s is not None:
+                    return ("pppoe", s)
+            return None
+
+        def _find_by_mac(mac_str):
+            try:
+                mac = bytes.fromhex(mac_str.replace("-", "").replace(":", ""))
+            except ValueError:
+                return None
+            lease = dhcp.leases.get(mac_to_u64(mac))
+            if lease is not None:
+                return ("dhcp", lease)
+            if pppoe_srv is not None:
+                for s in pppoe_srv.sessions.all():
+                    if s.client_mac == mac:
+                        return ("pppoe", s)
+            return None
+
+        def _coa_qos(ip, policy_name):
+            if qos_hook is None:
+                return False  # QoS disabled: a CoA rate change NAKs
+            qos_hook(ip, policy_name)  # the processor checked the name
+            # record the new plan on the lease and re-push it through the
+            # hook chain, so every lease-state consumer sees the change
+            lease = next((le for le in dhcp.leases.values() if le.ip == ip), None)
+            if lease is not None:
+                lease.qos_policy = policy_name
+                if dhcp.accounting_hook is not None:
+                    dhcp.accounting_hook("renew", lease, lease.session_id)
+            return True
+
+        def _coa_disconnect(kind, obj):
+            if kind == "dhcp":
+                obj.expiry = 0
+                dhcp.cleanup_expired(1)  # reaps only the forced lease
+                return True
+            frames = pppoe_srv.terminate(obj.session_id, TerminateCause.ADMIN_RESET,
+                                         now=self.clock())
+            if "slowpath" in c:
+                # the PADT/LCP teardown frames go out with the next beat
+                c["slowpath"].requeue(frames)
+            return True
+
+        class _CoASession:  # (kind, obj) with the .ip the processor reads
+            def __init__(self, kind, obj):
+                self.kind, self.obj = kind, obj
+                self.ip = obj.ip if kind == "dhcp" else obj.assigned_ip
+
+        def _wrap(found):
+            return None if found is None else _CoASession(*found)
+
+        def _locked(fn):
+            def run(*a):
+                with self._ctl:
+                    return fn(*a)
+            return run
+
+        proc = CoAProcessor(
+            find_by_session_id=_locked(lambda sid: _wrap(_find_by_sid(sid))),
+            find_by_ip=_locked(lambda ip: _wrap(_find_by_ip(ip))),
+            find_by_mac=_locked(lambda m: _wrap(_find_by_mac(m))),
+            qos_update=_locked(_coa_qos),
+            disconnect=_locked(lambda h: _coa_disconnect(h.kind, h.obj)),
+            policy_manager=c["policies"])
+        host, _, port = cfg.coa_listen.rpartition(":")
+        coa = c["coa"] = CoAServer(
+            resolve_secret(cfg.radius_secret, cfg.radius_secret_file).encode(), proc,
+            bind=(host or "0.0.0.0", int(port or 3799)))
+        coa.start()
+        self._on_close(coa.stop)
+        self.log.info("coa listener", addr=f"{coa.addr[0]}:{coa.addr[1]}")
 
     # -- zero-downtime transitions (ops verbs; serialized on _ctl) -------
 
@@ -497,10 +778,10 @@ class BNGApp:
         self._cleanup.clear()
 
     def drive_once(self) -> int:
-        """One dataplane beat: feed the synthetic source (if configured)
-        and run the scheduler's beat or a double-buffered engine step over
-        the ring. Returns frames moved (the run loop sleeps when this
-        stays 0)."""
+        """One dataplane beat: feed the synthetic source (if configured),
+        run the scheduler's beat or a double-buffered engine step over the
+        ring, then put the slow-path demux's pending frames on the TX ring.
+        Returns frames moved (the run loop sleeps when this stays 0)."""
         ring = self.components.get("ring")
         if ring is None:
             return 0
@@ -509,8 +790,22 @@ class BNGApp:
         sched = self.components.get("scheduler")
         with self._ctl:
             if sched is not None and hasattr(ring, "rx_pop"):
-                return self._drive_scheduler(ring, sched)
-            return self.components["engine"].process_ring_pipelined(ring)
+                moved = self._drive_scheduler(ring, sched)
+            else:
+                moved = self.components["engine"].process_ring_pipelined(ring)
+            # PPPoE negotiation's frames beyond the one inline reply (CHAP
+            # Success + IPCP Conf-Req in one beat) and CoA teardowns; a full
+            # TX ring re-queues the rest, in order, for the next beat
+            demux = self.components.get("slowpath")
+            if demux is not None:
+                pending = demux.drain_pending()
+                for i, frame in enumerate(pending):
+                    if ring.tx_inject(frame, from_access=True):
+                        moved += 1
+                    else:
+                        demux.requeue(pending[i:], front=True)
+                        break
+        return moved
 
     def _drive_scheduler(self, ring, sched) -> int:
         """One scheduler beat over the ring: RX frames into the lanes, poll
@@ -563,26 +858,59 @@ class BNGApp:
                 break  # ring full: back off until the engine drains
 
     def tick(self, now: float | None = None) -> None:
-        """The run loop's 1 Hz maintenance heartbeat: DHCP lease cleanup
-        and NAT session expiry (every EXPIRE_EVERY_S), the walled-garden
-        expiry checker (every GARDEN_EVERY_S)."""
+        """The run loop's 1 Hz maintenance heartbeat: the PPPoE keepalive
+        and timeout sweep and SLAAC's periodic RAs (their frames go on the
+        TX ring), DHCP and DHCPv6 lease cleanup and NAT session expiry
+        (every EXPIRE_EVERY_S), the walled-garden expiry checker (every
+        GARDEN_EVERY_S), and accounting: the device's NAT octet counts
+        into the sessions (every ACCT_SYNC_EVERY_S), interims and spool
+        retries (every ACCT_RETRY_EVERY_S)."""
         now = now if now is not None else self.clock()
         with self._ctl:
             self._tick_locked(now)
 
     def _tick_locked(self, now: float) -> None:
         c = self.components
+        # the protocol servers' ticks that emit frames; with no ring (a
+        # control-plane app) there is no wire and they are dropped
+        ring = c.get("ring")
+        for name in ("pppoe", "slaac"):
+            srv = c.get(name)
+            if srv is not None:
+                for frame in srv.tick(now):
+                    if ring is not None:
+                        ring.tx_inject(frame, from_access=True)
         # the reap bound keeps one synchronized lease cliff from starving
         # this tick (leftovers are reaped by the next sweeps)
         if now - self._last_expire >= self.EXPIRE_EVERY_S:
             self._last_expire = now
             budget = self.config.expire_batch or None
             c["dhcp"].cleanup_expired(int(now), max_reaps=budget)
+            if c.get("dhcpv6") is not None:
+                c["dhcpv6"].cleanup_expired(now, max_reaps=budget)
             c["engine"].expire(int(now))
         garden = c.get("walledgarden")
         if garden is not None and now - self._last_garden >= self.GARDEN_EVERY_S:
             self._last_garden = now
             garden.check_expired()
+        acct = c.get("accounting")
+        if acct is not None:
+            # the device's NAT octet counts into the accounting sessions
+            # before interims fire, else every interim and stop reports 0
+            if acct.sessions and now - self._last_acct_sync >= self.ACCT_SYNC_EVERY_S:
+                self._last_acct_sync = now
+                eng = c["engine"]
+                octets = eng.nat.subscriber_octets(eng.fetch_session_vals())
+                for s in list(acct.sessions.values()):
+                    got = octets.get(s.framed_ip)
+                    if got is not None:
+                        acct.update_counters(s.session_id, *got)
+            # interims and retries block on the server (timeout x retries):
+            # their own cadence, so a dead server does not stall every tick
+            if now - self._last_acct_retry >= self.ACCT_RETRY_EVERY_S:
+                self._last_acct_retry = now
+                acct.interim_tick(now)
+                acct.retry_tick()
 
     def stats(self) -> dict:
         out = {"version": __version__, "node_id": self.config.node_id,
@@ -599,9 +927,19 @@ class BNGApp:
         pools = self.components.get("pools")
         if pools is not None:
             out["pools"] = pools.stats()
+        pppoe = self.components.get("pppoe")
+        if pppoe is not None and eng is not None:
+            out["pppoe"] = {
+                "sessions": len(pppoe.sessions), "opened": pppoe.stats.sessions_opened,
+                "closed": pppoe.stats.sessions_closed,
+                "auth_failures": pppoe.stats.auth_failure,
+                "device": {"decap": int(eng.stats.pppoe[0]), "encap": int(eng.stats.pppoe[1])}}
         nat = self.components.get("nat")
         if nat is not None:  # registered only when nat_enabled
             out["nat"] = {"sessions": nat.sessions.count, "blocks": len(nat.blocks)}
+        coa = self.components.get("coa")
+        if coa is not None:
+            out["coa"] = {**coa.stats, **coa.processor.stats}
         return out
 
 
@@ -754,10 +1092,9 @@ def run_checkpoint(args, device) -> int:
         if args.audit:
             # prove the hydrated authorities agree before the snapshot is
             # trusted to serve: rc 2 on any violation
-            from bng_tpu_torch.chaos.invariants import audit_invariants
+            from bng_tpu_torch.chaos.invariants import audit_app
 
-            report = audit_invariants(engine=c["engine"], scheduler=c.get("scheduler"),
-                                      pools=c["pools"], dhcp=c["dhcp"], nat=c["engine"].nat)
+            report = audit_app(app)
             out["audit"] = report.to_dict()
             print(json.dumps(out, indent=2))
             if not report.ok:

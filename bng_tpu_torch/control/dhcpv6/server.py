@@ -1,0 +1,544 @@
+"""DHCPv6 server: IA_NA address pool + IA_PD prefix delegation.
+
+The port's copy of `bng_tpu/control/dhcpv6/server.py` (jax-free).
+
+Parity: pkg/dhcpv6/server.go — Server + handleMessage dispatch
+(:18, :420-447), AddressPool/PrefixPool (:196-352),
+buildAdvertise/buildReply (:726-966), DUID generation (:1028).
+
+Message I/O is bytes-in/bytes-out: the transport (UDP :547 or the
+engine's PASS lanes) hands the server a message payload + client source;
+the server returns the reply payload.
+"""
+
+from __future__ import annotations
+
+import ipaddress
+from dataclasses import dataclass, field
+from typing import Callable
+
+from bng_tpu_torch.control.dhcpv6 import protocol as p6
+from bng_tpu_torch.control.dhcpv6.protocol import (
+    DHCPv6Message,
+    IAAddress,
+    IANA,
+    IAPD,
+    IAPrefix,
+    generate_duid_ll,
+)
+from bng_tpu_torch.utils.structlog import ErrorLog
+
+
+class PoolExhausted6(Exception):
+    pass
+
+
+@dataclass
+class Lease6:
+    duid: bytes
+    iaid: int
+    address: bytes  # 16B (IA_NA) or prefix (IA_PD)
+    prefix_len: int  # 128 for addresses
+    expiry: float
+    is_pd: bool = False
+
+
+class AddressPool6:
+    """Sequential /64+ address pool (parity: server.go:196-266)."""
+
+    def __init__(self, prefix: str, preferred_lifetime: int = 3600,
+                 valid_lifetime: int = 7200):
+        self.net = ipaddress.IPv6Network(prefix)
+        self.preferred = preferred_lifetime
+        self.valid = valid_lifetime
+        self._next = 1
+        self._free: list[int] = []
+        self._allocated: dict[bytes, int] = {}  # address -> offset
+
+    @property
+    def size(self) -> int:
+        return min(self.net.num_addresses - 1, 1 << 20)
+
+    def allocate(self) -> bytes:
+        if self._free:
+            off = self._free.pop()
+        elif self._next < self.size:
+            off = self._next
+            self._next += 1
+        else:
+            raise PoolExhausted6(str(self.net))
+        addr = (int(self.net.network_address) + off).to_bytes(16, "big")
+        self._allocated[addr] = off
+        return addr
+
+    def allocate_specific(self, addr: bytes) -> bool:
+        if addr in self._allocated:
+            return True
+        ip = int.from_bytes(addr, "big")
+        off = ip - int(self.net.network_address)
+        if not (0 < off < self.size):
+            return False
+        self._allocated[addr] = off
+        self._free = [f for f in self._free if f != off]
+        if off >= self._next:
+            self._next = off + 1
+        return True
+
+    def release(self, addr: bytes) -> None:
+        off = self._allocated.pop(addr, None)
+        if off is not None:
+            self._free.append(off)
+
+    def contains(self, addr: bytes) -> bool:
+        return ipaddress.IPv6Address(int.from_bytes(addr, "big")) in self.net
+
+
+class PrefixPool6:
+    """Delegated-prefix pool: carve /N children from a parent prefix
+    (parity: server.go:268-352)."""
+
+    def __init__(self, parent: str, delegated_len: int = 56,
+                 preferred_lifetime: int = 3600, valid_lifetime: int = 7200):
+        self.net = ipaddress.IPv6Network(parent)
+        if delegated_len <= self.net.prefixlen:
+            raise ValueError("delegated length must be longer than parent")
+        self.dlen = delegated_len
+        self.preferred = preferred_lifetime
+        self.valid = valid_lifetime
+        self._next = 0
+        self._free: list[int] = []
+        self._allocated: dict[bytes, int] = {}
+        self.capacity = 1 << (delegated_len - self.net.prefixlen)
+
+    def allocate(self) -> tuple[bytes, int]:
+        if self._free:
+            idx = self._free.pop()
+        elif self._next < self.capacity:
+            idx = self._next
+            self._next += 1
+        else:
+            raise PoolExhausted6(str(self.net))
+        base = int(self.net.network_address) + (idx << (128 - self.dlen))
+        prefix = base.to_bytes(16, "big")
+        self._allocated[prefix] = idx
+        return prefix, self.dlen
+
+    def release(self, prefix: bytes) -> None:
+        idx = self._allocated.pop(prefix, None)
+        if idx is not None:
+            self._free.append(idx)
+
+
+@dataclass
+class DHCPv6ServerConfig:
+    server_mac: bytes = b"\x02\xbb\x00\x00\x00\x01"
+    # Reply-source address for framed (on-wire) replies. Empty -> the
+    # demux derives the EUI-64 link-local from server_mac (the reference
+    # replies from its real bound address, server.go:18; relays need a
+    # non-placeholder source or they drop the Relay-Reply).
+    server_ip6: bytes = b""
+    dns_servers: list[bytes] = field(default_factory=list)  # 16B each
+    domain_list: list[str] = field(default_factory=list)
+    preference: int = 0
+    rapid_commit: bool = True
+    t1_fraction: float = 0.5  # T1 = valid * 0.5 (RFC 8415 §21.4 guidance)
+    t2_fraction: float = 0.8
+
+
+@dataclass
+class DHCPv6Stats:
+    solicit: int = 0
+    advertise: int = 0
+    request: int = 0
+    reply: int = 0
+    renew: int = 0
+    rebind: int = 0
+    release: int = 0
+    decline: int = 0
+    confirm: int = 0
+    info_request: int = 0
+    no_addrs: int = 0
+    no_binding: int = 0
+    relay_forw: int = 0
+    relay_repl: int = 0
+    # exhaustion split out of no_addrs (which also counts "no pool
+    # configured"): an EXHAUSTED pool is a capacity event worth its own
+    # counter + rate-limited log, not a config state
+    addr_exhausted: int = 0
+    pd_exhausted: int = 0
+
+
+class DHCPv6Server:
+    def __init__(self, config: DHCPv6ServerConfig,
+                 address_pool: AddressPool6 | None = None,
+                 prefix_pool: PrefixPool6 | None = None,
+                 clock: Callable[[], float] | None = None,
+                 on_lease: Callable[[Lease6], None] | None = None,
+                 on_release: Callable[[Lease6], None] | None = None):
+        import time
+
+        self.config = config
+        self.duid = generate_duid_ll(config.server_mac)
+        self.addr_pool = address_pool
+        self.prefix_pool = prefix_pool
+        self.clock = clock or time.time
+        self.on_lease = on_lease
+        self.on_release = on_release
+        self.stats = DHCPv6Stats()
+        # bindings: (duid, iaid, is_pd) -> Lease6
+        self.leases: dict[tuple[bytes, int, bool], Lease6] = {}
+        self._exhaust_log = ErrorLog(
+            "dhcpv6-pool",
+            "DHCPv6 pool exhausted — NoAddrsAvail/NoPrefixAvail returned")
+
+    MAX_RELAY_HOPS = 8  # RFC 8415 §7.6 HOP_COUNT_LIMIT (8; RFC 3315's 32 is obsolete)
+
+    # ------------------------------------------------------------------
+    def handle_message(self, raw: bytes) -> bytes | None:
+        """Dispatch (parity: handleMessage, server.go:420-447). A
+        Relay-Forward chain (RFC 8415 §19) is unwrapped to the client
+        message and the reply re-wrapped in matching Relay-Replies —
+        hop/link/peer copied, Interface-Id echoed verbatim."""
+        if raw and raw[0] == p6.RELAY_FORW:
+            return self._handle_relay(raw, depth=0)
+        try:
+            msg = DHCPv6Message.decode(raw)
+        except ValueError:
+            return None
+        if msg.client_duid is None and msg.msg_type != p6.INFORMATION_REQUEST:
+            return None
+        # RFC 8415 §16: REQUEST/RENEW/RELEASE/DECLINE must carry OUR
+        # Server Identifier — another server's Request is discarded
+        # (REBIND/CONFIRM/SOLICIT/INFO-REQ have no such requirement)
+        if msg.msg_type in (p6.REQUEST, p6.RENEW, p6.RELEASE, p6.DECLINE):
+            if msg.server_duid != self.duid.encode():
+                return None
+        handler = {
+            p6.SOLICIT: self._solicit,
+            p6.REQUEST: self._request,
+            p6.CONFIRM: self._confirm,
+            p6.RENEW: self._renew,
+            p6.REBIND: self._rebind,
+            p6.RELEASE: self._release,
+            p6.DECLINE: self._decline,
+            p6.INFORMATION_REQUEST: self._info_request,
+        }.get(msg.msg_type)
+        if handler is None:
+            return None
+        reply = handler(msg)
+        return reply.encode() if reply is not None else None
+
+    def _handle_relay(self, raw: bytes, depth: int) -> bytes | None:
+        """Relay-Forward -> process nested message -> Relay-Reply.
+
+        Handles relay chains recursively (relay-of-relay), bounded at
+        MAX_RELAY_HOPS. The reply mirrors each level's hop-count,
+        link-address and peer-address, and echoes Interface-Id so the
+        relay can map the reply to the client-facing interface."""
+        if depth >= self.MAX_RELAY_HOPS:
+            return None
+        try:
+            fwd = p6.RelayMessage.decode(raw)
+        except ValueError:
+            return None
+        inner = fwd.get(p6.OPT_RELAY_MSG)
+        if not inner:
+            return None
+        self.stats.relay_forw += 1
+        if inner[0] == p6.RELAY_FORW:
+            inner_reply = self._handle_relay(inner, depth + 1)
+        else:
+            inner_reply = self.handle_message(inner)
+        if inner_reply is None:
+            return None
+        reply = p6.RelayMessage(p6.RELAY_REPL, fwd.hop_count,
+                                fwd.link_address, fwd.peer_address)
+        iface_id = fwd.get(p6.OPT_INTERFACE_ID)
+        if iface_id is not None:
+            reply.options.append((p6.OPT_INTERFACE_ID, iface_id))
+        reply.options.append((p6.OPT_RELAY_MSG, inner_reply))
+        self.stats.relay_repl += 1
+        return reply.encode()
+
+    # ------------------------------------------------------------------
+    def _base_reply(self, msg: DHCPv6Message, msg_type: int) -> DHCPv6Message:
+        r = DHCPv6Message(msg_type, msg.transaction_id)
+        r.add(p6.OPT_SERVERID, self.duid.encode())
+        if msg.client_duid is not None:
+            r.add(p6.OPT_CLIENTID, msg.client_duid)
+        if self.config.preference and msg_type == p6.ADVERTISE:
+            r.add(p6.OPT_PREFERENCE, bytes([self.config.preference]))
+        return r
+
+    def _add_global_options(self, r: DHCPv6Message) -> None:
+        if self.config.dns_servers:
+            r.add(p6.OPT_DNS_SERVERS, b"".join(self.config.dns_servers))
+        if self.config.domain_list:
+            out = bytearray()
+            for d in self.config.domain_list:
+                for label in d.rstrip(".").split("."):
+                    out += bytes([len(label)]) + label.encode()
+                out += b"\x00"
+            r.add(p6.OPT_DOMAIN_LIST, bytes(out))
+
+    def _t12(self, valid: int) -> tuple[int, int]:
+        return (int(valid * self.config.t1_fraction),
+                int(valid * self.config.t2_fraction))
+
+    def _grant_na(self, duid: bytes, ia: IANA, commit: bool) -> IANA:
+        """Allocate (or look up) an address for one IA_NA."""
+        if self.addr_pool is None:
+            out = IANA(ia.iaid)
+            out.status = (p6.STATUS_NO_ADDRS_AVAIL, "no address pool")
+            self.stats.no_addrs += 1
+            return out
+        key = (duid, ia.iaid, False)
+        lease = self.leases.get(key)
+        now = self.clock()
+        pool = self.addr_pool
+        if lease is None:
+            try:
+                addr = pool.allocate()
+            except PoolExhausted6 as e:
+                out = IANA(ia.iaid)
+                out.status = (p6.STATUS_NO_ADDRS_AVAIL, "pool exhausted")
+                self.stats.no_addrs += 1
+                self.stats.addr_exhausted += 1
+                self._exhaust_log.report(e, ia="na", iaid=ia.iaid)
+                return out
+            lease = Lease6(duid, ia.iaid, addr, 128, now + pool.valid)
+            if commit:
+                self.leases[key] = lease
+                if self.on_lease:
+                    self.on_lease(lease)
+            else:
+                pool.release(addr)  # advertise only: do not hold
+        else:
+            lease.expiry = now + pool.valid
+        t1, t2 = self._t12(pool.valid)
+        out = IANA(ia.iaid, t1, t2)
+        out.addresses.append(IAAddress(lease.address, pool.preferred, pool.valid))
+        return out
+
+    def _grant_pd(self, duid: bytes, ia: IAPD, commit: bool) -> IAPD:
+        if self.prefix_pool is None:
+            out = IAPD(ia.iaid)
+            out.status = (p6.STATUS_NO_PREFIX_AVAIL, "no prefix pool")
+            self.stats.no_addrs += 1
+            return out
+        key = (duid, ia.iaid, True)
+        lease = self.leases.get(key)
+        now = self.clock()
+        pool = self.prefix_pool
+        if lease is None:
+            try:
+                prefix, plen = pool.allocate()
+            except PoolExhausted6 as e:
+                out = IAPD(ia.iaid)
+                out.status = (p6.STATUS_NO_PREFIX_AVAIL, "pool exhausted")
+                self.stats.no_addrs += 1
+                self.stats.pd_exhausted += 1
+                self._exhaust_log.report(e, ia="pd", iaid=ia.iaid)
+                return out
+            lease = Lease6(duid, ia.iaid, prefix, plen, now + pool.valid, is_pd=True)
+            if commit:
+                self.leases[key] = lease
+                if self.on_lease:
+                    self.on_lease(lease)
+            else:
+                pool.release(prefix)
+        else:
+            lease.expiry = now + pool.valid
+        t1, t2 = self._t12(pool.valid)
+        out = IAPD(ia.iaid, t1, t2)
+        out.prefixes.append(IAPrefix(lease.address, lease.prefix_len,
+                                     pool.preferred, pool.valid))
+        return out
+
+    # ------------------------------------------------------------------
+    def _solicit(self, msg: DHCPv6Message) -> DHCPv6Message:
+        """SOLICIT -> ADVERTISE (or REPLY with rapid commit);
+        parity: buildAdvertise server.go:726-830."""
+        self.stats.solicit += 1
+        duid = msg.client_duid
+        rapid = self.config.rapid_commit and msg.has_rapid_commit()
+        r = self._base_reply(msg, p6.REPLY if rapid else p6.ADVERTISE)
+        if rapid:
+            r.add(p6.OPT_RAPID_COMMIT, b"")
+            self.stats.reply += 1
+        else:
+            self.stats.advertise += 1
+        for ia in msg.ia_nas():
+            r.add_ia_na(self._grant_na(duid, ia, commit=rapid))
+        for ia in msg.ia_pds():
+            r.add_ia_pd(self._grant_pd(duid, ia, commit=rapid))
+        self._add_global_options(r)
+        return r
+
+    def _request(self, msg: DHCPv6Message) -> DHCPv6Message:
+        """REQUEST -> REPLY with committed bindings
+        (parity: buildReply server.go:832-966)."""
+        self.stats.request += 1
+        self.stats.reply += 1
+        duid = msg.client_duid
+        r = self._base_reply(msg, p6.REPLY)
+        for ia in msg.ia_nas():
+            r.add_ia_na(self._grant_na(duid, ia, commit=True))
+        for ia in msg.ia_pds():
+            r.add_ia_pd(self._grant_pd(duid, ia, commit=True))
+        self._add_global_options(r)
+        return r
+
+    def _confirm(self, msg: DHCPv6Message) -> DHCPv6Message:
+        """CONFIRM: are the client's addresses still on-link?"""
+        self.stats.confirm += 1
+        r = self._base_reply(msg, p6.REPLY)
+        on_link = True
+        for ia in msg.ia_nas():
+            for a in ia.addresses:
+                if self.addr_pool is None or not self.addr_pool.contains(a.address):
+                    on_link = False
+        if on_link:
+            r.add_status(p6.STATUS_SUCCESS, "all addresses on-link")
+        else:
+            r.add_status(p6.STATUS_NOT_ON_LINK, "address not on-link")
+        return r
+
+    def _extend(self, msg: DHCPv6Message, require_binding: bool) -> DHCPv6Message:
+        """RENEW (binding required) / REBIND (recreate allowed)."""
+        duid = msg.client_duid
+        r = self._base_reply(msg, p6.REPLY)
+        now = self.clock()
+        for ia in msg.ia_nas():
+            key = (duid, ia.iaid, False)
+            lease = self.leases.get(key)
+            if lease is None:
+                if require_binding:
+                    out = IANA(ia.iaid)
+                    out.status = (p6.STATUS_NO_BINDING, "no binding")
+                    self.stats.no_binding += 1
+                    r.add_ia_na(out)
+                    continue
+                # REBIND after state loss: re-confirm the address the
+                # client presents if it's ours and free (RFC 8415 §18.3.5)
+                kept = self._rebind_keep(duid, ia, now)
+                r.add_ia_na(kept if kept is not None
+                            else self._grant_na(duid, ia, commit=True))
+                continue
+            pool = self.addr_pool
+            lease.expiry = now + pool.valid
+            t1, t2 = self._t12(pool.valid)
+            out = IANA(ia.iaid, t1, t2)
+            out.addresses.append(IAAddress(lease.address, pool.preferred, pool.valid))
+            r.add_ia_na(out)
+        for ia in msg.ia_pds():
+            key = (duid, ia.iaid, True)
+            lease = self.leases.get(key)
+            if lease is None:
+                if require_binding:
+                    out = IAPD(ia.iaid)
+                    out.status = (p6.STATUS_NO_BINDING, "no binding")
+                    self.stats.no_binding += 1
+                    r.add_ia_pd(out)
+                    continue
+                r.add_ia_pd(self._grant_pd(duid, ia, commit=True))
+                continue
+            pool = self.prefix_pool
+            lease.expiry = now + pool.valid
+            t1, t2 = self._t12(pool.valid)
+            out = IAPD(ia.iaid, t1, t2)
+            out.prefixes.append(IAPrefix(lease.address, lease.prefix_len,
+                                         pool.preferred, pool.valid))
+            r.add_ia_pd(out)
+        self._add_global_options(r)
+        return r
+
+    def _rebind_keep(self, duid: bytes, ia: IANA, now: float) -> IANA | None:
+        """Keep the client's presented address across server state loss."""
+        if self.addr_pool is None:
+            return None
+        for a in ia.addresses:
+            if self.addr_pool.contains(a.address) and \
+                    self.addr_pool.allocate_specific(a.address):
+                pool = self.addr_pool
+                lease = Lease6(duid, ia.iaid, a.address, 128, now + pool.valid)
+                self.leases[(duid, ia.iaid, False)] = lease
+                if self.on_lease:
+                    self.on_lease(lease)
+                t1, t2 = self._t12(pool.valid)
+                out = IANA(ia.iaid, t1, t2)
+                out.addresses.append(IAAddress(a.address, pool.preferred, pool.valid))
+                return out
+        return None
+
+    def _renew(self, msg: DHCPv6Message) -> DHCPv6Message:
+        self.stats.renew += 1
+        self.stats.reply += 1
+        return self._extend(msg, require_binding=True)
+
+    def _rebind(self, msg: DHCPv6Message) -> DHCPv6Message:
+        self.stats.rebind += 1
+        self.stats.reply += 1
+        return self._extend(msg, require_binding=False)
+
+    def _release(self, msg: DHCPv6Message) -> DHCPv6Message:
+        self.stats.release += 1
+        self.stats.reply += 1
+        duid = msg.client_duid
+        r = self._base_reply(msg, p6.REPLY)
+        for ia in msg.ia_nas():
+            self._drop_binding(duid, ia.iaid, is_pd=False)
+        for ia in msg.ia_pds():
+            self._drop_binding(duid, ia.iaid, is_pd=True)
+        r.add_status(p6.STATUS_SUCCESS, "released")
+        return r
+
+    def _decline(self, msg: DHCPv6Message) -> DHCPv6Message:
+        """Client saw a conflict: take the address out of service."""
+        self.stats.decline += 1
+        self.stats.reply += 1
+        duid = msg.client_duid
+        r = self._base_reply(msg, p6.REPLY)
+        for ia in msg.ia_nas():
+            key = (duid, ia.iaid, False)
+            lease = self.leases.pop(key, None)
+            if lease is not None and self.addr_pool is not None:
+                # do NOT return to free list (conflict): just forget it
+                self.addr_pool._allocated.pop(lease.address, None)
+        r.add_status(p6.STATUS_SUCCESS, "declined")
+        return r
+
+    def _info_request(self, msg: DHCPv6Message) -> DHCPv6Message:
+        self.stats.info_request += 1
+        self.stats.reply += 1
+        r = self._base_reply(msg, p6.REPLY)
+        self._add_global_options(r)
+        return r
+
+    # ------------------------------------------------------------------
+    def _drop_binding(self, duid: bytes, iaid: int, is_pd: bool) -> None:
+        lease = self.leases.pop((duid, iaid, is_pd), None)
+        if lease is None:
+            return
+        if is_pd and self.prefix_pool is not None:
+            self.prefix_pool.release(lease.address)
+        elif not is_pd and self.addr_pool is not None:
+            self.addr_pool.release(lease.address)
+        if self.on_release:
+            self.on_release(lease)
+
+    def cleanup_expired(self, now: float | None = None,
+                        max_reaps: int | None = None) -> int:
+        """Expired-binding sweep. `max_reaps` bounds one sweep's teardown
+        work (same expiry-batching contract as the v4 server): leftovers
+        stay expired and the next sweep reaps them."""
+        now = now if now is not None else self.clock()
+        dead = []
+        for k, l in self.leases.items():
+            if l.expiry < now:
+                dead.append(k)
+                if max_reaps is not None and len(dead) >= max_reaps:
+                    break
+        for duid, iaid, is_pd in dead:
+            self._drop_binding(duid, iaid, is_pd)
+        return len(dead)

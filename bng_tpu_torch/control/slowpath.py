@@ -1,0 +1,145 @@
+"""Slow-path protocol demux: one entry point for the ring's PASS lanes.
+
+The port's copy of `bng_tpu/control/slowpath.py` (jax-free).
+
+The reference runs one goroutine + socket per protocol server (cmd/bng
+main.go:1063-1180: DHCPv4 on UDP:67, DHCPv6 on UDP6:547, SLAAC on raw
+ICMPv6, PPPoE on AF_PACKET). In the TPU build every packet the device
+PASSes lands on ONE slow queue (the ring), so the composition root needs
+one callable that dispatches each Ethernet frame to the server that owns
+it and returns the reply frame(s) for TX injection.
+
+Framing: DHCPv4 and SLAAC servers speak Ethernet frames natively; the
+DHCPv6 server speaks raw DHCPv6 messages (like the reference's, which
+gets UDP payloads from its socket — server.go:420), so this module owns
+the Eth/IPv6/UDP encap/decap around it.
+"""
+
+from __future__ import annotations
+
+from bng_tpu_torch import frames
+
+ETH_P_IPV6 = 0x86DD
+DHCP6_SERVER_PORT = 547
+DHCP6_CLIENT_PORT = 546
+ALL_DHCP_AGENTS = bytes.fromhex("ff020000000000000000000000010002")
+
+
+class SlowPathDemux:
+    """Dispatch PASSed frames to DHCPv4 / DHCPv6 / SLAAC / PPPoE.
+
+    Every handler is optional (nil-safe, the reference's optional-manager
+    discipline); unmatched frames return None (frame recycles). The
+    callable signature matches Engine/ShardedCluster ``slow_path``.
+    """
+
+    def __init__(self, dhcp=None, dhcpv6=None, slaac=None, pppoe=None,
+                 clock=None):
+        import time
+
+        self.dhcp = dhcp
+        self.dhcpv6 = dhcpv6
+        self.slaac = slaac
+        self.pppoe = pppoe
+        self.clock = clock or time.time
+        self.stats = {"dhcp4": 0, "dhcp6": 0, "slaac": 0, "pppoe": 0,
+                      "unmatched": 0}
+        # PPPoE negotiation can emit several frames per input (e.g.
+        # CHAP-Success + IPCP Conf-Req); the ring's slow contract is one
+        # inline reply, the rest queue here for drain_pending()
+        self._pending: list[bytes] = []
+
+    def __call__(self, frame: bytes) -> bytes | None:
+        if len(frame) < 14:
+            self.stats["unmatched"] += 1
+            return None
+        ethertype = int.from_bytes(frame[12:14], "big")
+        if ethertype in (0x8863, 0x8864) and self.pppoe is not None:
+            self.stats["pppoe"] += 1
+            replies = self.pppoe.handle_frame(frame, self.clock())
+            # one reply rides back inline; extras queue for drain_pending()
+            self._pending.extend(replies[1:])
+            return replies[0] if replies else None
+        if ethertype == ETH_P_IPV6:
+            reply = self._try_dhcpv6(frame)
+            if reply is not None:
+                return reply
+            if self.slaac is not None:
+                reply = self.slaac.handle_frame(frame)
+                if reply is not None:
+                    self.stats["slaac"] += 1
+                    return reply
+            self.stats["unmatched"] += 1
+            return None
+        if self.dhcp is not None:
+            reply = self.dhcp.handle_frame(frame)
+            if reply is not None:
+                self.stats["dhcp4"] += 1
+                return reply
+        self.stats["unmatched"] += 1
+        return None
+
+    def drain_pending(self) -> list[bytes]:
+        """Frames beyond the one-reply-per-input ring contract (PPPoE
+        multi-frame negotiation); the composition root TX-injects these
+        every beat (drive_once) — the socket-write role of the
+        reference's per-protocol goroutines."""
+        out, self._pending = self._pending, []
+        return out
+
+    def requeue(self, frames: list[bytes], front: bool = False) -> None:
+        """Public re-queue onto the pending queue (drain_pending's
+        counterpart): CoA teardown frames enter here for the next beat's
+        TX injection, and the composition root puts back the un-injected
+        remainder when the TX ring fills (`front=True` preserves wire
+        order). Callers never touch the private list."""
+        if front:
+            self._pending[:0] = frames
+        else:
+            self._pending.extend(frames)
+
+    def _try_dhcpv6(self, frame: bytes) -> bytes | None:
+        """Eth/IPv6/UDP:547 -> DHCPv6Server.handle_message -> framed reply."""
+        if self.dhcpv6 is None or len(frame) < 14 + 40 + 8:
+            return None
+        # Eth(14) + IPv6: next-header lives at offset 14+6=20 (frame[18:20]
+        # is the payload-length field). No ext headers on control traffic.
+        if frame[20] != 17:
+            return None
+        udp = 14 + 40
+        dport = int.from_bytes(frame[udp + 2 : udp + 4], "big")
+        if dport != DHCP6_SERVER_PORT:
+            return None
+        udp_len = int.from_bytes(frame[udp + 4 : udp + 6], "big")
+        payload = frame[udp + 8 : udp + udp_len]
+        if not payload:
+            return None
+        reply = self.dhcpv6.handle_message(payload)
+        if reply is None:
+            return None
+        self.stats["dhcp6"] += 1
+        client_mac = frame[6:12]
+        client_ip = frame[22:38]  # IPv6 source
+        server_mac = getattr(self.dhcpv6.config, "server_mac",
+                             b"\x02\xbb\x00\x00\x00\x01")
+        # RFC 8415 §7.2: clients listen on 546, RELAY AGENTS on 547 — a
+        # Relay-Reply framed to 546 would never reach the relay's socket
+        from bng_tpu_torch.control.dhcpv6.protocol import RELAY_REPL
+
+        dport = (DHCP6_SERVER_PORT if reply and reply[0] == RELAY_REPL
+                 else DHCP6_CLIENT_PORT)
+        return frames.udp6_packet(server_mac, client_mac,
+                                   self._server_ip6(server_mac), client_ip,
+                                   DHCP6_SERVER_PORT, dport,
+                                   reply)
+
+    def _server_ip6(self, server_mac: bytes) -> bytes:
+        """Reply source: configured server address if set, else the
+        EUI-64 link-local derived from server_mac (reference replies
+        from its real bound address — server.go:18)."""
+        configured = getattr(self.dhcpv6.config, "server_ip6", b"")
+        if configured:
+            return configured
+        from bng_tpu_torch.control.slaac import link_local
+
+        return link_local(server_mac)

@@ -1,13 +1,13 @@
-"""Frame builders and decoders for a DHCP DISCOVER/OFFER, a UDP/TCP flow
-and PPPoE session and discovery frames.
+"""Frame constructors and decoders for a DHCP DISCOVER/OFFER, a UDP/TCP flow,
+a DHCPv6 reply and PPPoE session and discovery frames.
 
 The port's own copy of the subset of `bng_tpu/control/packets.py`
-(`udp_packet`, `tcp_packet`, `decode`) and
-`bng_tpu/control/pppoe/codec.py` (`eth_frame`, `PPPoEPacket`, tags,
-`CPPacket`, `ppp_frame`) that the engine's new-flow punt,
-`chip_smoke.py` and the tests use, with the DHCP codec's packet,
-builder and decoder re-exported from `control/dhcp_codec.py`.
-Byte-identical output.
+(`udp_packet`, `tcp_packet`, `udp6_packet`, `decode`) that the engine's
+new-flow punt, the slow-path demux, `chip_smoke.py` and the tests use,
+with the DHCP codec's packet, request constructor and decoder re-exported from
+`control/dhcp_codec.py` and the PPPoE/PPP codec (`eth_frame`,
+`PPPoEPacket`, tags, `CPPacket`, `ppp_frame`, the session and PADI
+frames) from `control/pppoe/codec.py`. Byte-identical output.
 """
 
 from __future__ import annotations
@@ -19,11 +19,18 @@ from bng_tpu_torch.control.dhcp_codec import (  # noqa: F401 — re-exported
     ACK, DISCOVER, OFFER, OPT_PARAM_REQ_LIST, REQUEST, build_request,
 )
 from bng_tpu_torch.control.dhcp_codec import decode as decode_dhcp  # noqa: F401
+from bng_tpu_torch.control.pppoe.codec import (  # noqa: F401 — re-exported
+    CODE_PADI, CODE_PADO, CODE_PADR, CODE_PADS, CODE_PADT, CODE_SESSION, CP_CONF_ACK,
+    CP_CONF_NAK, CP_CONF_REJ, CP_CONF_REQ, CP_ECHO_REP, CP_ECHO_REQ, CP_TERM_ACK, CP_TERM_REQ,
+    ETH_P_8021AD, ETH_P_8021Q, ETH_PPPOE_DISCOVERY, ETH_PPPOE_SESSION, PROTO_IPCP, PROTO_IPV4,
+    PROTO_IPV6, PROTO_LCP,
+    TAG_AC_NAME, TAG_END_OF_LIST, TAG_HOST_UNIQ, TAG_SERVICE_NAME, CPOption, CPPacket,
+    PPPoEPacket, Tag, eth_frame, ppp_frame, pppoe_padi_frame, pppoe_session_frame,
+    serialize_tags,
+)
 from bng_tpu_torch.utils.net import ipv4_header
 
 ETH_P_IP = 0x0800
-ETH_P_8021Q = 0x8100
-ETH_P_8021AD = 0x88A8
 
 
 def checksum16(data: bytes) -> int:
@@ -39,15 +46,7 @@ def checksum16(data: bytes) -> int:
 
 def eth_header(dst: bytes, src: bytes, ethertype: int, vlans: list[int] | None = None) -> bytes:
     """L2 header; vlans = [outer_vid] (802.1Q) or [outer_vid, inner_vid] (QinQ)."""
-    hdr = dst + src
-    if vlans:
-        if len(vlans) == 2:
-            hdr += struct.pack("!HH", ETH_P_8021AD, vlans[0])
-            hdr += struct.pack("!HH", ETH_P_8021Q, vlans[1])
-        else:
-            hdr += struct.pack("!HH", ETH_P_8021Q, vlans[0])
-    hdr += struct.pack("!H", ethertype)
-    return hdr
+    return eth_frame(dst, src, ethertype, b"", vlans)
 
 
 def udp_packet(src_mac: bytes, dst_mac: bytes, src_ip: int, dst_ip: int, src_port: int,
@@ -68,6 +67,22 @@ def tcp_packet(src_mac: bytes, dst_mac: bytes, src_ip: int, dst_ip: int, src_por
     tcp = tcp[:16] + struct.pack("!H", csum) + tcp[18:]
     ip = ipv4_header(src_ip, dst_ip, len(tcp), 6)
     return eth_header(dst_mac, src_mac, ETH_P_IP, vlans) + ip + tcp
+
+
+def udp6_packet(src_mac: bytes, dst_mac: bytes, src_ip: bytes, dst_ip: bytes, src_port: int,
+                dst_port: int, payload: bytes, hop_limit: int = 64) -> bytes:
+    """Eth + IPv6 + UDP frame (DHCPv6 control traffic). The UDP checksum
+    is mandatory in IPv6 (RFC 8200 §8.1): computed over the v6
+    pseudo-header + UDP header + payload; addresses are 16 bytes."""
+    udp_len = 8 + len(payload)
+    udp_hdr = struct.pack("!HHHH", src_port, dst_port, udp_len, 0)
+    pseudo = src_ip + dst_ip + struct.pack("!IHBB", udp_len, 0, 0, 17)
+    csum = checksum16(pseudo + udp_hdr + payload)
+    if csum == 0:  # all-zero means "no checksum" in UDP: transmit as ffff
+        csum = 0xFFFF
+    udp_hdr = struct.pack("!HHHH", src_port, dst_port, udp_len, csum)
+    ip6 = struct.pack("!IHBB", 0x60000000, udp_len, 17, hop_limit) + src_ip + dst_ip
+    return dst_mac + src_mac + struct.pack("!H", 0x86DD) + ip6 + udp_hdr + payload
 
 
 @dataclass
@@ -166,116 +181,3 @@ def discover_frame(mac: bytes, xid: int, vlans: list[int] | None = None, giaddr:
     p.options.append((OPT_PARAM_REQ_LIST, bytes([1, 3, 6, 51, 54])))
     return udp_packet(mac, b"\xff" * 6, 0, 0xFFFFFFFF, 68, 67,
                       p.encode().ljust(pad, b"\x00"), vlans=vlans)
-
-
-# ---- PPPoE + PPP (RFC 2516, RFC 1661) ----
-
-ETH_PPPOE_DISCOVERY = 0x8863
-ETH_PPPOE_SESSION = 0x8864
-
-CODE_PADI, CODE_PADO, CODE_PADR, CODE_PADS, CODE_PADT = 0x09, 0x07, 0x19, 0x65, 0xA7
-CODE_SESSION = 0x00
-
-TAG_END_OF_LIST = 0x0000
-TAG_SERVICE_NAME = 0x0101
-TAG_AC_NAME = 0x0102
-TAG_HOST_UNIQ = 0x0103
-
-PROTO_IPV4 = 0x0021
-PROTO_IPV6 = 0x0057
-PROTO_IPCP = 0x8021
-PROTO_LCP = 0xC021
-
-CP_CONF_REQ, CP_CONF_ACK, CP_CONF_NAK, CP_CONF_REJ = 1, 2, 3, 4
-CP_TERM_REQ, CP_TERM_ACK = 5, 6
-CP_ECHO_REQ, CP_ECHO_REP = 9, 10
-
-
-@dataclass
-class Tag:
-    type: int
-    value: bytes = b""
-
-
-def serialize_tags(tags: list[Tag]) -> bytes:
-    return b"".join(struct.pack(">HH", t.type, len(t.value)) + t.value for t in tags)
-
-
-@dataclass
-class PPPoEPacket:
-    """One PPPoE frame after the Ethernet header."""
-
-    code: int
-    session_id: int = 0
-    payload: bytes = b""
-    ver_type: int = 0x11
-
-    def encode(self) -> bytes:
-        return struct.pack(">BBHH", self.ver_type, self.code, self.session_id,
-                           len(self.payload)) + self.payload
-
-    @classmethod
-    def decode(cls, data: bytes) -> "PPPoEPacket":
-        if len(data) < 6:
-            raise ValueError("PPPoE header truncated")
-        ver_type, code, sid, length = struct.unpack(">BBHH", data[:6])
-        if ver_type != 0x11:
-            raise ValueError(f"bad PPPoE ver/type {ver_type:#x}")
-        if length > len(data) - 6:
-            raise ValueError("PPPoE length exceeds frame")
-        return cls(code=code, session_id=sid, payload=data[6: 6 + length], ver_type=ver_type)
-
-
-@dataclass
-class CPOption:
-    """One LCP/IPCP option (TLV with a 2-byte header)."""
-
-    type: int
-    data: bytes = b""
-
-    def encode(self) -> bytes:
-        return bytes([self.type, len(self.data) + 2]) + self.data
-
-
-@dataclass
-class CPPacket:
-    """PPP control-protocol packet: CONF_* codes carry options, the others
-    opaque data."""
-
-    code: int
-    identifier: int
-    options: list[CPOption] = field(default_factory=list)
-    data: bytes = b""
-
-    def encode(self) -> bytes:
-        if self.code in (CP_CONF_REQ, CP_CONF_ACK, CP_CONF_NAK, CP_CONF_REJ):
-            body = b"".join(o.encode() for o in self.options)
-        else:
-            body = self.data
-        return struct.pack(">BBH", self.code, self.identifier, len(body) + 4) + body
-
-
-def ppp_frame(proto: int, body: bytes) -> bytes:
-    """PPP payload inside a PPPoE session frame (no HDLC framing on PPPoE)."""
-    return struct.pack(">H", proto) + body
-
-
-def eth_frame(dst: bytes, src: bytes, ethertype: int, payload: bytes,
-              vlans: list[int] | None = None) -> bytes:
-    """L2 frame with optional 802.1Q or QinQ tags (as `eth_header`)."""
-    return eth_header(dst, src, ethertype, vlans) + payload
-
-
-def pppoe_session_frame(dst: bytes, src: bytes, session_id: int, proto: int, body: bytes,
-                        vlans: list[int] | None = None) -> bytes:
-    """A PPPoE session-stage frame carrying one PPP packet."""
-    return eth_frame(dst, src, ETH_PPPOE_SESSION,
-                     PPPoEPacket(code=CODE_SESSION, session_id=session_id,
-                                 payload=ppp_frame(proto, body)).encode(), vlans)
-
-
-def pppoe_padi_frame(src: bytes, host_uniq: bytes = b"", vlans: list[int] | None = None) -> bytes:
-    """A PADI discovery broadcast (Service-Name any, optional Host-Uniq)."""
-    tags = [Tag(TAG_SERVICE_NAME)] + ([Tag(TAG_HOST_UNIQ, host_uniq)] if host_uniq else [])
-    return eth_frame(b"\xff" * 6, src, ETH_PPPOE_DISCOVERY,
-                     PPPoEPacket(code=CODE_PADI, payload=serialize_tags(tags)).encode(), vlans)

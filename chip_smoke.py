@@ -224,11 +224,57 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     `engine_swap()` under the ring (frames in the express lane and in
     the RX ring) passes its audit, and the standby serves the pass.
     Printed: beats/s, frames/s, express and slow counts, K1/K2 per path.
-35. One subprocess `python -m bng_tpu_torch run --once ...` exits 0.
+35. One subprocess `python -m bng_tpu_torch run --once --no-metrics-enabled`
+    (the reference's defaults in every other respect: DHCPv6, SLAAC, the
+    walled garden) exits 0 on the card.
+36. PPPoE subscribers on the card: `BNGApp` with the scheduler, the `run`
+    default geometry (2^12 PPPoE session buckets), PPPoE with local CHAP
+    users, DHCPv6 and SLAAC on. 4,032 sessions (the NAT blocks of 64
+    public addresses; the default NAT subscriber table holds 4,060)
+    negotiate through the ring, 512 at a time: PADI/PADO/PADR/PADS, LCP,
+    CHAP, IPCP, the clients built from the port's PPPoE codec. The first
+    64 sessions give the same TX/FWD bytes and PPPoE counters on the card
+    and on a `device="cpu"` app: their negotiation, one upstream round of
+    data (punted to the host's NAT, then forwarded on the device) and one
+    downstream round. Every session OPEN; after the drains both device
+    session tables hold every row and equal their host mirrors (the
+    audit). Counts 0, then upstream UDP from every session (decapped,
+    SNAT'd, valid checksums) and downstream to each session's address
+    (DNAT'd, encapped with its session id) through the bulk lane: 11 K1
+    (IPoE 8, garden 1, PPPoE 2) and 4 K2 per bulk step, both bit-equal to
+    their plain versions on one step. A PADT from 256 sessions takes their
+    rows off the device and releases their NAT blocks; their next data
+    frame PASSes as an unknown session and is answered with PADT. Printed:
+    sessions opened per second, bulk frames/s with PPPoE data, the device
+    decap/encap counts.
+37. DHCPv6 and SLAAC through the demux: 1,024 SOLICIT/REQUEST exchanges
+    (IA_NA and IA_PD) and 64 router solicitations through the ring (9 K1
+    and 4 K2 per bulk step); every client gets its REPLY and every RS an
+    RA; a tick past the lease reaps every v6 lease and sends the periodic
+    RA. Printed: exchanges per second.
+38. RADIUS, accounting and CoA: an in-process RADIUS peer on 127.0.0.1
+    (from the port's RADIUS codec); 16 PPPoE sessions authenticate through
+    `RadiusVerifier` and 16 DHCP subscribers through the authenticator;
+    an Accounting Start for each; after data through the bulk lane, the
+    interims carry the octets the device's NAT session words hold. A
+    CoA-Request moves one subscriber to lite-25mbps: its burst of 8 bulk
+    steps, none dropped before, drops its excess lanes after by K2's
+    decision (K1 and K2 bit-equal to their plain versions on one such
+    step). A Disconnect-Request ends one PPPoE session and one DHCP lease:
+    both rows leave the device tables (the audit), each with its
+    Accounting Stop. Then, at phase 36's size: PPPoE sessions through
+    `RadiusVerifier` until the 64 NAT addresses' 4,032 blocks are all
+    taken, 512 CoA-Requests by Framed-IP (each subscriber's QoS rows
+    then hold its last policy's rate) and 256 Disconnect-Requests (half
+    by Framed-IP, half by Calling-Station-Id; the rows leave the device
+    tables), each request timed alone: the locators walk every lease and
+    session. Printed: the CoA and Disconnect round trips, p50 and p99
+    over those requests.
 
 The line before the last is the card's name and power limit; the one
-before it the kernels JSON (each kernel's launches by path, `loadtest`
-and `run` among them); the last line the result JSON.
+before it the kernels JSON (each kernel's launches by path, `loadtest`,
+`run`, `pppoe`, `v6` and `radius` among them); the last line the result
+JSON.
 """
 
 from __future__ import annotations
@@ -236,6 +282,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import hashlib
 import io
 import json
 import subprocess
@@ -251,6 +298,9 @@ import torch
 from bng_tpu_torch import convert, kernel_cases, kernels
 from bng_tpu_torch import frames as F
 from bng_tpu_torch.control.dhcp_server import DHCPServer
+from bng_tpu_torch.control.dhcpv6 import protocol as p6
+from bng_tpu_torch.control.pppoe import codec as pppoe_codec
+from bng_tpu_torch.control.radius import packet as rp
 from bng_tpu_torch.control.nat import NATManager
 from bng_tpu_torch.control.pool import Pool, PoolManager
 from bng_tpu_torch.edge.tables import EdgeTables
@@ -2952,8 +3002,7 @@ RUN_SUBS = 8192  # synthetic subscribers of the `run` phase
 RUN_LEASED = 2048
 RUN_CMP_BEATS = 24  # beats driven on the card and on the CPU, TX compared
 RUN_FLOWS = 1024  # flows from leased addresses through the bulk lane
-WORKING_FLAGS = ["--no-dhcpv6-enabled", "--no-slaac-enabled", "--no-metrics-enabled",
-                 "--no-coa-enabled"]
+WORKING_FLAGS = ["--no-metrics-enabled"]  # the reference's defaults, but metrics
 
 
 def gate_phase(card) -> None:
@@ -3229,6 +3278,704 @@ def run_phases(card, device, err) -> dict:
         app.close()
 
 
+# ---------------------------------------- the subscriber protocol servers behind `run`
+
+# PPPoE sessions of phase 36: as many as 64 NAT public addresses give port
+# blocks (63 each); the `run` default NAT subscriber table holds 4,060
+N_PPPOE_RUN = 4032
+PPPOE_NAT_IPS = [f"203.0.113.{k}" for k in range(1, 65)]
+PPPOE_WAVE = 512  # sessions started together (one beat's ingest budget of PADIs)
+PPPOE_PADT = 256  # sessions ended by PADT
+PPPOE_CMP = 64  # sessions negotiated on the card and on the CPU, TX compared
+V6_CLIENTS = 1024  # DHCPv6 SOLICIT/REQUEST exchanges (IA_NA and IA_PD)
+RS_CLIENTS = 64  # router solicitations
+RADIUS_SUBS = 16  # PPPoE sessions, and DHCP subscribers, authenticated by RADIUS
+COA_REQS = 512  # CoA-Requests timed at phase 36's size
+COA_DISC = 256  # Disconnect-Requests timed at phase 36's size
+QOS_STEPS = 8  # bulk steps of one subscriber's flow before, and after, the CoA
+QOS_FRAME = 500  # bytes of each of those frames
+WAN_IP = ip_to_u32("93.184.216.34")
+WAN_MAC = bytes.fromhex("024757000001")
+
+
+def ppp_user(mac: bytes) -> tuple[str, bytes]:
+    return f"sub-{mac.hex()}", b"pw-" + mac[-3:].hex().encode()
+
+
+class PPPoEPeers:
+    """The client side of PPPoE and PPP (discovery, LCP, CHAP, IPCP) for many
+    subscribers at once, built from the port's PPPoE codec: `padi(mac)`
+    starts a subscriber, `react(frame)` answers one frame from the access
+    concentrator; a peer is open once its IPCP Conf-Req is acked."""
+
+    def __init__(self, macs):
+        self.peer = {m: SimpleNamespace(sid=0, ip=0, open=False, asked=False, padt=0)
+                     for m in macs}
+
+    def padi(self, mac: bytes) -> bytes:
+        return F.pppoe_padi_frame(mac, host_uniq=mac[-2:])
+
+    def data(self, mac: bytes, sport: int, payload: bytes) -> bytes:
+        p = self.peer[mac]
+        inner = F.udp_packet(mac, AC_MAC, p.ip, WAN_IP, sport, 53, payload)[14:]
+        return F.pppoe_session_frame(AC_MAC, mac, p.sid, F.PROTO_IPV4, inner)
+
+    def _ppp(self, mac, proto, cp) -> bytes:
+        return F.pppoe_session_frame(AC_MAC, mac, self.peer[mac].sid, proto, cp.encode())
+
+    def react(self, frame: bytes) -> list:
+        if frame[12:14] not in (b"\x88\x63", b"\x88\x64") or frame[:6] not in self.peer:
+            return []
+        mac, p = frame[:6], self.peer[frame[:6]]
+        pkt = pppoe_codec.PPPoEPacket.decode(frame[14:])
+        if frame[12:14] == b"\x88\x63":
+            if pkt.code == F.CODE_PADO:
+                tags = pppoe_codec.parse_tags(pkt.payload)
+                out = [F.Tag(F.TAG_SERVICE_NAME)] + [t for t in tags if t.type in (
+                    pppoe_codec.TAG_AC_COOKIE, F.TAG_HOST_UNIQ)]
+                return [F.eth_frame(AC_MAC, mac, F.ETH_PPPOE_DISCOVERY, pppoe_codec.PPPoEPacket(
+                    F.CODE_PADR, 0, F.serialize_tags(out)).encode())]
+            if pkt.code == F.CODE_PADS and pkt.session_id:
+                p.sid = pkt.session_id
+                return [self._ppp(mac, F.PROTO_LCP, F.CPPacket(F.CP_CONF_REQ, 1, [
+                    F.CPOption(1, (1492).to_bytes(2, "big")),
+                    F.CPOption(5, (0x5EED0000 | mac[-1]).to_bytes(4, "big"))]))]
+            if pkt.code == F.CODE_PADT:
+                p.padt += 1
+            return []
+        proto, body = pppoe_codec.parse_ppp(pkt.payload)
+        if proto == pppoe_codec.PROTO_CHAP:
+            if body[0] != 1:  # Success/Failure: IPCP follows
+                return []
+            ident, vlen = body[1], body[4]
+            user, pw = ppp_user(mac)
+            resp = hashlib.md5(bytes([ident]) + pw + body[5: 5 + vlen]).digest()
+            out = bytes([16]) + resp + user.encode()
+            return [F.pppoe_session_frame(AC_MAC, mac, p.sid, pppoe_codec.PROTO_CHAP,
+                                          bytes([2, ident]) + (4 + len(out)).to_bytes(2, "big")
+                                          + out)]
+        if proto not in (F.PROTO_LCP, F.PROTO_IPCP):
+            return []  # IPV6CP: left unanswered (SLAAC and DHCPv6 give v6 on IPoE)
+        cp = pppoe_codec.CPPacket.decode(body)
+        if proto == F.PROTO_LCP:
+            if cp.code == F.CP_CONF_REQ:
+                return [self._ppp(mac, proto, F.CPPacket(F.CP_CONF_ACK, cp.identifier,
+                                                         cp.options))]
+            if cp.code == F.CP_ECHO_REQ:
+                return [self._ppp(mac, proto, F.CPPacket(F.CP_ECHO_REP, cp.identifier,
+                                                         data=(0x5EED0000 | mac[-1]).to_bytes(
+                                                             4, "big")))]
+            return []
+        out = []
+        if cp.code == F.CP_CONF_REQ:
+            out.append(self._ppp(mac, proto, F.CPPacket(F.CP_CONF_ACK, cp.identifier,
+                                                        cp.options)))
+            if not p.asked:  # our own request: 0.0.0.0, for the server to Nak
+                p.asked = True
+                out.append(self._ppp(mac, proto, F.CPPacket(F.CP_CONF_REQ, 1,
+                                                            [F.CPOption(3, bytes(4))])))
+        elif cp.code == F.CP_CONF_NAK:
+            p.ip = int.from_bytes(next(o.data for o in cp.options if o.type == 3), "big")
+            out.append(self._ppp(mac, proto, F.CPPacket(F.CP_CONF_REQ, 2, [
+                F.CPOption(3, p.ip.to_bytes(4, "big"))])))
+        elif cp.code == F.CP_CONF_ACK:
+            p.open = True
+        return out
+
+
+def seed_pppoe(app, seed: int) -> None:
+    """The PPPoE server's randomness (AC cookie secret, LCP magic, CHAP
+    challenges) from a seed, so two apps answer with the same bytes."""
+    srv, rng = app.components["pppoe"], np.random.default_rng(seed)
+    srv.config.cookie_secret = bytes(rng.integers(0, 256, 16, dtype=np.uint8))
+    srv._magic = lambda: 0xAC000001
+    srv.chap._mkchallenge = lambda: rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+
+
+def protocol_app(device, clock, **kw):
+    """`BNGApp` with the `run` defaults but metrics, the scheduler on, and a
+    Python ring big enough for a wave of negotiations."""
+    from bng_tpu_torch.cli import BNGApp, BNGConfig
+
+    app = BNGApp(BNGConfig(scheduler_enabled=True, metrics_enabled=False, **kw),
+                 clock=clock, device=device)
+    app.components["ring"] = PyRing(nframes=16384, frame_size=2048, depth=4096)
+    return app
+
+
+def serve_frames(app, clock, frames, fa: bool = True) -> list:
+    """Push frames, drive beats until the ring's RX side is empty, retire
+    what is in flight and drive one more beat (the demux's pending frames
+    go out with a beat); returns every TX and FWD frame."""
+    ring, out = app.components["ring"], []
+    for k in range(0, max(len(frames), 1), 2048):
+        for f in frames[k: k + 2048]:
+            check(ring.rx_push(f, from_access=fa), "the ring takes the frames")
+        out += drive_app(app, clock, 2 + len(frames[k: k + 2048]) // 512)
+        out += settle(app) + drive_app(app, clock, 1)
+    while (got := ring.fwd_pop()) is not None:
+        out.append(bytes(got[0]))
+    return out
+
+
+def negotiate(app, clock, peers, macs) -> list:
+    """Every peer from PADI to IPCP through the ring, PPPOE_WAVE at a time;
+    returns the TX frames."""
+    tx = []
+    for k in range(0, len(macs), PPPOE_WAVE):
+        pending, rounds = [peers.padi(m) for m in macs[k: k + PPPOE_WAVE]], 0
+        while pending:
+            out = serve_frames(app, clock, pending)
+            tx += out
+            pending = [r for f in out for r in peers.react(f)]
+            rounds += 1
+            check(rounds < 20, f"PPPoE negotiation settles ({rounds} rounds)")
+    return tx
+
+
+def drain_tables(app, clock) -> int:
+    """Bulk steps of a frame nobody claims until every host table row but
+    the fastpath's (which the express lane's dispatches ship) has reached
+    the device; returns the steps."""
+    eng, n = app.components["engine"], 0
+    junk = WAN_MAC + AC_MAC + b"\x88\xb5" + bytes(46)
+    while eng.pending_dirty() > eng.fastpath.dirty_count():
+        serve_frames(app, clock, [junk], fa=False)
+        n += 1
+        check(n < 200, f"the table drains finish ({eng.pending_dirty()} rows left)")
+    return n
+
+
+def launches_of(sched, obs0, launches, what: str, k1_bulk: int) -> tuple:
+    n_ex = sched.observed["express"]["dispatches"] - obs0["express"]["dispatches"]
+    n_bulk = sched.observed["bulk"]["dispatches"] - obs0["bulk"]["dispatches"]
+    check(n_bulk > 0 and launches["probe"] == 3 * n_ex + k1_bulk * n_bulk
+          and launches["seg_prefix"] == 4 * n_bulk,
+          f"{what}: 3 K1 per express dispatch, {k1_bulk} K1 + 4 K2 per bulk step "
+          f"({launches}, {n_ex} express, {n_bulk} bulk)")
+    return n_ex, n_bulk
+
+
+def observed(sched) -> dict:
+    return {k: dict(v) for k, v in sched.observed.items()}
+
+
+def bulk_step_vs_plain(eng, frames, clk, n_probe: int, what: str, err) -> None:
+    """K1 and K2 bit-equal to their plain versions on every call of one bulk
+    step of `frames`."""
+    pkt, length = eng._pack_frames(frames[:eng.B], eng.B)
+    rec = record_kernel_inputs(lambda: eng.step(pkt, length, np.ones((eng.B,), dtype=bool),
+                                                clk.t), n_probe, 4, what, table_names(eng.tables))
+    probes_vs_plain([(what, a) for a in rec["probe"]], err)
+    segs_vs_plain([(what, *a) for a in rec["seg_prefix"]], err)
+
+
+def pppoe_first_beats(dev, cfg) -> dict:
+    """The first PPPOE_CMP sessions negotiated, then one upstream round of
+    their data punted to the host's NAT, the same round forwarded on the
+    device, and one downstream round; the TX/FWD bytes of each part and the
+    engine's PPPoE counters."""
+    clk = BeatClock(float(NOW))
+    app = protocol_app(dev, clk, **cfg)
+    try:
+        seed_pppoe(app, 36)
+        macs = [session_mac(k) for k in range(PPPOE_CMP)]
+        peers = PPPoEPeers(macs)
+        run = {"negotiation": negotiate(app, clk, peers, macs)}
+        drain_tables(app, clk)
+        up = [peers.data(m, 40000, b"u" * 64) for m in macs]
+        run["upstream punted"] = serve_frames(app, clk, up)
+        drain_tables(app, clk)
+        run["upstream"] = serve_frames(app, clk, up)
+        snat = [F.decode(f) for f in run["upstream"] if f[12:14] == b"\x08\x00"]
+        run["downstream"] = serve_frames(app, clk, [
+            F.udp_packet(WAN_MAC, AC_MAC, WAN_IP, d.src_ip, 53, d.src_port, b"d" * 64)
+            for d in snat], fa=False)
+        enc = [f for f in run["downstream"] if f[12:14] == b"\x88\x64"]
+        check(len(snat) == len(enc) == PPPOE_CMP,
+              f"pppoe ({dev}): every session's data decapped and SNAT'd, and encapped on the "
+              f"way back ({len(snat)} up, {len(enc)} down)")
+        run["stats"] = app.components["engine"].stats.pppoe.copy()
+        return run
+    finally:
+        app.close()
+
+
+def pppoe_phases(card, device, err) -> dict:
+    """Phase 36: PPPoE subscribers on the card; returns {"pppoe": launches}."""
+    from bng_tpu_torch.chaos.invariants import audit_app
+
+    cfg = dict(pppoe_enabled=True, nat_public_ips=PPPOE_NAT_IPS,
+               pppoe_users=[dict(zip(("username", "password"),
+                                     (u, p.decode()))) for u, p in
+                            (ppp_user(session_mac(k)) for k in range(N_PPPOE_RUN))])
+    # the first sessions on the card and on the CPU: the same TX bytes
+    card_run, cpu_run = (pppoe_first_beats(dev, cfg) for dev in (device, "cpu"))
+    for part in ("negotiation", "upstream punted", "upstream", "downstream"):
+        check(card_run[part] == cpu_run[part],
+              f"pppoe: the card's TX/FWD bytes of the {PPPOE_CMP} sessions' {part} == the CPU "
+              f"app's ({len(card_run[part])} vs {len(cpu_run[part])} frames)")
+    check(np.array_equal(card_run["stats"], cpu_run["stats"]),
+          f"pppoe: the card's PPPoE counters == the CPU app's ({card_run['stats'].tolist()} vs "
+          f"{cpu_run['stats'].tolist()})")
+    say(f"pppoe: {PPPOE_CMP} sessions negotiated, then one round of data up (punted, then "
+        f"forwarded) and down: TX/FWD bytes and PPPoE counters {card_run['stats'].tolist()} "
+        f"equal the CPU app's [{card}]")
+
+    clk = BeatClock(float(NOW))
+    app = protocol_app(device, clk, **cfg)
+    try:
+        c = app.components
+        seed_pppoe(app, 36)
+        sched, eng, srv, nat, ring = c["scheduler"], c["engine"], c["pppoe"], c["nat"], c["ring"]
+        check(eng.fastpath.sub.nbuckets == 1 << 15 and eng.pppoe.by_sid.nbuckets == 1 << 12,
+              "the run default geometry: 2^15 subscriber and 2^12 PPPoE session buckets")
+        macs = [session_mac(k) for k in range(N_PPPOE_RUN)]
+        peers = PPPoEPeers(macs)
+        t0 = time.perf_counter()
+        negotiate(app, clk, peers, macs)
+        t_open = time.perf_counter() - t0
+        check(all(p.open for p in peers.peer.values()) and len(srv.sessions) == N_PPPOE_RUN
+              and srv.stats.sessions_opened == N_PPPOE_RUN and srv.stats.auth_failure == 0,
+              f"every PPPoE session OPEN ({len(srv.sessions)}, {srv.stats})")
+        drains = drain_tables(app, clk)
+        rep = audit_app(app)
+        check(rep.ok and rep.checks.get("pppoe_sessions") == N_PPPOE_RUN
+              and eng.pppoe.by_sid.count == eng.pppoe.by_ip.count == N_PPPOE_RUN,
+              f"pppoe: both device session tables hold {N_PPPOE_RUN} rows, equal to their "
+              f"host mirrors ({rep.violations_by_kind()}, {eng.pppoe.by_sid.count})")
+        say(f"pppoe: {N_PPPOE_RUN} sessions PADI -> IPCP OPEN through the ring in {t_open:.3f}s "
+            f"({N_PPPOE_RUN / t_open:.1f} sessions/s), {drains} drain steps, audit ok [{card}]")
+
+        # upstream data from every session (the first punts its NAT session,
+        # the second forwards), then downstream to each session's address
+        up = [peers.data(m, 40000, b"u" * 64) for m in macs]
+        obs0, dev0 = observed(sched), eng.stats.pppoe.copy()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        serve_frames(app, clk, up)
+        drain_tables(app, clk)
+        out = serve_frames(app, clk, up)
+        snat = {}
+        for f in out:
+            if f[12:14] == b"\x08\x00":
+                d = F.decode(f)
+                snat[(d.src_ip, d.src_port)] = f
+        by_pub = {}
+        for ip_port, f in snat.items():
+            check(F.decode(f).ip_checksum_ok and F.l4_checksum_ok(f),
+                  "pppoe: upstream frames leave with valid checksums")
+            by_pub[ip_port] = f
+        check(len(snat) == N_PPPOE_RUN and all(
+            ip in nat._next_block for ip, _ in snat),
+            f"pppoe: every session's upstream frame decapped and SNAT'd ({len(snat)})")
+        ip_sid = {p.ip: p.sid for p in peers.peer.values()}
+        down = [F.udp_packet(WAN_MAC, AC_MAC, WAN_IP, ip, 53, port, b"d" * 64)
+                for ip, port in snat]
+        out = serve_frames(app, clk, down, fa=False)
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        enc = [f for f in out if f[12:14] == b"\x88\x64" and f[20:22] == b"\x00\x21"]
+        ok = 0
+        for f in enc:
+            inner = F.decode(f[:12] + b"\x08\x00" + f[22:])
+            ok += ip_sid.get(inner.dst_ip) == int.from_bytes(f[16:18], "big") \
+                and inner.dst_port == 40000 and inner.ip_checksum_ok
+        check(ok == N_PPPOE_RUN, f"pppoe: every downstream frame DNAT'd and encapped with its "
+              f"session id ({ok} of {N_PPPOE_RUN})")
+        n_ex, n_bulk = launches_of(sched, obs0, launches, "pppoe", 11)
+        dev_st = eng.stats.pppoe - dev0
+        say(f"pppoe data: {3 * N_PPPOE_RUN} frames through the bulk lane in {dt:.3f}s "
+            f"({3 * N_PPPOE_RUN / dt:.1f} frames/s with the host), device decap "
+            f"{int(dev_st[0])}, encap {int(dev_st[1])}, ctrl punts {int(dev_st[2])}, misses "
+            f"{int(dev_st[4])}; {n_bulk} bulk steps ({11 * n_bulk} K1, {4 * n_bulk} K2), "
+            f"{n_ex} express [{card}]")
+        bulk_step_vs_plain(eng, up[:eng.B // 2] + down[:eng.B // 2], clk, 11, "pppoe bulk", err)
+
+        # a PADT wave: the rows leave the device, the blocks go back
+        gone = macs[:PPPOE_PADT]
+        gone_ips = [peers.peer[m].ip for m in gone]
+        serve_frames(app, clk, [F.eth_frame(AC_MAC, m, F.ETH_PPPOE_DISCOVERY,
+                                            pppoe_codec.PPPoEPacket(
+                                                F.CODE_PADT, peers.peer[m].sid).encode())
+                                for m in gone])
+        drain_tables(app, clk)
+        rep = audit_app(app)
+        left = N_PPPOE_RUN - PPPOE_PADT
+        check(rep.ok and len(srv.sessions) == left and eng.pppoe.by_sid.count == left
+              and not any(ip in nat.blocks for ip in gone_ips),
+              f"pppoe: {PPPOE_PADT} PADTs took their rows off the device and released "
+              f"their NAT blocks ({len(srv.sessions)}, {eng.pppoe.by_sid.count})")
+        miss0 = eng.stats.pppoe.copy()
+        out = serve_frames(app, clk, [peers.data(m, 40000, b"u" * 64) for m in gone])
+        check(eng.stats.pppoe[4] - miss0[4] == PPPOE_PADT and sum(
+            f[12:14] == b"\x88\x63" and f[15] == F.CODE_PADT for f in out) == PPPOE_PADT,
+            f"pppoe: the ended sessions' data PASSes as an unknown session (device misses "
+            f"{int(eng.stats.pppoe[4] - miss0[4])}), answered by PADT")
+        st = app.stats()["pppoe"]
+        say(f"pppoe: PADT wave of {PPPOE_PADT}: rows off both device tables, NAT blocks "
+            f"released, their data PASSed and answered with PADT; stats {json.dumps(st)} [{card}]")
+        return {"pppoe": launches}
+    finally:
+        app.close()
+
+
+def v6_phases(card, device, err) -> dict:
+    """Phase 37: DHCPv6 and SLAAC through the demux; returns {"v6": launches}."""
+    clk = BeatClock(float(NOW))
+    app = protocol_app(device, clk)
+    try:
+        c = app.components
+        sched, v6 = c["scheduler"], c["dhcpv6"]
+        macs = [client_mac(0x600000 + k) for k in range(V6_CLIENTS)]
+        duid = {m: p6.generate_duid_ll(m).encode() for m in macs}
+
+        def frame(m, msg):
+            ll = bytes.fromhex("fe80000000000000") + m[:3] + b"\xff\xfe" + m[3:]
+            return F.udp6_packet(m, bytes.fromhex("333300010002"), ll,
+                                 bytes.fromhex("ff020000000000000000000000010002"), 546, 547,
+                                 msg.encode())
+
+        def msg(m, mtype, xid, server=None):
+            d = p6.DHCPv6Message(mtype, xid)
+            d.add(p6.OPT_CLIENTID, duid[m])
+            if server is not None:
+                d.add(p6.OPT_SERVERID, server)
+            d.add_ia_na(p6.IANA(1))
+            d.add_ia_pd(p6.IAPD(1))
+            return d
+
+        def replies(out, mtype):
+            got = {}
+            for f in out:
+                if f[12:14] == b"\x86\xdd" and f[20] == 17 and f[56:58] == b"\x02\x22":
+                    r = p6.DHCPv6Message.decode(f[62:])
+                    if r.msg_type == mtype:
+                        got[f[:6]] = r
+            return got
+
+        obs0 = observed(sched)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        adv = replies(serve_frames(app, clk, [frame(m, msg(m, p6.SOLICIT, k))
+                                              for k, m in enumerate(macs)]), p6.ADVERTISE)
+        check(len(adv) == V6_CLIENTS, f"v6: every SOLICIT ADVERTISEd ({len(adv)})")
+        rep = replies(serve_frames(app, clk, [frame(m, msg(m, p6.REQUEST, 0x10000 + k,
+                                                            adv[m].server_duid))
+                                              for k, m in enumerate(macs)]), p6.REPLY)
+        dt = time.perf_counter() - t0
+        # `run` builds the DHCPv6 server with an address pool and no prefix
+        # pool (as the reference does): IA_PD is answered NoPrefixAvail
+        check(len(rep) == V6_CLIENTS and all(
+            r.ia_nas()[0].addresses and r.ia_pds()[0].status[0] == p6.STATUS_NO_PREFIX_AVAIL
+            for r in rep.values()) and len(v6.leases) == V6_CLIENTS,
+            f"v6: every REQUEST got its REPLY with an address, and IA_PD its status "
+            f"({len(rep)}, {len(v6.leases)} leases)")
+        rs = []
+        for k in range(RS_CLIENTS):
+            m = client_mac(0x700000 + k)
+            ll = bytes.fromhex("fe80000000000000") + m[:3] + b"\xff\xfe" + m[3:]
+            icmp = bytes([133, 0, 0, 0, 0, 0, 0, 0])
+            rs.append(bytes.fromhex("333300000002") + m + b"\x86\xdd" + bytes([0x60, 0, 0, 0])
+                      + len(icmp).to_bytes(2, "big") + bytes([58, 255]) + ll
+                      + bytes.fromhex("ff020000000000000000000000000002") + icmp)
+        ra = [f for f in serve_frames(app, clk, rs) if f[12:14] == b"\x86\xdd" and f[20] == 58
+              and f[54] == 134]
+        launches = dict(kernels.LAUNCHES)
+        check(len(ra) == RS_CLIENTS and len({f[:6] for f in ra}) == RS_CLIENTS,
+              f"v6: every RS answered with a unicast RA ({len(ra)})")
+        launches_of(sched, obs0, launches, "v6", 9)
+        say(f"v6: {V6_CLIENTS} SOLICIT/REQUEST exchanges (IA_NA + IA_PD) in {dt:.3f}s "
+            f"({V6_CLIENTS / dt:.1f} exchanges/s through the ring and the demux), "
+            f"{RS_CLIENTS} RS -> RA; launches {launches} [{card}]")
+        # past the valid lifetime: the sweep reaps the v6 leases, SLAAC's periodic RA goes out
+        clk.t += 2 * app.config.lease_time + 61
+        app.tick(clk.t)
+        out = pop_tx(c["ring"])
+        check(len(v6.leases) == 0 and not v6.addr_pool._allocated
+              and any(f[:6] == bytes.fromhex("333300000001") and f[54] == 134 for f in out),
+              f"v6: tick past the lease reaps every lease ({len(v6.leases)}) and sends the "
+              f"periodic RA")
+        say(f"v6: tick at +{2 * app.config.lease_time + 61}s reaped {V6_CLIENTS} leases, "
+            f"periodic RA out; demux {c['slowpath'].stats} [{card}]")
+        return {"v6": launches}
+    finally:
+        app.close()
+
+
+class RadiusPeer:
+    """An in-process RADIUS server on 127.0.0.1 (auth and accounting sockets)
+    from the port's RADIUS codec: PAP and CHAP against `users`, every
+    Accounting-Request kept and answered."""
+
+    def __init__(self, secret: bytes, users: dict):
+        import socket
+        import threading
+
+        self.secret, self.users, self.acct = secret, users, []
+        self.socks = []
+        for _ in range(2):
+            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            s.bind(("127.0.0.1", 0))
+            s.settimeout(0.2)
+            self.socks.append(s)
+        self.auth_port, self.acct_port = (s.getsockname()[1] for s in self.socks)
+        self._run = True
+        self._threads = [threading.Thread(target=self._loop, args=(s,), daemon=True)
+                         for s in self.socks]
+        for t in self._threads:
+            t.start()
+
+    def _answer(self, req):
+        if req.code == rp.ACCOUNTING_REQUEST:
+            self.acct.append(req)
+            return rp.RadiusPacket(rp.ACCOUNTING_RESPONSE, req.id)
+        entry = self.users.get(req.get_str(rp.USER_NAME) or "")
+        chap = req.get(rp.CHAP_PASSWORD)
+        if chap is not None:
+            ok = entry is not None and chap[1:] == hashlib.md5(
+                chap[:1] + entry["password"] + (req.get(rp.CHAP_CHALLENGE) or b"")).digest()
+        else:  # an empty password travels as an empty attribute
+            pw = req.get(rp.USER_PASSWORD)
+            ok = entry is not None and (rp.decrypt_password(pw, self.secret, req.authenticator)
+                                        if pw else b"") == entry["password"]
+        resp = rp.RadiusPacket(rp.ACCESS_ACCEPT if ok else rp.ACCESS_REJECT, req.id)
+        if ok:
+            resp.add(rp.FILTER_ID, entry["policy"])
+        return resp
+
+    def _loop(self, s):
+        while self._run:
+            try:
+                data, addr = s.recvfrom(4096)
+            except OSError:
+                continue
+            req = rp.RadiusPacket.decode(data)
+            s.sendto(self._answer(req).encode(self.secret, request_auth=req.authenticator),
+                     addr)
+
+    def close(self):
+        self._run = False
+        for t in self._threads:
+            t.join(timeout=2)
+        for s in self.socks:
+            s.close()
+
+
+def coa_send(app, pkt, secret: bytes) -> tuple:
+    import socket
+
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.settimeout(5.0)
+        t0 = time.perf_counter()
+        s.sendto(pkt.encode(secret), ("127.0.0.1", app.components["coa"].addr[1]))
+        data = s.recvfrom(4096)[0]
+        return rp.RadiusPacket.decode(data), (time.perf_counter() - t0) * 1e3
+    finally:
+        s.close()
+
+
+def pcts(ms: list) -> str:
+    p50, p99 = np.percentile(ms, [50, 99])
+    return f"p50 {p50:.3f} / p99 {p99:.3f} / max {max(ms):.3f} ms"
+
+
+def coa_at_scale(app, clk, peer, secret: bytes, card, n_subs: int = N_PPPOE_RUN) -> None:
+    """Phase 38 at phase 36's size: PPPoE sessions authenticated through
+    RADIUS until `n_subs` subscribers hold a NAT block, then COA_REQS
+    CoA-Requests by Framed-IP and COA_DISC Disconnect-Requests (half by
+    Framed-IP, half by Calling-Station-Id), each request timed alone."""
+    from bng_tpu_torch.chaos.invariants import audit_app
+
+    c = app.components
+    eng, srv, dhcp, nat = c["engine"], c["pppoe"], c["dhcp"], c["nat"]
+    macs = [session_mac(0x9000 + k) for k in range(n_subs - len(nat.blocks))]
+    for m in macs:
+        peer.users[ppp_user(m)[0]] = {"password": ppp_user(m)[1],
+                                      "policy": "residential-100mbps"}
+    peers = PPPoEPeers(macs)
+    t0 = time.perf_counter()
+    negotiate(app, clk, peers, macs)
+    t_open = time.perf_counter() - t0
+    drain_tables(app, clk)
+    n_ppp, n_dhcp = len(srv.sessions), len(nat.blocks) - len(srv.sessions)
+    check(all(p.open for p in peers.peer.values()) and len(nat.blocks) == n_subs,
+          f"coa: {len(macs)} more PPPoE sessions OPEN through RadiusVerifier, {n_subs} "
+          f"subscribers with a NAT block ({len(nat.blocks)})")
+
+    rng = np.random.default_rng(38)
+    ips = sorted(nat.blocks)
+    policies = ("lite-25mbps", "residential-100mbps")
+    last, coa_ms = {}, []
+    for k, i in enumerate(rng.integers(0, len(ips), COA_REQS)):
+        req = rp.RadiusPacket(rp.COA_REQUEST, k & 0xFF)
+        req.add(rp.FRAMED_IP_ADDRESS, ips[i])
+        req.add(rp.FILTER_ID, policies[k & 1])
+        resp, ms = coa_send(app, req, secret)
+        check(resp.code == rp.COA_ACK, f"coa: CoA-Request {k} ACKed ({resp.code})")
+        last[ips[i]] = policies[k & 1]
+        coa_ms.append(ms)
+    rates = {ip: c["qos"].up.lookup(ip)["rate_bps"] for ip in last}
+    check(all(rates[ip] == c["policies"].get(p).upload_bps for ip, p in last.items()),
+          f"coa: each of {len(last)} subscribers' QoS rows hold its last CoA's rate")
+
+    gone = [macs[i] for i in rng.choice(len(macs), COA_DISC, replace=False)]
+    disc_ms, stops0 = [], len(peer.acct)
+    for k, m in enumerate(gone):
+        req = rp.RadiusPacket(rp.DISCONNECT_REQUEST, k & 0xFF)
+        if k & 1:
+            req.add(rp.CALLING_STATION_ID, "-".join(f"{b:02X}" for b in m))
+        else:
+            req.add(rp.FRAMED_IP_ADDRESS, peers.peer[m].ip)
+        resp, ms = coa_send(app, req, secret)
+        check(resp.code == rp.DISCONNECT_ACK, f"coa: Disconnect-Request {k} ACKed "
+              f"({resp.code})")
+        disc_ms.append(ms)
+    out = serve_frames(app, clk, [])
+    drain_tables(app, clk)
+    rep = audit_app(app)
+    padts = sum(f[12:14] == b"\x88\x63" and f[15] == F.CODE_PADT for f in out)
+    stops = sum(r.get_int(rp.ACCT_STATUS_TYPE) == rp.ACCT_STOP for r in peer.acct[stops0:])
+    check(rep.ok and padts == stops == COA_DISC and len(srv.sessions) == n_ppp - COA_DISC
+          and eng.pppoe.by_sid.count == eng.pppoe.by_ip.count == n_ppp - COA_DISC,
+          f"coa: {COA_DISC} Disconnects took their sessions off both device tables, each with "
+          f"its PADT and Accounting Stop ({padts} PADTs, {stops} stops, "
+          f"{eng.pppoe.by_sid.count} rows, {rep.violations_by_kind()})")
+    say(f"coa at {n_subs} NAT blocks ({n_ppp} PPPoE sessions, {n_dhcp} DHCP subscribers'; "
+        f"{len(macs)} sessions opened through RADIUS in {t_open:.3f}s, "
+        f"{len(macs) / t_open:.1f}/s): {COA_REQS} CoA-Requests round trip {pcts(coa_ms)}; "
+        f"{COA_DISC} Disconnect-Requests {pcts(disc_ms)}; coa stats {app.stats()['coa']} "
+        f"[{card}]")
+
+
+def radius_phases(card, device, err) -> dict:
+    """Phase 38: RADIUS auth, accounting and CoA; returns {"radius": launches}."""
+    secret = b"smoke-secret"
+    ppp_macs = [session_mac(0x8000 + k) for k in range(RADIUS_SUBS)]
+    dhcp_macs = [client_mac(0x800000 + k) for k in range(RADIUS_SUBS)]
+    users = {ppp_user(m)[0]: {"password": ppp_user(m)[1], "policy": "residential-100mbps"}
+             for m in ppp_macs}
+    users[""] = {"password": b"", "policy": "residential-100mbps"}  # DHCP MAC authentication
+    peer = RadiusPeer(secret, users)
+    clk = BeatClock(float(NOW))
+    app = None
+    try:
+        app = protocol_app(device, clk, pppoe_enabled=True, acct_interim_interval=60,
+                           radius_server=f"127.0.0.1:{peer.auth_port}",
+                           radius_secret=secret.decode(), coa_listen="127.0.0.1:0",
+                           nat_public_ips=PPPOE_NAT_IPS)
+        c = app.components
+        # the flag names the auth port; accounting goes to the peer's second socket
+        c["radius"].servers[0].acct_port = peer.acct_port
+        c["radius"].clock = clk
+        seed_pppoe(app, 38)
+        sched, eng, ring, dhcp = c["scheduler"], c["engine"], c["ring"], c["dhcp"]
+        obs0 = observed(sched)
+        kernels.reset_launches()
+        peers = PPPoEPeers(ppp_macs)
+        negotiate(app, clk, peers, ppp_macs)
+        check(all(p.open for p in peers.peer.values()),
+              "radius: every PPPoE session authenticated through RadiusVerifier and OPEN")
+        offers = {m: ip for t, m, ip in dhcp_replies(serve_frames(app, clk, [
+            F.discover_frame(m, 0x9000 + k, pad=320) for k, m in enumerate(dhcp_macs)]))
+            if t == F.OFFER}
+        acks = {m: ip for t, m, ip in dhcp_replies(serve_frames(app, clk, [
+            storm_request(m, 0x9100 + k, offers[m]) for k, m in enumerate(dhcp_macs)]))
+            if t == F.ACK}
+        check(len(acks) == RADIUS_SUBS and c["radius"].stats["auth_ok"] == 2 * RADIUS_SUBS,
+              f"radius: {RADIUS_SUBS} PPPoE and {RADIUS_SUBS} DHCP subscribers accepted "
+              f"({len(acks)} ACKs, {c['radius'].stats})")
+        starts = [r for r in peer.acct if r.get_int(rp.ACCT_STATUS_TYPE) == rp.ACCT_START]
+        check(len(starts) == 2 * RADIUS_SUBS, f"radius: an Accounting Start for each "
+              f"({len(starts)})")
+
+        # data through the bulk lane, then an interim with the device's octets
+        data = [peers.data(m, 41000, b"a" * 200) for m in ppp_macs] + [
+            F.udp_packet(m, AC_MAC, ip, WAN_IP, 41000, 53, b"a" * 200)
+            for m, ip in acks.items()]
+        for _ in range(3):
+            serve_frames(app, clk, data)
+            drain_tables(app, clk)
+        clk.t += 61
+        app.tick(clk.t)
+        octets = eng.nat.subscriber_octets(eng.fetch_session_vals())
+        interims = {r.get_int(rp.FRAMED_IP_ADDRESS): r for r in peer.acct
+                    if r.get_int(rp.ACCT_STATUS_TYPE) == rp.ACCT_INTERIM}
+        sub_ips = [p.ip for p in peers.peer.values()] + list(acks.values())
+        # (upstream bytes are the subscriber's output octets)
+        good = sum(interims.get(ip) is not None and octets.get(ip, (0, 0))[1] > 0
+                   and interims[ip].get_int(rp.ACCT_OUTPUT_OCTETS) == octets[ip][1] & 0xFFFFFFFF
+                   and (interims[ip].get_int(rp.ACCT_INPUT_OCTETS) or 0) == octets[ip][0]
+                   for ip in sub_ips)
+        check(good == 2 * RADIUS_SUBS, f"radius: every interim carries the octets the device's "
+              f"NAT session words hold ({good} of {2 * RADIUS_SUBS})")
+        launches = dict(kernels.LAUNCHES)
+        launches_of(sched, obs0, launches, "radius", 11)
+
+        # CoA: one DHCP subscriber to a lower rate; K2's decision drops its excess
+        m0, ip0 = next(iter(acks.items()))
+        burst = [F.udp_packet(m0, AC_MAC, ip0, WAN_IP, 41000, 53, b"b" * (QOS_FRAME - 42))
+                 for _ in range(eng.B)]
+
+        def burst_dropped():
+            d0 = eng.stats.dropped
+            for _ in range(QOS_STEPS):
+                serve_frames(app, clk, burst)
+            return eng.stats.dropped - d0
+
+        before = burst_dropped()
+        coa = rp.RadiusPacket(rp.COA_REQUEST, 1)
+        coa.add(rp.FRAMED_IP_ADDRESS, ip0)
+        coa.add(rp.FILTER_ID, "lite-25mbps")
+        resp, coa_ms = coa_send(app, coa, secret)
+        lite = c["policies"].get("lite-25mbps")
+        row = c["qos"].up.lookup(ip0)
+        after = burst_dropped()
+        check(resp.code == rp.COA_ACK and row["rate_bps"] == lite.upload_bps
+              and before == 0 and after > 0,
+              f"radius: the CoA-Request moved {F.decode(burst[0]).src_ip:#x} to lite-25mbps "
+              f"and its excess lanes drop ({resp.code}, dropped {before} then {after})")
+        bulk_step_vs_plain(eng, burst, clk, 11, "radius bulk", err)
+
+        # Disconnect: one PPPoE session and one DHCP lease leave the device tables
+        p1, m1 = peers.peer[ppp_macs[0]], next(iter(list(acks)[1:]))
+        d1 = rp.RadiusPacket(rp.DISCONNECT_REQUEST, 2)
+        d1.add(rp.FRAMED_IP_ADDRESS, p1.ip)
+        d2 = rp.RadiusPacket(rp.DISCONNECT_REQUEST, 3)
+        d2.add(rp.CALLING_STATION_ID, "-".join(f"{b:02X}" for b in m1))
+        r1, disc_ms = coa_send(app, d1, secret)
+        r2, _ = coa_send(app, d2, secret)
+        out = serve_frames(app, clk, [])
+        drain_tables(app, clk)
+        # the lease's DISCOVER: its express dispatch ships the row's deletion
+        # first, so the device no longer answers it and the slow path OFFERs
+        tx0 = eng.stats.tx
+        again = dhcp_replies(serve_frames(app, clk, [F.discover_frame(m1, 0x9200, pad=320)]))
+        from bng_tpu_torch.chaos.invariants import audit_app
+
+        rep = audit_app(app)
+        check(r1.code == r2.code == rp.DISCONNECT_ACK and rep.ok
+              and eng.pppoe.by_sid.lookup([p1.sid]) is None and eng.pppoe.by_ip.lookup([p1.ip])
+              is None and eng.fastpath.get_subscriber(m1) is None and eng.stats.tx == tx0
+              and [t for t, _, _ in again] == [F.OFFER]
+              and any(f[12:14] == b"\x88\x63" and f[15] == F.CODE_PADT for f in out),
+              f"radius: Disconnect ended the PPPoE session (PADT out) and the DHCP lease; "
+              f"both rows off the device ({r1.code}, {r2.code}, {eng.stats.tx - tx0} device "
+              f"answers, {again}, {rep.violations_by_kind()})")
+        stops = [r for r in peer.acct if r.get_int(rp.ACCT_STATUS_TYPE) == rp.ACCT_STOP]
+        check(len(stops) == 2, f"radius: an Accounting Stop for each ({len(stops)})")
+        say(f"radius: {2 * RADIUS_SUBS} subscribers authenticated, {len(starts)} starts, "
+            f"{len(interims)} interims with the device's octets, one CoA round trip "
+            f"{coa_ms:.3f} ms and one Disconnect {disc_ms:.3f} ms at {2 * RADIUS_SUBS} "
+            f"subscribers, dropped {before} then {after} of {QOS_STEPS * eng.B} lanes [{card}]")
+        coa_at_scale(app, clk, peer, secret, card)
+        return {"radius": launches}
+    finally:
+        if app is not None:
+            app.close()
+        peer.close()
+
 def module_entry_phase(card) -> None:
     """`python -m bng_tpu_torch run --once` in a subprocess."""
     t0 = time.perf_counter()
@@ -3303,6 +4050,9 @@ def main(argv=None) -> int:
     launches.update(loadtest_phases(card, err))
     launches.update(run_phases(card, device, err))
     module_entry_phase(card)
+    launches.update(pppoe_phases(card, device, err))
+    launches.update(v6_phases(card, device, err))
+    launches.update(radius_phases(card, device, err))
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

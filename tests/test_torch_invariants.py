@@ -20,8 +20,12 @@ on each injected fault:
 - with a tracer armed, each audit that finds a violation asks its
   recorder for one dump, as in the reference; a clean one does not.
 
-Components the port does not have (fleet, DHCPv6, HA pair, cluster of
-BNGs) audit nothing when None and are refused otherwise.
+- the DHCPv6 clause over a served v6 book: clean, then a binding
+  dropped from its pool, an allocation with no binding, an address both
+  free and allocated, and one address bound to two clients.
+
+Components the port does not have (fleet, HA pair, cluster of BNGs)
+audit nothing when None and are refused otherwise.
 
 Tolerance: exact (the same report dicts).
 """
@@ -174,9 +178,47 @@ def test_nat_session_audit_matches_reference(case, kinds):
     assert got[1]["violations_by_kind"] == kinds and got[1]["checks"]["nat_sessions"] == 3
 
 
-@pytest.mark.parametrize("name", ["fleet", "dhcpv6", "ha_pair", "bng_cluster"])
+@pytest.mark.parametrize("name", ["fleet", "ha_pair", "bng_cluster"])
 def test_absent_components_audit_nothing_and_refuse_a_value(name):
     rep = t_inv.audit_invariants(**{name: None})
     assert rep.ok and rep.to_dict() == j_inv.audit_invariants(**{name: None}).to_dict()
     with pytest.raises(ValueError, match=name):
         t_inv.audit_invariants(**{name: object()})
+
+
+def _v6_book(case):
+    """Both packages' DHCPv6 servers, six clients served the same, then the
+    case's fault injected into each alike."""
+    from test_torch_v6 import PKGS as V6_PKGS, _msg, _other_duid, _v6_server
+
+    from bng_tpu.control.dhcpv6 import protocol as p6
+
+    out = []
+    for pk in V6_PKGS:
+        srv = _v6_server(pk, lambda: 1_753_000_000.0)
+        for i in range(6):
+            srv.handle_message(_msg(p6.SOLICIT, i, duid=_other_duid(i), server=False, na=[1],
+                                    pd=[1] if i % 2 else [], rapid=True))
+        keys = sorted(srv.leases)
+        if case == "lease_not_allocated":
+            srv.addr_pool._allocated.pop(srv.leases[keys[0]].address)
+        elif case == "alloc_orphan":
+            srv.addr_pool.allocate()
+        elif case == "free_allocated_overlap":
+            srv.addr_pool._free.append(next(iter(srv.addr_pool._allocated.values())))
+        elif case == "double_lease":
+            na = [k for k in keys if not k[2]]
+            srv.leases[na[1]].address = srv.leases[na[0]].address
+        out.append(srv)
+    return out
+
+
+@pytest.mark.parametrize("case", ["clean", "lease_not_allocated", "alloc_orphan",
+                                  "free_allocated_overlap", "double_lease"])
+def test_dhcpv6_clause_matches_reference(case):
+    j_srv, t_srv = _v6_book(case)
+    ref = j_inv.audit_invariants(dhcpv6=j_srv).to_dict()
+    got = t_inv.audit_invariants(dhcpv6=t_srv).to_dict()
+    assert got == ref
+    assert got["checks"]["v6_leases_na"] >= 5 and got["checks"]["v6_leases_pd"] == 3
+    assert got["ok"] == (case == "clean")
