@@ -23,8 +23,8 @@ Findings come back as structured `Finding`s, bounded per kind;
 port does not have (the HA pair, the cluster of BNGs, the slow-path
 fleet) are accepted as None and audit nothing; any other value raises.
 Their audits come with those components. `audit_app` audits a composed
-`BNGApp`; the reference's `metrics` and `epoch` arguments come with the
-metrics subsystem.
+`BNGApp`. With `metrics` (BNGMetrics) an audit records the
+bng_invariant_* families, stamped with `epoch`.
 """
 
 from __future__ import annotations
@@ -885,8 +885,8 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
                      pools=None, dhcp=None, fleet=None, nat=None,
                      dhcpv6=None, pppoe=None, edge=None, tap_program=None,
                      route_program=None, cluster=None, bng_cluster=None,
-                     ha_pair=None, quiesce=True,
-                     check_roundtrip=True) -> AuditReport:
+                     ha_pair=None, quiesce=True, check_roundtrip=True,
+                     metrics=None, epoch=None) -> AuditReport:
     """Run every applicable invariant over the components given.
 
     With an `engine`, runs at the same drain barrier checkpoints use
@@ -894,7 +894,9 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
     engine.quiesce()) and includes the host-vs-device mirror proof;
     fastpath/nat default from the engine. The reference's `fleet`,
     `ha_pair` and `bng_cluster` name components the port does not have:
-    None is accepted and audits nothing, anything else raises.
+    None is accepted and audits nothing, anything else raises. `metrics`
+    (BNGMetrics) gets the bng_invariant_* families recorded; `epoch`
+    stamps bng_invariant_last_audit_epoch (defaults to the audit counter).
     """
     given = [k for k, v in (("fleet", fleet), ("ha_pair", ha_pair),
                             ("bng_cluster", bng_cluster))
@@ -937,6 +939,8 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
         _audit_checkpoint_roundtrip(report, fastpath=fastpath, nat=nat,
                                     dhcp=dhcp)
 
+    if metrics is not None:
+        metrics.record_audit(report, epoch=epoch)
     if not report.ok:
         # flight-recorder anomaly hook: an invariant violation asks an
         # armed recorder to keep the evidence the moment it is proven.
@@ -945,7 +949,7 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
     return report
 
 
-def audit_app(app) -> AuditReport:
+def audit_app(app, metrics=None, epoch=None) -> AuditReport:
     """Audit a composed BNGApp (the `checkpoint restore --audit` entry):
     pulls the live components out of the composition root and runs the
     full invariant set."""
@@ -954,4 +958,6 @@ def audit_app(app) -> AuditReport:
         engine=c.get("engine"), scheduler=c.get("scheduler"),
         fastpath=c.get("fastpath"), pools=c.get("pools"),
         dhcp=c.get("dhcp"), nat=c.get("nat"),
-        dhcpv6=c.get("dhcpv6"), pppoe=c.get("pppoe"))
+        dhcpv6=c.get("dhcpv6"), pppoe=c.get("pppoe"),
+        metrics=metrics if metrics is not None else c.get("metrics"),
+        epoch=epoch)

@@ -1,24 +1,26 @@
-"""Composition root + CLI of the port: run / stats / loadtest / checkpoint /
-version (port of `bng_tpu/cli.py` at the serving stack's scope).
+"""Composition root + CLI of the port: run / stats / loadtest / trace /
+checkpoint / version (port of `bng_tpu/cli.py` at the serving stack's
+scope).
 
 `BNGConfig` is the reference's flag surface, field for field, with the
 same YAML overlay where the command line wins (`load_config_file`).
 `BNGApp` builds what the reference's `run` builds for the subsystems the
-port has: the fast-path tables, pools, the RADIUS client with its
+port has: the span tracer with its flight recorder and SLO monitor (when
+telemetry is on), the fast-path tables, pools, the RADIUS client with its
 authenticator and accounting, NAT with its compliance logger, QoS,
 antispoof, the walled garden (host manager and device gate), the DHCP
 server and the engine on the card (with the PPPoE session tables when
 PPPoE is on), the tiered scheduler when asked, the DHCPv6 and SLAAC
 servers, the PPPoE server, the slow-path demux over them, the CoA
 listener, the packet ring with a memory-rung wire attachment for the
-synthetic source, routing, Nexus, subscribers, policies and the ops
-controller. A config that turns on a subsystem the port lacks
-(`UNPORTED`) is refused at construction with one error naming each one
-and the flag that turns it off; nothing degrades silently. The
-reference's defaults turn on metrics, so a bare `run` refuses; the
-working line is
+synthetic source, routing, Nexus, subscribers, policies, the metrics
+registry and its collector, the checkpointer (restore at start, the
+periodic cadence, the SIGTERM snapshot) and the ops controller. A config
+that turns on a subsystem the port lacks (`UNPORTED`) is refused at
+construction with one error naming each one and the flag that turns it
+off; nothing degrades silently. The reference's defaults build, so
 
-    python -m bng_tpu_torch run --once --no-metrics-enabled
+    python -m bng_tpu_torch run --once
 
 Everything runs on the card unless `--device cpu` (or `device="cpu"`)
 asks for the CPU; with no card and no such request the entry points
@@ -31,6 +33,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import sys
 import threading
 import time
@@ -200,7 +203,6 @@ def load_config_file(path: str, cli_set: set[str],
 # The subsystems `run` can turn on that the port does not have yet:
 # (is it on?, what it is, the flag that turns it off).
 UNPORTED = (
-    (lambda c: c.metrics_enabled, "metrics", "--no-metrics-enabled"),
     (lambda c: bool(c.ha_role), "HA pair", "--ha-role ''"),
     (lambda c: bool(c.cluster_listen) or c.store_mode != "memory" or bool(c.store_peers),
      "cluster listener and replicated store",
@@ -208,9 +210,6 @@ UNPORTED = (
     (lambda c: c.slowpath_workers > 1, "slow-path fleet", "--slowpath-workers 1"),
     (lambda c: bool(c.wire_if), "AF_XDP wire", "--wire-if ''"),
     (lambda c: c.shards > 1, "sharded serving", "--shards 1"),
-    (lambda c: c.telemetry_enabled, "telemetry and SLO monitor", "--no-telemetry-enabled"),
-    (lambda c: bool(c.checkpoint_dir), "checkpointer (restore at start, periodic snapshots)",
-     "--checkpoint-dir '' (the checkpoint command saves and restores)"),
     (lambda c: c.dns_enabled, "DNS listener", "--no-dns-enabled"),
     (lambda c: c.bgp_enabled, "BGP", "--no-bgp-enabled"),
     (lambda c: bool(c.nexus_url), "Nexus allocator", "--nexus-url ''"),
@@ -309,6 +308,32 @@ class BNGApp:
         c = self.components
         logging.getLogger("bng").setLevel(getattr(logging, cfg.log_level.upper(), logging.INFO))
         self.log = get_logger("app", node_id=cfg.node_id)
+
+        # 0. telemetry, armed first so every later step (the engine's and
+        # the scheduler's spans) sees the armed tracer; metrics attach at
+        # step 13
+        if cfg.telemetry_enabled or os.environ.get("BNG_TELEMETRY") == "1":
+            from bng_tpu_torch.telemetry import FlightRecorder, RecorderConfig
+            from bng_tpu_torch.telemetry import spans as tele_spans
+
+            recorder = FlightRecorder(RecorderConfig(latency_budget_us=cfg.trace_budget_us,
+                                                     out_dir=cfg.trace_dir))
+            tracer = c["telemetry"] = tele_spans.arm(tele_spans.Tracer(recorder=recorder))
+            self._on_close(tele_spans.disarm)
+            self.log.info("telemetry armed", trace_dir=recorder.cfg.out_dir or "(default)",
+                          budget_us=cfg.trace_budget_us)
+            if cfg.slo_enabled:
+                # the SLO monitor rides the armed tracer: burn-rate windows
+                # over the stage histograms, ticked by the 1 Hz heartbeat;
+                # a breach dumps the flight ring and shows in bng_slo_*
+                from bng_tpu_torch.telemetry import slo as slo_mod
+
+                budgets = (slo_mod.parse_budgets(list(cfg.slo_budgets))
+                           if cfg.slo_budgets else slo_mod.DEFAULT_SLOS)
+                c["slo"] = slo_mod.SLOMonitor(tracer, slos=budgets, window_s=cfg.slo_window_s,
+                                              burn_windows=cfg.slo_burn_windows)
+                self.log.info("slo monitor armed", window_s=cfg.slo_window_s,
+                              burn_windows=cfg.slo_burn_windows, budgets=len(budgets))
 
         # 1. device tables
         fastpath = c["fastpath"] = FastPathTables()
@@ -445,6 +470,10 @@ class BNGApp:
             device=self.device)
         self.log.info("engine built", batch_size=cfg.batch_size, device=str(self.device),
                       nat=cfg.nat_enabled, qos=cfg.qos_enabled)
+        if "telemetry" in c:
+            # flight records name the backend that served them: a CPU run
+            # must never read as a card's
+            c["telemetry"].recorder.set_backend("gpu" if self.device.type == "cuda" else "cpu")
 
         # 9a. the tiered scheduler over the engine's programs
         if cfg.scheduler_enabled:
@@ -559,8 +588,89 @@ class BNGApp:
             raise ValueError(f"routing_platform={cfg.routing_platform!r}: "
                              f"expected 'stub' or 'linux'")
 
+        # 13. metrics (main.go:1214-1241)
+        if cfg.metrics_enabled:
+            self._build_metrics(pool_mgr, dhcp)
+
+        # 14. checkpoint and warm restart
+        if cfg.checkpoint_dir:
+            self._build_checkpointer(dhcp)
+
         # 15. zero-downtime ops: the transition queue the run loop drains
         c["ops"] = OpsController(self)
+
+    def _build_metrics(self, pool_mgr, dhcp) -> None:
+        """The registry, the collector and its sources. Each source reads
+        host state only (EngineStats numpy, scheduler counters, host
+        mirrors), never a device tensor, so a scrape never synchronizes
+        the serving stream; the engine's reads c["engine"] at scrape time,
+        so a blue/green swap's flip is followed."""
+        from bng_tpu_torch.control.metrics import BNGMetrics, MetricsCollector
+
+        cfg, c = self.config, self.components
+        metrics = c["metrics"] = BNGMetrics()
+        collector = c["collector"] = MetricsCollector(metrics)
+        collector.add_source(lambda: metrics.collect_engine(c["engine"].stats))
+        collector.add_source(lambda: metrics.collect_dhcp_server(dhcp.stats))
+        if cfg.walled_garden_enabled:
+            collector.add_source(lambda: metrics.collect_garden(c["engine"].stats))
+        if "scheduler" in c:
+            sched = c["scheduler"]
+            # the histograms are fed live at dispatch and retire; the
+            # gauges come from the scrape like every other source
+            sched.metrics = metrics
+            collector.add_source(lambda: metrics.collect_scheduler(sched))
+        if "telemetry" in c:
+            tracer = c["telemetry"]
+            # bng_stage_latency_us renders live from the tracer's
+            # histograms at scrape; the counters ride the collector loop
+            metrics.attach_telemetry(tracer)
+            collector.add_source(lambda: metrics.collect_telemetry(tracer))
+        if "slo" in c:
+            slo_mon = c["slo"]
+            collector.add_source(lambda: metrics.collect_slo(slo_mon))
+        collector.add_source(lambda: metrics.collect_pools(
+            {str(pid): st for pid, st in pool_mgr.stats().items()}))
+        collector.add_source(lambda: metrics.collect_exhaustion(
+            dhcpv6=c.get("dhcpv6"), nat=c.get("nat")))
+        self._on_close(collector.stop)
+
+    def _build_checkpointer(self, dhcp) -> None:
+        """Restore at start from the newest good checkpoint (a corrupt or
+        mismatched one is rejected and the process cold-starts, logged),
+        then the periodic checkpointer over `build_checkpoint`. The
+        snapshot reads c["engine"] when it runs, so after a blue/green
+        swap it folds the serving engine's device words."""
+        from bng_tpu_torch.control.statestore import CheckpointStore, PeriodicCheckpointer
+        from bng_tpu_torch.runtime import checkpoint as ckpt_mod
+
+        cfg, c = self.config, self.components
+        store = c["checkpoint_store"] = CheckpointStore(cfg.checkpoint_dir)
+        if store.has_checkpoints():
+            try:
+                snap, path = store.load_latest()
+                rows = ckpt_mod.restore_checkpoint(snap, engine=c["engine"], dhcp=dhcp)
+                c["checkpoint_restored"] = rows
+                self.log.info("warm restart from checkpoint", path=str(path), seq=snap.seq,
+                              rows={k: v for k, v in rows.items() if v})
+                if "metrics" in c:
+                    c["metrics"].record_restore(rows)
+            except ckpt_mod.CheckpointError as e:
+                c["checkpoint_error"] = str(e)
+                self.log.warning("checkpoint restore rejected; cold start", error=str(e))
+                if "metrics" in c:
+                    c["metrics"].record_restore({}, outcome="rejected")
+
+        def _snapshot(seq, now):
+            return ckpt_mod.build_checkpoint(seq, now, engine=c["engine"],
+                                             scheduler=c.get("scheduler"), dhcp=dhcp,
+                                             node_id=cfg.node_id)
+
+        ckptr = c["checkpointer"] = PeriodicCheckpointer(
+            store, _snapshot, interval_s=cfg.checkpoint_interval_s, keep=cfg.checkpoint_keep,
+            metrics=c.get("metrics"), clock=self.clock)
+        if "collector" in c:
+            c["collector"].add_source(lambda: c["metrics"].collect_checkpoint(ckptr))
 
     def _build_pppoe(self, pool_mgr, pppoe_tables, qos_hook, nat, acct) -> None:
         """The PPPoE server with its hooks: IP from the first pool, and on
@@ -756,7 +866,8 @@ class BNGApp:
         from bng_tpu_torch.runtime.ops import blue_green_swap
 
         with self._ctl:
-            report = blue_green_swap(self.components, node_id=self.config.node_id)
+            report = blue_green_swap(self.components, metrics=self.components.get("metrics"),
+                                     node_id=self.config.node_id)
             self.log.info("engine swap", outcome=report.get("outcome"),
                           delta_rows=report.get("delta_rows"), error=report.get("error"))
             return report
@@ -813,8 +924,10 @@ class BNGApp:
         ring (slow-path replies too: the slow path ran inside the retire)."""
         from bng_tpu_torch.runtime.lanes import LANE_BULK, LANE_EXPRESS
         from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS
+        from bng_tpu_torch.telemetry import spans as tele
 
         moved = 0
+        t0 = tele.t()
         budget = sched.bulk.cfg.batch * sched.bulk.cfg.depth
         for _ in range(budget):
             got = ring.rx_pop()
@@ -829,6 +942,8 @@ class BNGApp:
             # ingested frames count as movement, or the run loop's idle
             # sleep would stretch a sub-ms express deadline
             moved += 1
+        if moved:
+            tele.lap(tele.RING, t0)
         moved += sched.poll()
         if moved == 0 and (len(sched.express) or len(sched.bulk)):
             moved = 1  # frames wait on a deadline close: keep the loop hot
@@ -862,7 +977,8 @@ class BNGApp:
         and timeout sweep and SLAAC's periodic RAs (their frames go on the
         TX ring), DHCP and DHCPv6 lease cleanup and NAT session expiry
         (every EXPIRE_EVERY_S), the walled-garden expiry checker (every
-        GARDEN_EVERY_S), and accounting: the device's NAT octet counts
+        GARDEN_EVERY_S), the checkpointer's cadence, the SLO monitor's
+        burn-rate window, and accounting: the device's NAT octet counts
         into the sessions (every ACCT_SYNC_EVERY_S), interims and spool
         retries (every ACCT_RETRY_EVERY_S)."""
         now = now if now is not None else self.clock()
@@ -893,6 +1009,19 @@ class BNGApp:
         if garden is not None and now - self._last_garden >= self.GARDEN_EVERY_S:
             self._last_garden = now
             garden.check_expired()
+        # the background checkpoint cadence (never raises: a failure is
+        # counted and logged inside PeriodicCheckpointer.tick)
+        ckptr = c.get("checkpointer")
+        if ckptr is not None:
+            ckptr.tick(now)
+        # the SLO burn-rate window: evaluates only when a window elapsed; a
+        # breach fires the slo_breach flight dump and is logged here
+        slo_mon = c.get("slo")
+        if slo_mon is not None:
+            breached = slo_mon.tick(now)
+            if breached:
+                self.log.warning("slo breach", stages=sorted(breached),
+                                 window_s=slo_mon.window_s)
         acct = c.get("accounting")
         if acct is not None:
             # the device's NAT octet counts into the accounting sessions
@@ -945,8 +1074,9 @@ class BNGApp:
 
 def run_loadtest(args, device) -> int:
     """Build a self-contained engine + slow-path stack on `device` and
-    load-test it (the reference's `run_loadtest`, without the fleet, the
-    wire loop and the tracer)."""
+    load-test it (the reference's `run_loadtest`, without the fleet and
+    the wire loop). `--trace` arms the span tracer for the run: the
+    report gains the per-stage breakdown and its SLO verdict."""
     import ipaddress
 
     from bng_tpu_torch import kernels
@@ -959,11 +1089,10 @@ def run_loadtest(args, device) -> int:
     from bng_tpu_torch.utils.net import ip_to_u32, parse_mac
 
     refused = [flag for flag, on in (("--workers > 1", (args.workers or 1) > 1),
-                                     ("--wire", args.wire is not None),
-                                     ("--trace", args.trace)) if on]
+                                     ("--wire", args.wire is not None)) if on]
     if refused:
         print(f"loadtest: {', '.join(refused)}: not in bng_tpu_torch yet (the slow-path "
-              f"fleet, the AF_XDP wire loop and the tracer are not ported)", file=sys.stderr)
+              f"fleet and the AF_XDP wire loop are not ported)", file=sys.stderr)
         return 2
     net = ipaddress.ip_network(args.pool_cidr)
     server_ip = int(net.network_address + 1)
@@ -985,6 +1114,12 @@ def run_loadtest(args, device) -> int:
     server = DHCPServer(server_mac, server_ip, pools, fastpath_tables=fastpath)
     engine = Engine(fastpath, nat, batch_size=args.batch_size,
                     slow_path=server.handle_frame, device=device)
+    tracer = None
+    if args.trace:
+        # armed before the scheduler is built, as the reference's is
+        from bng_tpu_torch.telemetry import spans as tele_spans
+
+        tracer = tele_spans.arm(tele_spans.Tracer())
     target = engine
     if args.scheduler:
         from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
@@ -998,7 +1133,11 @@ def run_loadtest(args, device) -> int:
         rps_limit=args.rps)
     bench = DHCPBenchmark(target, cfg, log=lambda s: print(s, file=sys.stderr))
     launches0 = dict(kernels.LAUNCHES)
-    res = bench.run()
+    try:
+        res = bench.run()
+    finally:
+        if tracer is not None:
+            tele_spans.disarm()
     degraded = {}
     if server.stats.pool_exhausted:
         degraded["dhcp_pool"] = server.stats.pool_exhausted
@@ -1006,6 +1145,13 @@ def run_loadtest(args, device) -> int:
         if count:
             degraded[f"nat_{resource}"] = count
     res.degraded = degraded
+    stage_breakdown = tracer.breakdown() if tracer is not None else {}
+    if tracer is not None:
+        # the SLO verdict over the stage breakdown: the vocabulary the
+        # storm budgets and `run`'s live monitor gate on
+        from bng_tpu_torch.telemetry import slo as slo_mod
+
+        res.slo = slo_mod.evaluate(stage_breakdown)
     # what served the run: the card (or the CPU), its device dispatches
     # over warmup and measurement, and the kernel launches they made
     served = {"device": str(engine.device), "dispatches": int(engine.stats.batches),
@@ -1027,21 +1173,173 @@ def run_loadtest(args, device) -> int:
                 "request_p99_us": res.request_p99_us,
                 "shed": res.shed,
                 "degraded": res.degraded,
+                # only on traced runs: an empty dict would read as
+                # "instrumentation on, every stage vanished"
+                **({"slo": res.slo, "stage_breakdown": stage_breakdown}
+                   if tracer is not None else {}),
                 "env": ledger_mod.environment_fingerprint(engine.device),
             })
         except OSError as e:
             print(f"loadtest: bench-log append failed: {e}", file=sys.stderr)
     if args.json_out:
-        print(json.dumps({**res.to_dict(), "served": served}, indent=2))
+        out = {**res.to_dict(), "served": served}
+        if tracer is not None:
+            out["stage_breakdown"] = stage_breakdown
+        print(json.dumps(out, indent=2))
     else:
         print(res.summary())
         print(f"Served by:         {served['device']}, {served['dispatches']} dispatches, "
               f"launches {served['launches']}")
+        if tracer is not None:
+            print("Stage breakdown (us):")
+            for stage, st in stage_breakdown.items():
+                print(f"  {stage:<12} p50 {st['p50_us']:>9.1f}   "
+                      f"p99 {st['p99_us']:>9.1f}   n {st['count']}")
+            if not res.slo["ok"]:
+                print(f"SLO BREACHED: {', '.join(res.slo['breaches'])}")
     if args.validate:
         failures = res.meets_targets(cfg)
         for f in failures:
             print(f"TARGET FAILED: {f}", file=sys.stderr)
         return 1 if failures else 0
+    return 0
+
+
+def _trace_dora(args, device):
+    """Build a self-contained engine (+ scheduler) stack on `device`, arm a
+    span-event-keeping tracer, and drive a full DORA exchange for `--macs`
+    subscribers plus a renewal round that hits the device fast path: the
+    traced workload `trace dump` / `trace export` ship. Returns (tracer,
+    recorder) with the tracer disarmed again."""
+    import ipaddress
+
+    from bng_tpu_torch import frames as packets
+    from bng_tpu_torch.control import dhcp_codec
+    from bng_tpu_torch.control.dhcp_server import DHCPServer
+    from bng_tpu_torch.control.nat import NATManager
+    from bng_tpu_torch.control.pool import Pool, PoolManager
+    from bng_tpu_torch.runtime.engine import Engine
+    from bng_tpu_torch.runtime.tables import FastPathTables
+    from bng_tpu_torch.telemetry import FlightRecorder, RecorderConfig
+    from bng_tpu_torch.telemetry import spans as tele
+    from bng_tpu_torch.utils.net import ip_to_u32, parse_mac
+
+    net = ipaddress.ip_network(args.pool_cidr)
+    server_ip = int(net.network_address + 1)
+    server_mac = parse_mac("02:aa:bb:cc:dd:01")
+    fastpath = FastPathTables(sub_nbuckets=1 << 10, vlan_nbuckets=64, cid_nbuckets=64,
+                              max_pools=4, update_slots=max(256, 2 * args.batch_size))
+    fastpath.set_server_config(server_mac, server_ip)
+    pools = PoolManager(fastpath)
+    pools.add_pool(Pool(pool_id=1, network=int(net.network_address),
+                        prefix_len=net.prefixlen, gateway=server_ip,
+                        dns_primary=ip_to_u32("1.1.1.1"), lease_time=3600))
+    nat = NATManager(public_ips=[ip_to_u32("203.0.113.1")],
+                     sessions_nbuckets=256, sub_nat_nbuckets=64)
+    server = DHCPServer(server_mac, server_ip, pools, fastpath_tables=fastpath)
+    engine = Engine(fastpath, nat, batch_size=args.batch_size,
+                    slow_path=server.handle_frame, device=device)
+    target = engine
+    if args.scheduler:
+        from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
+
+        target = TieredScheduler(engine, SchedulerConfig(bulk_batch=args.batch_size))
+
+    recorder = FlightRecorder(RecorderConfig(out_dir=args.trace_dir))
+    recorder.set_backend("gpu" if engine.device.type == "cuda" else "cpu")
+    tracer = tele.Tracer(recorder=recorder, keep_events=1 << 14)
+
+    def discover(mac, xid):
+        p = dhcp_codec.build_request(mac, dhcp_codec.DISCOVER, xid=xid)
+        return packets.udp_packet(mac, b"\xff" * 6, 0, 0xFFFFFFFF, 68, 67,
+                                  p.encode().ljust(320, b"\x00"))
+
+    def request(mac, offer_frame, xid):
+        od = packets.decode(offer_frame)
+        off = dhcp_codec.decode(od.payload)
+        p = dhcp_codec.build_request(mac, dhcp_codec.REQUEST, xid=xid,
+                                     requested_ip=off.yiaddr, server_id=od.src_ip)
+        return packets.udp_packet(mac, b"\xff" * 6, 0, 0xFFFFFFFF, 68, 67,
+                                  p.encode().ljust(320, b"\x00"))
+
+    macs = [(0x02C0 << 32 | i).to_bytes(6, "big") for i in range(args.macs)]
+    with tele.armed(tracer):
+        for base in range(0, len(macs), args.batch_size):
+            chunk = macs[base: base + args.batch_size]
+            res = target.process([discover(m, 0x1000 + base + k) for k, m in enumerate(chunk)])
+            offers = {i: f for i, f in res["slow"] if f is not None}
+            offers.update({i: f for i, f in res.get("tx", [])})
+            reqs = [request(m, offers[k], 0x2000 + base + k)
+                    for k, m in enumerate(chunk) if k in offers]
+            if reqs:
+                target.process(reqs)
+        # the renewal round: cached DISCOVERs answered on the device (the
+        # trace shows the fast path next to the slow one)
+        target.process([discover(m, 0x3000 + k) for k, m in enumerate(macs[: args.batch_size])])
+        if hasattr(target, "flush"):
+            target.flush()
+    return tracer, recorder
+
+
+def run_trace(args, device) -> int:
+    """`trace status|dump|export`: the operator's verbs over the telemetry
+    subsystem. `status` lists the flight dumps in the trace dir; `dump`
+    runs a traced DORA exchange and writes a flight-recorder dump;
+    `export --format chrome` writes the exchange's spans as Chrome-trace
+    JSON (Perfetto, chrome://tracing)."""
+    from bng_tpu_torch.telemetry import chrome_trace, default_trace_dir
+
+    if args.trace_cmd == "status":
+        out_dir = args.trace_dir or default_trace_dir()
+        dumps = []
+        if os.path.isdir(out_dir):
+            for name in sorted(os.listdir(out_dir)):
+                if not name.startswith("flight-") or not name.endswith(".json"):
+                    continue
+                path = os.path.join(out_dir, name)
+                entry = {"file": name, "bytes": os.path.getsize(path)}
+                try:
+                    with open(path) as f:
+                        d = json.load(f)
+                    entry.update(reason=d.get("reason"),
+                                 backend=d.get("meta", {}).get("backend"),
+                                 records=len(d.get("records", ())))
+                except (OSError, ValueError):
+                    entry["error"] = "unreadable"
+                dumps.append(entry)
+        print(json.dumps({"trace_dir": out_dir,
+                          "armed_env": os.environ.get("BNG_TELEMETRY") == "1",
+                          "dumps": dumps}, indent=2))
+        return 0
+
+    if args.workers > 1:
+        print("trace: --workers > 1: not in bng_tpu_torch yet (the slow-path fleet is "
+              "not ported)", file=sys.stderr)
+        return 2
+    tracer, recorder = _trace_dora(args, resolve_device(device))
+    if args.trace_cmd == "dump":
+        path = recorder.dump("cli", "trace dump DORA exchange", path=args.out or None)
+        if path is None:
+            print("trace dump: write failed", file=sys.stderr)
+            return 1
+        print(json.dumps({"dump": path, "records": int(tracer.seq),
+                          "stage_breakdown": tracer.breakdown()}, indent=2))
+        return 0
+    if args.format != "chrome":
+        print(f"trace export: unknown format {args.format!r} (supported: chrome)",
+              file=sys.stderr)
+        return 2
+    trace = chrome_trace(tracer, label="bng-tpu-torch DORA")
+    out_path = args.out or os.path.join(args.trace_dir or default_trace_dir(),
+                                        "dora-trace.json")
+    if os.path.dirname(out_path):
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(trace, f)
+    n_x = sum(1 for e in trace["traceEvents"] if e.get("ph") == "X")
+    print(json.dumps({"trace": out_path, "events": n_x,
+                      "stages": sorted({e["name"] for e in trace["traceEvents"]
+                                        if e.get("ph") == "X"})}, indent=2))
     return 0
 
 
@@ -1110,10 +1408,19 @@ def run_checkpoint(args, device) -> int:
 
 
 def serve(app: BNGApp) -> int:
-    """The run loop: drive the ring when one exists, run the operator's
-    queued transitions at the batch boundary, tick once a second."""
+    """The run loop: start the metrics collector and its /metrics
+    endpoint, drive the ring when one exists, run the operator's queued
+    transitions at the batch boundary, tick once a second. With a
+    checkpointer, SIGTERM takes a final snapshot and returns 0: the
+    handler only sets a flag, and the save runs on the loop thread
+    between beats, never from signal context."""
     from bng_tpu_torch.control.opsctl import OpsServer
 
+    collector = app.components.get("collector")
+    if collector is not None:
+        collector.start()
+        port = collector.serve_http(app.config.metrics_port)
+        print(f"metrics on :{port}/metrics", file=sys.stderr, flush=True)
     ops = app.components["ops"]
     if app.config.ctl_listen:
         chost, _, cport = app.config.ctl_listen.rpartition(":")
@@ -1124,10 +1431,20 @@ def serve(app: BNGApp) -> int:
             print(f"ctl on {osrv.addr[0]}:{osrv.addr[1]}", file=sys.stderr)
         except OSError as e:
             print(f"ctl listener unavailable ({e}); runtime ops disabled", file=sys.stderr)
+    ckptr = app.components.get("checkpointer")
+    stop_flag = {"sigterm": False}
+    if ckptr is not None:
+        import signal
+
+        signal.signal(signal.SIGTERM, lambda *_: stop_flag.update(sigterm=True))
     has_ring = app.components.get("ring") is not None
     last_tick = 0.0
     ctx_enter("loop")  # sanitizer ownership context
     while True:
+        if stop_flag["sigterm"]:
+            with app._ctl:
+                ckptr.save_now(reason="sigterm")
+            return 0
         moved = app.drive_once()
         # operator transitions run here, at the batch boundary, on the
         # loop thread, never on the HTTP handler thread
@@ -1212,7 +1529,33 @@ def main(argv: list[str] | None = None) -> int:
     loadp.add_argument("--workers", type=int, default=1, help="not ported: refused above 1")
     loadp.add_argument("--wire", nargs="?", const="mem", default=None, metavar="IFNAME",
                        help="not ported: refused")
-    loadp.add_argument("--trace", action="store_true", help="not ported: refused")
+    loadp.add_argument("--trace", action="store_true",
+                       help="arm the span tracer: the report gains the per-stage "
+                            "latency breakdown and its SLO verdict")
+
+    tracep = sub.add_parser("trace", help="telemetry: flight-recorder status/dumps and "
+                            "Chrome-trace export of a traced DORA exchange")
+    trace_sub = tracep.add_subparsers(dest="trace_cmd", required=True)
+    for verb, hlp in (("status", "list flight-recorder dumps in the trace dir"),
+                      ("dump", "run a traced DORA exchange and write a flight-recorder dump"),
+                      ("export", "run a traced DORA exchange and export its spans "
+                                 "(--format chrome loads in Perfetto / chrome://tracing)")):
+        vp = trace_sub.add_parser(verb, help=hlp)
+        vp.add_argument("--trace-dir", default="",
+                        help="flight-dump dir (default $BNG_TRACE_DIR or <tmp>/bng-flightrec)")
+        if verb == "status":
+            continue
+        vp.add_argument("--out", default="", help="output file path")
+        vp.add_argument("--format", default="chrome", help="export format (chrome)")
+        vp.add_argument("--macs", type=int, default=32,
+                        help="subscribers to DORA through the trace")
+        vp.add_argument("--batch-size", type=int, default=64)
+        vp.add_argument("--pool-cidr", default="10.0.0.0/16")
+        vp.add_argument("--scheduler", action="store_true",
+                        help="drive the tiered scheduler (express/bulk lanes appear as "
+                             "trace threads)")
+        vp.add_argument("--workers", type=int, default=1,
+                        help="slow-path fleet workers: not ported, refused above 1")
 
     ckptp = sub.add_parser("checkpoint", help="save/restore/inspect warm-restart "
                                               "snapshots of the device tables")
@@ -1245,6 +1588,8 @@ def main(argv: list[str] | None = None) -> int:
             return run_loadtest(args, resolve_device(args.device))
         if args.command == "checkpoint":
             return run_checkpoint(args, args.device)
+        if args.command == "trace":
+            return run_trace(args, args.device)
         if args.command in ("run", "stats"):
             app = BNGApp(_config_from_args(args), device=args.device)
             try:

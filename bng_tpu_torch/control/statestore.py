@@ -182,18 +182,21 @@ class PeriodicCheckpointer:
 
     `snapshot_fn(seq, now) -> Checkpoint` is the caller's closure (it
     quiesces the scheduler and collects the components); this class owns
-    when it runs, the retention policy, the stats, and the rate-limited
-    failure log.
+    when it runs, the retention policy, the stats the bng_ckpt_* metric
+    families scrape, and the rate-limited failure log. With `metrics`
+    (BNGMetrics), each save observes its duration into
+    bng_ckpt_duration_seconds.
     """
 
     def __init__(self, store: CheckpointStore,
                  snapshot_fn: Callable[[int, float], Checkpoint],
-                 interval_s: float = 0.0, keep: int = 3,
+                 interval_s: float = 0.0, keep: int = 3, metrics=None,
                  clock: Callable[[], float] = time.time):
         self.store = store
         self.snapshot_fn = snapshot_fn
         self.interval_s = float(interval_s)
         self.keep = keep
+        self.metrics = metrics
         self.clock = clock
         # staleness origin before the FIRST success: an unwritable dir
         # from boot must read as a GROWING age, not a perpetually-fresh 0
@@ -241,6 +244,8 @@ class PeriodicCheckpointer:
         s["last_error"] = ""
         self._log.info("checkpoint saved", seq=seq, reason=reason,
                        bytes=size, duration_ms=round(dt * 1e3, 1))
+        if self.metrics is not None:
+            self.metrics.ckpt_duration.observe(dt, reason=reason)
         self.store.prune(self.keep)
         return path
 

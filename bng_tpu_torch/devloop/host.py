@@ -26,6 +26,14 @@ not re-seed: the leading copy keeps threading its pre-resync chain, and
 each ring retired from it publishes that chain over the fresh upload, as
 the reference's pump does.
 
+Telemetry is the reference's: each staged batch opens its flight record
+at the fill (`loop_fill`), waits its slot's `loop_wait` until the ring
+dispatches, takes its share of the ring's `dispatch` and of the retire's
+wait (`loop_retire`), and closes through the express retire; the ring's
+shape rides the recorder's metadata. A staged slot that falls back to
+the per-batch lane cancels its record (the direct dispatch opens its
+own).
+
 Quiesce contract: `flush()` ships any partial ring and retires every
 ring in flight; afterwards `audit()` can prove the device cursors agree
 with the host's slot accounting.
@@ -44,6 +52,7 @@ from bng_tpu_torch.runtime.engine import ExpressAotResult, _InFlight
 from bng_tpu_torch.runtime.lanes import (
     CLOSE_DEADLINE, CLOSE_FLUSH, LANE_EXPRESS, CompletionRing, InflightEntry,
 )
+from bng_tpu_torch.telemetry import spans as tele
 
 
 class _RingInflight(NamedTuple):
@@ -56,6 +65,7 @@ class _RingInflight(NamedTuple):
     published: object  # the published DHCP tables it was dispatched against
     chain: object     # the leading copy, when seeded before the last resync (else None)
     slots: list       # [n_slots] lists of PendingFrame
+    tokens: list      # [n_slots] telemetry batch-record tokens (None: disarmed)
     reason: str       # why the ring was dispatched (full, deadline, flush)
     dispatch_t: float
     meta: tuple       # the dispatch's (pools, server) snapshot
@@ -98,15 +108,22 @@ class DevloopPump:
         # (None: seed at the next dispatch)
         self._seeded = None
         self._seed_resync = -1
+        # the staged slots' telemetry batch-record tokens
+        self._slot_tok: list = [None] * k
 
     # -- fill (one closed express batch -> one ring slot) -------------------
 
     def add_batch(self, pend: list, now: float, reason: str) -> int:
         """Stage one closed express batch; dispatches when the ring fills.
         Returns frames retired because the in-flight rings overflowed."""
+        tok = tele.begin_batch(tele.LANE_EXPRESS_L, len(pend))
+        if tok is not None:
+            tele.observe(tele.LANE_WAIT, (now - pend[0].enq_t) * 1e6, tok)
+        t0 = tele.t()
         rows = [p.desc.words for p in pend if p.desc is not None]
         idxs = [i for i, p in enumerate(pend) if p.desc is not None] if rows else []
-        self.ring.fill_slot(rows, idxs, pend, now)
+        self._slot_tok[self.ring.fill_slot(rows, idxs, pend, now)] = tok
+        tele.lap(tele.LOOP_FILL, t0, tok)
         self.batches += 1
         if self.ring.head >= self.ring.k:
             return self._dispatch(now, reason)
@@ -148,9 +165,11 @@ class DevloopPump:
     def _dispatch(self, now: float, reason: str) -> int:
         sched = self.sched
         eng = sched.engine
+        fill_ts = self.ring.fill_times
         stage, n_slots, slots = self.ring.take()
         if n_slots == 0:
             return 0
+        tokens, self._slot_tok = self._slot_tok[:n_slots], [None] * self.ring.k
         prog = (eng.devloop_aot(self.ring.k, self.ring.batch, sched._express_dev)
                 if sched._aot_ready else None)
         fp = fault_point("devloop.dispatch")
@@ -168,6 +187,8 @@ class DevloopPump:
                 + (" (injected)" if fp is not None else "")
                 + f": {n_slots} slot(s) served per batch")
             self.fallback_slots += n_slots
+            for tok in tokens:
+                tele.cancel_batch(tok)  # the direct path opens its own
             for pend in slots:
                 retired += sched._dispatch_express_direct(pend, now, reason)
             return retired
@@ -179,30 +200,52 @@ class DevloopPump:
                 and eng.fastpath.dirty_count() > eng.fastpath.update_slots):
             retired += self._barrier()
             self._seeded = None
-        upd, resynced = eng.prepare_devloop_dispatch()
-        if resynced and self._seeded is not None:
-            # the pre-check missed a resync: the rings in flight retire
-            # against the replaced tables (their deltas are already in the
-            # fresh upload), then the leading copy re-seeds
-            retired += self._barrier()
-            self._seeded = None
-        if self._seeded is not prog:
-            prog.seed(eng.tables.dhcp)
-            prog.seed_cursors(self.ring.cursors)
-            self._seeded, self._seed_resync = prog, eng.resync_count
-        # a leading copy seeded before the engine's last resync publishes
-        # itself whole at retire (the reference publishes its ring chain)
-        chain = prog.tables if self._seed_resync != eng.resync_count else None
-        res = eng.call_devloop_aot(prog, upd, stage, n_slots, now)
-        fl = _InFlight(ExpressAotResult(block=res.blocks, dhcp_stats=res.dhcp_stats))
+        t0 = tele.t()
+        for tok, ft in zip(tokens, fill_ts):
+            tele.observe(tele.LOOP_WAIT, (now - ft) * 1e6, tok)
+        try:
+            upd, resynced = eng.prepare_devloop_dispatch()
+            if resynced and self._seeded is not None:
+                # the pre-check missed a resync: the rings in flight retire
+                # against the replaced tables (their deltas are already in
+                # the fresh upload), then the leading copy re-seeds
+                retired += self._barrier()
+                self._seeded = None
+            if self._seeded is not prog:
+                prog.seed(eng.tables.dhcp)
+                prog.seed_cursors(self.ring.cursors)
+                self._seeded, self._seed_resync = prog, eng.resync_count
+            # a leading copy seeded before the engine's last resync
+            # publishes itself whole at retire (the reference publishes its
+            # ring chain)
+            chain = prog.tables if self._seed_resync != eng.resync_count else None
+            res = eng.call_devloop_aot(prog, upd, stage, n_slots, now)
+            fl = _InFlight(ExpressAotResult(block=res.blocks, dhcp_stats=res.dhcp_stats))
+        except BaseException:
+            for tok in tokens:
+                tele.cancel_batch(tok)
+            raise
+        if t0 is not None:
+            # dispatch in loop mode: what the serving thread spent (the
+            # drain, the ring upload, the replay), shared by the slots; the
+            # device's work lands in loop_retire, where the retire waits
+            dur_us = (tele.t() - t0) / 1000.0 / n_slots
+            for tok in tokens:
+                tele.observe(tele.DISPATCH, dur_us, tok)
         # the retire renders from the pool and server rows this ring saw
         cfg_epoch = (eng.fastpath.pools.copy(), eng.fastpath.server.copy())
         self.dispatches += 1
         sched.express_aot_dispatches += n_slots
+        tele.set_meta("express_program", "devloop")
+        tele.set_meta("devloop_ring", {
+            "k": self.ring.k, "slots": int(n_slots),
+            "inflight": len(self._inflight) + 1,
+            "occupancy_avg": round(self.ring.occupancy_avg(), 4)})
         for pend in slots:
             sched._observe_dispatch(LANE_EXPRESS, len(pend), reason)
         over = self._inflight.push(_RingInflight(
-            fl, res.cursors, upd, eng.tables.dhcp, chain, slots, reason, now, cfg_epoch))
+            fl, res.cursors, upd, eng.tables.dhcp, chain, slots, tokens, reason, now,
+            cfg_epoch))
         if over is not None:
             retired += self._retire(over)
         return retired
@@ -213,9 +256,20 @@ class DevloopPump:
         """Wait for one ring's outputs, publish its deltas and cursors, and
         retire each slot through the scheduler's express retire (the reply
         path is shared, not cloned)."""
-        h = entry.fl.wait()
+        t0 = tele.t()
+        try:
+            h = entry.fl.wait()
+        except BaseException:
+            for tok in entry.tokens:
+                tele.cancel_batch(tok)
+            raise
         self.ring.adopt_cursors(entry.cursors)
         self.sched.engine.adopt_devloop_chain(entry.upd, entry.published, chain=entry.chain)
+        n_slots = len(entry.slots)
+        if t0 is not None and n_slots:
+            wait_us = (tele.t() - t0) / 1000.0 / n_slots
+            for tok in entry.tokens:
+                tele.observe(tele.LOOP_RETIRE, wait_us, tok)
         zero = np.zeros((NSTATS,), dtype=h["stats"].dtype)
         retired, folded = 0, False
         for s, pend in enumerate(entry.slots):
@@ -224,7 +278,8 @@ class DevloopPump:
             res = _SlotResult(h["block"][s], zero if folded else h["stats"])
             folded = True
             retired += self.sched._retire_express(InflightEntry(
-                res, pend, entry.dispatch_t, entry.reason, meta=entry.meta))
+                res, pend, entry.dispatch_t, entry.reason, trace=entry.tokens[s],
+                meta=entry.meta))
         return retired
 
     # -- quiesce audit and counters -------------------------------------------

@@ -105,6 +105,11 @@ class DescriptorRing:
         return self._slot_fill_t[0] if self.head else None
 
     @property
+    def fill_times(self) -> list[float]:
+        """Fill time of each staged slot, oldest first."""
+        return self._slot_fill_t[: self.head]
+
+    @property
     def staging_waits(self) -> int:
         """Slot fills that had to wait for their buffer's last upload."""
         return sum(st.waits for st in self._bufs)

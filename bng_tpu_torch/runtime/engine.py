@@ -59,6 +59,14 @@ like `resync_tables` this re-captures the express programs and moves
 `resync_count`; a devloop ring in service keeps threading its leading
 copy and publishes it whole at retire). `Engine(..., device_tables=...)`
 adopts such a chain through it at construction, with no upload of its own.
+
+Telemetry (`telemetry/spans.py`) is the reference's: `process`,
+`process_dhcp` and both ring loops open a flight record per batch and lap
+`ring`, `dispatch`, `device_wait` (around the event wait behind the
+batch's output copies, the one wait a batch makes), `reply` and
+`slow_path`; a failed dispatch cancels its record. Disarmed, each hook
+is one global load and one `is None` compare; armed, it reads the host
+clock only, never a device tensor.
 """
 
 from __future__ import annotations
@@ -106,6 +114,7 @@ from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS
 from bng_tpu_torch.runtime.tables import (
     FastPathTables, PPPoEFastPathTables, apply_fastpath_updates, copy_dhcp_,
 )
+from bng_tpu_torch.telemetry import spans as tele
 from bng_tpu_torch.utils.net import mac_to_u64, split_u64
 from bng_tpu_torch.utils.structlog import ErrorLog
 
@@ -694,6 +703,16 @@ class Engine:
         self._fold_stats(fl.stat_names, host["stats"])
         return host
 
+    def _wait(self, fl: "_InFlight", tok) -> dict[str, np.ndarray]:
+        """Wait for a dispatched batch's outputs (the `device_wait` lap:
+        the event behind its copies, the one wait a batch makes) and fold
+        its stats."""
+        t0 = tele.t()
+        host = fl.wait()
+        tele.lap(tele.DEVICE_WAIT, t0, tok)
+        self._fold_stats(fl.stat_names, host["stats"])
+        return host
+
     def step(self, pkt: np.ndarray, length: np.ndarray, fa: np.ndarray,
              now: float) -> PipelineResult:
         """Drain + apply updates, run one fused step, fold the stats."""
@@ -892,6 +911,15 @@ class Engine:
         drain goes on."""
         if not items:
             return []
+        t0 = tele.t()
+        if t0 is None:
+            return self._handle_slow_lanes_inner(items, path)
+        tele.stamp(tele.SLOW)
+        out = self._handle_slow_lanes_inner(items, path)
+        tele.lap(tele.SLOW, t0)
+        return out
+
+    def _handle_slow_lanes_inner(self, items: list, path: str) -> list:
         fp = fault_point("engine.slow_drain")
         if fp is not None and fp.kind == "fail":
             # chaos: the whole slow batch is lost before any handler runs (no
@@ -940,7 +968,15 @@ class Engine:
             fa = np.zeros((self.B,), dtype=bool)
             fa[: len(from_access)] = from_access
 
-        h = self._collect(self._dispatch_step(pkt, length, fa, now))
+        tok = tele.begin_batch(tele.LANE_ENGINE, len(frames))
+        t0 = tele.t()
+        try:
+            fl = _InFlight(self._dispatch_step(pkt, length, fa, now))
+        except BaseException:
+            tele.cancel_batch(tok)  # a failed dispatch must not leak a slot
+            raise
+        tele.lap(tele.DISPATCH, t0, tok)
+        h = self._wait(fl, tok)
         n = len(frames)
         verdict, out_len, out_rows = h["verdict"][:n], h["out_len"], h["out_pkt"]
         punt, viol = h["nat_punt"], h["spoof_violation"]
@@ -948,6 +984,7 @@ class Engine:
 
         out = {"tx": [], "fwd": [], "dropped": [], "slow": []}
         slow_items, punt_lanes = [], []
+        t0 = tele.t()
         for i, v in enumerate(verdict):
             if v == VERDICT_TX:
                 out["tx"].append((i, bytes(out_rows[i, : int(out_len[i])])))
@@ -970,9 +1007,11 @@ class Engine:
             if mir is not None and mir[i] and self.mirror_sink is not None:
                 # interception sees the ORIGINAL frame, whatever the verdict
                 self.mirror_sink(i, frames[i], int(mir[i]))
+        tele.lap(tele.REPLY, t0, tok)
         out["slow"] = sorted([(i, None) for i in punt_lanes]
                              + self._handle_slow_lanes(slow_items, "process"),
                              key=lambda t: t[0])
+        tele.end_batch(tok, punt=len(punt_lanes))
         return out
 
     @classmethod
@@ -996,9 +1035,18 @@ class Engine:
         B = batch if batch is not None else self.dhcp_batch_bucket(len(frames))
         now = now if now is not None else self.clock()
         pkt, length = self._pack_frames(frames, B)
-        h = self._collect(self._run_dhcp_batch(pkt, length, now))
+        tok = tele.begin_batch(tele.LANE_ENGINE, len(frames))
+        t0 = tele.t()
+        try:
+            fl = _InFlight(self._run_dhcp_batch(pkt, length, now))
+        except BaseException:
+            tele.cancel_batch(tok)  # a failed dispatch must not leak a slot
+            raise
+        tele.lap(tele.DISPATCH, t0, tok)
+        h = self._wait(fl, tok)
         out = {"tx": [], "slow": []}
         slow_items = []
+        t0 = tele.t()
         for i, v in enumerate(h["verdict"][: len(frames)]):
             if v == VERDICT_TX:
                 out["tx"].append((i, bytes(h["out_pkt"][i, : int(h["out_len"][i])])))
@@ -1006,7 +1054,9 @@ class Engine:
             else:
                 self.stats.passed += 1
                 slow_items.append((i, frames[i]))
+        tele.lap(tele.REPLY, t0, tok)
         out["slow"] = self._handle_slow_lanes(slow_items, "process_dhcp")
+        tele.end_batch(tok)
         return out
 
     # -- the packet-ring loops --
@@ -1029,16 +1079,33 @@ class Engine:
         pkt = np.zeros((self.B, self.L), dtype=np.uint8)
         length = np.zeros((self.B,), dtype=np.uint32)
         flags = np.zeros((self.B,), dtype=np.uint32)
+        t0 = tele.t()
         n = ring.assemble(pkt, length, flags)
         if n == 0:
             return 0
+        tok = tele.begin_batch(tele.LANE_RING_L, n)
+        tele.lap(tele.RING, t0, tok)
         now = now if now is not None else self.clock()
-        h = self._collect(self._dispatch_ring_batch(pkt, length, flags, n, now))
-        self._apply_ring_verdicts(ring, h, pkt, length, n, now)
+        t0 = tele.t()
+        try:
+            fl = _InFlight(self._dispatch_ring_batch(pkt, length, flags, n, now))
+        except BaseException:
+            tele.cancel_batch(tok)  # a failed dispatch must not leak a slot
+            raise
+        tele.lap(tele.DISPATCH, t0, tok)
+        h = self._apply_ring_verdicts(ring, fl, pkt, length, n, now)
+        self._fold_stats(fl.stat_names, h["stats"])
+        tele.end_batch(tok)
         return n
 
-    def _apply_ring_verdicts(self, ring, h: dict, pkt, length, n: int, now: float) -> None:
-        """Demux one batch's host outputs back to the ring it came from."""
+    def _apply_ring_verdicts(self, ring, fl: _InFlight, pkt, length, n: int,
+                             now: float) -> dict:
+        """Wait for one batch's outputs and demux them back to the ring it
+        came from; returns the host outputs."""
+        t0 = tele.t()
+        h = fl.wait()
+        tele.lap(tele.DEVICE_WAIT, t0)
+        t0 = tele.t()
         vv = h["verdict"][:n]
         ring.complete(vv.astype(np.uint8), np.ascontiguousarray(h["out_pkt"]),
                       h["out_len"].astype(np.uint32), n)
@@ -1062,19 +1129,24 @@ class Engine:
         # handler fails, or later batches would misalign.
         punt = h["nat_punt"][:n]
         slow_items, slow_fa = [], {}
+        punts = 0
         for lane in np.nonzero(vv == VERDICT_PASS)[0]:
             got = ring.slow_pop()
             if got is None:
                 break  # the slow ring overflowed during complete()
-            frame, fl = got
+            frame, rfl = got
             if punt[lane]:
+                punts += 1
                 self._punt(frame, now, int(lane))
             else:
                 slow_items.append((int(lane), frame))
-                slow_fa[int(lane)] = (fl & FLAG_FROM_ACCESS) != 0
+                slow_fa[int(lane)] = (rfl & FLAG_FROM_ACCESS) != 0
+        tele.lap(tele.REPLY, t0)
+        tele.add(punt=punts)
         for lane, reply in self._handle_slow_lanes(slow_items, "ring"):
             if reply is not None:
                 ring.tx_inject(reply, from_access=slow_fa[lane])
+        return h
 
     def _staging(self, idx: int):
         """Ping-pong staging buffers (allocated once): the in-flight batch
@@ -1097,18 +1169,24 @@ class Engine:
         try:
             idx = 1 - self._stage_idx
             pkt, length, flags = self._staging(idx)
+            t0 = tele.t()
             n = ring.assemble(pkt, length, flags)
             if n:
+                tok = tele.begin_batch(tele.LANE_RING_L, n)
+                tele.lap(tele.RING, t0, tok)
+                t0 = tele.t()
                 try:
                     fl = _InFlight(self._dispatch_ring_batch(pkt, length, flags, n, now))
                 except BaseException:
                     # fail closed: complete() retires FIFO, so the older window
                     # retires first, then this one drops
+                    tele.cancel_batch(tok)
                     self._retire(prev)
                     prev = None
                     ring.complete(np.full((n,), VERDICT_DROP, dtype=np.uint8), pkt, length, n)
                     raise
-                self._inflight = (ring, fl, pkt, length, n, now)
+                tele.lap(tele.DISPATCH, t0, tok)
+                self._inflight = (ring, fl, pkt, length, n, now, tok)
                 self._stage_idx = idx
         finally:
             retired = self._retire(prev)
@@ -1118,10 +1196,11 @@ class Engine:
         """Wait for a pipelined batch and apply its verdicts to its ring."""
         if entry is None:
             return 0
-        ring, fl, pkt, length, n, now = entry
-        h = fl.wait()
-        self._apply_ring_verdicts(ring, h, pkt, length, n, now)
+        ring, fl, pkt, length, n, now, tok = entry
+        tele.focus(tok)
+        h = self._apply_ring_verdicts(ring, fl, pkt, length, n, now)
         self._fold_stats(fl.stat_names, h["stats"])
+        tele.end_batch(tok)
         return n
 
     def flush_pipeline(self, ring=None) -> int:

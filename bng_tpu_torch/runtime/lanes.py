@@ -129,6 +129,7 @@ class InflightEntry:
     pending: list[PendingFrame]
     dispatch_t: float
     close_reason: str
+    trace: object = None  # the telemetry batch-record token (None: disarmed)
     # a dispatch-time snapshot the retire must read instead of the live
     # host mirrors (the express retire renders from the pool and server
     # config the device verdict was computed against)

@@ -163,7 +163,7 @@ def replay_delta_since(engine, arrays: dict,
     return {"rows": rows, "steps": steps, "resync": False}
 
 
-def blue_green_swap(components, *, node_id: str = "bluegreen") -> dict:
+def blue_green_swap(components, *, metrics=None, node_id: str = "bluegreen") -> dict:
     """Hydrate a standby engine from an in-memory snapshot, replay the
     delta, audit, and flip — or roll back with the active untouched.
 
@@ -174,7 +174,8 @@ def blue_green_swap(components, *, node_id: str = "bluegreen") -> dict:
     re-point at the quiesce barrier. The report carries frames_deferred,
     the quiesce_s / hydrate_s / audit_s / flip_s / duration_s split,
     restored_rows, delta_rows / delta_steps / delta_resync, audit_ok and
-    violations (the reference's fields, plus audit_s).
+    violations (the reference's fields, plus audit_s). With `metrics`
+    (BNGMetrics), the report feeds the bng_ops_* families.
     """
     from bng_tpu_torch.runtime.engine import Engine
 
@@ -276,10 +277,12 @@ def blue_green_swap(components, *, node_id: str = "bluegreen") -> dict:
         if consumed_delta:
             eng.resync_tables()
     report["duration_s"] = time.perf_counter() - t_all
+    if metrics is not None:
+        metrics.record_transition(report)
     return report
 
 
-def sharded_blue_green_swap(components, *, node_id: str = "bluegreen",
+def sharded_blue_green_swap(components, *, metrics=None, node_id: str = "bluegreen",
                             clock=time.time) -> dict:
     """Blue/green swap for the sharded serving path: hydrate a STANDBY
     ShardedCluster from an in-memory sharded snapshot
@@ -362,4 +365,6 @@ def sharded_blue_green_swap(components, *, node_id: str = "bluegreen",
         report["error"] = f"{type(e).__name__}: {e}"[:300]
         _log.error("sharded swap did not flip", error=report["error"])
     report["duration_s"] = time.perf_counter() - t_all
+    if metrics is not None:
+        metrics.record_transition(report)
     return report

@@ -33,11 +33,19 @@ of `bng_tpu/runtime/scheduler.py`).
   patch (`ExpressWireTemplate.render_batch`), byte-identical to the
   per-frame render.
 
-With one card the express lane shares the engine's device and stream.
-The reference's telemetry spans, flight-recorder triggers and metrics
-families and its second-device express lane are not ported; every
-counter stays. Single-threaded and poll-driven: `submit()` frames and
-`poll()` each beat, or call `process()`, the batch-synchronous facade.
+Telemetry is the reference's: each dispatched batch opens a flight
+record (`telemetry/spans.begin_batch`) with its lane wait, its dispatch,
+its `device_wait` (the event wait behind its output copies, the only
+wait the lanes make) and its reply laps; an express geometry miss and
+every express fallback fire their flight-recorder triggers. With
+`metrics` (BNGMetrics, set by the composition root) each dispatch and
+retire also feeds the `bng_sched_*` histograms and counters. No hook
+reads a device tensor.
+
+With one card the express lane shares the engine's device and stream;
+the reference's second-device express lane is not ported.
+Single-threaded and poll-driven: `submit()` frames and `poll()` each
+beat, or call `process()`, the batch-synchronous facade.
 """
 
 from __future__ import annotations
@@ -67,6 +75,8 @@ from bng_tpu_torch.runtime.lanes import (
 )
 from bng_tpu_torch.runtime.ring import classify_dhcp
 from bng_tpu_torch.runtime.tables import clone_dhcp
+from bng_tpu_torch.telemetry import spans as tele
+from bng_tpu_torch.telemetry.recorder import TRIG_EXPRESS_AOT_MISS, TRIG_EXPRESS_FALLBACK
 from bng_tpu_torch.utils.net import prefix_to_mask
 
 log = logging.getLogger("bng.scheduler")
@@ -120,10 +130,11 @@ class TieredScheduler:
     _COMPLETIONS_CAP = 1 << 17
     is_scheduler = True  # what DHCPBenchmark reads to route its batches here
 
-    def __init__(self, engine, cfg: SchedulerConfig | None = None,
+    def __init__(self, engine, cfg: SchedulerConfig | None = None, metrics=None,
                  clock: Callable[[], float] | None = None):
         self.engine = engine
         self.cfg = cfg or SchedulerConfig()
+        self.metrics = metrics
         self.clock = clock or engine.clock
         bulk_batch = self.cfg.bulk_batch or engine.B
         self.express = Lane(LaneConfig(LANE_EXPRESS, self.cfg.express_batch,
@@ -137,8 +148,8 @@ class TieredScheduler:
         self.completions_dropped = 0
         self.oversize_dropped = 0
         # what the dispatch and retire hooks count, per lane: dispatches,
-        # frames dispatched, frames retired (the counts behind the
-        # reference's bng_sched_* families, which are not ported)
+        # frames dispatched, frames retired (kept beside the bng_sched_*
+        # families they also feed)
         self.observed = {lane: {"dispatches": 0, "frames": 0, "retired": 0}
                          for lane in (LANE_EXPRESS, LANE_BULK)}
         self._seq = 0
@@ -227,8 +238,11 @@ class TieredScheduler:
         self.express_loop = "devloop"
 
     def _note_fallback(self, reason: str, detail: str) -> None:
-        """One express fallback: counted per reason and logged."""
+        """One express fallback: counted per reason (for
+        bng_express_fallback_total), flight-recorded and logged. Serving
+        goes on at the lower rung either way, never silently."""
         self.express_fallbacks[reason] = self.express_fallbacks.get(reason, 0) + 1
+        tele.trigger(TRIG_EXPRESS_FALLBACK, f"express fallback ({reason}): {detail}")
         log.warning("express fallback (%s): %s", reason, detail)
 
     # -- ingress --
@@ -358,6 +372,11 @@ class TieredScheduler:
         if not pend:
             return 0
         eng = self.engine
+        tok = tele.begin_batch(tele.LANE_EXPRESS_L, len(pend))
+        if tok is not None:
+            # the lane wait of the batch's oldest frame, from enqueue stamps
+            # (the per-frame submit path pays no telemetry cost)
+            tele.observe(tele.LANE_WAIT, (now - pend[0].enq_t) * 1e6, tok)
         prog = None
         if self._aot_enabled:
             if self._aot_ready:
@@ -366,24 +385,37 @@ class TieredScheduler:
                 self.express_aot_misses += 1
                 self.express_fallbacks["geometry_miss"] = (
                     self.express_fallbacks.get("geometry_miss", 0) + 1)
+                tele.trigger(TRIG_EXPRESS_AOT_MISS,
+                             f"no express program for batch={self.express.cfg.batch}: "
+                             f"the DHCP-only program served")
+        t0 = tele.t()
         cfg_epoch = None
-        if prog is not None:
-            desc = self._desc_buf
-            desc[:] = 0
-            idxs = [i for i, p in enumerate(pend) if p.desc is not None]
-            if idxs:
-                desc[idxs] = [pend[i].desc.words for i in idxs]
-            res = _InFlight(eng.run_express_aot(prog, desc, now, device=self._express_dev))
-            # the pool and server config of this dispatch: the retire renders
-            # from the rows the device verdict saw, not from later mirrors
-            cfg_epoch = (eng.fastpath.pools.copy(), eng.fastpath.server.copy())
-            self.express_aot_dispatches += 1
-        else:
-            pkt, length = eng._pack_frames([p.frame for p in pend], self.express.cfg.batch)
-            res = _InFlight(eng._run_dhcp_batch(pkt, length, now))
-            self.express_jit_dispatches += 1
+        try:
+            if prog is not None:
+                desc = self._desc_buf
+                desc[:] = 0
+                idxs = [i for i, p in enumerate(pend) if p.desc is not None]
+                if idxs:
+                    desc[idxs] = [pend[i].desc.words for i in idxs]
+                res = _InFlight(eng.run_express_aot(prog, desc, now, device=self._express_dev))
+                # the pool and server config of this dispatch: the retire
+                # renders from the rows the device verdict saw, not from
+                # later mirrors
+                cfg_epoch = (eng.fastpath.pools.copy(), eng.fastpath.server.copy())
+                self.express_aot_dispatches += 1
+                tele.set_meta("express_program", "aot-express")
+            else:
+                pkt, length = eng._pack_frames([p.frame for p in pend], self.express.cfg.batch)
+                res = _InFlight(eng._run_dhcp_batch(pkt, length, now))
+                self.express_jit_dispatches += 1
+                tele.set_meta("express_program", "jit-full")
+        except BaseException:
+            tele.cancel_batch(tok)  # a failed dispatch must not leak a slot
+            raise
+        tele.lap(tele.DISPATCH, t0, tok)
         self._observe_dispatch(LANE_EXPRESS, len(pend), reason)
-        over = self._express_ring.push(InflightEntry(res, pend, now, reason, meta=cfg_epoch))
+        over = self._express_ring.push(InflightEntry(res, pend, now, reason, trace=tok,
+                                                     meta=cfg_epoch))
         return self._retire_express(over) if over is not None else 0
 
     def _retire_express_all(self) -> int:
@@ -399,7 +431,10 @@ class TieredScheduler:
         rest go to the slow path."""
         eng = self.engine
         n = len(entry.pending)
+        tele.focus(entry.trace)
+        t0 = tele.t()
         h = entry.res.wait()
+        tele.lap(tele.DEVICE_WAIT, t0, entry.trace)
         eng._fold_stats(entry.res.stat_names, h["stats"])
         if entry.meta is not None:  # the express program's verdict block
             block = h["block"][:n].view(np.uint32)
@@ -422,6 +457,7 @@ class TieredScheduler:
         slow_items = [(i, p.frame, p.enq_t) for i, p in enumerate(entry.pending)
                       if not answered[i]]
         replies = dict(eng._handle_slow_lanes(slow_items, "sched_express"))
+        t0 = tele.t()
         for i, p in enumerate(entry.pending):
             if answered[i]:
                 eng.stats.tx += 1
@@ -429,6 +465,8 @@ class TieredScheduler:
             else:
                 eng.stats.passed += 1
                 self._complete(p, LANE_EXPRESS, "slow", replies.get(i), now)
+        tele.lap(tele.REPLY, t0, entry.trace)
+        tele.end_batch(entry.trace)
         self._observe_retire(LANE_EXPRESS, entry, now)
         return n
 
@@ -514,24 +552,33 @@ class TieredScheduler:
         if not pend:
             return None
         eng = self.engine
+        tok = tele.begin_batch(tele.LANE_BULK_L, len(pend))
+        if tok is not None:
+            tele.observe(tele.LANE_WAIT, (now - pend[0].enq_t) * 1e6, tok)
         B = self.bulk.cfg.batch
         pkt, length = eng._pack_frames([p.frame for p in pend], B)
         fa = np.zeros((B,), dtype=bool)
         fa[: len(pend)] = [p.from_access for p in pend]
-        self._ensure_bulk_replica()
-        # a prefetched drain ships with the next step whatever the cadence
-        # says: its dirty slots are already drained on the host
-        upd, self._prefetched_upd = self._prefetched_upd, None
-        drain = (upd is not None or self.cfg.drain_every <= 1
-                 or self._bulk_seq % self.cfg.drain_every == 0)
-        before = eng.resync_count
+        t0 = tele.t()
         try:
-            res, self._bulk_dhcp = eng.dispatch_scheduled_bulk(
-                pkt, length, fa, now, self._bulk_dhcp, drain=drain, upd=upd)
+            self._ensure_bulk_replica()
+            # a prefetched drain ships with the next step whatever the
+            # cadence says: its dirty slots are already drained on the host
+            upd, self._prefetched_upd = self._prefetched_upd, None
+            drain = (upd is not None or self.cfg.drain_every <= 1
+                     or self._bulk_seq % self.cfg.drain_every == 0)
+            before = eng.resync_count
+            try:
+                res, self._bulk_dhcp = eng.dispatch_scheduled_bulk(
+                    pkt, length, fa, now, self._bulk_dhcp, drain=drain, upd=upd)
+            except BaseException:
+                # the batch is lost, the prefetched drain must not be
+                self._prefetched_upd = upd
+                raise
         except BaseException:
-            # the batch is lost, the prefetched drain must not be
-            self._prefetched_upd = upd
+            tele.cancel_batch(tok)  # a failed dispatch must not leak a slot
             raise
+        tele.lap(tele.DISPATCH, t0, tok)
         if eng.resync_count != before:
             # a resync inside the drain: rebuild the replica next dispatch
             self._replica_resync = -1
@@ -543,26 +590,34 @@ class TieredScheduler:
             self._prefetched_upd = eng.prefetch_bulk_updates()
             self._drains_prefetched += 1
         self._observe_dispatch(LANE_BULK, len(pend), reason)
-        return self._bulk_ring.push(InflightEntry(_InFlight(res), pend, now, reason))
+        return self._bulk_ring.push(InflightEntry(_InFlight(res), pend, now, reason, trace=tok))
 
     def _retire_bulk(self, entry: InflightEntry) -> int:
         """Wait for one bulk batch and demux its verdicts."""
         eng = self.engine
         n = len(entry.pending)
+        tele.focus(entry.trace)
+        t0 = tele.t()
         h = entry.res.wait()
+        tele.lap(tele.DEVICE_WAIT, t0, entry.trace)
         eng._fold_stats(entry.res.stat_names, h["stats"])
         vv, out_len, out_rows = h["verdict"][:n], h["out_len"], h["out_pkt"]
         punt, viol = h["nat_punt"][:n], h["spoof_violation"][:n]
         now = self.clock()
+        # NAT punts stay inline; everything else drains through the slow
+        # path in one batch
         slow_items = []
+        punts = 0
         for i, p in enumerate(entry.pending):
             if int(vv[i]) in (VERDICT_TX, VERDICT_FWD, VERDICT_DROP):
                 continue
             if punt[i]:
+                punts += 1
                 eng._punt(p.frame, entry.dispatch_t, i, path="sched_bulk")
             else:
                 slow_items.append((i, p.frame, p.enq_t))
         replies = dict(eng._handle_slow_lanes(slow_items, "sched_bulk"))
+        t0 = tele.t()
         for i, p in enumerate(entry.pending):
             v = int(vv[i])
             if v == VERDICT_TX or v == VERDICT_FWD:
@@ -581,6 +636,8 @@ class TieredScheduler:
                 self._complete(p, LANE_BULK, "slow", replies.get(i), now)
             if viol[i] and eng.violation_sink is not None:
                 eng.violation_sink(i, p.frame)
+        tele.lap(tele.REPLY, t0, entry.trace)
+        tele.end_batch(entry.trace, punt=punts)
         self._observe_retire(LANE_BULK, entry, now)
         return n
 
@@ -599,15 +656,29 @@ class TieredScheduler:
         return out
 
     def _observe_dispatch(self, lane: str, n: int, reason: str) -> None:
-        """The reference's metrics hook at a dispatch; here it only counts
-        (the `bng_sched_*` families are not ported)."""
+        """The metrics hook at a dispatch: the lane's counts, and with
+        `metrics` the dispatch counter and the batch occupancy histogram."""
         obs = self.observed[lane]
         obs["dispatches"] += 1
         obs["frames"] += n
+        m = self.metrics
+        if m is None:
+            return
+        batch = (self.express if lane == LANE_EXPRESS else self.bulk).cfg.batch
+        m.sched_dispatches.inc(lane=lane, close=reason)
+        m.sched_batch_occupancy.observe(n / batch, lane=lane)
 
     def _observe_retire(self, lane: str, entry: InflightEntry, now: float) -> None:
-        """The reference's metrics hook at a retire; here it only counts."""
+        """The metrics hook at a retire: the lane's count, and with
+        `metrics` the batch's latency (its oldest frame's, the worst case)
+        and the frames counter."""
         self.observed[lane]["retired"] += len(entry.pending)
+        m = self.metrics
+        if m is None:
+            return
+        if entry.pending:
+            m.sched_dispatch_latency.observe(now - entry.pending[0].enq_t, lane=lane)
+        m.sched_frames.inc(len(entry.pending), lane=lane)
 
     def stats_snapshot(self) -> dict:
         """The lanes' counters."""

@@ -1,25 +1,71 @@
-"""Span tracing hooks (the part of `bng_tpu/telemetry/spans.py` the port calls).
+"""Near-zero-overhead span tracing: the telemetry hook API (a copy of
+`bng_tpu/telemetry/spans.py`).
 
-The blue/green swap times each of its phases with `t()` / `lap(OPS, t0)`,
-and the invariant audit calls `trigger(reason)` on a violation. Disarmed
-(the production state) every hook is one module-global load and one
-`is None` compare. Armed (`with armed() as tr:`), a `Tracer` keeps one
-latency histogram per stage, and `tr.breakdown()` reads them. The stage
-ids are the reference's. Its batch records, span-event log, `span`
-context manager and flight recorder come with the scheduler's telemetry;
-`trigger` reaches a recorder only when the caller hands the `Tracer` one.
+Design constraints, in order:
+
+1. **Disarmed cost ~ zero.** Every instrumented call site pays one
+   function call, one module-global load and one `is None` compare when
+   no tracer is armed. No locks, no dict lookups, no allocation on the
+   disarmed path.
+2. **Stages, not free-form names.** The packet lifecycle is a fixed
+   stage vocabulary (small-int indexes into preallocated arrays), so an
+   armed stamp costs array stores, not string hashing:
+
+       ring        ring pop / assemble into the staging batch
+       admit       admission verdicts
+       lane_wait   scheduler lane enqueue -> dispatch (oldest frame)
+       dispatch    host-side dispatch (update drain + enqueue on the stream)
+       device      device execution, fed only from CUDA events
+                   (utils/profiling.profile_step_durations), never from
+                   host wall time
+       device_wait host blocked on the device's outputs (the event wait
+                   behind a batch's copies; report next to `device`,
+                   never as it)
+       fleet       slow-path fleet scatter/gather
+       worker      per-frame worker handler time
+       slow_path   slow-path drain total (engine._handle_slow_lanes)
+       reply       verdict demux + reply encode/inject
+       wire_rx     wire pump ingress
+       wire_tx     wire pump egress
+       total       batch begin -> end (the client-visible wall time)
+
+3. **Tracing is observation.** A span never mutates subsystem state;
+   arming swaps one module global; telemetry failures never fault the
+   dataplane (the recorder swallows its own I/O errors). A hook reads the
+   host clock (`time.perf_counter_ns`) only, never a device tensor, so it
+   never synchronizes the stream.
+
+Two granularities:
+
+- `t()` / `lap(stage, t0)`: the hot-path pair: `t()` returns None when
+  disarmed, `lap` no-ops on a None origin. Two hook calls per
+  instrumented region.
+- `span(stage)`: context-manager sugar for coarse paths (CLI, tests).
+
+Per-batch flight records: `begin_batch(lane, n)` opens a record slot
+(preallocated pool, allocation-free), `stamp`/`lap`/`add` fill it, and
+`end_batch(tok)` finalizes it into the FlightRecorder ring where the
+anomaly triggers live (recorder.py).
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
+
+import numpy as np
 
 from bng_tpu_torch.telemetry.hist import LatencyHist
 
-# stage ids — array indexes, in lockstep with STAGE_NAMES. `ops` is the
-# zero-downtime-transition stage: each blue/green swap phase records one
-# lap, so its histogram answers "how long do state moves stall the
-# dataplane".
+# stage ids — array indexes; keep STAGE_NAMES in lockstep (and TOTAL
+# LAST — the recorder indexes it as NSTAGES-1). `ops` is the
+# zero-downtime-transition stage (blue/green engine swap phases,
+# runtime/ops.py):
+# each transition phase records one lap, so the histogram answers "how
+# long do operational state moves stall the dataplane". The loop_*
+# stages attribute the devloop ring pump (devloop/host.py): fill = rows
+# into the ring slot, wait = slot staged -> ring dispatch (the latency
+# the k-amortization trades away), retire = ring force + per-slot demux.
 (RING, ADMIT, LANE_WAIT, DISPATCH, LOOP_FILL, LOOP_WAIT, LOOP_RETIRE,
  DEVICE, DEVICE_WAIT, FLEET, WORKER, SLOW, REPLY, OPS, WIRE_RX, WIRE_TX,
  TOTAL) = range(17)
@@ -29,62 +75,314 @@ STAGE_NAMES = ("ring", "admit", "lane_wait", "dispatch", "loop_fill",
                "wire_tx", "total")
 NSTAGES = len(STAGE_NAMES)
 
+# lane ids for batch records
+LANE_ENGINE, LANE_EXPRESS_L, LANE_BULK_L, LANE_RING_L, LANE_BENCH = range(5)
+LANE_NAMES = ("engine", "express", "bulk", "ring", "bench")
+
 
 class Tracer:
-    """Armed runtime: one latency histogram per stage."""
+    """Armed runtime: per-stage histograms + open-batch record slots +
+    (optionally) a bounded span-event log for Chrome-trace export."""
 
-    def __init__(self, recorder=None, clock=time.perf_counter_ns):
+    OPEN_SLOTS = 16  # > max in-flight batches (sched depth + pipelined)
+
+    def __init__(self, recorder=None, keep_events: int = 0,
+                 clock=time.perf_counter_ns):
         self.recorder = recorder
         self.clock = clock
         self.hists = [LatencyHist() for _ in range(NSTAGES)]
+        k = self.OPEN_SLOTS
+        self._open_dur = np.zeros((k, NSTAGES), dtype=np.float64)  # us
+        self._open_stamp = np.zeros((k, NSTAGES), dtype=np.int64)  # ns rel t0
+        self._open_meta = np.zeros((k, 4), dtype=np.int64)  # lane,n,shed,punt
+        self._open_t0 = np.zeros(k, dtype=np.int64)
+        self._free = list(range(k))
+        self._cur: int | None = None
+        self.seq = 0
+        self.records_dropped = 0
+        # (stage, lane, t0_ns, dur_ns) span events for trace export
+        self.events: deque | None = (deque(maxlen=keep_events)
+                                     if keep_events else None)
 
-    def lap(self, stage: int, t0: int) -> None:
-        self.hists[stage].record((self.clock() - t0) / 1000.0)
+    # -- batch records ----------------------------------------------------
+
+    def begin(self, lane: int, size: int) -> int | None:
+        if not self._free:
+            self.records_dropped += 1
+            return None
+        tok = self._free.pop()
+        self._open_dur[tok] = 0.0
+        self._open_stamp[tok] = 0
+        self._open_meta[tok] = (lane, size, 0, 0)
+        self._open_t0[tok] = self.clock()
+        self._cur = tok
+        return tok
+
+    def end(self, tok: int, punt: int = 0, shed: int = 0) -> None:
+        now = self.clock()
+        total_us = (now - self._open_t0[tok]) / 1000.0
+        self._open_dur[tok, TOTAL] = total_us
+        self.hists[TOTAL].record(total_us)
+        if punt:
+            self._open_meta[tok, 3] += punt
+        if shed:
+            self._open_meta[tok, 2] += shed
+        if self.events is not None:
+            self.events.append((TOTAL, int(self._open_meta[tok, 0]),
+                                int(self._open_t0[tok]),
+                                now - int(self._open_t0[tok])))
+        if self.recorder is not None:
+            lane, n, rshed, rpunt = (int(x) for x in self._open_meta[tok])
+            self.recorder.push(lane, n, rshed, rpunt, self.seq,
+                               self._open_dur[tok], self._open_stamp[tok])
+        self.seq += 1
+        self._free.append(tok)
+        if self._cur == tok:
+            self._cur = None
+
+    def cancel(self, tok: int) -> None:
+        """Release an open slot without recording (dispatch crashed)."""
+        if tok not in self._free:
+            self._free.append(tok)
+        if self._cur == tok:
+            self._cur = None
+
+    def focus(self, tok) -> None:
+        """Make `tok` the target of token-less laps (the retire path of a
+        pipelined batch, where helpers don't thread the token)."""
+        if tok is not None and tok not in self._free:
+            self._cur = tok
+
+    # -- span primitives --------------------------------------------------
+
+    def lap(self, stage: int, t0: int, tok: int | None = None) -> None:
+        now = self.clock()
+        dur_us = (now - t0) / 1000.0
+        self.hists[stage].record(dur_us)
+        tok = tok if tok is not None else self._cur
+        if tok is not None:
+            self._open_dur[tok, stage] += dur_us
+        if self.events is not None:
+            lane = int(self._open_meta[tok, 0]) if tok is not None else 0
+            self.events.append((stage, lane, t0, now - t0))
+
+    def stamp(self, stage: int, tok: int | None = None) -> None:
+        """Point event: ns offset of reaching `stage` within the open
+        batch record (flight records carry stage timestamps AND stage
+        durations)."""
+        tok = tok if tok is not None else self._cur
+        if tok is None:
+            return
+        self._open_stamp[tok, stage] = self.clock() - self._open_t0[tok]
+
+    def observe(self, stage: int, dur_us: float,
+                tok: int | None = None) -> None:
+        """Feed an externally measured duration (lane wait computed from
+        enqueue timestamps, profiler-fenced device time)."""
+        self.hists[stage].record(dur_us)
+        tok = tok if tok is not None else self._cur
+        if tok is not None:
+            self._open_dur[tok, stage] += dur_us
+        if self.events is not None:
+            lane = int(self._open_meta[tok, 0]) if tok is not None else 0
+            now = self.clock()
+            self.events.append((stage, lane, now - int(dur_us * 1000),
+                                int(dur_us * 1000)))
+
+    def observe_many(self, stage: int, us_values) -> None:
+        """Bulk histogram feed (bench's profiler distributions)."""
+        self.hists[stage].record_many(us_values)
+
+    def add(self, tok: int | None = None, shed: int = 0,
+            punt: int = 0) -> None:
+        """Count sheds/punts against the open record; shed counts with no
+        open record still reach the recorder's burst detector."""
+        tok = tok if tok is not None else self._cur
+        if tok is not None:
+            self._open_meta[tok, 2] += shed
+            self._open_meta[tok, 3] += punt
+        elif shed and self.recorder is not None:
+            self.recorder.note_shed(shed)
+
+    # -- queries ----------------------------------------------------------
+
+    def merge_stage(self, stage: int, hist_dict: dict) -> None:
+        """Fold a serialized worker/shard histogram into a stage (the
+        cross-process merge — control/fleet.py ships these in worker
+        stats payloads)."""
+        self.hists[stage].merge(LatencyHist.from_dict(hist_dict))
 
     def breakdown(self) -> dict:
         """{stage: {count, p50_us, p99_us, p999_us, mean_us, max_us}} for
-        every stage with samples."""
+        every stage with samples — the BENCH JSON `stage_breakdown`."""
         return {STAGE_NAMES[i]: h.summary()
                 for i, h in enumerate(self.hists) if h.n}
 
+    def snapshot(self) -> dict:
+        return {
+            "records": self.seq,
+            "records_dropped": self.records_dropped,
+            "stages": self.breakdown(),
+            "recorder": (self.recorder.snapshot_meta()
+                         if self.recorder is not None else None),
+        }
+
+
+# ---------------------------------------------------------------------------
+# the hot-path hooks (module-level no-ops when disarmed)
+# ---------------------------------------------------------------------------
 
 _ACTIVE: Tracer | None = None
 
 
+def enabled() -> bool:
+    return _ACTIVE is not None
+
+
+def tracer() -> Tracer | None:
+    return _ACTIVE
+
+
 def t() -> int | None:
-    """Span origin; None when disarmed."""
+    """Span origin. Disarmed (the production state) this is a global
+    load + None compare — nothing else."""
     if _ACTIVE is None:
         return None
     return _ACTIVE.clock()
 
 
-def lap(stage: int, t0: int | None) -> None:
+def lap(stage: int, t0: int | None, tok: int | None = None) -> None:
     """Close a span opened with t(). No-ops when disarmed at open time
     (t0 None) or now."""
     if _ACTIVE is None or t0 is None:
         return
-    _ACTIVE.lap(stage, t0)
+    _ACTIVE.lap(stage, t0, tok)
+
+
+def stamp(stage: int, tok: int | None = None) -> None:
+    if _ACTIVE is None:
+        return
+    _ACTIVE.stamp(stage, tok)
+
+
+def observe(stage: int, dur_us: float, tok: int | None = None) -> None:
+    if _ACTIVE is None:
+        return
+    _ACTIVE.observe(stage, dur_us, tok)
+
+
+def begin_batch(lane: int, size: int) -> int | None:
+    if _ACTIVE is None:
+        return None
+    return _ACTIVE.begin(lane, size)
+
+
+def end_batch(tok: int | None, punt: int = 0, shed: int = 0) -> None:
+    if _ACTIVE is None or tok is None:
+        return
+    _ACTIVE.end(tok, punt=punt, shed=shed)
+
+
+def cancel_batch(tok: int | None) -> None:
+    if _ACTIVE is None or tok is None:
+        return
+    _ACTIVE.cancel(tok)
+
+
+def focus(tok: int | None) -> None:
+    if _ACTIVE is None:
+        return
+    _ACTIVE.focus(tok)
+
+
+def add(tok: int | None = None, shed: int = 0, punt: int = 0) -> None:
+    if _ACTIVE is None:
+        return
+    _ACTIVE.add(tok, shed=shed, punt=punt)
 
 
 def trigger(reason: str, detail: str = "") -> str | None:
-    """Anomaly hook: asks the armed tracer's recorder to dump its ring."""
+    """Anomaly hook: asks the armed recorder to dump the flight ring.
+    Disarmed: global load + None compare (instrumented at worker death,
+    invariant violations, backend fallback)."""
     if _ACTIVE is None or _ACTIVE.recorder is None:
         return None
     return _ACTIVE.recorder.trigger(reason, detail)
 
 
+def set_meta(key: str, value) -> None:
+    """Stamp a fact into the flight-record ring metadata — the
+    backend-identity discipline (recorder.set_backend) generalized: the
+    serving identity is per-process/per-path state, not per-batch, so
+    it rides `meta` and lands in every dump. Used by the scheduler to
+    record which express program (aot-express vs jit-full) served the
+    last dispatch, so a fallback storm is diagnosable from one dump.
+    Disarmed: global load + None compare."""
+    if _ACTIVE is None or _ACTIVE.recorder is None:
+        return
+    _ACTIVE.recorder.meta[key] = value
+
+
+class _NoopSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP = _NoopSpan()
+
+
+class _Span:
+    __slots__ = ("stage", "tok", "t0")
+
+    def __init__(self, stage: int, tok: int | None):
+        self.stage = stage
+        self.tok = tok
+
+    def __enter__(self):
+        self.t0 = _ACTIVE.clock() if _ACTIVE is not None else None
+        return self
+
+    def __exit__(self, *exc):
+        lap(self.stage, self.t0, self.tok)
+        return False
+
+
+def span(stage: int, tok: int | None = None):
+    """Context-manager span for coarse paths. Disarmed: returns a shared
+    no-op singleton (global load + compare + attribute-free enter/exit)."""
+    if _ACTIVE is None:
+        return _NOOP
+    return _Span(stage, tok)
+
+
+def arm(tr: Tracer) -> Tracer:
+    global _ACTIVE
+    _ACTIVE = tr
+    return tr
+
+
+def disarm() -> None:
+    global _ACTIVE
+    _ACTIVE = None
+
+
 class armed:
     """Context manager: arm a tracer for the block, disarm on exit —
-    exceptions included."""
+    exceptions included (a failed bench can never leak an armed tracer
+    into the next test)."""
 
-    def __init__(self, tr: Tracer | None = None, recorder=None):
-        self.tracer = tr if tr is not None else Tracer(recorder=recorder)
+    def __init__(self, tr: Tracer | None = None, recorder=None,
+                 keep_events: int = 0):
+        self.tracer = tr if tr is not None else Tracer(
+            recorder=recorder, keep_events=keep_events)
 
     def __enter__(self) -> Tracer:
-        global _ACTIVE
-        _ACTIVE = self.tracer
-        return self.tracer
+        return arm(self.tracer)
 
     def __exit__(self, *exc) -> None:
-        global _ACTIVE
-        _ACTIVE = None
+        disarm()

@@ -271,10 +271,48 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     session. Printed: the CoA and Disconnect round trips, p50 and p99
     over those requests.
 
+39. Telemetry on the IPoE headline engine (inside phase 6, where that
+    deployment lives): 6 IPoE batches through `Engine.process` with a span
+    tracer armed (a flight recorder behind it) and the same 6 with it
+    disarmed, each run from one copy of the device tables: equal verdicts,
+    bytes and stats, 8 K1 and 4 K2 per batch, one flight record per batch,
+    K1/K2 bit-equal on their first calls. `device` is fed only from the
+    CUDA-event step durations of phase 32. Printed: the dispatch, device,
+    device_wait, reply and total p50/p99, the armed overhead per step, a
+    hook pair's cost armed and disarmed, and `slo.evaluate` of the
+    breakdown against the reference's default budgets (a reading).
+40. The no-sync checks of phases 10, 15, 19 and 26 run again with a tracer
+    armed: still no synchronising CUDA call; the serving and ring checks'
+    batches leave their flight records.
+41. `run` at the reference's defaults with telemetry, the SLO monitor, a
+    checkpoint directory and metrics (phase 34's geometry: the scheduler,
+    8,192 synthetic subscribers, 70 NAT addresses, 2^15 subscriber
+    buckets), on the card and on the CPU under a held clock: 24 beats of
+    the source with a few bulk flows give the same TX bytes, the same
+    exposition (every counter and gauge, each histogram's `_count`; the
+    checkpoint age reads the wall clock), stage counts, flight records and
+    lane counts; counts 0: 3 K1 per express dispatch, 9 K1 + 4 K2 per bulk
+    step, K1/K2 bit-equal on the first bulk step's calls. On the card app:
+    `GET /metrics` over HTTP equals `expose()` (timed, and one
+    `collect_once`), a forced trigger dumps the express and bulk records
+    with backend `gpu`, 32 synthetic MACs are leased, a snapshot is taken
+    on the loop thread (timed), and a fresh app on that directory restores
+    at start (timed) and answers those 32 DISCOVERs on the device with no
+    slow-path OFFER (3 K1 per express dispatch).
+42. The operator's process: `python -m bng_tpu_torch run --synthetic-subs
+    8192 --telemetry-enabled --checkpoint-dir <tmp> --metrics-port 0` on
+    the card, scraped over HTTP until it shows served batches, then
+    SIGTERM: rc 0 and one checkpoint; `run --once` on that directory
+    restores from it on the card.
+43. `python -m bng_tpu_torch trace export --scheduler` on the card: the
+    Chrome JSON holds the express lane's spans (the DORA is control
+    traffic only, so, as in the reference, no bulk thread); then `trace
+    status`.
+
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON (each kernel's launches by path, `loadtest`,
-`run`, `pppoe`, `v6` and `radius` among them); the last line the result
-JSON.
+`run`, `pppoe`, `v6`, `radius`, `ipoe_traced`, `run_observed` and
+`run_restored` among them); the last line the result JSON.
 """
 
 from __future__ import annotations
@@ -285,10 +323,15 @@ import gc
 import hashlib
 import io
 import json
+import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import warnings
 from types import SimpleNamespace
 
@@ -329,6 +372,9 @@ from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
 from bng_tpu_torch import entry as entry_mod
 from bng_tpu_torch.parallel.exchange import DeviceLocalExchange
 from bng_tpu_torch.parallel.sharded import ShardedCluster, sharded_step
+from bng_tpu_torch.telemetry import FlightRecorder, RecorderConfig
+from bng_tpu_torch.telemetry import slo as slo_mod
+from bng_tpu_torch.telemetry import spans as tele
 from bng_tpu_torch.utils.net import fnv1a32, ip_to_u32
 from bng_tpu_torch.utils.profiling import profile_step_durations
 
@@ -343,6 +389,7 @@ N_QOS = 10_000
 N_BINDINGS = 10_000
 BATCHES = 20
 HOST_AB_BATCHES = 6  # IPoE batches run under both host paths
+TELE_BATCHES = 6  # IPoE batches run with a tracer armed, and again disarmed
 # the full-stack deployment, on top of the headline
 N_PPPOE = 65_534  # RFC 2516's 16-bit SESSION_ID, 0xFFFF reserved
 N_GARDEN = 10_000
@@ -1126,7 +1173,137 @@ def ipoe_phases(eng, flows, drop_ips, card, device, profile: bool, err):
         f"peak device memory {peak_gib:.3f} GiB [{card}]")
     if profile:
         profile_step(step, card, "IPoE")
-    return launches
+    return launches, ipoe_telemetry_phase(eng, flows, card, device, d.us, err)
+
+
+@contextlib.contextmanager
+def tracer_armed():
+    """A span tracer with a flight recorder (dumps into a temporary
+    directory), armed for the block."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with tele.armed(tele.Tracer(recorder=FlightRecorder(RecorderConfig(out_dir=tmp)))) as tr:
+            yield tr
+
+
+@contextlib.contextmanager
+def first_kernel_calls(n_probe: int, n_seg: int):
+    """Keep the inputs of the first n_probe K1 calls (`ops/table.probe`) and
+    the first n_seg K2 calls (`ops/qos.seg_prefix_total`) made in the block."""
+    rec = {"probe": [], "seg_prefix": []}
+    orig_probe, orig_seg = table_mod.probe, qos_mod.seg_prefix_total
+
+    def probe_rec(*args):
+        if len(rec["probe"]) < n_probe:
+            rec["probe"].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                      for a in args))
+        return orig_probe(*args)
+
+    def seg_rec(slot, vec, compute="both"):
+        if len(rec["seg_prefix"]) < n_seg:
+            rec["seg_prefix"].append((slot.clone(), vec.clone(), compute))
+        return orig_seg(slot, vec, compute)
+
+    table_mod.probe, qos_mod.seg_prefix_total = probe_rec, seg_rec
+    try:
+        yield rec
+    finally:
+        table_mod.probe, qos_mod.seg_prefix_total = orig_probe, orig_seg
+
+
+def first_calls_vs_plain(rec, what: str, err) -> str:
+    probes_vs_plain([(what, a) for a in rec["probe"]], err)
+    segs_vs_plain([(what, *a) for a in rec["seg_prefix"]], err)
+    return f"K1 and K2 bit-equal to their plain versions on their first {len(rec['probe'])} " \
+           f"and {len(rec['seg_prefix'])} calls"
+
+
+def engine_counts(eng) -> dict:
+    st = eng.stats
+    return {f: getattr(st, f).copy() for f in ("dhcp", "nat", "qos", "spoof")} | {
+        f: getattr(st, f) for f in ("batches", "tx", "fwd", "dropped", "passed", "slow_errors")}
+
+
+def pcts_us(bd: dict, stage: str) -> str:
+    s = bd.get(stage)
+    return f"{stage} p50 {s['p50_us']:.1f} / p99 {s['p99_us']:.1f} us (n {s['count']})" \
+        if s else f"{stage} (no samples)"
+
+
+def hook_pair_ns(n: int = 200_000) -> float:
+    """Host cost of one `t()` + `lap()` pair, the hot-path hooks, in ns."""
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        tele.lap(tele.REPLY, tele.t())
+    return (time.perf_counter_ns() - t0) / n
+
+
+def ipoe_telemetry_phase(eng, flows, card, device, device_us, err) -> dict:
+    """TELE_BATCHES IPoE batches through `Engine.process` with a tracer armed
+    and the same batches with it disarmed, in turns (disarmed, armed,
+    disarmed, armed), each run from the same device tables (a copy taken
+    first, adopted before each run): equal verdicts, bytes and stats. The
+    first run warms the adopted tables' path and is left out of the
+    overhead. `device` is fed from the CUDA-event step durations
+    (`profile_step_durations`), never host time. Returns the armed runs'
+    launches."""
+    rng = np.random.default_rng(1234)
+    batches = [make_batch(rng, flows)[0] for _ in range(TELE_BATCHES)]
+    snap = convert.tables_to_numpy(eng.tables)
+    runs = []
+    for armed in (False, True, False, True):
+        eng.adopt_device_tables(convert.tables_from_numpy(snap, device))
+        torch.cuda.synchronize()
+        before = engine_counts(eng)
+        outs, ms = [], []
+        kernels.reset_launches()
+        ctx = tracer_armed() if armed else contextlib.nullcontext()
+        with ctx as tr, first_kernel_calls(8, 4) as rec:
+            for k, frames in enumerate(batches):
+                t1 = time.perf_counter()
+                outs.append(eng.process(frames, from_access=True, now=NOW + 50 + k * 0.01))
+                ms.append((time.perf_counter() - t1) * 1e3)
+            if armed:
+                tr.observe_many(tele.DEVICE, device_us)
+                bd, records = tr.breakdown(), tr.recorder.records()
+        launches = dict(kernels.LAUNCHES)
+        after = engine_counts(eng)
+        delta = {k: (after[k] - before[k]) for k in after}
+        runs.append((outs, {k: v.tolist() if isinstance(v, np.ndarray) else v
+                            for k, v in delta.items()}, ms, launches))
+    for k in (1, 2, 3):
+        check(runs[k][0] == runs[0][0], f"IPoE telemetry: run {k}'s verdicts and bytes == the "
+              "first disarmed run's")
+        check(runs[k][1] == runs[0][1], f"IPoE telemetry: run {k}'s stats == the first "
+              f"disarmed run's ({runs[k][1]} vs {runs[0][1]})")
+        check_launches(runs[k][3], TELE_BATCHES, {"probe": 8, "seg_prefix": 4}, f"IPoE run {k}")
+    check(len(records) == TELE_BATCHES and all(r["lane"] == "engine" for r in records)
+          and all(bd[s]["count"] == TELE_BATCHES for s in ("dispatch", "device_wait", "reply",
+                                                            "total")),
+          f"IPoE telemetry: one flight record and one dispatch, device_wait and reply lap per "
+          f"batch ({bd.keys()}, {len(records)} records)")
+    check(bd["device"]["count"] == len(device_us), "device fed from the CUDA-event durations only")
+    kern = first_calls_vs_plain(rec, "IPoE armed", err)
+    on, off = runs[1][2] + runs[3][2], runs[2][2]
+    overhead = float(np.mean(on) - np.mean(off))
+    spread = abs(float(np.mean(runs[1][2]) - np.mean(runs[3][2])))
+    pair_off = hook_pair_ns()
+    with tracer_armed():
+        pair_on = hook_pair_ns()
+    verdict = slo_mod.evaluate(bd)
+    say(f"IPoE telemetry: {TELE_BATCHES} batches armed == disarmed, in 4 runs (verdicts, "
+        f"bytes, stats); {kern}; {pcts_us(bd, 'dispatch')}, {pcts_us(bd, 'device')} (CUDA "
+        f"events), {pcts_us(bd, 'device_wait')}, {pcts_us(bd, 'reply')}, "
+        f"{pcts_us(bd, 'total')} (the last armed run); Engine.process mean armed "
+        f"{np.mean(on):.3f} ms, disarmed {np.mean(off):.3f} ms (first run {np.mean(runs[0][2]):.3f}, "
+        f"left out), armed overhead {overhead:.3f} ms per step against a spread of "
+        f"{spread:.3f} ms between the two armed runs (host clock); a t()/lap() hook pair "
+        f"{pair_off:.1f} ns disarmed, {pair_on:.1f} ns armed [{card}]")
+    say(f"IPoE telemetry: evaluate(breakdown) against the reference's default budgets: "
+        f"ok={verdict['ok']} breaches={verdict['breaches']}; device p99 "
+        f"{bd['device']['p99_us']:.1f} us against the reference's default 50 us budget, "
+        f"{'within' if 'device' not in verdict['breaches'] else 'over'} it (a reading, not "
+        f"a gate) [{card}]")
+    return {k: runs[1][3][k] + runs[3][3][k] for k in runs[1][3]}
 
 
 def set_host_path(eng, path: str, pool) -> None:
@@ -1217,6 +1394,9 @@ def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
 
     gpu_step_equals_cpu_step(eng, pkt, length, fa, "full stack")
     check_dispatch_makes_no_sync(eng, pkt, length, fa, dpkt, dlen)
+    with tracer_armed():
+        check_dispatch_makes_no_sync(eng, pkt, length, fa, dpkt, dlen)
+    say("  (and again with a tracer armed)")
 
     # ---- the DHCP-only lane
     kernels.reset_launches()
@@ -1778,6 +1958,11 @@ def serving_stack_phases(hosts, flows, drop_ips, card, device, err):
         f"path ({storm_s:.2f} s, cached DISCOVERs and IPoE batches interleaved) [{card}]")
 
     check_serving_dispatch_makes_no_sync(sched, rng, flows)
+    with tracer_armed() as tr:
+        check_serving_dispatch_makes_no_sync(sched, rng, flows)
+    check(tr.seq == 2 and not tr.records_dropped, f"the armed check's express and bulk batches "
+          f"left one flight record each ({tr.seq})")
+    say("  (and again with a tracer armed: an express and a bulk flight record)")
 
     # ---- express OFFER latency, the bulk lane idle: counts 0, express only
     kernels.reset_launches()
@@ -2035,6 +2220,12 @@ def devloop_phases(hosts, flows, drop_ips, card, device, err):
     say(f"devloop.dispatch fail injected: {pump.ring.k} slots served per batch, counted "
         f"(fallbacks {sched.express_fallbacks}), bytes identical to the clean ring")
     check_ring_dispatch_makes_no_sync(sched, rng)
+    with tracer_armed() as tr:
+        check_ring_dispatch_makes_no_sync(sched, rng)
+    k = sched._devloop.ring.k
+    check(tr.seq == k and tr.breakdown()["loop_fill"]["count"] == k,
+          f"the armed ring's {k} slots left one flight record each ({tr.seq})")
+    say(f"  (and again with a tracer armed: {k} flight records, one per ring slot)")
 
     # ---- the DORA storm and the latencies through the devloop (counts 0)
     snap0 = sched.stats_snapshot()
@@ -2440,6 +2631,9 @@ def sharded_phases(card, device, err):
         two.append((p_, l_.astype(np.int64), (f_ & ring_mod.FLAG_FROM_ACCESS) != 0))
     sharded_gpu_equals_cpu(cl, two, device)
     check_sharded_dispatch_makes_no_sync(cl, two[0][0], two[0][1], two[0][2], dpkt, dlen)
+    with tracer_armed():
+        check_sharded_dispatch_makes_no_sync(cl, two[0][0], two[0][1], two[0][2], dpkt, dlen)
+    say("  (and again with a tracer armed)")
 
     # 4. the ring loops: counts 0, the pipelined loop over mixed batches,
     # then an all-control batch (the sharded DHCP-only program)
@@ -3017,23 +3211,6 @@ def gate_phase(card) -> None:
         f"({', '.join(n for n, _ in res)}) [{card}]")
 
 
-@contextlib.contextmanager
-def first_probe_calls(n: int):
-    """Keep the inputs of the first n K1 calls made through `ops/table.probe`."""
-    rec, orig = [], table_mod.probe
-
-    def probe_rec(*args):
-        if len(rec) < n:
-            rec.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
-        return orig(*args)
-
-    table_mod.probe = probe_rec
-    try:
-        yield rec
-    finally:
-        table_mod.probe = orig
-
-
 def loadtest_phases(card, err) -> dict:
     """`loadtest` in-process through the port's `cli.main`, engine and
     scheduler; returns {path: launches}."""
@@ -3047,7 +3224,7 @@ def loadtest_phases(card, err) -> dict:
             log = f"{tmp}/bench.jsonl"
             buf = io.StringIO()
             kernels.reset_launches()
-            with first_probe_calls(6) as rec, contextlib.redirect_stdout(buf):
+            with first_kernel_calls(6, 0) as rec, contextlib.redirect_stdout(buf):
                 rc = cli.main(["loadtest", *LT_ARGS, "--bench-log", log, *extra])
             launches = dict(kernels.LAUNCHES)
             line = ledger.read(log)[-1]
@@ -3068,6 +3245,7 @@ def loadtest_phases(card, err) -> dict:
         check(ledger.backend_class(line) == "gpu" and line["env"]["device_kind"] == name
               and line["env"]["table_impl"] == "cuda",
               f"{path}: the ledger line is class gpu on {name} ({line['env']})")
+        rec = rec["probe"]
         if rec:  # the engine run's DHCP-only program calls K1 through the wrapper
             probes_vs_plain([(path, a) for a in rec], err)
         say(f"{path}{' (K1 bit-equal on its first ' + str(len(rec)) + ' calls)' if rec else ''}: "
@@ -3976,6 +4154,330 @@ def radius_phases(card, device, err) -> dict:
             app.close()
         peer.close()
 
+# ------------------------------------------ observability: what `run` turns on by default
+
+REPO = os.path.dirname(os.path.abspath(__file__))  # the subprocesses run from the checkout
+SCRAPES = 5  # GET /metrics timed
+OBS_LEASED = 32  # synthetic MACs leased before the snapshot: the restored app's first 2 beats
+# families computed from the wall clock (the checkpointer's age reads
+# time.time() at scrape): compared by presence only
+WALL_FAMILIES = ("bng_ckpt_last_success_age_seconds",)
+
+
+def exposition_samples(text: str) -> dict:
+    """{sample key: value} of every counter and gauge, and each histogram's
+    `_count` (buckets and sums carry wall-time values)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, val = line.rsplit(" ", 1)
+        name = key.split("{", 1)[0]
+        if name.endswith(("_bucket", "_sum")):
+            continue
+        out[key] = "wall" if name in WALL_FAMILIES else val
+    return out
+
+
+def obs_app(device, clock, ckpt_dir: str, trace_dir: str):
+    """`run` at the reference's defaults (DHCPv6, SLAAC, the walled garden,
+    metrics) with phase 34's geometry, the scheduler, telemetry with its
+    SLO monitor, and a checkpoint directory."""
+    from bng_tpu_torch.cli import BNGApp, BNGConfig
+
+    cfg = BNGConfig(scheduler_enabled=True, synthetic_subs=RUN_SUBS, telemetry_enabled=True,
+                    checkpoint_dir=ckpt_dir, trace_dir=trace_dir, metrics_port=0,
+                    nat_public_ips=[f"203.0.113.{k}" for k in range(1, 71)])
+    return BNGApp(cfg, clock=clock, device=device)
+
+
+def obs_flows(n: int = 4) -> list:
+    """UDP frames from subscribers with no lease: bulk-lane traffic (punted
+    to the host's NAT), so the flight records hold bulk batches too."""
+    return [F.udp_packet(bytes([2, 0x55, 0, 0, 0, k]), AC_MAC, ip_to_u32(f"10.0.9.{k + 1}"),
+                         WAN_IP, 40000 + k, 53, b"q" * 40) for k in range(n)]
+
+
+def obs_drive(app, clk, beats: int) -> list:
+    """`beats` beats of the source with a few flows every fourth beat."""
+    ring, tx = app.components["ring"], []
+    for k in range(beats):
+        if k % 4 == 1:
+            for f in obs_flows():
+                ring.rx_push(f, from_access=True)
+        tx += drive_app(app, clk, 1)
+    return tx + settle(app)
+
+
+def run_observed_phases(card, device, err) -> dict:
+    """`run` at the reference's defaults with telemetry, the SLO monitor,
+    the checkpointer and metrics, on the card and on the CPU; the scrape
+    over HTTP; a forced flight dump; a snapshot on the loop thread and the
+    restore of a fresh app. Returns {"run_observed": launches}."""
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, dev in enumerate((device, "cpu")):
+            clk = BeatClock(float(NOW))
+            app = obs_app(dev, clk, f"{tmp}/{k}/ckpt", f"{tmp}/{k}/trace")
+            c = app.components
+            try:
+                app.tick(clk.t)
+                kernels.reset_launches()
+                with first_kernel_calls(9, 4) as rec:
+                    tx = obs_drive(app, clk, RUN_CMP_BEATS)
+                launches = dict(kernels.LAUNCHES)
+                t0 = time.perf_counter()
+                c["collector"].collect_once()
+                collect_ms = (time.perf_counter() - t0) * 1e3
+                tr, sched = c["telemetry"], c["scheduler"]
+                out.append(SimpleNamespace(
+                    tx=tx, expo=exposition_samples(c["metrics"].expose()),
+                    stages={k: v["count"] for k, v in tr.breakdown().items()},
+                    records=[(r["seq"], r["lane"], r["n"], r["shed"], r["punt"])
+                             for r in tr.recorder.records()],
+                    lanes=observed(sched), launches=launches, rec=rec, collect_ms=collect_ms,
+                    backend=tr.recorder.meta["backend"]))
+                if k == 0:
+                    more = run_observed_card(app, clk, card, device, f"{tmp}/{k}", tx)
+            finally:
+                app.close()
+        g, cpu = out
+        check(g.tx == cpu.tx and len(g.tx) >= 16 * RUN_CMP_BEATS,
+              f"run observed: the card's first {RUN_CMP_BEATS} beats' TX bytes == the CPU app's "
+              f"({len(g.tx)} vs {len(cpu.tx)} frames)")
+        diff = {k: (g.expo.get(k), cpu.expo.get(k)) for k in set(g.expo) | set(cpu.expo)
+                if g.expo.get(k) != cpu.expo.get(k)}
+        check(not diff, f"run observed: every counter and gauge family and each histogram's "
+              f"_count equal on the card and the CPU ({sorted(diff.items())[:8]})")
+        check(g.stages == cpu.stages and g.records == cpu.records and g.lanes == cpu.lanes,
+              f"run observed: the same stage counts, flight records and lane counts ({g.stages} "
+              f"vs {cpu.stages})")
+        check((g.backend, cpu.backend) == ("gpu", "cpu"), f"recorder backends ({g.backend}, "
+              f"{cpu.backend})")
+        check({r[1] for r in g.records} == {"express", "bulk"}, "express and bulk flight records")
+        n_ex, n_bulk = g.lanes["express"]["dispatches"], g.lanes["bulk"]["dispatches"]
+        check(n_bulk > 0 and g.launches["probe"] == 3 * n_ex + 9 * n_bulk
+              and g.launches["seg_prefix"] == 4 * n_bulk,
+              f"run observed: 3 K1 per express dispatch, 9 K1 + 4 K2 per bulk step "
+              f"({g.launches}, {n_ex} express, {n_bulk} bulk)")
+        kern = first_calls_vs_plain(g.rec, "run observed bulk", err)
+        say(f"run observed: {RUN_CMP_BEATS} beats on the card == the CPU app (TX bytes, "
+            f"{len(g.expo)} exposition samples, stage counts {g.stages}, "
+            f"{len(g.records)} flight records); {kern}; launches {g.launches} "
+            f"({n_ex} express, {n_bulk} bulk); collect_once {g.collect_ms:.3f} ms [{card}]")
+    return {"run_observed": g.launches, **more}
+
+
+def run_observed_card(app, clk, card, device, tmp: str, tx) -> dict:
+    """On the card app after its compared beats: the scrape over HTTP, a
+    forced flight dump, leases, a snapshot on the loop thread, and a fresh
+    app restored from it whose first beats answer the leased MACs'
+    DISCOVERs on the device."""
+    c = app.components
+    col, met, tr = c["collector"], c["metrics"], c["telemetry"]
+    port = col.serve_http(0)
+    try:
+        scrape_ms = []
+        for _ in range(SCRAPES):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+                body = resp.read().decode()
+            scrape_ms.append((time.perf_counter() - t0) * 1e3)
+            check(body == met.expose(), "GET /metrics == expose()")
+        t0 = time.perf_counter()
+        expose_len = len(met.expose())
+        expose_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        col.stop()
+    path = tele.trigger("smoke", "forced dump")
+    check(path is not None and os.path.exists(path), f"a forced trigger dumped ({path})")
+    with open(path) as f:
+        dump = json.load(f)
+    check(dump["reason"] == "smoke" and dump["meta"]["backend"] == "gpu"
+          and {r["lane"] for r in dump["records"]} == {"express", "bulk"},
+          f"the dump holds the express and bulk records, backend gpu ({dump['meta']})")
+    say(f"run observed: GET /metrics on port {port} == expose() ({len(body)} bytes), "
+        f"{SCRAPES} scrapes p50 {np.percentile(scrape_ms, 50):.3f} / max {max(scrape_ms):.3f} "
+        f"ms (expose() alone {expose_ms:.3f} ms, {expose_len} bytes); a forced dump of "
+        f"{len(dump['records'])} records, backend "
+        f"{dump['meta']['backend']}, program {dump['meta'].get('express_program')} [{card}]")
+
+    # leases for the first OBS_LEASED synthetic MACs, from their OFFERs in
+    # the compared beats' TX
+    ring, dhcp, eng = c["ring"], c["dhcp"], c["engine"]
+    offers = {}
+    for t, m, ip in dhcp_replies(tx):
+        if t == F.OFFER:
+            offers.setdefault(m, ip)
+    for i in range(OBS_LEASED):
+        m = synthetic_mac(i)
+        check(ring.rx_push(storm_request(m, 0x9000 + i, offers[m]), from_access=True),
+              "the ring takes the REQUESTs")
+    acks = [m for t, m, _ in dhcp_replies(drive_app(app, clk, 8) + settle(app)) if t == F.ACK]
+    check(len(acks) == OBS_LEASED, f"{OBS_LEASED} ACKs ({len(acks)})")
+    while eng.fastpath.dirty_count():  # the express drain ships the lease rows
+        drive_app(app, clk, 1)
+    settle(app)
+    ckptr = c["checkpointer"]
+    t0 = time.perf_counter()
+    with app._ctl:  # on the loop thread, between beats
+        path = ckptr.save_now(reason="smoke")
+    snap_s = time.perf_counter() - t0
+    col.collect_once()
+    expo = exposition_samples(met.expose())
+    check(expo["bng_ckpt_saves_total"] == "1" and expo['bng_ckpt_duration_seconds_count'
+                                                        '{reason="smoke"}'] == "1",
+          "the snapshot counted in bng_ckpt_*")
+
+    # a fresh app on the same directory restores at start
+    clk2 = BeatClock(clk.t + 5)
+    t0 = time.perf_counter()
+    fresh = obs_app(device, clk2, str(path.parent), f"{tmp}/trace2")
+    restore_s = time.perf_counter() - t0
+    try:
+        fc = fresh.components
+        rows = fc.get("checkpoint_restored")
+        check(rows is not None and rows["dhcp.leases"] == OBS_LEASED,
+              f"the fresh app restored {OBS_LEASED} leases ({rows})")
+        feng, fdhcp = fc["engine"], fc["dhcp"]
+        tx0, disc0 = feng.stats.tx, fdhcp.stats.discover
+        kernels.reset_launches()
+        tx = drive_app(fresh, clk2, OBS_LEASED // 16) + settle(fresh)
+        launches = dict(kernels.LAUNCHES)
+        got = dhcp_replies(tx)
+        check(feng.stats.tx - tx0 == OBS_LEASED and fdhcp.stats.discover == disc0
+              and sorted(m for t, m, _ in got if t == F.OFFER)
+              == sorted(synthetic_mac(i) for i in range(OBS_LEASED)),
+              f"the restored app answered its first {OBS_LEASED} DISCOVERs (the leased MACs) on "
+              f"the device, no slow-path OFFER ({feng.stats.tx - tx0}, "
+              f"{fdhcp.stats.discover - disc0})")
+        check(exposition_samples(fc["metrics"].expose())
+              ['bng_ckpt_restores_total{outcome="ok"}'] == "1", "the restore counted ok")
+        n_ex = fc["scheduler"].observed["express"]["dispatches"]
+        check(launches["probe"] == 3 * n_ex and launches["seg_prefix"] == 0,
+              f"restored: 3 K1 per express dispatch ({launches}, {n_ex})")
+    finally:
+        fresh.close()
+    nonzero = {k: v for k, v in rows.items() if v}
+    say(f"run observed: snapshot on the loop thread {snap_s:.3f} s ({path.stat().st_size} "
+        f"bytes, 2^15 subscriber buckets, {OBS_LEASED} leases); a fresh app built and restored "
+        f"in {restore_s:.3f} s ({nonzero}); its first {OBS_LEASED} DISCOVERs answered on the "
+        f"device [{card}]")
+    return {"run_restored": launches}
+
+
+def read_lines(stream, sink: list) -> threading.Thread:
+    """Drain a child's pipe into `sink` on a thread (so the child never
+    blocks on a full pipe)."""
+    th = threading.Thread(target=lambda: sink.extend(iter(stream.readline, "")), daemon=True)
+    th.start()
+    return th
+
+
+def wait_for(pred, timeout_s: float, what: str):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        got = pred()
+        if got:
+            return got
+        time.sleep(0.2)
+    raise RuntimeError(f"check failed: {what} within {timeout_s:.0f} s")
+
+
+def operator_process_phase(card) -> None:
+    """`python -m bng_tpu_torch run --synthetic-subs 8192 --telemetry-enabled
+    --checkpoint-dir <tmp> --metrics-port 0` on the card: scraped over
+    HTTP, then SIGTERM: rc 0 and a new checkpoint; then `run --once` on the
+    same directory restores from it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, BNG_TRACE_DIR=f"{tmp}/trace")
+        ckpt = f"{tmp}/ckpt"
+        cmd = [sys.executable, "-m", "bng_tpu_torch", "run", "--synthetic-subs", str(RUN_SUBS),
+               "--telemetry-enabled", "--checkpoint-dir", ckpt, "--metrics-port", "0"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=env, cwd=REPO)
+        err_lines, out_lines = [], []
+        readers = [read_lines(proc.stderr, err_lines), read_lines(proc.stdout, out_lines)]
+        try:
+            def port():
+                for line in err_lines:
+                    m = re.search(r"metrics on :(\d+)/metrics", line)
+                    if m:
+                        return int(m.group(1))
+                check(proc.poll() is None, f"run exited early (rc {proc.returncode}): "
+                      f"{''.join(err_lines)[-2000:]}")
+                return None
+
+            p = wait_for(port, 300, "run prints its metrics port")
+            up_s = time.perf_counter() - t0
+
+            def scraped():
+                with urllib.request.urlopen(f"http://127.0.0.1:{p}/metrics", timeout=30) as r:
+                    body = r.read().decode()
+                ex = exposition_samples(body)
+                ok = (int(ex.get("bng_telemetry_batch_records_total", "0")) > 0
+                      and int(ex.get('bng_dhcp_requests_total{type="offer"}', "0")) > 0
+                      and 'bng_stage_latency_us_count{stage="dispatch"}' in ex)
+                return (body, ex) if ok else None
+
+            body, ex = wait_for(scraped, 120, "a scrape shows served batches")
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            term_s = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for th in readers:
+                th.join(timeout=10)
+        check(rc == 0, f"run after SIGTERM: rc {rc}\n{''.join(err_lines)[-2000:]}")
+        files = CheckpointStore(ckpt).list()
+        check(len(files) == 1, f"SIGTERM wrote a checkpoint ({files})")
+        records, offers = (ex["bng_telemetry_batch_records_total"],
+                           ex['bng_dhcp_requests_total{type="offer"}'])
+        say(f"python -m bng_tpu_torch run: metrics up {up_s:.1f}s after start, a scrape of "
+            f"{len(body)} bytes ({records} flight records, {offers} OFFERs), SIGTERM -> rc 0 "
+            f"in {term_s:.2f}s with checkpoint seq {files[0].seq} [{card}]")
+        once = subprocess.run([sys.executable, "-m", "bng_tpu_torch", "run", "--once",
+                               "--checkpoint-dir", ckpt], capture_output=True, text=True,
+                              timeout=300, env=env, cwd=REPO)
+        check(once.returncode == 0, f"run --once on the checkpoint dir: rc {once.returncode}\n"
+              f"{once.stderr[-2000:]}")
+        restored = [line for line in once.stderr.splitlines()
+                    if "warm restart from checkpoint" in line]
+        check(len(restored) == 1 and json.loads(once.stdout)["device"] == "cuda",
+              f"run --once restored from the checkpoint on the card ({once.stderr[-1000:]})")
+        say(f"python -m bng_tpu_torch run --once on that directory: rc 0, "
+            f"{restored[0].split('rows=', 1)[-1]} [{card}]")
+
+
+def trace_export_phase(card) -> None:
+    """`python -m bng_tpu_torch trace export --scheduler` on the card, then
+    `trace status`: the Chrome JSON has the express lane's thread (the DORA
+    is control traffic only, so the reference's has no bulk thread either)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run([sys.executable, "-m", "bng_tpu_torch", "trace", "export",
+                              "--scheduler", "--trace-dir", tmp, "--out", f"{tmp}/dora.json"],
+                             capture_output=True, text=True, timeout=300, cwd=REPO)
+        check(out.returncode == 0, f"trace export: rc {out.returncode}\n{out.stderr[-2000:]}")
+        res = json.loads(out.stdout)
+        with open(res["trace"]) as f:
+            trace = json.load(f)
+        threads = {e["args"]["name"] for e in trace["traceEvents"] if e["name"] == "thread_name"}
+        xs = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+        check("lane:express" in threads and res["events"] == len(xs) > 0
+              and {"lane_wait", "dispatch", "device_wait", "reply", "total"} <= set(res["stages"]),
+              f"trace export: the express lane's spans ({threads}, {res['stages']})")
+        st = subprocess.run([sys.executable, "-m", "bng_tpu_torch", "trace", "status",
+                             "--trace-dir", tmp], capture_output=True, text=True, timeout=120,
+                            cwd=REPO)
+        check(st.returncode == 0, f"trace status: rc {st.returncode}")
+        say(f"trace export --scheduler: {res['events']} spans on threads {sorted(threads)}, "
+            f"stages {res['stages']} [{card}]")
+
+
 def module_entry_phase(card) -> None:
     """`python -m bng_tpu_torch run --once` in a subprocess."""
     t0 = time.perf_counter()
@@ -4022,7 +4524,8 @@ def main(argv=None) -> int:
         f"(device tables {torch.cuda.memory_allocated() / 2**30:.3f} GiB)")
 
     err = {"probe": 0.0, "seg_prefix": 0.0}  # max |kernel - plain| over every comparison
-    launches = {"ipoe": ipoe_phases(eng, flows, drop_ips, card, device, args.profile, err)}
+    ipoe, ipoe_traced = ipoe_phases(eng, flows, drop_ips, card, device, args.profile, err)
+    launches = {"ipoe": ipoe, "ipoe_traced": ipoe_traced}
     # the full-stack engine drains the same host tables: retire this one first
     hosts = (eng.fastpath, eng.nat, eng.qos, eng.antispoof)
     del eng
@@ -4053,6 +4556,9 @@ def main(argv=None) -> int:
     launches.update(pppoe_phases(card, device, err))
     launches.update(v6_phases(card, device, err))
     launches.update(radius_phases(card, device, err))
+    launches.update(run_observed_phases(card, device, err))
+    operator_process_phase(card)
+    trace_export_phase(card)
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

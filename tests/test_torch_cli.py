@@ -27,11 +27,22 @@
   PPPoE clauses and reports what the reference's reports, and
   `checkpoint restore --audit` exits 0.
 - Refusal: a config that turns on subsystems the port lacks raises one
-  error that names each of them and the flag that turns it off; metrics
-  is the only one the reference's defaults turn on.
-- `main(["--device", "cpu", "run", "--once", "--no-metrics-enabled"])`
-  exits 0; with no card and no `--device cpu` it exits non-zero, and
-  `BNGApp` raises.
+  error that names each of them and the flag that turns it off; the
+  reference's defaults (metrics, telemetry and the checkpointer included)
+  build.
+- `main(["--device", "cpu", "run", "--once"])` exits 0 with no off flag;
+  with no card and no `--device cpu` it exits non-zero, and `BNGApp`
+  raises.
+- Observability: both packages' apps at the `run` defaults with the
+  scheduler, telemetry (and its SLO monitor) and a checkpoint directory,
+  driven 24 beats of the synthetic source and a few flows at one held
+  clock, give the same TX bytes, the same exposition (every counter and
+  gauge family; the histograms' `_count`), the same per-stage sample
+  counts and flight records, and the same per-lane counts; the same with
+  the devloop at k = 8. The checkpointer's restore at start gives the
+  same rows and `bng_ckpt_restores_total` in both, and a corrupt
+  checkpoint reads `outcome="rejected"` and cold-starts. `trace status`,
+  `trace dump` and `trace export` work on the CPU.
 
 Tolerance: exact (bytes, dicts).
 """
@@ -56,9 +67,10 @@ pytestmark = pytest.mark.torch_port
 NOW = 1_753_000_000
 JAX = SimpleNamespace(name="jax", cli=j_cli, Ring=JRing, kw={})
 PORT = SimpleNamespace(name="port", cli=t_cli, Ring=TRing, kw={"device": "cpu"})
-# what the port refuses, off: the reference builds the same stack then
-WORKING = dict(metrics_enabled=False)
-WORKING_FLAGS = ["--no-metrics-enabled"]
+# what the port refuses among the reference's defaults, off: nothing now,
+# the defaults build in both packages
+WORKING = {}
+WORKING_FLAGS = []
 
 
 def _defaults(cls):
@@ -170,30 +182,32 @@ def test_dora_renewal_flow_and_tick_match_reference(scheduler):
 def test_refusal_names_every_unported_subsystem():
     on = dict(ha_role="active",
               cluster_listen="127.0.0.1:0", slowpath_workers=2, wire_if="eth9", shards=2,
-              telemetry_enabled=True, checkpoint_dir="/nonexistent", dns_enabled=True,
-              bgp_enabled=True, nexus_url="http://nexus", peer_pool_cidr="10.9.0.0/24",
+              dns_enabled=True, bgp_enabled=True, nexus_url="http://nexus",
+              peer_pool_cidr="10.9.0.0/24",
               peer_pool_nodes=[{"node": "bng0", "url": "http://x"}], device_auth_method="psk")
     cfg = t_cli.BNGConfig(**on)
     with pytest.raises(t_cli.UnportedSubsystemError) as e:
         t_cli.BNGApp(cfg, device="cpu")
     msg = str(e.value)
-    assert len(t_cli.unported(cfg)) == len(t_cli.UNPORTED)
+    assert len(t_cli.unported(cfg)) == len(t_cli.UNPORTED) == 10
     for _on, what, flag in t_cli.UNPORTED:
         assert what in msg and flag in msg
-    assert t_cli.UNPORTED[0][1] == "metrics"  # the one the defaults turn on
-    for flag in WORKING_FLAGS:
-        assert flag in str(pytest.raises(t_cli.UnportedSubsystemError,
-                                         t_cli.BNGApp, t_cli.BNGConfig(), device="cpu").value)
-    assert t_cli.unported(t_cli.BNGConfig(**WORKING)) == []
+    # the reference's defaults, and metrics, telemetry and the checkpointer
+    # on top of them, are ported
+    names = " ".join(what for _on, what, _flag in t_cli.UNPORTED)
+    assert not any(w in names for w in ("metrics", "telemetry", "checkpoint"))
+    assert t_cli.unported(t_cli.BNGConfig()) == []
+    assert t_cli.unported(t_cli.BNGConfig(telemetry_enabled=True, checkpoint_dir="/x")) == []
     ported = t_cli.BNGConfig(radius_server="127.0.0.1:1812", pppoe_enabled=True, **WORKING)
     assert t_cli.unported(ported) == []
 
 
 def test_main_run_once_on_cpu(capsys):
-    assert t_cli.main(["--device", "cpu", "run", "--once"] + WORKING_FLAGS) == 0
+    assert t_cli.main(["--device", "cpu", "run", "--once"]) == 0  # the defaults build
     assert '"device": "cpu"' in capsys.readouterr().out
-    assert t_cli.main(["--device", "cpu", "run", "--once"]) == 2  # the defaults refuse
-    assert "--no-metrics-enabled" in capsys.readouterr().err
+    assert t_cli.main(["--device", "cpu", "run", "--once", "--no-metrics-enabled"]) == 0
+    assert t_cli.main(["--device", "cpu", "run", "--once", "--shards", "2"]) == 2
+    assert "--shards 1" in capsys.readouterr().err
     assert t_cli.main(["version"]) == 0
 
 
@@ -436,3 +450,206 @@ def test_audit_app_and_restore_audit(tmp_path, capsys):
     assert t_cli.main(["--device", "cpu", "checkpoint", "save", *flags]) == 0
     assert t_cli.main(["--device", "cpu", "checkpoint", "restore", "--audit", *flags]) == 0
     assert '"ok": true' in capsys.readouterr().out
+
+
+# ---- observability: metrics, telemetry and the SLO monitor, the checkpointer ----
+
+# families computed from the wall clock (the checkpointer's age reads
+# time.time() at scrape): compared by presence only
+WALL_FAMILIES = ("bng_ckpt_last_success_age_seconds",)
+# the wire rung's families: the port has no AF_XDP wire pump, so its app
+# registers no wire collector (the reference's reports the memory rung)
+NOT_PORTED = ("bng_wire_",)
+
+
+def exposition_samples(text: str) -> dict:
+    """{sample key: value} of every counter and gauge, and each histogram's
+    `_count` (buckets and sums carry wall-time values)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, val = line.rsplit(" ", 1)
+        name = key.split("{", 1)[0]
+        if name.endswith(("_bucket", "_sum")) or name.startswith(NOT_PORTED):
+            continue
+        out[key] = "wall" if name in WALL_FAMILIES else val
+    return out
+
+
+LANE_KEYS = ("queue_depth", "inflight", "enqueued", "dropped_overflow", "frames_dispatched",
+             "batches", "batches_full", "batches_deadline", "batches_flush")
+
+
+def _obs_cfg(m, tmp_path, **kw):
+    return m.cli.BNGConfig(scheduler_enabled=True, synthetic_subs=48, batch_size=32,
+                           sched_express_batch=16, telemetry_enabled=True,
+                           trace_dir=str(tmp_path / "trace"), metrics_port=0,
+                           checkpoint_dir=str(tmp_path / "ckpt"), **kw)
+
+
+def _obs_drive(app, clk, beats: int, flows=()):
+    ring, tx = app.components["ring"], []
+    for k in range(beats):
+        before = int(clk[0])
+        clk[0] += 0.001
+        if k % 4 == 1:
+            for f in flows:
+                ring.rx_push(f, from_access=True)
+        app.drive_once()
+        if int(clk[0]) != before:
+            app.tick(clk[0])
+        while (got := ring.tx_pop()) is not None:
+            tx.append(bytes(got[0]) if isinstance(got, tuple) else bytes(got))
+    return tx
+
+
+def _obs_settle(app, clk):
+    app.components["scheduler"].flush()
+    return _obs_drive(app, clk, 1)
+
+
+def _observe_app(m, tmp_path, lease: bool = True):
+    clk = [float(NOW)]
+    app = m.cli.BNGApp(_obs_cfg(m, tmp_path), clock=lambda: clk[0], **m.kw)
+    c = app.components
+    try:
+        flows = [F.udp_packet(bytes([2, 0x55, 0, 0, 0, k]), b"\x02\x00\x00\x00\x00\x01",
+                              ip_to_u32(f"10.0.9.{k + 1}"), WAN, 40000 + k, 53, b"q" * 40)
+                 for k in range(3)]
+        app.tick(clk[0])
+        tx = _obs_drive(app, clk, 24, flows) + _obs_settle(app, clk)
+        if lease:
+            tx += _obs_lease(app, clk, tx)
+        with app._ctl:
+            c["checkpointer"].save_now(reason="test")
+        c["collector"].collect_once()
+        tr, sched = c["telemetry"], c["scheduler"]
+        snap = sched.stats_snapshot()
+        lanes = {lane: {k: snap[lane][k] for k in LANE_KEYS} for lane in ("express", "bulk")}
+        records = sorted((r["lane"], r["n"], r["shed"], r["punt"])
+                         for r in tr.recorder.records())
+        return (tx, exposition_samples(c["metrics"].expose()),
+                {s: v["count"] for s, v in tr.breakdown().items()}, records, lanes,
+                tr.recorder.meta.get("express_program"))
+    finally:
+        app.close()
+
+
+def _obs_lease(app, clk, tx):
+    """Leases for the first four synthetic MACs, whose OFFERs went out;
+    then two beats, so their rows reach the device."""
+    c = app.components
+    offers = {}
+    for f in tx:
+        d = F.decode(f)
+        if d.dst_port == 68:
+            msg = F.decode_dhcp(d.payload)
+            offers.setdefault(bytes(msg.chaddr[:6]), msg.yiaddr)
+    for k in range(4):
+        mac = (0x02B70000 << 16 | k).to_bytes(6, "big")
+        assert c["ring"].rx_push(_client(mac, F.REQUEST, xid=0x7000 + k, requested_ip=offers[mac],
+                                         server_id=ip_to_u32("10.0.0.1")), from_access=True)
+    out = _obs_drive(app, clk, 3) + _obs_settle(app, clk)
+    out += _obs_drive(app, clk, 2) + _obs_settle(app, clk)
+    assert c["engine"].fastpath.dirty_count() == 0
+    return out
+
+
+@pytest.mark.parametrize("loop", ["aot", "devloop"])
+def test_observability_at_the_run_defaults_matches_reference(loop, tmp_path, monkeypatch):
+    monkeypatch.setenv("BNG_EXPRESS_LOOP", loop)
+    monkeypatch.setenv("BNG_DEVLOOP_K", "8")
+    # the leases ride the per-batch lane only: the reference's ring pump
+    # publishes a ring's lease rows on a worker thread's schedule, so which
+    # later DISCOVER first finds them is not deterministic there
+    ref = _observe_app(JAX, tmp_path / "jax", lease=loop == "aot")
+    got = _observe_app(PORT, tmp_path / "port", lease=loop == "aot")
+    # TX bytes; the reference's ring pump also retires on that schedule, so
+    # the beat a ring's replies leave on may differ
+    assert sorted(got[0]) == sorted(ref[0])
+    assert got[1] == ref[1]  # the exposition
+    assert got[2:] == ref[2:]  # stage counts, flight records, lane counts, program
+    tx, expo, stages, records, lanes, program = got
+    assert program == ("devloop" if loop == "devloop" else "aot-express")
+    assert {"lane_wait", "dispatch", "device_wait", "reply", "slow_path", "total"} <= set(stages)
+    assert str(stages["total"]) == expo["bng_telemetry_batch_records_total"] != "0"
+    assert {r[0] for r in records} == {"express", "bulk"}
+    assert lanes["bulk"]["batches"] > 0 and lanes["express"]["batches"] > 0
+    if loop == "devloop":
+        assert {"loop_fill", "loop_wait", "loop_retire"} <= set(stages)
+    assert expo['bng_ckpt_saves_total'] == "1" and expo["bng_ckpt_seq"] == "1"
+    assert expo['bng_sched_frames_total{lane="express"}'] == str(
+        lanes["express"]["frames_dispatched"])
+    assert int(expo['bng_dhcp_requests_total{type="ack"}']) == (4 if loop == "aot" else 0)
+
+
+def _restore_app(m, tmp_path, clk):
+    app = m.cli.BNGApp(_obs_cfg(m, tmp_path), clock=lambda: clk[0], **m.kw)
+    c = app.components
+    rows = c.get("checkpoint_restored")
+    eng, dhcp = c["engine"], c["dhcp"]
+    tx0, disc0 = eng.stats.tx, dhcp.stats.discover
+    app.tick(clk[0])
+    tx = _obs_drive(app, clk, 1) + _obs_settle(app, clk)
+    return app, rows, tx, eng.stats.tx - tx0, dhcp.stats.discover - disc0
+
+
+def test_checkpointer_restores_at_start_and_rejects_a_corrupt_file(tmp_path, monkeypatch):
+    """A fresh app on the directory the observed app snapshotted into
+    restores the same rows in both packages and answers the leased MACs'
+    DISCOVERs on the device; a corrupt newest file is rejected, counted
+    `outcome="rejected"`, and the app cold-starts."""
+    monkeypatch.setenv("BNG_EXPRESS_LOOP", "aot")
+    out = []
+    for m in (JAX, PORT):
+        _observe_app(m, tmp_path / m.name)
+        clk = [float(NOW) + 5]
+        app, rows, tx, device_tx, slow = _restore_app(m, tmp_path / m.name, clk)
+        try:
+            expo = exposition_samples(app.components["metrics"].expose())
+            out.append((rows, tx, device_tx, slow, expo['bng_ckpt_restores_total{outcome="ok"}'],
+                        {k: v for k, v in expo.items() if k.startswith("bng_ckpt_restore_rows")}))
+        finally:
+            app.close()
+        ckpt = sorted((tmp_path / m.name / "ckpt").glob("ckpt-*.bngckpt"))
+        assert len(ckpt) == 1
+        raw = bytearray(ckpt[0].read_bytes())
+        raw[len(raw) // 2] ^= 0xFF
+        ckpt[0].write_bytes(bytes(raw))
+        app = m.cli.BNGApp(_obs_cfg(m, tmp_path / m.name), clock=lambda: clk[0], **m.kw)
+        try:
+            c = app.components
+            assert "checkpoint_restored" not in c and c["checkpoint_error"]
+            expo = exposition_samples(c["metrics"].expose())
+            assert expo['bng_ckpt_restores_total{outcome="rejected"}'] == "1"
+            assert len(c["dhcp"].leases) == 0
+        finally:
+            app.close()
+    assert out[1] == out[0]
+    rows, tx, device_tx, slow, ok, row_gauges = out[1]
+    assert ok == "1" and rows["dhcp.leases"] == 4 and row_gauges
+    # two beats of the source: the four leased MACs answered on the device;
+    # and SLAAC's periodic RA from the first tick
+    assert device_tx == 4 and slow == 28 and len(tx) == 33
+
+
+def test_trace_verbs_on_cpu(tmp_path, capsys):
+    import json
+
+    d = str(tmp_path / "tr")
+    assert t_cli.main(["--device", "cpu", "trace", "dump", "--trace-dir", d,
+                       "--macs", "8", "--batch-size", "8"]) == 0
+    dump = json.loads(capsys.readouterr().out)
+    assert dump["records"] > 0 and "dispatch" in dump["stage_breakdown"]
+    assert t_cli.main(["--device", "cpu", "trace", "export", "--trace-dir", d, "--scheduler",
+                       "--macs", "8", "--batch-size", "8"]) == 0
+    exp = json.loads(capsys.readouterr().out)
+    with open(exp["trace"]) as f:
+        trace = json.load(f)
+    threads = {e["args"]["name"] for e in trace["traceEvents"] if e["name"] == "thread_name"}
+    assert "lane:express" in threads and exp["events"] > 0
+    assert t_cli.main(["trace", "status", "--trace-dir", d]) == 0
+    st = json.loads(capsys.readouterr().out)
+    assert [x["backend"] for x in st["dumps"]] == ["cpu"]
+    assert t_cli.main(["--device", "cpu", "trace", "export", "--workers", "2"]) == 2

@@ -22,6 +22,9 @@
   "auto"` with the express program disabled, the devloop asked for with
   it disabled, an invalid spelling, and `BNG_EXPRESS_LOOP` over the
   config.
+- The pump's telemetry with a tracer armed (clean rings, and an injected
+  fallback): the same stage counts, flight records, triggers and ring
+  metadata in both packages.
 - The ring mechanics of tests/test_devloop.py::TestRing: the overfill
   guard, k validation, stale-tail zeroing and the cursor audit after
   quiesce; the program is built once per key and holds no graph on the
@@ -339,3 +342,43 @@ class TestRing:
         prog = eng.devloop_aot(3, BATCH)
         assert eng.compile_devloop_aot(3, BATCH) is prog and eng.devloop_captures == 1
         assert prog.graph is None and prog.launches == {}  # the CPU runs the plain loop
+
+
+@pytest.mark.parametrize("fault", [False, True], ids=["rings", "injected-fallback"])
+def test_pump_telemetry_matches_reference(fault, tmp_path):
+    """The pump's telemetry with a tracer armed: each staged batch laps
+    loop_fill, loop_wait, its share of the ring's dispatch and of the
+    retire's wait (loop_retire), then device_wait, reply and total through
+    the express retire; the ring's shape rides the recorder's metadata. An
+    injected `devloop.dispatch` fail cancels the staged records (the
+    per-batch path opens its own) and fires express_fallback. The same
+    stage counts, flight records, triggers and metadata in both."""
+    from bng_tpu.telemetry import recorder as j_rec
+    from bng_tpu.telemetry import spans as j_sp
+    from bng_tpu_torch.telemetry import recorder as t_rec
+    from bng_tpu_torch.telemetry import spans as t_sp
+
+    frames = _burst(BATCH * 3 * 2 + 5)  # two full rings, then a partial flush ring
+    got = []
+    for (sched, *_rest), m, sp, rec_mod in zip(_storm_pair(), (jf, tf), (j_sp, t_sp),
+                                               (j_rec, t_rec)):
+        rec = rec_mod.FlightRecorder(rec_mod.RecorderConfig(min_dump_interval_s=0.0,
+                                                            out_dir=str(tmp_path / sp.__name__)))
+        plan = m.FaultPlan(0, [m.FaultSpec("devloop.dispatch", m.FAIL, at_hit=2)] if fault else [])
+        with sp.armed(sp.Tracer(recorder=rec)) as tr, m.armed(plan, log=False):
+            out = sched.process(frames, now=T0)
+            sched.quiesce(now=T0)
+        records = [(r["seq"], r["lane"], r["n"], r["shed"], r["punt"]) for r in rec.records()]
+        got.append((out, {s: v["count"] for s, v in tr.breakdown().items()}, records,
+                    dict(rec.triggers), rec.meta.get("express_program"),
+                    rec.meta.get("devloop_ring"), len(tr._free)))
+    assert got[1] == got[0]
+    out, stages, records, triggers, program, ring, free = got[1]
+    n_batches, fallen = 7, 3 if fault else 0
+    assert stages["total"] == len(records) == n_batches and free == t_sp.Tracer.OPEN_SLOTS
+    assert stages["loop_fill"] == stages["dispatch"] == stages["device_wait"] == n_batches
+    # a fallen-back slot's second record laps its own lane wait, and no ring
+    assert stages["lane_wait"] == n_batches + fallen
+    assert stages["loop_wait"] == stages["loop_retire"] == n_batches - fallen
+    assert triggers == ({"express_fallback": 1} if fault else {})
+    assert program == "devloop" and ring["k"] == 3 and ring["slots"] == 1

@@ -25,7 +25,9 @@ on each injected fault:
   free and allocated, and one address bound to two clients.
 
 Components the port does not have (fleet, HA pair, cluster of BNGs)
-audit nothing when None and are refused otherwise.
+audit nothing when None and are refused otherwise. With `metrics`,
+`audit_invariants` and `audit_app` record the same bng_invariant_*
+families (audits, violations by kind, the last audit's count and epoch).
 
 Tolerance: exact (the same report dicts).
 """
@@ -222,3 +224,38 @@ def test_dhcpv6_clause_matches_reference(case):
     assert got == ref
     assert got["checks"]["v6_leases_na"] >= 5 and got["checks"]["v6_leases_pd"] == 3
     assert got["ok"] == (case == "clean")
+
+
+def _invariant_samples(met) -> dict:
+    return dict(line.rsplit(" ", 1) for line in met.expose().splitlines()
+                if line.startswith("bng_invariant_"))
+
+
+@pytest.mark.parametrize("case", ["lease_without_row", "row_without_lease", "nat_block_orphan"])
+def test_audit_metrics_and_epoch_match_reference(case):
+    """`audit_invariants(..., metrics, epoch)` and `audit_app(app, metrics,
+    epoch)` record the same bng_invariant_* families as the reference: the
+    audit count, violations by kind, the last audit's violations and its
+    epoch (the audit counter when no epoch is given)."""
+    from types import SimpleNamespace
+
+    from bng_tpu.control.metrics import BNGMetrics as JMetrics
+    from bng_tpu_torch.control.metrics import BNGMetrics as TMetrics
+
+    got = []
+    for p, metrics in zip(PKGS, (JMetrics(), TMetrics())):
+        st = engine_stack(p, edge=True)
+        clock, server, pools, fp, nat, eng, leased = st
+        _inject(p, case, st)
+        INV[p.name].audit_invariants(engine=eng, pools=pools, dhcp=server, nat=nat,
+                                     metrics=metrics, epoch=7)
+        app = SimpleNamespace(components={"engine": eng, "pools": pools, "dhcp": server,
+                                          "nat": nat, "metrics": metrics})
+        rep = INV[p.name].audit_app(app)  # the app's own metrics, the audit counter as epoch
+        got.append((rep.violations_by_kind(), _invariant_samples(metrics)))
+    assert got[1] == got[0]
+    kinds, samples = got[1]
+    assert samples["bng_invariant_audits_total"] == "2"
+    assert samples["bng_invariant_last_audit_epoch"] == "2"
+    for kind, n in kinds.items():
+        assert samples[f'bng_invariant_violations_total{{kind="{kind}"}}'] == str(2 * n)

@@ -7,8 +7,12 @@ MACs and batch 16, under one injected fake clock (each read advances it
 1 ms) and a sleep that advances it: the warmup's DORAs, then the measured
 DISCOVER/renewal mix. The counts are equal: requests, responses, errors,
 batches, fast-path and slow-path hits, the leases the warmup made, the
-program that served. Time fields are not compared. Also the
-`StormFrameFactory` frames equal the reference's byte for byte.
+program that served. Time fields are not compared. With a tracer armed
+around the run (what `loadtest --trace` does) both record the same stage
+sample counts; `loadtest --trace --json --bench-log` on the CPU reports
+the stage breakdown and its SLO verdict, in its JSON and its ledger line,
+and leaves no tracer armed. Also the `StormFrameFactory` frames equal the
+reference's byte for byte.
 
 Tolerance: exact.
 """
@@ -107,3 +111,51 @@ def test_storm_frames_match_reference():
     for f in ("discover", "request", "renew"):
         args = (mac, 0x1234) if f == "discover" else (mac, ip_to_u32("10.0.0.9"), 0x1234)
         assert getattr(tf, f)(*args) == getattr(jf, f)(*args)
+
+
+@pytest.mark.parametrize("scheduler", [False, True], ids=["engine", "scheduler"])
+def test_traced_run_matches_reference(scheduler):
+    """`loadtest --trace` arms the tracer around the run: under one fake
+    clock both packages record the same stage sample counts, and the SLO
+    verdict over the breakdown has the same shape."""
+    from bng_tpu.telemetry import slo as j_slo
+    from bng_tpu.telemetry import spans as j_sp
+    from bng_tpu_torch.telemetry import slo as t_slo
+    from bng_tpu_torch.telemetry import spans as t_sp
+
+    got = []
+    for m, sp, slo in ((JAX, j_sp, j_slo), (PORT, t_sp, t_slo)):
+        with sp.armed() as tr:
+            res, _ = bench(m, scheduler)
+        bd = tr.breakdown()
+        got.append((res, {s: v["count"] for s, v in bd.items()}, sorted(slo.evaluate(bd))))
+    assert got[1] == got[0]
+    stages = got[1][1]
+    assert {"dispatch", "device_wait", "reply", "total"} <= set(stages)
+    assert stages["total"] > got[1][0]["batches"]  # the warmup's batches too
+    assert got[1][2] == ["breaches", "ok"]
+
+
+def test_cli_loadtest_trace_on_cpu(tmp_path, capsys):
+    import json
+
+    from bng_tpu_torch import cli
+    from bng_tpu_torch.telemetry import ledger
+
+    log = str(tmp_path / "bench.jsonl")
+    rc = cli.main(["--device", "cpu", "loadtest", "--duration", "0.3", "--warmup", "0.2",
+                   "--macs", "64", "--batch-size", "16", "--json", "--trace",
+                   "--bench-log", log])
+    assert rc == 0
+    res = json.loads(capsys.readouterr().out)
+    assert set(res["slo"]) == {"ok", "breaches"} and "dispatch" in res["stage_breakdown"]
+    assert res["stage_breakdown"]["total"]["count"] == res["served"]["dispatches"] > 0
+    line = ledger.read(log)[-1]
+    assert line["slo"] == res["slo"] and line["stage_breakdown"] == res["stage_breakdown"]
+    assert t_sp_disarmed()
+
+
+def t_sp_disarmed() -> bool:
+    from bng_tpu_torch.telemetry import spans
+
+    return spans.tracer() is None

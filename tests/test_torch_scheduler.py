@@ -14,6 +14,10 @@
   lane at the same dispatch in both stacks (the refresh cadence).
 - A geometry miss takes the DHCP-only rung in both, counted the same way,
   and a second `compile_express_aot` on the same key builds nothing new.
+- Telemetry and metrics: with a tracer armed and `metrics` set, the same
+  stage counts, flight records, triggers (`express_aot_miss` on a
+  geometry miss, `express_fallback` when the express program fails to
+  build) and bng_sched_* / bng_express_* families in both packages.
 
 Tolerance: bit-exact (the same bytes, counts and table words).
 """
@@ -319,3 +323,103 @@ def test_scheduler_config_matches_reference():
     fields = [(f.name, f.default) for f in dataclasses.fields(TConfig)]
     assert fields == [(f.name, f.default) for f in dataclasses.fields(JConfig)]
     assert dict(fields)["express_loop"] == "aot" and dict(fields)["devloop_k"] == 8
+
+
+# ---- telemetry and metrics: the spans, triggers and bng_sched_* families ----
+
+
+def observed_state(sched, tr, met) -> tuple:
+    """What the scheduler's hooks recorded: the stage sample counts, the
+    flight records (without times), the recorder's triggers and serving
+    program, and the bng_sched_* / bng_express_* samples (each histogram
+    by its `_count`)."""
+    met.collect_scheduler(sched)
+    samples = {}
+    for line in met.expose().splitlines():
+        name = line.split("{")[0].split(" ")[0]
+        if name.startswith(("bng_sched_", "bng_express_")) and \
+                not name.endswith(("_bucket", "_sum")):
+            key, val = line.rsplit(" ", 1)
+            samples[key] = val
+    records = [(r["seq"], r["lane"], r["n"], r["shed"], r["punt"]) for r in tr.recorder.records()]
+    return ({s: v["count"] for s, v in tr.breakdown().items()}, records,
+            dict(tr.recorder.triggers), tr.recorder.meta.get("express_program"), samples)
+
+
+def traced(sp_mod, rec_mod, tmp):
+    rec = rec_mod.FlightRecorder(rec_mod.RecorderConfig(min_dump_interval_s=0.0, out_dir=tmp))
+    return sp_mod.armed(sp_mod.Tracer(recorder=rec))
+
+
+@pytest.mark.parametrize("geometry_miss", [False, True], ids=["express", "geometry-miss"])
+def test_traced_serving_and_metrics_match_reference(geometry_miss, tmp_path):
+    """The submit/poll DORA with data frames, a tracer armed and `metrics`
+    set: the same stage counts (lane_wait, dispatch, device_wait, reply,
+    slow_path, total), flight records and bng_sched_* / bng_express_*
+    families in both packages; a geometry miss fires the express_aot_miss
+    trigger and serves through the DHCP-only program in both."""
+    from bng_tpu.control.metrics import BNGMetrics as JMetrics
+    from bng_tpu.telemetry import recorder as j_rec
+    from bng_tpu.telemetry import spans as j_sp
+    from bng_tpu_torch.control.metrics import BNGMetrics as TMetrics
+    from bng_tpu_torch.telemetry import recorder as t_rec
+    from bng_tpu_torch.telemetry import spans as t_sp
+
+    both = stacks(express_max_wait_us=200.0)
+    got = []
+    for (sched, _, _, clock), sp, rec_mod, met in zip(both, (j_sp, t_sp), (j_rec, t_rec),
+                                                      (JMetrics(), TMetrics())):
+        sched.metrics = met
+        if geometry_miss:
+            sched.express.cfg.batch = 16
+        with traced(sp, rec_mod, str(tmp_path / sp.__name__)) as tr:
+            m = mac(0x41)
+            for k, frame in enumerate([dhcp(m, F.DISCOVER, 0x200), dhcp(mac(1), F.DISCOVER, 0x201),
+                                       dhcp(m, F.REQUEST, 0x202, requested_ip=ip_to_u32("10.0.0.2"),
+                                            server_id=SERVER_IP)]):
+                sched.submit(frame, True, tag=("dhcp", k))
+                for j in range(3):
+                    sched.submit(data_frame(3 * k + j), True, tag=("data", k, j))
+                clock.advance(250e-6)
+                sched.poll()
+                clock.advance(2e-3)
+                sched.poll()
+            sched.flush()
+            sched.drain_completions()
+        got.append(observed_state(sched, tr, met))
+    assert got[1] == got[0]
+    stages, records, triggers, program, samples = got[1]
+    assert {"lane_wait", "dispatch", "device_wait", "reply", "slow_path", "total"} <= set(stages)
+    assert {r[1] for r in records} == {"express", "bulk"} and stages["total"] == len(records)
+    assert samples['bng_sched_frames_total{lane="express"}'] == "3"
+    assert samples['bng_sched_dispatch_latency_seconds_count{lane="bulk"}'] == "3"
+    if geometry_miss:
+        assert triggers == {"express_aot_miss": 3} and program == "jit-full"
+        assert samples["bng_express_aot_miss_total"] == "3"
+    else:
+        assert triggers == {} and program == "aot-express"
+
+
+def test_express_fallback_fires_its_trigger(tmp_path, monkeypatch):
+    """An express program that fails to build serves through the DHCP-only
+    program, counted `compile_failed` and flight-recorded, in both."""
+    from bng_tpu.telemetry import recorder as j_rec
+    from bng_tpu.telemetry import spans as j_sp
+    from bng_tpu_torch.telemetry import recorder as t_rec
+    from bng_tpu_torch.telemetry import spans as t_sp
+
+    def refuse(self, *a, **kw):
+        raise RuntimeError("refused")
+
+    monkeypatch.setattr(JEngine, "compile_express_aot", refuse)
+    monkeypatch.setattr(TEngine, "compile_express_aot", refuse)
+    got = []
+    for mods, sp, rec_mod in ((JAX, j_sp, j_rec), (PORT, t_sp, t_rec)):
+        with traced(sp, rec_mod, str(tmp_path / sp.__name__)) as tr:
+            sched, *_ = build_stack(mods, FakeClock())
+            out = sched.process([dhcp(mac(0), F.DISCOVER, 0x700)], now=T0)
+        got.append((out, dict(tr.recorder.triggers), sched.stats_snapshot()["express"]["fallbacks"],
+                    tr.recorder.meta.get("express_program")))
+    assert got[1] == got[0]
+    assert got[1][1:] == ({"express_fallback": 1, "express_aot_miss": 1},
+                          {"compile_failed": 1, "geometry_miss": 1}, "jit-full")

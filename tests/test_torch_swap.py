@@ -12,7 +12,8 @@ report (`outcome`, `restored_rows`, `delta_rows`, `delta_steps`,
 `delta_resync`, `audit_ok`, `violations`, `frames_deferred`, `error`)
 equals the reference's, and the next batches give the same bytes and
 table words. With a tracer armed, the swap's phases record the same
-number of `ops` laps in both packages.
+number of `ops` laps in both packages, and with `metrics=` the engine and
+sharded swaps record the same bng_ops_* families.
 
 Port-only: `adopt_device_tables` (the path a standby built with
 `device_tables=` takes) on an engine whose express program was built
@@ -386,3 +387,53 @@ def test_sharded_swap_matches_reference(arm, n):
         assert rep["outcome"] == "failed" and kept
     else:
         assert rep["outcome"] == "ok" and rep["audit_ok"] and not kept
+
+
+def _ops_samples(met) -> dict:
+    """The bng_ops_* samples: counters, and each histogram's `_count`."""
+    out = {}
+    for line in met.expose().splitlines():
+        if line.startswith("bng_ops_") and not line.split("{")[0].endswith(("_bucket", "_sum")):
+            key, val = line.rsplit(" ", 1)
+            out[key] = val
+    return out
+
+
+@pytest.mark.parametrize("arm", [None, "swap"])
+def test_swap_with_metrics_records_the_transition(arm):
+    """`metrics=` feeds the swap's report to the bng_ops_* families, as in
+    the reference: one transition by outcome, its duration and quiesce
+    histograms, the deferred frames and the replayed delta rows."""
+    from bng_tpu.control.metrics import BNGMetrics as JMetrics
+    from bng_tpu_torch.control.metrics import BNGMetrics as TMetrics
+
+    got = []
+    for p, metrics in zip(PKGS, (JMetrics(), TMetrics())):
+        clock, server, pools, fp, nat, eng, leased = engine_stack(p)
+        comps = {"engine": eng, "pools": pools, "dhcp": server}
+        fp.add_subscriber(_mac(0x77), pool_id=1, ip=ip_to_u32("10.77.0.1"),
+                          lease_expiry=1_753_000_900)
+        if arm is not None:
+            with p.faults.armed(p.faults.FaultPlan(1, [p.faults.FaultSpec("ops." + arm, FAIL)]),
+                                log=False):
+                rep = OPS[p.name].blue_green_swap(comps, metrics=metrics)
+        else:
+            rep = OPS[p.name].blue_green_swap(comps, metrics=metrics)
+        got.append((rep["outcome"], _ops_samples(metrics)))
+    assert got[1] == got[0]
+    outcome, samples = got[1]
+    assert samples[f'bng_ops_transitions_total{{op="engine_swap",outcome="{outcome}"}}'] == "1"
+    assert samples['bng_ops_transition_duration_seconds_count{op="engine_swap"}'] == "1"
+
+
+def test_sharded_swap_with_metrics_records_the_transition():
+    from bng_tpu.control.metrics import BNGMetrics as JMetrics
+    from bng_tpu_torch.control.metrics import BNGMetrics as TMetrics
+
+    got = []
+    for p, metrics in zip(PKGS, (JMetrics(), TMetrics())):
+        rep = OPS[p.name].sharded_blue_green_swap({"cluster": cluster(p, 2)}, metrics=metrics,
+                                                  clock=lambda: 1_753_000_000.0)
+        got.append((rep["outcome"], _ops_samples(metrics)))
+    assert got[1] == got[0]
+    assert got[1][1]['bng_ops_transitions_total{op="sharded_swap",outcome="ok"}'] == "1"
