@@ -2,7 +2,9 @@
 
 import sys
 
-from bng_tpu_torch.cli import main
-
+# a spawned slow-path worker re-imports this module as __mp_main__: the
+# command line (and torch with it) is imported only when it runs
 if __name__ == "__main__":
+    from bng_tpu_torch.cli import main
+
     sys.exit(main())

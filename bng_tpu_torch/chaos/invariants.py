@@ -7,8 +7,10 @@ the NAT manager's allocator, EIM map and tables. A bug in any writer
 shows as two authorities disagreeing. `audit_invariants` proves, at the
 quiesce barrier the checkpoint uses:
 
-  - no IP is leased twice, and every leased IP is allocated in its pool
-    (the DHCPv4 and DHCPv6 books, the PPPoE sessions);
+  - no IP is owned by two of {parent pool bitmap, fleet worker slices,
+    lease books}, and every leased IP is allocated in its owning
+    authority (the DHCPv4 books, parent and per fleet worker, the DHCPv6
+    book, the PPPoE sessions);
   - no fast-path row outlives or contradicts its lease;
   - after a drain, every device table equals its host mirror bit for bit
     (DHCP, edge, the dense config, and the QoS config words; the
@@ -20,8 +22,8 @@ quiesce barrier the checkpoint uses:
 
 Findings come back as structured `Finding`s, bounded per kind;
 `AuditReport.to_dict()` is sorted, so reports diff clean. Components the
-port does not have (the HA pair, the cluster of BNGs, the slow-path
-fleet) are accepted as None and audit nothing; any other value raises.
+port does not have (the HA pair, the cluster of BNGs) are accepted as
+None and audit nothing; any other value raises.
 Their audits come with those components. `audit_app` audits a composed
 `BNGApp`. With `metrics` (BNGMetrics) an audit records the
 bng_invariant_* families, stamped with `epoch`.
@@ -92,53 +94,163 @@ class AuditReport:
 # lease book collection
 # ---------------------------------------------------------------------------
 
-def _audit_ownership(report: AuditReport, pools, dhcp) -> None:
-    """Pool bitmap vs the lease book: every leased IP allocated in its
-    pool, none outside every pool or on a gateway, none leased twice.
-    (The reference checks its slow-path fleet's slices and worker books
-    here too; the port has no fleet.)"""
+def _fleet_worker_books(fleet) -> list[tuple[int, dict]] | None:
+    """[(worker_id, {mac_u64: Lease})] — direct object access in inline
+    mode, via the pipe protocol in process mode. None when a dead worker
+    makes the books unknowable (its carved slices stay allocated in the
+    parent, so consistency is preserved; coverage just shrinks)."""
+    if fleet is None:
+        return []
+    if fleet.mode == "inline":
+        return [(w, dict(worker.server.leases))
+                for w, worker in enumerate(fleet._inline)]
+    from bng_tpu_torch.control.dhcp_server import DHCPServer
+
+    try:
+        state = fleet.export_state()
+    except (OSError, EOFError):
+        return None
+    out = []
+    for idx, wstate in enumerate(state["workers"]):
+        from bng_tpu_torch.utils.net import mac_to_u64
+
+        _seq, leases = DHCPServer.parse_lease_state(wstate)
+        # export skips dead workers, so the list index is NOT the worker
+        # id — the entry carries its real id (older snapshots without it
+        # fall back to position)
+        w = int(wstate.get("worker_id", idx))
+        out.append((w, {mac_to_u64(l.mac): l for l in leases}))
+    return out
+
+
+def _audit_ownership(report: AuditReport, pools, dhcp, fleet,
+                     books) -> None:
+    """Authorities 1-3: pool bitmap vs fleet slices vs lease books.
+    `books` is the one fleet-book snapshot shared with the fastpath-row
+    check (one export round-trip, one consistent cut)."""
     if pools is None:
         return
-    report.checks["slice_granted"] = 0  # no fleet worker holds a slice
-    leases = list(dhcp.leases.items()) if dhcp is not None else []
-    report.checks["leases"] = len(leases)
-    by_ip: dict[int, list[int]] = {}
-    for mk, lease in leases:
-        by_ip.setdefault(lease.ip, []).append(mk)
+    # slice carve invariants (fleet workers' granted sets vs the parent)
+    granted_by: dict[int, list[int]] = {}  # ip -> [worker]
+    workers = fleet._inline if (fleet is not None
+                                and fleet.mode == "inline") else []
+    n_granted = 0
+    for w, worker in enumerate(workers):
+        owner_tag = f"fleet:w{w}"
+        for pid, sp in worker.pools.pools.items():
+            parent = pools.pools.get(pid)
+            for ip in sp._granted:
+                n_granted += 1
+                granted_by.setdefault(ip, []).append(w)
+                if parent is None:
+                    report.add("carve-leak", _ip(ip),
+                               f"worker {w} slice references unknown "
+                               f"pool {pid}")
+                elif parent._allocated.get(ip) != owner_tag:
+                    report.add(
+                        "carve-leak", _ip(ip),
+                        f"granted to worker {w} but parent pool {pid} "
+                        f"owner is {parent._allocated.get(ip)!r} "
+                        f"(expected {owner_tag!r})")
+            for ip in sp._allocated:
+                if ip not in sp._granted:
+                    report.add("slice-alloc-outside-grant", _ip(ip),
+                               f"worker {w} allocated an address outside "
+                               f"its granted slice of pool {pid}")
+    for ip, ws in granted_by.items():
+        if len(ws) > 1:
+            report.add("double-grant", _ip(ip),
+                       f"address granted to workers {sorted(ws)}")
+    report.checks["slice_granted"] = n_granted
+
+    # lease books: parent server + every fleet worker
+    entries: list[tuple[str, int, object]] = []  # (source, mac_u64, lease)
+    if dhcp is not None:
+        entries += [("parent", mk, l) for mk, l in dhcp.leases.items()]
+    if books is None:
+        report.checks["fleet_books_unreadable"] = 1
+        books = []
+    for w, book in books:
+        entries += [(f"w{w}", mk, l) for mk, l in book.items()]
+    report.checks["leases"] = len(entries)
+
+    by_ip: dict[int, list[tuple[str, int]]] = {}
+    by_mac: dict[int, list[str]] = {}
+    for src, mk, lease in entries:
+        by_ip.setdefault(lease.ip, []).append((src, mk))
+        by_mac.setdefault(mk, []).append(src)
+        # every leased IP must be marked allocated in its owning
+        # authority: the worker's slice for fleet leases (inline mode —
+        # process-mode slices live in the child), the parent pool for
+        # parent leases
+        if src.startswith("w") and fleet is not None \
+                and fleet.mode == "inline":
+            w = int(src[1:])
+            sp = workers[w].pools.pool_for_ip(lease.ip)
+            if sp is None or lease.ip not in sp._allocated:
+                report.add("lease-not-allocated", _ip(lease.ip),
+                           f"worker {w} lease (mac {lease.mac.hex()}) "
+                           f"not allocated in its slice")
         pool = pools.pool_for_ip(lease.ip)
         if pool is None:
             report.add("lease-outside-pools", _ip(lease.ip),
-                       f"parent lease (mac {lease.mac.hex()}) is outside "
+                       f"{src} lease (mac {lease.mac.hex()}) is outside "
                        f"every configured pool")
-        elif lease.ip not in pool._allocated:
+        elif src == "parent" and lease.ip not in pool._allocated:
             report.add("lease-not-allocated", _ip(lease.ip),
                        f"parent lease (mac {lease.mac.hex()}) not "
                        f"allocated in pool {pool.pool_id}")
-        elif lease.ip == pool.gateway:
+        elif pool is not None and lease.ip == pool.gateway:
             report.add("gateway-leased", _ip(lease.ip),
-                       f"parent leased the pool {pool.pool_id} gateway")
-    for ip, macs in by_ip.items():
-        if len(macs) > 1:
-            owners = sorted({f"parent:{mk:012x}" for mk in macs})
+                       f"{src} leased the pool {pool.pool_id} gateway")
+    for ip, owners in by_ip.items():
+        if len(owners) > 1:
+            macs = sorted({f"{s}:{mk:012x}" for s, mk in owners})
             report.add("double-lease", _ip(ip),
-                       f"leased by {len(macs)} owners: {owners}")
+                       f"leased by {len(owners)} owners: {macs}")
+    for mk, srcs in by_mac.items():
+        if len(srcs) > 1:
+            report.add("mac-double-lease", f"{mk:012x}",
+                       f"one MAC holds leases in {sorted(srcs)}")
 
 
 # ---------------------------------------------------------------------------
 # fast-path tables: rows vs leases, host vs device
 # ---------------------------------------------------------------------------
 
-def _audit_fastpath_rows(report: AuditReport, fastpath, dhcp) -> None:
+def _collect_lease_index(dhcp, fleet, books) -> dict[int, int] | None:
+    """mac_u64 -> ip over every lease book (the shared `books` snapshot),
+    or None when books are unknowably partial."""
+    idx: dict[int, int] = {}
+    if dhcp is not None:
+        for mk, lease in dhcp.leases.items():
+            idx[mk] = lease.ip
+    if fleet is not None and fleet.mode == "process" and fleet._dead:
+        # a dead process's book is gone but its subscribers still hold
+        # their leases — rows for them are NOT stale, just unprovable
+        return None
+    if books is None:
+        return None
+    for _w, book in books:
+        for mk, lease in book.items():
+            idx[mk] = lease.ip
+    return idx
+
+
+def _audit_fastpath_rows(report: AuditReport, fastpath, dhcp, fleet,
+                         books) -> None:
     """Authority 4 vs 3: no subscriber row outlives (or contradicts) its
     lease. One-directional by design — a lease WITHOUT a row is only a
     fast-path miss (the slow path re-answers; restores that hydrate
     books but not tables are legal), but a row without a lease would
     device-ACK an address nobody holds."""
-    if fastpath is None or dhcp is None:
-        # without a lease book there is nothing to cross-check rows
+    if fastpath is None or (dhcp is None and fleet is None):
+        # without any lease book there is nothing to cross-check rows
         # against (bench-style bulk installs are legal book-less rows)
         return
-    idx = {mk: lease.ip for mk, lease in dhcp.leases.items()}
+    idx = _collect_lease_index(dhcp, fleet, books)
+    if idx is None:
+        return
     sub = fastpath.sub
     occupied = np.nonzero(sub.used)[0]
     report.checks["fastpath_rows"] = len(occupied)
@@ -654,7 +766,7 @@ def _ip6(addr: bytes) -> str:
 # ---------------------------------------------------------------------------
 
 def _audit_checkpoint_roundtrip(report: AuditReport, *, fastpath=None,
-                                nat=None, dhcp=None) -> None:
+                                nat=None, dhcp=None, fleet=None) -> None:
     """save -> encode -> decode must be state-identical: same meta, same
     arrays, and a re-encode of the decode is byte-identical. Runs with
     engine=None — the caller already quiesced; this must not re-enter
@@ -663,10 +775,10 @@ def _audit_checkpoint_roundtrip(report: AuditReport, *, fastpath=None,
                                                   decode_checkpoint,
                                                   encode_checkpoint)
 
-    if fastpath is None and nat is None and dhcp is None:
+    if fastpath is None and nat is None and dhcp is None and fleet is None:
         return
     c1 = build_checkpoint(0, 0.0, fastpath=fastpath, nat=nat, dhcp=dhcp,
-                          node_id="audit")
+                          fleet=fleet, node_id="audit")
     e1 = encode_checkpoint(c1)
     report.checks["ckpt_bytes"] = len(e1)
     try:
@@ -892,14 +1004,15 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
     With an `engine`, runs at the same drain barrier checkpoints use
     (scheduler.quiesce() when a scheduler owns the loop, else
     engine.quiesce()) and includes the host-vs-device mirror proof;
-    fastpath/nat default from the engine. The reference's `fleet`,
-    `ha_pair` and `bng_cluster` name components the port does not have:
-    None is accepted and audits nothing, anything else raises. `metrics`
+    fastpath/nat default from the engine. `fleet` adds the slow-path
+    fleet's slices and worker lease books to the ownership and row
+    clauses. The reference's `ha_pair` and `bng_cluster` name components
+    the port does not have: None is accepted and audits nothing, anything
+    else raises. `metrics`
     (BNGMetrics) gets the bng_invariant_* families recorded; `epoch`
     stamps bng_invariant_last_audit_epoch (defaults to the audit counter).
     """
-    given = [k for k, v in (("fleet", fleet), ("ha_pair", ha_pair),
-                            ("bng_cluster", bng_cluster))
+    given = [k for k, v in (("ha_pair", ha_pair), ("bng_cluster", bng_cluster))
              if v is not None]
     if given:
         raise ValueError(f"audit_invariants: no such component in the port: {given}")
@@ -922,8 +1035,12 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
             for _i in range(cluster.n):
                 _audit_nat(report, cluster.nat[_i])
 
-    _audit_ownership(report, pools, dhcp)
-    _audit_fastpath_rows(report, fastpath, dhcp)
+    # ONE fleet-book snapshot (one export IPC round-trip in process
+    # mode) shared by the ownership and fastpath-row checks, so both
+    # reason about the same consistent cut
+    books = _fleet_worker_books(fleet)
+    _audit_ownership(report, pools, dhcp, fleet, books)
+    _audit_fastpath_rows(report, fastpath, dhcp, fleet, books)
     _audit_device_mirror(report, engine)
     _audit_nat(report, nat)
     _audit_dhcpv6(report, dhcpv6)
@@ -937,7 +1054,7 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
     _audit_edge(report, edge, tap_program, route_program)
     if check_roundtrip:
         _audit_checkpoint_roundtrip(report, fastpath=fastpath, nat=nat,
-                                    dhcp=dhcp)
+                                    dhcp=dhcp, fleet=fleet)
 
     if metrics is not None:
         metrics.record_audit(report, epoch=epoch)
@@ -957,7 +1074,7 @@ def audit_app(app, metrics=None, epoch=None) -> AuditReport:
     return audit_invariants(
         engine=c.get("engine"), scheduler=c.get("scheduler"),
         fastpath=c.get("fastpath"), pools=c.get("pools"),
-        dhcp=c.get("dhcp"), nat=c.get("nat"),
+        dhcp=c.get("dhcp"), fleet=c.get("fleet"), nat=c.get("nat"),
         dhcpv6=c.get("dhcpv6"), pppoe=c.get("pppoe"),
         metrics=metrics if metrics is not None else c.get("metrics"),
         epoch=epoch)

@@ -32,7 +32,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import logging
 import os
 import sys
 import threading
@@ -207,7 +206,6 @@ UNPORTED = (
     (lambda c: bool(c.cluster_listen) or c.store_mode != "memory" or bool(c.store_peers),
      "cluster listener and replicated store",
      "--cluster-listen '' --store-mode memory --store-peers"),
-    (lambda c: c.slowpath_workers > 1, "slow-path fleet", "--slowpath-workers 1"),
     (lambda c: bool(c.wire_if), "AF_XDP wire", "--wire-if ''"),
     (lambda c: c.shards > 1, "sharded serving", "--shards 1"),
     (lambda c: c.dns_enabled, "DNS listener", "--no-dns-enabled"),
@@ -276,6 +274,8 @@ class BNGApp:
         # slow path and maintenance sweeps
         self._ctl = threading.Lock()
         self._syn_i = 0
+        # integrations that kept a configured fleet from being built
+        self.fleet_blockers: list[str] = []
         self.components: dict[str, object] = {}
         try:
             self._build()
@@ -302,12 +302,12 @@ class BNGApp:
         from bng_tpu_torch.runtime.engine import AntispoofTables, Engine, GardenTables, QoSTables
         from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
         from bng_tpu_torch.utils.net import ip_to_u32, parse_mac, u32_to_ip
-        from bng_tpu_torch.utils.structlog import get_logger
+        from bng_tpu_torch.utils import structlog
 
         cfg = self.config
         c = self.components
-        logging.getLogger("bng").setLevel(getattr(logging, cfg.log_level.upper(), logging.INFO))
-        self.log = get_logger("app", node_id=cfg.node_id)
+        structlog.setup(cfg.log_level, cfg.log_format)
+        self.log = structlog.get_logger("app", node_id=cfg.node_id)
 
         # 0. telemetry, armed first so every later step (the engine's and
         # the scheduler's spans) sees the armed tracer; metrics attach at
@@ -371,13 +371,15 @@ class BNGApp:
 
         # 5. RADIUS client and the DHCP authenticator
         authenticator = None
+        radius_server_cfgs: list = []  # picklable, reused by the fleet
         if cfg.radius_server:
             from bng_tpu_torch.control.radius.client import RadiusClient, RadiusServerConfig
 
             secret = resolve_secret(cfg.radius_secret, cfg.radius_secret_file)
             host, _, port = cfg.radius_server.partition(":")
-            radius = c["radius"] = RadiusClient(servers=[RadiusServerConfig(
-                host=host, auth_port=int(port or 1812), secret=secret.encode())])
+            radius_server_cfgs = [RadiusServerConfig(
+                host=host, auth_port=int(port or 1812), secret=secret.encode())]
+            radius = c["radius"] = RadiusClient(servers=radius_server_cfgs)
 
             def authenticator(username="", password="", mac=b"", circuit_id=b"", **kw):
                 """A RADIUS Access-Request per new subscriber: the profile
@@ -561,6 +563,24 @@ class BNGApp:
                 pppoe=c.get("pppoe"), clock=self.clock)
             c["engine"].slow_path = demux
 
+        # 10b2. the slow-path fleet: DHCPv4 sharded over N shared-nothing
+        # workers (control/fleet.py) that own per-worker lease slices
+        # carved from the parent pools and relay their table writes back
+        # through the single-writer drain; non-DHCPv4 slow frames (v6,
+        # SLAAC) stay on the parent demux through the fallback. PPPoE
+        # lives on the parent's per-lease state and is not fleet-aware:
+        # with it on, the fleet is skipped, counted and said (stats,
+        # metrics, the startup banner), never silently
+        if cfg.slowpath_workers > 1:
+            if cfg.pppoe_enabled:
+                self.fleet_blockers = ["pppoe"]
+                self.log.warning("slowpath fleet disabled: per-lease integrations "
+                                 "not yet fleet-aware", blockers=self.fleet_blockers,
+                                 workers=cfg.slowpath_workers)
+            else:
+                self._build_fleet(pool_mgr, dhcp, qos_hook, nat_hook, acct,
+                                  radius_server_cfgs)
+
         # 10d. the CoA/Disconnect listener (RFC 5176), over the DHCP leases
         # and the PPPoE sessions
         if cfg.radius_server and cfg.coa_enabled:
@@ -597,7 +617,62 @@ class BNGApp:
             self._build_checkpointer(dhcp)
 
         # 15. zero-downtime ops: the transition queue the run loop drains
+        # and, when asked, the watermark autoscaler driving live fleet
+        # elasticity from tick
         c["ops"] = OpsController(self)
+        if cfg.slowpath_autoscale and "fleet" in c:
+            from bng_tpu_torch.control.opsctl import AutoscaleConfig, FleetAutoscaler
+
+            c["autoscaler"] = FleetAutoscaler(
+                c["fleet"], AutoscaleConfig(min_workers=max(1, cfg.slowpath_min_workers),
+                                            max_workers=max(1, cfg.slowpath_max_workers)),
+                clock=self.clock)
+            self.log.info("fleet autoscaler armed", min=cfg.slowpath_min_workers,
+                          max=cfg.slowpath_max_workers)
+
+    def _build_fleet(self, pool_mgr, dhcp, qos_hook, nat_hook, acct,
+                     radius_server_cfgs) -> None:
+        """The fleet over the parent pools: worker lease events replay
+        into accounting start/stop here, the single writer (octets stay
+        device-authoritative: the tick bridge folds NAT counters by
+        framed IP, disjoint per shard)."""
+        from bng_tpu_torch.control.admission import AdmissionConfig
+        from bng_tpu_torch.control.fleet import FleetSpec, SlowPathFleet
+        from bng_tpu_torch.utils.net import ip_to_u32, parse_mac, u32_to_ip
+
+        cfg, c = self.config, self.components
+
+        def _fleet_lease(event, lease, sid, _acct=acct):
+            if _acct is None:
+                return
+            if event == "start":
+                _acct.start(sid, username=lease.get("username") or u32_to_ip(lease["ip"]),
+                            framed_ip=lease["ip"],
+                            mac="-".join(f"{b:02X}" for b in bytes.fromhex(lease["mac"])))
+            elif event == "stop":
+                _acct.stop(sid)
+
+        fspec = FleetSpec.from_pool_manager(
+            parse_mac(cfg.server_mac), ip_to_u32(cfg.server_ip), pool_mgr,
+            slice_size=cfg.slowpath_slice, low_watermark=max(1, cfg.slowpath_slice // 4))
+        if radius_server_cfgs:
+            # per-worker RADIUS sockets on the MAC steering hash: auth
+            # affinity = DHCP affinity
+            fspec.radius_servers = list(radius_server_cfgs)
+            fspec.radius_nas_id = cfg.node_id or "bng-tpu"
+            fspec.radius_nas_ip = ip_to_u32(cfg.server_ip)
+        fleet = c["fleet"] = SlowPathFleet(
+            fspec, n_workers=cfg.slowpath_workers, pools=pool_mgr,
+            mode=cfg.slowpath_worker_mode,
+            admission=AdmissionConfig(inbox_capacity=cfg.slowpath_inbox,
+                                      deadline_ms=cfg.slowpath_deadline_ms),
+            table_sink=c["fastpath"], qos_hook=qos_hook, nat_hook=nat_hook,
+            lease_hook=_fleet_lease, fallback=c.get("slowpath") or dhcp.handle_frame,
+            clock=self.clock)
+        c["engine"].slow_path_batch = fleet.handle_batch
+        self._on_close(fleet.close)
+        self.log.info("slowpath fleet up", workers=cfg.slowpath_workers,
+                      mode=cfg.slowpath_worker_mode, inbox=cfg.slowpath_inbox)
 
     def _build_metrics(self, pool_mgr, dhcp) -> None:
         """The registry, the collector and its sources. Each source reads
@@ -612,6 +687,8 @@ class BNGApp:
         collector = c["collector"] = MetricsCollector(metrics)
         collector.add_source(lambda: metrics.collect_engine(c["engine"].stats))
         collector.add_source(lambda: metrics.collect_dhcp_server(dhcp.stats))
+        if self.fleet_blockers:
+            metrics.record_fleet_blocked(self.fleet_blockers)
         if cfg.walled_garden_enabled:
             collector.add_source(lambda: metrics.collect_garden(c["engine"].stats))
         if "scheduler" in c:
@@ -620,6 +697,9 @@ class BNGApp:
             # gauges come from the scrape like every other source
             sched.metrics = metrics
             collector.add_source(lambda: metrics.collect_scheduler(sched))
+        if "fleet" in c:
+            fleet_c = c["fleet"]
+            collector.add_source(lambda: metrics.collect_fleet(fleet_c))
         if "telemetry" in c:
             tracer = c["telemetry"]
             # bng_stage_latency_us renders live from the tracer's
@@ -631,8 +711,10 @@ class BNGApp:
             collector.add_source(lambda: metrics.collect_slo(slo_mon))
         collector.add_source(lambda: metrics.collect_pools(
             {str(pid): st for pid, st in pool_mgr.stats().items()}))
+        # read c[...] at scrape time: a fleet resize or engine swap must
+        # not strand a captured ref
         collector.add_source(lambda: metrics.collect_exhaustion(
-            dhcpv6=c.get("dhcpv6"), nat=c.get("nat")))
+            dhcpv6=c.get("dhcpv6"), nat=c.get("nat"), fleet=c.get("fleet")))
         self._on_close(collector.stop)
 
     def _build_checkpointer(self, dhcp) -> None:
@@ -649,7 +731,8 @@ class BNGApp:
         if store.has_checkpoints():
             try:
                 snap, path = store.load_latest()
-                rows = ckpt_mod.restore_checkpoint(snap, engine=c["engine"], dhcp=dhcp)
+                rows = ckpt_mod.restore_checkpoint(snap, engine=c["engine"], dhcp=dhcp,
+                                                   fleet=c.get("fleet"))
                 c["checkpoint_restored"] = rows
                 self.log.info("warm restart from checkpoint", path=str(path), seq=snap.seq,
                               rows={k: v for k, v in rows.items() if v})
@@ -664,7 +747,7 @@ class BNGApp:
         def _snapshot(seq, now):
             return ckpt_mod.build_checkpoint(seq, now, engine=c["engine"],
                                              scheduler=c.get("scheduler"), dhcp=dhcp,
-                                             node_id=cfg.node_id)
+                                             fleet=c.get("fleet"), node_id=cfg.node_id)
 
         ckptr = c["checkpointer"] = PeriodicCheckpointer(
             store, _snapshot, interval_s=cfg.checkpoint_interval_s, keep=cfg.checkpoint_keep,
@@ -745,7 +828,8 @@ class BNGApp:
 
     def _build_coa(self, qos_hook) -> None:
         """The CoA listener: locate by Acct-Session-Id, Framed-IP or
-        Calling-Station-Id over the DHCP leases, then the PPPoE sessions;
+        Calling-Station-Id over the DHCP leases, then the PPPoE sessions,
+        then the fleet's owning shard (on the MAC steering hash);
         a policy change rewrites the subscriber's QoS rows, a disconnect
         expires the lease or tears the session down (its PADT and LCP
         frames ride the demux's pending queue to the TX ring). Every verb
@@ -756,6 +840,10 @@ class BNGApp:
 
         cfg, c = self.config, self.components
         dhcp, pppoe_srv = c["dhcp"], c.get("pppoe")
+        # DHCPv4 leases live in the workers when the fleet serves: the
+        # locators probe the parent books first, then route to the owning
+        # shard (relay counted by the fleet when missteered)
+        fleet = c.get("fleet")
 
         def _find_by_ip(ip):
             for lease in dhcp.leases.values():
@@ -765,6 +853,10 @@ class BNGApp:
                 for s in pppoe_srv.sessions.all():
                     if s.assigned_ip == ip:
                         return ("pppoe", s)
+            if fleet is not None:
+                r = fleet.handle_coa("locate", ip=ip)
+                if r["found"]:
+                    return ("fleet", r)
             return None
 
         def _find_by_sid(sid):
@@ -779,6 +871,10 @@ class BNGApp:
                 s = pppoe_srv.sessions.get(num)
                 if s is not None:
                     return ("pppoe", s)
+            if fleet is not None and not sid.startswith("pppoe-"):
+                r = fleet.handle_coa("locate", session_id=sid)
+                if r["found"]:
+                    return ("fleet", r)
             return None
 
         def _find_by_mac(mac_str):
@@ -793,6 +889,10 @@ class BNGApp:
                 for s in pppoe_srv.sessions.all():
                     if s.client_mac == mac:
                         return ("pppoe", s)
+            if fleet is not None:
+                r = fleet.handle_coa("locate", mac=mac)
+                if r["found"]:
+                    return ("fleet", r)
             return None
 
         def _coa_qos(ip, policy_name):
@@ -806,6 +906,10 @@ class BNGApp:
                 lease.qos_policy = policy_name
                 if dhcp.accounting_hook is not None:
                     dhcp.accounting_hook("renew", lease, lease.session_id)
+            elif fleet is not None:
+                # the owning shard mutates its own lease; the renew event
+                # rides the drained relay into accounting
+                fleet.handle_coa("qos", ip=ip, policy_name=policy_name)
             return True
 
         def _coa_disconnect(kind, obj):
@@ -813,6 +917,8 @@ class BNGApp:
                 obj.expiry = 0
                 dhcp.cleanup_expired(1)  # reaps only the forced lease
                 return True
+            if kind == "fleet":
+                return bool(fleet.handle_coa("disconnect", ip=obj["ip"])["found"])
             frames = pppoe_srv.terminate(obj.session_id, TerminateCause.ADMIN_RESET,
                                          now=self.clock())
             if "slowpath" in c:
@@ -823,7 +929,12 @@ class BNGApp:
         class _CoASession:  # (kind, obj) with the .ip the processor reads
             def __init__(self, kind, obj):
                 self.kind, self.obj = kind, obj
-                self.ip = obj.ip if kind == "dhcp" else obj.assigned_ip
+                if kind == "dhcp":
+                    self.ip = obj.ip
+                elif kind == "fleet":
+                    self.ip = obj["ip"]
+                else:
+                    self.ip = obj.assigned_ip
 
         def _wrap(found):
             return None if found is None else _CoASession(*found)
@@ -852,12 +963,43 @@ class BNGApp:
     # -- zero-downtime transitions (ops verbs; serialized on _ctl) -------
 
     def fleet_resize(self, n: int) -> dict:
-        return {"op": "fleet_resize", "outcome": "rejected",
-                "error": "no slow-path fleet: not configured (--slowpath-workers <= 1)"}
+        """Live fleet elasticity: grow/shrink the slow-path fleet to `n`
+        workers at a batch boundary — no restart, no dropped in-flight
+        DORAs (control/fleet.py resize)."""
+        with self._ctl:
+            return self._fleet_resize_locked(int(n))
+
+    def _fleet_resize_locked(self, n: int) -> dict:
+        fleet = self.components.get("fleet")
+        if fleet is None:
+            why = (f"blocked by {self.fleet_blockers}" if self.fleet_blockers
+                   else "not configured (--slowpath-workers <= 1)")
+            return {"op": "fleet_resize", "outcome": "rejected",
+                    "error": f"no slow-path fleet: {why}"}
+        report = fleet.resize(n)
+        if "metrics" in self.components:
+            self.components["metrics"].record_transition(report)
+            self.components["metrics"].slowpath_workers.set(fleet.n)
+        self.log.info("fleet resize", **{k: report.get(k) for k in
+                                         ("from", "to", "outcome", "leases_moved",
+                                          "offers_moved")})
+        return report
 
     def fleet_rolling_restart(self) -> dict:
-        return {"op": "fleet_rolling_restart", "outcome": "rejected",
-                "error": "no slow-path fleet configured"}
+        """Replace fleet workers one shard at a time (drain-then-transfer
+        per shard; heals chaos-killed inline workers) — the live-deploy
+        verb (control/fleet.py rolling_restart)."""
+        with self._ctl:
+            fleet = self.components.get("fleet")
+            if fleet is None:
+                return {"op": "fleet_rolling_restart", "outcome": "rejected",
+                        "error": "no slow-path fleet configured"}
+            report = fleet.rolling_restart()
+            if "metrics" in self.components:
+                self.components["metrics"].record_transition(report)
+            self.log.info("fleet rolling restart", outcome=report.get("outcome"),
+                          replaced=report.get("replaced"), lost=report.get("lost"))
+            return report
 
     def engine_swap(self) -> dict:
         """Blue/green engine swap: hydrate a standby from an in-memory
@@ -873,11 +1015,25 @@ class BNGApp:
             return report
 
     def ops_status(self) -> dict:
-        """GET /ops/status payload."""
+        """GET /ops/status payload: what a transition would act on. Runs
+        on the HTTP handler thread — takes _ctl so it never reads fleet
+        state mid-mutation."""
         with self._ctl:
             c = self.components
-            return {"node_id": self.config.node_id, "fleet_blocked": [],
-                    "ops": c["ops"].stats_snapshot() if "ops" in c else None}
+            out: dict = {"node_id": self.config.node_id,
+                         "fleet_blocked": self.fleet_blockers,
+                         "ops": c["ops"].stats_snapshot() if "ops" in c else None}
+            fleet = c.get("fleet")
+            if fleet is not None:
+                fs = fleet.stats_snapshot()
+                out["fleet"] = {k: fs[k] for k in (
+                    "workers", "mode", "resizes", "rolling_restarts", "dead_workers")}
+            auto = c.get("autoscaler")
+            if auto is not None:
+                out["autoscaler"] = {"decisions": auto.decisions,
+                                     "min": auto.cfg.min_workers,
+                                     "max": auto.cfg.max_workers}
+            return out
 
     def close(self) -> None:
         """LIFO cleanup."""
@@ -905,16 +1061,18 @@ class BNGApp:
             else:
                 moved = self.components["engine"].process_ring_pipelined(ring)
             # PPPoE negotiation's frames beyond the one inline reply (CHAP
-            # Success + IPCP Conf-Req in one beat) and CoA teardowns; a full
+            # Success + IPCP Conf-Req in one beat), CoA teardowns and the
+            # fleet workers' pending frames relayed by the parent; a full
             # TX ring re-queues the rest, in order, for the next beat
-            demux = self.components.get("slowpath")
-            if demux is not None:
-                pending = demux.drain_pending()
+            for src in (self.components.get("slowpath"), self.components.get("fleet")):
+                if src is None:
+                    continue
+                pending = src.drain_pending()
                 for i, frame in enumerate(pending):
                     if ring.tx_inject(frame, from_access=True):
                         moved += 1
                     else:
-                        demux.requeue(pending[i:], front=True)
+                        src.requeue(pending[i:], front=True)
                         break
         return moved
 
@@ -1005,6 +1163,11 @@ class BNGApp:
             if c.get("dhcpv6") is not None:
                 c["dhcpv6"].cleanup_expired(now, max_reaps=budget)
             c["engine"].expire(int(now))
+            fleet = c.get("fleet")
+            if fleet is not None:
+                # fleet workers own their lease books; the sweep fans out
+                # and the release table-events replay here
+                fleet.expire(int(now), max_reaps=budget)
         garden = c.get("walledgarden")
         if garden is not None and now - self._last_garden >= self.GARDEN_EVERY_S:
             self._last_garden = now
@@ -1022,6 +1185,22 @@ class BNGApp:
             if breached:
                 self.log.warning("slo breach", stages=sorted(breached),
                                  window_s=slo_mon.window_s)
+        # watermark-driven fleet elasticity: the autoscaler recommends,
+        # the same resize verb the operator uses executes (under _ctl:
+        # tick() took it)
+        auto = c.get("autoscaler")
+        if auto is not None and "fleet" in c:
+            target = auto.target(now)
+            if target is not None and target != c["fleet"].n:
+                if "metrics" in c:
+                    c["metrics"].ops_autoscaler_target.set(target)
+                try:
+                    self._fleet_resize_locked(target)
+                except Exception as e:  # noqa: BLE001
+                    # an autoscaler-triggered resize failure must not take
+                    # the dataplane loop down; cooldown paces the retry
+                    self.log.error("autoscaler resize failed", target=target,
+                                   error=f"{type(e).__name__}: {e}")
         acct = c.get("accounting")
         if acct is not None:
             # the device's NAT octet counts into the accounting sessions
@@ -1066,6 +1245,13 @@ class BNGApp:
         nat = self.components.get("nat")
         if nat is not None:  # registered only when nat_enabled
             out["nat"] = {"sessions": nat.sessions.count, "blocks": len(nat.blocks)}
+        fleet = self.components.get("fleet")
+        if fleet is not None:
+            out["slowpath_fleet"] = fleet.stats_snapshot()
+        if self.fleet_blockers:
+            # the configured-but-degraded state must be visible wherever
+            # an operator looks first (stats, metrics, startup banner)
+            out["slowpath_fleet_blocked"] = list(self.fleet_blockers)
         coa = self.components.get("coa")
         if coa is not None:
             out["coa"] = {**coa.stats, **coa.processor.stats}
@@ -1074,9 +1260,10 @@ class BNGApp:
 
 def run_loadtest(args, device) -> int:
     """Build a self-contained engine + slow-path stack on `device` and
-    load-test it (the reference's `run_loadtest`, without the fleet and
-    the wire loop). `--trace` arms the span tracer for the run: the
-    report gains the per-stage breakdown and its SLO verdict."""
+    load-test it (the reference's `run_loadtest`, without the wire loop).
+    `--workers N` fans the DHCPv4 slow lanes over a slow-path fleet of N
+    workers (`--fleet-mode`). `--trace` arms the span tracer for the run:
+    the report gains the per-stage breakdown and its SLO verdict."""
     import ipaddress
 
     from bng_tpu_torch import kernels
@@ -1088,11 +1275,9 @@ def run_loadtest(args, device) -> int:
     from bng_tpu_torch.runtime.tables import FastPathTables
     from bng_tpu_torch.utils.net import ip_to_u32, parse_mac
 
-    refused = [flag for flag, on in (("--workers > 1", (args.workers or 1) > 1),
-                                     ("--wire", args.wire is not None)) if on]
-    if refused:
-        print(f"loadtest: {', '.join(refused)}: not in bng_tpu_torch yet (the slow-path "
-              f"fleet and the AF_XDP wire loop are not ported)", file=sys.stderr)
+    if args.wire is not None:
+        print("loadtest: --wire: not in bng_tpu_torch yet (the AF_XDP wire loop is "
+              "not ported)", file=sys.stderr)
         return 2
     net = ipaddress.ip_network(args.pool_cidr)
     server_ip = int(net.network_address + 1)
@@ -1116,10 +1301,28 @@ def run_loadtest(args, device) -> int:
                     slow_path=server.handle_frame, device=device)
     tracer = None
     if args.trace:
-        # armed before the scheduler is built, as the reference's is
+        # armed before the fleet spawns (a process-mode fleet exports
+        # BNG_TELEMETRY to its children at construction) and before the
+        # scheduler is built, as the reference's is
         from bng_tpu_torch.telemetry import spans as tele_spans
 
         tracer = tele_spans.arm(tele_spans.Tracer())
+    fleet = None
+    workers = args.workers or 1
+    if workers > 1:
+        # the parent DHCPServer above is bypassed (workers own the lease
+        # books) but stays the engine's per-frame fallback
+        from bng_tpu_torch.control.admission import AdmissionConfig
+        from bng_tpu_torch.control.fleet import FleetSpec, SlowPathFleet
+
+        fleet = SlowPathFleet(
+            FleetSpec.from_pool_manager(server_mac, server_ip, pools),
+            n_workers=workers, pools=pools, mode=args.fleet_mode,
+            # inbox sized past the harness batch: the loadtest measures
+            # throughput, the dedicated overload tests measure shedding
+            admission=AdmissionConfig(inbox_capacity=max(512, 2 * args.batch_size)),
+            table_sink=fastpath)
+        engine.slow_path_batch = fleet.handle_batch
     target = engine
     if args.scheduler:
         from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
@@ -1135,12 +1338,20 @@ def run_loadtest(args, device) -> int:
     launches0 = dict(kernels.LAUNCHES)
     try:
         res = bench.run()
+        if fleet is not None:
+            res.shed = dict(fleet.admission.stats.shed)
+            slice_exhausted = fleet.pool_exhausted_total()
     finally:
         if tracer is not None:
             tele_spans.disarm()
+        if fleet is not None:
+            fleet_snap = fleet.stats_snapshot()
+            fleet.close()
     degraded = {}
     if server.stats.pool_exhausted:
         degraded["dhcp_pool"] = server.stats.pool_exhausted
+    if fleet is not None and slice_exhausted:
+        degraded["fleet_slice"] = slice_exhausted
     for resource, count in nat.exhausted.items():
         if count:
             degraded[f"nat_{resource}"] = count
@@ -1167,7 +1378,7 @@ def run_loadtest(args, device) -> int:
                 "scenario": res.scenario,
                 "batch": args.batch_size,
                 "subscribers": args.macs,
-                "workers": 1,
+                "workers": workers,
                 "program": res.program,
                 "latency_p99_us": round(res.latency_p99_us, 1),
                 "request_p99_us": res.request_p99_us,
@@ -1183,6 +1394,8 @@ def run_loadtest(args, device) -> int:
             print(f"loadtest: bench-log append failed: {e}", file=sys.stderr)
     if args.json_out:
         out = {**res.to_dict(), "served": served}
+        if fleet is not None:
+            out["fleet"] = fleet_snap
         if tracer is not None:
             out["stage_breakdown"] = stage_breakdown
         print(json.dumps(out, indent=2))
@@ -1190,6 +1403,10 @@ def run_loadtest(args, device) -> int:
         print(res.summary())
         print(f"Served by:         {served['device']}, {served['dispatches']} dispatches, "
               f"launches {served['launches']}")
+        if fleet is not None:
+            adm = fleet_snap["admission"]
+            print(f"Fleet:             {fleet_snap['workers']} workers, "
+                  f"{adm['admitted']} admitted, {sum(adm['shed'].values())} shed")
         if tracer is not None:
             print("Stage breakdown (us):")
             for stage, st in stage_breakdown.items():
@@ -1209,8 +1426,9 @@ def _trace_dora(args, device):
     """Build a self-contained engine (+ scheduler) stack on `device`, arm a
     span-event-keeping tracer, and drive a full DORA exchange for `--macs`
     subscribers plus a renewal round that hits the device fast path: the
-    traced workload `trace dump` / `trace export` ship. Returns (tracer,
-    recorder) with the tracer disarmed again."""
+    traced workload `trace dump` / `trace export` ship. `--workers N`
+    puts an inline fleet of N workers behind the slow path. Returns
+    (tracer, recorder) with the tracer disarmed again."""
     import ipaddress
 
     from bng_tpu_torch import frames as packets
@@ -1239,6 +1457,21 @@ def _trace_dora(args, device):
     server = DHCPServer(server_mac, server_ip, pools, fastpath_tables=fastpath)
     engine = Engine(fastpath, nat, batch_size=args.batch_size,
                     slow_path=server.handle_frame, device=device)
+    fleet = None
+    if args.workers > 1:
+        from bng_tpu_torch.control.admission import AdmissionConfig
+        from bng_tpu_torch.control.fleet import FleetSpec, SlowPathFleet
+
+        # inline workers: deterministic, and the worker-stage histogram
+        # still exercises the cross-worker merge path. A generous
+        # deadline keeps compile-cold first batches from being shed.
+        fleet = SlowPathFleet(
+            FleetSpec.from_pool_manager(server_mac, server_ip, pools),
+            n_workers=args.workers, pools=pools, mode="inline",
+            admission=AdmissionConfig(inbox_capacity=max(512, 2 * args.batch_size),
+                                      deadline_ms=60_000.0),
+            table_sink=fastpath)
+        engine.slow_path_batch = fleet.handle_batch
     target = engine
     if args.scheduler:
         from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
@@ -1278,6 +1511,8 @@ def _trace_dora(args, device):
         target.process([discover(m, 0x3000 + k) for k, m in enumerate(macs[: args.batch_size])])
         if hasattr(target, "flush"):
             target.flush()
+    if fleet is not None:
+        fleet.close()
     return tracer, recorder
 
 
@@ -1312,10 +1547,6 @@ def run_trace(args, device) -> int:
                           "dumps": dumps}, indent=2))
         return 0
 
-    if args.workers > 1:
-        print("trace: --workers > 1: not in bng_tpu_torch yet (the slow-path fleet is "
-              "not ported)", file=sys.stderr)
-        return 2
     tracer, recorder = _trace_dora(args, resolve_device(device))
     if args.trace_cmd == "dump":
         path = recorder.dump("cli", "trace dump DORA exchange", path=args.out or None)
@@ -1407,6 +1638,90 @@ def run_checkpoint(args, device) -> int:
         app.close()
 
 
+def run_ctl(args) -> int:
+    """`ctl` — runtime control of a live `run` process over its
+    --ctl-listen wire (control/opsctl.py): `fleet resize N`,
+    `fleet rolling-restart`, `engine swap`, `status`. Prints the
+    transition report; rc 0 on ok/noop, 1 on a rejected/failed/rolled-back
+    transition, 2 when the process is unreachable."""
+    from bng_tpu_torch.control.opsctl import ctl_request
+
+    if args.ctl_cmd == "status":
+        op, body = "status", None
+    elif args.ctl_cmd == "fleet":
+        if args.fleet_cmd == "resize":
+            op, body = "fleet/resize", {"n": args.n}
+        else:
+            op, body = "fleet/rolling-restart", {}
+    else:  # engine swap
+        op, body = "engine/swap", {}
+    try:
+        _code, doc = ctl_request(args.ctl_addr, op, body)
+    except OSError as e:  # URLError subclasses OSError
+        print(f"ctl: cannot reach {args.ctl_addr}: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(doc, indent=2, sort_keys=True))
+    if op == "status":
+        return 0
+    return 0 if doc.get("outcome") in ("ok", "noop") else 1
+
+
+def run_chaos(args, device) -> int:
+    """`chaos run|audit` — the fault-injection harness (chaos/): `run`
+    executes the scripted scenario suite (plus an optional fault soak) on
+    `device` and prints a bit-deterministic JSON report — two runs with
+    one --seed emit identical bytes, on the card and on the CPU alike;
+    `audit` builds the app from the normal run flags and proves the
+    cross-authority invariants hold (rc 2 on any violation)."""
+    if args.chaos_cmd == "audit":
+        from bng_tpu_torch.chaos.invariants import audit_app
+
+        app = BNGApp(_config_from_args(args), device=device)
+        try:
+            report = audit_app(app)
+            print(json.dumps(report.to_dict(), indent=2, sort_keys=True))
+            return 0 if report.ok else 2
+        finally:
+            app.close()
+
+    from bng_tpu_torch.chaos.runner import (bench_lines, canonical_json, run_report,
+                                            scenario_catalog)
+
+    if args.list:
+        for name, desc in scenario_catalog():
+            print(f"{name:<28} {desc}")
+        return 0
+    # metrics=None: the one-shot CLI run has no scrape endpoint to serve
+    # the bng_chaos_* families from — the report IS the output
+    names = [args.scenario] if args.scenario else None
+    try:
+        report = run_report(args.seed, names=names, soak_epochs=args.soak_epochs,
+                            storm_scale=args.storm_scale, device=resolve_device(device))
+    except ValueError as e:
+        print(f"chaos run: {e}", file=sys.stderr)
+        print("scenario catalog:", file=sys.stderr)
+        for name, desc in scenario_catalog():
+            print(f"  {name:<28} {desc}", file=sys.stderr)
+        return 2
+    text = canonical_json(report)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    if args.bench_log:
+        # diffable per-scenario lines; the wallclock/run_id/schema stamp
+        # lives only in the appender (telemetry/ledger.py), never in the
+        # compared report bytes
+        from bng_tpu_torch.telemetry import ledger as ledger_mod
+
+        try:
+            for line in bench_lines(report):
+                ledger_mod.append(args.bench_log, line)
+        except OSError as e:
+            print(f"chaos run: bench-log append failed: {e}", file=sys.stderr)
+    print(text)
+    return 0 if report["ok"] else 1
+
+
 def serve(app: BNGApp) -> int:
     """The run loop: start the metrics collector and its /metrics
     endpoint, drive the ring when one exists, run the operator's queued
@@ -1421,6 +1736,11 @@ def serve(app: BNGApp) -> int:
         collector.start()
         port = collector.serve_http(app.config.metrics_port)
         print(f"metrics on :{port}/metrics", file=sys.stderr, flush=True)
+    if app.fleet_blockers:
+        # the startup status must say it, not just a log line: the
+        # configured worker count is not what is running
+        print(f"slowpath fleet BLOCKED (single-worker): {','.join(app.fleet_blockers)} "
+              f"not yet fleet-aware", file=sys.stderr)
     ops = app.components["ops"]
     if app.config.ctl_listen:
         chost, _, cport = app.config.ctl_listen.rpartition(":")
@@ -1428,7 +1748,7 @@ def serve(app: BNGApp) -> int:
             osrv = app.components["ops_server"] = OpsServer(
                 ops, chost or "127.0.0.1", int(cport or 0)).start()
             app._on_close(osrv.close)
-            print(f"ctl on {osrv.addr[0]}:{osrv.addr[1]}", file=sys.stderr)
+            print(f"ctl on {osrv.addr[0]}:{osrv.addr[1]}", file=sys.stderr, flush=True)
         except OSError as e:
             print(f"ctl listener unavailable ({e}); runtime ops disabled", file=sys.stderr)
     ckptr = app.components.get("checkpointer")
@@ -1525,8 +1845,13 @@ def main(argv: list[str] | None = None) -> int:
     loadp.add_argument("--bench-log", default="",
                        help="append a schema'd perf-ledger line (env: the card, "
                             "its power limit, the probe route) to this jsonl file")
-    # the reference's flags for subsystems the port lacks: refused
-    loadp.add_argument("--workers", type=int, default=1, help="not ported: refused above 1")
+    loadp.add_argument("--workers", type=int, default=1,
+                       help="slow-path fleet worker count (>1 fans DHCPv4 slow lanes "
+                            "across worker processes)")
+    loadp.add_argument("--fleet-mode", default="process", choices=("process", "inline"),
+                       help="fleet execution mode (inline = deterministic, "
+                            "process = parallel)")
+    # the reference's flag for a subsystem the port lacks: refused
     loadp.add_argument("--wire", nargs="?", const="mem", default=None, metavar="IFNAME",
                        help="not ported: refused")
     loadp.add_argument("--trace", action="store_true",
@@ -1555,7 +1880,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="drive the tiered scheduler (express/bulk lanes appear as "
                              "trace threads)")
         vp.add_argument("--workers", type=int, default=1,
-                        help="slow-path fleet workers: not ported, refused above 1")
+                        help="inline fleet workers (>1 adds the worker stage to the trace)")
 
     ckptp = sub.add_parser("checkpoint", help="save/restore/inspect warm-restart "
                                               "snapshots of the device tables")
@@ -1572,13 +1897,59 @@ def main(argv: list[str] | None = None) -> int:
                             help="run the invariant auditor after hydration; "
                                  "exit rc=2 on any violation")
 
+    chaosp = sub.add_parser("chaos", help="fault-injection scenarios and "
+                                          "cross-authority invariant audits")
+    chaos_sub = chaosp.add_subparsers(dest="chaos_cmd", required=True)
+    crun = chaos_sub.add_parser(
+        "run", help="run the scripted chaos scenarios (+ optional fault soak); "
+                    "deterministic JSON report, rc 1 on failure")
+    crun.add_argument("--device", default=argparse.SUPPRESS,
+                      help="where the scenarios build device state: the card (the "
+                           "default) or cpu")
+    crun.add_argument("--seed", type=int, default=1,
+                      help="fault-schedule seed; same seed -> identical schedules and "
+                           "byte-identical report")
+    crun.add_argument("--scenario", default="",
+                      help="run one scenario by name (default: every ported one)")
+    crun.add_argument("--soak-epochs", type=int, default=0,
+                      help="also run the seeded fault soak for N epochs "
+                           "(traffic + generated faults + audit/epoch)")
+    crun.add_argument("--out", default="", help="also write the report JSON to this file")
+    crun.add_argument("--list", action="store_true",
+                      help="print the scenario catalog (one line each) and exit")
+    crun.add_argument("--storm-scale", type=float, default=1.0,
+                      help="scale factor for the storm scenarios' subscriber counts "
+                           "(1.0 = the published storms: flash crowd at 100k)")
+    crun.add_argument("--bench-log", default="",
+                      help="append one diffable line per scenario "
+                           "(scenario/shed/degraded) to this jsonl file")
+    caud = chaos_sub.add_parser(
+        "audit", help="build the app from run flags and audit the state authorities; "
+                      "rc 2 on any violation")
+    _add_run_flags(caud)
+
+    ctlp = sub.add_parser("ctl", help="zero-downtime ops on a live `run` process "
+                                      "(fleet resize / rolling restart / engine swap)")
+    ctlp.add_argument("--ctl-addr", default="127.0.0.1:9092",
+                      help="the live process's --ctl-listen address")
+    ctl_sub = ctlp.add_subparsers(dest="ctl_cmd", required=True)
+    ctl_sub.add_parser("status", help="what a transition would act on")
+    cfp = ctl_sub.add_parser("fleet", help="slow-path fleet transitions")
+    cf_sub = cfp.add_subparsers(dest="fleet_cmd", required=True)
+    rzp = cf_sub.add_parser("resize", help="grow/shrink the fleet live — re-carves lease "
+                                           "slices and re-shards books without dropping "
+                                           "in-flight DORAs")
+    rzp.add_argument("n", type=int, help="target worker count")
+    cf_sub.add_parser("rolling-restart", help="replace workers one shard at a time "
+                                              "(drain-then-transfer per shard)")
+    cep = ctl_sub.add_parser("engine", help="engine transitions")
+    ce_sub = cep.add_subparsers(dest="engine_cmd", required=True)
+    ce_sub.add_parser("swap", help="blue/green engine swap: snapshot-hydrated standby + "
+                                   "delta replay + audited atomic flip (rollback on failure)")
+
     sub.add_parser("version", help="print version")
 
     args = parser.parse_args(argv)
-    if not logging.getLogger("bng").handlers:
-        handler = logging.StreamHandler(sys.stderr)
-        handler.setFormatter(logging.Formatter("%(levelname)s %(name)s %(message)s"))
-        logging.getLogger("bng").addHandler(handler)
 
     if args.command == "version":
         print(f"bng-tpu-torch {__version__}")
@@ -1590,6 +1961,10 @@ def main(argv: list[str] | None = None) -> int:
             return run_checkpoint(args, args.device)
         if args.command == "trace":
             return run_trace(args, args.device)
+        if args.command == "chaos":
+            return run_chaos(args, args.device)
+        if args.command == "ctl":
+            return run_ctl(args)
         if args.command in ("run", "stats"):
             app = BNGApp(_config_from_args(args), device=args.device)
             try:

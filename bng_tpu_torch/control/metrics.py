@@ -12,9 +12,8 @@ identically. Counter/Gauge/Histogram support labels.
 
 `BNGMetrics` registers every family the reference registers, so a fresh
 `expose()` is byte-equal to the reference's. The collectors of
-components the port does not have (the wire pump, the slow-path fleet,
-the cluster fabric and its handoff, cluster membership, DNS) come with
-those components. Every source reads host state only (EngineStats numpy,
+components the port does not have (the wire pump, the cluster fabric
+and its handoff, cluster membership, DNS) come with those components. Every source reads host state only (EngineStats numpy,
 scheduler counters, host mirrors): a scrape never reads a device tensor,
 so it never synchronizes the serving stream.
 """
@@ -851,6 +850,36 @@ class BNGMetrics:
             if total:
                 self.pool_exhausted.set_total(total, resource="fleet_slice")
 
+    def collect_fleet(self, fleet) -> None:
+        """SlowPathFleet.stats_snapshot() -> bng_slowpath_* families."""
+        snap = fleet.stats_snapshot()
+        self.slowpath_workers.set(snap["workers"])
+        self.slowpath_refills.set_total(snap["refills"])
+        self.slowpath_fallback.set_total(snap["fallback_frames"])
+        for i, w in enumerate(snap["per_worker"]):
+            if not w:
+                continue  # no batch has reached this worker yet
+            wl = str(i)
+            self.slowpath_worker_frames.set_total(w["frames"], worker=wl)
+            self.slowpath_worker_errors.set_total(w["errors"], worker=wl)
+            self.slowpath_worker_busy.set_total(w["busy_s"], worker=wl)
+            self.slowpath_worker_leases.set(w["leases"], worker=wl)
+            self.slowpath_slice_free.set(
+                sum(w["slice_free"].values()), worker=wl)
+        adm = snap["admission"]
+        self.slowpath_admitted.set_total(adm["admitted"])
+        for reason, n in adm["shed"].items():
+            self.slowpath_shed.set_total(n, reason=reason)
+        # RADIUS fan-out: per-shard auth affinity + the CoA
+        # relay counter (requests that arrived missteered and were
+        # routed to the owning shard)
+        if "coa_relayed" in snap:
+            self.fabric_coa_relayed.set_total(snap["coa_relayed"])
+        for i, w in enumerate(snap["per_worker"]):
+            if w and "auth_requests" in w:
+                self.fabric_auth_shard.set_total(w["auth_requests"],
+                                                 worker=str(i))
+
     def collect_garden(self, engine_stats) -> None:
         """Device walled-garden gate counters (EngineStats.garden)."""
         g = getattr(engine_stats, "garden", None)
@@ -981,6 +1010,18 @@ class BNGMetrics:
             self.ops_offers_moved.inc(report["offers_moved"], op=op)
         if report.get("delta_rows"):
             self.ops_delta_rows.inc(report["delta_rows"])
+
+    def record_fleet_blocked(self, blockers: list[str]) -> None:
+        """The configured-but-degraded fleet gauge: one labeled 1 per
+        blocking integration (empty list = nothing blocked). A blocker
+        that disappears across a config reload must DROP its label —
+        a stale 1 reads as still-degraded forever on the dashboard."""
+        want = {str(b) for b in blockers}
+        for labels in self.slowpath_fleet_blocked.labeled():
+            if labels["blocker"] not in want:
+                self.slowpath_fleet_blocked.remove(**labels)
+        for b in want:
+            self.slowpath_fleet_blocked.set(1, blocker=b)
 
     def record_restore(self, rows: dict, outcome: str = "ok") -> None:
         """Startup-restore result -> bng_ckpt_restore_rows / restores."""

@@ -1,6 +1,5 @@
-"""Runtime operations control: the `ctl` wire (port of
-`bng_tpu/control/opsctl.py`, without the fleet autoscaler: the port has
-no slow-path fleet).
+"""Runtime operations control: the `ctl` wire and the fleet autoscaler
+(port of `bng_tpu/control/opsctl.py`).
 
 A running `run` process owns a dataplane loop that must never be raced
 by an operator thread — every zero-downtime transition has to execute at
@@ -9,14 +8,19 @@ a batch boundary under the app's control lock:
 - `OpsController` — a bounded queue of requested transitions. HTTP
   handler threads (and anything else) `submit()` and block on a result;
   the run loop calls `run_pending()` once per beat, executing each op
-  through the BNGApp's locked transition methods. `engine/swap` runs the
-  port's blue/green swap; the fleet verbs answer "no slow-path fleet",
-  as the reference's do without a fleet.
+  through the BNGApp's locked transition methods (fleet resize, rolling
+  worker restart, blue/green engine swap).
 
 - `OpsServer` — a tiny loopback HTTP listener (`run --ctl-listen`):
   POST /ops/fleet/resize {"n": N}, POST /ops/fleet/rolling-restart,
   POST /ops/engine/swap, GET /ops/status. OPT-IN and unauthenticated:
   `run` starts no listener unless --ctl-listen is given.
+
+- `FleetAutoscaler` — the watermark hook for live elasticity: scale up
+  when the admission controller sheds or mean worker busy-fraction
+  crosses the high watermark; scale down only after the busy-fraction
+  sits under the low watermark for `hold` consecutive looks. Driven from
+  App.tick; acts through the same resize verb the operator uses.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import json
 import queue
 import threading
 import time
+from dataclasses import dataclass
 
 from bng_tpu_torch.analysis.sanitize import ctx_enter, owned_by
 from bng_tpu_torch.utils.structlog import get_logger
@@ -220,3 +225,76 @@ def ctl_request(addr: str, op: str, args: dict | None = None,
             return e.code, json.loads(e.read())
         except ValueError:
             return e.code, {"error": f"HTTP {e.code}"}
+
+
+@dataclass
+class AutoscaleConfig:
+    min_workers: int = 1
+    max_workers: int = 8
+    busy_hi: float = 0.75  # mean busy-fraction that triggers scale-up
+    busy_lo: float = 0.20  # ... under which scale-down hysteresis counts
+    hold: int = 3  # consecutive calm looks before scaling down
+    cooldown_s: float = 30.0  # min seconds between transitions
+
+
+class FleetAutoscaler:
+    """Watermark-driven target-size recommender over a live fleet."""
+
+    def __init__(self, fleet, cfg: AutoscaleConfig | None = None,
+                 clock=time.time):
+        self.fleet = fleet
+        self.cfg = cfg or AutoscaleConfig()
+        self.clock = clock
+        self._last_shed = fleet.admission.shed_total()
+        self._last_busy = fleet.busy_seconds_total()
+        self._last_look: float | None = None
+        self._last_change = 0.0
+        self._calm = 0
+        self.decisions = 0
+
+    def target(self, now: float | None = None) -> int | None:
+        """The recommended worker count, or None for no change. Call on
+        a steady cadence (App.tick); busy fraction is measured between
+        consecutive calls."""
+        now = now if now is not None else self.clock()
+        cfg = self.cfg
+        shed = self.fleet.admission.shed_total()
+        busy = self.fleet.busy_seconds_total()
+        if self._last_look is None:
+            self._last_look, self._last_shed = now, shed
+            self._last_busy = busy
+            return None
+        if busy < self._last_busy:
+            # a resize/rolling restart reset the per-worker stats the
+            # busy counter sums over — this look's delta is meaningless.
+            # Re-baseline and decide nothing: a negative delta must not
+            # credit a "calm" hysteresis look while the fleet may in
+            # fact be saturated.
+            self._last_look, self._last_shed = now, shed
+            self._last_busy = busy
+            return None
+        dt = now - self._last_look
+        shed_delta = shed - self._last_shed
+        busy_frac = ((busy - self._last_busy)
+                     / (dt * max(1, self.fleet.n))) if dt > 0 else 0.0
+        self._last_look, self._last_shed = now, shed
+        self._last_busy = busy
+        if now - self._last_change < cfg.cooldown_s:
+            return None
+        n = self.fleet.n
+        if (shed_delta > 0 or busy_frac >= cfg.busy_hi) \
+                and n < cfg.max_workers:
+            self._calm = 0
+            self._last_change = now
+            self.decisions += 1
+            return min(cfg.max_workers, n + 1)
+        if busy_frac <= cfg.busy_lo and shed_delta == 0:
+            self._calm += 1
+            if self._calm >= cfg.hold and n > cfg.min_workers:
+                self._calm = 0
+                self._last_change = now
+                self.decisions += 1
+                return max(cfg.min_workers, n - 1)
+        else:
+            self._calm = 0
+        return None

@@ -25,9 +25,11 @@
 
 The sharded half (`build_sharded_checkpoint`, `restore_sharded_checkpoint`)
 snapshots every shard of a `ShardedCluster` into one file and restores it
-slot-exact at the same shard count or re-shards N -> M. Components the
-port does not have (the slow-path fleet, HA, a cluster plan) stay absent:
-a checkpoint carrying them is refused with "no such component". File
+slot-exact at the same shard count or re-shards N -> M. The slow-path
+fleet's per-worker lease books ride as the `fleet` component, one format
+with the parent's book, so either restores into the other. Components the
+port does not have (HA, a cluster plan) stay absent: a checkpoint
+carrying them is refused with "no such component". File
 lifecycle lives in `control/statestore.py`.
 """
 
@@ -57,10 +59,10 @@ _MAX_HEADER = 1 << 26
 # marker for dict components too large for the header: the JSON blob is
 # stored as a uint8 array named '<component>/__json__' in the payload
 # (CRC32-covered, unlike the header) and the header keeps only this stub
-# (the reference stores its HA store and fleet books the same way; a
-# restore here refuses those components before reading them)
+# (the reference stores its HA store the same way, between dhcp and
+# fleet; a restore here refuses that component before reading it)
 _JSON_MARKER = "__payload_json__"
-_PAYLOAD_JSON_COMPONENTS = ("nat", "dhcp")
+_PAYLOAD_JSON_COMPONENTS = ("nat", "dhcp", "fleet")
 
 
 class CheckpointError(RuntimeError):
@@ -222,7 +224,7 @@ def _denamespace(prefix: str, arrays: dict) -> dict:
 def build_checkpoint(seq: int, now: float, *, engine=None, scheduler=None,
                      fastpath=None, nat=None, qos=None, antispoof=None,
                      garden=None, pppoe=None, edge=None, dhcp=None,
-                     node_id: str = "") -> Checkpoint:
+                     fleet=None, node_id: str = "") -> Checkpoint:
     """Collect a consistent snapshot of the authoritative state.
 
     With an `engine`, the table managers default from it, and the
@@ -288,6 +290,11 @@ def build_checkpoint(seq: int, now: float, *, engine=None, scheduler=None,
         arrays.update(_ns("edge", a))
     if dhcp is not None:
         meta["components"]["dhcp"] = dhcp.export_leases()
+    if fleet is not None:
+        # per-worker lease books of the slow-path fleet (control/fleet.py);
+        # sharding is recomputed at restore so a changed worker count
+        # still lands every lease on its new owner
+        meta["components"]["fleet"] = fleet.export_state()
     # per-row dict state (NAT allocator bookkeeping, lease book) scales
     # with the subscriber count: it rides the payload as a uint8 JSON
     # blob — CRC32-covered, and the header stays small (its size bound
@@ -425,11 +432,20 @@ def _verify_components(ckpt: Checkpoint, comps: dict, targets: dict) -> None:
         except (KeyError, ValueError, TypeError) as e:
             raise CheckpointError(
                 f"dhcp: corrupt checkpoint lease book: {e!r}") from e
+    if "fleet" in comps:
+        from bng_tpu_torch.control.fleet import SlowPathFleet
+
+        try:
+            SlowPathFleet.parse_state(comps["fleet"])
+        except (KeyError, ValueError, TypeError) as e:
+            raise CheckpointError(
+                f"fleet: corrupt checkpoint lease books: {e!r}") from e
 
 
 def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
                        nat=None, qos=None, antispoof=None, garden=None,
-                       pppoe=None, edge=None, dhcp=None) -> dict[str, int]:
+                       pppoe=None, edge=None, dhcp=None,
+                       fleet=None) -> dict[str, int]:
     """Hydrate the host mirrors from a decoded checkpoint and re-upload.
 
     Reject-on-mismatch: every table component present in the checkpoint
@@ -437,10 +453,12 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
     whole restore raises `CheckpointError` and NOTHING is uploaded to
     the device (engine.resync_tables runs only after every component
     hydrated). A live subsystem absent from the checkpoint (enabled
-    after the snapshot was taken) simply starts empty. A checkpoint from
-    the reference that carries its slow-path fleet, HA store or cluster
-    plan has no target here and is refused. Returns restored row counts
-    per component.
+    after the snapshot was taken) simply starts empty. Lease books are one
+    format: a fleet's worker books merge into the parent server when the
+    live process has no fleet, and a parent book re-shards into the fleet
+    when it has one. A checkpoint from the reference that carries its HA
+    store or cluster plan has no target here and is refused. Returns
+    restored row counts per component.
     """
     if ckpt.meta.get("sharded") is not None:
         raise CheckpointError(
@@ -462,8 +480,16 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
             comps[name] = _resolve_component_meta(ckpt, comps, name)
     targets = {"fastpath": fastpath, "nat": nat, "qos": qos,
                "antispoof": antispoof, "garden": garden, "pppoe": pppoe,
-               "edge": edge, "dhcp": dhcp}
-    missing = [name for name in comps if targets.get(name) is None]
+               "edge": edge, "dhcp": dhcp, "fleet": fleet}
+    missing = []
+    for name in comps:
+        tgt = targets.get(name)
+        if tgt is None and name in ("fleet", "dhcp"):
+            # a changed --slowpath-workers (including 1 <-> N) must never
+            # force a cold start that discards every other component
+            tgt = targets.get("dhcp" if name == "fleet" else "fleet")
+        if tgt is None:
+            missing.append(name)
     if missing:
         raise CheckpointError(
             f"checkpoint carries {sorted(missing)} but the live process "
@@ -511,8 +537,27 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
             got = edge.restore_state(comps["edge"],
                                      _denamespace("edge", ckpt.arrays))
             rows.update({f"edge.{k}": v for k, v in got.items()})
-        if "dhcp" in comps:
-            rows["dhcp.leases"] = dhcp.restore_leases(comps["dhcp"])
+        if "dhcp" in comps or "fleet" in comps:
+            worker_books = (list(comps["fleet"]["workers"])
+                            if "fleet" in comps else [])
+            parent_book = comps.get("dhcp")
+            if fleet is not None:
+                # the fleet owns DHCPv4: EVERY lease book (per-worker +
+                # parent) re-shards into the workers. The parent book is
+                # deliberately NOT hydrated too — double ownership would
+                # let the parent's expiry sweep release worker-held
+                # addresses back to the pool (double-allocation risk).
+                books = worker_books + (
+                    [parent_book] if parent_book else [])
+                rows["fleet.leases"] = fleet.restore_state(
+                    {"workers": books})
+            else:
+                total = 0
+                if parent_book is not None:
+                    total += dhcp.restore_leases(parent_book)
+                for book in worker_books:
+                    total += dhcp.restore_leases(book)
+                rows["dhcp.leases"] = total
     except (ValueError, KeyError, TypeError, AttributeError) as e:
         raise CheckpointError(f"checkpoint restore rejected: {e}") from e
 

@@ -733,7 +733,7 @@ class Engine:
         if want.type != dev.type or want.index not in (None, index):
             raise NotImplementedError(
                 f"an express lane on {want}, apart from the engine's {dev}, is not ported "
-                "(ROADMAP Queue 1, item 5a)")
+                "(ROADMAP Queue 1, item 9: the express lane on its own device)")
         return dev
 
     def _express_aot_key(self, batch: int, device=None) -> tuple:

@@ -27,11 +27,14 @@ count. Lengths are staged as int64 (the port's lane-integer type).
 from __future__ import annotations
 
 import os
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
-from bng_tpu_torch.ops.table import PinnedStage
+if TYPE_CHECKING:
+    import torch
+
+    from bng_tpu_torch.ops.table import PinnedStage
 
 # keep in sync with runtime.ring (redeclared here to avoid a circular
 # import; ring.py asserts they agree)
@@ -123,6 +126,10 @@ class StagingPool:
 
     def __init__(self, width: int, depth: int = 4, max_bytes: int = 8 << 20,
                  device="cpu"):
+        # torch only here: a slow-path fleet worker imports this module's
+        # numpy kernels and must not pay a torch import
+        import torch
+
         self.width = width
         self.depth = max(2, depth)
         self.max_bytes = max_bytes
@@ -132,6 +139,8 @@ class StagingPool:
         self._owner: dict[int, PinnedStage] = {}  # id(host view) -> its buffer
 
     def _pair(self, B: int) -> list:
+        from bng_tpu_torch.ops.table import PinnedStage
+
         pkt = PinnedStage((B, self.width), np.uint8, self.device)
         length = PinnedStage((B,), np.int64, self.device)
         for st in (pkt, length):

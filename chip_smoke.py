@@ -308,11 +308,44 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     Chrome JSON holds the express lane's spans (the DORA is control
     traffic only, so, as in the reference, no bulk thread); then `trace
     status`.
+44. The slow-path fleet behind `run`: `BNGApp` at phase 34's geometry
+    (the scheduler, 2^15 subscriber buckets, pool /16; NAT off) with a
+    ring the phase feeds. On this call, a storm of 8,192 new clients
+    (waves of 512 in flight; after an untimed 128-client warm-up) at 1
+    worker (the parent's server), 4 inline and 4 spawned workers: DORAs/s
+    each, every client ACKed with a unique address held in a worker's
+    book, `worker_failures` 0, and the spawned workers add no CUDA context
+    (the card's free memory moves no more than the inline run's, within
+    256 MiB). The rates print on a line of their own. The timed 4-inline
+    run's TX bytes, worker lease books and pool bitmap equal a
+    `device="cpu"` app's under the same warm-up and storm, and K1 is held
+    bit-equal to its plain version on that run's last express dispatch
+    (its 3 calls, on the path's own buffers). The seconds a spawned
+    worker's imports take (`run`'s module entry re-imported as
+    __mp_main__, then the fleet: no torch) print beside a bare `import
+    torch`.
+45. The live process: `python -m bng_tpu_torch run --slowpath-workers 4
+    --slowpath-worker-mode process --ctl-listen 127.0.0.1:0
+    --checkpoint-dir <tmp>` on the card; `ctl fleet resize 6` and `ctl
+    fleet rolling-restart` (outcome ok each) and `ctl status` over its
+    wire; SIGTERM (rc 0, a snapshot with the fleet's books); then `chaos
+    audit --slowpath-workers 6 --checkpoint-dir <tmp>` on the card: the
+    app restored from that snapshot audits clean, rc 0.
+46. The chaos sweep: the 17 ported scenarios and storms (storm scale
+    0.25) and a 2-epoch soak in-process on the card, each timed, counts 0
+    before and read after (the `chaos` path); `python -m bng_tpu_torch
+    chaos run --seed 5 --storm-scale 0.25 --soak-epochs 2` on the card and
+    with `--device cpu`, in turn: all three canonical reports equal, `ok:
+    true`. Every K1 and K2 call of `production_day` (QoS-limited lanes
+    that share a slot) and `sharded_swap_crash_rollback` (the 2-shard
+    exchange probes), recorded as the sweep runs them, is held bit-equal
+    to its plain version.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON (each kernel's launches by path, `loadtest`,
-`run`, `pppoe`, `v6`, `radius`, `ipoe_traced`, `run_observed` and
-`run_restored` among them); the last line the result JSON.
+`run`, `pppoe`, `v6`, `radius`, `ipoe_traced`, `run_observed`,
+`run_restored`, `fleet` and `chaos` among them); the last line the result
+JSON.
 """
 
 from __future__ import annotations
@@ -814,16 +847,21 @@ def table_names(tables) -> dict[int, str]:
 
 def record_kernel_inputs(run, n_probe: int | None, n_seg: int, what: str, names=None):
     """Run `run()` once and keep the exact inputs of every kernel call (and,
-    given `table_names`, the table each probe read)."""
+    given `table_names`, the table each probe read); calls made while a
+    CUDA graph is captured hold no values yet and are not kept."""
     rec = {"probe": [], "seg_prefix": [], "table": []}
     orig_probe, orig_seg = table_mod.probe, qos_mod.seg_prefix_total
 
     def probe_rec(*args):
+        if torch.cuda.is_current_stream_capturing():  # a capture: no values to keep
+            return orig_probe(*args)
         rec["table"].append((names or {}).get(args[0].data_ptr(), "?"))
         rec["probe"].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
         return orig_probe(*args)
 
     def seg_rec(slot, vec, compute="both"):
+        if torch.cuda.is_current_stream_capturing():
+            return orig_seg(slot, vec, compute)
         rec["seg_prefix"].append((slot.clone(), vec.clone(), compute))
         return orig_seg(slot, vec, compute)
 
@@ -4450,7 +4488,7 @@ def operator_process_phase(card) -> None:
         check(len(restored) == 1 and json.loads(once.stdout)["device"] == "cuda",
               f"run --once restored from the checkpoint on the card ({once.stderr[-1000:]})")
         say(f"python -m bng_tpu_torch run --once on that directory: rc 0, "
-            f"{restored[0].split('rows=', 1)[-1]} [{card}]")
+            f"rows {json.loads(restored[0])['rows']} [{card}]")
 
 
 def trace_export_phase(card) -> None:
@@ -4489,6 +4527,345 @@ def module_entry_phase(card) -> None:
     check(st["device"] == "cuda", f"run --once on the card ({st['device']})")
     say(f"python -m bng_tpu_torch run --once: rc 0 in {time.perf_counter() - t0:.1f}s, "
         f"device {st['device']} [{card}]")
+
+
+# ------------------------------------------------ the slow-path fleet behind `run`
+
+FLEET_CLIENTS = 8192  # new clients of each timed DORA storm
+FLEET_WAVE = 512  # clients whose DORAs are in flight together
+FLEET_WARM = 128  # clients of the untimed warm-up storm (express graph, first batches)
+FLEET_RUNS = ((1, "inline"), (4, "inline"), (4, "process"))  # (workers, mode) timed
+CONTEXT_BYTES = 256 << 20  # less than one CUDA context: a spawned worker must not add one
+
+
+def fleet_app(device, clock, workers: int, mode: str):
+    """`BNGApp` at `run`'s geometry (the scheduler, 2^15 subscriber buckets,
+    pool /16) with `workers` slow-path workers and a ring the phase feeds.
+    NAT is off: 8,192 leases would need more port blocks than the default
+    NAT table holds."""
+    from bng_tpu_torch.cli import BNGApp, BNGConfig
+
+    cfg = BNGConfig(scheduler_enabled=True, dhcpv6_enabled=False, slaac_enabled=False,
+                    metrics_enabled=False, coa_enabled=False, nat_enabled=False,
+                    slowpath_workers=workers, slowpath_worker_mode=mode)
+    app = BNGApp(cfg, clock=clock, device=device)
+    app.components["ring"] = PyRing(4 * FLEET_WAVE, 2048, 2 * FLEET_WAVE)
+    return app
+
+
+def fleet_storm(app, clk, first: int, n: int) -> tuple[list, dict]:
+    """DORA of clients first..first+n in waves of FLEET_WAVE through the
+    app's ring (a DISCOVER the fleet's admission shed is sent again);
+    returns (every TX frame, {mac: acked ip})."""
+    ring, tx, acks = app.components["ring"], [], {}
+    for base in range(first, first + n, FLEET_WAVE):
+        macs = [client_mac(k) for k in range(base, min(base + FLEET_WAVE, first + n))]
+        offers: dict = {}
+        for attempt in range(4):
+            for m in macs:
+                if m not in offers:
+                    check(ring.rx_push(F.discover_frame(m, 0x10000 + attempt, pad=320),
+                                       from_access=True), "the ring takes the DISCOVERs")
+            got = drive_app(app, clk, 2) + settle(app)
+            tx += got
+            offers.update((m, ip) for t, m, ip in dhcp_replies(got) if t == F.OFFER)
+            if len(offers) == len(macs):
+                break
+        check(len(offers) == len(macs), f"fleet storm: every client offered "
+              f"({len(offers)} of {len(macs)})")
+        for m in macs:
+            check(ring.rx_push(storm_request(m, 0x20000, offers[m]), from_access=True),
+                  "the ring takes the REQUESTs")
+        got = drive_app(app, clk, 2) + settle(app)
+        tx += got
+        acks.update((m, ip) for t, m, ip in dhcp_replies(got) if t == F.ACK)
+    return tx, acks
+
+
+def fleet_books(app, tx, acks) -> tuple:
+    return (tx, acks, app.components["fleet"].export_state(),
+            dict(app.components["pools"].pools[1]._allocated))
+
+
+def import_seconds(src: str) -> tuple[float, str]:
+    """Wall seconds of a fresh interpreter that runs `src` (the import
+    cost a spawned worker pays before it serves) and what it printed."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", src], capture_output=True, text=True,
+                         timeout=300, cwd=REPO)
+    dt = time.perf_counter() - t0
+    check(out.returncode == 0, f"python -c {src!r}: rc {out.returncode}\n{out.stderr[-1500:]}")
+    return dt, out.stdout.strip()
+
+
+WORKER_IMPORTS = ("import runpy, sys; "
+                  "runpy.run_module('bng_tpu_torch.__main__', run_name='__mp_main__'); "
+                  "import bng_tpu_torch.control.fleet; print('torch' in sys.modules)")
+
+
+def fleet_phases(card, device, err) -> dict:
+    """The slow-path fleet behind `run` on the card: a DORA storm at one
+    worker, at 4 inline and at 4 spawned workers (DORAs/s each, on this
+    call); the timed inline run against a CPU app under the same storm,
+    and K1 on its last express dispatch; a spawned worker's imports
+    timed; then the live process over --ctl-listen and `chaos audit` on
+    its snapshot."""
+    from bng_tpu_torch.utils.net import mac_to_u64
+
+    rates, launches, card_books = {}, {}, None
+    for workers, mode in FLEET_RUNS:
+        name = f"{workers} {mode}" if workers > 1 else "1 worker"
+        torch.cuda.synchronize()
+        free0 = torch.cuda.mem_get_info()[0]
+        clk = BeatClock(float(NOW))
+        app = fleet_app(device, clk, workers, mode)
+        try:
+            c = app.components
+            fleet_storm(app, clk, 1_000_000, FLEET_WARM)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            tx, acks = fleet_storm(app, clk, 0, FLEET_CLIENTS)
+            dt = time.perf_counter() - t0
+            launches[name] = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            used = free0 - torch.cuda.mem_get_info()[0]
+            check(len(acks) == FLEET_CLIENTS and len(set(acks.values())) == FLEET_CLIENTS,
+                  f"fleet {name}: {FLEET_CLIENTS} ACKs with unique addresses ({len(acks)})")
+            if name == "4 inline":
+                card_books = fleet_books(app, tx, acks)
+                # K1 on the path's own last express dispatch: the program's
+                # buffers still hold its descriptors, `now` and tables
+                sched = c["scheduler"]
+                prog = c["engine"].express_aot(sched.express.cfg.batch, sched._express_dev)
+                check(prog is not None and prog.graph is not None,
+                      f"fleet {name}: the scheduler's captured express program")
+                rec = record_kernel_inputs(prog._run, 3, 0, "fleet express dispatch",
+                                           table_names(c["engine"].tables))
+                probes_vs_plain([("fleet express", a) for a in rec["probe"]], err)
+            if workers > 1:
+                snap = c["fleet"].stats_snapshot()
+                books = c["fleet"].export_state()
+                leased = {mac_to_u64(bytes.fromhex(lz["mac"]))
+                          for w in books["workers"] for lz in w["leases"]}
+                check(snap["worker_failures"] == 0 and not snap["dead_workers"],
+                      f"fleet {name}: worker_failures 0 ({snap['worker_failures']})")
+                check({mac_to_u64(m) for m in acks} <= leased,
+                      f"fleet {name}: every ACK in a worker's lease book")
+                if mode == "process":
+                    # four spawned workers, none with a CUDA context: the
+                    # card's free memory moved no more than the inline run's
+                    check(used - rates["4 inline"][1] < CONTEXT_BYTES,
+                          f"fleet {name}: no CUDA context in the workers (device memory "
+                          f"{used} B against inline's {rates['4 inline'][1]} B)")
+            else:
+                check("fleet" not in c and len(c["dhcp"].leases) == FLEET_CLIENTS + FLEET_WARM,
+                      "fleet 1 worker: the parent server holds every lease")
+            rates[name] = (FLEET_CLIENTS / dt, used)
+            say(f"fleet {name}: {FLEET_CLIENTS} DORAs in {dt:.3f}s, "
+                f"{FLEET_CLIENTS / dt:.1f} DORAs/s, launches {launches[name]}, device "
+                f"memory +{used / 2**20:.1f} MiB [{card}]")
+        finally:
+            app.close()
+    check(all(v["probe"] > 0 for v in launches.values()), "fleet: K1 launched on every run")
+    say("fleet 4 inline: K1 bit-equal to its plain version on the last express dispatch's 3 "
+        "calls")
+    # the timed inline run's books against a CPU app's under the same storm
+    # (inline: the workers run on the app's held clock, so the books are
+    # deterministic)
+    t0 = time.perf_counter()
+    clk = BeatClock(float(NOW))
+    app = fleet_app("cpu", clk, 4, "inline")
+    try:
+        fleet_storm(app, clk, 1_000_000, FLEET_WARM)
+        cpu_books = fleet_books(app, *fleet_storm(app, clk, 0, FLEET_CLIENTS))
+    finally:
+        app.close()
+    check(card_books == cpu_books,
+          f"fleet: the timed {FLEET_CLIENTS}-client storm (4 inline workers) on the card gives "
+          f"the CPU app's TX bytes, lease books and pool bitmap")
+    say(f"fleet: the timed 4-inline run on the card == the CPU app under the same storm "
+        f"({len(card_books[0])} TX frames, "
+        f"{sum(len(w['leases']) for w in card_books[2]['workers'])} leases in the worker books; "
+        f"the CPU run {time.perf_counter() - t0:.1f}s)")
+    # what a spawned `run` worker imports before it serves, against torch
+    (w_s, w_torch), (t_s, _) = import_seconds(WORKER_IMPORTS), import_seconds("import torch")
+    check(w_torch == "False", f"a spawned run worker's imports bring in no torch ({w_torch})")
+    print(f"fleet worker imports: {w_s:.3f}s (run's module entry as __mp_main__ and the fleet, "
+          f"no torch); import torch {t_s:.3f}s [{card}]", flush=True)
+    print("fleet DORAs/s: " + ", ".join(f"{k} {v[0]:.1f}" for k, v in rates.items())
+          + f" ({FLEET_CLIENTS} clients each) [{card}]", flush=True)
+    fleet_ctl_phase(card)
+    return {"fleet": launches["4 inline"]}
+
+
+def ctl(addr: str, *argv) -> dict:
+    out = subprocess.run([sys.executable, "-m", "bng_tpu_torch", "ctl", "--ctl-addr", addr,
+                          *argv], capture_output=True, text=True, timeout=300, cwd=REPO)
+    check(out.returncode == 0, f"ctl {' '.join(argv)}: rc {out.returncode}\n{out.stdout[-1500:]}"
+          f"{out.stderr[-1500:]}")
+    return json.loads(out.stdout)
+
+
+def fleet_ctl_phase(card) -> None:
+    """`python -m bng_tpu_torch run` on the card with 4 spawned workers and
+    --ctl-listen: `ctl fleet resize 6`, `ctl fleet rolling-restart`, `ctl
+    status`, then SIGTERM (a snapshot with the fleet's books) and `chaos
+    audit` of an app restored from it: rc 0."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "bng_tpu_torch", "run", "--synthetic-subs", "2048",
+               "--slowpath-workers", "4", "--slowpath-worker-mode", "process",
+               "--ctl-listen", "127.0.0.1:0", "--checkpoint-dir", tmp, "--metrics-port", "0"]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                cwd=REPO)
+        err_lines, out_lines = [], []
+        readers = [read_lines(proc.stderr, err_lines), read_lines(proc.stdout, out_lines)]
+        try:
+            def addr():
+                for line in err_lines:
+                    m = re.search(r"ctl on (\S+:\d+)", line)
+                    if m:
+                        return m.group(1)
+                check(proc.poll() is None, f"run exited early (rc {proc.returncode}): "
+                      f"{''.join(err_lines)[-2000:]}")
+                return None
+
+            a = wait_for(addr, 300, "run prints its ctl address")
+            wait_for(lambda: ctl(a, "status")["ops"] is not None, 60, "ctl status answers")
+            time.sleep(2.0)  # the synthetic source through the fleet for a while
+            t0 = time.perf_counter()
+            rz = ctl(a, "fleet", "resize", "6")
+            rz_s = time.perf_counter() - t0
+            check(rz["outcome"] == "ok" and rz["to"] == 6, f"ctl fleet resize 6 ({rz})")
+            t0 = time.perf_counter()
+            rr = ctl(a, "fleet", "rolling-restart")
+            rr_s = time.perf_counter() - t0
+            check(rr["outcome"] == "ok" and len(rr["replaced"]) == 6 and not rr["lost"],
+                  f"ctl fleet rolling-restart ({rr})")
+            st = ctl(a, "status")
+            check(st["fleet"]["workers"] == 6 and not st["fleet"]["dead_workers"]
+                  and st["fleet"]["resizes"] == 1 and st["fleet"]["rolling_restarts"] == 1,
+                  f"ctl status after the transitions ({st})")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for th in readers:
+                th.join(timeout=10)
+        check(rc == 0, f"run after SIGTERM: rc {rc}\n{''.join(err_lines)[-2000:]}")
+        say(f"ctl on the live run (4 spawned workers): fleet resize 6 ok in {rz_s:.2f}s "
+            f"({rz['leases_moved']} leases, {rz['offers_moved']} offers moved, "
+            f"{rz['duration_s']:.3f}s in the loop), rolling-restart ok in {rr_s:.2f}s "
+            f"({rr['duration_s']:.3f}s in the loop), status: 6 workers, none dead [{card}]")
+        out = subprocess.run([sys.executable, "-m", "bng_tpu_torch", "chaos", "audit",
+                              "--slowpath-workers", "6", "--slowpath-worker-mode", "inline",
+                              "--checkpoint-dir", tmp],
+                             capture_output=True, text=True, timeout=300, cwd=REPO)
+        check(out.returncode == 0, f"chaos audit of the restored app: rc {out.returncode}\n"
+              f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+        rep = json.loads(out.stdout)
+        restored = [json.loads(ln) for ln in out.stderr.splitlines()
+                    if ln.startswith("{") and "warm restart" in ln]
+        check(rep["ok"] and rep["checks"]["slice_granted"] > 0 and len(restored) == 1,
+              f"chaos audit: clean, with the fleet's slices, on the restored books ({rep})")
+        say(f"chaos audit of the app restored from the live run's SIGTERM snapshot on the card: "
+            f"rc 0, checks {rep['checks']}, restored {restored[0].get('rows')} [{card}]")
+
+
+# ------------------------------------------------------------- the chaos sweep
+
+CHAOS_SEED = 5
+CHAOS_SCALE = 0.25  # the storms' subscriber counts (1.0: the published storms)
+CHAOS_SOAK = 2
+# entries whose every kernel call is held against the plain versions:
+# QoS-limited lanes that share a slot, and the 2-shard exchange probes
+CHAOS_RECORDED = ("production_day", "sharded_swap_crash_rollback")
+
+
+def chaos_cmd(device: str | None) -> list:
+    return ([sys.executable, "-m", "bng_tpu_torch", "chaos", "run", "--seed", str(CHAOS_SEED),
+             "--storm-scale", str(CHAOS_SCALE), "--soak-epochs", str(CHAOS_SOAK)]
+            + (["--device", device] if device else []))
+
+
+def chaos_phases(card, device, err) -> dict:
+    """The chaos suite on the card: the 17 ported entries and the soak
+    in-process (each entry timed; counts 0 before, read after), `python -m
+    bng_tpu_torch chaos run` on the card and with `--device cpu`, one after
+    the other: the three canonical reports equal and ok; K1/K2 bit-equal
+    to their plain versions on every call of the CHAOS_RECORDED entries,
+    kept as the sweep ran them."""
+    from bng_tpu_torch.chaos import runner
+
+    kernels.reset_launches()
+    report = {"schema": runner.REPORT_SCHEMA, "seed": CHAOS_SEED, "scenarios": {},
+              "storm_scale": CHAOS_SCALE}
+    secs, recs = {}, {}
+    for name in sorted(runner.ALL_SCENARIOS):
+        t0 = time.perf_counter()
+        box = {}
+
+        def sweep(name=name):
+            box["got"] = runner.run_scenarios(CHAOS_SEED, names=[name],
+                                              storm_scale=CHAOS_SCALE, device=device)
+
+        if name in CHAOS_RECORDED:  # every kernel call's inputs kept as it runs
+            recs[name] = record_kernel_inputs(sweep, None, 0, name)
+        else:
+            sweep()
+        got = box["got"]
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        report["scenarios"].update(got["scenarios"])
+    t0 = time.perf_counter()
+    report["soak"] = runner.soak(CHAOS_SEED, epochs=CHAOS_SOAK)
+    secs["soak"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    report["ok"] = (all(r.get("ok", False) for r in report["scenarios"].values())
+                    and report["soak"]["ok"])
+    mine = runner.canonical_json(report)
+    say("chaos sweep on the card, seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; total {sum(secs.values()):.1f} s [{card}]")
+    failed = {k: r.get("budget", r.get("error")) for k, r in report["scenarios"].items()
+              if not r.get("ok")}
+    check(report["ok"], f"chaos sweep on the card: every entry ok (failed: {failed})")
+    # one after the other: two sweeps at once oversubscribe the host's cores,
+    # and the storms' stage budgets read wall time
+    runs = {}
+    for where in (None, "cpu"):
+        t0 = time.perf_counter()
+        runs[where] = subprocess.run(chaos_cmd(where), capture_output=True, text=True,
+                                     timeout=900, cwd=REPO)
+        runs[where].seconds = time.perf_counter() - t0
+    gpu, cpu = runs[None], runs["cpu"]
+    check(gpu.returncode == 0 and cpu.returncode == 0,
+          f"chaos run: rc {gpu.returncode} on the card, {cpu.returncode} on the CPU\n"
+          f"{gpu.stderr[-1500:]}{cpu.stderr[-1500:]}")
+    check(gpu.stdout.strip() == mine and cpu.stdout.strip() == mine,
+          "chaos run: the card's report == the CPU's == the in-process sweep's "
+          "(canonical JSON, every field)")
+    check(json.loads(gpu.stdout)["ok"] is True, "chaos run on the card reports ok: true")
+    check(launches["probe"] > 0 and launches["seg_prefix"] > 0,
+          f"chaos sweep: K1 and K2 launched on the card ({launches})")
+    say(f"python -m bng_tpu_torch chaos run --seed {CHAOS_SEED} --storm-scale {CHAOS_SCALE} "
+        f"--soak-epochs {CHAOS_SOAK}: ok, {len(mine)} bytes, equal to --device cpu and to "
+        f"the in-process sweep; as a process {gpu.seconds:.1f}s on the card, {cpu.seconds:.1f}s "
+        f"on the CPU; launches {launches} [{card}]")
+
+    # both kernels on the sweep's own calls of the recorded entries
+    for name, rec in recs.items():
+        check(rec["probe"], f"chaos {name}: K1 calls recorded")
+        probes_vs_plain([(f"chaos {name}", a) for a in rec["probe"]], err)
+        segs_vs_plain([(f"chaos {name}", *a) for a in rec["seg_prefix"]], err)
+    segs = [s for rec in recs.values() for s, _v, _c in rec["seg_prefix"]]
+    shared = sum(int((torch.unique(s[s >= 0], return_counts=True)[1] > 1).any()) for s in segs)
+    check(shared > 0, "chaos: K2 held on calls whose QoS-limited lanes share a slot")
+    say("chaos: K1 and K2 bit-equal to their plain versions on every call of "
+        + ", ".join(f"{k} ({len(r['probe'])} K1, {len(r['seg_prefix'])} K2)"
+                    for k, r in recs.items())
+        + f" as the sweep ran them; {shared} K2 calls with limited lanes sharing a slot")
+    return {"chaos": launches}
 
 
 def main(argv=None) -> int:
@@ -4559,6 +4936,8 @@ def main(argv=None) -> int:
     launches.update(run_observed_phases(card, device, err))
     operator_process_phase(card)
     trace_export_phase(card)
+    launches.update(fleet_phases(card, device, err))
+    launches.update(chaos_phases(card, device, err))
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

@@ -17,7 +17,7 @@
   and the QoS token words fold to the same bits in both packages.
 - Rejects before any mutation: a wrong geometry, a missing component, a
   corrupt NAT meta, a missing PPPoE server MAC, and a reference snapshot
-  carrying a component the port does not have (fleet, HA, cluster plan).
+  carrying a component the port does not have (HA, cluster plan).
 - `compat_val_pad_from`: 4-word NAT reverse rows and 6-word PPPoE rows
   restore zero-padded to the same words in both packages.
 - The state store (`TestStore`, `TestPeriodicCheckpointer` of the
@@ -391,14 +391,14 @@ def test_rejects_happen_before_any_mutation(case, match):
         assert dst.nat.blocks == blocks
 
 
-@pytest.mark.parametrize("component", ["fleet", "ha", "cluster_plan"])
+@pytest.mark.parametrize("component", ["ha", "cluster_plan"])
 def test_reference_only_components_are_refused(component):
-    """A reference snapshot that carries its slow-path fleet, HA store or
-    cluster plan has no target in the port: the restore refuses it with the
-    reference's "no such component" before any mirror or lease changes."""
+    """A reference snapshot that carries its HA store or cluster plan has no
+    target in the port: the restore refuses it with the reference's "no such
+    component" before any mirror or lease changes. (The fleet's books
+    restore: tests/test_torch_fleet.py.)"""
     src = stack(JAX)
-    extra = {"fleet": SimpleNamespace(export_state=lambda: {"workers": [src.server.export_leases()]}),
-             "ha": SimpleNamespace(checkpoint_state=lambda: {"seq": 3, "sessions": []}),
+    extra = {"ha": SimpleNamespace(checkpoint_state=lambda: {"seq": 3, "sessions": []}),
              "cluster_plan": SimpleNamespace(checkpoint_plan=lambda: {"epoch": 1, "members": {}})}
     ck = JAX.ck.build_checkpoint(1, float(NOW), fastpath=src.fp, nat=src.nat, dhcp=src.server,
                                  **{component: extra[component]})

@@ -181,7 +181,7 @@ def test_dora_renewal_flow_and_tick_match_reference(scheduler):
 
 def test_refusal_names_every_unported_subsystem():
     on = dict(ha_role="active",
-              cluster_listen="127.0.0.1:0", slowpath_workers=2, wire_if="eth9", shards=2,
+              cluster_listen="127.0.0.1:0", wire_if="eth9", shards=2,
               dns_enabled=True, bgp_enabled=True, nexus_url="http://nexus",
               peer_pool_cidr="10.9.0.0/24",
               peer_pool_nodes=[{"node": "bng0", "url": "http://x"}], device_auth_method="psk")
@@ -189,7 +189,7 @@ def test_refusal_names_every_unported_subsystem():
     with pytest.raises(t_cli.UnportedSubsystemError) as e:
         t_cli.BNGApp(cfg, device="cpu")
     msg = str(e.value)
-    assert len(t_cli.unported(cfg)) == len(t_cli.UNPORTED) == 10
+    assert len(t_cli.unported(cfg)) == len(t_cli.UNPORTED) == 9
     for _on, what, flag in t_cli.UNPORTED:
         assert what in msg and flag in msg
     # the reference's defaults, and metrics, telemetry and the checkpointer
@@ -198,6 +198,8 @@ def test_refusal_names_every_unported_subsystem():
     assert not any(w in names for w in ("metrics", "telemetry", "checkpoint"))
     assert t_cli.unported(t_cli.BNGConfig()) == []
     assert t_cli.unported(t_cli.BNGConfig(telemetry_enabled=True, checkpoint_dir="/x")) == []
+    # the slow-path fleet is ported: workers > 1 builds
+    assert t_cli.unported(t_cli.BNGConfig(slowpath_workers=4)) == []
     ported = t_cli.BNGConfig(radius_server="127.0.0.1:1812", pppoe_enabled=True, **WORKING)
     assert t_cli.unported(ported) == []
 
@@ -652,4 +654,10 @@ def test_trace_verbs_on_cpu(tmp_path, capsys):
     assert t_cli.main(["trace", "status", "--trace-dir", d]) == 0
     st = json.loads(capsys.readouterr().out)
     assert [x["backend"] for x in st["dumps"]] == ["cpu"]
-    assert t_cli.main(["--device", "cpu", "trace", "export", "--workers", "2"]) == 2
+    # an inline fleet behind the slow path adds its admission and fan-out
+    # spans to the trace (the reference's export shows the same stages)
+    assert t_cli.main(["--device", "cpu", "trace", "export", "--trace-dir", d, "--workers", "2",
+                       "--macs", "8", "--batch-size", "8"]) == 0
+    exp = json.loads(capsys.readouterr().out)
+    assert exp["stages"] == ["admit", "device_wait", "dispatch", "fleet", "reply", "slow_path",
+                             "total"]

@@ -2,6 +2,7 @@
 entry points run on the card unless the CPU is asked for, and a kernel
 wrapper given a CUDA-only call never falls back to its plain version."""
 
+import json
 import os
 import subprocess
 import sys
@@ -69,6 +70,8 @@ SLICE_MODULES = (
     "bng_tpu_torch.control.pppoe.server", "bng_tpu_torch.control.pppoe.session",
     "bng_tpu_torch.telemetry.recorder", "bng_tpu_torch.telemetry.slo",
     "bng_tpu_torch.control.metrics",
+    "bng_tpu_torch.control.admission", "bng_tpu_torch.control.fleet",
+    "bng_tpu_torch.chaos.scenarios", "bng_tpu_torch.chaos.storms", "bng_tpu_torch.chaos.runner",
 )
 
 
@@ -84,6 +87,71 @@ def test_port_and_chip_smoke_import_no_jax():
     assert int(n) >= 74  # every module of the package was imported
     assert bad == "[]", bad
     assert set(SLICE_MODULES) <= set(eval(lines[-2]))  # noqa: S307 — our own repr
+
+
+_FLEET_PARENT = r"""
+import atexit, json, os, sys
+
+
+def _report():
+    # runs in the parent and in each spawned worker (which re-imports this
+    # file as __mp_main__) when the interpreter exits
+    has_torch = "torch" in sys.modules
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib", "bng_tpu."))
+                 or m == "bng_tpu")
+    cuda = has_torch and sys.modules["torch"].cuda.is_initialized()
+    with open(os.path.join(os.environ["PROBE_DIR"], f"{os.getpid()}.json"), "w") as f:
+        json.dump({"main": __name__, "torch": has_torch, "cuda": cuda, "bad": bad}, f)
+
+
+atexit.register(_report)
+
+if __name__ == "__main__":
+    from bng_tpu_torch.chaos import scenarios as sc
+    from bng_tpu_torch.control.fleet import FleetSpec, SlowPathFleet
+
+    fp = sc._make_fastpath()
+    pools = sc._make_pools(fp)
+    spec = FleetSpec.from_pool_manager(sc.SERVER_MAC, sc.SERVER_IP, pools, slice_size=16,
+                                       low_watermark=4)
+    fleet = SlowPathFleet(spec, 2, pools, mode="process", table_sink=fp)
+    out = fleet.handle_batch([(i, sc._discover(sc._mac(i), i)) for i in range(8)])
+    assert fleet.start_method == "spawn" and all(r is not None for _l, r in out)
+    fleet.close()
+"""
+
+
+def test_spawned_fleet_worker_imports_no_jax_and_no_cuda(tmp_path):
+    """A process-mode fleet's spawned workers import neither JAX nor the JAX
+    package, nor torch (seconds at each start, resize and rolling restart),
+    and never initialise CUDA (each would cost the card a context)."""
+    script = tmp_path / "parent.py"
+    script.write_text(_FLEET_PARENT)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "PYTHON"))}
+    env.update(PYTHONPATH=str(REPO), PROBE_DIR=str(tmp_path))
+    out = subprocess.run([sys.executable, str(script)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    reports = [json.loads(f.read_text()) for f in tmp_path.glob("*.json")]
+    assert sorted(r["main"] for r in reports) == ["__main__", "__mp_main__", "__mp_main__"]
+    assert all(r["bad"] == [] and r["cuda"] is False for r in reports), reports
+    assert [r["torch"] for r in reports if r["main"] == "__mp_main__"] == [False, False], reports
+
+
+def test_run_worker_reimport_of_the_module_entry_imports_no_torch():
+    """Under `python -m bng_tpu_torch run`, a spawned worker re-imports
+    `bng_tpu_torch.__main__` as __mp_main__ and then the fleet: neither
+    brings in torch or the command line."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "PYTHON"))}
+    env["PYTHONPATH"] = str(REPO)
+    src = ("import runpy, sys; runpy.run_module('bng_tpu_torch.__main__', run_name='__mp_main__'); "
+           "import bng_tpu_torch.control.fleet; "
+           "print(sorted(m for m in sys.modules if m == 'torch' or m == 'bng_tpu_torch.cli'))")
+    out = subprocess.run([sys.executable, "-c", src], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):

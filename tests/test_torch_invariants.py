@@ -24,7 +24,7 @@ on each injected fault:
   dropped from its pool, an allocation with no binding, an address both
   free and allocated, and one address bound to two clients.
 
-Components the port does not have (fleet, HA pair, cluster of BNGs)
+Components the port does not have (HA pair, cluster of BNGs)
 audit nothing when None and are refused otherwise. With `metrics`,
 `audit_invariants` and `audit_app` record the same bng_invariant_*
 families (audits, violations by kind, the last audit's count and epoch).
@@ -180,7 +180,7 @@ def test_nat_session_audit_matches_reference(case, kinds):
     assert got[1]["violations_by_kind"] == kinds and got[1]["checks"]["nat_sessions"] == 3
 
 
-@pytest.mark.parametrize("name", ["fleet", "ha_pair", "bng_cluster"])
+@pytest.mark.parametrize("name", ["ha_pair", "bng_cluster"])
 def test_absent_components_audit_nothing_and_refuse_a_value(name):
     rep = t_inv.audit_invariants(**{name: None})
     assert rep.ok and rep.to_dict() == j_inv.audit_invariants(**{name: None}).to_dict()

@@ -12,7 +12,7 @@
 - `MetricsCollector`: a failing source is counted and the others still
   run; `serve_http(0)` binds a free port and `GET /metrics` returns
   `expose()` byte for byte (404 elsewhere).
-- The collectors of components the port does not have (wire, fleet,
+- The collectors of components the port does not have (wire,
   fabric, handoff, member, cluster, DNS) are absent.
 
 Tolerance: exact (bytes).
@@ -195,8 +195,8 @@ def test_collector_counts_a_failing_source_and_serves_http():
 
 
 def test_left_out_collectors_are_absent():
-    for name in ("collect_wire", "collect_fleet", "record_fleet_blocked", "collect_fabric",
+    for name in ("collect_wire", "collect_fabric",
                  "collect_handoff", "record_member", "record_cluster", "collect_dns"):
         assert hasattr(j_m.BNGMetrics, name) and not hasattr(t_m.BNGMetrics, name)
     kept = [n for n in dir(j_m.BNGMetrics) if n.startswith(("collect_", "record_"))]
-    assert len([n for n in kept if hasattr(t_m.BNGMetrics, n)]) == len(kept) - 8
+    assert len([n for n in kept if hasattr(t_m.BNGMetrics, n)]) == len(kept) - 6
