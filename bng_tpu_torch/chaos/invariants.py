@@ -18,13 +18,13 @@ quiesce barrier the checkpoint uses:
   - the edge tap rows are backed by warrants and the armed count is true;
   - the NAT allocator, EIM map, sessions and reverse rows agree;
   - a checkpoint save -> decode round trip is state-identical;
-  - a sharded cluster partitions its state (rows on their owner shards).
+  - a sharded cluster partitions its state (rows on their owner shards);
+  - a connected HA standby mirrors its active's session store.
 
 Findings come back as structured `Finding`s, bounded per kind;
-`AuditReport.to_dict()` is sorted, so reports diff clean. Components the
-port does not have (the HA pair, the cluster of BNGs) are accepted as
-None and audit nothing; any other value raises.
-Their audits come with those components. `audit_app` audits a composed
+`AuditReport.to_dict()` is sorted, so reports diff clean. The cluster of
+BNGs is not in the port: `bng_cluster` is accepted as None and audits
+nothing; any other value raises. `audit_app` audits a composed
 `BNGApp`. With `metrics` (BNGMetrics) an audit records the
 bng_invariant_* families, stamped with `epoch`.
 """
@@ -766,7 +766,8 @@ def _ip6(addr: bytes) -> str:
 # ---------------------------------------------------------------------------
 
 def _audit_checkpoint_roundtrip(report: AuditReport, *, fastpath=None,
-                                nat=None, dhcp=None, fleet=None) -> None:
+                                nat=None, dhcp=None, fleet=None,
+                                ha=None) -> None:
     """save -> encode -> decode must be state-identical: same meta, same
     arrays, and a re-encode of the decode is byte-identical. Runs with
     engine=None — the caller already quiesced; this must not re-enter
@@ -778,7 +779,7 @@ def _audit_checkpoint_roundtrip(report: AuditReport, *, fastpath=None,
     if fastpath is None and nat is None and dhcp is None and fleet is None:
         return
     c1 = build_checkpoint(0, 0.0, fastpath=fastpath, nat=nat, dhcp=dhcp,
-                          fleet=fleet, node_id="audit")
+                          fleet=fleet, ha=ha, node_id="audit")
     e1 = encode_checkpoint(c1)
     report.checks["ckpt_bytes"] = len(e1)
     try:
@@ -1006,16 +1007,15 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
     engine.quiesce()) and includes the host-vs-device mirror proof;
     fastpath/nat default from the engine. `fleet` adds the slow-path
     fleet's slices and worker lease books to the ownership and row
-    clauses. The reference's `ha_pair` and `bng_cluster` name components
-    the port does not have: None is accepted and audits nothing, anything
-    else raises. `metrics`
-    (BNGMetrics) gets the bng_invariant_* families recorded; `epoch`
-    stamps bng_invariant_last_audit_epoch (defaults to the audit counter).
+    clauses. `ha_pair=(active, standby)` adds the replication-divergence
+    check. The reference's `bng_cluster` names a component the port does
+    not have: None is accepted and audits nothing, anything else raises.
+    `metrics` (BNGMetrics) gets the bng_invariant_* families recorded;
+    `epoch` stamps bng_invariant_last_audit_epoch (defaults to the audit
+    counter).
     """
-    given = [k for k, v in (("ha_pair", ha_pair), ("bng_cluster", bng_cluster))
-             if v is not None]
-    if given:
-        raise ValueError(f"audit_invariants: no such component in the port: {given}")
+    if bng_cluster is not None:
+        raise ValueError("audit_invariants: no such component in the port: ['bng_cluster']")
     report = AuditReport()
     if engine is not None:
         if quiesce:
@@ -1053,8 +1053,13 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
         edge = cluster
     _audit_edge(report, edge, tap_program, route_program)
     if check_roundtrip:
+        active = None
+        if ha_pair is not None:
+            active = ha_pair[0]
         _audit_checkpoint_roundtrip(report, fastpath=fastpath, nat=nat,
-                                    dhcp=dhcp, fleet=fleet)
+                                    dhcp=dhcp, fleet=fleet, ha=active)
+    if ha_pair is not None:
+        _audit_ha_pair(report, *ha_pair)
 
     if metrics is not None:
         metrics.record_audit(report, epoch=epoch)
@@ -1064,6 +1069,28 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
         # Disarmed: one global load + None compare.
         tele.trigger("invariant_violation", str(report.violations_by_kind()))
     return report
+
+
+def _audit_ha_pair(report: AuditReport, active, standby) -> None:
+    """A CONNECTED standby must mirror the active's session store
+    exactly (a disconnected one is allowed to lag — reconnect heals via
+    replay_since/full_sync)."""
+    if active is None or standby is None or not getattr(
+            standby, "connected", False):
+        return
+    a = {s.session_id: s.to_dict() for s in active.store.all()}
+    b = {s.session_id: s.to_dict() for s in standby.store.all()}
+    report.checks["ha_sessions"] = len(a)
+    for sid in sorted(set(a) | set(b)):
+        if sid not in a:
+            report.add("ha-store-divergence", sid,
+                       "standby holds a session the active deleted")
+        elif sid not in b:
+            report.add("ha-store-divergence", sid,
+                       "connected standby is missing an active session")
+        elif a[sid] != b[sid]:
+            report.add("ha-store-divergence", sid,
+                       "session state differs between active and standby")
 
 
 def audit_app(app, metrics=None, epoch=None) -> AuditReport:
@@ -1076,5 +1103,6 @@ def audit_app(app, metrics=None, epoch=None) -> AuditReport:
         fastpath=c.get("fastpath"), pools=c.get("pools"),
         dhcp=c.get("dhcp"), fleet=c.get("fleet"), nat=c.get("nat"),
         dhcpv6=c.get("dhcpv6"), pppoe=c.get("pppoe"),
+        cluster=c.get("cluster"),
         metrics=metrics if metrics is not None else c.get("metrics"),
         epoch=epoch)

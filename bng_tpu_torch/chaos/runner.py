@@ -18,8 +18,8 @@ Both produce JSON-safe dicts with no wallclock, paths or object ids;
 across runs (`chaos run --seed S` twice, or on the card and on the CPU ->
 identical bytes, equal to the reference's).
 
-The reference's catalog has 23 entries; six need components the port
-does not have yet (`UNPORTED`: the HA pair or the cluster of BNGs).
+The reference's catalog has 23 entries; five need a component the port
+does not have yet (`UNPORTED`: the cluster of BNGs).
 `--list` shows them as not ported, naming one is refused before anything
 runs, and every per-scenario seed is derived from the index in the full
 23-name catalog, so each ported scenario's seed is the reference's.
@@ -46,7 +46,6 @@ ALL_SCENARIOS = {**SCENARIOS, **STORMS}
 # the reference's entries whose component the port lacks: name -> what
 # it needs
 UNPORTED = {
-    "ha_delta_drop_reconnect": "the HA pair (control/ha.py)",
     "cluster_failover_redora": "the cluster of BNGs (cluster/)",
     "cluster_partial_partition": "the cluster of BNGs (cluster/)",
     "cluster_gray_member": "the cluster of BNGs (cluster/)",

@@ -1,5 +1,5 @@
 """Scripted chaos scenarios (copy of `bng_tpu/chaos/scenarios.py`, the
-scenarios that need no HA pair and no cluster of BNGs).
+scenarios that need no cluster of BNGs).
 
 Every scenario is a function `(seed) -> dict` — or `(seed, device)` for
 the five that build device state (an engine, a scheduler or a sharded
@@ -29,6 +29,8 @@ Scenario list:
     nat_expiry_under_skew     forward/backward clock skew over the NAT
                               expiry sweep; EIM/reverse/block bookkeeping
                               must survive both directions
+    ha_delta_drop_reconnect   replication stream dies mid-delta + peer
+                              timeout on reconnect; replay_since heals
     fleet_resize_under_kill   LIVE resize (shrink + grow) with a worker
                               killed at every transfer hit; in-flight
                               DORAs (un-ACKed OFFERs) must complete on
@@ -64,8 +66,8 @@ import random
 import numpy as np
 
 from bng_tpu_torch import frames as packets
-from bng_tpu_torch.chaos.faults import (BITFLIP, FAIL, IO_ERROR, KILL, SKEW, TRUNCATE,
-                                        FaultPlan, FaultSpec, SimClock, armed)
+from bng_tpu_torch.chaos.faults import (BITFLIP, DROP_DELTA, FAIL, IO_ERROR, KILL, SKEW,
+                                        TRUNCATE, FaultPlan, FaultSpec, SimClock, armed)
 from bng_tpu_torch.chaos.invariants import audit_invariants
 from bng_tpu_torch.control import dhcp_codec
 from bng_tpu_torch.control.pool import Pool, PoolManager
@@ -471,6 +473,75 @@ def nat_expiry_under_skew(seed: int) -> dict:
                  and out["audit_forward_ok"]
                  and out["flows_recreated"] == 24
                  and out["expired_backward"] == 0
+                 and out["audit_ok"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5. HA replication: stream death mid-delta + peer timeout on reconnect
+# ---------------------------------------------------------------------------
+
+def ha_delta_drop_reconnect(seed: int) -> dict:
+    """The replication stream dies mid-delta (drop_delta kills every
+    subscriber callback, exactly like an SSE connection breaking), then
+    the first reconnect attempt times out (ha.connect fail -> backoff).
+    The second reconnect heals via replay_since with zero full syncs —
+    and the stores must end identical."""
+    from bng_tpu_torch.control.ha import (ActiveSyncer, InMemorySessionStore,
+                                    SessionState, StandbySyncer)
+
+    clock = SimClock()
+    active = ActiveSyncer(InMemorySessionStore(), replay_buffer=64)
+    standby = StandbySyncer(InMemorySessionStore(),
+                            transport=lambda: active,
+                            backoff_initial_s=1.0)
+    standby.tick(clock())
+    out = {"name": "ha_delta_drop_reconnect", "seed": seed,
+           "connected_initially": standby.connected}
+
+    def push(i: int) -> None:
+        active.push_change(SessionState(
+            session_id=f"s-{i:04d}", mac=_mac(i).hex(),
+            ip=ip_to_u32("10.2.0.1") + i, lease_expiry=clock() + 3600,
+            updated_at=clock()))
+
+    for i in range(6):
+        push(i)
+    out["delivered_before_fault"] = standby.last_seq
+
+    plan = FaultPlan(seed, [
+        # hits count from arming: the 2nd armed push (session seq 8)
+        # dies mid-delivery; seq 7 lands, 8-12 reach only the replay log
+        FaultSpec("ha.push", DROP_DELTA, at_hit=2),
+        # the standby's FIRST reconnect attempt times out
+        FaultSpec("ha.connect", FAIL, at_hit=1)])
+    with armed(plan, log=False) as inj:
+        for i in range(6, 12):
+            push(i)
+        out["standby_seq_after_drop"] = standby.last_seq
+        # the broken stream is observed (no subscriber left on the
+        # active — the on_stream_end role) and the standby reconnects
+        out["stream_died"] = not active._subscribers
+        if out["stream_died"]:
+            standby.disconnect()
+        standby.tick(clock.advance(1.0))  # injected peer timeout
+        out["first_reconnect_failed"] = not standby.connected
+        standby.tick(clock.advance(5.0))  # backoff elapsed: heals
+    out["faults"] = len(inj.injected)
+    out["healed"] = (standby.connected
+                     and standby.last_seq == active._seq)
+    out["full_syncs_during_heal"] = standby.stats["full_syncs"] - 1
+    audit = audit_invariants(ha_pair=(active, standby),
+                             check_roundtrip=False)
+    out["audit_ok"] = audit.ok
+    out["violations"] = audit.violations_by_kind()
+    out["ok"] = (out["connected_initially"]
+                 and out["delivered_before_fault"] == 6
+                 and out["stream_died"]
+                 and out["standby_seq_after_drop"] == 7
+                 and out["first_reconnect_failed"]
+                 and out["healed"]
+                 and out["full_syncs_during_heal"] == 0
                  and out["audit_ok"])
     return out
 
@@ -1223,6 +1294,7 @@ SCENARIOS = {
     "corrupt_restore_cold_start": corrupt_restore_cold_start,
     "fleet_reshard_under_kill": fleet_reshard_under_kill,
     "nat_expiry_under_skew": nat_expiry_under_skew,
+    "ha_delta_drop_reconnect": ha_delta_drop_reconnect,
     "fleet_resize_under_kill": fleet_resize_under_kill,
     "rolling_restart_under_kill": rolling_restart_under_kill,
     "engine_swap_crash_rollback": engine_swap_crash_rollback,

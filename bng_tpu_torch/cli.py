@@ -6,19 +6,26 @@ scope).
 same YAML overlay where the command line wins (`load_config_file`).
 `BNGApp` builds what the reference's `run` builds for the subsystems the
 port has: the span tracer with its flight recorder and SLO monitor (when
-telemetry is on), the fast-path tables, pools, the RADIUS client with its
-authenticator and accounting, NAT with its compliance logger, QoS,
-antispoof, the walled garden (host manager and device gate), the DHCP
-server and the engine on the card (with the PPPoE session tables when
-PPPoE is on), the tiered scheduler when asked, the DHCPv6 and SLAAC
-servers, the PPPoE server, the slow-path demux over them, the CoA
-listener, the packet ring with a memory-rung wire attachment for the
-synthetic source, routing, Nexus, subscribers, policies, the metrics
-registry and its collector, the checkpointer (restore at start, the
-periodic cadence, the SIGTERM snapshot) and the ops controller. A config
+telemetry is on), the fast-path tables, pools, the peer pool, the RADIUS
+client with its authenticator and accounting, NAT with its compliance
+logger, QoS, antispoof, the walled garden (host manager and device gate),
+the DHCP server and the engine on the card (with the PPPoE session
+tables when PPPoE is on), the tiered scheduler when asked, the DHCPv6
+and SLAAC servers, the PPPoE server, the slow-path demux over them, the
+CoA listener, the HA pair (active or standby), the replicated store and
+the cluster listener (plain or TLS), the packet ring with a memory-rung
+wire attachment for the synthetic source, routing and BGP, Nexus,
+subscribers, policies, the metrics registry and its collector, the
+checkpointer (restore at start, the periodic cadence, the SIGTERM
+snapshot) and the ops controller. `--shards N` puts an N-shard
+`ShardedCluster` on the one card in the engine's place: every fast-path,
+QoS, NAT and garden write routes to its owner shard, the cluster builds
+the steered ring, and the features whose wiring is the engine's
+(scheduler, PPPoE, the fleet) degrade loudly (`sharded_blockers`). A config
 that turns on a subsystem the port lacks (`UNPORTED`) is refused at
 construction with one error naming each one and the flag that turns it
-off; nothing degrades silently. The reference's defaults build, so
+off, and so is the one the reference builds but cannot serve (an HA
+active under shards with NAT on); nothing degrades silently. The reference's defaults build, so
 
     python -m bng_tpu_torch run --once
 
@@ -202,16 +209,9 @@ def load_config_file(path: str, cli_set: set[str],
 # The subsystems `run` can turn on that the port does not have yet:
 # (is it on?, what it is, the flag that turns it off).
 UNPORTED = (
-    (lambda c: bool(c.ha_role), "HA pair", "--ha-role ''"),
-    (lambda c: bool(c.cluster_listen) or c.store_mode != "memory" or bool(c.store_peers),
-     "cluster listener and replicated store",
-     "--cluster-listen '' --store-mode memory --store-peers"),
     (lambda c: bool(c.wire_if), "AF_XDP wire", "--wire-if ''"),
-    (lambda c: c.shards > 1, "sharded serving", "--shards 1"),
     (lambda c: c.dns_enabled, "DNS listener", "--no-dns-enabled"),
-    (lambda c: c.bgp_enabled, "BGP", "--no-bgp-enabled"),
     (lambda c: bool(c.nexus_url), "Nexus allocator", "--nexus-url ''"),
-    (lambda c: bool(c.peer_pool_cidr and c.peer_pool_nodes), "peer pool", "--peer-pool-cidr ''"),
     (lambda c: c.device_auth_method != "none", "device authentication",
      "--device-auth-method none"),
 )
@@ -219,6 +219,10 @@ UNPORTED = (
 
 class UnportedSubsystemError(ValueError):
     """The config turns on subsystems the port does not have."""
+
+
+class UnservableConfigError(ValueError):
+    """The config builds a dataplane that could not serve it."""
 
 
 def unported(cfg: BNGConfig) -> list[tuple[str, str]]:
@@ -233,6 +237,12 @@ def check_ported(cfg: BNGConfig) -> None:
         raise UnportedSubsystemError(
             "bng_tpu_torch does not have these subsystems yet: "
             + "; ".join(f"{what} (turn off with {flag})" for what, flag in missing))
+    if cfg.shards > 1 and cfg.ha_role == "active" and cfg.nat_enabled:
+        # the reference builds this and then ACKs no REQUEST: the active's
+        # lease hook reads a host NAT manager that shards do not have
+        raise UnservableConfigError(
+            "an HA active under sharded serving cannot serve with NAT on "
+            "(use --shards 1 or --no-nat-enabled)")
 
 
 @dataclasses.dataclass
@@ -243,6 +253,22 @@ class WireAttachment:
     mode: str
     xsk: object
     detail: str = ""
+
+
+class _ShardedGardenGate:
+    """The garden gate's write surface over a ShardedCluster: membership
+    lands on the subscriber's affinity shard, an allowed destination on
+    every shard. It resolves the live cluster per call, so garden writes
+    follow a blue/green swap."""
+
+    def __init__(self, resolve):
+        self._resolve = resolve
+
+    def set_gardened(self, ip, gardened):
+        self._resolve().set_gardened(ip, gardened)
+
+    def allow_destination(self, ip, port=0, proto=0):
+        self._resolve().allow_garden_destination(ip, port, proto)
 
 
 @owned_by("loop", guard="_ctl")
@@ -266,6 +292,7 @@ class BNGApp:
         self.config = config
         self.clock = clock
         self._cleanup = []
+        self._last_sync = 0.0
         self._last_expire = 0.0
         self._last_garden = 0.0
         self._last_acct_sync = 0.0
@@ -274,8 +301,14 @@ class BNGApp:
         # slow path and maintenance sweeps
         self._ctl = threading.Lock()
         self._syn_i = 0
-        # integrations that kept a configured fleet from being built
+        # sharded serving: the per-beat slow-path handler (the demux or the
+        # DHCP server); the cluster takes it per call, where the engine
+        # owns a reference
+        self._slow_path = None
+        # integrations that kept a configured fleet from being built, and
+        # the engine-path features a sharded dataplane turns off
         self.fleet_blockers: list[str] = []
+        self.sharded_blockers: list[str] = []
         self.components: dict[str, object] = {}
         try:
             self._build()
@@ -335,8 +368,14 @@ class BNGApp:
                 self.log.info("slo monitor armed", window_s=cfg.slo_window_s,
                               burn_windows=cfg.slo_burn_windows, budgets=len(budgets))
 
-        # 1. device tables
-        fastpath = c["fastpath"] = FastPathTables()
+        # 1. device tables. --shards N puts an N-shard ShardedCluster on the
+        # card in the engine's place; every fast-path write routes to its
+        # owner shard through the ShardedFastPathSink facade. Its shards
+        # share the one card (DeviceLocalExchange): no host-device mesh
+        if cfg.shards > 1:
+            fastpath = self._build_cluster()
+        else:
+            fastpath = c["fastpath"] = FastPathTables()
         fastpath.set_server_config(parse_mac(cfg.server_mac), ip_to_u32(cfg.server_ip))
 
         # 2. antispoof + walled garden
@@ -369,6 +408,11 @@ class BNGApp:
         c["nexus"] = NexusClient(node_id=cfg.node_id, clock=self.clock)
         c["subscribers"] = SubscriberManager(clock=self.clock)
 
+        # 4c. the peer-to-peer shared pool: HRW owner-or-forward over the
+        # cluster HTTP wire
+        if cfg.peer_pool_cidr and cfg.peer_pool_nodes:
+            self._build_peer_pool()
+
         # 5. RADIUS client and the DHCP authenticator
         authenticator = None
         radius_server_cfgs: list = []  # picklable, reused by the fleet
@@ -399,19 +443,37 @@ class BNGApp:
                     profile["lease_time"] = res.session_timeout
                 return profile
 
-        # 6. QoS
-        qos = c["qos"] = QoSTables()
+        # 6. QoS: sharded, the policy row lands on the subscriber's affinity
+        # shard (the only shard the ring steers its traffic to)
+        qos = None if cfg.shards > 1 else QoSTables()
+        if qos is not None:
+            c["qos"] = qos
         policies = c["policies"] = PolicyManager()
         qos_hook = None
         if cfg.qos_enabled:
-            def qos_hook(ip, policy_name):
-                p = policies.get(policy_name or cfg.default_policy)
-                if p is not None:
-                    qos.set_subscriber(ip, p.download_bps, p.upload_bps, priority=p.priority)
+            if cfg.shards > 1:
+                def qos_hook(ip, policy_name):
+                    p = policies.get(policy_name or cfg.default_policy)
+                    if p is not None:
+                        c["cluster"].set_qos(ip, down_bps=p.download_bps, up_bps=p.upload_bps,
+                                             priority=p.priority)
+            else:
+                def qos_hook(ip, policy_name):
+                    p = policies.get(policy_name or cfg.default_policy)
+                    if p is not None:
+                        qos.set_subscriber(ip, p.download_bps, p.upload_bps,
+                                           priority=p.priority)
 
-        # 7. NAT + compliance logger
+        # 7. NAT + compliance logger. Sharded, NAT state lives per shard in
+        # the cluster and the hook routes an allocation to its owner; the
+        # per-event compliance logger is the engine's wiring and is off
+        nat = None
         nat_hook = None
-        if cfg.nat_enabled:
+        if cfg.shards > 1:
+            if cfg.nat_enabled:
+                def nat_hook(ip, now):
+                    c["cluster"].allocate_nat(ip, int(now))
+        elif cfg.nat_enabled:
             nat_logger = c["nat_logger"] = NATComplianceLogger(
                 NATLoggerConfig(file_path=cfg.nat_log_path, fmt=cfg.nat_log_format,
                                 bulk_logging=cfg.nat_bulk_logging),
@@ -460,25 +522,30 @@ class BNGApp:
             dhcp.accounting_hook = _acct_lease
 
         # 9. the engine on the device; the garden gate and the PPPoE stage
-        # compile in only when the walled garden and PPPoE are enabled
+        # compile in only when the walled garden and PPPoE are enabled.
+        # Sharded, the cluster is the dataplane: drive_once feeds its
+        # steered ring loop, and the slow path is attached per beat (10b)
         pppoe_tables = None
-        if cfg.pppoe_enabled:
+        if cfg.pppoe_enabled and cfg.shards <= 1:
             pppoe_tables = c["pppoe_tables"] = PPPoEFastPathTables(
                 server_mac=parse_mac(cfg.server_mac))
-        c["engine"] = Engine(
-            fastpath=fastpath, nat=nat, qos=qos, antispoof=c["antispoof"],
-            garden=GardenTables() if cfg.walled_garden_enabled else None, pppoe=pppoe_tables,
-            batch_size=cfg.batch_size, slow_path=dhcp.handle_frame, clock=self.clock,
-            device=self.device)
-        self.log.info("engine built", batch_size=cfg.batch_size, device=str(self.device),
-                      nat=cfg.nat_enabled, qos=cfg.qos_enabled)
+        if cfg.shards > 1:
+            self._slow_path = dhcp.handle_frame
+        else:
+            c["engine"] = Engine(
+                fastpath=fastpath, nat=nat, qos=qos, antispoof=c["antispoof"],
+                garden=GardenTables() if cfg.walled_garden_enabled else None,
+                pppoe=pppoe_tables, batch_size=cfg.batch_size, slow_path=dhcp.handle_frame,
+                clock=self.clock, device=self.device)
+            self.log.info("engine built", batch_size=cfg.batch_size, device=str(self.device),
+                          nat=cfg.nat_enabled, qos=cfg.qos_enabled)
         if "telemetry" in c:
             # flight records name the backend that served them: a CPU run
             # must never read as a card's
             c["telemetry"].recorder.set_backend("gpu" if self.device.type == "cuda" else "cpu")
 
         # 9a. the tiered scheduler over the engine's programs
-        if cfg.scheduler_enabled:
+        if cfg.scheduler_enabled and cfg.shards <= 1:
             from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
 
             c["scheduler"] = TieredScheduler(c["engine"], SchedulerConfig(
@@ -499,7 +566,11 @@ class BNGApp:
             from bng_tpu_torch.control.walledgarden import SubscriberState
 
             garden = c["walledgarden"]
-            gt = c["engine"].garden
+            # sharded: membership lands on the subscriber's affinity shard,
+            # allowed destinations on every shard; the gate resolves the
+            # live cluster per call, so garden writes follow a swap
+            gt = (_ShardedGardenGate(lambda: c["cluster"]) if cfg.shards > 1
+                  else c["engine"].garden)
             gt.allow_destination(ip_to_u32(cfg.portal_ip), 0, 6)
             dns_ips = {cfg.dns_primary, cfg.dns_secondary, *garden.config.allowed_dns}
             for spec in pool_specs:
@@ -561,19 +632,25 @@ class BNGApp:
             demux = c["slowpath"] = SlowPathDemux(
                 dhcp=dhcp, dhcpv6=c.get("dhcpv6"), slaac=c.get("slaac"),
                 pppoe=c.get("pppoe"), clock=self.clock)
-            c["engine"].slow_path = demux
+            if cfg.shards > 1:
+                self._slow_path = demux
+            else:
+                c["engine"].slow_path = demux
 
         # 10b2. the slow-path fleet: DHCPv4 sharded over N shared-nothing
         # workers (control/fleet.py) that own per-worker lease slices
         # carved from the parent pools and relay their table writes back
         # through the single-writer drain; non-DHCPv4 slow frames (v6,
         # SLAAC) stay on the parent demux through the fallback. PPPoE
-        # lives on the parent's per-lease state and is not fleet-aware:
-        # with it on, the fleet is skipped, counted and said (stats,
+        # lives on the parent's per-lease state and the sharded dataplane
+        # has no engine to hand batches to, so neither is fleet-aware: with
+        # either on, the fleet is skipped, counted and said (stats,
         # metrics, the startup banner), never silently
         if cfg.slowpath_workers > 1:
-            if cfg.pppoe_enabled:
-                self.fleet_blockers = ["pppoe"]
+            blockers = [name for flag, name in ((cfg.pppoe_enabled, "pppoe"),
+                                                (cfg.shards > 1, "sharded")) if flag]
+            if blockers:
+                self.fleet_blockers = blockers
                 self.log.warning("slowpath fleet disabled: per-lease integrations "
                                  "not yet fleet-aware", blockers=self.fleet_blockers,
                                  workers=cfg.slowpath_workers)
@@ -586,10 +663,36 @@ class BNGApp:
         if cfg.radius_server and cfg.coa_enabled:
             self._build_coa(qos_hook)
 
-        # 11c. the packet ring, for the synthetic source: the memory rung of
-        # the attach ladder (the scheduler consumes frames through rx_pop,
-        # which only PyRing has, so it takes the Python ring)
-        if cfg.synthetic_subs:
+        # 11. the HA pair: the active feeds its syncer from the lease and
+        # PPPoE session lifecycles; the standby syncs from the active's
+        # cluster listener over HTTP (a full sync, then the SSE deltas)
+        if cfg.ha_role:
+            self._build_ha(dhcp, nat)
+
+        # 11b. the replicated store and the cluster listener
+        if cfg.store_mode != "memory" or cfg.store_peers:
+            from bng_tpu_torch.control.cluster_http import HTTPStorePeer
+            from bng_tpu_torch.control.crdt import DistributedStore
+
+            cstore = c["cluster_store"] = DistributedStore(cfg.node_id, mode=cfg.store_mode,
+                                                           clock=self.clock)
+            for url in cfg.store_peers:
+                cstore.add_peer(HTTPStorePeer(
+                    url, tls=self._cluster_client_tls() if url.startswith("https") else None))
+        if cfg.cluster_listen:
+            self._build_cluster_listener()
+
+        # 11c. the packet ring. Sharded, the cluster builds it, so its
+        # steering tables (public-IP ownership, the owner-shard hash) are
+        # registered and shard i's batch region holds shard i's
+        # subscribers. Otherwise, for the synthetic source: the memory
+        # rung of the attach ladder (the scheduler consumes frames through
+        # rx_pop, which only PyRing has, so it takes the Python ring)
+        if cfg.shards > 1 and cfg.synthetic_subs:
+            ring = c["ring"] = c["cluster"].make_ring(frame_size=2048)
+            self._on_close(ring.close)
+            self._on_close(lambda: c["cluster"].flush_pipeline(self._slow_path))
+        elif cfg.synthetic_subs:
             from bng_tpu_torch.runtime.ring import make_ring
 
             ring = c["ring"] = make_ring(frame_size=2048, prefer_native="scheduler" not in c)
@@ -607,6 +710,17 @@ class BNGApp:
         else:  # a typo must not silently disable multi-ISP routing
             raise ValueError(f"routing_platform={cfg.routing_platform!r}: "
                              f"expected 'stub' or 'linux'")
+        if cfg.bgp_enabled:
+            from bng_tpu_torch.control.routing import BGPConfig, BGPController, vtysh_executor
+
+            if cfg.bgp_vtysh:
+                executor = vtysh_executor(cfg.bgp_vtysh_path)
+                self.log.info("bgp executor", kind="vtysh", binary=cfg.bgp_vtysh_path)
+            else:
+                executor = lambda cmd: ""  # noqa: E731 — inert by default
+            c["bgp"] = BGPController(BGPConfig(local_as=cfg.bgp_local_as,
+                                               router_id=cfg.bgp_router_id),
+                                     executor=executor)
 
         # 13. metrics (main.go:1214-1241)
         if cfg.metrics_enabled:
@@ -630,6 +744,204 @@ class BNGApp:
             self.log.info("fleet autoscaler armed", min=cfg.slowpath_min_workers,
                           max=cfg.slowpath_max_workers)
 
+    def _build_cluster(self):
+        """The N-shard cluster in the engine's place, on the app's device,
+        and the fast-path facade that routes each row to its owner shard.
+        The engine-path features that do not follow (scheduler, PPPoE, the
+        fleet) are turned off, logged and listed in `sharded_blockers`."""
+        from bng_tpu_torch.parallel.sharded import ShardedCluster, ShardedFastPathSink
+        from bng_tpu_torch.utils.net import ip_to_u32, parse_mac
+
+        cfg, c = self.config, self.components
+        self.sharded_blockers = [name for flag, name in (
+            (cfg.scheduler_enabled, "scheduler"),
+            (cfg.pppoe_enabled, "pppoe"),
+            (cfg.wire_if, "wire"),
+            (cfg.slowpath_workers > 1, "slowpath-fleet")) if flag]
+        if self.sharded_blockers:
+            self.log.warning("sharded serving: engine-specific features disabled",
+                             blockers=self.sharded_blockers, shards=cfg.shards)
+        pub_ips = [ip_to_u32(ip) for ip in cfg.nat_public_ips]
+        while len(pub_ips) < cfg.shards:
+            # each shard must own its public IPs exclusively (downstream
+            # ring steering is by IP): extend the configured block
+            pub_ips.append((pub_ips[-1] + 1) if pub_ips
+                           else ip_to_u32("203.0.113.1") + len(pub_ips))
+        cluster = c["cluster"] = ShardedCluster(
+            cfg.shards,
+            batch_per_shard=max(8, cfg.batch_size // cfg.shards),
+            sub_nbuckets=cfg.shard_nbuckets,
+            vlan_nbuckets=max(64, cfg.shard_nbuckets // 4),
+            cid_nbuckets=max(64, cfg.shard_nbuckets // 4),
+            nat_sessions_nbuckets=cfg.shard_nbuckets,
+            qos_nbuckets=cfg.shard_nbuckets,
+            spoof_nbuckets=cfg.shard_nbuckets,
+            public_ips=pub_ips,
+            garden_enabled=cfg.walled_garden_enabled,
+            server_mac=parse_mac(cfg.server_mac),
+            device=self.device)
+        self.log.info("sharded cluster built", shards=cfg.shards, batch_per_shard=cluster.b,
+                      nbuckets=cfg.shard_nbuckets, device=str(self.device))
+        # a resolver, not the object: a blue/green swap replaces
+        # c["cluster"], and every later DHCP and pool write must follow it
+        sink = c["fastpath_sink"] = ShardedFastPathSink(lambda: c["cluster"])
+        return sink
+
+    def _build_peer_pool(self) -> None:
+        """The peer pool over this node's member list, one HTTP proxy per
+        peer (built once: each would otherwise re-read its TLS files per
+        forwarded request)."""
+        import ipaddress
+
+        from bng_tpu_torch.control.cluster_http import HTTPPeerProxy
+        from bng_tpu_torch.control.peerpool import PeerPool, PoolRange
+
+        cfg, c = self.config, self.components
+        net = ipaddress.ip_network(cfg.peer_pool_cidr)
+        node_urls = {str(n["node"]): str(n["url"]) for n in cfg.peer_pool_nodes}
+        if cfg.node_id not in node_urls:
+            raise ValueError(f"peer_pool_nodes must include this node ({cfg.node_id!r}): "
+                             f"peers agree on one member list")
+        peer_proxies: dict[str, object] = {}
+
+        def _peer_transport(node, _urls=node_urls):
+            proxy = peer_proxies.get(node)
+            if proxy is None:
+                url = _urls.get(node)
+                if url is None:
+                    raise ConnectionError(f"unknown peer {node}")
+                proxy = peer_proxies[node] = HTTPPeerProxy(
+                    url, tls=self._cluster_client_tls() if url.startswith("https") else None)
+            return proxy
+
+        # PeerPool allocates network+1+idx (it skips the network address
+        # itself): pass the raw base, usable = hosts only
+        c["peerpool"] = PeerPool(
+            cfg.node_id, sorted(node_urls),
+            PoolRange(network=int(net.network_address), size=max(net.num_addresses - 2, 1)),
+            transport=_peer_transport)
+        self.log.info("peer pool", nodes=sorted(node_urls), cidr=cfg.peer_pool_cidr)
+
+    def _build_ha(self, dhcp, nat) -> None:
+        """The HA pair. The active's syncer is fed from both session
+        lifecycles (DHCP leases, renewals re-pushed so the standby's expiry
+        tracks them; PPPoE sessions), with each subscriber's NAT block. The
+        standby syncs over `HTTPActiveProxy` from the active's listener."""
+        from bng_tpu_torch.control.ha import (ActiveSyncer, InMemorySessionStore, Role,
+                                              SessionState, StandbySyncer)
+
+        cfg, c = self.config, self.components
+        store = c["ha_store"] = InMemorySessionStore()
+        if cfg.ha_role != "active":
+            if cfg.ha_peer.startswith("http"):
+                from bng_tpu_torch.control.cluster_http import HTTPActiveProxy
+
+                def _peer():
+                    return HTTPActiveProxy(cfg.ha_peer, on_stream_end=lambda: c["ha"].disconnect(),
+                                           tls=self._cluster_client_tls())
+            else:
+                def _peer():
+                    raise ConnectionError(f"HA peer unreachable: {cfg.ha_peer}")
+            c["ha"] = StandbySyncer(store, transport=_peer)
+            self.log.info("ha role standby", peer=cfg.ha_peer)
+            c["ha_role"] = Role.STANDBY
+            return
+
+        ha_sync = c["ha"] = ActiveSyncer(store)
+        self.log.info("ha role active")
+        c["ha_role"] = Role.ACTIVE
+
+        def _nat_fields(ip):
+            # the reference's expression; with no host NAT manager (shards)
+            # and NAT on it would raise, so `check_ported` refuses that config
+            blk = nat.blocks.get(ip) if cfg.nat_enabled else None
+            if blk is None:
+                return {}
+            return {"nat_public_ip": blk["public_ip"], "nat_port_start": blk["port_start"],
+                    "nat_port_end": blk["port_end"]}
+
+        prev_ha_hook = dhcp.accounting_hook
+
+        def _ha_lease(event, lease, sid, _ha=ha_sync):
+            if prev_ha_hook is not None:
+                prev_ha_hook(event, lease, sid)
+            if event in ("start", "renew"):
+                _ha.push_change(SessionState(
+                    session_id=sid, mac=lease.mac.hex(), ip=lease.ip, pool_id=lease.pool_id,
+                    circuit_id=lease.circuit_id.hex(), username=lease.username,
+                    lease_expiry=float(lease.expiry), s_tag=lease.s_tag, c_tag=lease.c_tag,
+                    qos_policy=lease.qos_policy, session_kind="ipoe",
+                    updated_at=self.clock(), **_nat_fields(lease.ip)))
+            elif event == "stop":
+                _ha.push_change(None, session_id=sid)
+
+        dhcp.accounting_hook = _ha_lease
+        pppoe_srv = c.get("pppoe")
+        if pppoe_srv is not None:
+            prev_po, prev_pc = pppoe_srv.on_open, pppoe_srv.on_close
+
+            def _ha_pppoe_open(sess, _ha=ha_sync):
+                if prev_po is not None:
+                    prev_po(sess)
+                _ha.push_change(SessionState(
+                    session_id=pppoe_sid(sess), mac=sess.client_mac.hex(),
+                    ip=sess.assigned_ip, username=sess.username, session_kind="pppoe",
+                    updated_at=self.clock(), **_nat_fields(sess.assigned_ip)))
+
+            def _ha_pppoe_close(event, _ha=ha_sync):
+                if prev_pc is not None:
+                    prev_pc(event)
+                _ha.push_change(None, session_id=pppoe_sid(event.session))
+
+            pppoe_srv.on_open = _ha_pppoe_open
+            pppoe_srv.on_close = _ha_pppoe_close
+
+    def _build_cluster_listener(self) -> None:
+        """The cluster HTTP listener (TLS when a certificate is given, mTLS
+        with a client CA), with the active's HA endpoints, the replicated
+        store and the peer pool mounted."""
+        from bng_tpu_torch.control.cluster_http import ClusterServer
+
+        cfg, c = self.config, self.components
+        server_tls = None
+        if cfg.cluster_tls_cert or cfg.cluster_tls_key:
+            from bng_tpu_torch.control.ztp_tls import ServerTLSConfig
+
+            server_tls = ServerTLSConfig(cert_file=cfg.cluster_tls_cert,
+                                         key_file=cfg.cluster_tls_key,
+                                         client_ca_file=cfg.cluster_tls_client_ca)
+        host, _, port = cfg.cluster_listen.rpartition(":")
+        srv = ClusterServer(host or "127.0.0.1", int(port or 0), tls=server_tls)
+        if cfg.ha_role == "active":
+            srv.mount_ha(c["ha"])
+        if "cluster_store" in c:
+            srv.mount_store(c["cluster_store"])
+        if "peerpool" in c:
+            srv.mount_pool(c["peerpool"])
+        c["cluster_server"] = srv.start()
+        self.log.info("cluster listener up", url=srv.url, ha=bool(srv.ha),
+                      store=srv.store is not None)
+        self._on_close(srv.close)
+
+    def _cluster_client_tls(self):
+        """The client side's TLSConfig for https cluster peers, or None when
+        no TLS material is configured (plain peers keep working)."""
+        cfg = self.config
+        if not (cfg.cluster_tls_ca or cfg.cluster_tls_pins or cfg.cluster_tls_client_cert):
+            return None
+        from bng_tpu_torch.control.ztp_tls import TLSConfig
+
+        return TLSConfig(
+            ca_cert_file=cfg.cluster_tls_ca,
+            pinned_certs=list(cfg.cluster_tls_pins),
+            server_name=cfg.cluster_tls_server_name,
+            # pins without a CA: self-signed cluster certificates, the
+            # pins carry the trust; with no pins the chain check stays on
+            # (a CA file or the system roots) or nobody is authenticated
+            require_valid_chain=not cfg.cluster_tls_pins or bool(cfg.cluster_tls_ca),
+            client_cert_file=cfg.cluster_tls_client_cert,
+            client_key_file=cfg.cluster_tls_client_key)
+
     def _build_fleet(self, pool_mgr, dhcp, qos_hook, nat_hook, acct,
                      radius_server_cfgs) -> None:
         """The fleet over the parent pools: worker lease events replay
@@ -638,19 +950,33 @@ class BNGApp:
         framed IP, disjoint per shard)."""
         from bng_tpu_torch.control.admission import AdmissionConfig
         from bng_tpu_torch.control.fleet import FleetSpec, SlowPathFleet
+        from bng_tpu_torch.control.ha import SessionState as _HAState
         from bng_tpu_torch.utils.net import ip_to_u32, parse_mac, u32_to_ip
 
         cfg, c = self.config, self.components
 
         def _fleet_lease(event, lease, sid, _acct=acct):
-            if _acct is None:
+            # late-bound: HA (step 11) builds after the fleet, so the hook
+            # reads c["ha"] at event time; this is the fleet-side twin of
+            # the parent's accounting and HA lease hooks
+            if _acct is not None:
+                if event == "start":
+                    _acct.start(sid, username=lease.get("username") or u32_to_ip(lease["ip"]),
+                                framed_ip=lease["ip"],
+                                mac="-".join(f"{b:02X}" for b in bytes.fromhex(lease["mac"])))
+                elif event == "stop":
+                    _acct.stop(sid)
+            ha_sync = c.get("ha")
+            if ha_sync is None or not hasattr(ha_sync, "push_change"):
                 return
-            if event == "start":
-                _acct.start(sid, username=lease.get("username") or u32_to_ip(lease["ip"]),
-                            framed_ip=lease["ip"],
-                            mac="-".join(f"{b:02X}" for b in bytes.fromhex(lease["mac"])))
-            elif event == "stop":
-                _acct.stop(sid)
+            if event == "stop":
+                ha_sync.push_change(None, session_id=sid)
+            else:  # start and renew both re-push (the expiry tracks)
+                ha_sync.push_change(_HAState(
+                    session_id=sid, mac=lease["mac"], ip=lease["ip"], pool_id=lease["pool_id"],
+                    username=lease.get("username") or "", lease_expiry=float(lease["expiry"]),
+                    qos_policy=lease.get("qos_policy") or "", session_kind="ipoe",
+                    updated_at=self.clock()))
 
         fspec = FleetSpec.from_pool_manager(
             parse_mac(cfg.server_mac), ip_to_u32(cfg.server_ip), pool_mgr,
@@ -685,11 +1011,14 @@ class BNGApp:
         cfg, c = self.config, self.components
         metrics = c["metrics"] = BNGMetrics()
         collector = c["collector"] = MetricsCollector(metrics)
-        collector.add_source(lambda: metrics.collect_engine(c["engine"].stats))
+        if cfg.shards > 1:
+            collector.add_source(lambda: metrics.collect_sharded(c["cluster"]))
+        else:
+            collector.add_source(lambda: metrics.collect_engine(c["engine"].stats))
         collector.add_source(lambda: metrics.collect_dhcp_server(dhcp.stats))
         if self.fleet_blockers:
             metrics.record_fleet_blocked(self.fleet_blockers)
-        if cfg.walled_garden_enabled:
+        if cfg.walled_garden_enabled and cfg.shards <= 1:
             collector.add_source(lambda: metrics.collect_garden(c["engine"].stats))
         if "scheduler" in c:
             sched = c["scheduler"]
@@ -720,19 +1049,29 @@ class BNGApp:
     def _build_checkpointer(self, dhcp) -> None:
         """Restore at start from the newest good checkpoint (a corrupt or
         mismatched one is rejected and the process cold-starts, logged),
-        then the periodic checkpointer over `build_checkpoint`. The
-        snapshot reads c["engine"] when it runs, so after a blue/green
-        swap it folds the serving engine's device words."""
+        then the periodic checkpointer over `build_checkpoint` (or the
+        sharded one). The HA store rides along: a standby bootstraps from
+        it, then catches up by `replay_since`. The snapshot reads
+        c["engine"] or c["cluster"] when it runs, so after a blue/green
+        swap it folds the serving side's device words."""
         from bng_tpu_torch.control.statestore import CheckpointStore, PeriodicCheckpointer
         from bng_tpu_torch.runtime import checkpoint as ckpt_mod
 
         cfg, c = self.config, self.components
         store = c["checkpoint_store"] = CheckpointStore(cfg.checkpoint_dir)
+        ha_sync = c.get("ha")
         if store.has_checkpoints():
             try:
                 snap, path = store.load_latest()
-                rows = ckpt_mod.restore_checkpoint(snap, engine=c["engine"], dhcp=dhcp,
-                                                   fleet=c.get("fleet"))
+                if cfg.shards > 1:
+                    # slot-exact at the same topology, re-sharded N -> M;
+                    # a single-engine snapshot is rejected to a cold start
+                    rows = ckpt_mod.restore_sharded_checkpoint(
+                        snap, c["cluster"], dhcp=dhcp, ha=ha_sync, fleet=c.get("fleet"),
+                        now=int(self.clock()))
+                else:
+                    rows = ckpt_mod.restore_checkpoint(snap, engine=c["engine"], dhcp=dhcp,
+                                                       ha=ha_sync, fleet=c.get("fleet"))
                 c["checkpoint_restored"] = rows
                 self.log.info("warm restart from checkpoint", path=str(path), seq=snap.seq,
                               rows={k: v for k, v in rows.items() if v})
@@ -745,9 +1084,14 @@ class BNGApp:
                     c["metrics"].record_restore({}, outcome="rejected")
 
         def _snapshot(seq, now):
+            if cfg.shards > 1:
+                return ckpt_mod.build_sharded_checkpoint(
+                    c["cluster"], seq, now, dhcp=dhcp, ha=ha_sync, fleet=c.get("fleet"),
+                    node_id=cfg.node_id)
             return ckpt_mod.build_checkpoint(seq, now, engine=c["engine"],
                                              scheduler=c.get("scheduler"), dhcp=dhcp,
-                                             fleet=c.get("fleet"), node_id=cfg.node_id)
+                                             ha=ha_sync, fleet=c.get("fleet"),
+                                             node_id=cfg.node_id)
 
         ckptr = c["checkpointer"] = PeriodicCheckpointer(
             store, _snapshot, interval_s=cfg.checkpoint_interval_s, keep=cfg.checkpoint_keep,
@@ -1004,12 +1348,20 @@ class BNGApp:
     def engine_swap(self) -> dict:
         """Blue/green engine swap: hydrate a standby from an in-memory
         snapshot, replay the delta, audit, flip atomically — rollback on
-        any failure with the active untouched (runtime/ops.py)."""
-        from bng_tpu_torch.runtime.ops import blue_green_swap
+        any failure with the active untouched (runtime/ops.py). On the
+        sharded path the standby is a ShardedCluster hydrated from a
+        sharded snapshot and partition-audited before the flip."""
+        from bng_tpu_torch.runtime.ops import blue_green_swap, sharded_blue_green_swap
 
         with self._ctl:
-            report = blue_green_swap(self.components, metrics=self.components.get("metrics"),
-                                     node_id=self.config.node_id)
+            if "cluster" in self.components:
+                report = sharded_blue_green_swap(
+                    self.components, metrics=self.components.get("metrics"),
+                    node_id=self.config.node_id, clock=self.clock)
+            else:
+                report = blue_green_swap(self.components,
+                                         metrics=self.components.get("metrics"),
+                                         node_id=self.config.node_id)
             self.log.info("engine swap", outcome=report.get("outcome"),
                           delta_rows=report.get("delta_rows"), error=report.get("error"))
             return report
@@ -1046,8 +1398,9 @@ class BNGApp:
 
     def drive_once(self) -> int:
         """One dataplane beat: feed the synthetic source (if configured),
-        run the scheduler's beat or a double-buffered engine step over the
-        ring, then put the slow-path demux's pending frames on the TX ring.
+        run the sharded cluster's double-buffered ring loop, the
+        scheduler's beat or a double-buffered engine step over the ring,
+        then put the slow-path demux's pending frames on the TX ring.
         Returns frames moved (the run loop sleeps when this stays 0)."""
         ring = self.components.get("ring")
         if ring is None:
@@ -1056,7 +1409,13 @@ class BNGApp:
             self._push_synthetic(ring)
         sched = self.components.get("scheduler")
         with self._ctl:
-            if sched is not None and hasattr(ring, "rx_pop"):
+            if "cluster" in self.components:
+                # ring-steered owner-shard batches, two windows in flight,
+                # slow-path punts handled lane-aligned
+                now = self.clock()
+                moved = self.components["cluster"].process_ring_pipelined(
+                    ring, int(now), int(now * 1e6) & 0xFFFFFFFF, slow_path=self._slow_path)
+            elif sched is not None and hasattr(ring, "rx_pop"):
                 moved = self._drive_scheduler(ring, sched)
             else:
                 moved = self.components["engine"].process_ring_pipelined(ring)
@@ -1145,6 +1504,15 @@ class BNGApp:
 
     def _tick_locked(self, now: float) -> None:
         c = self.components
+        # the standby's reconnect (with backoff) and the store's
+        # anti-entropy sync
+        ha = c.get("ha")
+        if ha is not None and hasattr(ha, "tick"):  # StandbySyncer only
+            ha.tick(now)
+        cstore = c.get("cluster_store")
+        if cstore is not None and now - self._last_sync >= cstore.sync_interval:
+            self._last_sync = now
+            cstore.tick()
         # the protocol servers' ticks that emit frames; with no ring (a
         # control-plane app) there is no wire and they are dropped
         ring = c.get("ring")
@@ -1162,7 +1530,10 @@ class BNGApp:
             c["dhcp"].cleanup_expired(int(now), max_reaps=budget)
             if c.get("dhcpv6") is not None:
                 c["dhcpv6"].cleanup_expired(now, max_reaps=budget)
-            c["engine"].expire(int(now))
+            if "cluster" in c:
+                c["cluster"].expire(int(now))
+            else:
+                c["engine"].expire(int(now))
             fleet = c.get("fleet")
             if fleet is not None:
                 # fleet workers own their lease books; the sweep fans out
@@ -1172,6 +1543,10 @@ class BNGApp:
         if garden is not None and now - self._last_garden >= self.GARDEN_EVERY_S:
             self._last_garden = now
             garden.check_expired()
+        # the peer pool's health checks (rate-limited inside)
+        pool = c.get("peerpool")
+        if pool is not None:
+            pool.health_check(now)
         # the background checkpoint cadence (never raises: a failure is
         # counted and logged inside PeriodicCheckpointer.tick)
         ckptr = c.get("checkpointer")
@@ -1207,8 +1582,17 @@ class BNGApp:
             # before interims fire, else every interim and stop reports 0
             if acct.sessions and now - self._last_acct_sync >= self.ACCT_SYNC_EVERY_S:
                 self._last_acct_sync = now
-                eng = c["engine"]
-                octets = eng.nat.subscriber_octets(eng.fetch_session_vals())
+                if "cluster" in c:
+                    # a subscriber's NAT state lives on its affinity shard
+                    # alone, so the per-shard dicts are disjoint
+                    cl = c["cluster"]
+                    octets = {}
+                    if cl.tables is not None:
+                        for i in range(cl.n):
+                            octets.update(cl.nat[i].subscriber_octets(cl.fetch_session_vals(i)))
+                else:
+                    eng = c["engine"]
+                    octets = eng.nat.subscriber_octets(eng.fetch_session_vals())
                 for s in list(acct.sessions.values()):
                     got = octets.get(s.framed_ip)
                     if got is not None:
@@ -1227,6 +1611,11 @@ class BNGApp:
         if eng is not None:
             out["engine"] = {"batches": eng.stats.batches, "tx": eng.stats.tx,
                              "passed": eng.stats.passed, "dropped": eng.stats.dropped}
+        cluster = self.components.get("cluster")
+        if cluster is not None:
+            out["sharded"] = cluster.stats_summary()
+            if self.sharded_blockers:
+                out["sharded_blockers"] = list(self.sharded_blockers)
         dhcp = self.components.get("dhcp")
         if dhcp is not None:
             out["dhcp"] = {k: getattr(dhcp.stats, k) for k in
@@ -1736,11 +2125,20 @@ def serve(app: BNGApp) -> int:
         collector.start()
         port = collector.serve_http(app.config.metrics_port)
         print(f"metrics on :{port}/metrics", file=sys.stderr, flush=True)
+    srv = app.components.get("cluster_server")
+    if srv is not None:
+        print(f"cluster on {srv.url}", file=sys.stderr, flush=True)
     if app.fleet_blockers:
         # the startup status must say it, not just a log line: the
         # configured worker count is not what is running
         print(f"slowpath fleet BLOCKED (single-worker): {','.join(app.fleet_blockers)} "
               f"not yet fleet-aware", file=sys.stderr)
+    if app.sharded_blockers:
+        print(f"sharded serving: {','.join(app.sharded_blockers)} disabled "
+              f"(engine-path features)", file=sys.stderr)
+    if app.config.shards > 1:
+        print(f"sharded dataplane: {app.config.shards} shards (ring-steered owner batches)",
+              file=sys.stderr, flush=True)
     ops = app.components["ops"]
     if app.config.ctl_listen:
         chost, _, cport = app.config.ctl_listen.rpartition(":")
@@ -1976,7 +2374,7 @@ def main(argv: list[str] | None = None) -> int:
                 return 0
             finally:
                 app.close()
-    except (NoCardError, UnportedSubsystemError) as e:
+    except (NoCardError, UnportedSubsystemError, UnservableConfigError) as e:
         print(f"bng-tpu-torch: {e}", file=sys.stderr)
         return 2
     parser.print_help()

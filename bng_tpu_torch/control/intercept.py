@@ -1,7 +1,7 @@
 """Lawful intercept: warrants, session matching, IRI/CC records, exporters.
 
-The port's copy of `bng_tpu/control/intercept.py` (jax-free), without
-`TLSDeliverySink`: the TLS channel to a collector is not ported.
+The port's copy of `bng_tpu/control/intercept.py` (jax-free), its imports
+renamed.
 
 Parity: pkg/intercept — Warrant model + delivery methods (types.go:40-120),
 Manager with AddWarrant/validate (manager.go:142-233, :467-496), target
@@ -11,7 +11,10 @@ lifecycle (manager.go:381-458), ETSI TS 102 232 HI2/HI3 PDU export
 (exporter.go:191-317), JSON and syslog exporters (exporter.go:319-513),
 warrant expiry.
 
-Exporters here write to pluggable sinks (callables).
+Exporters here write to pluggable sinks (callables); TLSDeliverySink is
+the production sink — a persistent pinned-TLS channel to the LEA
+collector (the exporter.go:191-317 TLS delivery role) with bounded
+buffering and reconnect-on-failure, built on control.ztp_tls.
 """
 
 from __future__ import annotations
@@ -495,6 +498,171 @@ def _pack_ip(ip: str) -> bytes:
         import ipaddress
         return ipaddress.IPv6Address(ip).packed
     return bytes(int(x) for x in ip.split("."))
+
+
+class TLSDeliverySink:
+    """Persistent TLS delivery channel to an LEA collector — the sink an
+    ETSIExporter (or JSONExporter) writes through in production.
+
+    Parity: exporter.go:191-317 — the reference dials the collector over
+    TLS, frames each PDU with a 4-byte big-endian length prefix, and
+    reconnects with backoff on failure. Verification (CA and/or pinning,
+    optional mTLS client identity) rides control.ztp_tls.TLSConfig: the
+    pin check runs post-handshake, BEFORE any intercept product leaves
+    the box — a mis-dialed collector sees zero bytes of HI2/HI3.
+
+    Delivery is synchronous while the channel is HEALTHY (connected, or
+    never yet failed): each record writes through inline. The moment a
+    dial fails, send() stops dialing — records only buffer (bounded at
+    `buffer_max`, oldest dropped + counted) and reconnection happens in
+    flush(), which the owner drives from its tick loop. This keeps the
+    capture path free of connect() stalls for the whole outage: the
+    blocking dial cost lands on the 1 Hz maintenance heartbeat, not on
+    per-packet interception.
+    """
+
+    FRAME_HDR = 4  # uint32 length prefix per PDU
+
+    def __init__(self, host: str, port: int, tls_cfg, timeout: float = 5.0,
+                 reconnect_backoff_s: float = 2.0, buffer_max: int = 4096,
+                 clock=time.time, auto_flush: bool = True):
+        from bng_tpu_torch.control.ztp_tls import build_ssl_context
+
+        self.host = host
+        self.port = port
+        self.tls_cfg = tls_cfg
+        # built ONCE: validates the config at construction and keeps the
+        # cert/CA file I/O off the per-dial path (backoff retries included)
+        self._ctx = build_ssl_context(tls_cfg)
+        self.timeout = timeout
+        self.backoff_s = reconnect_backoff_s
+        self.buffer_max = buffer_max
+        self.clock = clock
+        self._sock = None
+        self._buffer: list[bytes] = []
+        self._next_dial = 0.0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self.stats = {"delivered": 0, "buffered": 0, "dropped": 0,
+                      "connects": 0, "connect_failures": 0}
+        # self-healing: after a dial failure send() stops dialing (no
+        # connect stalls on the capture path), so SOMETHING must redial —
+        # this daemon retries every backoff while records are buffered.
+        # auto_flush=False hands that duty to the owner's explicit
+        # flush() (tests with fake clocks; apps with their own tick).
+        if auto_flush:
+            threading.Thread(target=self._flush_loop, daemon=True,
+                             name=f"etsi-tls-{host}:{port}").start()
+
+    def _flush_loop(self) -> None:
+        while not self._stop.wait(self.backoff_s):
+            with self._lock:
+                need = bool(self._buffer) and self._sock is None
+            if not need:
+                continue
+            # dial OUTSIDE the buffer lock: a blocked connect (up to
+            # `timeout`) must never stall a capture-path send() waiting
+            # on the lock — that would defeat the class's entire design
+            tls = self._dial()
+            with self._lock:
+                if tls is None:
+                    self.stats["connect_failures"] += 1
+                    self._next_dial = self.clock() + self.backoff_s
+                elif self._sock is None:
+                    self.stats["connects"] += 1
+                    self._sock = tls
+                    self._flush_locked()
+                else:  # a send() beat us to it
+                    try:
+                        tls.close()
+                    except OSError:
+                        pass  # race loser; the winning socket is kept
+
+    # -- the sink callable the exporters take --
+    def __call__(self, pdu: bytes) -> None:
+        self.send(pdu)
+
+    def send(self, pdu: bytes) -> None:
+        with self._lock:
+            self._buffer.append(pdu)
+            if len(self._buffer) > self.buffer_max:
+                self._buffer.pop(0)
+                self.stats["dropped"] += 1
+            else:
+                self.stats["buffered"] += 1
+            # inline delivery only while healthy: _next_dial > 0 means a
+            # dial failed and hasn't been cleared by a successful flush —
+            # buffer without blocking; flush() (tick-driven) redials
+            if self._sock is not None or self._next_dial == 0.0:
+                self._flush_locked()
+
+    def _dial(self):
+        """Dial + verify; returns the TLS socket or None. Takes NO locks
+        — callers decide how the result is installed."""
+        import socket as _socket
+
+        from bng_tpu_torch.control.ztp_tls import verify_wrapped_socket
+
+        try:
+            raw = _socket.create_connection((self.host, self.port),
+                                            timeout=self.timeout)
+            sn = self.tls_cfg.server_name or self.host
+            tls = self._ctx.wrap_socket(raw, server_hostname=sn)
+            verify_wrapped_socket(tls, self.tls_cfg)  # raises pre-delivery
+            return tls
+        except Exception:
+            return None
+
+    def _connect_locked(self):
+        now = self.clock()
+        if now < self._next_dial:
+            return None
+        tls = self._dial()
+        if tls is None:
+            self.stats["connect_failures"] += 1
+            self._next_dial = now + self.backoff_s
+            return None
+        self.stats["connects"] += 1
+        self._sock = tls
+        return tls
+
+    def _flush_locked(self) -> None:
+        sock = self._sock or self._connect_locked()
+        if sock is None:
+            return
+        while self._buffer:
+            pdu = self._buffer[0]
+            try:
+                sock.sendall(struct.pack(">I", len(pdu)) + pdu)
+            except Exception:
+                # connection died mid-delivery: keep the PDU buffered,
+                # drop the socket, back off before redialing
+                try:
+                    sock.close()
+                except OSError:
+                    pass  # socket already dead; nothing to release
+                self._sock = None
+                self._next_dial = self.clock() + self.backoff_s
+                return
+            self._buffer.pop(0)
+            self.stats["delivered"] += 1
+
+    def flush(self) -> bool:
+        """Retry buffered PDUs now (tick hook). True = buffer empty."""
+        with self._lock:
+            self._next_dial = 0.0  # an explicit flush overrides backoff
+            self._flush_locked()
+            return not self._buffer
+
+    def close(self) -> None:
+        self._stop.set()
+        with self._lock:
+            if self._sock is not None:
+                try:
+                    self._sock.close()
+                except OSError:
+                    pass  # shutdown path; the socket is gone either way
+                self._sock = None
 
 
 def parse_etsi_pdu(data: bytes) -> dict:

@@ -8,7 +8,8 @@
   counters and last_seen, QoS token buckets, copied as bits), and every
   host authority is collected slot-exact: the DHCP fast-path tables, the
   NAT tables and allocator bookkeeping, QoS rows, antispoof bindings,
-  garden membership, PPPoE and edge tables, and the DHCP lease book.
+  garden membership, PPPoE and edge tables, the DHCP lease book and the
+  HA session store.
 
 - **format** (`encode_checkpoint` / `decode_checkpoint`): magic
   `b"BNGCKPT1"`, a u32 header length and header CRC32, a JSON header
@@ -27,10 +28,12 @@ The sharded half (`build_sharded_checkpoint`, `restore_sharded_checkpoint`)
 snapshots every shard of a `ShardedCluster` into one file and restores it
 slot-exact at the same shard count or re-shards N -> M. The slow-path
 fleet's per-worker lease books ride as the `fleet` component, one format
-with the parent's book, so either restores into the other. Components the
-port does not have (HA, a cluster plan) stay absent: a checkpoint
-carrying them is refused with "no such component". File
-lifecycle lives in `control/statestore.py`.
+with the parent's book, so either restores into the other. The HA pair's
+session store rides as the `ha` component: a restarted active resumes
+its sequence, a standby bootstraps and catches up by `replay_since`. The
+cluster of BNGs is not in the port: a checkpoint carrying its plan is
+refused with "no such component". File lifecycle lives in
+`control/statestore.py`.
 """
 
 from __future__ import annotations
@@ -58,11 +61,10 @@ _MAX_HEADER = 1 << 26
 
 # marker for dict components too large for the header: the JSON blob is
 # stored as a uint8 array named '<component>/__json__' in the payload
-# (CRC32-covered, unlike the header) and the header keeps only this stub
-# (the reference stores its HA store the same way, between dhcp and
-# fleet; a restore here refuses that component before reading it)
+# (CRC32-covered, unlike the header) and the header keeps only this stub;
+# the order is the payload's, so it is the reference's
 _JSON_MARKER = "__payload_json__"
-_PAYLOAD_JSON_COMPONENTS = ("nat", "dhcp", "fleet")
+_PAYLOAD_JSON_COMPONENTS = ("nat", "dhcp", "ha", "fleet")
 
 
 class CheckpointError(RuntimeError):
@@ -223,7 +225,7 @@ def _denamespace(prefix: str, arrays: dict) -> dict:
 
 def build_checkpoint(seq: int, now: float, *, engine=None, scheduler=None,
                      fastpath=None, nat=None, qos=None, antispoof=None,
-                     garden=None, pppoe=None, edge=None, dhcp=None,
+                     garden=None, pppoe=None, edge=None, dhcp=None, ha=None,
                      fleet=None, node_id: str = "") -> Checkpoint:
     """Collect a consistent snapshot of the authoritative state.
 
@@ -290,13 +292,15 @@ def build_checkpoint(seq: int, now: float, *, engine=None, scheduler=None,
         arrays.update(_ns("edge", a))
     if dhcp is not None:
         meta["components"]["dhcp"] = dhcp.export_leases()
+    if ha is not None:
+        meta["components"]["ha"] = ha.checkpoint_state()
     if fleet is not None:
         # per-worker lease books of the slow-path fleet (control/fleet.py);
         # sharding is recomputed at restore so a changed worker count
         # still lands every lease on its new owner
         meta["components"]["fleet"] = fleet.export_state()
-    # per-row dict state (NAT allocator bookkeeping, lease book) scales
-    # with the subscriber count: it rides the payload as a uint8 JSON
+    # per-row dict state (NAT allocator bookkeeping, lease book, HA
+    # sessions) scales with the subscriber count: it rides the payload as a uint8 JSON
     # blob — CRC32-covered, and the header stays small (its size bound
     # is enforced at encode AND decode)
     for name in _PAYLOAD_JSON_COMPONENTS:
@@ -432,6 +436,12 @@ def _verify_components(ckpt: Checkpoint, comps: dict, targets: dict) -> None:
         except (KeyError, ValueError, TypeError) as e:
             raise CheckpointError(
                 f"dhcp: corrupt checkpoint lease book: {e!r}") from e
+    if "ha" in comps:
+        try:
+            targets["ha"].parse_checkpoint_state(comps["ha"])
+        except (KeyError, ValueError, TypeError, AttributeError) as e:
+            raise CheckpointError(
+                f"ha: corrupt checkpoint session store: {e!r}") from e
     if "fleet" in comps:
         from bng_tpu_torch.control.fleet import SlowPathFleet
 
@@ -444,7 +454,7 @@ def _verify_components(ckpt: Checkpoint, comps: dict, targets: dict) -> None:
 
 def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
                        nat=None, qos=None, antispoof=None, garden=None,
-                       pppoe=None, edge=None, dhcp=None,
+                       pppoe=None, edge=None, dhcp=None, ha=None,
                        fleet=None) -> dict[str, int]:
     """Hydrate the host mirrors from a decoded checkpoint and re-upload.
 
@@ -456,9 +466,10 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
     after the snapshot was taken) simply starts empty. Lease books are one
     format: a fleet's worker books merge into the parent server when the
     live process has no fleet, and a parent book re-shards into the fleet
-    when it has one. A checkpoint from the reference that carries its HA
-    store or cluster plan has no target here and is refused. Returns
-    restored row counts per component.
+    when it has one. The HA store restores by the live syncer's role: a
+    standby bootstraps, an active resumes. A checkpoint from the reference
+    that carries its cluster plan has no target here and is refused.
+    Returns restored row counts per component.
     """
     if ckpt.meta.get("sharded") is not None:
         raise CheckpointError(
@@ -480,7 +491,7 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
             comps[name] = _resolve_component_meta(ckpt, comps, name)
     targets = {"fastpath": fastpath, "nat": nat, "qos": qos,
                "antispoof": antispoof, "garden": garden, "pppoe": pppoe,
-               "edge": edge, "dhcp": dhcp, "fleet": fleet}
+               "edge": edge, "dhcp": dhcp, "ha": ha, "fleet": fleet}
     missing = []
     for name in comps:
         tgt = targets.get(name)
@@ -558,6 +569,13 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
                 for book in worker_books:
                     total += dhcp.restore_leases(book)
                 rows["dhcp.leases"] = total
+        if "ha" in comps:
+            # role decides the direction: a restarted active resumes its
+            # seq; a standby bootstraps then catches up via replay_since
+            if hasattr(ha, "bootstrap_state"):
+                rows["ha.sessions"] = ha.bootstrap_state(comps["ha"])
+            else:
+                rows["ha.sessions"] = ha.restore_state(comps["ha"])
     except (ValueError, KeyError, TypeError, AttributeError) as e:
         raise CheckpointError(f"checkpoint restore rejected: {e}") from e
 
@@ -571,8 +589,8 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
 # sharded snapshot / restore
 # ---------------------------------------------------------------------------
 # One file holds EVERY shard's host authorities namespaced
-# `shard<i>/<component>/...` plus the flat non-shard components (the
-# lease book) exactly as the single-engine format
+# `shard<i>/<component>/...` plus the flat non-shard components (lease
+# book, HA store, fleet books) exactly as the single-engine format
 # carries them. `meta["sharded"]` records the topology; restore either
 # hydrates slot-exact (same shard count + geometry) or RE-SHARDS every
 # row onto its owner under the new topology — the same FNV-1a32 owner
@@ -588,7 +606,7 @@ def _shard_prefix(i: int) -> str:
 
 
 def build_sharded_checkpoint(cluster, seq: int, now: float, *, dhcp=None,
-                             quiesce: bool = True,
+                             ha=None, fleet=None, quiesce: bool = True,
                              node_id: str = "") -> Checkpoint:
     """Snapshot an N-shard ShardedCluster (parallel/sharded.py) plus the
     flat control-plane components, at the cluster quiesce barrier with
@@ -597,7 +615,8 @@ def build_sharded_checkpoint(cluster, seq: int, now: float, *, dhcp=None,
     if quiesce:
         cluster.quiesce()
         cluster.fold_device_authoritative()
-    base = build_checkpoint(seq, now, dhcp=dhcp, node_id=node_id)
+    base = build_checkpoint(seq, now, dhcp=dhcp, ha=ha, fleet=fleet,
+                            node_id=node_id)
     meta = base.meta
     arrays = dict(base.arrays)
     meta["sharded"] = {"n_shards": int(cluster.n), "shards": []}
@@ -845,6 +864,7 @@ def _reshard_walk(ckpt: Checkpoint, shards_meta: list[dict], src_n: int,
 
 
 def restore_sharded_checkpoint(ckpt: Checkpoint, cluster, *, dhcp=None,
+                               ha=None, fleet=None,
                                now: int = 0) -> dict[str, int]:
     """Hydrate a ShardedCluster (and the flat components) from a sharded
     checkpoint, then one full device upload — reject-on-mismatch like
@@ -892,7 +912,7 @@ def restore_sharded_checkpoint(ckpt: Checkpoint, cluster, *, dhcp=None,
         rows["resharded_from"] = src_n
         rows["resharded_to"] = cluster.n
 
-    # the flat component (the lease book) hydrates exactly like the
+    # flat components (lease book / HA / fleet) hydrate exactly like the
     # single-engine path — the book formats are topology-independent
     flat_comps = dict(ckpt.meta.get("components", {}))
     if flat_comps:
@@ -900,7 +920,7 @@ def restore_sharded_checkpoint(ckpt: Checkpoint, cluster, *, dhcp=None,
             meta={"components": ckpt.meta.get("components", {})},
             arrays={k: v for k, v in ckpt.arrays.items()
                     if not k.startswith("shard")})
-        rows.update(restore_checkpoint(flat, dhcp=dhcp))
+        rows.update(restore_checkpoint(flat, dhcp=dhcp, ha=ha, fleet=fleet))
 
     # adopt the hydrated authorities wholesale (tmp is a geometry clone,
     # so presence/absence of garden/pppoe/edge matches); then the one

@@ -331,7 +331,7 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     wire; SIGTERM (rc 0, a snapshot with the fleet's books); then `chaos
     audit --slowpath-workers 6 --checkpoint-dir <tmp>` on the card: the
     app restored from that snapshot audits clean, rc 0.
-46. The chaos sweep: the 17 ported scenarios and storms (storm scale
+46. The chaos sweep: the 18 ported scenarios and storms (storm scale
     0.25) and a 2-epoch soak in-process on the card, each timed, counts 0
     before and read after (the `chaos` path); `python -m bng_tpu_torch
     chaos run --seed 5 --storm-scale 0.25 --soak-epochs 2` on the card and
@@ -340,12 +340,44 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     that share a slot) and `sharded_swap_crash_rollback` (the 2-shard
     exchange probes), recorded as the sweep runs them, is held bit-equal
     to its plain version.
+47. Sharded serving through `run`: `BNGApp` with `--shards 4 --batch-size
+    4096 --shard-nbuckets 8192` (4 x 1,024 lanes, 2^15 subscriber buckets in
+    all), the scheduler off, 8,192 synthetic subscribers, four NAT public
+    addresses (one a shard), on a held clock, fed by the cluster-built
+    steered ring. First a card app and a `device="cpu"` app on the same
+    frames (2,048 DISCOVERs, 256 leases, their renewals and 64 flows twice):
+    the same TX and FWD bytes, `stats()` and every shard's host rows and
+    device tables. Then pass 1 (every synthetic MAC offered by the slow
+    path), REQUESTs for 2,048 offers, an `engine_swap()` under the ring (a
+    window in flight, frames in the RX ring; outcome ok) and `audit_app`
+    clean after it; counts 0, the timed pass 2: 8,192 DISCOVERs (the leased
+    MACs answered on the device, the rest by the slow path) and 1,024 new
+    UDP flows from the NAT block holders, 512 DISCOVERs and 64 flows a beat:
+    N x (6 + 3N) K1 and 4N K2 per fused window, 3N x N K1 per DHCP-only
+    window, `missteers` 0; one more beat's 72 K1 and 16 K2 calls held
+    bit-equal to their plain versions, some K2 calls with QoS-limited lanes
+    sharing a slot. The same drive at `--shards 1` (the engine at B = 4096):
+    beats/s and frames/s of both print on a line of their own.
+48. The HA pair: an active and a standby `BNGApp` on the card (phase 44's
+    geometry with the scheduler, NAT off), each with a loopback cluster
+    listener, a checkpoint directory and the replicated store in write
+    mode with the other as its peer; over TLS with a certificate `openssl`
+    makes now and the standby pinning it, when `openssl` is on the host
+    (plain HTTP otherwise, said). The active takes a DORA storm of 8,192
+    new clients in waves of 512: 4,096 before the standby joins (its full
+    sync timed), 3,584 with the standby following the SSE deltas (the lag
+    from each `push_change` to the standby's apply, host clock, p50/p99),
+    512 while the standby's stream is down; the reconnect heals by
+    `replay_since` with no second full sync (timed). The standby's store
+    equals the active's (`_audit_ha_pair` clean); one sync tick converges
+    the store pair; each app's snapshot restores its `ha` store into a
+    fresh app.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON (each kernel's launches by path, `loadtest`,
 `run`, `pppoe`, `v6`, `radius`, `ipoe_traced`, `run_observed`,
-`run_restored`, `fleet` and `chaos` among them); the last line the result
-JSON.
+`run_restored`, `fleet`, `chaos`, `run_sharded`, `run_shards1` and
+`ha_pair` among them); the last line the result JSON.
 """
 
 from __future__ import annotations
@@ -4790,7 +4822,7 @@ def chaos_cmd(device: str | None) -> list:
 
 
 def chaos_phases(card, device, err) -> dict:
-    """The chaos suite on the card: the 17 ported entries and the soak
+    """The chaos suite on the card: the 18 ported entries and the soak
     in-process (each entry timed; counts 0 before, read after), `python -m
     bng_tpu_torch chaos run` on the card and with `--device cpu`, one after
     the other: the three canonical reports equal and ok; K1/K2 bit-equal
@@ -4868,6 +4900,521 @@ def chaos_phases(card, device, err) -> dict:
     return {"chaos": launches}
 
 
+# ------------------------------------------------ sharded serving through `run`
+
+SH_RUN_SHARDS = 4  # run --shards 4 --batch-size 4096 --shard-nbuckets 8192
+SH_RUN_BATCH = 4096  # 1,024 lanes a shard
+SH_RUN_NBUCKETS = 8192  # per shard: the single engine's 2^15 subscriber buckets in all
+SH_RUN_NAT_IPS = [f"203.0.113.{k}" for k in range(1, 5)]  # one public address a shard
+SH_PASS1_BEAT = 992  # synthetic DISCOVERs pushed a beat in pass 1 (+16 of the source)
+SH_PASS2_BEAT = 496  # and in the timed pass 2 (+16 of the source): 16 beats
+SH_PASS2_BEATS = RUN_SUBS // (SH_PASS2_BEAT + 16)
+# a flow punted to NAT in beat k is dispatched in k, retired (its mapping
+# made) in k + 1 and shipped with k + 2's window: pass 2 sends each of its
+# RUN_FLOWS flows in one of its first 14 beats and again two beats later
+SH_RESEND_LAG = 2
+SH_FLOWS_BEAT = 64  # flows of the card-vs-CPU drive and of the recorded beat
+SH_CMP_OFFERS = 2048  # the card-vs-CPU drive: DISCOVERs, then REQUESTs, renewals and flows
+SH_CMP_LEASED = 256
+
+
+def sharded_run_app(device, clock, shards: int):
+    """`BNGApp` at `run`'s geometry with the scheduler off (the pipelined
+    ring loop): `--shards N --batch-size 4096 --shard-nbuckets 8192` and the
+    synthetic source; at N = 1 the engine over the same 2^15 subscriber
+    buckets. Four NAT public addresses: at 4 shards each owns one."""
+    from bng_tpu_torch.cli import BNGApp, BNGConfig
+
+    cfg = BNGConfig(shards=shards, batch_size=SH_RUN_BATCH, shard_nbuckets=SH_RUN_NBUCKETS,
+                    synthetic_subs=RUN_SUBS, dhcpv6_enabled=False, slaac_enabled=False,
+                    metrics_enabled=False, coa_enabled=False, nat_public_ips=SH_RUN_NAT_IPS)
+    return BNGApp(cfg, clock=clock, device=device)
+
+
+def ring_settle(app) -> tuple[list, list]:
+    """Retire the in-flight window of the pipelined loop; (TX, FWD) frames."""
+    c = app.components
+    if "cluster" in c:
+        c["cluster"].flush_pipeline(app._slow_path)
+    else:
+        c["engine"].flush_pipeline()
+    ring, fwd = c["ring"], []
+    while (got := ring.fwd_pop()) is not None:
+        fwd.append(bytes(got[0]))
+    return pop_tx(ring), fwd
+
+
+def ring_beat(app, clk, pushes=(), synthetic: int = 0) -> tuple[list, list]:
+    """One beat: `synthetic` more DISCOVERs of the source and `pushes`
+    into the RX ring, then `drive_once` (which adds the source's 16);
+    (TX, FWD) frames popped after it."""
+    ring = app.components["ring"]
+    if synthetic:
+        n0 = app._syn_i
+        app._push_synthetic(ring, per_beat=synthetic)
+        check(app._syn_i == n0 + synthetic, "the ring takes the synthetic DISCOVERs")
+    for f in pushes:
+        check(ring.rx_push(f, from_access=True), "the ring takes the frames")
+    clk.t += 0.001
+    app.drive_once()
+    fwd = []
+    while (got := ring.fwd_pop()) is not None:
+        fwd.append(bytes(got[0]))
+    return pop_tx(ring), fwd
+
+
+def nat_holders(app, acks) -> list:
+    """The leased (mac, ip) whose subscriber got a NAT port block, in lease order."""
+    c = app.components
+    nats = c["cluster"].nat if "cluster" in c else [c["engine"].nat]
+    held = set().union(*(n.blocks for n in nats))
+    return [(m, ip) for m, ip in acks.items() if ip in held]
+
+
+def sharded_flows(holders, n: int) -> list:
+    """n UDP flows over the NAT holders, a few per subscriber (their lanes
+    share a QoS slot in a batch)."""
+    return [F.udp_packet(m, AC_MAC, ip, WAN_IP, 30000 + k // len(holders), 53, b"q" * 64)
+            for k, (m, ip) in ((k, holders[k % len(holders)]) for k in range(n))]
+
+
+def sharded_run_leases(app, clk, n_offers: int, n_leased: int, per_beat: int):
+    """Pass 1 (every synthetic MAC offered by the slow path) and REQUESTs for
+    the first n_leased offers, their rows shipped; returns (offers, acks,
+    TX, FWD, beats)."""
+    tx, fwd, offers, beats = [], [], {}, 0
+    while app._syn_i + 16 < n_offers:
+        t, f = ring_beat(app, clk, synthetic=min(per_beat, n_offers - app._syn_i - 16))
+        tx, fwd, beats = tx + t, fwd + f, beats + 1
+    t, f = ring_settle(app)
+    tx, fwd = tx + t, fwd + f
+    offers.update((m, ip) for ty, m, ip in dhcp_replies(tx) if ty == F.OFFER)
+    macs = [synthetic_mac(i) for i in range(n_leased)]
+    check(all(m in offers for m in macs), f"pass 1 offered the first {n_leased} MACs "
+          f"({len(offers)} offers)")
+    acks = {}
+    for base in range(0, n_leased, 512):
+        t, f = ring_beat(app, clk, [storm_request(m, 0x5000 + base + k, offers[m])
+                                    for k, m in enumerate(macs[base: base + 512])])
+        t2, f2 = ring_settle(app)
+        tx, fwd = tx + t + t2, fwd + f + f2
+        acks.update((m, ip) for ty, m, ip in dhcp_replies(t + t2) if ty == F.ACK)
+    check(len(acks) == n_leased and all(acks[m] == offers[m] for m in acks),
+          f"{n_leased} ACKs with the offered addresses ({len(acks)})")
+    c = app.components
+    fps = c["cluster"].fastpath if "cluster" in c else [c["engine"].fastpath]
+    while sum(fp.dirty_count() for fp in fps):  # the DHCP drain ships the lease rows
+        t, f = ring_beat(app, clk)
+        t2, f2 = ring_settle(app)
+        tx, fwd = tx + t + t2, fwd + f + f2
+    return offers, acks, tx, fwd, beats
+
+
+def sharded_run_cmp(device) -> tuple:
+    """The card-vs-CPU drive at 4 shards: SH_CMP_OFFERS DISCOVERs, REQUESTs
+    for SH_CMP_LEASED, then renewals and flows from the leases; every TX and
+    FWD frame, stats() and every shard's table words."""
+    clk = BeatClock(float(NOW))
+    app = sharded_run_app(device, clk, SH_RUN_SHARDS)
+    try:
+        _o, acks, tx, fwd, _b = sharded_run_leases(app, clk, SH_CMP_OFFERS, SH_CMP_LEASED,
+                                                   SH_PASS1_BEAT)
+        flows = sharded_flows(nat_holders(app, acks), SH_FLOWS_BEAT)
+        renew = [F.discover_frame(m, 0x7000 + k, pad=320) for k, m in enumerate(acks)]
+        app.config.synthetic_subs = 0  # the scripted frames alone
+        for k in range(2):  # the flows punted to NAT, then translated on the device
+            t, f = ring_beat(app, clk, renew[k * 128:(k + 1) * 128] + flows)
+            t2, f2 = ring_settle(app)
+            tx, fwd = tx + t + t2, fwd + f + f2
+        t, f = ring_settle(app)
+        cl = app.components["cluster"]
+        cl.quiesce()
+        stats = app.stats()
+        stats.pop("device")
+        words = [(host_words(cl.tables[i]),
+                  cl.fastpath[i].sub.keys.tobytes(), cl.fastpath[i].sub.vals.tobytes(),
+                  cl.nat[i].checkpoint_state()[0]) for i in range(cl.n)]
+        return tx + t, fwd + f, stats, words
+    finally:
+        app.close()
+
+
+def count_windows(cl) -> dict:
+    """Count the fused and DHCP-only windows the cluster dispatches."""
+    n = {"fused": 0, "dhcp": 0}
+    fused, dhcp = cl._dispatch_fused, cl._dispatch_dhcp
+
+    def f(*a, **k):
+        n["fused"] += 1
+        return fused(*a, **k)
+
+    def d(*a, **k):
+        n["dhcp"] += 1
+        return dhcp(*a, **k)
+
+    cl._dispatch_fused, cl._dispatch_dhcp = f, d
+    return n
+
+
+def run_sharded_phases(card, device, err) -> dict:
+    """`run --shards 4` on the card (phase 47): the card against a CPU app on
+    the same frames, then pass 1 and the leases, an `engine_swap` under the
+    ring and its audit, the timed pass 2 (counts 0) beside the same
+    configuration at --shards 1, and at each shard count one beat's K1/K2
+    calls against their plain versions; returns {"run_sharded": launches,
+    "run_shards1": launches}."""
+    from bng_tpu_torch.chaos.invariants import audit_app
+
+    t0 = time.perf_counter()
+    cmp = [sharded_run_cmp(dev) for dev in (device, "cpu")]
+    check(cmp[0][0] == cmp[1][0] and cmp[0][1] == cmp[1][1],
+          f"run --shards 4: the card's TX and FWD bytes == the CPU app's "
+          f"({len(cmp[0][0])}/{len(cmp[1][0])} TX, {len(cmp[0][1])}/{len(cmp[1][1])} FWD)")
+    check(cmp[0][2] == cmp[1][2], f"run --shards 4: stats() == the CPU app's\n{cmp[0][2]}\n"
+          f"{cmp[1][2]}")
+    for i, (g, c) in enumerate(zip(cmp[0][3], cmp[1][3])):
+        check(g[1:] == c[1:], f"run --shards 4: shard {i}'s host rows == the CPU app's")
+        words_equal(g[0], c[0], f"run --shards 4: shard {i}'s device tables == the CPU app's")
+    check(cmp[0][2]["sharded"]["missteers"] == 0 and len(cmp[0][1]) > 0,
+          "run --shards 4 (card vs CPU): no missteer, flows forwarded")
+    say(f"run --shards 4: the card == the CPU app on {SH_CMP_OFFERS} DISCOVERs, "
+        f"{SH_CMP_LEASED} leases and their renewals, {SH_FLOWS_BEAT} flows twice "
+        f"({len(cmp[0][0])} TX, {len(cmp[0][1])} FWD frames, stats and every shard's table "
+        f"words equal; {time.perf_counter() - t0:.1f}s)")
+
+    rates, launches, out = {}, {}, {}
+    for shards in (SH_RUN_SHARDS, 1):
+        clk = BeatClock(float(NOW))
+        app = sharded_run_app(device, clk, shards)
+        try:
+            c = app.components
+            ring, dhcp = c["ring"], c["dhcp"]
+            if shards > 1:
+                cl = c["cluster"]
+                check("engine" not in c and cl.n == shards and cl.b == SH_RUN_BATCH // shards
+                      and cl.fastpath[0].sub.nbuckets == SH_RUN_NBUCKETS,
+                      "run --shards 4: a 4 x 1,024-lane cluster of 8,192 buckets a shard")
+            else:
+                check(c["engine"].fastpath.sub.nbuckets == 1 << 15 and c["engine"].B == SH_RUN_BATCH,
+                      "run --shards 1: the engine over 2^15 buckets at B = 4096")
+            t1 = time.perf_counter()
+            offers, acks, _tx, _fwd, beats1 = sharded_run_leases(app, clk, RUN_SUBS, RUN_LEASED,
+                                                                 SH_PASS1_BEAT)
+            t_lease = time.perf_counter() - t1
+            holders = nat_holders(app, acks)
+            flows = sharded_flows(holders, RUN_FLOWS)
+            if shards > 1:
+                # a blue/green swap under the ring: a window in flight and
+                # frames waiting in the RX ring at the barrier
+                ring_beat(app, clk, synthetic=256)
+                app._push_synthetic(ring, per_beat=256)
+                before = c["cluster"]
+                rep = app.engine_swap()
+                check(rep["outcome"] == "ok" and rep["audit_ok"] and c["cluster"] is not before,
+                      f"run --shards 4: engine_swap under the ring ({rep})")
+                ring_beat(app, clk)
+                ring_settle(app)
+                audit = audit_app(app)
+                check(audit.ok, f"run --shards 4: audit_app clean after the swap "
+                      f"({audit.violations_by_kind()})")
+                say(f"run --shards 4: engine_swap ok, audit ok, {rep['frames_deferred']} frames "
+                    f"deferred, {rep['duration_s']:.3f}s (quiesce {rep['quiesce_s']:.3f}, "
+                    f"hydrate {rep['hydrate_s']:.3f}, audit {rep['audit_s']:.3f}, flip "
+                    f"{rep['flip_s']:.3f}); audit_app clean after it [{card}]")
+                cl = c["cluster"]
+                windows = count_windows(cl)
+            # pass 2, counted and timed: one more cycle of the source (the
+            # leased MACs answered on the device, the rest by the slow path),
+            # SH_PASS2_BEAT + 16 DISCOVERs a beat, and each flow twice: its
+            # first frame punts to NAT, its second is translated on the device
+            groups = np.array_split(np.arange(RUN_FLOWS), SH_PASS2_BEATS - SH_RESEND_LAG)
+            app._syn_i = 0
+            disc0 = dhcp.stats.discover
+            tx_dev0 = (c["cluster"].stats_summary()["tx"] if shards > 1
+                       else c["engine"].stats.tx)
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            beats, tx, fwd, n_flow = 0, [], [], 0
+            while app._syn_i < RUN_SUBS:
+                sent = [flows[i] for g in (beats, beats - SH_RESEND_LAG)
+                        if 0 <= g < len(groups) for i in groups[g]]
+                t, f = ring_beat(app, clk, sent,
+                                 synthetic=min(SH_PASS2_BEAT, RUN_SUBS - 16 - app._syn_i))
+                tx, fwd, beats, n_flow = tx + t, fwd + f, beats + 1, n_flow + len(sent)
+            t, f = ring_settle(app)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            launches[shards] = dict(kernels.LAUNCHES)
+            tx, fwd = tx + t, fwd + f
+            slow = dhcp.stats.discover - disc0
+            dev_tx = ((c["cluster"].stats_summary()["tx"] if shards > 1 else c["engine"].stats.tx)
+                      - tx_dev0)
+            frames = RUN_SUBS + n_flow
+            check(beats == SH_PASS2_BEATS and n_flow == 2 * RUN_FLOWS,
+                  f"run --shards {shards} pass 2: {SH_PASS2_BEATS} beats, every flow sent twice "
+                  f"({beats}, {n_flow})")
+            check(slow == RUN_SUBS - RUN_LEASED and dev_tx == RUN_LEASED,
+                  f"run --shards {shards} pass 2: the leased MACs answered on the device, the "
+                  f"rest by the slow path ({dev_tx}, {slow})")
+            check(len(fwd) == RUN_FLOWS, f"run --shards {shards} pass 2: every flow's second "
+                  f"frame forwarded on the device ({len(fwd)} FWD)")
+            rates[shards] = (beats / dt, frames / dt, beats, dt)
+            say(f"run --shards {shards} pass 2: {beats} beats, {frames} frames in {dt:.3f}s: "
+                f"{beats / dt:.2f} beats/s, {frames / dt:.1f} frames/s; DISCOVERs answered on the "
+                f"device {dev_tx}, by the slow path {slow}; {len(fwd)} FWD of {n_flow} flow "
+                f"frames ({RUN_FLOWS} flows sent twice) over {len(holders)} NAT holders; launches "
+                f"{launches[shards]}; pass 1 + leases {t_lease:.2f}s ({beats1} beats) [{card}]")
+            if shards > 1:
+                per = sharded_launches(shards, 6)
+                k1 = per["probe"] * windows["fused"] + 3 * shards * shards * windows["dhcp"]
+                check(launches[shards]["probe"] == k1
+                      and launches[shards]["seg_prefix"] == per["seg_prefix"] * windows["fused"],
+                      f"run --shards 4: N x (6 + 3N) K1 and 4N K2 per fused window, 3N x N K1 "
+                      f"per DHCP-only window ({launches[shards]}, {windows})")
+                summ = app.stats()["sharded"]
+                check(summ["missteers"] == 0, f"run --shards 4: missteers 0 ({summ})")
+                names, what = sharded_names(cl), f"windows {windows}; missteers " \
+                    f"{summ['missteers']}, nat_punts {summ['nat_punts']}, slow_errors " \
+                    f"{summ['slow_errors']}"
+            else:
+                per = {"probe": 9, "seg_prefix": 4}  # one engine step at B = 4096
+                names, what = table_names(c["engine"].tables), "one engine step"
+            # one beat's K1/K2 calls, at this path's shapes, against their
+            # plain versions
+            app._syn_i = 0
+            for fr in sharded_flows(holders[:SH_FLOWS_BEAT // 4], SH_FLOWS_BEAT):
+                ring.rx_push(fr, from_access=True)  # 4 flows a subscriber
+            app._push_synthetic(ring, per_beat=SH_PASS2_BEAT)
+            rec = record_kernel_inputs(app.drive_once, per["probe"], per["seg_prefix"],
+                                       f"run --shards {shards} beat", names)
+            ring_settle(app)
+            path = "run_sharded" if shards > 1 else "run_shards1"
+            probes_vs_plain([(path, a) for a in rec["probe"]], err)
+            segs_vs_plain([(path, *a) for a in rec["seg_prefix"]], err)
+            shared = sum(int((torch.unique(s[s >= 0], return_counts=True)[1] > 1).any())
+                         for s, _v, _c in rec["seg_prefix"])
+            check(shared > 0, f"run --shards {shards}: K2 held on calls whose QoS-limited lanes "
+                  "share a slot")
+            say(f"run --shards {shards}: one beat's {len(rec['probe'])} K1 and "
+                f"{len(rec['seg_prefix'])} K2 calls bit-equal to their plain versions; {shared} "
+                f"K2 calls with QoS-limited lanes sharing a slot; {what} [{card}]")
+            out[shards] = len(tx)
+        finally:
+            app.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    r4, r1 = rates[SH_RUN_SHARDS], rates[1]
+    print(f"run --shards 4 vs 1 (scheduler off, {SH_RUN_BATCH} lanes): {r4[0]:.2f} vs "
+          f"{r1[0]:.2f} beats/s, {r4[1]:.1f} vs {r1[1]:.1f} frames/s ({r4[1] / r1[1]:.3f}x) "
+          f"[{card}]", flush=True)
+    return {"run_sharded": launches[SH_RUN_SHARDS], "run_shards1": launches[1]}
+
+
+# --------------------------------------- the HA pair over the cluster listener
+
+HA_CLIENTS = 8192  # the active's DORA storm, in waves of FLEET_WAVE
+HA_BEFORE = 4096  # of them before the standby joins (its full sync)
+HA_GAP = 512  # clients DORAed while the standby's stream is down
+
+
+def ha_certs(tmp: str) -> dict | None:
+    """A self-signed certificate for 127.0.0.1 made now, or None with no
+    openssl on the host."""
+    import shutil
+
+    from bng_tpu_torch.control import ztp_tls
+
+    if shutil.which("openssl") is None:
+        return None
+    key, crt = os.path.join(tmp, "cluster.key"), os.path.join(tmp, "cluster.crt")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout", key,
+                    "-out", crt, "-days", "2", "-subj", "/CN=cluster.bng.test",
+                    "-addext", "subjectAltName=DNS:cluster.bng.test,IP:127.0.0.1"],
+                   check=True, capture_output=True, timeout=120)
+    with open(crt) as f:
+        der = ztp_tls.pem_to_der(f.read())[0]
+    return {"cert": crt, "key": key, "pin": ztp_tls.cert_fingerprint(der)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ha_app(device, clock, role: str, listen: str, peer: str, store_peer: str, ckpt: str,
+           tls: dict | None):
+    """`BNGApp` at `run`'s geometry with the scheduler (NAT off, as the
+    fleet's: 8,192 leases outgrow the default NAT table), an HA role, a
+    cluster listener, the replicated store in write mode with the other
+    app as its peer, and a checkpoint directory; over TLS when `tls`."""
+    from bng_tpu_torch.cli import BNGApp, BNGConfig
+
+    scheme = "https" if tls else "http"
+    extra = dict(cluster_tls_cert=tls["cert"], cluster_tls_key=tls["key"],
+                 cluster_tls_pins=[tls["pin"]]) if tls else {}
+    cfg = BNGConfig(scheduler_enabled=True, dhcpv6_enabled=False, slaac_enabled=False,
+                    metrics_enabled=False, coa_enabled=False, nat_enabled=False,
+                    ha_role=role, ha_peer=f"{scheme}://{peer}" if peer else "",
+                    cluster_listen=listen, store_mode="write",
+                    store_peers=[f"{scheme}://{store_peer}"], checkpoint_dir=ckpt,
+                    node_id=f"bng-{role}", **extra)
+    app = BNGApp(cfg, clock=clock, device=device)
+    app.components["ring"] = PyRing(4 * FLEET_WAVE, 2048, 2 * FLEET_WAVE)
+    return app
+
+
+def ha_pair_phases(card, device, err) -> dict:
+    """The HA pair on the card (phase 48): an active and a standby `BNGApp`
+    over a loopback cluster listener (TLS with a certificate made now when
+    openssl is there); the standby's full sync, the replication lag, a
+    stream drop healed by replay, the stores equal, each app's `ha`
+    checkpoint component restored into a fresh app, and the replicated
+    store converged; K1 held against its plain version on the active's
+    last express dispatch; returns {"ha_pair": launches}."""
+    from bng_tpu_torch.chaos.invariants import audit_invariants
+
+    tmp = tempfile.mkdtemp(prefix="bng-ha-")
+    tls = ha_certs(tmp)
+    say("ha pair: openssl " + ("found: the pair runs over TLS with a pinned certificate made now"
+                               if tls else "not on this host: the pair runs in plain HTTP"))
+    ports = [free_port(), free_port()]
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    dirs = [os.path.join(tmp, d) for d in ("active", "standby", "active2", "standby2")]
+    clk = BeatClock(float(NOW))
+    act = ha_app(device, clk, "active", addrs[0], "", addrs[1], dirs[0], tls)
+    sb = None
+    try:
+        url = act.components["cluster_server"].url
+        check(url == ("https://" if tls else "http://") + addrs[0], f"ha: the listener ({url})")
+        ha_a = act.components["ha"]
+        push_t, apply_t = {}, {}
+        inner_push = ha_a.push_change
+
+        def timed_push(*a, **k):
+            t = time.perf_counter()
+            inner_push(*a, **k)
+            push_t[ha_a._seq] = t
+
+        ha_a.push_change = timed_push
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fleet_storm(act, clk, 0, HA_BEFORE)
+        t_storm1 = time.perf_counter() - t0
+        check(len(ha_a.store) == HA_BEFORE, f"ha: the active's store holds every lease "
+              f"({len(ha_a.store)})")
+
+        # the standby joins an active that already holds the sessions
+        sb = ha_app(device, clk, "standby", addrs[1], addrs[0], addrs[0], dirs[1], tls)
+        ha_b = sb.components["ha"]
+        inner_apply = ha_b._on_change
+
+        def timed_apply(ch):
+            inner_apply(ch)
+            apply_t[ch.seq] = time.perf_counter()
+
+        ha_b._on_change = timed_apply
+        t0 = time.perf_counter()
+        sb.tick(clk.t)
+        t_full = time.perf_counter() - t0
+        check(ha_b.connected and ha_b.stats["full_syncs"] == 1 and len(ha_b.store) == HA_BEFORE,
+              f"ha: the standby full-synced {HA_BEFORE} sessions ({ha_b.stats})")
+
+        # live deltas while the active takes the rest of the storm
+        t0 = time.perf_counter()
+        fleet_storm(act, clk, HA_BEFORE, HA_CLIENTS - HA_BEFORE - HA_GAP)
+        t_storm2 = time.perf_counter() - t0
+        deadline = time.monotonic() + 30.0
+        while ha_b.last_seq < ha_a._seq and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(ha_b.last_seq == ha_a._seq, f"ha: the standby caught up ({ha_b.last_seq} of "
+              f"{ha_a._seq})")
+        lag = np.array([(apply_t[s] - push_t[s]) * 1e3 for s in push_t if s in apply_t])
+        check(len(lag) == HA_CLIENTS - HA_BEFORE - HA_GAP, f"ha: a lag for every delta "
+              f"({len(lag)})")
+
+        # the stream drops; the active takes HA_GAP more clients; the standby
+        # reconnects and heals by replay_since, with no second full sync
+        ha_b.disconnect()
+        fleet_storm(act, clk, HA_CLIENTS - HA_GAP, HA_GAP)
+        clk.t += 1.0
+        t0 = time.perf_counter()
+        sb.tick(clk.t)
+        t_re = time.perf_counter() - t0
+        deadline = time.monotonic() + 30.0
+        while ha_b.last_seq < ha_a._seq and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(ha_b.connected and ha_b.stats["full_syncs"] == 1 and ha_b.last_seq == ha_a._seq,
+              f"ha: the reconnect healed by replay_since with no full sync ({ha_b.stats})")
+        launches = dict(kernels.LAUNCHES)
+        # K1 on the active's own last express dispatch: the program's
+        # buffers still hold its descriptors, `now` and tables
+        sched, eng = act.components["scheduler"], act.components["engine"]
+        prog = eng.express_aot(sched.express.cfg.batch, sched._express_dev)
+        check(prog is not None and prog.graph is not None,
+              "ha: the active scheduler's captured express program")
+        rec = record_kernel_inputs(prog._run, 3, 0, "ha active express dispatch",
+                                   table_names(eng.tables))
+        probes_vs_plain([("ha_pair express", a) for a in rec["probe"]], err)
+        rep = audit_invariants(ha_pair=(ha_a, ha_b), check_roundtrip=False)
+        check(rep.ok and rep.checks["ha_sessions"] == HA_CLIENTS and len(ha_b.store) == HA_CLIENTS,
+              f"ha: the standby's store == the active's ({rep.violations_by_kind()}, "
+              f"{len(ha_b.store)})")
+        say(f"ha pair ({'TLS, pinned' if tls else 'plain HTTP'}): full sync of {HA_BEFORE} "
+            f"sessions {t_full:.3f}s; replication lag over {len(lag)} deltas p50 "
+            f"{np.percentile(lag, 50):.3f} ms, p99 {np.percentile(lag, 99):.3f} ms (push_change "
+            f"to the standby's apply, host clock); after a drop and {HA_GAP} more leases the "
+            f"reconnect took {t_re:.3f}s, {ha_b.stats['deltas']} deltas, "
+            f"{ha_b.stats['full_syncs'] - 1} full syncs in the heal; stores equal ({HA_CLIENTS} "
+            f"sessions); storms {HA_BEFORE / t_storm1:.1f} and "
+            f"{(HA_CLIENTS - HA_BEFORE - HA_GAP) / t_storm2:.1f} DORAs/s; launches {launches}; "
+            f"K1 bit-equal to its plain version on the active's last express dispatch's "
+            f"{len(rec['probe'])} calls [{card}]")
+        print(f"ha pair: full sync {t_full:.3f}s for {HA_BEFORE} sessions, lag p50 "
+              f"{np.percentile(lag, 50):.3f} / p99 {np.percentile(lag, 99):.3f} ms, reconnect "
+              f"{t_re:.3f}s with {ha_b.stats['full_syncs'] - 1} full syncs [{card}]", flush=True)
+
+        # the replicated store: a write on each, one sync tick, equal digests
+        sa, sbs = act.components["cluster_store"], sb.components["cluster_store"]
+        for k, (m, ip) in enumerate(sorted((s.mac, s.ip) for s in ha_a.store.all())[:256]):
+            (sa if k % 2 else sbs).put(f"sub/{m}", str(ip).encode())
+        clk.t += 10.0
+        t0 = time.perf_counter()
+        act.tick(clk.t)
+        t_sync = time.perf_counter() - t0
+        check(sa.store.digest() == sbs.store.digest() and len(sa.list("sub/")) == 256,
+              "ha: the replicated store pair converged after one sync tick")
+        say(f"ha: the store pair (write mode, each the other's peer) converged in one tick "
+            f"({t_sync:.3f}s, 256 keys, members {sorted(sa.members())}) [{card}]")
+
+        # each app's `ha` component restores into a fresh app
+        for app, d, role in ((act, dirs[0], "active"), (sb, dirs[1], "standby")):
+            with app._ctl:
+                path = app.components["checkpointer"].save_now(reason="ha")
+            fresh = ha_app(device, BeatClock(clk.t), role, "", addrs[0] if role == "standby"
+                           else "", addrs[0], d, tls)
+            try:
+                rows = fresh.components.get("checkpoint_restored", {})
+                check(rows.get("ha.sessions") == HA_CLIENTS
+                      and fresh.components["ha"].checkpoint_state()
+                      == app.components["ha"].checkpoint_state(),
+                      f"ha: the {role}'s checkpoint restores its store into a fresh app "
+                      f"({fresh.components.get('checkpoint_error')}, {rows.get('ha.sessions')})")
+            finally:
+                fresh.close()
+            say(f"ha: the {role}'s snapshot ({os.path.getsize(path)} bytes) restored "
+                f"{HA_CLIENTS} sessions into a fresh app")
+        return {"ha_pair": launches}
+    finally:
+        if sb is not None:
+            sb.close()
+        act.close()
+        subprocess.run(["rm", "-rf", tmp], check=False)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4938,6 +5485,8 @@ def main(argv=None) -> int:
     trace_export_phase(card)
     launches.update(fleet_phases(card, device, err))
     launches.update(chaos_phases(card, device, err))
+    launches.update(run_sharded_phases(card, device, err))
+    launches.update(ha_pair_phases(card, device, err))
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

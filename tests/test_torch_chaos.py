@@ -1,14 +1,14 @@
 """The port's chaos suite (`bng_tpu_torch/chaos/{scenarios,runner}.py` and
 `chaos run|audit`) against the JAX package's.
 
-- Each of the 11 scripted scenarios that need no HA pair and no cluster of
-  BNGs runs in both packages from one seed, on the CPU (the five that
+- Each of the 12 scripted scenarios that need no cluster of BNGs (the HA
+  pair's `ha_delta_drop_reconnect` among them) runs in both packages from one seed, on the CPU (the five that
   build an engine, a scheduler or a sharded cluster on `device="cpu"`),
   and gives the same canonical report bytes, `ok` included.
 - The seeded soak, `soak(seed=5, epochs=2)`, gives the same bytes.
 - The catalog is the reference's 23 names; each ported scenario's seed is
-  the reference's (the index in the full catalog). The six entries that
-  need the HA pair or the cluster are listed as not ported, and naming
+  the reference's (the index in the full catalog). The five entries that
+  need the cluster of BNGs are listed as not ported, and naming
   one — by `names=` or `chaos run --scenario` — is refused before any
   scenario runs, naming the component (ValueError; rc 2 from the CLI).
 - `chaos run --scenario` prints the reference's report; `--list`,
@@ -65,7 +65,7 @@ def test_soak_equals_reference():
 
 def test_catalog_and_seeds_are_the_references():
     assert t_runner.CATALOG == sorted(j_runner.ALL_SCENARIOS)
-    assert len(t_runner.CATALOG) == 23 and len(t_runner.ALL_SCENARIOS) == 17
+    assert len(t_runner.CATALOG) == 23 and len(t_runner.ALL_SCENARIOS) == 18
     assert sorted(t_runner.UNPORTED) == sorted(set(j_runner.ALL_SCENARIOS)
                                                - set(t_runner.ALL_SCENARIOS))
     cat = dict(t_runner.scenario_catalog())
@@ -101,7 +101,7 @@ def test_cli_single_scenario_prints_the_references_report(capsys):
 def test_cli_list_unknown_and_bench_log(tmp_path, capsys):
     assert t_cli.main(["chaos", "run", "--list"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 23 and sum("not ported" in ln for ln in lines) == 6
+    assert len(lines) == 23 and sum("not ported" in ln for ln in lines) == 5
     assert t_cli.main(["--device", "cpu", "chaos", "run", "--scenario", "nope"]) == 2
     assert "unknown scenario" in capsys.readouterr().err
     log = tmp_path / "chaos.jsonl"

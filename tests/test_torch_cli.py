@@ -189,7 +189,7 @@ def test_refusal_names_every_unported_subsystem():
     with pytest.raises(t_cli.UnportedSubsystemError) as e:
         t_cli.BNGApp(cfg, device="cpu")
     msg = str(e.value)
-    assert len(t_cli.unported(cfg)) == len(t_cli.UNPORTED) == 9
+    assert len(t_cli.unported(cfg)) == len(t_cli.UNPORTED) == 4
     for _on, what, flag in t_cli.UNPORTED:
         assert what in msg and flag in msg
     # the reference's defaults, and metrics, telemetry and the checkpointer
@@ -200,6 +200,14 @@ def test_refusal_names_every_unported_subsystem():
     assert t_cli.unported(t_cli.BNGConfig(telemetry_enabled=True, checkpoint_dir="/x")) == []
     # the slow-path fleet is ported: workers > 1 builds
     assert t_cli.unported(t_cli.BNGConfig(slowpath_workers=4)) == []
+    # sharded serving, the HA pair, the listener and store, BGP and the
+    # peer pool are ported
+    assert t_cli.unported(t_cli.BNGConfig(
+        shards=2, ha_role="active", cluster_listen="127.0.0.1:0", store_mode="write",
+        bgp_enabled=True, peer_pool_cidr="10.9.0.0/24",
+        peer_pool_nodes=[{"node": "bng0", "url": "http://x"}])) == []
+    assert sorted(what for _on, what, _flag in t_cli.UNPORTED) == [
+        "AF_XDP wire", "DNS listener", "Nexus allocator", "device authentication"]
     ported = t_cli.BNGConfig(radius_server="127.0.0.1:1812", pppoe_enabled=True, **WORKING)
     assert t_cli.unported(ported) == []
 
@@ -208,8 +216,8 @@ def test_main_run_once_on_cpu(capsys):
     assert t_cli.main(["--device", "cpu", "run", "--once"]) == 0  # the defaults build
     assert '"device": "cpu"' in capsys.readouterr().out
     assert t_cli.main(["--device", "cpu", "run", "--once", "--no-metrics-enabled"]) == 0
-    assert t_cli.main(["--device", "cpu", "run", "--once", "--shards", "2"]) == 2
-    assert "--shards 1" in capsys.readouterr().err
+    assert t_cli.main(["--device", "cpu", "run", "--once", "--wire-if", "eth9"]) == 2
+    assert "--wire-if ''" in capsys.readouterr().err
     assert t_cli.main(["version"]) == 0
 
 

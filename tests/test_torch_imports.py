@@ -72,7 +72,11 @@ SLICE_MODULES = (
     "bng_tpu_torch.control.metrics",
     "bng_tpu_torch.control.admission", "bng_tpu_torch.control.fleet",
     "bng_tpu_torch.chaos.scenarios", "bng_tpu_torch.chaos.storms", "bng_tpu_torch.chaos.runner",
-)
+) + (HA_MODULES := (
+    "bng_tpu_torch.control.ha", "bng_tpu_torch.control.cluster_http",
+    "bng_tpu_torch.control.crdt", "bng_tpu_torch.control.peerpool",
+    "bng_tpu_torch.control.ztp_tls",
+))
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -87,6 +91,22 @@ def test_port_and_chip_smoke_import_no_jax():
     assert int(n) >= 74  # every module of the package was imported
     assert bad == "[]", bad
     assert set(SLICE_MODULES) <= set(eval(lines[-2]))  # noqa: S307 — our own repr
+
+
+@pytest.mark.parametrize("mod", HA_MODULES)
+def test_ha_and_cluster_wire_modules_import_no_jax_and_no_torch(mod):
+    """The HA pair, the store, the peer pool and the cluster wire are host
+    code: each imports, alone in a fresh interpreter, with no JAX, nothing
+    of the JAX package and no torch."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "PYTHON"))}
+    env["PYTHONPATH"] = str(REPO)
+    probe = (f"import sys, {mod}\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+             "'jaxlib', 'bng_tpu.')) or m in ('bng_tpu', 'torch')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 _FLEET_PARENT = r"""
