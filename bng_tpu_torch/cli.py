@@ -6,9 +6,12 @@ scope).
 same YAML overlay where the command line wins (`load_config_file`).
 `BNGApp` builds what the reference's `run` builds for the subsystems the
 port has: the span tracer with its flight recorder and SLO monitor (when
-telemetry is on), the fast-path tables, pools, the peer pool, the RADIUS
-client with its authenticator and accounting, NAT with its compliance
-logger, QoS, antispoof, the walled garden (host manager and device gate),
+telemetry is on), the fast-path tables, the DNS listener over the
+resolver, pools, device authentication toward the Nexus, the Nexus
+allocator with its partition FSM, the peer pool, the RADIUS client with
+its authenticator (degraded auth from the FSM's profile cache) and
+accounting, NAT with its compliance logger, QoS, antispoof, the walled
+garden (host manager, device gate and the resolver's portal answers),
 the DHCP server and the engine on the card (with the PPPoE session
 tables when PPPoE is on), the tiered scheduler when asked, the DHCPv6
 and SLAAC servers, the PPPoE server, the slow-path demux over them, the
@@ -210,10 +213,6 @@ def load_config_file(path: str, cli_set: set[str],
 # (is it on?, what it is, the flag that turns it off).
 UNPORTED = (
     (lambda c: bool(c.wire_if), "AF_XDP wire", "--wire-if ''"),
-    (lambda c: c.dns_enabled, "DNS listener", "--no-dns-enabled"),
-    (lambda c: bool(c.nexus_url), "Nexus allocator", "--nexus-url ''"),
-    (lambda c: c.device_auth_method != "none", "device authentication",
-     "--device-auth-method none"),
 )
 
 
@@ -386,6 +385,24 @@ class BNGApp:
                 clock=self.clock)
             self._on_close(lambda: garden.check_expired())
 
+        # 2b. the DNS listener: a UDP socket serving the resolver; walled-
+        # garden subscribers get the portal for every name, everyone else
+        # forwards upstream with failover
+        if cfg.dns_enabled:
+            from bng_tpu_torch.control.dns import DNSConfig, Resolver
+            from bng_tpu_torch.control.dns_wire import DNSServer, UDPForwarder
+
+            dns_cfg = DNSConfig(upstreams=list(cfg.dns_upstreams),
+                                walled_garden_redirect_ip=cfg.portal_ip)
+            resolver = c["dns_resolver"] = Resolver(
+                dns_cfg, forwarder=UDPForwarder(dns_cfg.upstreams, timeout=dns_cfg.timeout))
+            host, _, port = cfg.dns_listen.partition(":")
+            dns_srv = c["dns_server"] = DNSServer(resolver, host=host or "0.0.0.0",
+                                                  port=int(port or 53))
+            dns_srv.start()
+            self._on_close(dns_srv.stop)
+            self.log.info("dns listener", addr=f"{dns_srv.addr[0]}:{dns_srv.addr[1]}")
+
         # 3. pools
         pool_mgr = c["pools"] = PoolManager(fastpath_tables=fastpath)
         pool_specs = cfg.pools or [{
@@ -408,6 +425,31 @@ class BNGApp:
         c["nexus"] = NexusClient(node_id=cfg.node_id, clock=self.clock)
         c["subscribers"] = SubscriberManager(clock=self.clock)
 
+        # 4a. device identity for the Nexus wire; built and kept, as the
+        # reference does, for the callers that sign their requests
+        if cfg.device_auth_method != "none":
+            from bng_tpu_torch.control import deviceauth as da
+
+            if cfg.device_auth_method == "psk":
+                c["deviceauth"] = da.PSKAuthenticator(psk=cfg.device_auth_psk,
+                                                      psk_file=cfg.device_auth_psk_file)
+            elif cfg.device_auth_method == "mtls":
+                c["deviceauth"] = da.MTLSAuthenticator(cert_file=cfg.device_auth_cert,
+                                                       key_file=cfg.device_auth_key)
+            else:
+                raise ValueError(f"device_auth_method={cfg.device_auth_method!r}: "
+                                 f"expected 'none', 'psk' or 'mtls'")
+
+        # 4b. the central allocator client and partition resilience. The
+        # adapter narrows HTTPAllocator's ip-string API to the DHCP
+        # server's int contract, and goes straight to the local pool while
+        # partitioned (one timeout per DISCOVER would melt the slow path;
+        # the resilience FSM owns the retry cadence instead)
+        nexus_alloc = None
+        resilience = None
+        if cfg.nexus_url:
+            nexus_alloc, resilience = self._build_nexus()
+
         # 4c. the peer-to-peer shared pool: HRW owner-or-forward over the
         # cluster HTTP wire
         if cfg.peer_pool_cidr and cfg.peer_pool_nodes:
@@ -427,14 +469,27 @@ class BNGApp:
 
             def authenticator(username="", password="", mac=b"", circuit_id=b"", **kw):
                 """A RADIUS Access-Request per new subscriber: the profile
-                on an Accept, None on a Reject or when every server timed
-                out. The reference serves a timeout from its resilience
-                manager's cached profile; that manager comes with the
-                Nexus allocator, which the port refuses, so a timeout
-                refuses here."""
+                on an Accept, None on a Reject. When every server timed
+                out, the resilience manager's cached profile (with the
+                Nexus allocator on) keeps a paying subscriber served; a
+                Reject is never served from the cache."""
                 res = radius.authenticate(username, password, mac=mac, circuit_id=circuit_id)
-                if res is None or not res.success:
+                key = username or mac.hex()
+                if res is None:
+                    if resilience is not None:
+                        cached = resilience.radius_handler.degraded_auth(key, self.clock())
+                        if cached is not None:
+                            return {"qos_policy": cached.policy_name,
+                                    "framed_ip": cached.framed_ip}
                     return None
+                if not res.success:
+                    return None
+                if resilience is not None:
+                    from bng_tpu_torch.control.resilience import CachedProfile
+
+                    resilience.radius_handler.cache_profile(CachedProfile(
+                        username=key, policy_name=res.policy_name, framed_ip=res.framed_ip,
+                        cached_at=self.clock()))
                 # the keys DHCPServer._request consumes: qos_policy (Filter-Id)
                 # and lease_time (Session-Timeout caps the lease)
                 profile = {"qos_policy": res.policy_name, "framed_ip": res.framed_ip,
@@ -504,9 +559,11 @@ class BNGApp:
         # 8. DHCP server
         dhcp = c["dhcp"] = DHCPServer(
             server_mac=parse_mac(cfg.server_mac), server_ip=ip_to_u32(cfg.server_ip),
-            pool_manager=pool_mgr, fastpath_tables=fastpath, authenticator=authenticator,
-            qos_hook=qos_hook, nat_hook=nat_hook, clock=self.clock,
+            pool_manager=pool_mgr, fastpath_tables=fastpath, allocator=nexus_alloc,
+            authenticator=authenticator, qos_hook=qos_hook, nat_hook=nat_hook, clock=self.clock,
             lease_jitter_frac=cfg.lease_jitter_frac)
+        if resilience is not None:
+            self._wire_resilience(resilience, dhcp)
         if acct is not None:
             prev_acct_hook = dhcp.accounting_hook
 
@@ -579,9 +636,21 @@ class BNGApp:
             for d in sorted(d for d in dns_ips if d):
                 gt.allow_destination(ip_to_u32(d), 53, 0)
 
-            def _apply_garden_ip(state, ip_u32, _gt=gt):
+            resolver = c.get("dns_resolver")
+
+            def _apply_garden_ip(state, ip_u32, _resolver=resolver, _gt=gt):
+                # the device gate drops only explicit garden membership
+                # (UNKNOWN stays unenforced); the resolver keeps the
+                # manager's stricter contract, every non-PROVISIONED state
+                # gardened, as portal answers are harmless where a drop is not
                 _gt.set_gardened(ip_u32, state in (
                     SubscriberState.WALLED_GARDEN, SubscriberState.BLOCKED))
+                if _resolver is not None:
+                    ip = u32_to_ip(ip_u32)
+                    if state == SubscriberState.PROVISIONED:
+                        _resolver.remove_walled_garden_client(ip)
+                    else:
+                        _resolver.add_walled_garden_client(ip)
 
             def _garden_sync(mac_u64, state, _dhcp=dhcp):
                 lease = _dhcp.leases.get(mac_u64)
@@ -591,13 +660,15 @@ class BNGApp:
             garden.on_state_change(_garden_sync)
             prev_acct = dhcp.accounting_hook
 
-            def _lease_sync(event, lease, sid, _garden=garden, _gt=gt):
+            def _lease_sync(event, lease, sid, _garden=garden, _resolver=resolver, _gt=gt):
                 if prev_acct is not None:
                     prev_acct(event, lease, sid)
                 if event in ("start", "renew"):
                     _apply_garden_ip(_garden.get_subscriber_state(lease.mac), lease.ip)
                 elif event == "stop":
                     _gt.set_gardened(lease.ip, False)
+                    if _resolver is not None:
+                        _resolver.remove_walled_garden_client(u32_to_ip(lease.ip))
 
             dhcp.accounting_hook = _lease_sync
 
@@ -743,6 +814,82 @@ class BNGApp:
                 clock=self.clock)
             self.log.info("fleet autoscaler armed", min=cfg.slowpath_min_workers,
                           max=cfg.slowpath_max_workers)
+
+    def _build_nexus(self):
+        """Step 4b: the HTTPAllocator over the Nexus wire (TLS when the URL
+        is https), its partition FSM, and the DHCP server's adapter."""
+        from bng_tpu_torch.control.cluster_http import http_nexus_transport
+        from bng_tpu_torch.control.nexus import HTTPAllocator
+        from bng_tpu_torch.control.resilience import ResilienceManager
+        from bng_tpu_torch.utils.net import ip_to_u32
+
+        cfg, c = self.config, self.components
+        nexus_tls = self._cluster_client_tls() if cfg.nexus_url.startswith("https") else None
+        nexus_http = c["nexus_allocator"] = HTTPAllocator(
+            cfg.nexus_url, http_nexus_transport(cfg.nexus_url, tls=nexus_tls),
+            node_id=cfg.node_id)
+        resilience = c["resilience"] = ResilienceManager(nexus_healthy=nexus_http.health_check)
+
+        class _NexusAlloc:
+            def allocate(self, owner):
+                if resilience.partitioned:
+                    return None  # local-pool fallback, no timeout
+                try:
+                    ip = nexus_http.allocate(owner)
+                except Exception:
+                    return None
+                return ip_to_u32(ip) if ip else None
+
+            def release(self, owner):
+                if resilience.partitioned:
+                    return  # no timeout per expired lease during an
+                    # outage: heal-time reconciliation covers it
+                try:
+                    nexus_http.release(owner)
+                except Exception:
+                    pass
+
+        return _NexusAlloc(), resilience
+
+    def _wire_resilience(self, resilience, dhcp) -> None:
+        """Heal-time reconciliation: the central store answers who owns
+        each partition-allocated IP, and the loser of a conflict is
+        force-renumbered (its lease expires, the sweep deletes its
+        fast-path row, and the client re-DORAs onto a fresh address).
+        Partition-time allocations feed the conflict detector."""
+        from bng_tpu_torch.utils.net import mac_to_u64, u32_to_ip
+
+        nexus_http = self.components["nexus_allocator"]
+
+        def _central_lookup(ip_u32):
+            try:
+                return nexus_http.lookup_by_ip(u32_to_ip(ip_u32))
+            except Exception:
+                return None  # unreachable mid-heal: no verdict
+
+        def _renumber(subscriber_id):
+            try:
+                mac = bytes.fromhex(subscriber_id)
+            except ValueError:
+                return False
+            lease = dhcp.leases.get(mac_to_u64(mac))
+            if lease is None:
+                return False
+            lease.expiry = 0
+            dhcp.cleanup_expired(1)  # reaps only the forced lease
+            return True
+
+        resilience.central_lookup = _central_lookup
+        resilience.renumber = _renumber
+        prev_res_acct = dhcp.accounting_hook
+
+        def _res_lease(event, lease, sid):
+            if prev_res_acct is not None:
+                prev_res_acct(event, lease, sid)
+            if event == "start":
+                resilience.record_allocation(lease.mac.hex(), lease.ip, self.clock())
+
+        dhcp.accounting_hook = _res_lease
 
     def _build_cluster(self):
         """The N-shard cluster in the engine's place, on the app's device,
@@ -987,6 +1134,13 @@ class BNGApp:
             fspec.radius_servers = list(radius_server_cfgs)
             fspec.radius_nas_id = cfg.node_id or "bng-tpu"
             fspec.radius_nas_ip = ip_to_u32(cfg.server_ip)
+        if cfg.nexus_url:
+            # per-worker Nexus allocators: lease authority through the
+            # shared store, one client and partition FSM per shard
+            fspec.nexus_url = cfg.nexus_url
+            fspec.nexus_node_id = cfg.node_id or "bng-tpu"
+            if cfg.nexus_url.startswith("https"):
+                fspec.nexus_tls = self._cluster_client_tls()
         fleet = c["fleet"] = SlowPathFleet(
             fspec, n_workers=cfg.slowpath_workers, pools=pool_mgr,
             mode=cfg.slowpath_worker_mode,
@@ -1038,6 +1192,9 @@ class BNGApp:
         if "slo" in c:
             slo_mon = c["slo"]
             collector.add_source(lambda: metrics.collect_slo(slo_mon))
+        if cfg.dns_enabled:
+            dns_srv, resolver = c["dns_server"], c["dns_resolver"]
+            collector.add_source(lambda: metrics.collect_dns(dns_srv.stats, resolver.stats()))
         collector.add_source(lambda: metrics.collect_pools(
             {str(pid): st for pid, st in pool_mgr.stats().items()}))
         # read c[...] at scrape time: a fleet resize or engine swap must
@@ -1543,7 +1700,13 @@ class BNGApp:
         if garden is not None and now - self._last_garden >= self.GARDEN_EVERY_S:
             self._last_garden = now
             garden.check_expired()
-        # the peer pool's health checks (rate-limited inside)
+        # the partition FSM and the peer pool's health checks (both
+        # rate-limited inside)
+        res = c.get("resilience")
+        if res is not None:
+            acct_mgr = c.get("accounting")
+            res.tick(now, acct_send=((lambda rec: acct_mgr.client.send_accounting(**rec))
+                                     if acct_mgr is not None else None))
         pool = c.get("peerpool")
         if pool is not None:
             pool.health_check(now)
@@ -1641,6 +1804,10 @@ class BNGApp:
             # the configured-but-degraded state must be visible wherever
             # an operator looks first (stats, metrics, startup banner)
             out["slowpath_fleet_blocked"] = list(self.fleet_blockers)
+        res = self.components.get("resilience")
+        if res is not None:
+            out["resilience"] = {"state": res.state.value,
+                                 "degraded_auth": res.degraded_auth_active}
         coa = self.components.get("coa")
         if coa is not None:
             out["coa"] = {**coa.stats, **coa.processor.stats}

@@ -1,8 +1,5 @@
 """Slow-path fleet: sharded multi-worker control-plane service (copy of
-`bng_tpu/control/fleet.py`; its Nexus mode is refused by name until the
-port has the Nexus allocator and `control/resilience.py`, and a worker's
-RADIUS lane refuses on a full timeout, as `run`'s authenticator does,
-since the degraded-auth profile cache lives in that module too).
+`bng_tpu/control/fleet.py`).
 
 The reference BNG sustains 50k+ DHCP req/s because its slow path is
 concurrent Go (pkg/dhcp/server.go:302 onward — one goroutine per
@@ -131,10 +128,14 @@ class FleetSpec:
     radius_servers: list = field(default_factory=list)
     radius_nas_id: str = "bng-tpu"
     radius_nas_ip: int = 0
-    # central Nexus allocation per shard (the reference's Nexus mode): a
-    # set nexus_url is refused by refuse_nexus() until the port has the
-    # Nexus allocator
+    # central Nexus allocation: worker lease authority routes through the
+    # shared store per shard — each worker builds its own HTTPAllocator +
+    # ResilienceManager from these picklable fields (the radius_servers
+    # mold). nexus_tls is a ztp_tls.TLSConfig (string/list dataclass —
+    # picklable) or None for plaintext.
     nexus_url: str = ""
+    nexus_node_id: str = "bng-tpu"
+    nexus_tls: object = None
 
     @staticmethod
     def from_pool_manager(server_mac: bytes, server_ip: int,
@@ -330,13 +331,38 @@ def apply_table_events(events: list, table_sink, qos_hook=None,
 # the worker (runs in-child for process mode, in-parent for inline)
 # ---------------------------------------------------------------------------
 
-def refuse_nexus(spec: "FleetSpec") -> None:
-    """The fleet's Nexus mode needs the Nexus allocator and its partition
-    FSM (`control/resilience.py`), which the port does not have yet."""
-    if spec.nexus_url:
-        raise NotImplementedError(
-            "slow-path fleet Nexus mode (FleetSpec.nexus_url): needs the Nexus "
-            "allocator and control/resilience.py, not in bng_tpu_torch yet")
+class _WorkerNexusAllocator:
+    """DHCPServer's int-contract adapter over a worker-local
+    HTTPAllocator (the cli `_NexusAlloc` twin, one per shard):
+    partitioned -> None so the local slice answers immediately instead
+    of eating a central-store timeout per DISCOVER."""
+
+    def __init__(self, allocator, resilience):
+        self.allocator = allocator
+        self.resilience = resilience
+        self.release_errors = 0
+
+    def allocate(self, owner: str):
+        if self.resilience.partitioned:
+            return None
+        try:
+            ip = self.allocator.allocate(owner)
+        except Exception:  # network lane: any failure = local fallback
+            return None
+        if not ip:
+            return None
+        from bng_tpu_torch.utils.net import ip_to_u32
+
+        return ip_to_u32(ip)
+
+    def release(self, owner: str) -> None:
+        if self.resilience.partitioned:
+            return  # heal-time reconciliation covers it — no timeout
+            # per expired lease during an outage
+        try:
+            self.allocator.release(owner)
+        except Exception:  # heal-time reconciliation sweeps leaked IPs
+            self.release_errors += 1
 
 
 class FleetWorker:
@@ -359,21 +385,43 @@ class FleetWorker:
         self.refill_now: Callable[[int], None] | None = None
         self.pools = WorkerPools(spec.pools, self._on_slice_exhausted)
         self._events: list = []
-        # per-worker RADIUS lane: own client socket. The MAC that steered
-        # the frame here is the MAC being authenticated. auth_degraded
-        # stays 0: the degraded-auth cache comes with control/resilience.
+        # per-worker RADIUS lane: own client socket, own degraded-auth
+        # cache. The MAC that steered the frame here is the MAC being
+        # authenticated, so the cache is shard-complete by construction.
         self.radius = None
+        self._radius_degraded = None
         self.auth_requests = 0
         self.auth_degraded = 0
         if spec.radius_servers:
             from bng_tpu_torch.control.radius.client import RadiusClient
+            from bng_tpu_torch.control.resilience import DegradedRADIUSHandler
 
             self.radius = RadiusClient(
                 servers=list(spec.radius_servers),
                 nas_identifier=spec.radius_nas_id,
                 nas_ip=spec.radius_nas_ip, clock=self.clock)
-        refuse_nexus(spec)
+            self._radius_degraded = DegradedRADIUSHandler()
+        # per-worker Nexus lane: the shard that owns the MAC allocates
+        # against the shared store under its own node id — no parent
+        # round-trip on the DORA path. While partitioned the adapter
+        # answers None and DHCP falls back to the local slice (the
+        # resilience FSM owns retry cadence, not a per-DISCOVER timeout).
+        self.nexus = None
+        self.nexus_resilience = None
         allocator = None
+        if spec.nexus_url:
+            from bng_tpu_torch.control.cluster_http import http_nexus_transport
+            from bng_tpu_torch.control.nexus import HTTPAllocator
+            from bng_tpu_torch.control.resilience import ResilienceManager
+
+            self.nexus = HTTPAllocator(
+                spec.nexus_url,
+                http_nexus_transport(spec.nexus_url, tls=spec.nexus_tls),
+                node_id=f"{spec.nexus_node_id}-w{worker_id}")
+            self.nexus_resilience = ResilienceManager(
+                nexus_healthy=self.nexus.health_check)
+            allocator = _WorkerNexusAllocator(self.nexus,
+                                              self.nexus_resilience)
         self.server = DHCPServer(
             server_mac=spec.server_mac, server_ip=spec.server_ip,
             allocator=allocator,
@@ -424,13 +472,27 @@ class FleetWorker:
     def _radius_auth(self, username="", password="", mac=b"",
                      circuit_id=b"", **kw):
         """Worker-shard authenticator (the cli closure's fleet twin):
-        auth over this worker's own RadiusClient. A Reject, or a timeout
-        of every server, refuses."""
+        auth over this worker's own RadiusClient, degraded fallback from
+        the worker-local profile cache on full-timeout — an outage must
+        not evict paying subscribers, and a REJECT is never cached."""
         self.auth_requests += 1
         res = self.radius.authenticate(username, password, mac=mac,
                                        circuit_id=circuit_id)
-        if res is None or not res.success:
+        key = username or mac.hex()
+        if res is None:
+            cached = self._radius_degraded.degraded_auth(key, self.clock())
+            if cached is not None:
+                self.auth_degraded += 1
+                return {"qos_policy": cached.policy_name,
+                        "framed_ip": cached.framed_ip}
             return None
+        if not res.success:
+            return None
+        from bng_tpu_torch.control.resilience import CachedProfile
+
+        self._radius_degraded.cache_profile(CachedProfile(
+            username=key, policy_name=res.policy_name,
+            framed_ip=res.framed_ip, cached_at=self.clock()))
         profile = {"qos_policy": res.policy_name,
                    "framed_ip": res.framed_ip, **res.attributes}
         if res.session_timeout:
@@ -479,6 +541,11 @@ class FleetWorker:
         "releases", "pending", "refill", "stats"}. One poison frame must
         not kill the worker or shift any other lane's result."""
         t0 = time.perf_counter()
+        if self.nexus_resilience is not None:
+            # drive the partition FSM here (the worker's only periodic
+            # entry point); check_interval_s gates the actual probes so
+            # this is a float compare per batch, not an HTTP call
+            self.nexus_resilience.tick(self.clock())
         results = []
         offers, acks, releases = [], [], []
         hist = self._lat_hist
@@ -692,7 +759,6 @@ class SlowPathFleet:
                              f"'process' or 'inline'")
         if n_workers < 1:
             raise ValueError(f"n_workers must be >= 1, got {n_workers}")
-        refuse_nexus(spec)
         self.spec = spec
         self.n = n_workers
         self.pools = pools

@@ -13,7 +13,8 @@ identically. Counter/Gauge/Histogram support labels.
 `BNGMetrics` registers every family the reference registers, so a fresh
 `expose()` is byte-equal to the reference's. The collectors of
 components the port does not have (the wire pump, the cluster fabric
-and its handoff, cluster membership, DNS) come with those components. Every source reads host state only (EngineStats numpy,
+and its handoff, cluster membership) come with those components. Every
+source reads host state only (EngineStats numpy,
 scheduler counters, host mirrors): a scrape never reads a device tensor,
 so it never synchronizes the serving stream.
 """
@@ -1028,6 +1029,17 @@ class BNGMetrics:
         self.ckpt_restores.inc(outcome=outcome)
         for table, n in rows.items():
             self.ckpt_restore_rows.set(n, table=table)
+
+    def collect_dns(self, server_stats: dict, resolver_stats: dict) -> None:
+        """DNSServer.stats + Resolver.stats() -> bng_dns_* families."""
+        self.dns_queries.set_total(server_stats.get("served", 0), outcome="served")
+        self.dns_queries.set_total(server_stats.get("bad_packets", 0), outcome="bad_packet")
+        self.dns_queries.set_total(server_stats.get("server_errors", 0), outcome="error")
+        self.dns_overloaded.set_total(server_stats.get("overloaded", 0))
+        hits = resolver_stats.get("cache_hits", 0)
+        total = resolver_stats.get("queries", 0)
+        if total:
+            self.dns_cache_hit_rate.set(hits / total)
 
     def expose(self) -> str:
         return self.registry.expose()

@@ -372,12 +372,58 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     equals the active's (`_audit_ha_pair` clean); one sync tick converges
     the store pair; each app's snapshot restores its `ha` store into a
     fresh app.
+49. The Nexus allocator behind `run`: a loopback `ClusterServer` mounting
+    `NexusBackend` (the port's `DistributedAllocator` on a
+    `MemoryAllocationStore` for 10.77.0.0/16) is the Nexus; `BNGApp` at
+    phase 44's geometry (the scheduler, NAT off) with `--nexus-url`, a
+    10.77.0.0/16 pool and PSK device authentication from a key file (its
+    signature verifies). Counts 0: a storm of 8,192 new clients in waves
+    of 512, every yiaddr the Nexus's answer; each client's next DISCOVER
+    answered on the device with it. The Nexus closed: the FSM reaches
+    PARTITIONED within threshold x interval (3 x 5 s) of 1 s ticks; 1,024
+    more clients lease from the local pool with no Nexus call (timed). A
+    Nexus on the same port with 64 of those addresses claimed earlier by
+    another node: the heal's tick reports 64 conflicts and 64 renumbered
+    (timed), the losers' fast-path rows leave the card, their DISCOVERs
+    punt to the slow path while the other 960 are answered on the device;
+    3 K1 per express dispatch and 9 K1 + 4 K2 per bulk step, K1 bit-equal
+    to its plain version on the last express dispatch. The same drive on a
+    `device="cpu"` app gives the same ACKs, states, events, OFFERs and
+    fast-path table words. Then degraded auth (a loopback RADIUS server,
+    as in phase 38, accepts two subscribers; after their leases expire a
+    REJECT is not served from the cache; the server stopped, the cached
+    profile serves one, a new subscriber gets no lease), an mTLS app
+    built from a certificate `openssl` makes now (when it is on the host),
+    and `--slowpath-workers 4` in Nexus mode, inline and spawned, 8,192
+    DORAs each. DORAs/s with and without the Nexus (phase 44's, on this
+    call), the partition detection time, the partitioned local-pool
+    DORAs/s and the heal's reconcile time print on a line of their own.
+50. DNS and the walled garden behind `run`: `BNGApp` at `run`'s geometry
+    (2^15 subscriber buckets, the garden and QoS on, the scheduler; NAT
+    off as in phases 44 and 48) with `--dns-enabled` on a free loopback
+    port forwarding to `FakeUpstream`, a loopback UDP upstream (no
+    network). 8,192 clients leased; 4,096 put in the garden through
+    `walledgarden.add_to_walled_garden`, the rest provisioned; the
+    resolver's client set equals the gardened leases. Counts 0: each
+    gardened subscriber's UDP frame to its DNS server on port 53 and TCP
+    frame to the portal pass the device's gate (NAT off: they go on to the
+    host, verdict PASS) and its UDP frame elsewhere drops on the device;
+    every provisioned frame passes; 9 K1 + 4 K2 per bulk step, bit-equal
+    to their plain versions on one bulk step. Gardened leases resolve to
+    the portal through `Resolver.resolve`, provisioned ones to the
+    upstream's answer; 10,000 queries over the listener's socket from 64
+    loopback sources: queries/s, p50/p99 and the cache hit rate print on
+    a line of their own, and `/metrics` carries `bng_dns_*`
+    (`collect_dns`). 1,024 subscribers released from the garden: the
+    device stops dropping their frames and the resolver forwards their
+    queries.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON (each kernel's launches by path, `loadtest`,
 `run`, `pppoe`, `v6`, `radius`, `ipoe_traced`, `run_observed`,
-`run_restored`, `fleet`, `chaos`, `run_sharded`, `run_shards1` and
-`ha_pair` among them); the last line the result JSON.
+`run_restored`, `fleet`, `chaos`, `run_sharded`, `run_shards1`,
+`ha_pair`, `run_nexus`, `fleet_nexus` and `run_dns` among them); the last
+line the result JSON.
 """
 
 from __future__ import annotations
@@ -3694,10 +3740,13 @@ def drain_tables(app, clock) -> int:
     return n
 
 
-def launches_of(sched, obs0, launches, what: str, k1_bulk: int) -> tuple:
+def launches_of(sched, obs0, launches, what: str, k1_bulk: int, bulk: bool = True) -> tuple:
+    """3 K1 per express dispatch, k1_bulk K1 + 4 K2 per bulk step, and a
+    bulk step (with `bulk`) or at least one K1 (without) in the window."""
     n_ex = sched.observed["express"]["dispatches"] - obs0["express"]["dispatches"]
     n_bulk = sched.observed["bulk"]["dispatches"] - obs0["bulk"]["dispatches"]
-    check(n_bulk > 0 and launches["probe"] == 3 * n_ex + k1_bulk * n_bulk
+    check((n_bulk > 0 if bulk else launches["probe"] > 0)
+          and launches["probe"] == 3 * n_ex + k1_bulk * n_bulk
           and launches["seg_prefix"] == 4 * n_bulk,
           f"{what}: 3 K1 per express dispatch, {k1_bulk} K1 + 4 K2 per bulk step "
           f"({launches}, {n_ex} express, {n_bulk} bulk)")
@@ -4724,6 +4773,7 @@ def fleet_phases(card, device, err) -> dict:
     check(w_torch == "False", f"a spawned run worker's imports bring in no torch ({w_torch})")
     print(f"fleet worker imports: {w_s:.3f}s (run's module entry as __mp_main__ and the fleet, "
           f"no torch); import torch {t_s:.3f}s [{card}]", flush=True)
+    FLEET_RATES.update((k, v[0]) for k, v in rates.items())
     print("fleet DORAs/s: " + ", ".join(f"{k} {v[0]:.1f}" for k, v in rates.items())
           + f" ({FLEET_CLIENTS} clients each) [{card}]", flush=True)
     fleet_ctl_phase(card)
@@ -5415,6 +5465,673 @@ def ha_pair_phases(card, device, err) -> dict:
         subprocess.run(["rm", "-rf", tmp], check=False)
 
 
+# ---------------------------------- the Nexus allocator with partition resilience
+
+NEXUS_CIDR = "10.77.0.0/16"
+NEXUS_CLIENTS = 8192  # Nexus-first DORAs, in waves of FLEET_WAVE
+NEXUS_PART = 1024  # clients leased from the local pool while the Nexus is down
+NEXUS_CONFLICTS = 64  # of those, claimed at the heal by another node at an earlier time
+NEXUS_PSK = "chip-smoke-device-psk-0123"
+NEXUS_TICKS = 30  # 1 s ticks the FSM has to reach PARTITIONED (threshold 3 x 5 s)
+FLEET_RATES: dict = {}  # phase 44's DORAs/s, printed beside the Nexus fleet's
+
+
+class NexusBackend:
+    """The loopback Nexus's allocator: the port's `DistributedAllocator` on a
+    `MemoryAllocationStore` for NEXUS_CIDR, behind a lock (the listener
+    serves each request on a thread of its own). The pools' gateway is
+    claimed first, as a Nexus pool reserves it."""
+
+    def __init__(self, clock):
+        from bng_tpu_torch.control.allocator import DistributedAllocator, MemoryAllocationStore
+
+        self.store = MemoryAllocationStore()
+        self.alloc = DistributedAllocator(NEXUS_CIDR, self.store, node_id="nexus",
+                                          lease_seconds=86400, clock=clock)
+        self.lock = threading.Lock()
+        self.calls = 0
+        self.claim("10.77.0.1", "gateway", 0.0)
+
+    def claim(self, ip: str, sid: str, at: float, node: str = "nexus") -> None:
+        from bng_tpu_torch.control.allocator import AllocationRecord
+
+        with self.lock:
+            check(self.store.put(AllocationRecord(ip=ip, subscriber_id=sid, allocated_at=at,
+                                                  node_id=node))
+                  and self.alloc.bitmap.allocate_specific(ip, sid), f"nexus: {ip} claimed")
+
+    def allocate(self, subscriber_id, pool_hint):
+        with self.lock:
+            self.calls += 1
+            return self.alloc.allocate(subscriber_id)
+
+    def lookup(self, sid):
+        with self.lock:
+            rec = self.store.find_by_subscriber(sid)
+        return rec.ip if rec is not None else None
+
+    def lookup_by_ip(self, ip):
+        with self.lock:
+            rec = self.store.get(ip)
+        return (rec.subscriber_id, rec.allocated_at) if rec is not None else None
+
+    def release(self, sid):
+        with self.lock:
+            return self.alloc.release(sid)
+
+    def pool_info(self):
+        return {"pools": [{"cidr": NEXUS_CIDR}]}
+
+
+def nexus_app(device, clock, url: str, workers: int = 1, mode: str = "inline",
+              auth: str = "psk", **kw):
+    """`BNGApp` at phase 44's geometry (the scheduler, 2^15 subscriber
+    buckets, NAT off) allocating through the Nexus at `url` from a
+    NEXUS_CIDR pool, with PSK device authentication from a key file."""
+    from bng_tpu_torch.cli import BNGApp, BNGConfig
+
+    tmp = tempfile.mkdtemp(prefix="bng-psk-")
+    psk_file = os.path.join(tmp, "psk")
+    with open(psk_file, "w") as f:
+        f.write(NEXUS_PSK + "\n")
+    cfg = BNGConfig(scheduler_enabled=True, dhcpv6_enabled=False, slaac_enabled=False,
+                    metrics_enabled=False, coa_enabled=False, nat_enabled=False,
+                    slowpath_workers=workers, slowpath_worker_mode=mode, nexus_url=url,
+                    pool_cidr=NEXUS_CIDR, device_auth_method=auth,
+                    device_auth_psk_file=psk_file, **kw)
+    try:
+        app = BNGApp(cfg, clock=clock, device=device)
+    finally:
+        subprocess.run(["rm", "-rf", tmp], check=False)
+    app.components["ring"] = PyRing(4 * FLEET_WAVE, 2048, 2 * FLEET_WAVE)
+    return app
+
+
+def ship_fastpath(app, clk, mac: bytes) -> None:
+    """Beats of one leased client's DISCOVER until the express drain (a
+    bounded batch a dispatch) has shipped every fast-path row."""
+    for k in range(256):
+        if not app.components["engine"].fastpath.dirty_count():
+            break
+        check(app.components["ring"].rx_push(F.discover_frame(mac, 0x40000 + k, pad=320),
+                                             from_access=True), "the ring takes the DISCOVER")
+        drive_app(app, clk, 1)
+        settle(app)
+    check(app.components["engine"].fastpath.dirty_count() == 0, "the fast-path rows shipped")
+
+
+def rediscover(app, clk, macs) -> tuple[dict, int, int]:
+    """Each MAC's next DISCOVER through the ring; returns ({mac: OFFER
+    yiaddr}, DISCOVERs answered on the device, DISCOVERs the slow path
+    saw)."""
+    c = app.components
+    eng, dhcp, ring = c["engine"], c["dhcp"], c["ring"]
+    tx0, disc0, offers = eng.stats.tx, dhcp.stats.discover, {}
+    for k in range(0, len(macs), FLEET_WAVE):
+        for m in macs[k: k + FLEET_WAVE]:
+            check(ring.rx_push(F.discover_frame(m, 0x30000 + k, pad=320), from_access=True),
+                  "the ring takes the DISCOVERs")
+        got = drive_app(app, clk, 2) + settle(app)
+        offers.update((m, ip) for t, m, ip in dhcp_replies(got) if t == F.OFFER)
+    return offers, eng.stats.tx - tx0, dhcp.stats.discover - disc0
+
+
+def nexus_drive(device, card: str | None, err) -> dict:
+    """Phase 49's drive of one app: the Nexus-first storm, the DISCOVERs
+    answered on the device, the partition, local-pool DORAs, the heal with
+    NEXUS_CONFLICTS conflicts, and the losers' DISCOVERs. On the card
+    (`card` set) it times each part, counts the launches and holds K1 on
+    the last express dispatch; it returns what a CPU app must give too."""
+    from bng_tpu_torch.control.cluster_http import ClusterServer
+    from bng_tpu_torch.control.deviceauth import PSK_SIGNATURE_HEADER, PSK_TIMESTAMP_HEADER
+    from bng_tpu_torch.control.resilience import PartitionState
+    from bng_tpu_torch.utils.net import u32_to_ip
+
+    clk = BeatClock(float(NOW))
+    backend = NexusBackend(clk)
+    srv = ClusterServer().mount_allocator(backend).start()
+    srv2 = None
+    app = nexus_app(device, clk, srv.url)
+    out, tm = {}, {}
+    try:
+        c = app.components
+        sched, eng, dhcp, res = c["scheduler"], c["engine"], c["dhcp"], c["resilience"]
+        da = c["deviceauth"]
+        hdr = da.http_headers()
+        da.verify_signature(hdr["X-Device-ID"], hdr[PSK_TIMESTAMP_HEADER],
+                            hdr[PSK_SIGNATURE_HEADER])
+        check(da.mode.value == "psk" and da.authenticate().success,
+              "nexus: PSK device authentication built from the key file, its signature verifies")
+        fleet_storm(app, clk, 1_000_000, FLEET_WARM)  # the express graph, first batches
+        obs0 = observed(sched)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        _tx, acks = fleet_storm(app, clk, 0, NEXUS_CLIENTS)
+        tm["storm"] = time.perf_counter() - t0
+        central = {m: backend.lookup(m.hex()) for m in acks}
+        check(len(acks) == NEXUS_CLIENTS and all(central[m] == u32_to_ip(ip)
+                                                 for m, ip in acks.items()),
+              f"nexus: every yiaddr of the {NEXUS_CLIENTS}-client storm is the Nexus's answer "
+              f"({len(acks)} ACKs, {sum(central[m] == u32_to_ip(ip) for m, ip in acks.items())} "
+              f"Nexus answers)")
+        out["acks"] = sorted(acks.items())
+        ship_fastpath(app, clk, client_mac(0))
+        macs = [client_mac(k) for k in range(NEXUS_CLIENTS)]
+        offers, on_dev, slow = rediscover(app, clk, macs)
+        check(on_dev == NEXUS_CLIENTS and slow == 0 and offers == acks,
+              f"nexus: every client's next DISCOVER answered on the device with its Nexus "
+              f"yiaddr ({on_dev} on the device, {slow} by the slow path)")
+
+        # the Nexus goes away: the FSM partitions within its threshold ticks
+        srv.close()
+        t_close, ticks, t0 = clk.t, 0, time.perf_counter()
+        while res.state != PartitionState.PARTITIONED:
+            clk.t = float(int(clk.t) + 1)
+            app.tick(clk.t)
+            ticks += 1
+            check(ticks <= NEXUS_TICKS, f"nexus: PARTITIONED within {NEXUS_TICKS} ticks")
+        tm["detect_wall"] = time.perf_counter() - t0
+        out["detect"] = (ticks, clk.t - t_close, res.events.partitions)
+        check(res.failure_threshold == 3 and res.check_interval_s == 5.0
+              and clk.t - t_close <= res.failure_threshold * res.check_interval_s,
+              f"nexus: PARTITIONED after {ticks} ticks, {clk.t - t_close:.0f} s of the app "
+              f"clock (threshold {res.failure_threshold} x {res.check_interval_s} s)")
+        calls0 = backend.calls
+        t0 = time.perf_counter()
+        _tx, part = fleet_storm(app, clk, NEXUS_CLIENTS, NEXUS_PART)
+        tm["part"] = time.perf_counter() - t0
+        check(len(part) == NEXUS_PART and backend.calls == calls0
+              and res.conflicts.count == NEXUS_PART and res.state == PartitionState.PARTITIONED,
+              f"nexus: {NEXUS_PART} clients leased from the local pool while partitioned, no "
+              f"Nexus call, each recorded ({len(part)}, {backend.calls - calls0} calls, "
+              f"{res.conflicts.count} recorded)")
+        out["part"] = sorted(part.items())
+
+        # the heal: another node claimed NEXUS_CONFLICTS of those addresses earlier
+        pmacs = sorted(part)
+        losers = pmacs[::NEXUS_PART // NEXUS_CONFLICTS][:NEXUS_CONFLICTS]
+        for k, m in enumerate(losers):
+            backend.claim(u32_to_ip(part[m]), f"other-{k}", clk.t - 9999.0, node="bng-other")
+        srv2 = ClusterServer(srv.host, srv.port).mount_allocator(backend).start()
+        states, t_heal = [], 0.0
+        for _ in range(NEXUS_TICKS):
+            clk.t = float(int(clk.t) + 1)
+            t0 = time.perf_counter()
+            app.tick(clk.t)
+            dt = time.perf_counter() - t0
+            states.append(res.state.value)
+            if res.state == PartitionState.NORMAL:
+                t_heal = dt  # the tick that probed, reconciled and renumbered
+                break
+        tm["heal"] = t_heal
+        ev = dict(vars(res.events))
+        out["heal"] = (states, ev)
+        check(res.state == PartitionState.NORMAL and ev["conflicts_found"] == NEXUS_CONFLICTS
+              and ev["renumbered"] == NEXUS_CONFLICTS,
+              f"nexus: the heal found {NEXUS_CONFLICTS} conflicts and renumbered "
+              f"{NEXUS_CONFLICTS} ({ev})")
+        check(all(eng.fastpath.get_subscriber(m) is None for m in losers)
+              and all(eng.fastpath.get_subscriber(m) is not None for m in pmacs
+                      if m not in losers), "nexus: the losers' host fast-path rows are gone")
+        ship_fastpath(app, clk, client_mac(0))
+        out["words"] = host_words(eng.tables).dhcp
+        keep = [m for m in pmacs if m not in losers]
+        offers, on_dev, slow = rediscover(app, clk, losers + keep)
+        check(on_dev == NEXUS_PART - NEXUS_CONFLICTS and slow == NEXUS_CONFLICTS
+              and all(offers[m] == part[m] for m in keep) and len(offers) == NEXUS_PART,
+              f"nexus: the losers' DISCOVERs punt to the slow path, the other "
+              f"{NEXUS_PART - NEXUS_CONFLICTS} are answered on the device ({on_dev} on the "
+              f"device, {slow} slow)")
+        out["renumbered"] = sorted((m, offers[m]) for m in losers)
+        launches = dict(kernels.LAUNCHES)
+        out["stats"] = app.stats()["resilience"]
+        if card is not None:
+            launches_of(sched, obs0, launches, "run_nexus", 9, bulk=False)
+            # K1 on the path's own last express dispatch: the program's
+            # buffers still hold its descriptors, `now` and tables
+            prog = eng.express_aot(sched.express.cfg.batch, sched._express_dev)
+            check(prog is not None and prog.graph is not None,
+                  "nexus: the scheduler's captured express program")
+            rec = record_kernel_inputs(prog._run, 3, 0, "nexus express dispatch",
+                                       table_names(eng.tables))
+            probes_vs_plain([("nexus express", a) for a in rec["probe"]], err)
+            out["launches"], out["times"] = launches, tm
+        return out
+    finally:
+        app.close()
+        srv.close()
+        if srv2 is not None:
+            srv2.close()
+
+
+def degraded_auth_phase(device, card) -> None:
+    """RADIUS down behind a Nexus app: a subscriber accepted before is
+    served from the cached profile, a REJECT never is, a new one gets no
+    lease."""
+    from bng_tpu_torch.control.cluster_http import ClusterServer
+
+    clk = BeatClock(float(NOW))
+    backend = NexusBackend(clk)
+    srv = ClusterServer().mount_allocator(backend).start()
+    secret = b"smoke-secret"
+    peer = RadiusPeer(secret, {"": {"password": b"", "policy": "residential-100mbps"}})
+    app = None
+    try:
+        app = nexus_app(device, clk, srv.url, lease_time=300,
+                        radius_server=f"127.0.0.1:{peer.auth_port}",
+                        radius_secret=secret.decode())
+        c = app.components
+        c["radius"].servers[0].acct_port = peer.acct_port
+        c["radius"].servers[0].timeout_s, c["radius"].servers[0].retries = 0.05, 1
+        cache = c["resilience"].radius_handler
+        a, b, new = (client_mac(0x900000 + k) for k in range(3))
+
+        def dora(m, xid):
+            got = dhcp_replies(serve_frames(app, clk, [F.discover_frame(m, xid, pad=320)]))
+            offer = [ip for t, mm, ip in got if t == F.OFFER and mm == m]
+            if not offer:
+                return None
+            got = dhcp_replies(serve_frames(app, clk, [storm_request(m, xid + 1, offer[0])]))
+            return [t for t, mm, _ in got if mm == m]
+
+        check(dora(a, 0x9300) == [F.ACK] and dora(b, 0x9310) == [F.ACK],
+              "degraded auth: two subscribers accepted (their profiles cached)")
+        clk.t += 400.0
+        app.tick(clk.t)
+        check(not c["dhcp"].leases, "degraded auth: the leases expired")
+        peer.users[""]["password"] = b"no longer"  # a real REJECT for everyone
+        rejected = dora(b, 0x9320)
+        peer.close()  # every server times out from here on
+        t0 = time.perf_counter()
+        served = dora(a, 0x9330)
+        dt = time.perf_counter() - t0
+        fresh = dora(new, 0x9340)
+        check(rejected != [F.ACK] and served == [F.ACK] and fresh != [F.ACK]
+              and cache.stats["cache_hits"] == 1,
+              f"degraded auth: a REJECT is not served from the cache ({rejected}), the cached "
+              f"profile serves a known subscriber ({served}), a new one gets none ({fresh}; "
+              f"{cache.stats})")
+        say(f"degraded auth (RADIUS stopped, Nexus up): the cached profile served a known "
+            f"subscriber's DORA in {dt:.3f}s (timeouts of 0.05 s included), a REJECT and a new "
+            f"subscriber refused [{card}]")
+    finally:
+        if app is not None:
+            app.close()
+        peer.close()
+        srv.close()
+
+
+def mtls_app_phase(device, card) -> None:
+    """With openssl on the host, `run --device-auth-method mtls` builds on
+    the card from a certificate made now."""
+    from bng_tpu_torch.control.cluster_http import ClusterServer
+
+    tmp = tempfile.mkdtemp(prefix="bng-mtls-")
+    try:
+        tls = ha_certs(tmp)
+        if tls is None:
+            say("nexus: openssl is not on this host: no mTLS app")
+            return
+        clk = BeatClock(float(NOW))
+        srv = ClusterServer().mount_allocator(NexusBackend(clk)).start()
+        try:
+            app = nexus_app(device, clk, srv.url, auth="mtls", device_auth_cert=tls["cert"],
+                            device_auth_key=tls["key"])
+            try:
+                da = app.components["deviceauth"]
+                check(da.mode.value == "mtls" and da.authenticate().success
+                      and da.identity.device_id == "dev-cluster-bng-test"
+                      and app.components["engine"].device.type == device.type,
+                      f"nexus: the mTLS app built on the card ({da.identity})")
+                say(f"nexus: an mTLS app built on the card (device {da.identity.device_id}, "
+                    f"certificate fingerprint {da.fingerprint[:16]}...)")
+            finally:
+                app.close()
+        finally:
+            srv.close()
+    finally:
+        subprocess.run(["rm", "-rf", tmp], check=False)
+
+
+def nexus_fleet_runs(device, card) -> tuple[dict, dict]:
+    """`run --slowpath-workers 4` in Nexus mode, inline and spawned: a storm
+    of 8,192 new clients each; returns ({name: DORAs/s}, the inline run's
+    launches)."""
+    from bng_tpu_torch.control.cluster_http import ClusterServer
+    from bng_tpu_torch.utils.net import u32_to_ip
+
+    rates, launches = {}, {}
+    for mode in ("inline", "process"):
+        clk = BeatClock(float(NOW))
+        backend = NexusBackend(clk)
+        srv = ClusterServer().mount_allocator(backend).start()
+        app = nexus_app(device, clk, srv.url, workers=4, mode=mode)
+        try:
+            c = app.components
+            check(c["fleet"].spec.nexus_url == srv.url and c["fleet"].spec.nexus_node_id == "bng0",
+                  "nexus fleet: the spec carries the Nexus")
+            if mode == "inline":
+                check([w.nexus.node_id for w in c["fleet"]._inline]
+                      == [f"bng0-w{i}" for i in range(4)], "nexus fleet: one allocator a worker")
+            fleet_storm(app, clk, 1_000_000, FLEET_WARM)
+            obs0, calls0 = observed(c["scheduler"]), backend.calls
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            _tx, acks = fleet_storm(app, clk, 0, NEXUS_CLIENTS)
+            dt = time.perf_counter() - t0
+            got = dict(kernels.LAUNCHES)
+            snap = c["fleet"].stats_snapshot()
+            central = sum(backend.lookup(m.hex()) == u32_to_ip(ip) for m, ip in acks.items())
+            check(len(acks) == NEXUS_CLIENTS and len(set(acks.values())) == NEXUS_CLIENTS
+                  and backend.calls - calls0 >= NEXUS_CLIENTS and central > 0
+                  and snap["worker_failures"] == 0,
+                  f"nexus fleet 4 {mode}: {NEXUS_CLIENTS} unique ACKs, a Nexus call for each "
+                  f"new client ({len(acks)}, {backend.calls - calls0} calls, {central} Nexus "
+                  f"answers, {snap['worker_failures']} failures)")
+            if card is not None:
+                launches_of(c["scheduler"], obs0, got, f"fleet_nexus 4 {mode}", 9, bulk=False)
+            rates[f"4 {mode}"] = NEXUS_CLIENTS / dt
+            if mode == "inline":
+                launches = got
+            say(f"nexus fleet 4 {mode}: {NEXUS_CLIENTS} DORAs in {dt:.3f}s, "
+                f"{NEXUS_CLIENTS / dt:.1f} DORAs/s; {central} yiaddrs are the Nexus's answer (the "
+                f"rest fall outside the answering worker's lease slice and come from it); "
+                f"{backend.calls - calls0} Nexus calls; launches {got} [{card}]")
+        finally:
+            app.close()
+            srv.close()
+    return rates, launches
+
+
+def nexus_phases(card, device, err) -> dict:
+    """Phase 49: `run --nexus-url` on the card; returns {"run_nexus": ...,
+    "fleet_nexus": ...}."""
+    got = nexus_drive(device, card, err)
+    tm = got.pop("times")
+    launches = got.pop("launches")
+    t0 = time.perf_counter()
+    ref = nexus_drive("cpu", None, err)
+    words_equal(got.pop("words"), ref.pop("words"), "nexus: the card's fast-path tables after "
+                                                    "the heal == the CPU app's", "dhcp")
+    check(got == ref, "nexus: the card's storm, partition, heal and renumbered OFFERs == the "
+                      "CPU app's under the same drive")
+    say(f"nexus: the same drive on a CPU app gave the card's ACKs, states, conflicts and table "
+        f"words ({time.perf_counter() - t0:.1f}s)")
+    ticks, detect_s, _ = got["detect"]
+    states, ev = got["heal"]
+    say(f"nexus run: {NEXUS_CLIENTS} Nexus-first DORAs in {tm['storm']:.3f}s "
+        f"({NEXUS_CLIENTS / tm['storm']:.1f} DORAs/s), each next DISCOVER answered on the "
+        f"device; PARTITIONED after {ticks} ticks ({detect_s:.0f} s of the app clock; those "
+        f"ticks took {tm['detect_wall']:.3f} s of wall time, the failed probes' timeouts "
+        f"included); {NEXUS_PART} local-pool DORAs "
+        f"in {tm['part']:.3f}s ({NEXUS_PART / tm['part']:.1f} DORAs/s); the heal's tick "
+        f"{tm['heal']:.3f}s ({ev['conflicts_found']} conflicts, {ev['renumbered']} renumbered, "
+        f"states {states}); launches {launches}; K1 bit-equal to its plain version on the last "
+        f"express dispatch's 3 calls [{card}]")
+    degraded_auth_phase(device, card)
+    mtls_app_phase(device, card)
+    rates, fleet_launches = nexus_fleet_runs(device, card)
+    base = FLEET_RATES or {}
+    print(f"nexus DORAs/s: run 1 worker {NEXUS_CLIENTS / tm['storm']:.1f} with the Nexus "
+          f"(phase 44's 1 worker without it: {base.get('1 worker', float('nan')):.1f}); "
+          f"partitioned local pool {NEXUS_PART / tm['part']:.1f}; fleet 4 inline "
+          f"{rates['4 inline']:.1f} (without: {base.get('4 inline', float('nan')):.1f}), 4 "
+          f"process {rates['4 process']:.1f} (without: {base.get('4 process', float('nan')):.1f});"
+          f" partition detected after {ticks} ticks = {detect_s:.0f} s of the app clock "
+          f"({tm['detect_wall']:.3f} s of wall time); heal reconcile {tm['heal']:.3f}s "
+          f"[{card}]", flush=True)
+    return {"run_nexus": launches, "fleet_nexus": fleet_launches}
+
+
+# ------------------------------------------ DNS and the walled garden behind `run`
+
+DNS_SUBS = 8192  # leased subscribers
+DNS_GARDEN = 4096  # of them in the walled garden
+DNS_RELEASE = 1024  # gardened subscribers released at the end
+DNS_QUERIES = 10_000  # queries over the listener's socket
+DNS_NAMES = 500  # distinct names among them
+DNS_CLIENTS = 64  # loopback source addresses the queries come from
+DNS_PRIMARY = ip_to_u32("1.1.1.1")  # the pools' DNS server (run's default)
+PORTAL_IP = ip_to_u32("10.255.255.1")  # run's default portal
+OTHER_IP = ip_to_u32("93.184.216.34")  # any other destination
+
+
+class FakeUpstream:
+    """A loopback UDP DNS upstream from the port's codec: an A record for
+    every name, its address from the name's CRC."""
+
+    def __init__(self):
+        import socket
+        import zlib
+
+        from bng_tpu_torch.control import dns_wire
+        from bng_tpu_torch.control.dns import Record, Response
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.2)
+        self.addr = f"127.0.0.1:{self.sock.getsockname()[1]}"
+        self.seen = 0
+        self._run = True
+
+        def serve():
+            while self._run:
+                try:
+                    data, client = self.sock.recvfrom(4096)
+                except OSError:
+                    continue
+                txid, q = dns_wire.decode_query(data)
+                self.seen += 1
+                resp = Response(query=q, answers=[Record(name=q.name, rtype=q.qtype, ttl=300,
+                                                         ipv4=self.answer(q.name))])
+                self.sock.sendto(dns_wire.encode_response(resp, txid), client)
+
+        self.answer = lambda name: f"198.51.100.{zlib.crc32(name.encode()) % 254 + 1}"
+        self._thread = threading.Thread(target=serve, daemon=True)
+        self._thread.start()
+
+    def close(self):
+        self._run = False
+        self._thread.join(timeout=2)
+        self.sock.close()
+
+
+def dns_app(device, clock, upstream: str):
+    """`BNGApp` at `run`'s geometry (2^15 subscriber buckets, the walled
+    garden and QoS on, the scheduler) with the DNS listener on a free
+    loopback port forwarding to `upstream`, and metrics. NAT is off, as in
+    phases 44 and 48: 8,192 leases outgrow the default NAT table."""
+    from bng_tpu_torch.cli import BNGApp, BNGConfig
+
+    cfg = BNGConfig(scheduler_enabled=True, dhcpv6_enabled=False, slaac_enabled=False,
+                    coa_enabled=False, nat_enabled=False, dns_enabled=True,
+                    dns_listen="127.0.0.1:0", dns_upstreams=[upstream])
+    app = BNGApp(cfg, clock=clock, device=device)
+    app.components["ring"] = PyRing(4 * FLEET_WAVE, 2048, 2 * FLEET_WAVE)
+    return app
+
+
+def gate_frames(acks, macs, kinds) -> list:
+    """(kind, mac, frame) for each MAC and kind: "dns" (UDP to its DNS server
+    on port 53), "portal" (TCP to the portal) and "other" (UDP elsewhere)."""
+    out = []
+    for k, m in enumerate(macs):
+        ip = acks[m]
+        for kind in kinds:
+            if kind == "dns":
+                f = F.udp_packet(m, AC_MAC, ip, DNS_PRIMARY, 20000 + k % 30000, 53, b"d" * 40)
+            elif kind == "portal":
+                f = F.tcp_packet(m, AC_MAC, ip, PORTAL_IP, 30000 + k % 30000, 80, b"GET /")
+            else:
+                f = F.udp_packet(m, AC_MAC, ip, OTHER_IP, 40000 + k % 20000, 4000, b"o" * 40)
+            out.append((kind, m, f))
+    return out
+
+
+def gate_verdicts(app, frames) -> tuple[dict, dict]:
+    """Submit the frames to the scheduler's bulk lane, retire them; returns
+    ({(kind, mac): verdict}, the garden gate's stats delta)."""
+    c = app.components
+    sched, eng = c["scheduler"], c["engine"]
+    g0 = eng.stats.garden.copy()
+    for k, (kind, m, f) in enumerate(frames):
+        check(sched.submit(f, from_access=True, tag=(kind, m, k)) == "bulk",
+              "the data frames take the bulk lane")
+    sched.flush()
+    done = sched.drain_completions()
+    check(len(done) == len(frames), f"every frame retired ({len(done)} of {len(frames)})")
+    g = eng.stats.garden - g0
+    return {(cmp.tag[0], cmp.tag[1]): cmp.verdict for cmp in done}, {
+        "gated_drops": int(g[0]), "allowed_hits": int(g[1])}
+
+
+def dns_phases(card, device, err) -> dict:
+    """Phase 50: DNS and the walled garden in `run` on the card; returns
+    {"run_dns": launches}."""
+    import socket
+    import urllib.request
+
+    from bng_tpu_torch.control import dns_wire
+    from bng_tpu_torch.control.dns import Query
+    from bng_tpu_torch.utils.net import u32_to_ip
+
+    up = FakeUpstream()
+    clk = BeatClock(float(NOW))
+    app = dns_app(device, clk, up.addr)
+    try:
+        c = app.components
+        sched, eng, garden, resolver = (c["scheduler"], c["engine"], c["walledgarden"],
+                                        c["dns_resolver"])
+        check(eng.fastpath.sub.nbuckets == 1 << 15 and eng.garden is not None
+              and c["qos"] is not None, "dns: run's geometry (2^15 buckets, garden and QoS on)")
+        _tx, acks = fleet_storm(app, clk, 0, DNS_SUBS)
+        check(len(acks) == DNS_SUBS, f"dns: {DNS_SUBS} subscribers leased ({len(acks)})")
+        macs = [client_mac(k) for k in range(DNS_SUBS)]
+        gardened, provisioned = macs[:DNS_GARDEN], macs[DNS_GARDEN:]
+        t0 = time.perf_counter()
+        for m in gardened:
+            garden.add_to_walled_garden(m)
+        for m in provisioned:
+            garden.release_from_walled_garden(m)
+        t_garden = time.perf_counter() - t0
+        steps = drain_tables(app, clk)
+        ship_fastpath(app, clk, macs[-1])
+        g_ips = {u32_to_ip(acks[m]) for m in gardened}
+        check(resolver._walled_clients == g_ips,
+              f"dns: the resolver's client set == the {DNS_GARDEN} gardened leases "
+              f"({len(resolver._walled_clients)})")
+
+        # the bulk lane: the garden gate on the device
+        frames = (gate_frames(acks, gardened, ("dns", "portal", "other"))
+                  + gate_frames(acks, provisioned, ("other",)))
+        obs0 = observed(sched)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        verdicts, gstats = gate_verdicts(app, frames)
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n_ex, n_bulk = launches_of(sched, obs0, launches, "run_dns", 9)
+        dropped = {key for key, v in verdicts.items() if v == "drop"}
+        check(dropped == {("other", m) for m in gardened}
+              and gstats == {"gated_drops": DNS_GARDEN, "allowed_hits": 2 * DNS_GARDEN},
+              f"dns: the device drops exactly the gardened subscribers' frames to other "
+              f"destinations and passes their DNS and portal frames and every provisioned frame "
+              f"({len(dropped)} dropped, gate {gstats}, verdicts "
+              f"{sorted(set(verdicts.values()))})")
+        bulk_step_vs_plain(eng, [f for _k, _m, f in frames], clk, 9, "dns bulk", err)
+        say(f"dns: {DNS_GARDEN} subscribers gardened and {DNS_SUBS - DNS_GARDEN} provisioned in "
+            f"{t_garden:.3f}s, {steps} bulk steps shipped the rows; {len(frames)} frames in "
+            f"{dt:.3f}s through {n_bulk} bulk steps: {len(dropped)} dropped by the gate, "
+            f"{gstats['allowed_hits']} gardened DNS and portal frames passed, verdicts "
+            f"{ {v: sum(1 for x in verdicts.values() if x == v) for v in set(verdicts.values())} }"
+            f"; launches {launches}; K1 and K2 bit-equal to their plain versions on one bulk "
+            f"step's 9 + 4 calls [{card}]")
+
+        # the resolver: gardened leases get the portal, everyone else the upstream
+        names = [f"host{k}.example.com" for k in range(DNS_NAMES)]
+        check(all(resolver.resolve(Query(name=names[k % DNS_NAMES], source=ip)).answers[0].ipv4
+                  == "10.255.255.1" for k, ip in enumerate(sorted(g_ips))),
+              "dns: every gardened lease resolves to the portal")
+        prov = [u32_to_ip(acks[m]) for m in provisioned[:256]]
+        check(all(resolver.resolve(Query(name=names[k % DNS_NAMES], source=ip)).answers[0].ipv4
+                  == up.answer(names[k % DNS_NAMES]) for k, ip in enumerate(prov)),
+              "dns: provisioned leases get the upstream's answers")
+        # names no check above resolved, so the window's first query of
+        # each goes upstream; DNS_CLIENTS loopback sources, so no one client passes the
+        # resolver's per-client rate limit (run's default, 100 qps, burst 200)
+        qnames = [f"q{k}.example.net" for k in range(DNS_NAMES)]
+        srv_addr = c["dns_server"].addr
+        clients = []
+        for i in range(DNS_CLIENTS):
+            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            s.settimeout(5.0)
+            s.bind((f"127.0.1.{i + 1}", 0))
+            clients.append(s)
+        cl = clients[0]
+        stats0, rtt = resolver.stats(), []
+        try:
+            t0 = time.perf_counter()
+            for k in range(DNS_QUERIES):
+                name, cl = qnames[(k * 7919) % DNS_NAMES], clients[k % DNS_CLIENTS]
+                t1 = time.perf_counter()
+                cl.sendto(dns_wire.encode_query(Query(name=name), k & 0xFFFF), srv_addr)
+                data, _ = cl.recvfrom(4096)
+                rtt.append(time.perf_counter() - t1)
+                txid, _q, resp = dns_wire.decode_response(data)
+                check(txid == k & 0xFFFF and resp.answers and resp.answers[0].ipv4
+                      == up.answer(name), f"dns: query {k} answered by the upstream's record")
+            t_q = time.perf_counter() - t0
+            # a loopback client gardened: the portal for any name over the socket
+            resolver.add_walled_garden_client("127.0.1.1")
+            clients[0].sendto(dns_wire.encode_query(Query(name="anything.example.org"), 1),
+                              srv_addr)
+            _t, _q, resp = dns_wire.decode_response(clients[0].recvfrom(4096)[0])
+            resolver.remove_walled_garden_client("127.0.1.1")
+            check(resp.answers[0].ipv4 == "10.255.255.1",
+                  "dns: a gardened client gets the portal over the socket")
+        finally:
+            for s in clients:
+                s.close()
+        st = resolver.stats()
+        hits = st["cache_hits"] - stats0["cache_hits"]
+        qs = st["queries"] - stats0["queries"] - 1
+        rtt_ms = np.array(rtt) * 1e3
+        port = c["collector"].serve_http(0)
+        c["collector"].collect_once()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            expo = exposition_samples(r.read().decode())
+        served = int(float(expo.get('bng_dns_queries_total{outcome="served"}', "0")))
+        check(served >= DNS_QUERIES and "bng_dns_cache_hit_rate" in expo,
+              f"dns: collect_dns exposes bng_dns_* on /metrics ({served} served)")
+        print(f"dns: {DNS_QUERIES} queries over the socket in {t_q:.3f}s, "
+              f"{DNS_QUERIES / t_q:.1f} queries/s, p50 {np.percentile(rtt_ms, 50):.3f} ms, p99 "
+              f"{np.percentile(rtt_ms, 99):.3f} ms, cache hit rate {hits / qs:.4f} "
+              f"({DNS_NAMES} names from {DNS_CLIENTS} clients, {up.seen} upstream queries, "
+              f"{st['rate_limited'] - stats0['rate_limited']} rate-limited) [{card}]", flush=True)
+
+        # release DNS_RELEASE of the garden: the device passes them, the
+        # resolver forwards their queries
+        rel = gardened[:DNS_RELEASE]
+        for m in rel:
+            garden.release_from_walled_garden(m)
+        drain_tables(app, clk)
+        verdicts, gstats = gate_verdicts(app, gate_frames(acks, rel, ("other",)))
+        check(all(v != "drop" for v in verdicts.values()) and gstats["gated_drops"] == 0,
+              f"dns: the released subscribers' frames pass the device ({gstats})")
+        check(all(resolver.resolve(Query(name=names[k % DNS_NAMES],
+                                         source=u32_to_ip(acks[m]))).answers[0].ipv4
+                  == up.answer(names[k % DNS_NAMES]) for k, m in enumerate(rel))
+              and len(resolver._walled_clients) == DNS_GARDEN - DNS_RELEASE,
+              "dns: the released subscribers' queries are forwarded upstream")
+        say(f"dns: {DNS_RELEASE} subscribers released from the garden: their frames pass the "
+            f"device, their queries go upstream; {len(resolver._walled_clients)} remain "
+            f"gardened [{card}]")
+        return {"run_dns": launches}
+    finally:
+        app.close()
+        up.close()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5487,6 +6204,8 @@ def main(argv=None) -> int:
     launches.update(chaos_phases(card, device, err))
     launches.update(run_sharded_phases(card, device, err))
     launches.update(ha_pair_phases(card, device, err))
+    launches.update(nexus_phases(card, device, err))
+    launches.update(dns_phases(card, device, err))
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

@@ -189,7 +189,7 @@ def test_refusal_names_every_unported_subsystem():
     with pytest.raises(t_cli.UnportedSubsystemError) as e:
         t_cli.BNGApp(cfg, device="cpu")
     msg = str(e.value)
-    assert len(t_cli.unported(cfg)) == len(t_cli.UNPORTED) == 4
+    assert len(t_cli.unported(cfg)) == len(t_cli.UNPORTED) == 1
     for _on, what, flag in t_cli.UNPORTED:
         assert what in msg and flag in msg
     # the reference's defaults, and metrics, telemetry and the checkpointer
@@ -206,8 +206,12 @@ def test_refusal_names_every_unported_subsystem():
         shards=2, ha_role="active", cluster_listen="127.0.0.1:0", store_mode="write",
         bgp_enabled=True, peer_pool_cidr="10.9.0.0/24",
         peer_pool_nodes=[{"node": "bng0", "url": "http://x"}])) == []
-    assert sorted(what for _on, what, _flag in t_cli.UNPORTED) == [
-        "AF_XDP wire", "DNS listener", "Nexus allocator", "device authentication"]
+    # the DNS listener, the Nexus allocator and device authentication
+    # are ported: only the AF_XDP wire is refused
+    assert t_cli.unported(t_cli.BNGConfig(
+        dns_enabled=True, nexus_url="http://nexus", device_auth_method="mtls")) == []
+    assert [what for _on, what, _flag in t_cli.UNPORTED] == ["AF_XDP wire"]
+    assert "DNS" not in msg and "Nexus" not in msg and "device auth" not in msg
     ported = t_cli.BNGConfig(radius_server="127.0.0.1:1812", pppoe_enabled=True, **WORKING)
     assert t_cli.unported(ported) == []
 
@@ -218,6 +222,15 @@ def test_main_run_once_on_cpu(capsys):
     assert t_cli.main(["--device", "cpu", "run", "--once", "--no-metrics-enabled"]) == 0
     assert t_cli.main(["--device", "cpu", "run", "--once", "--wire-if", "eth9"]) == 2
     assert "--wire-if ''" in capsys.readouterr().err
+    # DNS on a free loopback port, with no upstream ever asked; the Nexus
+    # allocator (nothing listens: --once asks nothing), in the fleet too,
+    # with PSK device auth
+    assert t_cli.main(["--device", "cpu", "run", "--once", "--dns-enabled",
+                       "--dns-listen", "127.0.0.1:0", "--dns-upstreams", "127.0.0.1:9"]) == 0
+    assert t_cli.main(["--device", "cpu", "run", "--once", "--nexus-url", "http://127.0.0.1:9",
+                       "--slowpath-workers", "2", "--slowpath-worker-mode", "inline",
+                       "--device-auth-method", "psk", "--device-auth-psk", "0123456789abcdef"]) == 0
+    assert '"resilience": {' in capsys.readouterr().out
     assert t_cli.main(["version"]) == 0
 
 

@@ -25,7 +25,7 @@ the checkpoint, the metrics and `run`) against the JAX package's.
 - `collect_fleet` / `record_fleet_blocked`: the same exposition lines.
 - `FleetAutoscaler`: the same decisions over the same looks.
 - One 2-worker process-mode fleet (spawned workers) answers as the inline
-  one does; the Nexus mode is refused by name.
+  one does; the Nexus mode builds a worker-local allocator and FSM.
 - `run --slowpath-workers 2 --slowpath-worker-mode inline` on the CPU:
   the same TX bytes and lease books as the reference's app; the `ctl`
   verbs over `--ctl-listen` (status, fleet resize, rolling restart,
@@ -402,14 +402,29 @@ def test_process_mode_fleet_answers_like_inline():
 
 
 def test_nexus_mode_refused_by_name():
-    fp = t_sc._make_fastpath()
-    pools = t_sc._make_pools(fp)
-    spec = t_fleet.FleetSpec.from_pool_manager(t_sc.SERVER_MAC, t_sc.SERVER_IP, pools,
-                                               nexus_url="http://nexus:9000")
-    with pytest.raises(NotImplementedError, match="Nexus allocator and control/resilience"):
-        t_fleet.SlowPathFleet(spec, 2, pools, mode="inline")
-    with pytest.raises(NotImplementedError, match="Nexus"):
-        t_fleet.FleetWorker(spec, 0, 1)
+    """The Nexus mode the port once refused by name now builds in both
+    packages: each worker its own HTTPAllocator under `<node>-w<i>` and
+    its own partition FSM (`tests/test_torch_resilience.py` serves
+    through it)."""
+    assert not hasattr(t_fleet, "refuse_nexus")
+    got = []
+    for p in PKGS:
+        fp = p.sc._make_fastpath()
+        pools = p.sc._make_pools(fp)
+        spec = p.fleet.FleetSpec.from_pool_manager(p.sc.SERVER_MAC, p.sc.SERVER_IP, pools,
+                                                   nexus_url="http://nexus:9000",
+                                                   nexus_node_id="mb")
+        fleet = p.fleet.SlowPathFleet(spec, 2, pools, mode="inline")
+        try:
+            got.append([(w.nexus.base_url, w.nexus.node_id, w.nexus_resilience.state.value,
+                         type(w.server.allocator).__name__) for w in fleet._inline])
+        finally:
+            fleet.close()
+        w = p.fleet.FleetWorker(spec, 0, 1)
+        got.append((w.nexus.node_id, w.nexus_resilience.partitioned))
+    assert got[2:] == got[:2]
+    assert got[0] == [("http://nexus:9000", f"mb-w{i}", "normal", "_WorkerNexusAllocator")
+                      for i in range(2)]
 
 
 # -- run with workers ----------------------------------------------------

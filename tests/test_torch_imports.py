@@ -76,6 +76,14 @@ SLICE_MODULES = (
     "bng_tpu_torch.control.ha", "bng_tpu_torch.control.cluster_http",
     "bng_tpu_torch.control.crdt", "bng_tpu_torch.control.peerpool",
     "bng_tpu_torch.control.ztp_tls",
+    # the Nexus allocator with partition resilience, device auth, ZTP and
+    # the agent, and the DNS listener
+    "bng_tpu_torch.control.allocator", "bng_tpu_torch.control.allocator.bitmap",
+    "bng_tpu_torch.control.allocator.epoch_bitmap", "bng_tpu_torch.control.allocator.store",
+    "bng_tpu_torch.control.allocator.distributed", "bng_tpu_torch.control.allocator.modes",
+    "bng_tpu_torch.control.resilience", "bng_tpu_torch.control.deviceauth",
+    "bng_tpu_torch.control.ztp", "bng_tpu_torch.control.agent", "bng_tpu_torch.control.dns",
+    "bng_tpu_torch.control.dns_wire",
 ))
 
 
@@ -95,9 +103,10 @@ def test_port_and_chip_smoke_import_no_jax():
 
 @pytest.mark.parametrize("mod", HA_MODULES)
 def test_ha_and_cluster_wire_modules_import_no_jax_and_no_torch(mod):
-    """The HA pair, the store, the peer pool and the cluster wire are host
-    code: each imports, alone in a fresh interpreter, with no JAX, nothing
-    of the JAX package and no torch."""
+    """The HA pair, the store, the peer pool, the cluster wire, the
+    allocators, partition resilience, device auth, ZTP, the agent and DNS
+    are host code: each imports, alone in a fresh interpreter, with no JAX,
+    nothing of the JAX package and no torch."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "PYTHON"))}
     env["PYTHONPATH"] = str(REPO)
     probe = (f"import sys, {mod}\n"
@@ -134,7 +143,7 @@ if __name__ == "__main__":
     fp = sc._make_fastpath()
     pools = sc._make_pools(fp)
     spec = FleetSpec.from_pool_manager(sc.SERVER_MAC, sc.SERVER_IP, pools, slice_size=16,
-                                       low_watermark=4)
+                                       low_watermark=4, nexus_url=os.environ.get("NEXUS_URL", ""))
     fleet = SlowPathFleet(spec, 2, pools, mode="process", table_sink=fp)
     out = fleet.handle_batch([(i, sc._discover(sc._mac(i), i)) for i in range(8)])
     assert fleet.start_method == "spawn" and all(r is not None for _l, r in out)
@@ -150,6 +159,23 @@ def test_spawned_fleet_worker_imports_no_jax_and_no_cuda(tmp_path):
     script.write_text(_FLEET_PARENT)
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "PYTHON"))}
     env.update(PYTHONPATH=str(REPO), PROBE_DIR=str(tmp_path))
+    out = subprocess.run([sys.executable, str(script)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    reports = [json.loads(f.read_text()) for f in tmp_path.glob("*.json")]
+    assert sorted(r["main"] for r in reports) == ["__main__", "__mp_main__", "__mp_main__"]
+    assert all(r["bad"] == [] and r["cuda"] is False for r in reports), reports
+    assert [r["torch"] for r in reports if r["main"] == "__mp_main__"] == [False, False], reports
+
+
+def test_spawned_fleet_worker_in_nexus_mode_imports_no_torch(tmp_path):
+    """In Nexus mode each spawned worker builds its own HTTPAllocator and
+    partition FSM (with nothing listening, it answers from its local
+    slice): still no JAX, no JAX package, no torch and no CUDA."""
+    script = tmp_path / "parent.py"
+    script.write_text(_FLEET_PARENT)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "PYTHON"))}
+    env.update(PYTHONPATH=str(REPO), PROBE_DIR=str(tmp_path), NEXUS_URL="http://127.0.0.1:9")
     out = subprocess.run([sys.executable, str(script)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
