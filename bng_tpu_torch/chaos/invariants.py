@@ -19,12 +19,13 @@ quiesce barrier the checkpoint uses:
   - the NAT allocator, EIM map, sessions and reverse rows agree;
   - a checkpoint save -> decode round trip is state-identical;
   - a sharded cluster partitions its state (rows on their owner shards);
-  - a connected HA standby mirrors its active's session store.
+  - a connected HA standby mirrors its active's session store;
+  - a cluster of BNGs partitions its space: the carve plan, each
+    instance's pools against it, no IP or subscriber held twice, every
+    lease on the instance its MAC steers to, each member's HA pair.
 
 Findings come back as structured `Finding`s, bounded per kind;
-`AuditReport.to_dict()` is sorted, so reports diff clean. The cluster of
-BNGs is not in the port: `bng_cluster` is accepted as None and audits
-nothing; any other value raises. `audit_app` audits a composed
+`AuditReport.to_dict()` is sorted, so reports diff clean. `audit_app` audits a composed
 `BNGApp`. With `metrics` (BNGMetrics) an audit records the
 bng_invariant_* families, stamped with `epoch`.
 """
@@ -1008,14 +1009,11 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
     fastpath/nat default from the engine. `fleet` adds the slow-path
     fleet's slices and worker lease books to the ownership and row
     clauses. `ha_pair=(active, standby)` adds the replication-divergence
-    check. The reference's `bng_cluster` names a component the port does
-    not have: None is accepted and audits nothing, anything else raises.
+    check, `bng_cluster` (a ClusterCoordinator) the cluster's clauses.
     `metrics` (BNGMetrics) gets the bng_invariant_* families recorded;
     `epoch` stamps bng_invariant_last_audit_epoch (defaults to the audit
     counter).
     """
-    if bng_cluster is not None:
-        raise ValueError("audit_invariants: no such component in the port: ['bng_cluster']")
     report = AuditReport()
     if engine is not None:
         if quiesce:
@@ -1060,6 +1058,8 @@ def audit_invariants(*, engine=None, scheduler=None, fastpath=None,
                                     dhcp=dhcp, fleet=fleet, ha=active)
     if ha_pair is not None:
         _audit_ha_pair(report, *ha_pair)
+    if bng_cluster is not None:
+        _audit_cluster(report, bng_cluster)
 
     if metrics is not None:
         metrics.record_audit(report, epoch=epoch)
@@ -1091,6 +1091,119 @@ def _audit_ha_pair(report: AuditReport, active, standby) -> None:
         elif a[sid] != b[sid]:
             report.add("ha-store-divergence", sid,
                        "session state differs between active and standby")
+
+
+def _audit_cluster(report: AuditReport, coord) -> None:
+    """Cluster-of-BNGs cross-authority clauses (the DESTINI "no IP owned
+    by two" one level up from the fleet's worker audit):
+
+    - the carve PLAN partitions the space: every block assigned to
+      exactly one member or free, geometry matching the split;
+    - every built instance's pools match its planned carve exactly
+      (carve ⊆ plan, block-for-block);
+    - no lease IP outside its owner's carve, and no IP (or subscriber
+      MAC) held by two instances at once;
+    - every held lease's MAC steers to the instance holding it — the
+      front door and the books agree on placement;
+    - each member's HA pair mirrors exactly while connected (the
+      existing divergence clause, per member).
+
+    Lease-book checks need inline instances (process members export
+    through their own checkpoints); the plan checks always run.
+    """
+    from bng_tpu_torch.cluster.plan import instance_for_mac
+
+    plan = coord.plan
+    if plan is None:
+        if coord.members:
+            report.add("cluster-no-plan", "plan",
+                       f"{len(coord.members)} member(s) but no carve plan")
+        return
+    report.checks["cluster_members"] = len(plan.members)
+
+    # -- plan partitions the space ----------------------------------------
+    block_size = 1 << (32 - plan.block_prefix_len)
+    seen_idx: dict[int, str] = {}
+    for owner, blocks in ([(iid, p.blocks)
+                           for iid, p in sorted(plan.members.items())]
+                          + [("<free>", plan.free)]):
+        for b in blocks:
+            if b.index in seen_idx:
+                report.add("cluster-plan-overlap", f"block{b.index}",
+                           f"assigned to both {seen_idx[b.index]} "
+                           f"and {owner}")
+            seen_idx[b.index] = owner
+            want_net = plan.space_network + b.index * block_size
+            if (b.prefix_len != plan.block_prefix_len
+                    or b.network != want_net):
+                report.add("cluster-plan-alien-block",
+                           f"{owner}/block{b.index}",
+                           f"{_ip(b.network)}/{b.prefix_len} is not "
+                           f"slice {b.index} of the cluster space")
+    for idx in range(plan.n_blocks):
+        if idx not in seen_idx:
+            report.add("cluster-plan-overlap", f"block{idx}",
+                       "slice of the cluster space is unaccounted for")
+    if plan.nat_total > 0:
+        per = plan.nat_total // plan.n_blocks
+        for iid, p in sorted(plan.members.items()):
+            for b in p.blocks:
+                start, count = plan.nat_range(b)
+                if count != per or start != plan.nat_base + b.index * per:
+                    report.add("cluster-plan-alien-block",
+                               f"{iid}/nat{b.index}",
+                               "NAT slice does not ride its block index")
+
+    # -- carve ⊆ plan + cross-instance ownership --------------------------
+    ids = plan.serving_ids()
+    ip_owner: dict[int, str] = {}
+    mac_owner: dict[bytes, str] = {}
+    n_leases = 0
+    for iid, m in sorted(coord.members.items()):
+        inst = m.instance
+        if inst is None or not hasattr(inst, "fleet"):
+            continue
+        iplan = plan.members.get(iid)
+        if iplan is None:
+            report.add("cluster-carve-mismatch", iid,
+                       "instance built but absent from the plan")
+            continue
+        want = sorted((b.network, b.prefix_len) for b in iplan.blocks)
+        got = sorted((p.network, p.prefix_len)
+                     for p in inst.pools.pools.values())
+        if want != got:
+            report.add("cluster-carve-mismatch", iid,
+                       f"pools {got} differ from planned carve {want}")
+        for _w, book in _fleet_worker_books(inst.fleet):
+            for lease in book.values():
+                n_leases += 1
+                if not iplan.contains(lease.ip):
+                    report.add("cluster-foreign-ip",
+                               f"{iid}/{_ip(lease.ip)}",
+                               "lease outside the instance's carve")
+                prev = ip_owner.get(lease.ip)
+                if prev is not None and prev != iid:
+                    report.add("cluster-double-ownership", _ip(lease.ip),
+                               f"held by both {prev} and {iid}")
+                ip_owner[lease.ip] = iid
+                prevm = mac_owner.get(lease.mac)
+                if prevm is not None and prevm != iid:
+                    report.add("cluster-double-ownership",
+                               lease.mac.hex(),
+                               f"subscriber leased on both {prevm} "
+                               f"and {iid}")
+                mac_owner[lease.mac] = iid
+                steer = instance_for_mac(lease.mac, ids)
+                if steer != iid:
+                    report.add("cluster-missteer",
+                               f"{iid}/{lease.mac.hex()}",
+                               f"front door steers this MAC to {steer}")
+    report.checks["cluster_leases"] = n_leases
+
+    # -- HA pair equality per member --------------------------------------
+    for _iid, m in sorted(coord.members.items()):
+        if m.syncer is not None and m.standby is not None:
+            _audit_ha_pair(report, m.syncer, m.standby)
 
 
 def audit_app(app, metrics=None, epoch=None) -> AuditReport:

@@ -3,7 +3,7 @@
 
 Two entry points:
 
-- `run_scenarios(seed)` — every ported scripted scenario and storm
+- `run_scenarios(seed)` — every scripted scenario and storm
   (chaos/scenarios.py, chaos/storms.py), each with a seed derived
   deterministically from the top-level one. The seven that build device
   state run on `device` (None = the card).
@@ -18,11 +18,8 @@ Both produce JSON-safe dicts with no wallclock, paths or object ids;
 across runs (`chaos run --seed S` twice, or on the card and on the CPU ->
 identical bytes, equal to the reference's).
 
-The reference's catalog has 23 entries; five need a component the port
-does not have yet (`UNPORTED`: the cluster of BNGs).
-`--list` shows them as not ported, naming one is refused before anything
-runs, and every per-scenario seed is derived from the index in the full
-23-name catalog, so each ported scenario's seed is the reference's.
+The catalog is the reference's 23 entries, so each scenario's seed (its
+index in the sorted catalog) is the reference's.
 """
 
 from __future__ import annotations
@@ -38,23 +35,10 @@ from bng_tpu_torch.chaos.storms import STORMS
 
 REPORT_SCHEMA = 1
 
-# the ported catalog: scripted fault scenarios + the storm suite. Storm
+# the full catalog: scripted fault scenarios + the storm suite. Storm
 # callables take (seed, scale); everything else takes (seed); the ones in
 # ON_DEVICE also take device.
 ALL_SCENARIOS = {**SCENARIOS, **STORMS}
-
-# the reference's entries whose component the port lacks: name -> what
-# it needs
-UNPORTED = {
-    "cluster_failover_redora": "the cluster of BNGs (cluster/)",
-    "cluster_partial_partition": "the cluster of BNGs (cluster/)",
-    "cluster_gray_member": "the cluster of BNGs (cluster/)",
-    "cluster_host_loss": "the cluster of BNGs (cluster/)",
-    "cluster_scale_storm": "the cluster of BNGs (cluster/)",
-}
-
-# the reference's full catalog, whose sorted index seeds each scenario
-CATALOG = sorted({*ALL_SCENARIOS, *UNPORTED})
 
 # the entries that build an engine, a scheduler or a sharded cluster
 ON_DEVICE = frozenset({
@@ -66,12 +50,9 @@ ON_DEVICE = frozenset({
 def scenario_catalog() -> list[tuple[str, str]]:
     """[(name, one-line description)] — the `chaos run --list` payload,
     sourced from each scenario's docstring so the catalog can never
-    drift from the code; an unported entry names what it needs."""
+    drift from the code."""
     out = []
-    for name in CATALOG:
-        if name in UNPORTED:
-            out.append((name, f"not ported: needs {UNPORTED[name]}"))
-            continue
+    for name in sorted(ALL_SCENARIOS):
         doc = (ALL_SCENARIOS[name].__doc__ or "").strip()
         first = " ".join(doc.split(".")[0].split()) if doc else ""
         out.append((name, first[:120]))
@@ -99,13 +80,8 @@ def run_scenarios(seed: int = 1, names: list[str] | None = None,
     useless. `storm_scale` scales the storm scenarios' subscriber
     counts (1.0 = the published storms, flash crowd at 100k). `device`
     is where the ON_DEVICE entries build their state (None = the card).
-    Naming an unported or unknown entry raises ValueError before any
-    scenario runs."""
+    Naming an unknown entry raises ValueError before any scenario runs."""
     picked = sorted(names) if names else sorted(ALL_SCENARIOS)
-    refused = [n for n in picked if n in UNPORTED]
-    if refused:
-        raise ValueError("not ported: " + "; ".join(
-            f"{n} needs {UNPORTED[n]}" for n in refused))
     unknown = [n for n in picked if n not in ALL_SCENARIOS]
     if unknown:
         raise ValueError(f"unknown scenario(s) {unknown}; "
@@ -115,7 +91,7 @@ def run_scenarios(seed: int = 1, names: list[str] | None = None,
         # the scale changes storm subscriber counts, hence the report
         # bytes — stamp it so two reports only ever compare like-for-like
         out["storm_scale"] = storm_scale
-    for idx, name in enumerate(CATALOG):
+    for idx, name in enumerate(sorted(ALL_SCENARIOS)):
         if name not in picked:
             continue
         sub = _sub_seed(seed, idx)

@@ -1,5 +1,4 @@
-"""Scripted chaos scenarios (copy of `bng_tpu/chaos/scenarios.py`, the
-scenarios that need no cluster of BNGs).
+"""Scripted chaos scenarios (copy of `bng_tpu/chaos/scenarios.py`).
 
 Every scenario is a function `(seed) -> dict` — or `(seed, device)` for
 the five that build device state (an engine, a scheduler or a sharded
@@ -57,6 +56,20 @@ Scenario list:
                               ring dispatch failure; reply bytes must
                               match a fault-free control sweep and the
                               ring cursor audit must close clean
+    cluster_failover_redora   DORA a town through a 3-instance cluster,
+                              kill a member, its standby promotes and
+                              the flash crowd re-DORAs sticky
+    cluster_partial_partition sever exactly the a<->b fabric link while
+                              both still reach c (NEAT): mutual
+                              suspicion but no accusation quorum, so no
+                              demotion, no failover, no double-carve
+    cluster_gray_member       a member beats perfectly but its serving
+                              word stalls: GRAY verdict off its own
+                              signed beats, standby promotes, the
+                              flash crowd re-DORAs sticky
+    cluster_host_loss         two remote members join over the fabric,
+                              then their whole host vanishes: group
+                              promotion, the spool replays once
 """
 
 from __future__ import annotations
@@ -1146,6 +1159,101 @@ def route_flap_rewrite(seed: int, device=None) -> dict:
     return out_rep
 
 
+def cluster_failover_redora(seed: int) -> dict:
+    """Cluster-of-BNGs failover (bng_tpu_torch/cluster): DORA a town through
+    the cluster front door, kill one member mid-service, let the
+    health-monitor/failover machinery promote its standby, and land the
+    flash-crowd re-DORA on the promoted instance. Renewals must ACK
+    with the ORIGINAL addresses (the replicated session books make
+    stickiness through failover real), fresh subscribers must keep
+    leasing cluster-wide, and `_audit_cluster` must stay clean — plus
+    the carve's never-half-allocate discipline: removing a member with
+    live leases is refused, and a joiner with no free blocks waits."""
+    from bng_tpu_torch.cluster import ClusterCoordinator, instance_for_mac
+
+    n_macs = 48
+    clock = SimClock()
+    coord = ClusterCoordinator(
+        clock=clock, sub_nbuckets=512, slice_size=64,
+        space_network=ip_to_u32("10.64.0.0"), space_prefix_len=16)
+    coord.add_instances(["bng-a", "bng-b", "bng-c"])
+    macs = [_mac((seed % 89) * 100 + i) for i in range(n_macs)]
+    leased = dora_with_retries(coord, macs, clock)
+    audit_before = audit_invariants(bng_cluster=coord)
+
+    ids = coord.member_ids()
+    victim = ids[seed % len(ids)]
+    victim_macs = [m for m in macs if instance_for_mac(m, ids) == victim]
+    coord.kill_instance(victim)
+    # outage window: the dead member's subscribers shed (clients
+    # retransmit), everyone else keeps serving
+    out = coord.handle_batch(
+        [(k, _renew(m, leased[m], 0x30000 + k))
+         for k, m in enumerate(victim_macs)], now=clock())
+    outage_shed = sum(1 for _l, rep in out if rep is None)
+    ticks = 0
+    while coord.members[victim].role != "promoted" and ticks < 64:
+        clock.advance(1.0)
+        coord.tick()
+        ticks += 1
+    promoted = coord.members[victim].role == "promoted"
+
+    # the flash crowd reconnects: renewals land on the promoted standby
+    # and must come back with the addresses the dead active handed out
+    out = coord.handle_batch(
+        [(k, _renew(m, leased[m], 0x40000 + k))
+         for k, m in enumerate(victim_macs)], now=clock())
+    sticky = sum(
+        1 for (_l, rep), m in zip(out, victim_macs)
+        if rep is not None and _reply(rep).msg_type == dhcp_codec.ACK
+        and _reply(rep).yiaddr == leased[m])
+
+    fresh = [_mac((seed % 89) * 100 + 10_000 + i) for i in range(24)]
+    fresh_leased = dora_with_retries(coord, fresh, clock)
+
+    # never-half-allocate, exercised live: a member holding leases may
+    # not leave (its blocks would move half-drained), and a joiner with
+    # nothing on the free list stays pending instead of stealing
+    survivor = next(i for i in ids if i != victim)
+    refused = not coord.remove_instance(survivor)
+    coord.add_instance("bng-x")
+    joiner_pending = coord.members["bng-x"].pending
+    coord.remove_instance("bng-x")  # empty member: clean leave
+
+    audit_after = audit_invariants(bng_cluster=coord)
+    out_rep = {
+        "name": "cluster_failover_redora", "seed": seed,
+        "instances": len(ids),
+        "victim": victim,
+        "leased": len(leased),
+        "victim_subs": len(victim_macs),
+        "outage_shed": outage_shed,
+        "promoted": promoted,
+        "failovers": coord.failovers,
+        "sticky_acks": sticky,
+        "fresh_leased": len(fresh_leased),
+        "fresh_unique": len(set(fresh_leased.values())),
+        "remove_refused": refused,
+        "joiner_pending": joiner_pending,
+        "recarves": coord.recarves,
+        "audit_before_ok": audit_before.ok,
+        "audit_ok": audit_after.ok,
+        "violations": audit_after.violations_by_kind(),
+    }
+    coord.close()
+    out_rep["ok"] = (
+        out_rep["leased"] == n_macs
+        and out_rep["victim_subs"] > 0
+        and out_rep["outage_shed"] == out_rep["victim_subs"]
+        and promoted and coord.failovers == 1
+        and sticky == out_rep["victim_subs"]
+        and out_rep["fresh_leased"] == len(fresh)
+        and out_rep["fresh_unique"] == len(fresh)
+        and refused and joiner_pending
+        and audit_before.ok and audit_after.ok)
+    return out_rep
+
+
 def _build_devloop_stack(clock, devloop_k: int, device=None):
     """Tiered scheduler with the devloop express lane armed + 32
     pre-provisioned subscribers — geometry pinned to tests/test_express
@@ -1289,6 +1397,435 @@ def devloop_storm(seed: int, device=None) -> dict:
     return out_rep
 
 
+def cluster_partial_partition(seed: int) -> dict:
+    """The NEAT shape (Alquraan OSDI'18) on the cluster control fabric:
+    three members beat over a SimTransport mesh, then the a<->b link is
+    severed while BOTH still reach c. a and b accuse each other, but c
+    accuses neither — no quorum forms on either side, so nobody is
+    demoted to down, the coordinator fails nothing over, and the carve
+    plan keeps one owner per block (no double-carve). Service continues
+    through the split (renewals ACK cluster-wide), and when the link
+    heals both suspicion episodes close as observed partitions."""
+    from bng_tpu_torch.cluster import ClusterCoordinator
+    from bng_tpu_torch.cluster.fabric import FailureDetector, SimTransport
+
+    n_macs = 36
+    clock = SimClock()
+    ids = ["bng-a", "bng-b", "bng-c"]
+    hub = SimTransport(clock, seed=seed)
+    dets: dict = {}
+    for nid in ids:
+        ep = hub.endpoint(nid)
+        for peer in ids:
+            if peer != nid:
+                ep.add_peer(peer)
+        # mesh quorum: observers of X are the 2 others -> majority 2
+        dets[nid] = FailureDetector(nid, ep, clock=clock,
+                                    beat_interval_s=0.5,
+                                    suspicion_threshold=3,
+                                    startup_grace_s=0.0)
+    for nid in ids:
+        for peer in ids:
+            if peer != nid:
+                dets[nid].watch(peer, now=clock())
+
+    # the data plane the fabric protects: an inline cluster serving
+    # leases under the same member names
+    coord = ClusterCoordinator(
+        clock=clock, sub_nbuckets=512, slice_size=64,
+        space_network=ip_to_u32("10.80.0.0"), space_prefix_len=16)
+    coord.add_instances(ids)
+    macs = [_mac((seed % 89) * 100 + i) for i in range(n_macs)]
+    leased = dora_with_retries(coord, macs, clock)
+    epoch_before = coord.plan.epoch
+
+    counters = {nid: 0 for nid in ids}
+
+    def fabric_round(rounds: int) -> None:
+        for _ in range(rounds):
+            for nid in ids:
+                counters[nid] += 1
+                dets[nid].beat(served=counters[nid], work=counters[nid])
+            for nid in ids:
+                dets[nid].tick(clock())
+            clock.advance(0.5)
+
+    fabric_round(4)  # warm: everyone sees everyone up
+    warm_ok = all(v.state == "up"
+                  for d in dets.values() for v in d.views.values())
+
+    hub.partition("bng-a", "bng-b")
+    fabric_round(8)  # 4s of split: 3-beat suspicion windows expire
+
+    # the quorum ledger mid-split, per observer
+    states_during = {nid: {p: v.state
+                           for p, v in sorted(dets[nid].views.items())}
+                     for nid in ids}
+    accusers_at_c = {p: sorted(v.accused_by)
+                     for p, v in sorted(dets["bng-c"].views.items())}
+    down_verdicts = sum(d.verdicts["down"] for d in dets.values())
+    # a coordinator acting on the fabric would only carve out members
+    # the detector demoted to DOWN; none were, so nothing is killed
+    for nid in ids:
+        for peer, v in dets[nid].views.items():
+            if v.state == "down":
+                coord.kill_instance(peer)
+    for _ in range(4):
+        clock.advance(1.0)
+        coord.tick()
+
+    # service through the split: every subscriber renews, cluster-wide
+    out = coord.handle_batch(
+        [(k, _renew(m, leased[m], 0x50000 + k))
+         for k, m in enumerate(macs)], now=clock())
+    renew_acks = sum(
+        1 for (_l, rep), m in zip(out, macs)
+        if rep is not None and _reply(rep).msg_type == dhcp_codec.ACK
+        and _reply(rep).yiaddr == leased[m])
+
+    hub.heal_all()
+    fabric_round(6)
+    healed_ok = all(v.state == "up"
+                    for d in dets.values() for v in d.views.values())
+    partitions_observed = sum(
+        v.partitions_observed
+        for d in dets.values() for v in d.views.values())
+
+    audit = audit_invariants(bng_cluster=coord)
+    out_rep = {
+        "name": "cluster_partial_partition", "seed": seed,
+        "instances": len(ids),
+        "leased": len(leased),
+        "warm_ok": warm_ok,
+        "states_during": states_during,
+        "accusers_at_c": accusers_at_c,
+        "down_verdicts": down_verdicts,
+        "failovers": coord.failovers,
+        "epoch_before": epoch_before,
+        "epoch_after": coord.plan.epoch,
+        "renew_acks": renew_acks,
+        "healed_ok": healed_ok,
+        "partitions_observed": partitions_observed,
+        "link_cut_datagrams": hub.stats["cut"],
+        "audit_ok": audit.ok,
+        "violations": audit.violations_by_kind(),
+    }
+    coord.close()
+    out_rep["ok"] = (
+        out_rep["leased"] == n_macs and warm_ok
+        # each split side suspects the other; the common neighbour
+        # keeps both up — the quorum evidence that blocks demotion
+        and states_during["bng-a"]["bng-b"] == "suspect"
+        and states_during["bng-b"]["bng-a"] == "suspect"
+        and states_during["bng-c"] == {"bng-a": "up", "bng-b": "up"}
+        and accusers_at_c == {"bng-a": ["bng-b"], "bng-b": ["bng-a"]}
+        and down_verdicts == 0
+        and out_rep["failovers"] == 0
+        and out_rep["epoch_after"] == epoch_before
+        and renew_acks == n_macs
+        and healed_ok and partitions_observed >= 2
+        and out_rep["link_cut_datagrams"] > 0
+        and audit.ok)
+    return out_rep
+
+
+# ---------------------------------------------------------------------------
+# 14. cluster gray member: beating but not serving -> demoted, sticky re-DORA
+# ---------------------------------------------------------------------------
+
+def cluster_gray_member(seed: int) -> dict:
+    """Gray failure (Huang HotOS'17) through the fabric detector: a
+    member keeps beating — its heartbeats are perfect — but its
+    serving-health word stalls (work accepted keeps climbing, replies
+    produced does not). The detector reads the stall off the member's
+    own signed beats, issues a GRAY verdict with no quorum needed, the
+    HA probe goes false, and the standby promotes exactly as if the
+    member had died. The wedged member's subscribers re-DORA sticky
+    onto the promoted standby (original addresses), and the healthy
+    member never flaps."""
+    from bng_tpu_torch.cluster import ClusterCoordinator, instance_for_mac
+    from bng_tpu_torch.cluster.fabric import SimTransport
+
+    n_macs = 32
+    clock = SimClock()
+    hub = SimTransport(clock, seed=seed)
+    ids = ["bng-a", "bng-b"]
+    coord = ClusterCoordinator(
+        clock=clock, sub_nbuckets=512, slice_size=64,
+        space_network=ip_to_u32("10.96.0.0"), space_prefix_len=16,
+        fabric_endpoint=hub.endpoint("coordinator"),
+        fabric_beat_interval_s=0.5, fabric_gray_beats=4,
+        fabric_startup_grace_s=2.0,
+        ha_probe_interval_s=0.5, ha_failure_threshold=2,
+        ha_failover_delay_s=1.0)
+    coord.add_instances(ids)
+    # inline members do not beat on their own (the flag oracle serves
+    # them); this scenario IS the fabric lane, so watch them and speak
+    # their beats from the sim endpoints
+    eps = {}
+    for iid in ids:
+        coord.fabric_detector.watch(iid, now=clock())
+        eps[iid] = hub.endpoint(iid)
+        eps[iid].add_peer("coordinator")
+
+    macs = [_mac((seed % 89) * 100 + i) for i in range(n_macs)]
+    leased = dora_with_retries(coord, macs, clock)
+    victim = ids[seed % len(ids)]
+    healthy = next(i for i in ids if i != victim)
+    victim_macs = [m for m in macs if instance_for_mac(m, ids) == victim]
+
+    served = {iid: 0 for iid in ids}
+    work = {iid: 0 for iid in ids}
+
+    def beat_round(wedged: str = "") -> None:
+        for iid in ids:
+            work[iid] += 8  # batches keep arriving either way
+            if iid != wedged:
+                served[iid] += 8  # ...but only healthy members reply
+            eps[iid].send("coordinator", "beat",
+                          {"served": served[iid], "work": work[iid],
+                           "accuse": []})
+        coord.tick(clock())
+        clock.advance(0.5)
+
+    for _ in range(4):
+        beat_round()
+    warm_states = {p: v["state"] for p, v in
+                   coord.fabric_detector.status()["peers"].items()}
+
+    # wedge: the victim's replies stop while its intake keeps climbing
+    rounds = 0
+    while coord.members[victim].role != "promoted" and rounds < 40:
+        beat_round(wedged=victim)
+        rounds += 1
+    promoted = coord.members[victim].role == "promoted"
+    gray_events = [e for e in coord.fabric_events if e == (victim, "gray")]
+
+    # the promoted slot is fresh (detector view was reset): beats
+    # resume with a healthy serving word and it must read up again
+    for _ in range(4):
+        beat_round()
+    post_state = coord.fabric_detector.views[victim].state
+
+    # the wedged member's flash crowd lands on the promoted standby
+    # and must keep its addresses (replicated books = sticky re-DORA)
+    out = coord.handle_batch(
+        [(k, _renew(m, leased[m], 0x60000 + k))
+         for k, m in enumerate(victim_macs)], now=clock())
+    sticky = sum(
+        1 for (_l, rep), m in zip(out, victim_macs)
+        if rep is not None and _reply(rep).msg_type == dhcp_codec.ACK
+        and _reply(rep).yiaddr == leased[m])
+
+    audit = audit_invariants(bng_cluster=coord)
+    out_rep = {
+        "name": "cluster_gray_member", "seed": seed,
+        "victim": victim,
+        "leased": len(leased),
+        "victim_subs": len(victim_macs),
+        "warm_states": warm_states,
+        "promoted": promoted,
+        "gray_verdicts": coord.fabric_detector.verdicts["gray"],
+        "gray_events": [list(e) for e in gray_events],
+        "failovers": coord.failovers,
+        "healthy_role": coord.members[healthy].role,
+        "healthy_state": coord.fabric_detector.views[healthy].state,
+        "post_promote_state": post_state,
+        "sticky_acks": sticky,
+        "audit_ok": audit.ok,
+        "violations": audit.violations_by_kind(),
+    }
+    coord.close()
+    out_rep["ok"] = (
+        out_rep["leased"] == n_macs
+        and out_rep["victim_subs"] > 0
+        and warm_states == {"bng-a": "up", "bng-b": "up"}
+        and promoted and out_rep["failovers"] == 1
+        and out_rep["gray_verdicts"] >= 1
+        and len(gray_events) >= 1
+        and out_rep["healthy_role"] == "active"
+        and out_rep["healthy_state"] == "up"
+        and post_state == "up"
+        and sticky == out_rep["victim_subs"]
+        and audit.ok)
+    return out_rep
+
+
+def cluster_host_loss(seed: int) -> dict:
+    """Multi-box host loss: two remote members `--join` a
+    coordinator over the SimTransport fabric, hydrate their carved
+    blocks through the chunked handoff stream, and serve steered DORAs
+    from their own stacks (missteers must be 0 — the placement law
+    re-checked on the remote box). Then the whole remote HOST vanishes
+    (every beta link cut at once — the box died, not a process): the
+    detector downs both members by accusation quorum, `_check_host_loss`
+    promotes their surviving-host HA halves AS A GROUP, the accounting
+    spool the lost box left behind replays exactly once, the flash
+    crowd's renewals ACK their ORIGINAL addresses, and the audit stays
+    clean. FATE+DESTINI one level up: the per-process kill lane can
+    never see a box disappearing with both of its HA halves' state."""
+    import tempfile
+
+    from bng_tpu_torch.cluster import (ClusterCoordinator, MemberRuntime,
+                                 instance_for_mac)
+    from bng_tpu_torch.cluster.fabric import SimTransport
+    from bng_tpu_torch.control.radius import packet as rp
+    from bng_tpu_torch.control.radius.accounting import AccountingManager
+    from bng_tpu_torch.control.radius.client import (RadiusClient,
+                                               RadiusServerConfig)
+    from bng_tpu_torch.control.radius.packet import RadiusPacket
+
+    n_macs = 32
+    clock = SimClock()
+    hub = SimTransport(clock, seed=seed)
+    coord = ClusterCoordinator(
+        clock=clock, sub_nbuckets=512, slice_size=64,
+        space_network=ip_to_u32("10.112.0.0"), space_prefix_len=16,
+        fabric_endpoint=hub.endpoint("coordinator"),
+        fabric_beat_interval_s=0.5, fabric_suspicion_threshold=3,
+        fabric_startup_grace_s=2.0,
+        ha_probe_interval_s=0.5, ha_failure_threshold=2,
+        ha_failover_delay_s=1.0)
+    # the founding carve declares the remote slots (blocks interleave
+    # on the host axis NOW; the boxes join into them)
+    coord.add_instances(["bng-a"], host="alpha",
+                        remotes={"bng-r1": "beta", "bng-r2": "beta"})
+    remote_ids = ("bng-r1", "bng-r2")
+    members = {iid: MemberRuntime(hub.endpoint(iid), iid, "beta",
+                                  clock=clock)
+               for iid in remote_ids}
+    # single-threaded determinism: the coordinator's reply wait chains
+    # the members' own ticks (the two "boxes" run in lockstep)
+    coord.remote_waiter = lambda: [m.tick(clock())
+                                   for m in members.values()]
+    join_ticks = 0
+    while not all(m.state == "serving" for m in members.values()) \
+            and join_ticks < 200:
+        clock.advance(0.25)
+        for m in members.values():
+            m.tick(clock())
+        coord.tick()
+        join_ticks += 1
+
+    macs = [_mac((seed % 89) * 100 + i) for i in range(n_macs)]
+    leased = dora_with_retries(coord, macs, clock)
+    ids = coord.member_ids()
+    remote_macs = [m for m in macs
+                   if instance_for_mac(m, ids) in remote_ids]
+    missteers = sum(m.missteers for m in members.values())
+    handoff_rx = sum(m.handoff.stats()["completed"]
+                     for m in members.values())
+
+    # the lost box's accounting story: its RADIUS lane was already dark,
+    # so session stops SPOOLED instead of sending — the spool is the
+    # state a dead host leaves behind for the survivor to replay
+    class _AcctServer:
+        def __init__(self):
+            self.stops = 0
+
+        def __call__(self, data, host, port, timeout):
+            req = RadiusPacket.decode(data)
+            if req.get_int(rp.ACCT_STATUS_TYPE) == rp.ACCT_STOP:
+                self.stops += 1
+            return RadiusPacket(rp.ACCOUNTING_RESPONSE, req.id).encode(
+                b"chaos-secret", request_auth=req.authenticator)
+
+    live = _AcctServer()
+    spool = tempfile.mktemp(prefix="bng-chaos-hostloss-", suffix=".spool")
+
+    def _client(transport):
+        return RadiusClient(
+            [RadiusServerConfig("10.0.0.5", secret=b"chaos-secret",
+                                timeout_s=0.05, retries=1)],
+            transport=transport, clock=clock)
+
+    lost_acct = AccountingManager(_client(lambda *a: None),
+                                  interim_interval_s=60,
+                                  spool_path=spool, clock=clock)
+    for i, m in enumerate(remote_macs[:4]):
+        sid = f"s-{m.hex()}"
+        lost_acct.start(sid, f"sub-{i}", leased[m])
+        lost_acct.update_counters(sid, 1000 + i, 2000 + i)
+        lost_acct.stop(sid)  # dark RADIUS: spools
+    # the dark transport spooled BOTH halves of each session's story
+    # (start + stop) — all 8 records must replay exactly once
+    spooled = len(lost_acct.pending)
+
+    replay_rounds: list = []
+
+    def _on_host_loss(host, _ids):
+        # the surviving host recovers the dead box's spool: exactly-once
+        # replay through a fresh manager on the SAME spool path
+        survivor = AccountingManager(_client(live), interim_interval_s=60,
+                                     spool_path=spool, clock=clock)
+        replay_rounds.append(survivor.retry_tick())
+        replay_rounds.append(survivor.retry_tick())
+
+    coord.on_host_loss = _on_host_loss
+
+    # the whole beta host vanishes: every link cut in the same instant
+    for iid in remote_ids:
+        hub.partition("coordinator", iid)
+    coord.remote_waiter = None  # nothing left to chain — the box is gone
+    loss_ticks = 0
+    while coord.host_losses == 0 and loss_ticks < 120:
+        clock.advance(0.5)
+        coord.tick()
+        loss_ticks += 1
+
+    roles = {iid: coord.members[iid].role for iid in remote_ids}
+    # flash crowd: the lost host's subscribers renew against the
+    # promoted surviving-host halves and must keep their addresses
+    out = coord.handle_batch(
+        [(k, _renew(m, leased[m], 0x70000 + k))
+         for k, m in enumerate(remote_macs)], now=clock())
+    sticky = sum(
+        1 for (_l, rep), m in zip(out, remote_macs)
+        if rep is not None and _reply(rep).msg_type == dhcp_codec.ACK
+        and _reply(rep).yiaddr == leased[m])
+    fresh = [_mac((seed % 89) * 100 + 20_000 + i) for i in range(12)]
+    fresh_leased = dora_with_retries(coord, fresh, clock)
+
+    audit = audit_invariants(bng_cluster=coord)
+    out_rep = {
+        "name": "cluster_host_loss", "seed": seed,
+        "join_ticks": join_ticks,
+        "handoff_completed": handoff_rx,
+        "leased": len(leased),
+        "remote_subs": len(remote_macs),
+        "missteers": missteers,
+        "host_losses": coord.host_losses,
+        "lost_hosts": sorted(coord._lost_hosts),
+        "loss_ticks": loss_ticks,
+        "roles": roles,
+        "failovers": coord.failovers,
+        "spooled": spooled,
+        "replay_rounds": replay_rounds,
+        "acct_stops": live.stops,
+        "sticky_acks": sticky,
+        "fresh_leased": len(fresh_leased),
+        "audit_ok": audit.ok,
+        "violations": audit.violations_by_kind(),
+    }
+    coord.close()
+    out_rep["ok"] = (
+        out_rep["handoff_completed"] == len(remote_ids)
+        and out_rep["leased"] == n_macs
+        and out_rep["remote_subs"] > 0
+        and missteers == 0
+        and out_rep["host_losses"] == 1
+        and out_rep["lost_hosts"] == ["beta"]
+        and roles == {"bng-r1": "promoted", "bng-r2": "promoted"}
+        and out_rep["failovers"] == len(remote_ids)
+        and spooled == 8
+        and replay_rounds == [8, 0]
+        and live.stops == 4
+        and sticky == out_rep["remote_subs"]
+        and out_rep["fresh_leased"] == len(fresh)
+        and audit.ok)
+    return out_rep
+
+
 SCENARIOS = {
     "dora_worker_crash": dora_worker_crash,
     "corrupt_restore_cold_start": corrupt_restore_cold_start,
@@ -1301,5 +1838,9 @@ SCENARIOS = {
     "sharded_swap_crash_rollback": sharded_swap_crash_rollback,
     "intercept_tap_live": intercept_tap_live,
     "route_flap_rewrite": route_flap_rewrite,
+    "cluster_failover_redora": cluster_failover_redora,
     "devloop_storm": devloop_storm,
+    "cluster_partial_partition": cluster_partial_partition,
+    "cluster_gray_member": cluster_gray_member,
+    "cluster_host_loss": cluster_host_loss,
 }

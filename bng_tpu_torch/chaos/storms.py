@@ -1,6 +1,5 @@
 """Subscriber-lifecycle storm suite — the traffic shapes that break
-real BNGs at the ISP edge (copy of `bng_tpu/chaos/storms.py`, the six
-storms that need no cluster of BNGs).
+real BNGs at the ISP edge (copy of `bng_tpu/chaos/storms.py`).
 
 The scripted scenarios (chaos/scenarios.py) prove recovery from FAULTS:
 kills, corruption, skew. This module proves graceful degradation under
@@ -29,6 +28,9 @@ injected at all:
     dual_stack_bringup      interleaved DORA + SOLICIT/REQUEST + RS/RA
                             per subscriber; the v4 and v6 lease books
                             must both agree with their pool bitmaps
+    cluster_scale_storm     4M+ subscribers steered across a 4-instance
+                            cluster (vectorized), a sampled DORA wave
+                            through the front door, the audit clean
     production_day          one compressed production day on a single
                             engine: diurnal IPoE/PPPoE/dual-stack/CGNAT
                             churn with CoA waves, intercept taps armed
@@ -900,6 +902,176 @@ def dual_stack_bringup(seed: int, scale: float = 1.0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6. cluster-scale storm: 4M+ subscribers across a cluster of BNGs
+# ---------------------------------------------------------------------------
+
+def cluster_scale_storm(seed: int, scale: float = 1.0) -> dict:
+    """4M+ subscribers steered across a 4-instance cluster
+    (bng_tpu_torch/cluster). The full population is steered VECTORIZED
+    (`steer_macs_u48` — one numpy pass over every MAC) and pinned
+    bit-exact against the scalar `instance_for_mac` on a seeded sample;
+    a sampled per-instance DORA wave then runs FULL FRAMES through the
+    cluster front door, each wave under its own tracer so every
+    instance gets its OWN SLO verdict (one overloaded member cannot
+    hide behind the cluster mean). Mid-storm one member dies: the
+    standby promotes and the victim's whole wave renews sticky. The
+    `_audit_cluster` epilogue proves no IP is owned by two instances
+    and every lease sits inside its owner's carve."""
+    import random
+
+    import numpy as np
+
+    from bng_tpu_torch.cluster import ClusterCoordinator, instance_for_mac
+    from bng_tpu_torch.cluster.plan import steer_macs_u48
+
+    n_members = 4
+    n_steered = max(40_000, int(round(4_200_000 * scale)))
+    per_inst = max(250, int(round(6_000 * scale)))
+    chunk = max(256, per_inst // 4)
+
+    clock = SimClock()
+    # a /9 space carves into 4 x /11 blocks: 8.4M addresses, so the 4M+
+    # steered population fits the plan with room for growth blocks
+    coord = ClusterCoordinator(
+        clock=clock, space_network=ip_to_u32("10.0.0.0"),
+        space_prefix_len=9, nat_base=ip_to_u32("100.64.0.0"),
+        nat_total=1 << 14, sub_nbuckets=1 << 13, slice_size=256,
+        inbox_capacity=1 << 15)
+    coord.add_instances(["bng-%02d" % i for i in range(n_members)])
+    ids = coord.member_ids()
+
+    # ---- steer the WHOLE population in one vectorized pass ----------
+    base = (seed % 89) * 8_000_000
+    mac_u48 = ((np.uint64(0x02C5) << np.uint64(32)) + np.uint64(base)
+               + np.arange(n_steered, dtype=np.uint64))
+    steer = steer_macs_u48(mac_u48, len(ids))
+    counts = np.bincount(steer, minlength=len(ids))
+    steered = {ids[k]: int(counts[k]) for k in range(len(ids))}
+    rng = random.Random(seed)
+    sample = rng.sample(range(n_steered), min(512, n_steered))
+    steer_identity = all(
+        ids[int(steer[j])] == instance_for_mac(
+            int(mac_u48[j]).to_bytes(6, "big"), ids)
+        for j in sample)
+    # FNV-1a32 over a contiguous MAC range lands near-uniform; a
+    # member starving below 80% of its fair share means the steering
+    # family regressed
+    fair = n_steered / len(ids)
+    spread_ok = all(int(c) >= int(0.8 * fair) for c in counts)
+
+    # ---- sampled per-instance full-frame DORA waves -----------------
+    fac = StormFrameFactory(SERVER_IP)
+    waves: dict[str, list] = {}
+    leases: dict[str, dict] = {}
+    slo: dict[str, dict] = {}
+    for k, iid in enumerate(ids):
+        idx = np.flatnonzero(steer == k)[:per_inst]
+        wave = [int(mac_u48[j]).to_bytes(6, "big") for j in idx]
+        waves[iid] = wave
+        got: dict[bytes, int] = {}
+        xid = 1
+        with _traced() as tracer:
+            for ci in range(0, len(wave), chunk):
+                cmacs = wave[ci:ci + chunk]
+                out = coord.handle_batch(
+                    [(i, fac.discover(m, xid + i))
+                     for i, m in enumerate(cmacs)], now=clock())
+                offers: dict[bytes, int] = {}
+                for (_l, rep), m in zip(out, cmacs):
+                    if rep is not None:
+                        p = _reply(rep)
+                        if p.msg_type == dhcp_codec.OFFER:
+                            offers[m] = p.yiaddr
+                req_macs = [m for m in cmacs if m in offers]
+                out = coord.handle_batch(
+                    [(i, fac.request(m, offers[m], 0x100000 + xid + i))
+                     for i, m in enumerate(req_macs)], now=clock())
+                for (_l, rep), m in zip(out, req_macs):
+                    if rep is not None:
+                        p = _reply(rep)
+                        if p.msg_type == dhcp_codec.ACK:
+                            got[m] = p.yiaddr
+                xid += len(cmacs)
+                clock.advance(1.0)
+            # each instance gets its OWN verdict — envelopes match
+            # flash_crowd_reconnect (same stages, same per-frame cost)
+            slo[iid] = check_budget(tracer, (
+                BudgetLine("admit", limit_us=500.0, per=chunk),
+                BudgetLine("fleet", limit_us=2_000.0, per=chunk),
+                BudgetLine("worker", limit_us=5_000.0),
+            ))
+        leases[iid] = got
+
+    # carve containment, end to end: every ACKed address must sit in
+    # the plan blocks of the instance that served it
+    carve_ok = all(
+        coord.plan.owner_of(ip) == iid
+        for iid, got in leases.items() for ip in got.values())
+    all_ips = [ip for got in leases.values() for ip in got.values()]
+    unique_ok = len(all_ips) == len(set(all_ips))
+
+    # ---- storm-scale failover: kill a member mid-service ------------
+    victim = ids[seed % len(ids)]
+    coord.kill_instance(victim)
+    ticks = 0
+    while coord.members[victim].role != "promoted" and ticks < 64:
+        clock.advance(1.0)
+        coord.tick()
+        ticks += 1
+    promoted = coord.members[victim].role == "promoted"
+
+    # the victim's WHOLE wave renews through the promoted standby and
+    # must come back with the addresses the dead active handed out
+    vwave = [m for m in waves[victim] if m in leases[victim]]
+    sticky = 0
+    for ci in range(0, len(vwave), chunk):
+        cmacs = vwave[ci:ci + chunk]
+        out = coord.handle_batch(
+            [(i, fac.renew(m, leases[victim][m], 0x200000 + ci + i))
+             for i, m in enumerate(cmacs)], now=clock())
+        sticky += sum(
+            1 for (_l, rep), m in zip(out, cmacs)
+            if rep is not None and _reply(rep).msg_type == dhcp_codec.ACK
+            and _reply(rep).yiaddr == leases[victim][m])
+
+    audit = audit_invariants(bng_cluster=coord)
+    out_rep = {
+        "name": "cluster_scale_storm", "seed": seed,
+        "instances": len(ids),
+        "subscribers": n_steered,
+        "plan_addresses": coord.plan.total_addresses(),
+        "steered": steered,
+        "steer_identity": steer_identity,
+        "spread_ok": spread_ok,
+        "wave_per_instance": per_inst,
+        "leased": {iid: len(got) for iid, got in sorted(leases.items())},
+        "unique_ips": len(set(all_ips)),
+        "carve_ok": carve_ok,
+        "slo": {iid: slo[iid] for iid in sorted(slo)},
+        "victim": victim,
+        "promoted": promoted,
+        "failovers": coord.failovers,
+        "sticky_acks": sticky,
+        "sticky_expected": len(vwave),
+        "shed_frames": coord.shed_frames,
+        "audit_ok": audit.ok,
+        "violations": audit.violations_by_kind(),
+    }
+    coord.close()
+    out_rep["ok"] = (
+        len(ids) >= 4
+        and out_rep["plan_addresses"] >= n_steered
+        and steer_identity and spread_ok
+        and all(len(leases[i]) == len(waves[i]) for i in ids)
+        and unique_ok and carve_ok
+        and all(v["ok"] for v in slo.values())
+        and promoted and coord.failovers == 1
+        and sticky == len(vwave) and sticky > 0
+        and audit.ok)
+    return out_rep
+
+
+# ---------------------------------------------------------------------------
 # 7. production day: the composite edge-protection storm
 # ---------------------------------------------------------------------------
 
@@ -1294,5 +1466,6 @@ STORMS = {
     "cgnat_port_exhaustion": cgnat_port_exhaustion,
     "coa_policy_flap": coa_policy_flap,
     "dual_stack_bringup": dual_stack_bringup,
+    "cluster_scale_storm": cluster_scale_storm,
     "production_day": production_day,
 }

@@ -1,6 +1,6 @@
 """Composition root + CLI of the port: run / stats / loadtest / trace /
-checkpoint / version (port of `bng_tpu/cli.py` at the serving stack's
-scope).
+checkpoint / chaos / cluster / ctl / version (port of `bng_tpu/cli.py`;
+its `demo`, `perf` and `check` verbs are not ported).
 
 `BNGConfig` is the reference's flag surface, field for field, with the
 same YAML overlay where the command line wins (`load_config_file`).
@@ -16,19 +16,19 @@ the DHCP server and the engine on the card (with the PPPoE session
 tables when PPPoE is on), the tiered scheduler when asked, the DHCPv6
 and SLAAC servers, the PPPoE server, the slow-path demux over them, the
 CoA listener, the HA pair (active or standby), the replicated store and
-the cluster listener (plain or TLS), the packet ring with a memory-rung
-wire attachment for the synthetic source, routing and BGP, Nexus,
+the cluster listener (plain or TLS), the packet ring with the AF_XDP
+attach ladder (`--wire-if`: zerocopy, then copy, then the memory rung,
+loudly) and its XDP redirect program, routing and BGP, Nexus,
 subscribers, policies, the metrics registry and its collector, the
 checkpointer (restore at start, the periodic cadence, the SIGTERM
 snapshot) and the ops controller. `--shards N` puts an N-shard
 `ShardedCluster` on the one card in the engine's place: every fast-path,
 QoS, NAT and garden write routes to its owner shard, the cluster builds
 the steered ring, and the features whose wiring is the engine's
-(scheduler, PPPoE, the fleet) degrade loudly (`sharded_blockers`). A config
-that turns on a subsystem the port lacks (`UNPORTED`) is refused at
-construction with one error naming each one and the flag that turns it
-off, and so is the one the reference builds but cannot serve (an HA
-active under shards with NAT on); nothing degrades silently. The reference's defaults build, so
+(scheduler, PPPoE, the fleet) degrade loudly (`sharded_blockers`). The one
+config the reference builds but cannot serve (an HA active under shards
+with NAT on) is refused at construction; nothing degrades silently. The
+reference's defaults build, so
 
     python -m bng_tpu_torch run --once
 
@@ -56,8 +56,7 @@ __version__ = "0.1.0"
 @dataclasses.dataclass
 class BNGConfig:
     """Flattened flag surface: the reference's `BNGConfig`, the same fields
-    and defaults. A field that turns on a subsystem the port lacks
-    (`UNPORTED`) makes `BNGApp` refuse to build."""
+    and defaults."""
 
     # dataplane
     server_ip: str = "10.0.0.1"
@@ -209,49 +208,17 @@ def load_config_file(path: str, cli_set: set[str],
     return base
 
 
-# The subsystems `run` can turn on that the port does not have yet:
-# (is it on?, what it is, the flag that turns it off).
-UNPORTED = (
-    (lambda c: bool(c.wire_if), "AF_XDP wire", "--wire-if ''"),
-)
-
-
-class UnportedSubsystemError(ValueError):
-    """The config turns on subsystems the port does not have."""
-
-
 class UnservableConfigError(ValueError):
     """The config builds a dataplane that could not serve it."""
 
 
-def unported(cfg: BNGConfig) -> list[tuple[str, str]]:
-    """(subsystem, flag that turns it off) for each unported subsystem the
-    config turns on."""
-    return [(what, flag) for on, what, flag in UNPORTED if on(cfg)]
-
-
-def check_ported(cfg: BNGConfig) -> None:
-    missing = unported(cfg)
-    if missing:
-        raise UnportedSubsystemError(
-            "bng_tpu_torch does not have these subsystems yet: "
-            + "; ".join(f"{what} (turn off with {flag})" for what, flag in missing))
+def check_servable(cfg: BNGConfig) -> None:
     if cfg.shards > 1 and cfg.ha_role == "active" and cfg.nat_enabled:
         # the reference builds this and then ACKs no REQUEST: the active's
         # lease hook reads a host NAT manager that shards do not have
         raise UnservableConfigError(
             "an HA active under sharded serving cannot serve with NAT on "
             "(use --shards 1 or --no-nat-enabled)")
-
-
-@dataclasses.dataclass
-class WireAttachment:
-    """The attach ladder's result (the reference's `runtime/xsk.py`): the
-    port has no AF_XDP, so the ring always serves on the memory rung."""
-
-    mode: str
-    xsk: object
-    detail: str = ""
 
 
 class _ShardedGardenGate:
@@ -286,7 +253,7 @@ class BNGApp:
     ACCT_RETRY_EVERY_S = 30.0
 
     def __init__(self, config: BNGConfig, clock=time.time, device=None):
-        check_ported(config)
+        check_servable(config)
         self.device = resolve_device(device)
         self.config = config
         self.clock = clock
@@ -753,24 +720,20 @@ class BNGApp:
         if cfg.cluster_listen:
             self._build_cluster_listener()
 
-        # 11c. the packet ring. Sharded, the cluster builds it, so its
-        # steering tables (public-IP ownership, the owner-shard hash) are
-        # registered and shard i's batch region holds shard i's
-        # subscribers. Otherwise, for the synthetic source: the memory
-        # rung of the attach ladder (the scheduler consumes frames through
-        # rx_pop, which only PyRing has, so it takes the Python ring)
-        if cfg.shards > 1 and cfg.synthetic_subs:
+        # 11c. the wire: packet ring + AF_XDP attach ladder (the XDP-attach
+        # role, loader.go:294-315). The ring is built when a wire or the
+        # synthetic source is asked for; the attach mode is whatever rung
+        # the host supports (zerocopy -> copy -> in-memory). Sharded, the
+        # cluster builds the ring, so its steering tables (public-IP
+        # ownership, the owner-shard hash) are registered and shard i's
+        # batch region holds shard i's subscribers; AF_XDP attach is an
+        # engine-path feature (sharded_blockers).
+        if cfg.shards > 1 and (cfg.wire_if or cfg.synthetic_subs):
             ring = c["ring"] = c["cluster"].make_ring(frame_size=2048)
             self._on_close(ring.close)
             self._on_close(lambda: c["cluster"].flush_pipeline(self._slow_path))
-        elif cfg.synthetic_subs:
-            from bng_tpu_torch.runtime.ring import make_ring
-
-            ring = c["ring"] = make_ring(frame_size=2048, prefer_native="scheduler" not in c)
-            att = c["wire_attachment"] = WireAttachment("memory", None, "no interface requested")
-            self.log.info("wire attach", mode=att.mode, interface="(none)", detail=att.detail)
-            self._on_close(ring.close)
-            self._on_close(lambda: c["engine"].flush_pipeline())
+        elif cfg.wire_if or cfg.synthetic_subs:
+            self._build_wire(cfg, c)
 
         # 12. routing
         if cfg.routing_platform == "linux":
@@ -1000,7 +963,7 @@ class BNGApp:
 
         def _nat_fields(ip):
             # the reference's expression; with no host NAT manager (shards)
-            # and NAT on it would raise, so `check_ported` refuses that config
+            # and NAT on it would raise, so `check_servable` refuses that config
             blk = nat.blocks.get(ip) if cfg.nat_enabled else None
             if blk is None:
                 return {}
@@ -1154,6 +1117,65 @@ class BNGApp:
         self.log.info("slowpath fleet up", workers=cfg.slowpath_workers,
                       mode=cfg.slowpath_worker_mode, inbox=cfg.slowpath_inbox)
 
+    def _build_wire(self, cfg, c) -> None:
+        """Step 11c on the engine path: the ring, the attach ladder, the
+        XDP redirect program, and their LIFO close."""
+        from bng_tpu_torch.runtime import xsk as xsk_mod
+        from bng_tpu_torch.runtime.ring import make_ring
+
+        # the tiered scheduler consumes frames through rx_pop (two lanes
+        # retire out of dispatch order), so it prefers the Python ring. A
+        # real wire attach needs the native UMEM, which wins: a PyRing
+        # would silently downgrade the NIC to the memory rung, so with
+        # wire_if set the ring stays native and drive_once takes the
+        # pipelined engine loop (warned there)
+        if cfg.wire_if and "scheduler" in c:
+            self.log.warning("scheduler enabled with a wire interface: native ring "
+                             "required for AF_XDP, scheduler will be bypassed in "
+                             "the drive loop")
+        ring = c["ring"] = make_ring(frame_size=2048,
+                                     prefer_native=bool(cfg.wire_if) or "scheduler" not in c)
+        att = xsk_mod.open_wire(ring, ifname=cfg.wire_if, queue=cfg.wire_queue,
+                                pump_path=cfg.wire_pump or None)
+        c["wire_attachment"] = att
+        self.log.info("wire attach", mode=att.mode, interface=cfg.wire_if or "(none)",
+                      detail=att.detail)
+        if cfg.wire_if and att.mode == xsk_mod.MODE_MEMORY:
+            # a requested NIC landed on the memory rung: the ring keeps
+            # serving, so every counter looks healthy while no packet
+            # touches the wire — dump the flight ring and say it loudly;
+            # the bng_wire_rung gauge pins it for dashboards
+            from bng_tpu_torch.telemetry import recorder as rec_mod
+            from bng_tpu_torch.telemetry import spans as tele_sp
+
+            self.log.warning("wire attach FELL BACK to the memory rung — this is "
+                             "NOT wire serving", interface=cfg.wire_if, detail=att.detail)
+            tele_sp.trigger(rec_mod.TRIG_WIRE_FALLBACK,
+                            f"requested {cfg.wire_if!r} landed on the "
+                            f"memory rung: {att.detail}")
+        if att.xsk is not None:
+            # an AF_XDP socket only receives through an xskmap redirect
+            # program, loaded through the kernel verifier; TX works
+            # without it, so a missing CAP_BPF degrades (logged)
+            from bng_tpu_torch.runtime import xdp_redirect
+
+            try:
+                c["xdp_redirect"] = xdp_redirect.XdpRedirect(
+                    cfg.wire_if, {cfg.wire_queue: att.xsk.fd})
+                self.log.info("xdp redirect loaded", interface=cfg.wire_if,
+                              queue=cfg.wire_queue)
+            except OSError as e:
+                self.log.warning("xdp redirect unavailable (RX via kernel needs CAP_BPF)",
+                                 error=str(e))
+        # LIFO close: flush the pipelined batch (needs the ring), then
+        # detach the socket and the redirect, then free the ring and UMEM
+        self._on_close(ring.close)
+        if att.xsk is not None:
+            self._on_close(att.xsk.close)
+        if "xdp_redirect" in c:
+            self._on_close(c["xdp_redirect"].close)
+        self._on_close(lambda: c["engine"].flush_pipeline())
+
     def _build_metrics(self, pool_mgr, dhcp) -> None:
         """The registry, the collector and its sources. Each source reads
         host state only (EngineStats numpy, scheduler counters, host
@@ -1183,6 +1205,10 @@ class BNGApp:
         if "fleet" in c:
             fleet_c = c["fleet"]
             collector.add_source(lambda: metrics.collect_fleet(fleet_c))
+        if "wire_attachment" in c:
+            # rung identity and pump accounting; reads c[...] at scrape
+            # time so a re-attach follows the flip
+            collector.add_source(lambda: metrics.collect_wire(c.get("wire_attachment")))
         if "telemetry" in c:
             tracer = c["telemetry"]
             # bng_stage_latency_us renders live from the tracer's
@@ -1554,14 +1580,20 @@ class BNGApp:
         self._cleanup.clear()
 
     def drive_once(self) -> int:
-        """One dataplane beat: feed the synthetic source (if configured),
-        run the sharded cluster's double-buffered ring loop, the
-        scheduler's beat or a double-buffered engine step over the ring,
-        then put the slow-path demux's pending frames on the TX ring.
-        Returns frames moved (the run loop sleeps when this stays 0)."""
+        """One dataplane beat: pump the AF_XDP socket (kernel RX -> ring)
+        when a real rung is attached, feed the synthetic source (if
+        configured), run the sharded cluster's double-buffered ring loop,
+        the scheduler's beat or a double-buffered engine step over the
+        ring, put the slow-path demux's pending frames on the TX ring, and
+        pump again (ring TX verdicts -> kernel). Returns frames moved (the
+        run loop sleeps when this stays 0)."""
         ring = self.components.get("ring")
         if ring is None:
             return 0
+        att = self.components.get("wire_attachment")
+        pumped = 0
+        if att is not None and att.xsk is not None:
+            pumped = att.xsk.pump()  # kernel -> ring before the step
         if self.config.synthetic_subs:
             self._push_synthetic(ring)
         sched = self.components.get("scheduler")
@@ -1575,6 +1607,13 @@ class BNGApp:
             elif sched is not None and hasattr(ring, "rx_pop"):
                 moved = self._drive_scheduler(ring, sched)
             else:
+                # scheduler off, or a native ring (batch assemble..complete
+                # is its contract; the two lanes' out-of-order retire needs
+                # the frame-wise rx_pop only PyRing has)
+                if sched is not None and not self._warned_no_rx_pop:
+                    self._warned_no_rx_pop = True
+                    self.log.warning("scheduler enabled but ring has no rx_pop; "
+                                     "using pipelined engine loop")
                 moved = self.components["engine"].process_ring_pipelined(ring)
             # PPPoE negotiation's frames beyond the one inline reply (CHAP
             # Success + IPCP Conf-Req in one beat), CoA teardowns and the
@@ -1590,7 +1629,11 @@ class BNGApp:
                     else:
                         src.requeue(pending[i:], front=True)
                         break
-        return moved
+        if att is not None and att.xsk is not None:
+            pumped += att.xsk.pump()  # verdicts -> kernel after the step
+        return moved + pumped
+
+    _warned_no_rx_pop = False
 
     def _drive_scheduler(self, ring, sched) -> int:
         """One scheduler beat over the ring: RX frames into the lanes, poll
@@ -1816,8 +1859,9 @@ class BNGApp:
 
 def run_loadtest(args, device) -> int:
     """Build a self-contained engine + slow-path stack on `device` and
-    load-test it (the reference's `run_loadtest`, without the wire loop).
-    `--workers N` fans the DHCPv4 slow lanes over a slow-path fleet of N
+    load-test it (the reference's `run_loadtest`). `--wire [IFNAME]`
+    drives the batches through the wire loop instead of the engine's batch
+    interface. `--workers N` fans the DHCPv4 slow lanes over a slow-path fleet of N
     workers (`--fleet-mode`). `--trace` arms the span tracer for the run:
     the report gains the per-stage breakdown and its SLO verdict."""
     import ipaddress
@@ -1831,10 +1875,6 @@ def run_loadtest(args, device) -> int:
     from bng_tpu_torch.runtime.tables import FastPathTables
     from bng_tpu_torch.utils.net import ip_to_u32, parse_mac
 
-    if args.wire is not None:
-        print("loadtest: --wire: not in bng_tpu_torch yet (the AF_XDP wire loop is "
-              "not ported)", file=sys.stderr)
-        return 2
     net = ipaddress.ip_network(args.pool_cidr)
     server_ip = int(net.network_address + 1)
     server_mac = parse_mac("02:aa:bb:cc:dd:01")
@@ -1885,6 +1925,98 @@ def run_loadtest(args, device) -> int:
 
         target = TieredScheduler(engine, SchedulerConfig(bulk_batch=args.batch_size))
 
+    # --wire: drive the batches through the full wire loop (inject at
+    # the far end -> kernel rings -> WirePump -> UMEM ring -> engine ->
+    # WirePump -> far end) instead of the engine's batch interface.
+    # `--wire` alone runs the memory-rung SimKernelRings
+    # loopback (no privileges needed); `--wire IFNAME` walks the real
+    # attach ladder and needs --wire-peer to see replies.
+    wire = args.wire
+    wire_cleanup: list = []
+    wire_pump = None
+    wire_mode = ""
+    if wire is not None:
+        if args.scheduler:
+            print("loadtest: --wire and --scheduler are incompatible "
+                  "(the native ring's batch assemble..complete contract "
+                  "has no rx_pop)", file=sys.stderr)
+            return 2
+        from bng_tpu_torch.loadtest import WireLoopTarget
+        from bng_tpu_torch.runtime import xsk as xsk_mod
+        from bng_tpu_torch.runtime.ring import NativeRing
+
+        nframes = 1 << max(12, (4 * args.batch_size - 1).bit_length())
+        depth = 1 << max(10, (2 * args.batch_size - 1).bit_length())
+        try:
+            wire_ring = NativeRing(nframes=nframes, frame_size=2048,
+                                   depth=depth)
+        except RuntimeError as e:
+            print(f"loadtest: --wire needs the native ring: {e}",
+                  file=sys.stderr)
+            return 2
+        wire_cleanup.append(wire_ring.close)
+        pump_path = args.wire_pump or None
+        att = (xsk_mod.open_wire(wire_ring, ifname=wire,
+                                 pump_path=pump_path)
+               if wire != "mem" else None)
+        if att is not None and att.xsk is not None:
+            peer = args.wire_peer
+            if not peer:
+                print("loadtest: --wire on a live rung needs --wire-peer "
+                      "IFNAME (the far end to inject/collect on)",
+                      file=sys.stderr)
+                return 2
+            import socket as so
+
+            from bng_tpu_torch.runtime import xdp_redirect
+
+            wire_cleanup.append(att.xsk.close)
+            try:
+                redir = xdp_redirect.XdpRedirect(wire, {0: att.xsk.fd})
+                wire_cleanup.append(redir.close)
+            except OSError as e:
+                print(f"loadtest: xdp redirect failed (CAP_BPF): {e}",
+                      file=sys.stderr)
+                return 2
+            txs = so.socket(so.AF_PACKET, so.SOCK_RAW)
+            txs.bind((peer, 0))
+            rxs = so.socket(so.AF_PACKET, so.SOCK_RAW, so.htons(0x0003))
+            rxs.bind((peer, 0))
+            rxs.setblocking(False)
+            wire_cleanup.extend((txs.close, rxs.close))
+
+            def _inject(frames, _s=txs):
+                for f in frames:
+                    _s.send(f)
+
+            def _collect(_s=rxs):
+                out = []
+                while True:
+                    try:
+                        out.append(_s.recv(4096))
+                    except (BlockingIOError, OSError):
+                        break
+                return out
+
+            wire_pump = att.xsk.wire_pump
+            wire_mode = att.mode
+            target = WireLoopTarget(engine, wire_ring, wire_pump,
+                                    _inject, _collect)
+        else:
+            if att is not None:
+                # a REQUESTED NIC fell back: say it loudly, then serve
+                # the memory rung anyway (the loadtest still measures
+                # the pump loop; bng_wire_rung would pin it in `run`)
+                print(f"loadtest: wire attach fell back to the memory "
+                      f"rung: {att.detail}", file=sys.stderr)
+            kern = xsk_mod.SimKernelRings(wire_ring, headroom=256,
+                                          ring_size=depth)
+            wire_pump = xsk_mod.WirePump(wire_ring, kern, path=pump_path)
+            wire_mode = "memory"
+            target = WireLoopTarget(engine, wire_ring, wire_pump,
+                                    kern.inject_many, kern.drain_egress,
+                                    tick=kern.deliver)
+
     cfg = BenchmarkConfig(
         batch_size=args.batch_size, duration_s=args.duration,
         warmup_s=args.warmup, unique_macs=args.macs,
@@ -1903,6 +2035,11 @@ def run_loadtest(args, device) -> int:
         if fleet is not None:
             fleet_snap = fleet.stats_snapshot()
             fleet.close()
+        for fn in reversed(wire_cleanup):
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — teardown is best-effort
+                pass
     degraded = {}
     if server.stats.pool_exhausted:
         degraded["dhcp_pool"] = server.stats.pool_exhausted
@@ -1954,11 +2091,20 @@ def run_loadtest(args, device) -> int:
             out["fleet"] = fleet_snap
         if tracer is not None:
             out["stage_breakdown"] = stage_breakdown
+        if wire_pump is not None:
+            out["wire"] = {"mode": wire_mode, "pump_path": wire_pump.path,
+                           "pump_stats": dict(wire_pump.pump_stats),
+                           "unmatched": target.unmatched}
         print(json.dumps(out, indent=2))
     else:
         print(res.summary())
         print(f"Served by:         {served['device']}, {served['dispatches']} dispatches, "
               f"launches {served['launches']}")
+        if wire_pump is not None:
+            st = wire_pump.pump_stats
+            print(f"Wire:              rung={wire_mode} pump={wire_pump.path} rx={st['rx']} "
+                  f"tx={st['tx']} submit_fail={st['rx_submit_fail']} "
+                  f"tx_overflow={st['tx_overflow']}")
         if fleet is not None:
             adm = fleet_snap["admission"]
             print(f"Fleet:             {fleet_snap['workers']} workers, "
@@ -2371,6 +2517,278 @@ def _config_from_args(args) -> BNGConfig:
     return cfg
 
 
+def _cluster_wave(coord, n_subs: int, chunk: int = 512) -> dict:
+    """Drive a synthetic DORA wave through the cluster front door —
+    the `cluster run --subscribers N` smoke traffic. Returns the
+    wave verdict (leased / unique / shed) for the status output."""
+    from bng_tpu_torch import frames as packets
+    from bng_tpu_torch.control import dhcp_codec
+    from bng_tpu_torch.loadtest.harness import StormFrameFactory
+
+    fac = StormFrameFactory(coord.server_ip)
+    macs = [(0x02D6 << 32 | i).to_bytes(6, "big") for i in range(n_subs)]
+    leased: dict[bytes, int] = {}
+    now = coord.clock()
+    for ci in range(0, n_subs, chunk):
+        cmacs = macs[ci:ci + chunk]
+        out = coord.handle_batch(
+            [(i, fac.discover(m, ci + i + 1)) for i, m in enumerate(cmacs)],
+            now=now)
+        offers: dict[bytes, int] = {}
+        for (_l, rep), m in zip(out, cmacs):
+            if rep is not None:
+                p = dhcp_codec.decode(packets.decode(rep).payload)
+                if p.msg_type == dhcp_codec.OFFER:
+                    offers[m] = p.yiaddr
+        req = [m for m in cmacs if m in offers]
+        out = coord.handle_batch(
+            [(i, fac.request(m, offers[m], 0x100000 + ci + i))
+             for i, m in enumerate(req)], now=now)
+        for (_l, rep), m in zip(out, req):
+            if rep is not None:
+                p = dhcp_codec.decode(packets.decode(rep).payload)
+                if p.msg_type == dhcp_codec.ACK:
+                    leased[m] = p.yiaddr
+    return {"subscribers": n_subs, "leased": len(leased),
+            "unique_ips": len(set(leased.values())),
+            "shed": coord.shed_frames,
+            "ok": (len(leased) == n_subs
+                   and len(set(leased.values())) == n_subs)}
+
+
+def _plan_summary(plan) -> dict:
+    from bng_tpu_torch.utils.net import u32_to_ip
+
+    return {
+        "space": f"{u32_to_ip(plan.space_network)}/{plan.space_prefix_len}",
+        "block_prefix_len": plan.block_prefix_len,
+        "blocks": plan.n_blocks,
+        "epoch": plan.epoch,
+        "addresses": plan.total_addresses(),
+        "members": {
+            iid: {"blocks": [f"{u32_to_ip(b.network)}/{b.prefix_len}"
+                             for b in p.blocks],
+                  "addresses": p.addresses(),
+                  "nat": [list(plan.nat_range(b)) for b in p.blocks]}
+            for iid, p in sorted(plan.members.items())},
+        "free_blocks": [f"{u32_to_ip(b.network)}/{b.prefix_len}"
+                        for b in plan.free],
+    }
+
+
+def run_cluster(args) -> int:
+    """`cluster run|status` — the cluster-of-BNGs front door
+    (bng_tpu_torch/cluster), host code only: no instance builds an engine. `run` composes N instances behind one FNV-1a32
+    steering door (inline in this process, or one child process per
+    instance), optionally drives a synthetic DORA wave, and prints or
+    serves the coordinator status + bng_cluster_* metrics; `status`
+    reads the carve plan back out of a checkpoint (or a status file a
+    `run` wrote) without building anything."""
+    from bng_tpu_torch.utils.net import ip_to_u32
+
+    if args.cluster_cmd == "status":
+        if args.from_checkpoint:
+            from bng_tpu_torch.cluster import ClusterPlan
+            from bng_tpu_torch.runtime.checkpoint import (CheckpointError,
+                                                    decode_checkpoint)
+
+            try:
+                with open(args.from_checkpoint, "rb") as f:
+                    ckpt = decode_checkpoint(f.read())
+            except (OSError, CheckpointError) as e:
+                print(f"cluster status: {e}", file=sys.stderr)
+                return 2
+            comp = ckpt.meta.get("components", {}).get("cluster_plan")
+            if not comp:
+                print("cluster status: checkpoint carries no "
+                      "cluster_plan component", file=sys.stderr)
+                return 1
+            try:
+                plan = ClusterPlan.from_dict(comp)
+            except (KeyError, TypeError, ValueError) as e:
+                print(f"cluster status: corrupt carve plan: {e!r}",
+                      file=sys.stderr)
+                return 2
+            print(json.dumps(_plan_summary(plan), indent=2,
+                             sort_keys=True))
+            return 0
+        if args.status_file:
+            try:
+                with open(args.status_file) as f:
+                    print(f.read().rstrip())
+            except OSError as e:
+                print(f"cluster status: {e}", file=sys.stderr)
+                return 2
+            return 0
+        print("cluster status: --from-checkpoint or --status-file "
+              "required (a live `cluster run` writes the latter)",
+              file=sys.stderr)
+        return 2
+
+    # -- cluster join ------------------------------------------------
+    # run this box as a FULL SERVING MEMBER of a remote coordinator's
+    # carve: announce with capped-backoff retries, hydrate
+    # the carved blocks from the coordinator's handoff stream, bring up
+    # a local fleet+engine stack, serve steered batches over the
+    # fabric, and ship lease/HA deltas back on every reply
+    if args.join:
+        import socket as _socket
+
+        from bng_tpu_torch.cluster.coordinator import DEFAULT_FABRIC_PSK
+        from bng_tpu_torch.cluster.fabric import UDPTransport
+        from bng_tpu_torch.cluster.member import MemberRuntime
+        from bng_tpu_torch.control.deviceauth import PSKAuthenticator
+        from bng_tpu_torch.control.metrics import BNGMetrics
+
+        host_s, _, port_s = args.join.rpartition(":")
+        try:
+            hub = (host_s or "127.0.0.1", int(port_s))
+        except ValueError:
+            print(f"cluster run: bad --join {args.join!r} "
+                  f"(want HOST:PORT)", file=sys.stderr)
+            return 2
+        hostname = _socket.gethostname()
+        node_id = args.node_id or f"bng-{hostname}"
+        ep = UDPTransport(node_id, PSKAuthenticator(
+            psk=args.fabric_psk or DEFAULT_FABRIC_PSK))
+        ep.add_peer("coordinator", hub)
+        member = MemberRuntime(
+            ep, node_id, hostname,
+            join_deadline_s=args.join_deadline,
+            log=lambda m: print(m, file=sys.stderr))
+        metrics = BNGMetrics()
+        print(f"cluster join: {node_id} (host {hostname}) -> "
+              f"{hub[0]}:{hub[1]}", file=sys.stderr)
+        last_state = member.state
+        ticks = 0
+        try:
+            while True:
+                member.tick()
+                st = member.status()
+                metrics.record_member(st)
+                if member.state != last_state:
+                    print(f"cluster join: {last_state} -> "
+                          f"{member.state} (epoch {member.epoch}, "
+                          f"{member.join_retries} retries)",
+                          file=sys.stderr)
+                    last_state = member.state
+                if member.state == "gave_up":
+                    return 1
+                ticks += 1
+                if args.once and (member.state == "serving"
+                                  or ticks >= 3):
+                    print(json.dumps(st, indent=2, sort_keys=True,
+                                     default=str))
+                    return 0 if member.state == "serving" else 1
+                if args.status_file and ticks % 10 == 0:
+                    with open(args.status_file, "w") as f:
+                        f.write(json.dumps(st, indent=2, sort_keys=True,
+                                           default=str) + "\n")
+                time.sleep(0.05)
+        except KeyboardInterrupt:
+            return 0
+        finally:
+            member.close()
+
+    # -- cluster run -------------------------------------------------
+    from bng_tpu_torch.cluster import ClusterCoordinator
+    from bng_tpu_torch.control.metrics import BNGMetrics
+
+    net_s, _, plen_s = args.space.partition("/")
+    try:
+        space_net, space_plen = ip_to_u32(net_s), int(plen_s or "10")
+    except (OSError, ValueError) as e:
+        print(f"cluster run: bad --space {args.space!r}: {e}",
+              file=sys.stderr)
+        return 2
+    fabric_bind: tuple = ("127.0.0.1", 0)
+    if args.listen:
+        lh, _, lp = args.listen.rpartition(":")
+        try:
+            fabric_bind = (lh or "127.0.0.1", int(lp))
+        except ValueError:
+            print(f"cluster run: bad --listen {args.listen!r} "
+                  f"(want HOST:PORT)", file=sys.stderr)
+            return 2
+    # the fabric lane rides --listen or process mode (process members
+    # beat over UDP; inline members stay on the in-process oracle
+    # unless a hub address asks for remote joiners)
+    use_fabric = bool(args.listen) or args.mode == "process"
+    coord = ClusterCoordinator(
+        mode=args.mode, space_network=space_net,
+        space_prefix_len=space_plen,
+        nat_base=ip_to_u32(args.nat_base) if args.nat_base else 0,
+        nat_total=args.nat_total, n_workers=args.workers,
+        sub_nbuckets=args.sub_nbuckets,
+        fabric=use_fabric, fabric_psk=args.fabric_psk,
+        fabric_bind=fabric_bind)
+    if use_fabric and coord.fabric_transport is not None:
+        fa = coord.fabric_transport.addr
+        print(f"cluster fabric: listening on {fa[0]}:{fa[1]}",
+              file=sys.stderr)
+    metrics = BNGMetrics()
+    expected_remotes: dict = {}
+    for spec_s in (args.expect_remote or ()):
+        iid, _, rhost = spec_s.partition("=")
+        if not iid:
+            print(f"cluster run: bad --expect-remote {spec_s!r} "
+                  f"(want ID=HOST)", file=sys.stderr)
+            return 2
+        expected_remotes[iid] = rhost or iid
+    try:
+        coord.add_instances([f"bng-{i:02d}" for i in range(args.instances)],
+                            remotes=expected_remotes)
+        out: dict = {}
+        if args.subscribers:
+            out["wave"] = _cluster_wave(coord, args.subscribers)
+        status = coord.status()
+        metrics.record_cluster(status)
+        out["status"] = status
+        if args.checkpoint_out:
+            from bng_tpu_torch.runtime.checkpoint import (build_checkpoint,
+                                                    encode_checkpoint)
+
+            ckpt = build_checkpoint(1, time.time(), cluster_plan=coord)
+            with open(args.checkpoint_out, "wb") as f:
+                f.write(encode_checkpoint(ckpt))
+            out["checkpoint"] = args.checkpoint_out
+        text = json.dumps(out, indent=2, sort_keys=True, default=str)
+        if args.status_file:
+            with open(args.status_file, "w") as f:
+                f.write(text + "\n")
+        print(text)
+        if args.once:
+            wave = out.get("wave")
+            return 0 if (wave is None or wave["ok"]) else 1
+        # serve: the HA/membership machinery ticks at 1 Hz (the same
+        # cadence App.tick gives a single instance) until interrupted
+        print(f"cluster serving: {args.instances} instances "
+              f"({args.mode}); ^C to stop", file=sys.stderr)
+        # with a fabric the tick must outpace the membership beats and
+        # the handoff retransmit timer; without one, 1 Hz (App.tick's
+        # cadence for a single instance) is plenty
+        tick_s = 0.1 if use_fabric else 1.0
+        try:
+            last_status = 0.0
+            while True:
+                time.sleep(tick_s)
+                coord.tick()
+                if time.time() - last_status >= 1.0:
+                    last_status = time.time()
+                    status = coord.status()
+                    metrics.record_cluster(status)
+                    if args.status_file:
+                        with open(args.status_file, "w") as f:
+                            f.write(json.dumps(status, indent=2,
+                                               sort_keys=True,
+                                               default=str) + "\n")
+        except KeyboardInterrupt:
+            pass
+        return 0
+    finally:
+        coord.close()
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="bng-tpu-torch", description="BNG dataplane on an NVIDIA GPU (PyTorch/CUDA)")
@@ -2416,9 +2834,16 @@ def main(argv: list[str] | None = None) -> int:
     loadp.add_argument("--fleet-mode", default="process", choices=("process", "inline"),
                        help="fleet execution mode (inline = deterministic, "
                             "process = parallel)")
-    # the reference's flag for a subsystem the port lacks: refused
     loadp.add_argument("--wire", nargs="?", const="mem", default=None, metavar="IFNAME",
-                       help="not ported: refused")
+                       help="drive batches through the full wire loop (kernel rings -> "
+                            "WirePump -> UMEM ring -> engine -> wire) instead of the engine "
+                            "batch interface; bare --wire runs the memory-rung SimKernel "
+                            "loopback, --wire IFNAME walks the real AF_XDP attach ladder")
+    loadp.add_argument("--wire-pump", default="", choices=("", "scalar", "vector"),
+                       help="wire pump implementation (default: BNG_WIRE_PUMP, scalar)")
+    loadp.add_argument("--wire-peer", default="",
+                       help="far-end interface for a live --wire rung (veth peer to "
+                            "inject/collect on)")
     loadp.add_argument("--trace", action="store_true",
                        help="arm the span tracer: the report gains the per-stage "
                             "latency breakdown and its SLO verdict")
@@ -2493,6 +2918,85 @@ def main(argv: list[str] | None = None) -> int:
                       "rc 2 on any violation")
     _add_run_flags(caud)
 
+    # cluster-of-BNGs front door (bng_tpu_torch/cluster)
+    clup = sub.add_parser(
+        "cluster", help="compose N BNG instances into one cluster: "
+                        "disjoint pool carve, HA standbys, FNV-1a32 "
+                        "MAC steering (bng_tpu_torch/cluster)")
+    clu_sub = clup.add_subparsers(dest="cluster_cmd", required=True)
+    clrun = clu_sub.add_parser(
+        "run", help="carve the space, build the instances and serve "
+                    "(or --once: print status and exit)")
+    clrun.add_argument("--instances", type=int, default=4,
+                       help="founding member count (default 4)")
+    clrun.add_argument("--mode", choices=("inline", "process"),
+                       default="inline",
+                       help="inline = all instances in this process "
+                            "(deterministic); process = one child per "
+                            "instance")
+    clrun.add_argument("--space", default="10.0.0.0/10",
+                       help="cluster address space CIDR to carve "
+                            "(default 10.0.0.0/10)")
+    clrun.add_argument("--nat-base", default="",
+                       help="first NAT public IP (block index maps to "
+                            "NAT slice; default: no NAT ranges)")
+    clrun.add_argument("--nat-total", type=int, default=0,
+                       help="NAT public IP count across the space")
+    clrun.add_argument("--workers", type=int, default=1,
+                       help="slow-path workers per instance")
+    clrun.add_argument("--sub-nbuckets", type=int, default=0,
+                       help="per-instance fast-path subscriber buckets "
+                            "(0 = slow-path only)")
+    clrun.add_argument("--subscribers", type=int, default=0,
+                       help="drive a synthetic DORA wave of N "
+                            "subscribers through the front door")
+    clrun.add_argument("--once", action="store_true",
+                       help="print status (+ wave verdict) and exit "
+                            "instead of serving")
+    clrun.add_argument("--status-file", default="",
+                       help="write status JSON here (refreshed each "
+                            "tick while serving)")
+    clrun.add_argument("--checkpoint-out", default="",
+                       help="write a checkpoint carrying the carve "
+                            "plan to this file")
+    # the cluster control fabric (UDP membership lane)
+    clrun.add_argument("--listen", default="",
+                       help="HOST:PORT for the fabric hub: process "
+                            "members beat here over authenticated UDP "
+                            "and remote `--join`ers announce themselves "
+                            "(process mode; port 0 = ephemeral)")
+    clrun.add_argument("--join", default="",
+                       help="HOST:PORT of a running coordinator's "
+                            "--listen: join its carve as a full remote "
+                            "serving member — hydrate the carved blocks "
+                            "over the fabric handoff stream and serve "
+                            "them from this box")
+    clrun.add_argument("--join-deadline", type=float, default=60.0,
+                       help="give up the join (capped-backoff retries) "
+                            "after this many seconds (default 60)")
+    clrun.add_argument("--expect-remote", action="append", default=[],
+                       metavar="ID=HOST",
+                       help="declare a remote member slot in the "
+                            "founding carve (repeatable): blocks deal "
+                            "to it on the host axis now, and the slot "
+                            "comes alive when that box --join's")
+    clrun.add_argument("--fabric-psk", default="",
+                       help="pre-shared key authenticating fabric "
+                            "datagrams (>=16 chars; default: the dev "
+                            "PSK — set your own off-box)")
+    clrun.add_argument("--node-id", default="",
+                       help="member id to announce when --join'ing "
+                            "(default bng-<hostname>)")
+    clstat = clu_sub.add_parser(
+        "status", help="print cluster status: the carve plan from a "
+                       "checkpoint, or a status file a run wrote")
+    clstat.add_argument("--from-checkpoint", default="",
+                        help="read the carve plan out of this "
+                             "checkpoint file")
+    clstat.add_argument("--status-file", default="",
+                        help="print the status JSON a `cluster run "
+                             "--status-file` wrote")
+
     ctlp = sub.add_parser("ctl", help="zero-downtime ops on a live `run` process "
                                       "(fleet resize / rolling restart / engine swap)")
     ctlp.add_argument("--ctl-addr", default="127.0.0.1:9092",
@@ -2528,6 +3032,8 @@ def main(argv: list[str] | None = None) -> int:
             return run_trace(args, args.device)
         if args.command == "chaos":
             return run_chaos(args, args.device)
+        if args.command == "cluster":
+            return run_cluster(args)
         if args.command == "ctl":
             return run_ctl(args)
         if args.command in ("run", "stats"):
@@ -2541,7 +3047,7 @@ def main(argv: list[str] | None = None) -> int:
                 return 0
             finally:
                 app.close()
-    except (NoCardError, UnportedSubsystemError, UnservableConfigError) as e:
+    except (NoCardError, UnservableConfigError) as e:
         print(f"bng-tpu-torch: {e}", file=sys.stderr)
         return 2
     parser.print_help()

@@ -11,9 +11,9 @@ producing the text exposition format (v0.0.4), which Prometheus scrapes
 identically. Counter/Gauge/Histogram support labels.
 
 `BNGMetrics` registers every family the reference registers, so a fresh
-`expose()` is byte-equal to the reference's. The collectors of
-components the port does not have (the wire pump, the cluster fabric
-and its handoff, cluster membership) come with those components. Every
+`expose()` is byte-equal to the reference's, and has every collector
+the reference has: the wire pump's, the cluster fabric's and its
+handoff's, and cluster membership's among them. Every
 source reads host state only (EngineStats numpy,
 scheduler counters, host mirrors): a scrape never reads a device tensor,
 so it never synchronizes the serving stream.
@@ -772,6 +772,38 @@ class BNGMetrics:
         for stage, p99 in snap["window_p99_us"].items():
             self.slo_window_p99.set(p99, stage=stage)
 
+    def collect_wire(self, attachment, pump=None) -> None:
+        """AF_XDP wire identity + pump accounting (runtime/xsk.py) ->
+        bng_wire_* families. `attachment` is the WireAttachment the
+        attach ladder returned (None = wire never requested); `pump`
+        defaults to the attached socket's WirePump and may be passed
+        explicitly for memory-rung loops (SimKernelRings)."""
+        if attachment is None and pump is None:
+            return
+        if attachment is not None:
+            from bng_tpu_torch.runtime.xsk import (MODE_COPY, MODE_MEMORY,
+                                             MODE_ZEROCOPY)
+
+            for mode in (MODE_ZEROCOPY, MODE_COPY, MODE_MEMORY):
+                self.wire_rung.set(1.0 if attachment.mode == mode else 0.0,
+                                   mode=mode)
+            if pump is None and attachment.xsk is not None:
+                pump = attachment.xsk.wire_pump
+        if pump is None:
+            return
+        from bng_tpu_torch.runtime.xsk import WIRE_PUMPS
+
+        for p in WIRE_PUMPS:
+            self.wire_pump_path.set(1.0 if pump.path == p else 0.0, path=p)
+        st = pump.pump_stats
+        self.wire_frames.set_total(st["rx"], dir="rx")
+        self.wire_frames.set_total(st["tx"], dir="tx")
+        self.wire_filled.set_total(st["filled"])
+        self.wire_completed.set_total(st["completed"])
+        self.wire_rx_submit_fail.set_total(st["rx_submit_fail"])
+        self.wire_tx_overflow.set_total(st["tx_overflow"])
+        self.wire_tx_pending.set(pump.tx_pending())
+
     def collect_sharded(self, cluster) -> None:
         """Sharded-path telemetry (parallel/sharded.py ShardTelemetry)
         -> bng_shard_* families: per-shard verdict/punt counters + the
@@ -959,6 +991,64 @@ class BNGMetrics:
             self.express_program_dispatches.set_total(
                 dl.get("dispatches", 0), program="devloop")
 
+    def collect_fabric(self, fabric: dict) -> None:
+        """ClusterCoordinator.status()['fabric'] -> bng_fabric_*.
+        Member-labeled gauges reconcile against the current watch set
+        (a forgotten peer drops its labels, same staleness rule as
+        record_cluster)."""
+        self.fabric_beats_tx.set_total(fabric.get("beats_tx", 0))
+        self.fabric_beats_rx.set_total(fabric.get("beats_rx", 0))
+        for verdict, n in (fabric.get("verdicts") or {}).items():
+            self.fabric_verdicts.set_total(n, verdict=str(verdict))
+        self.fabric_partitions.set_total(
+            fabric.get("partitions_observed", 0))
+        peers = fabric.get("peers") or {}
+        for labels in self.fabric_member_suspicion.labeled():
+            if labels["member"] not in peers:
+                self.fabric_member_suspicion.remove(**labels)
+        for labels in self.fabric_member_state.labeled():
+            if labels["member"] not in peers:
+                self.fabric_member_state.remove(**labels)
+        for member, view in sorted(peers.items()):
+            self.fabric_member_suspicion.set(
+                len(view.get("accused_by", ())), member=str(member))
+            for state in ("up", "suspect", "gray", "down"):
+                self.fabric_member_state.set(
+                    1 if view.get("state") == state else 0,
+                    member=str(member), state=state)
+        for reason in ("bad_sig", "replay", "skew", "malformed"):
+            n = (fabric.get("transport") or {}).get(f"rx_{reason}")
+            if n is not None:
+                self.fabric_rx_rejected.set_total(n, reason=reason)
+        if "handoff" in fabric:
+            self.collect_handoff(fabric["handoff"])
+
+    def collect_handoff(self, h: dict) -> None:
+        """HandoffManager.stats() -> bng_handoff_* (one node's view:
+        the coordinator counts tx/retx, a member counts rx/rejects —
+        both expose the same families)."""
+        for disp in ("rx", "corrupt", "dup", "orphan"):
+            self.handoff_chunks.set_total(
+                h.get(f"rx_{disp}" if disp != "rx" else "rx_chunks", 0),
+                disposition=disp)
+        self.handoff_chunks.set_total(h.get("tx_chunks", 0),
+                                      disposition="tx")
+        self.handoff_chunks.set_total(h.get("retx_chunks", 0),
+                                      disposition="retx")
+        self.handoff_transfers.set_total(h.get("completed", 0),
+                                         outcome="completed")
+        self.handoff_transfers.set_total(h.get("rejects", 0),
+                                         outcome="rejected")
+        self.handoff_transfers.set_total(h.get("resumes", 0),
+                                         outcome="resumed")
+
+    def record_member(self, status: dict) -> None:
+        """MemberRuntime.status() -> the joiner-side families: the
+        bootstrap retry counter and its handoff receive lane."""
+        self.fabric_join_retries.set_total(status.get("join_retries", 0))
+        if "handoff" in status:
+            self.collect_handoff(status["handoff"])
+
     def collect_checkpoint(self, checkpointer, now: float | None = None) -> None:
         """PeriodicCheckpointer.stats -> bng_ckpt_* gauges/counters (the
         duration histogram is fed live at save time)."""
@@ -1023,6 +1113,51 @@ class BNGMetrics:
                 self.slowpath_fleet_blocked.remove(**labels)
         for b in want:
             self.slowpath_fleet_blocked.set(1, blocker=b)
+
+    def record_cluster(self, status: dict) -> None:
+        """ClusterCoordinator.status() -> bng_cluster_* families.
+        Instance-labeled gauges reconcile against the live membership:
+        a member that left drops its labels (same staleness rule as
+        record_fleet_blocked)."""
+        states = {"up": 0, "dead": 0, "pending": 0}
+        leases: dict[str, float] = {}
+        steered: dict[str, float] = {}
+        addrs: dict[str, float] = {}
+        for iid, m in status.get("members", {}).items():
+            if m.get("pending"):
+                states["pending"] += 1
+            elif not m.get("alive", True):
+                states["dead"] += 1
+            else:
+                states["up"] += 1
+            if "leases" in m:
+                leases[str(iid)] = float(m["leases"])
+            steered[str(iid)] = float(m.get("steered", 0))
+        plan = status.get("plan") or {}
+        if plan:
+            self.cluster_plan_epoch.set(plan.get("epoch", 0))
+            self.cluster_free_blocks.set(plan.get("free_blocks", 0))
+            addrs = {str(i): float(a)
+                     for i, a in plan.get("members", {}).items()}
+        for state, n in states.items():
+            self.cluster_instances.set(n, state=state)
+        for gauge, want in ((self.cluster_addresses, addrs),
+                            (self.cluster_leases, leases)):
+            for labels in gauge.labeled():
+                if labels["instance"] not in want:
+                    gauge.remove(**labels)
+            for iid, v in want.items():
+                gauge.set(v, instance=iid)
+        for iid, v in steered.items():
+            self.cluster_steered.set_total(v, instance=iid)
+        self.cluster_recarves.set_total(status.get("recarves", 0))
+        self.cluster_failovers.set_total(status.get("failovers", 0))
+        self.cluster_shed.set_total(status.get("shed_frames", 0))
+        self.cluster_refused_removes.set_total(
+            status.get("refused_removes", 0))
+        self.cluster_host_losses.set_total(status.get("host_losses", 0))
+        if "fabric" in status:
+            self.collect_fabric(status["fabric"])
 
     def record_restore(self, rows: dict, outcome: str = "ok") -> None:
         """Startup-restore result -> bng_ckpt_restore_rows / restores."""

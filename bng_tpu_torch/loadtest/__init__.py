@@ -5,5 +5,6 @@ from bng_tpu_torch.loadtest.harness import (  # noqa: F401
     BenchmarkResult,
     DHCPBenchmark,
     StormFrameFactory,
+    WireLoopTarget,
     result_json,
 )

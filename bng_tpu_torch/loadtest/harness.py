@@ -1,7 +1,7 @@
 """DHCP load/benchmark harness — the test/load framework re-hosted.
 
 The port's copy of `bng_tpu/loadtest/harness.py`: the same traffic, the
-same counts. `WireLoopTarget` (the AF_XDP wire loop) is not ported.
+same counts, and `WireLoopTarget`, the AF_XDP wire loop.
 
 Parity with the reference's load framework (SURVEY.md §4.5;
 test/load/dhcp_benchmark.go): configurable unique-MAC cardinality to
@@ -368,6 +368,117 @@ class DHCPBenchmark:
         res.errors = (res.requests - res.responses
                       + int(self.engine.stats.slow_errors - start_slow_errors))
         return res
+
+
+class WireLoopTarget:
+    """Adapts the full wire loop to the DHCPBenchmark `process()`
+    contract — `loadtest --wire`.
+
+    Instead of calling the engine's batch interface, every benchmark
+    batch is injected at the far end of the wire and collected back
+    there: inject -> kernel rings -> WirePump -> UMEM ring ->
+    Engine.process_ring_pipelined -> verdicts -> WirePump -> kernel TX
+    -> far end. Replies are matched to request lanes by BOOTP xid (the
+    wire gives back frames, not lane indexes), and everything that left
+    the wire reports as the "tx" lane — on the wire a slow-path OFFER
+    and a device OFFER are indistinguishable by design; the exact
+    fast/slow split still comes from the device counters like every
+    other loadtest.
+
+    `inject(frames)` / `collect() -> list[bytes]` / `tick()` abstract
+    the far end: SimKernelRings loopback on the memory rung (works in
+    any container), AF_PACKET peer sockets on a real veth/NIC rung.
+    """
+
+    is_scheduler = False
+
+    def __init__(self, engine, ring, pump, inject: Callable,
+                 collect: Callable, tick: Callable | None = None,
+                 deadline_s: float = 2.0, idle_s: float = 0.25,
+                 clock: Callable[[], float] = time.monotonic):
+        self.engine = engine
+        self.ring = ring
+        self.pump = pump
+        self._inject = inject
+        self._collect = collect
+        self._tick = tick
+        self.deadline_s = deadline_s
+        # give up on missing lanes after this much continuous no-progress
+        # (frames shed at admission never produce a reply: without the
+        # idle exit an overloaded run spins out the FULL deadline per
+        # batch and the benchmark measures the timeout constant)
+        self.idle_s = idle_s
+        self.clock = clock
+        self.unmatched = 0  # egress frames with no requesting lane
+
+    # DHCPBenchmark reads these off its target
+    @property
+    def stats(self):
+        return self.engine.stats
+
+    @property
+    def fastpath(self):
+        return self.engine.fastpath
+
+    @staticmethod
+    def _xid(frame: bytes, reply: bool) -> int | None:
+        """BOOTP xid of a DHCP frame (request op=1 / reply op=2), or
+        None. Tolerates 0-2 VLAN tags like the ring classifier."""
+        off = 12
+        if len(frame) < off + 2:
+            return None
+        et = (frame[off] << 8) | frame[off + 1]
+        for _ in range(2):
+            if et not in (0x8100, 0x88A8):
+                break
+            off += 4
+            if len(frame) < off + 2:
+                return None
+            et = (frame[off] << 8) | frame[off + 1]
+        off += 2
+        if et != 0x0800 or len(frame) < off + 20:
+            return None
+        ihl = (frame[off] & 0x0F) * 4
+        bootp = off + ihl + 8
+        if len(frame) < bootp + 8 or frame[bootp] != (2 if reply else 1):
+            return None
+        return int.from_bytes(frame[bootp + 4 : bootp + 8], "big")
+
+    def process(self, frames: list[bytes]) -> dict:
+        lanes: dict[int, int] = {}
+        for i, f in enumerate(frames):
+            xid = self._xid(f, reply=False)
+            if xid is not None:
+                lanes[xid] = i
+        self._inject(frames)
+        got: dict[int, bytes] = {}
+        budget = max(64, len(frames))
+        now = self.clock()
+        deadline = now + self.deadline_s
+        last_progress = now
+        while True:
+            moved = self.pump.pump(budget=budget)
+            if self._tick is not None:
+                self._tick()
+            self.engine.process_ring_pipelined(self.ring)
+            self.engine.flush_pipeline()
+            moved += self.pump.pump(budget=budget)
+            matched = 0
+            for fr in self._collect():
+                xid = self._xid(fr, reply=True)
+                lane = lanes.get(xid) if xid is not None else None
+                if lane is None or lane in got:
+                    self.unmatched += 1
+                    continue
+                got[lane] = fr
+                matched += 1
+            now = self.clock()
+            if moved or matched:
+                last_progress = now
+            if len(got) >= len(lanes) or now >= deadline \
+                    or now - last_progress > self.idle_s:
+                break
+        return {"tx": sorted(got.items()), "slow": []}
 
 
 def result_json(res: BenchmarkResult) -> str:

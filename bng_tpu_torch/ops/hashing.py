@@ -4,7 +4,10 @@ Works on torch or numpy int64 arrays holding uint32 values in [0, 2^32):
 the products are split into 16-bit halves so no intermediate leaves the
 signed 64-bit range, and every result is masked back to 32 bits. The host
 mirrors (numpy) and the plain device code (torch) share these functions;
-the CUDA kernels recompute the same mix with native uint32 wrap.
+the CUDA kernels recompute the same mix with native uint32 wrap. A host
+table's per-key insert, delete and lookup hashes one key with
+`hash_key_host`, the same mix on Python ints (an array op per word costs
+tens of microseconds there).
 """
 
 from __future__ import annotations
@@ -45,4 +48,21 @@ def hash_words(words, seed: int):
     h = mix32(words[0] ^ seed)
     for w in words[1:]:
         h = mix32(h ^ w)
+    return h
+
+
+def _mix32_int(h: int) -> int:
+    h ^= h >> 16
+    h = (h * _M1) & MASK32
+    h ^= h >> 15
+    h = (h * _M2) & MASK32
+    return h ^ (h >> 16)
+
+
+def hash_key_host(words, seed: int) -> int:
+    """`hash_words` of one key given as a sequence of uint32 ints."""
+    it = iter(words)
+    h = _mix32_int((int(next(it)) & MASK32) ^ int(seed))
+    for w in it:
+        h = _mix32_int(h ^ (int(w) & MASK32))
     return h

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bng_tpu_torch.ops.hashing import SEED1, SEED2, hash_words, u32
+from bng_tpu_torch.ops.hashing import SEED1, SEED2, hash_key_host, hash_words, u32
 from bng_tpu_torch.ops.table import words_to_device, scatter_set_drop
 
 WAYS = 4
@@ -139,9 +139,8 @@ class HostQTable:
         self._rng = np.random.default_rng(0xB46)
 
     def _buckets(self, ip: int) -> tuple[int, int]:
-        k = np.asarray([ip & 0xFFFFFFFF], dtype=np.int64)
         m = self.nbuckets - 1
-        return int((hash_words([k], SEED1) & m)[0]), int((hash_words([k], SEED2) & m)[0])
+        return hash_key_host([ip], SEED1) & m, hash_key_host([ip], SEED2) & m
 
     def _find(self, ip: int) -> int | None:
         b1, b2 = self._buckets(ip)

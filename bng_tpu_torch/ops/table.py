@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bng_tpu_torch.ops.hashing import MASK32, SEED1, SEED2, hash_words, u32
+from bng_tpu_torch.ops.hashing import MASK32, SEED1, SEED2, hash_key_host, hash_words, u32
 from bng_tpu_torch.ops.probe import WAYS, probe, probe_plain
 
 MAX_KICKS = 128  # bounded cuckoo eviction walk (host side)
@@ -346,9 +346,9 @@ class HostTable:
         self._empty_updates: dict = {}  # (max_slots, device) -> TableUpdate
 
     def _buckets(self, key: np.ndarray) -> tuple[int, int]:
-        words = [key[k: k + 1].astype(np.int64) for k in range(self.K)]
+        words = key.tolist()
         m = self.nbuckets - 1
-        return int((hash_words(words, SEED1) & m)[0]), int((hash_words(words, SEED2) & m)[0])
+        return hash_key_host(words, SEED1) & m, hash_key_host(words, SEED2) & m
 
     def _find_slot(self, key: np.ndarray) -> int | None:
         b1, b2 = self._buckets(key)

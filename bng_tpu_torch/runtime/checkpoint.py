@@ -30,9 +30,10 @@ slot-exact at the same shard count or re-shards N -> M. The slow-path
 fleet's per-worker lease books ride as the `fleet` component, one format
 with the parent's book, so either restores into the other. The HA pair's
 session store rides as the `ha` component: a restarted active resumes
-its sequence, a standby bootstraps and catches up by `replay_since`. The
-cluster of BNGs is not in the port: a checkpoint carrying its plan is
-refused with "no such component". File lifecycle lives in
+its sequence, a standby bootstraps and catches up by `replay_since`. A
+cluster-of-BNGs coordinator's carve plan rides as the `cluster_plan`
+component (`build_checkpoint(cluster_plan=coord)`,
+`restore_checkpoint(cluster_coord=coord)`). File lifecycle lives in
 `control/statestore.py`.
 """
 
@@ -226,7 +227,8 @@ def _denamespace(prefix: str, arrays: dict) -> dict:
 def build_checkpoint(seq: int, now: float, *, engine=None, scheduler=None,
                      fastpath=None, nat=None, qos=None, antispoof=None,
                      garden=None, pppoe=None, edge=None, dhcp=None, ha=None,
-                     fleet=None, node_id: str = "") -> Checkpoint:
+                     fleet=None, cluster_plan=None,
+                     node_id: str = "") -> Checkpoint:
     """Collect a consistent snapshot of the authoritative state.
 
     With an `engine`, the table managers default from it, and the
@@ -299,6 +301,11 @@ def build_checkpoint(seq: int, now: float, *, engine=None, scheduler=None,
         # sharding is recomputed at restore so a changed worker count
         # still lands every lease on its new owner
         meta["components"]["fleet"] = fleet.export_state()
+    if cluster_plan is not None:
+        # carve authority of a cluster-of-BNGs coordinator
+        # (bng_tpu/cluster): O(members) and header-safe — lease books
+        # ride per-instance checkpoints, not this document
+        meta["components"]["cluster_plan"] = cluster_plan.checkpoint_plan()
     # per-row dict state (NAT allocator bookkeeping, lease book, HA
     # sessions) scales with the subscriber count: it rides the payload as a uint8 JSON
     # blob — CRC32-covered, and the header stays small (its size bound
@@ -450,12 +457,20 @@ def _verify_components(ckpt: Checkpoint, comps: dict, targets: dict) -> None:
         except (KeyError, ValueError, TypeError) as e:
             raise CheckpointError(
                 f"fleet: corrupt checkpoint lease books: {e!r}") from e
+    if "cluster_plan" in comps:
+        from bng_tpu_torch.cluster import ClusterCoordinator
+
+        try:
+            ClusterCoordinator.parse_plan(comps["cluster_plan"])
+        except (KeyError, ValueError, TypeError, AttributeError) as e:
+            raise CheckpointError(
+                f"cluster_plan: corrupt carve plan: {e!r}") from e
 
 
 def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
                        nat=None, qos=None, antispoof=None, garden=None,
                        pppoe=None, edge=None, dhcp=None, ha=None,
-                       fleet=None) -> dict[str, int]:
+                       fleet=None, cluster_coord=None) -> dict[str, int]:
     """Hydrate the host mirrors from a decoded checkpoint and re-upload.
 
     Reject-on-mismatch: every table component present in the checkpoint
@@ -467,9 +482,8 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
     format: a fleet's worker books merge into the parent server when the
     live process has no fleet, and a parent book re-shards into the fleet
     when it has one. The HA store restores by the live syncer's role: a
-    standby bootstraps, an active resumes. A checkpoint from the reference
-    that carries its cluster plan has no target here and is refused.
-    Returns restored row counts per component.
+    standby bootstraps, an active resumes. A carve plan replays through
+    `cluster_coord`. Returns restored row counts per component.
     """
     if ckpt.meta.get("sharded") is not None:
         raise CheckpointError(
@@ -491,7 +505,8 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
             comps[name] = _resolve_component_meta(ckpt, comps, name)
     targets = {"fastpath": fastpath, "nat": nat, "qos": qos,
                "antispoof": antispoof, "garden": garden, "pppoe": pppoe,
-               "edge": edge, "dhcp": dhcp, "ha": ha, "fleet": fleet}
+               "edge": edge, "dhcp": dhcp, "ha": ha, "fleet": fleet,
+               "cluster_plan": cluster_coord}
     missing = []
     for name in comps:
         tgt = targets.get(name)
@@ -576,6 +591,11 @@ def restore_checkpoint(ckpt: Checkpoint, *, engine=None, fastpath=None,
                 rows["ha.sessions"] = ha.bootstrap_state(comps["ha"])
             else:
                 rows["ha.sessions"] = ha.restore_state(comps["ha"])
+        if "cluster_plan" in comps:
+            # the plan document replays through the coordinator's store
+            # so every member applies the checkpointed carve epoch
+            rows["cluster_plan.members"] = cluster_coord.restore_plan(
+                comps["cluster_plan"])
     except (ValueError, KeyError, TypeError, AttributeError) as e:
         raise CheckpointError(f"checkpoint restore rejected: {e}") from e
 

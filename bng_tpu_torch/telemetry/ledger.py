@@ -91,7 +91,8 @@ def environment_fingerprint(device=None) -> dict:
     and for a run on the card (`device` a CUDA device) the platform
     `gpu`, the card's name, its power limit and the probe route (`cuda`:
     K1 and K2 launch their CUDA kernels there). A CPU run records the
-    platform `cpu` and the route `plain`. Never imports jax."""
+    platform `cpu` and the route `plain`. The host path and the wire pump
+    ride along once their modules are loaded. Never imports jax."""
     import torch
 
     env: dict = {"host": socket.gethostname(), "torch": torch.__version__,
@@ -110,6 +111,11 @@ def environment_fingerprint(device=None) -> dict:
     hp = sys.modules.get("bng_tpu_torch.runtime.hostpath")
     if hp is not None:
         env["host_path"] = hp.resolved_host_path()
+    # the wire pump (scalar | vector): a batch-pump run never trends
+    # against per-frame pump history (cohort_key keys on it)
+    wp = sys.modules.get("bng_tpu_torch.runtime.xsk")
+    if wp is not None:
+        env["wire_pump"] = wp.current_wire_pump_label()
     return env
 
 

@@ -331,8 +331,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     wire; SIGTERM (rc 0, a snapshot with the fleet's books); then `chaos
     audit --slowpath-workers 6 --checkpoint-dir <tmp>` on the card: the
     app restored from that snapshot audits clean, rc 0.
-46. The chaos sweep: the 18 ported scenarios and storms (storm scale
-    0.25) and a 2-epoch soak in-process on the card, each timed, counts 0
+46. The chaos sweep: the 23 scenarios and storms (storm scale 0.25; the
+    four cluster-of-BNGs scenarios and `cluster_scale_storm` among them)
+    and a 2-epoch soak in-process on the card, each timed, counts 0
     before and read after (the `chaos` path); `python -m bng_tpu_torch
     chaos run --seed 5 --storm-scale 0.25 --soak-epochs 2` on the card and
     with `--device cpu`, in turn: all three canonical reports equal, `ok:
@@ -417,13 +418,53 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     (`collect_dns`). 1,024 subscribers released from the garden: the
     device stops dropping their frames and the resolver forwards their
     queries.
+51. The AF_XDP wire's four scenarios on the card (tests/test_wire_pump.py's
+    serving stack: DHCP, NAT44, QoS and PPPoE behind one `Engine`, batch
+    8): DORA (the leased client's next DISCOVER answered on the device), a
+    new flow's punt then its SNAT, a shaped flow's QoS drops, PPPoE session
+    data's punt then decap + SNAT, each frame injected at the far end of
+    `SimKernelRings` (the memory rung's kernel), moved by `WirePump` into a
+    `NativeRing`, served by `process_ring_pipelined` and pumped back out.
+    Under the scalar and the vector pump, and on a CPU engine: the far-end
+    bytes equal. Counts 0: 10 K1 (IPoE 8, PPPoE 2) and 4 K2 a fused step,
+    3 K1 a DHCP-only batch; one step's calls bit-equal to their plain
+    versions.
+52. The wire at the headline's scale (inside phase 6's run of the IPoE
+    engine, before it is retired): 6 batches of 8,192 (phase 4's mix)
+    injected at the far end, pumped in, served by `process_ring_pipelined`
+    and pumped out, under each pump, and the same frames pushed into a
+    `NativeRing` with no wire, in one call: the egress equal (the pumps
+    exactly, the no-wire run's TX and FWD as a multiset); counts 0: 8 K1
+    and 4 K2 a step, the first step's calls bit-equal. Printed: frames/s
+    end to end of each, and a traced run's split per batch: wire_rx,
+    assemble, dispatch, wait, demux, wire_tx.
+53. `loadtest --wire` (inside phase 33, beside plain `loadtest`): the
+    memory rung's loop (`WireLoopTarget`: inject, pump, engine, pump,
+    collect by xid) under each pump at the same defaults: 0 errors, every
+    request answered through the wire, 3 K1 a DHCP-only dispatch. Printed:
+    req/s and batch p50/p99.
+54. `run --wire-if nosuchif0` on the card, as a process (the memory-rung
+    warning, a `wire_rung_fallback` flight dump) and as an app (the native
+    ring, `bng_wire_rung{mode="memory"} 1` on `/metrics`). Where the host
+    allows AF_XDP, XDP programs and a veth pair, the four scenarios run
+    live over the copy rung, every reply phase 51's bytes; otherwise one
+    line names what the host refused.
+55. The cluster of BNGs (host code, no kernel launch: counts 0, read 0):
+    `python -m bng_tpu_torch cluster run --instances 4 --subscribers 8192
+    --once --checkpoint-out F` with `--mode inline` and `--mode process`,
+    every subscriber leased with a unique address, and `cluster status
+    --from-checkpoint F` reads the carve back. In-process: the wave's
+    DORAs/s in each mode, and a failover (a member killed, its standby
+    promoted by ticks, its subscribers' renewals ACKed with their
+    addresses) with its re-DORA time.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON (each kernel's launches by path, `loadtest`,
 `run`, `pppoe`, `v6`, `radius`, `ipoe_traced`, `run_observed`,
 `run_restored`, `fleet`, `chaos`, `run_sharded`, `run_shards1`,
-`ha_pair`, `run_nexus`, `fleet_nexus` and `run_dns` among them); the last
-line the result JSON.
+`ha_pair`, `run_nexus`, `fleet_nexus`, `run_dns`, `wire_headline`,
+`loadtest_wire_scalar`, `loadtest_wire_vector`, `wire_scenarios`,
+`run_wire_if` and `cluster` among them); the last line the result JSON.
 """
 
 from __future__ import annotations
@@ -3329,13 +3370,16 @@ def gate_phase(card) -> None:
 
 def loadtest_phases(card, err) -> dict:
     """`loadtest` in-process through the port's `cli.main`, engine and
-    scheduler; returns {path: launches}."""
+    scheduler, then (phase 53) `--wire` under each pump; returns {path:
+    launches}."""
     from bng_tpu_torch import cli
     from bng_tpu_torch.telemetry import ledger
 
     out = {}
     name = torch.cuda.get_device_name(0)
-    for path, extra in (("loadtest", []), ("loadtest_scheduler", ["--scheduler"])):
+    for path, extra in (("loadtest", []), ("loadtest_scheduler", ["--scheduler"]),
+                        ("loadtest_wire_scalar", ["--wire", "--wire-pump", "scalar"]),
+                        ("loadtest_wire_vector", ["--wire", "--wire-pump", "vector"])):
         with tempfile.TemporaryDirectory() as tmp:
             log = f"{tmp}/bench.jsonl"
             buf = io.StringIO()
@@ -3353,7 +3397,7 @@ def loadtest_phases(card, err) -> dict:
         check(res["fastpath_hits"] > 0, f"{path}: fast-path hits after warmup")
         # the scheduler's express graph is captured before the run starts:
         # its two warm-up runs (3 K1 each) fall in our count, not the run's
-        warm = 6 if extra else 0
+        warm = 6 if "--scheduler" in extra else 0
         check(served["launches"]["probe"] == 3 * served["dispatches"] > 0
               and launches["probe"] == served["launches"]["probe"] + warm
               and launches["seg_prefix"] == served["launches"]["seg_prefix"] == 0,
@@ -3364,13 +3408,23 @@ def loadtest_phases(card, err) -> dict:
         rec = rec["probe"]
         if rec:  # the engine run's DHCP-only program calls K1 through the wrapper
             probes_vs_plain([(path, a) for a in rec], err)
+        wire = ""
+        if "--wire" in extra:
+            w = res["wire"]
+            st = w["pump_stats"]
+            check(w["mode"] == "memory" and w["pump_path"] == extra[-1] and w["unmatched"] == 0
+                  and st["rx"] == st["tx"] > 0 and st["rx_submit_fail"] == 0
+                  and st["tx_overflow"] == 0,
+                  f"{path}: every request through the wire and back ({w})")
+            wire = (f", wire: the memory rung (SimKernelRings), {w['pump_path']} pump, rx "
+                    f"{st['rx']} tx {st['tx']}")
         say(f"{path}{' (K1 bit-equal on its first ' + str(len(rec)) + ' calls)' if rec else ''}: "
             f"{res['rps']:.1f} req/s, batch p50 {res['latency_p50_us']:.1f} / p99 "
             f"{res['latency_p99_us']:.1f} us, per request p50 {res['request_p50_us']} / p99 "
             f"{res['request_p99_us']} us, cache hit {res['cache_hit_rate']:.4f}, fast-path p99 "
             f"{res['fastpath_p99_us']:.1f} us, {res['requests']} requests in {res['batches']} "
             f"batches, {served['dispatches']} device dispatches, launches {launches}, "
-            f"program {res['program']} [{card}]")
+            f"program {res['program']}{wire} [{card}]")
         out[path] = launches
     return out
 
@@ -4872,7 +4926,7 @@ def chaos_cmd(device: str | None) -> list:
 
 
 def chaos_phases(card, device, err) -> dict:
-    """The chaos suite on the card: the 18 ported entries and the soak
+    """The chaos suite on the card: the 23 entries and the soak
     in-process (each entry timed; counts 0 before, read after), `python -m
     bng_tpu_torch chaos run` on the card and with `--device cpu`, one after
     the other: the three canonical reports equal and ok; K1/K2 bit-equal
@@ -4880,6 +4934,7 @@ def chaos_phases(card, device, err) -> dict:
     kept as the sweep ran them."""
     from bng_tpu_torch.chaos import runner
 
+    check(len(runner.ALL_SCENARIOS) == 23, "chaos: the sweep runs all 23 entries")
     kernels.reset_launches()
     report = {"schema": runner.REPORT_SCHEMA, "seed": CHAOS_SEED, "scenarios": {},
               "storm_scale": CHAOS_SCALE}
@@ -6132,6 +6187,588 @@ def dns_phases(card, device, err) -> dict:
         up.close()
 
 
+# ------------------------------------------------ the AF_XDP wire (phases 51-54)
+
+WIRE_HEADROOM = 256  # copy-mode chunk headroom: the kernel writes frames at base + 256
+WIRE_PUMPS = ("scalar", "vector")
+WIRE_BATCHES = 6  # headline batches through the wire under each pump (phase 52)
+WIRE_CLIENT = bytes.fromhex("02c0ffee0001")  # phase 51's DORA client
+WIRE_NAT_SUB = ip_to_u32("10.0.0.55")  # phase 51's NAT subscriber
+WIRE_QOS_SUB = ip_to_u32("10.0.0.60")  # phase 51's shaped subscriber (1,500-byte buckets)
+WIRE_PUB = ip_to_u32("203.0.113.1")  # phase 51's one public address
+VETH = ("bngsm0", "bngsm1")  # phase 54's live pair: the BNG's end, the far end
+
+
+class WireSess:
+    """Phase 51's PPPoE session (tests/test_wire_pump.py's)."""
+
+    session_id = 0x0042
+    client_mac = bytes.fromhex("02c0ffee0101")
+    assigned_ip = ip_to_u32("10.0.0.50")
+
+
+def wire_stack(device):
+    """tests/test_wire_pump.py's serving stack on `device`: DHCP, NAT44,
+    QoS and PPPoE behind one Engine (batch 8), on a held clock."""
+    clock = BeatClock(float(NOW))
+    fastpath = FastPathTables(sub_nbuckets=512, vlan_nbuckets=64, cid_nbuckets=64, max_pools=16)
+    fastpath.set_server_config(AC_MAC, SERVER_IP)
+    pools = PoolManager(fastpath)
+    pools.add_pool(Pool(pool_id=1, network=ip_to_u32("10.0.0.0"), prefix_len=24,
+                        gateway=SERVER_IP, dns_primary=ip_to_u32("1.1.1.1"), lease_time=3600))
+    nat = NATManager(public_ips=[WIRE_PUB], sessions_nbuckets=256, sub_nat_nbuckets=64)
+    qos = QoSTables(nbuckets=256)
+    pp = PPPoEFastPathTables(nbuckets=64, stash=8, server_mac=AC_MAC)
+    server = DHCPServer(AC_MAC, SERVER_IP, pools, fastpath_tables=fastpath, clock=clock)
+    eng = Engine(fastpath, nat, qos, pppoe=pp, batch_size=8, slow_path=server.handle_frame,
+                 clock=clock, device=device)
+    pp.session_up(WireSess())
+    for ip in (WireSess.assigned_ip, WIRE_NAT_SUB, WIRE_QOS_SUB):
+        nat.allocate_nat(ip, NOW)
+    qos.set_subscriber(WIRE_QOS_SUB, down_bps=8000, up_bps=8000, up_burst=1500, down_burst=1500)
+    return eng
+
+
+def wire_dhcp(msg_type, xid: int, **kw) -> bytes:
+    p = F.build_request(WIRE_CLIENT, msg_type, xid=xid, **kw)
+    p.options.append((F.OPT_PARAM_REQ_LIST, bytes([1, 3, 6, 51, 54])))
+    return F.udp_packet(WIRE_CLIENT, b"\xff" * 6, 0, 0xFFFFFFFF, 68, 67,
+                        p.encode().ljust(320, b"\x00"))
+
+
+def wire_frames() -> dict:
+    """The data frames of the four scenarios."""
+    from bng_tpu_torch.ops.pppoe import PPP_IPV4
+
+    inner = F.udp_packet(WireSess.client_mac, AC_MAC, WireSess.assigned_ip,
+                         ip_to_u32("8.8.8.8"), 40000, 53, b"q" * 32)[14:]
+    sess = pppoe_codec.PPPoEPacket(code=0, session_id=WireSess.session_id,
+                                   payload=pppoe_codec.ppp_frame(PPP_IPV4, inner)).encode()
+    return {"nat": F.udp_packet(bytes.fromhex("02c0ffee0010"), AC_MAC, WIRE_NAT_SUB,
+                                ip_to_u32("93.184.216.34"), 40000, 443, b"nat-payload"),
+            "qos": F.udp_packet(bytes.fromhex("02c0ffee0020"), AC_MAC, WIRE_QOS_SUB,
+                                ip_to_u32("8.8.8.8"), 1111, 9999, b"x" * 400),
+            "pppoe": pppoe_codec.eth_frame(AC_MAC, WireSess.client_mac,
+                                           pppoe_codec.ETH_PPPOE_SESSION, sess)}
+
+
+def wire_scenarios(eng, roundtrip) -> dict:
+    """The four scenarios of tests/test_wire_pump.py through
+    `roundtrip(frames) -> far-end egress`: DORA (the second DISCOVER
+    answered on the device), a NAT flow's punt then its SNAT, an
+    established shaped flow's QoS drops, PPPoE session data's punt then
+    decap + SNAT. Returns {scenario: egress frames}, every outcome checked."""
+    fr = wire_frames()
+    offers = roundtrip([wire_dhcp(F.DISCOVER, 0x11)])
+    check(len(offers) == 1, f"wire DORA: one OFFER egressed ({len(offers)})")
+    offer = F.decode_dhcp(F.decode(offers[0]).payload)
+    check(offer.msg_type == F.OFFER, "wire DORA: the reply is an OFFER")
+    acks = roundtrip([wire_dhcp(F.REQUEST, 0x12, requested_ip=offer.yiaddr,
+                                server_id=SERVER_IP)])
+    check(len(acks) == 1 and F.decode_dhcp(F.decode(acks[0]).payload).msg_type == F.ACK,
+          "wire DORA: the REQUEST's ACK egressed")
+    tx0 = int(eng.stats.tx)
+    offers2 = roundtrip([wire_dhcp(F.DISCOVER, 0x13)])
+    check(len(offers2) == 1 and int(eng.stats.tx) == tx0 + 1,
+          "wire DORA: the leased client's next DISCOVER answered on the device")
+    check(roundtrip([fr["nat"]]) == [], "wire NAT: a new flow's first frame punts (no egress)")
+    natted = roundtrip([fr["nat"]])
+    check(len(natted) == 1 and F.decode(natted[0]).src_ip == WIRE_PUB,
+          "wire NAT: the flow's next frame SNATs on the device")
+    check(roundtrip([fr["qos"]]) == [], "wire QoS: the shaped flow's first frame punts")
+    d0 = int(eng.stats.dropped)
+    shaped = roundtrip([fr["qos"]] * 4)
+    dropped = int(eng.stats.dropped) - d0
+    check(dropped >= 1 and len(shaped) == 4 - dropped,
+          f"wire QoS: the 1,500-byte bucket drops {dropped} of 4 on the device")
+    check(roundtrip([fr["pppoe"]]) == [], "wire PPPoE: the session's first data frame punts")
+    fwd = roundtrip([fr["pppoe"]])
+    d = F.decode(fwd[0]) if len(fwd) == 1 else None
+    check(d is not None and d.ethertype == 0x0800 and d.src_ip == WIRE_PUB,
+          "wire PPPoE: the next frame decaps and SNATs on the device")
+    return {"dora": offers + acks + offers2, "nat": natted, "qos": shaped, "pppoe": fwd}
+
+
+def sim_wire(path: str, nframes: int = 256, ring_size: int = 128):
+    """A NativeRing with SimKernelRings (the memory rung's kernel) and a
+    WirePump of `path` over it."""
+    from bng_tpu_torch.runtime import xsk
+
+    ring = ring_mod.NativeRing(nframes=nframes, frame_size=2048, depth=max(64, nframes // 2))
+    kern = xsk.SimKernelRings(ring, headroom=WIRE_HEADROOM, ring_size=ring_size)
+    return ring, kern, xsk.WirePump(ring, kern, path=path)
+
+
+def sim_roundtrip(eng, ring, kern, pump, rounds: int = 6):
+    def roundtrip(frames):
+        kern.inject_many(frames)
+        got = []
+        for _ in range(rounds):
+            pump.pump(budget=16)
+            kern.deliver()
+            eng.process_ring_pipelined(ring)
+            eng.flush_pipeline(ring)
+            pump.pump(budget=16)
+            got.extend(kern.drain_egress())
+        return got
+    return roundtrip
+
+
+@contextlib.contextmanager
+def count_dispatches(eng):
+    """{"fused": steps, "dhcp": DHCP-only batches} the engine dispatched in
+    the block."""
+    n = {"fused": 0, "dhcp": 0}
+    saved = {}
+    for name, kind in (("_dispatch_step", "fused"), ("_run_dhcp_batch", "dhcp")):
+        orig = saved[name] = getattr(eng, name)
+
+        def counted(*a, _orig=orig, _kind=kind, **kw):
+            n[_kind] += 1
+            return _orig(*a, **kw)
+        setattr(eng, name, counted)
+    try:
+        yield n
+    finally:
+        for name in saved:
+            delattr(eng, name)
+
+
+def wire_scenario_phase(card, device, err) -> tuple[dict, dict]:
+    """Phase 51: the four scenarios through SimKernelRings -> WirePump ->
+    NativeRing -> process_ring_pipelined -> pump -> far end, on the card
+    under both pumps and once on a CPU engine: the far-end bytes equal.
+    Returns ({"wire_scenarios": launches}, the card's egress)."""
+    outs, per = {}, {}
+    kernels.reset_launches()
+    for path in WIRE_PUMPS:
+        eng = wire_stack(device)
+        ring, kern, pump = sim_wire(path)
+        rt = sim_roundtrip(eng, ring, kern, pump)
+        with count_dispatches(eng) as n:
+            outs[path] = wire_scenarios(eng, rt)
+        per[path] = dict(n)
+        st = pump.pump_stats
+        check(pump.last_path == path and st["rx_submit_fail"] == 0 and st["tx_overflow"] == 0,
+              f"wire {path} pump: ran its own path, no failed submit, no overflow ({st})")
+        ring.close()
+    launches = dict(kernels.LAUNCHES)
+    check(outs["scalar"] == outs["vector"], "wire: far-end bytes equal across the two pumps")
+    fused = sum(p["fused"] for p in per.values())
+    dhcp = sum(p["dhcp"] for p in per.values())
+    # one step's kernel calls from the wire path, held against the plain versions
+    eng = wire_stack(device)
+    ring, kern, pump = sim_wire("vector")
+    rt = sim_roundtrip(eng, ring, kern, pump)
+    fr = wire_frames()
+    check(rt([fr["qos"]]) == [], "wire QoS punt (recorded run)")
+    rec = record_kernel_inputs(lambda: rt([fr["qos"]] * 4), None, 0, "wire step")
+    k1 = len(rec["probe"])
+    check(k1 == 10 and len(rec["seg_prefix"]) == 4,
+          f"wire step: 10 K1 (IPoE 8, PPPoE 2) and 4 K2 ({k1}, {len(rec['seg_prefix'])})")
+    probes_vs_plain([("wire step", a) for a in rec["probe"]], err)
+    segs_vs_plain([("wire step", *a) for a in rec["seg_prefix"]], err)
+    ring.close()
+    check(launches["probe"] == 10 * fused + 3 * dhcp and launches["seg_prefix"] == 4 * fused,
+          f"wire: 10 K1 + 4 K2 a fused step and 3 K1 a DHCP-only batch ({launches}; {fused} "
+          f"fused, {dhcp} DHCP-only)")
+    # the same drive on a CPU engine
+    eng = wire_stack("cpu")
+    ring, kern, pump = sim_wire("scalar")
+    cpu = wire_scenarios(eng, sim_roundtrip(eng, ring, kern, pump))
+    ring.close()
+    check(cpu == outs["scalar"], "wire: the card's far-end bytes == the CPU engine's")
+    say(f"wire scenarios (DORA, NAT punt then SNAT, QoS drops, PPPoE decap + SNAT) through "
+        f"SimKernelRings -> WirePump -> NativeRing -> process_ring_pipelined -> far end: "
+        f"equal under the scalar and the vector pump and to a CPU engine; "
+        f"{fused} fused steps and {dhcp} DHCP-only batches, launches {launches}; one step's "
+        f"10 K1 and 4 K2 bit-equal to their plain versions [{card}]")
+    return {"wire_scenarios": launches}, outs["scalar"]
+
+
+def pop_egress(ring) -> list:
+    out = []
+    for pop in (ring.tx_pop, ring.fwd_pop):
+        while (got := pop()) is not None:
+            out.append(bytes(got[0]) if isinstance(got, tuple) else bytes(got))
+    return out
+
+
+def wire_headline_phase(eng, flows, card, err) -> dict:
+    """Phase 52: the headline engine (1M subscribers, B = 8192) fed through
+    the wire: 6 batches of the IPoE mix injected at the far end of
+    SimKernelRings, pumped into a NativeRing, served by
+    process_ring_pipelined and pumped back out, under each pump; beside
+    them the same frames pushed into a NativeRing with no wire. Egress
+    equal (the two pumps exactly, the no-wire run as a multiset: the wire
+    interleaves TX and FWD), 8 K1 + 4 K2 a step, the first step's calls
+    bit-equal to their plain versions; frames/s end to end and a traced
+    run's split per batch."""
+    from bng_tpu_torch.runtime import xsk
+
+    rng = np.random.default_rng(52)
+    batches = [make_batch(rng, flows)[0] for _ in range(WIRE_BATCHES)]
+    n_frames = WIRE_BATCHES * B
+
+    def ring_():
+        return ring_mod.NativeRing(nframes=1 << 16, frame_size=2048, depth=1 << 15)
+
+    def plain(t_base):
+        ring, egress = ring_(), []
+        t = time.perf_counter()
+        for k, frames in enumerate(batches):
+            check(ring.rx_push_batch(frames, from_access=True) == B, "no-wire push")
+            eng.process_ring_pipelined(ring, now=t_base + k * 0.01)
+            egress += pop_egress(ring)
+        eng.flush_pipeline()
+        egress += pop_egress(ring)
+        secs = time.perf_counter() - t
+        ring.close()
+        return egress, secs, None
+
+    def wire(path, t_base):
+        ring = ring_()
+        kern = xsk.SimKernelRings(ring, headroom=WIRE_HEADROOM, ring_size=1 << 15)
+        pump = xsk.WirePump(ring, kern, path=path)
+        pump.pump(budget=B)  # stock the kernel fill ring
+        egress = []
+        t = time.perf_counter()
+        for k, frames in enumerate(batches):
+            kern.inject_many(frames)  # the far end: delivered into the stocked frames
+            pump.pump(budget=B)  # kernel RX -> ring, refill
+            eng.process_ring_pipelined(ring, now=t_base + k * 0.01)
+            pump.pump(budget=B)  # the retired batch's verdicts -> kernel TX
+            egress += kern.drain_egress()
+        eng.flush_pipeline()
+        pump.pump(budget=B)
+        egress += kern.drain_egress()
+        secs = time.perf_counter() - t
+        st = dict(pump.pump_stats)
+        check(pump.last_path == path and st["rx"] == n_frames and st["rx_submit_fail"] == 0
+              and st["tx_overflow"] == 0, f"wire {path}: every frame pumped in ({st})")
+        ring.close()
+        return egress, secs, st
+
+    kernels.reset_launches()
+    runs = {}
+    with first_kernel_calls(8, 4) as rec:
+        for i, name in enumerate(WIRE_PUMPS + ("no wire",)):
+            t_base = NOW + 1000 * (i + 1)  # the QoS buckets refill between runs
+            runs[name] = wire(name, t_base) if name in WIRE_PUMPS else plain(t_base)
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, 3 * WIRE_BATCHES, {"probe": 8, "seg_prefix": 4}, "wire headline")
+    held = first_calls_vs_plain(rec, "wire headline", err)
+    check(runs["scalar"][0] == runs["vector"][0], "wire headline: egress equal across the pumps")
+    check(sorted(runs["scalar"][0]) == sorted(runs["no wire"][0]) and runs["scalar"][0],
+          "wire headline: the wire's egress == the no-wire ring's TX and FWD frames")
+    eg = runs["scalar"][2]
+    fps = {k: n_frames / v[1] for k, v in runs.items()}
+    say(f"wire headline: {WIRE_BATCHES} batches of {B} (20% cached DISCOVERs, 80% flows) "
+        f"through the wire, {len(runs['scalar'][0])} frames back out (pump stats {eg}); "
+        f"frames/s end to end: scalar pump {fps['scalar']:.1f}, vector pump "
+        f"{fps['vector']:.1f}, no wire {fps['no wire']:.1f} (wire/no wire "
+        f"{fps['scalar'] / fps['no wire']:.3f} scalar, {fps['vector'] / fps['no wire']:.3f} "
+        f"vector); launches {launches}; {held} [{card}]")
+    # the split of a traced run of each (its own counts, not the path's)
+    for name in WIRE_PUMPS:
+        with tracer_armed() as tr:
+            wire(name, NOW + 5000 + 1000 * WIRE_PUMPS.index(name))
+        bd = tr.breakdown()
+        part = {s: bd[s]["mean_us"] * bd[s]["count"] / 1e3 / WIRE_BATCHES
+                for s in ("wire_rx", "ring", "dispatch", "device_wait", "reply", "wire_tx")
+                if s in bd}
+        say(f"wire headline split, {name} pump (traced, ms per batch of {B}): wire_rx "
+            f"{part.get('wire_rx', 0):.3f}, assemble {part.get('ring', 0):.3f}, dispatch "
+            f"{part.get('dispatch', 0):.3f}, wait {part.get('device_wait', 0):.3f}, demux "
+            f"{part.get('reply', 0):.3f}, wire_tx {part.get('wire_tx', 0):.3f} [{card}]")
+    return {"wire_headline": launches}
+
+
+def veth_pair() -> str:
+    """Make phase 54's veth pair, up; '' or what the host refused."""
+    try:
+        subprocess.run(["ip", "link", "del", VETH[0]], capture_output=True, timeout=30)
+        r = subprocess.run(["ip", "link", "add", VETH[0], "type", "veth", "peer", "name",
+                            VETH[1]], capture_output=True, text=True, timeout=30)
+    except OSError as e:
+        return f"no `ip` command ({e})"
+    if r.returncode != 0:
+        return f"ip link add refused: {r.stderr.strip()} (needs CAP_NET_ADMIN)"
+    for i in VETH:
+        subprocess.run(["ip", "link", "set", i, "up"], capture_output=True, timeout=30)
+    time.sleep(0.3)  # carrier settle
+    return ""
+
+
+def wire_live(device, card, want: dict) -> bool:
+    """The four scenarios over the copy rung on a veth pair: AF_XDP on the
+    BNG's end, the redirect program through the kernel's verifier, frames
+    injected and collected with AF_PACKET on the far end. Each scenario's
+    reply must be phase 51's bytes. False (with the missing privilege
+    printed) where the host cannot."""
+    import socket as so
+
+    from bng_tpu_torch.runtime import xdp_redirect, xsk
+
+    why = ""
+    if xsk.probe() == xsk.MODE_MEMORY:
+        why = "no AF_XDP socket (needs CAP_NET_RAW and kernel support)"
+    elif not xdp_redirect.probe():
+        why = "no XDP program load (needs CAP_BPF or CAP_SYS_ADMIN)"
+    else:
+        why = veth_pair()
+    if why:
+        print(f"wire live rung: not run here: {why} [{card}]", flush=True)
+        return False
+    eng = wire_stack(device)
+    ring = ring_mod.NativeRing(nframes=4096, frame_size=2048, depth=1024)
+    att = xsk.open_wire(ring, ifname=VETH[0], queue=0, pump_path="vector")
+    socks, redir = [], None
+    try:
+        if att.xsk is None:
+            print(f"wire live rung: not run here: the attach landed on the {att.mode} rung "
+                  f"({att.detail}) [{card}]", flush=True)
+            return False
+        check(att.mode == xsk.MODE_COPY, f"wire live: the veth binds the copy rung ({att.mode})")
+        s = att.xsk
+        redir = xdp_redirect.XdpRedirect(VETH[0], {0: s.fd})
+        txs = so.socket(so.AF_PACKET, so.SOCK_RAW)
+        txs.bind((VETH[1], 0))
+        rxs = so.socket(so.AF_PACKET, so.SOCK_RAW, so.htons(0x0003))
+        rxs.bind((VETH[1], 0))
+        rxs.setblocking(False)
+        socks = [txs, rxs]
+        s.pump()  # stock the kernel fill ring
+
+        def exchange(frames, want_n: int, deadline_s: float = 8.0):
+            for f in frames:
+                txs.send(f)
+            got = []
+            deadline = time.time() + deadline_s
+            while time.time() < deadline and len(got) < want_n:
+                s.pump(budget=64)
+                eng.process_ring_pipelined(ring)
+                eng.flush_pipeline(ring)
+                s.pump(budget=64)
+                while True:
+                    try:
+                        got.append(rxs.recv(4096))
+                    except (BlockingIOError, OSError):
+                        break
+                time.sleep(0.01)
+            return got
+
+        fr = wire_frames()
+        offer = F.decode_dhcp(F.decode(want["dora"][0]).payload)
+        check(want["dora"][0] in exchange([wire_dhcp(F.DISCOVER, 0x11)], 1),
+              "wire live: the OFFER is phase 51's bytes")
+        check(want["dora"][1] in exchange([wire_dhcp(F.REQUEST, 0x12, requested_ip=offer.yiaddr,
+                                                     server_id=SERVER_IP)], 1),
+              "wire live: the ACK is phase 51's bytes")
+        check(want["dora"][2] in exchange([wire_dhcp(F.DISCOVER, 0x13)], 1),
+              "wire live: the device's OFFER is phase 51's bytes")
+        check(want["nat"][0] not in exchange([fr["nat"]], 1, 2.0), "wire live: NAT punt")
+        check(want["nat"][0] in exchange([fr["nat"]], 1), "wire live: the SNAT is phase 51's")
+        exchange([fr["qos"]], 1, 2.0)
+        got = exchange([fr["qos"]] * 4, len(want["qos"]))
+        check(all(f in got for f in want["qos"]), "wire live: the QoS survivors are phase 51's")
+        exchange([fr["pppoe"]], 1, 2.0)
+        check(want["pppoe"][0] in exchange([fr["pppoe"]], 1),
+              "wire live: the PPPoE decap + SNAT is phase 51's")
+        st = s.pump_stats
+        say(f"wire live rung: the four scenarios over AF_XDP copy mode on a veth pair "
+            f"({VETH[0]}), the redirect program through the kernel's verifier: every reply "
+            f"phase 51's bytes; pump stats {st} [{card}]")
+        return True
+    finally:
+        for x in socks:
+            x.close()
+        if redir is not None:
+            redir.close()
+        if att.xsk is not None:
+            att.xsk.close()
+        ring.close()
+        subprocess.run(["ip", "link", "del", VETH[0]], capture_output=True, timeout=30)
+
+
+def run_wire_if_phase(card, device, want: dict) -> tuple[dict, bool]:
+    """Phase 54: `run --wire-if` with an interface that does not exist lands
+    on the memory rung loudly (the warning, the flight dump,
+    bng_wire_rung{mode="memory"} 1), as a process and as an app on the
+    card; then the live copy rung where the host allows it."""
+    from bng_tpu_torch.cli import BNGApp, BNGConfig
+    from bng_tpu_torch.telemetry import recorder as rec_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run([sys.executable, "-m", "bng_tpu_torch", "run", "--once",
+                            "--wire-if", "nosuchif0", "--telemetry-enabled", "--trace-dir", tmp],
+                           capture_output=True, text=True, timeout=600, cwd=REPO)
+        check(r.returncode == 0, f"run --wire-if nosuchif0: rc {r.returncode}\n{r.stderr[-1500:]}")
+        check("FELL BACK to the memory rung" in r.stderr and "interface not found" in r.stderr,
+              "run --wire-if nosuchif0: the memory-rung warning")
+        dumps = [f for f in os.listdir(tmp) if rec_mod.TRIG_WIRE_FALLBACK in f]
+        check(dumps, f"run --wire-if nosuchif0: a {rec_mod.TRIG_WIRE_FALLBACK} flight dump "
+                     f"({os.listdir(tmp)})")
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launches()
+        app = BNGApp(BNGConfig(wire_if="nosuchif0", telemetry_enabled=True, trace_dir=tmp,
+                               metrics_port=0), device=device)
+        try:
+            c = app.components
+            att = c["wire_attachment"]
+            check(att.mode == "memory" and type(c["ring"]).__name__ == "NativeRing"
+                  and c["telemetry"].recorder.triggers.get(rec_mod.TRIG_WIRE_FALLBACK) == 1,
+                  f"run --wire-if app: memory rung over the native ring, one fallback dump "
+                  f"({att})")
+            for _ in range(4):
+                app.drive_once()
+            c["collector"].collect_once()
+            lines = [ln for ln in c["metrics"].expose().splitlines()
+                     if ln.startswith("bng_wire_")]
+            check('bng_wire_rung{mode="memory"} 1' in lines
+                  and 'bng_wire_rung{mode="copy"} 0' in lines,
+                  f"run --wire-if app: /metrics pins the memory rung ({lines})")
+            check(c["engine"].device.type == torch.device(device).type,
+                  f"run --wire-if app: the engine on {device} ({c['engine'].device})")
+        finally:
+            app.close()
+        launches = dict(kernels.LAUNCHES)
+    say(f"run --wire-if nosuchif0 on the card: the memory rung, loudly (the warning, a "
+        f"{rec_mod.TRIG_WIRE_FALLBACK} flight dump, bng_wire_rung{{mode=\"memory\"}} 1); no "
+        f"frame touched a wire, so none counts as wire serving [{card}]")
+    live = wire_live(device, card, want)
+    return {"run_wire_if": launches}, live
+
+
+# ------------------------------------------------------ the cluster (phase 55)
+
+CLUSTER_INSTANCES = 4
+CLUSTER_SUBS = 8192  # the DORA wave through the front door
+
+
+def cluster_wave_timed(mode: str) -> tuple[dict, float, dict]:
+    """`cluster run`'s coordinator (its defaults: 10.0.0.0/10, one worker an
+    instance, no fast-path table) with the wave timed."""
+    from bng_tpu_torch.cli import _cluster_wave
+    from bng_tpu_torch.cluster import ClusterCoordinator
+
+    coord = ClusterCoordinator(mode=mode, space_network=ip_to_u32("10.0.0.0"),
+                               space_prefix_len=10, fabric=(mode == "process"),
+                               fabric_bind=("127.0.0.1", 0))
+    try:
+        coord.add_instances([f"bng-{i:02d}" for i in range(CLUSTER_INSTANCES)])
+        coord.status()  # every member answers: a spawned child's start-up is not timed
+        t = time.perf_counter()
+        wave = _cluster_wave(coord, CLUSTER_SUBS)
+        secs = time.perf_counter() - t
+        return wave, secs, coord.status()
+    finally:
+        coord.close()
+
+
+def cluster_failover_timed() -> dict:
+    """An inline cluster on a simulated clock: a wave, a member killed, its
+    standby promoted by ticks, the victim's subscribers re-DORA (renewals
+    through the front door, each ACKed with its original address)."""
+    from bng_tpu_torch.chaos.faults import SimClock
+    from bng_tpu_torch.chaos.scenarios import _discover, _mac, _renew, _reply, _request
+    from bng_tpu_torch.cluster import ClusterCoordinator, instance_for_mac
+
+    clock = SimClock()
+    coord = ClusterCoordinator(clock=clock, space_network=ip_to_u32("10.0.0.0"),
+                               space_prefix_len=10)
+    try:
+        coord.add_instances([f"bng-{i:02d}" for i in range(CLUSTER_INSTANCES)])
+        macs = [_mac(0x5000 + i) for i in range(CLUSTER_SUBS // 4)]
+        leased = {}
+        for k in range(0, len(macs), 512):
+            chunk = macs[k:k + 512]
+            out = coord.handle_batch([(i, _discover(m, 0x100 + k + i))
+                                      for i, m in enumerate(chunk)], now=clock())
+            offers = {m: _reply(rep).yiaddr for (_l, rep), m in zip(out, chunk) if rep}
+            out = coord.handle_batch([(i, _request(m, offers[m], 0x200000 + k + i))
+                                      for i, m in enumerate(offers)], now=clock())
+            leased.update({m: _reply(rep).yiaddr for (_l, rep), m in zip(out, offers) if rep})
+        check(len(leased) == len(macs), f"cluster failover: {len(macs)} leased ({len(leased)})")
+        ids = coord.member_ids()
+        victim = ids[1]
+        victim_macs = [m for m in macs if instance_for_mac(m, ids) == victim]
+        t0 = time.perf_counter()
+        coord.kill_instance(victim)
+        ticks = 0
+        while coord.members[victim].role != "promoted" and ticks < 64:
+            clock.advance(1.0)
+            coord.tick()
+            ticks += 1
+        t1 = time.perf_counter()
+        out = coord.handle_batch([(k, _renew(m, leased[m], 0x400000 + k))
+                                  for k, m in enumerate(victim_macs)], now=clock())
+        t2 = time.perf_counter()
+        sticky = sum(1 for (_l, rep), m in zip(out, victim_macs)
+                     if rep is not None and _reply(rep).yiaddr == leased[m])
+        check(coord.members[victim].role == "promoted" and sticky == len(victim_macs) > 0,
+              f"cluster failover: standby promoted, {sticky}/{len(victim_macs)} renewals ACKed "
+              f"with their addresses")
+        return {"victim_subs": len(victim_macs), "ticks": ticks, "promote_s": t1 - t0,
+                "redora_s": t2 - t1, "sticky": sticky}
+    finally:
+        coord.close()
+
+
+def cluster_phase(card) -> dict:
+    """Phase 55: `cluster run --instances 4 --subscribers 8192 --once
+    --checkpoint-out F` as a process with `--mode inline` and `--mode
+    process`, `cluster status --from-checkpoint F`; the wave's DORAs/s and
+    the failover's re-DORA time in-process. The cluster is host code: it
+    launches no kernel (counts 0 before, read after)."""
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("inline", "process"):
+            ck = os.path.join(tmp, f"{mode}.ckpt")
+            t = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "bng_tpu_torch", "cluster", "run",
+                                "--instances", str(CLUSTER_INSTANCES), "--subscribers",
+                                str(CLUSTER_SUBS), "--once", "--mode", mode,
+                                "--checkpoint-out", ck], capture_output=True, text=True,
+                               timeout=600, cwd=REPO)
+            secs = time.perf_counter() - t
+            check(r.returncode == 0, f"cluster run --mode {mode}: rc {r.returncode}\n"
+                                     f"{r.stderr[-1500:]}")
+            out = json.loads(r.stdout)
+            check(out["wave"] == {"subscribers": CLUSTER_SUBS, "leased": CLUSTER_SUBS,
+                                  "unique_ips": CLUSTER_SUBS, "shed": 0, "ok": True},
+                  f"cluster run --mode {mode}: every subscriber leased ({out['wave']})")
+            st = subprocess.run([sys.executable, "-m", "bng_tpu_torch", "cluster", "status",
+                                 "--from-checkpoint", ck], capture_output=True, text=True,
+                                timeout=300, cwd=REPO)
+            plan = json.loads(st.stdout) if st.returncode == 0 else {}
+            check(plan.get("blocks") == CLUSTER_INSTANCES
+                  and sorted(plan.get("members", {})) == sorted(out["status"]["members"]),
+                  f"cluster status --from-checkpoint ({mode}): the carve plan ({st.stderr})")
+            say(f"cluster run --mode {mode} --instances {CLUSTER_INSTANCES} --subscribers "
+                f"{CLUSTER_SUBS} --once: rc 0 in {secs:.1f}s as a process, {CLUSTER_SUBS} "
+                f"leased, {plan['addresses']} addresses carved; cluster status reads the plan "
+                f"back [{card}]")
+    rates = {}
+    for mode in ("inline", "process"):
+        wave, secs, status = cluster_wave_timed(mode)
+        check(wave["ok"] and status["instances"] == CLUSTER_INSTANCES,
+              f"cluster wave ({mode}): {wave}")
+        rates[mode] = CLUSTER_SUBS / secs
+    fo = cluster_failover_timed()
+    launches = dict(kernels.LAUNCHES)
+    check(launches == {"probe": 0, "seg_prefix": 0},
+          f"cluster: host code, no kernel launched ({launches})")
+    print(f"cluster: {CLUSTER_SUBS}-subscriber DORA wave through the front door of "
+          f"{CLUSTER_INSTANCES} instances: {rates['inline']:.1f} DORAs/s inline, "
+          f"{rates['process']:.1f} DORAs/s with one process an instance; failover: the standby "
+          f"promoted after {fo['ticks']} ticks of 1 s ({fo['promote_s']:.3f} s of wall time), "
+          f"the victim's {fo['victim_subs']} subscribers re-DORAed in {fo['redora_s']:.3f} s, "
+          f"{fo['sticky']} ACKed with their addresses; no kernel launch (host code) [{card}]",
+          flush=True)
+    return {"cluster": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6167,6 +6804,7 @@ def main(argv=None) -> int:
     err = {"probe": 0.0, "seg_prefix": 0.0}  # max |kernel - plain| over every comparison
     ipoe, ipoe_traced = ipoe_phases(eng, flows, drop_ips, card, device, args.profile, err)
     launches = {"ipoe": ipoe, "ipoe_traced": ipoe_traced}
+    launches.update(wire_headline_phase(eng, flows, card, err))
     # the full-stack engine drains the same host tables: retire this one first
     hosts = (eng.fastpath, eng.nat, eng.qos, eng.antispoof)
     del eng
@@ -6206,6 +6844,11 @@ def main(argv=None) -> int:
     launches.update(ha_pair_phases(card, device, err))
     launches.update(nexus_phases(card, device, err))
     launches.update(dns_phases(card, device, err))
+    more, wire_want = wire_scenario_phase(card, device, err)
+    launches.update(more)
+    more, _live = run_wire_if_phase(card, device, wire_want)
+    launches.update(more)
+    launches.update(cluster_phase(card))
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

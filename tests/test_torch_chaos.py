@@ -1,16 +1,15 @@
 """The port's chaos suite (`bng_tpu_torch/chaos/{scenarios,runner}.py` and
 `chaos run|audit`) against the JAX package's.
 
-- Each of the 12 scripted scenarios that need no cluster of BNGs (the HA
-  pair's `ha_delta_drop_reconnect` among them) runs in both packages from one seed, on the CPU (the five that
+- Each of the 16 scripted scenarios (the HA pair's
+  `ha_delta_drop_reconnect` and the four of the cluster of BNGs among
+  them) runs in both packages from one seed, on the CPU (the five that
   build an engine, a scheduler or a sharded cluster on `device="cpu"`),
   and gives the same canonical report bytes, `ok` included.
 - The seeded soak, `soak(seed=5, epochs=2)`, gives the same bytes.
-- The catalog is the reference's 23 names; each ported scenario's seed is
-  the reference's (the index in the full catalog). The five entries that
-  need the cluster of BNGs are listed as not ported, and naming
-  one — by `names=` or `chaos run --scenario` — is refused before any
-  scenario runs, naming the component (ValueError; rc 2 from the CLI).
+- The catalog is the reference's 23 names, so each scenario's seed is the
+  reference's (the index in the catalog); `chaos run --scenario` runs any
+  of them, on the CPU with `--device cpu`.
 - `chaos run --scenario` prints the reference's report; `--list`,
   `--bench-log` (through the port's ledger), `chaos audit` on a built app
   (rc 0), and no card without `--device cpu` (rc 2).
@@ -64,30 +63,12 @@ def test_soak_equals_reference():
 
 
 def test_catalog_and_seeds_are_the_references():
-    assert t_runner.CATALOG == sorted(j_runner.ALL_SCENARIOS)
-    assert len(t_runner.CATALOG) == 23 and len(t_runner.ALL_SCENARIOS) == 18
-    assert sorted(t_runner.UNPORTED) == sorted(set(j_runner.ALL_SCENARIOS)
-                                               - set(t_runner.ALL_SCENARIOS))
-    cat = dict(t_runner.scenario_catalog())
-    assert list(cat) == t_runner.CATALOG
-    for name, need in t_runner.UNPORTED.items():
-        assert cat[name] == f"not ported: needs {need}"
+    assert sorted(t_runner.ALL_SCENARIOS) == sorted(j_runner.ALL_SCENARIOS)
+    assert len(t_runner.ALL_SCENARIOS) == 23
+    assert [n for n, _d in t_runner.scenario_catalog()] == \
+        [n for n, _d in j_runner.scenario_catalog()]
     # the port's devices: exactly the entries that build device state
     assert t_runner.ON_DEVICE < set(t_runner.ALL_SCENARIOS)
-
-
-@pytest.mark.parametrize("name", sorted(t_runner.UNPORTED))
-def test_unported_entry_refused_before_running(name, monkeypatch, capsys):
-    ran = []
-    monkeypatch.setitem(t_runner.ALL_SCENARIOS, "nat_expiry_under_skew",
-                        lambda seed, **kw: ran.append(seed))
-    need = t_runner.UNPORTED[name]
-    with pytest.raises(ValueError, match=rf"{name} needs {need.split(' (')[0]}"):
-        t_runner.run_scenarios(1, names=["nat_expiry_under_skew", name], device="cpu")
-    assert ran == []
-    assert t_cli.main(["--device", "cpu", "chaos", "run", "--scenario", name]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and need in err and ran == []
 
 
 def test_cli_single_scenario_prints_the_references_report(capsys):
@@ -101,7 +82,7 @@ def test_cli_single_scenario_prints_the_references_report(capsys):
 def test_cli_list_unknown_and_bench_log(tmp_path, capsys):
     assert t_cli.main(["chaos", "run", "--list"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 23 and sum("not ported" in ln for ln in lines) == 5
+    assert len(lines) == 23 and not any("not ported" in ln for ln in lines)
     assert t_cli.main(["--device", "cpu", "chaos", "run", "--scenario", "nope"]) == 2
     assert "unknown scenario" in capsys.readouterr().err
     log = tmp_path / "chaos.jsonl"

@@ -394,10 +394,11 @@ def test_rejects_happen_before_any_mutation(case, match):
 @pytest.mark.parametrize("component", ["ha", "cluster_plan"])
 def test_reference_only_components_are_refused(component):
     """A reference snapshot that carries its HA store (into a process with no
-    HA pair) or its cluster plan (the port has no cluster of BNGs) has no
+    HA pair) or its cluster plan (into a process with no coordinator) has no
     target: the restore refuses it with the reference's "no such component"
     before any mirror or lease changes. (The fleet's books restore:
-    tests/test_torch_fleet.py; the HA store: tests/test_torch_ha.py.)"""
+    tests/test_torch_fleet.py; the HA store: tests/test_torch_ha.py; the
+    carve plan: tests/test_torch_cluster.py.)"""
     src = stack(JAX)
     extra = {"ha": SimpleNamespace(checkpoint_state=lambda: {"seq": 3, "sessions": []}),
              "cluster_plan": SimpleNamespace(checkpoint_plan=lambda: {"epoch": 1, "members": {}})}

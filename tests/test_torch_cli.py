@@ -179,49 +179,23 @@ def test_dora_renewal_flow_and_tick_match_reference(scheduler):
     assert st["dhcp"]["discover"] == 1 and st["nat"] == {"sessions": 1, "blocks": 1}
 
 
-def test_refusal_names_every_unported_subsystem():
-    on = dict(ha_role="active",
-              cluster_listen="127.0.0.1:0", wire_if="eth9", shards=2,
-              dns_enabled=True, bgp_enabled=True, nexus_url="http://nexus",
-              peer_pool_cidr="10.9.0.0/24",
-              peer_pool_nodes=[{"node": "bng0", "url": "http://x"}], device_auth_method="psk")
-    cfg = t_cli.BNGConfig(**on)
-    with pytest.raises(t_cli.UnportedSubsystemError) as e:
-        t_cli.BNGApp(cfg, device="cpu")
-    msg = str(e.value)
-    assert len(t_cli.unported(cfg)) == len(t_cli.UNPORTED) == 1
-    for _on, what, flag in t_cli.UNPORTED:
-        assert what in msg and flag in msg
-    # the reference's defaults, and metrics, telemetry and the checkpointer
-    # on top of them, are ported
-    names = " ".join(what for _on, what, _flag in t_cli.UNPORTED)
-    assert not any(w in names for w in ("metrics", "telemetry", "checkpoint"))
-    assert t_cli.unported(t_cli.BNGConfig()) == []
-    assert t_cli.unported(t_cli.BNGConfig(telemetry_enabled=True, checkpoint_dir="/x")) == []
-    # the slow-path fleet is ported: workers > 1 builds
-    assert t_cli.unported(t_cli.BNGConfig(slowpath_workers=4)) == []
-    # sharded serving, the HA pair, the listener and store, BGP and the
-    # peer pool are ported
-    assert t_cli.unported(t_cli.BNGConfig(
-        shards=2, ha_role="active", cluster_listen="127.0.0.1:0", store_mode="write",
-        bgp_enabled=True, peer_pool_cidr="10.9.0.0/24",
-        peer_pool_nodes=[{"node": "bng0", "url": "http://x"}])) == []
-    # the DNS listener, the Nexus allocator and device authentication
-    # are ported: only the AF_XDP wire is refused
-    assert t_cli.unported(t_cli.BNGConfig(
-        dns_enabled=True, nexus_url="http://nexus", device_auth_method="mtls")) == []
-    assert [what for _on, what, _flag in t_cli.UNPORTED] == ["AF_XDP wire"]
-    assert "DNS" not in msg and "Nexus" not in msg and "device auth" not in msg
-    ported = t_cli.BNGConfig(radius_server="127.0.0.1:1812", pppoe_enabled=True, **WORKING)
-    assert t_cli.unported(ported) == []
-
-
 def test_main_run_once_on_cpu(capsys):
     assert t_cli.main(["--device", "cpu", "run", "--once"]) == 0  # the defaults build
     assert '"device": "cpu"' in capsys.readouterr().out
     assert t_cli.main(["--device", "cpu", "run", "--once", "--no-metrics-enabled"]) == 0
-    assert t_cli.main(["--device", "cpu", "run", "--once", "--wire-if", "eth9"]) == 2
-    assert "--wire-if ''" in capsys.readouterr().err
+    # a requested NIC that is not there lands on the memory rung, loudly
+    # (the app's log records, whichever handler the process configured)
+    import logging
+
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    logging.getLogger("bng.app").addHandler(handler)
+    try:
+        assert t_cli.main(["--device", "cpu", "run", "--once", "--wire-if", "eth9"]) == 0
+    finally:
+        logging.getLogger("bng.app").removeHandler(handler)
+    assert any("FELL BACK to the memory rung" in m for m in seen)
     # DNS on a free loopback port, with no upstream ever asked; the Nexus
     # allocator (nothing listens: --once asks nothing), in the fleet too,
     # with PSK device auth
@@ -480,9 +454,6 @@ def test_audit_app_and_restore_audit(tmp_path, capsys):
 # families computed from the wall clock (the checkpointer's age reads
 # time.time() at scrape): compared by presence only
 WALL_FAMILIES = ("bng_ckpt_last_success_age_seconds",)
-# the wire rung's families: the port has no AF_XDP wire pump, so its app
-# registers no wire collector (the reference's reports the memory rung)
-NOT_PORTED = ("bng_wire_",)
 
 
 def exposition_samples(text: str) -> dict:
@@ -494,7 +465,7 @@ def exposition_samples(text: str) -> dict:
             continue
         key, val = line.rsplit(" ", 1)
         name = key.split("{", 1)[0]
-        if name.endswith(("_bucket", "_sum")) or name.startswith(NOT_PORTED):
+        if name.endswith(("_bucket", "_sum")):
             continue
         out[key] = "wall" if name in WALL_FAMILIES else val
     return out

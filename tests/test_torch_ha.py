@@ -311,4 +311,3 @@ def test_ha_delta_drop_reconnect_equals_reference(seed):
     assert got == ref and '"ok": true' in got
     # the runner runs it now; its seed is the reference's
     assert "ha_delta_drop_reconnect" in t_runner.ALL_SCENARIOS
-    assert "ha_delta_drop_reconnect" not in t_runner.UNPORTED

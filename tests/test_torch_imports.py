@@ -84,6 +84,13 @@ SLICE_MODULES = (
     "bng_tpu_torch.control.resilience", "bng_tpu_torch.control.deviceauth",
     "bng_tpu_torch.control.ztp", "bng_tpu_torch.control.agent", "bng_tpu_torch.control.dns",
     "bng_tpu_torch.control.dns_wire",
+    # the AF_XDP wire and the cluster of BNGs
+    "bng_tpu_torch.runtime.xsk", "bng_tpu_torch.runtime.xdp_redirect",
+    "bng_tpu_torch.cluster", "bng_tpu_torch.cluster.plan", "bng_tpu_torch.cluster.instance",
+    "bng_tpu_torch.cluster.member", "bng_tpu_torch.cluster.coordinator",
+    "bng_tpu_torch.cluster.fabric", "bng_tpu_torch.cluster.fabric.transport",
+    "bng_tpu_torch.cluster.fabric.membership", "bng_tpu_torch.cluster.handoff",
+    "bng_tpu_torch.cluster.handoff.protocol",
 ))
 
 
@@ -104,8 +111,8 @@ def test_port_and_chip_smoke_import_no_jax():
 @pytest.mark.parametrize("mod", HA_MODULES)
 def test_ha_and_cluster_wire_modules_import_no_jax_and_no_torch(mod):
     """The HA pair, the store, the peer pool, the cluster wire, the
-    allocators, partition resilience, device auth, ZTP, the agent and DNS
-    are host code: each imports, alone in a fresh interpreter, with no JAX,
+    allocators, partition resilience, device auth, ZTP, the agent, DNS, the
+    AF_XDP wire and the cluster of BNGs are host code: each imports, alone in a fresh interpreter, with no JAX,
     nothing of the JAX package and no torch."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "PYTHON"))}
     env["PYTHONPATH"] = str(REPO)

@@ -24,8 +24,9 @@ on each injected fault:
   dropped from its pool, an allocation with no binding, an address both
   free and allocated, and one address bound to two clients.
 
-Components the port does not have (HA pair, cluster of BNGs)
-audit nothing when None and are refused otherwise. With `metrics`,
+The HA pair and the cluster of BNGs audit nothing when None or empty,
+as the reference's do (their clauses: test_torch_ha.py,
+test_torch_cluster.py). With `metrics`,
 `audit_invariants` and `audit_app` record the same bng_invariant_*
 families (audits, violations by kind, the last audit's count and epoch).
 
@@ -193,8 +194,15 @@ def test_absent_components_audit_nothing_and_refuse_a_value(name):
                 StandbySyncer(InMemorySessionStore(), transport=lambda: None))
         assert t_inv.audit_invariants(ha_pair=pair, check_roundtrip=False).ok
         return
-    with pytest.raises(ValueError, match=name):
-        t_inv.audit_invariants(**{name: object()})
+    # the cluster of BNGs is ported: a coordinator with no members has no
+    # plan and audits nothing, as the reference's does (its clauses:
+    # test_torch_cluster.py)
+    from bng_tpu.cluster import ClusterCoordinator as JCoord
+    from bng_tpu_torch.cluster import ClusterCoordinator as TCoord
+
+    got = t_inv.audit_invariants(bng_cluster=TCoord(mode="inline"), check_roundtrip=False)
+    assert got.ok and got.to_dict() == j_inv.audit_invariants(
+        bng_cluster=JCoord(mode="inline"), check_roundtrip=False).to_dict()
 
 
 def _v6_book(case):

@@ -1,9 +1,10 @@
 """The port's storm suite (`bng_tpu_torch/chaos/storms.py`) against the JAX
 package's.
 
-Each of the six storms that need no cluster of BNGs runs in both packages
-from the same seed at the reduced scale the reference's own tests use
-(`tests/test_storms.py`, and `tests/test_edge.py` for `production_day`),
+Each of the seven storms (the cluster of BNGs' `cluster_scale_storm`
+among them) runs in both packages from the same seed at the reduced scale
+the reference's own tests use (`tests/test_storms.py`, and
+`tests/test_edge.py` for `production_day`),
 on the CPU, and gives the same canonical report bytes, `ok` included. The
 two storms that build an engine run it on `device="cpu"`.
 
@@ -34,7 +35,7 @@ SEED = 123
 # the reference tests' scales
 SCALES = {"flash_crowd_reconnect": 0.01, "lease_expiry_avalanche": 0.02,
           "cgnat_port_exhaustion": 0.05, "coa_policy_flap": 0.05,
-          "dual_stack_bringup": 0.1, "production_day": 0.5}
+          "dual_stack_bringup": 0.1, "cluster_scale_storm": 0.01, "production_day": 0.5}
 
 
 @pytest.fixture

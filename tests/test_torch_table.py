@@ -161,6 +161,41 @@ def test_host_mirrors_after_deletes_and_stash_overflow():
         assert np.array_equal(np.asarray(a), bits(b))
 
 
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+@pytest.mark.parametrize("seed_name", ["SEED1", "SEED2"])
+def test_host_key_hash_equals_reference_hash_words(K, seed_name):
+    """The host tables' per-key hash on Python ints is the reference's
+    `hash_words` bit for bit (edge words included)."""
+    from bng_tpu.ops import hashing as jh
+    from bng_tpu_torch.ops import hashing as th
+
+    rng = np.random.default_rng(1000 + K)
+    keys = rng.integers(0, 2**32, size=(2000, K), dtype=np.uint32)
+    keys[:4] = np.array([0, 1, 0xFFFFFFFF, 0x80000000], np.uint32)[:, None]
+    want = jh.hash_words([keys[:, k] for k in range(K)], getattr(jh, seed_name))
+    got = [th.hash_key_host(row, getattr(th, seed_name)) for row in keys.tolist()]
+    assert got == want.tolist()
+
+
+def test_host_table_insert_delete_leaves_reference_slots():
+    """One insert/delete/reinsert sequence through the Python-int bucket
+    hash puts every key in the reference's slot (kicks and stash too)."""
+    rng = np.random.default_rng(77)
+    jtab, ttab = jt.HostTable(1 << 4, 4, 8, stash=16), tt.HostTable(1 << 4, 4, 8, stash=16)
+    keys = np.unique(rng.integers(0, 2**32, size=(72, 4), dtype=np.uint32), axis=0)
+    vals = rng.integers(0, 2**32, size=(len(keys), 8), dtype=np.uint32)
+    for k, v in zip(keys, vals):
+        assert ttab.insert(k, v) == jtab.insert(k, v)
+    for k in keys[::3]:
+        assert ttab.delete(k) == jtab.delete(k)
+    for k, v in zip(keys[::6], vals[::6]):
+        assert ttab.insert(k, v) == jtab.insert(k, v)
+    for k in keys:
+        t, j = ttab.lookup(k), jtab.lookup(k)
+        assert (t is None and j is None) or t.tolist() == j.tolist()
+    assert np.array_equal(jtab.keys, ttab.keys) and np.array_equal(jtab.used, ttab.used)
+
+
 @pytest.mark.parametrize("nbuckets,K,V,stash,n,B", GEOMETRIES)
 def test_find_slots_equals_the_row_by_row_lookup(nbuckets, K, V, stash, n, B):
     """The vectorized `find_slots` (the invariant audit's lookup) gives
