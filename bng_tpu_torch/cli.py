@@ -1,6 +1,8 @@
 """Composition root + CLI of the port: run / stats / loadtest / trace /
-checkpoint / chaos / cluster / ctl / version (port of `bng_tpu/cli.py`;
-its `demo`, `perf` and `check` verbs are not ported).
+checkpoint / chaos / cluster / ctl / perf / check / demo / version (port
+of `bng_tpu/cli.py`, every verb of it). `demo` and `perf` are host paths
+and `check` is the static analyzer over the port (`analysis/`): none of
+the three touches the card.
 
 `BNGConfig` is the reference's flag surface, field for field, with the
 same YAML overlay where the command line wins (`load_config_file`).
@@ -1857,6 +1859,84 @@ class BNGApp:
         return out
 
 
+# ---------------------------------------------------------------------------
+# demo mode: the reference's `run_demo`, a host path (no card)
+# ---------------------------------------------------------------------------
+
+def run_demo(subscriber_count: int = 3, out=None, clock=time.time) -> dict:
+    """ONT discovery -> walled garden -> activation -> session, with stub
+    auth/allocator (the reference's `run_demo`): a pure host path, so it
+    needs no card and takes no device."""
+    from bng_tpu_torch.control.direct import DirectAuthenticator
+    from bng_tpu_torch.control.nexus import (NexusClient, NTEEntity,
+                                             SubscriberEntity, VLANAllocator)
+    from bng_tpu_torch.control.pon import DiscoveryEvent, PONConfig, PONManager
+    from bng_tpu_torch.control.subscriber import SessionKind, SubscriberManager
+    from bng_tpu_torch.control.walledgarden import WalledGardenManager
+
+    def log(msg):
+        print(msg, file=out if out is not None else sys.stdout)
+
+    nexus = NexusClient(clock=clock)
+    vlans = VLANAllocator()
+    pon = PONManager(PONConfig(), nexus, vlans, clock=clock)
+    garden = WalledGardenManager(clock=clock)
+    auth = DirectAuthenticator(nexus=nexus, clock=clock)
+
+    class DemoAllocator:
+        def __init__(self):
+            self.next = 10
+
+        def allocate(self, sid):
+            ip = f"10.1.0.{self.next}"
+            self.next += 1
+            return ip
+
+        def release(self, sid):
+            return True
+
+    class GardenBridge:
+        def add(self, session):
+            garden.add_to_walled_garden(session.mac or "02:00:00:00:00:00")
+
+        def remove(self, session):
+            garden.release_from_walled_garden(session.mac or "02:00:00:00:00:00")
+
+    subs = SubscriberManager(authenticator=auth, allocator=DemoAllocator(),
+                             walled_garden=GardenBridge(), clock=clock)
+
+    results = {"provisioned": 0, "active": 0, "walled": 0}
+    for i in range(1, subscriber_count + 1):
+        serial = f"DEMO-ONT-{i:03d}"
+        mac = f"02:de:e0:00:00:{i:02x}"
+        log(f"--- subscriber {i}: ONT {serial} ---")
+
+        # 1. ONT appears; operator pre-approved it in Nexus
+        nexus.ntes.put(serial, NTEEntity(id=serial, serial=serial, approved=True))
+        r = pon.handle_discovery(DiscoveryEvent(serial=serial))
+        log(f"  provisioned: s_tag={r.s_tag} c_tag={r.c_tag}")
+        results["provisioned"] += 1
+
+        # 2. subscriber record exists for odd ONTs; evens hit the garden
+        if i % 2:
+            nexus.subscribers.put(f"sub-{i}", SubscriberEntity(
+                id=f"sub-{i}", mac=mac, nte_id=serial,
+                circuit_id=f"olt1/1/{i}", qos_policy="residential-100mbps"))
+
+        s = subs.create_session(SessionKind.IPOE, mac=mac, circuit_id=f"olt1/1/{i}")
+        if subs.authenticate(s.id):
+            ip = subs.assign_address(s.id)
+            subs.activate(s.id)
+            log(f"  ACTIVE: {s.subscriber_id} ip={ip}")
+            results["active"] += 1
+        else:
+            log("  WALLED GARDEN: unknown subscriber, portal redirect on")
+            results["walled"] += 1
+
+    log(f"demo complete: {results}")
+    return results
+
+
 def run_loadtest(args, device) -> int:
     """Build a self-contained engine + slow-path stack on `device` and
     load-test it (the reference's `run_loadtest`). `--wire [IFNAME]`
@@ -2488,6 +2568,66 @@ def serve(app: BNGApp) -> int:
             time.sleep(0.001 if has_ring else 1.0)
 
 
+def run_perf(args) -> int:
+    """`perf gate|import` over the port's ledger (`telemetry/ledger.py`, the
+    reference's `run_perf`; no torch import, runs cold in milliseconds).
+
+    gate: robust per-stage trend regression detection for the newest
+    ledger line against its last-K COMPARABLE predecessors (same metric +
+    backend class + device kind + batch geometry — a `gpu` line is never
+    scored against a TPU or CPU cohort). rc contract: 0 clean / 1
+    regression (stderr names the stage) / 2 internal / 3 incomparable
+    cohort.
+
+    import: one-shot normalizer migrating pre-schema ledger lines to the
+    current schema (schema_version 0 tag, stable legacy run_ids,
+    best-effort env fingerprint from the `device` field)."""
+    from bng_tpu_torch.telemetry import ledger as ledger_mod
+
+    path = args.ledger or ledger_mod.default_ledger_path()
+    if args.perf_cmd == "import":
+        try:
+            lines = ledger_mod.read(path)
+        except OSError as e:
+            print(f"perf import: cannot read {path}: {e}", file=sys.stderr)
+            return 2
+        migrated = ledger_mod.import_legacy(lines)
+        n_legacy = sum(1 for ln in migrated if ln.get("schema_version") == 0)
+        out_path = args.out
+        if args.in_place:
+            out_path = path
+            backup = path + ".bak"
+            import shutil
+
+            shutil.copyfile(path, backup)
+            print(f"perf import: backup at {backup}", file=sys.stderr)
+        if not out_path:
+            for ln in migrated:
+                print(json.dumps(ln))
+        else:
+            with open(out_path, "w") as f:
+                for ln in migrated:
+                    f.write(json.dumps(ln) + "\n")
+        print(f"perf import: {len(migrated)} lines "
+              f"({n_legacy} tagged schema_version 0)"
+              + (f" -> {out_path}" if out_path else " -> stdout"),
+              file=sys.stderr)
+        return 0
+
+    # gate
+    rep = ledger_mod.gate_file(
+        path, last_k=args.last_k, min_cohort=args.min_cohort,
+        include_legacy=not args.no_legacy, metric=args.metric)
+    if args.json_out:
+        print(json.dumps(rep.to_dict(), indent=2, sort_keys=True))
+    else:
+        print(rep.format_text())
+    if rep.regressions:
+        names = ", ".join(r["key"] for r in rep.regressions)
+        print(f"perf gate: REGRESSION in {names}", file=sys.stderr)
+    return rep.rc
+
+
 def _add_run_flags(p: argparse.ArgumentParser) -> None:
     defaults = BNGConfig()
     for f in dataclasses.fields(BNGConfig):
@@ -3016,6 +3156,53 @@ def main(argv: list[str] | None = None) -> int:
     ce_sub.add_parser("swap", help="blue/green engine swap: snapshot-hydrated standby + "
                                    "delta replay + audited atomic flip (rollback on failure)")
 
+    # perf ledger + regression gate (telemetry/ledger.py)
+    perfp = sub.add_parser(
+        "perf", help="perf-regression ledger over bench_runs.jsonl: "
+                     "schema import + per-stage trend gate")
+    perf_sub = perfp.add_subparsers(dest="perf_cmd", required=True)
+    pgate = perf_sub.add_parser(
+        "gate", help="gate the newest ledger line against its last-K "
+                     "comparable runs (median/MAD per stage); rc: 0 "
+                     "clean / 1 regression / 2 internal / 3 "
+                     "incomparable-cohort")
+    pgate.add_argument("--ledger", default="",
+                       help="ledger path (default $BNG_BENCH_LOG or the "
+                            "repo's bench_runs.jsonl)")
+    pgate.add_argument("--metric", default="",
+                       help="gate the newest line of this metric only")
+    pgate.add_argument("--last-k", type=int, default=8,
+                       help="cohort depth: compare against the last K "
+                            "comparable runs")
+    pgate.add_argument("--min-cohort", type=int, default=3,
+                       help="minimum comparable history before the "
+                            "trend gate claims anything")
+    pgate.add_argument("--no-legacy", action="store_true",
+                       help="exclude schema_version<1 (pre-schema) "
+                            "lines from cohorts")
+    pgate.add_argument("--json", action="store_true", dest="json_out")
+    pimp = perf_sub.add_parser(
+        "import", help="one-shot normalizer: migrate pre-schema ledger "
+                       "lines to the current schema (schema_version 0 "
+                       "tag, legacy run_ids, env from `device`)")
+    pimp.add_argument("--ledger", default="",
+                      help="ledger path (default $BNG_BENCH_LOG or the "
+                           "repo's bench_runs.jsonl)")
+    pimp.add_argument("--out", default="",
+                      help="write migrated lines here (default stdout)")
+    pimp.add_argument("--in-place", action="store_true",
+                      help="rewrite the ledger in place (backup at "
+                           "<ledger>.bak)")
+
+    checkp = sub.add_parser(
+        "check", help="bngcheck: dataplane-invariant static analyzer "
+                      "over the port (rc=1 on any non-baselined finding)")
+    from bng_tpu_torch.analysis.cli import add_check_args, run_check
+    add_check_args(checkp)
+
+    demop = sub.add_parser("demo", help="device-free lifecycle demo")
+    demop.add_argument("--subscribers", type=int, default=3)
+
     sub.add_parser("version", help="print version")
 
     args = parser.parse_args(argv)
@@ -3023,6 +3210,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "version":
         print(f"bng-tpu-torch {__version__}")
         return 0
+    if args.command == "check":
+        return run_check(args)
+    if args.command == "demo":
+        run_demo(args.subscribers)
+        return 0
+    if args.command == "perf":
+        return run_perf(args)
     try:
         if args.command == "loadtest":
             return run_loadtest(args, resolve_device(args.device))

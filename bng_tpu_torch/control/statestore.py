@@ -16,8 +16,12 @@ module owns the files around it:
   retention, stats and a rate-limited failure log. A failing background
   save is counted and logged and never raises into the loop it rides on.
 
-HA standby hydration is not ported: a checkpoint carrying an HA session
-store is refused by the restore, as when the component is absent.
+HA wiring, as in the reference: a standby passes its `StandbySyncer` as
+the `ha` target of `restore_checkpoint` — `bootstrap_state()` hydrates
+the session store and jumps `last_seq` to the checkpoint's high-water
+mark, so the first connect catches up via `replay_since(seq)` and only
+falls back to `full_sync()` when the active's replay buffer has wrapped
+past it.
 """
 
 from __future__ import annotations

@@ -457,6 +457,25 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     DORAs/s in each mode, and a failover (a member killed, its standby
     promoted by ticks, its subscribers' renewals ACKed with their
     addresses) with its re-DORA time.
+56. QinQ: 8,192 subscribers known only by their S/C-tag pair (registered
+    in `QinQMapper`, reached through `add_vlan_subscriber`); a batch of
+    8,192 802.1ad DISCOVERs through `Engine.process` (the fused step) and
+    `process_dhcp` on the card: every OFFER from the VLAN probe with both
+    tags kept, the card's bytes equal a CPU engine's, the VLAN probe's
+    results equal the CPU's, one step's 8 K1 and 4 K2 bit-equal to their
+    plain versions; counts 0 then read (8 K1 + 4 K2 a fused step, 3 K1 a
+    DHCP-only batch). Printed: DISCOVERs/s through each.
+57. The NAT ALGs: 1,024 NAT subscribers, FTP and SIP ALGs on, one batch of
+    FTP PORT/EPRT/PASV commands and SIP INVITEs through `Engine.process`:
+    every lane punted by the NAT44 ALG trigger (`NST_ALG`); the host
+    rewrite (`ALGHandler`, data connections pre-installed through
+    `NATManager.handle_new_flow`) equals the expected bytes and a CPU
+    engine's; after the drain the FTP servers' first data packets are
+    DNAT'd on the card; one step's 8 K1 and 4 K2 bit-equal; counts 0 then
+    read. Printed: the step, the rewrite per payload, the data step.
+58. The host verbs as subprocesses: `demo`, `perf gate` on a clean and a
+    regressed ledger the phase writes (rc 0, then 1 naming the stage) and
+    `check` (rc 0); no kernel launch. Printed: each verb's seconds.
 
 The line before the last is the card's name and power limit; the one
 before it the kernels JSON (each kernel's launches by path, `loadtest`,
@@ -464,7 +483,8 @@ before it the kernels JSON (each kernel's launches by path, `loadtest`,
 `run_restored`, `fleet`, `chaos`, `run_sharded`, `run_shards1`,
 `ha_pair`, `run_nexus`, `fleet_nexus`, `run_dns`, `wire_headline`,
 `loadtest_wire_scalar`, `loadtest_wire_vector`, `wire_scenarios`,
-`run_wire_if` and `cluster` among them); the last line the result JSON.
+`run_wire_if`, `cluster`, `qinq`, `nat_alg` and `host_verbs` among them);
+the last line the result JSON.
 """
 
 from __future__ import annotations
@@ -6769,6 +6789,326 @@ def cluster_phase(card) -> dict:
     return {"cluster": launches}
 
 
+# ------------------------------------------ QinQ, the NAT ALGs, host verbs
+
+QINQ_SUBS = 8192  # subscribers known only by their S/C-tag pair
+QINQ_NET = ip_to_u32("10.64.0.0")  # a /18: gateway .1, subscribers from .2
+QINQ_ROUNDS = 5  # DISCOVER batches timed through each path
+ALG_SUBS = 1024  # NAT subscribers sending one ALG control packet each (one batch)
+ALG_NET = ip_to_u32("10.80.0.0")
+ALG_SERVER = ip_to_u32("198.51.100.7")  # the FTP and SIP server
+ALG_PUBLIC = [ip_to_u32("203.0.113.1"), ip_to_u32("203.0.113.2")]
+ALG_KINDS = ("PORT", "EPRT", "PASV", "INVITE")  # lane i sends ALG_KINDS[i % 4]
+VERB_DEMO_SUBS = 8
+
+
+def qinq_pair(i: int) -> tuple[int, int]:
+    return 100 + i // 4000, 1 + i % 4000  # unique (S, C) pairs, S 100..102
+
+
+def qinq_stack(device):
+    """Phase 56's deployment: QINQ_SUBS pairs registered in a `QinQMapper`
+    and, through it, in the VLAN table (`add_vlan_subscriber`)."""
+    from bng_tpu_torch.control.qinq import QinQConfig, QinQMapper, VLANPair, VLANRange
+
+    fp = FastPathTables(sub_nbuckets=1024, vlan_nbuckets=nbuckets_for(QINQ_SUBS),
+                        cid_nbuckets=64, max_pools=4, update_slots=QINQ_SUBS)
+    fp.set_server_config(AC_MAC, SERVER_IP)
+    fp.add_pool(1, QINQ_NET, 18, QINQ_NET + 1, ip_to_u32("1.1.1.1"), 0, 3600)
+    mapper = QinQMapper(QinQConfig(s_tag_range=VLANRange(1, 4095), c_tag_range=VLANRange(1, 4095)))
+    for i in range(QINQ_SUBS):
+        pair = VLANPair(*qinq_pair(i))
+        mapper.register(pair, f"qinq-{i}")
+        fp.add_vlan_subscriber(pair.s_tag, pair.c_tag, 1, QINQ_NET + 2 + i, NOW + 3600)
+    nat = NATManager(public_ips=[ip_to_u32("203.0.113.1")], sessions_nbuckets=1024,
+                     sub_nat_nbuckets=1024)
+    eng = Engine(fp, nat, QoSTables(nbuckets=1024), batch_size=QINQ_SUBS, pkt_slot=L,
+                 device=device)
+    return eng, mapper
+
+
+def qinq_discovers(xid0: int) -> list:
+    return [F.discover_frame(bytes([0x02, 0x51, 0x51, 0, i >> 8, i & 0xFF]), xid0 + i,
+                             vlans=list(qinq_pair(i))) for i in range(QINQ_SUBS)]
+
+
+def check_qinq_offers(tx, mapper, what: str) -> None:
+    from bng_tpu_torch.control.qinq import VLANPair
+
+    check(sorted(i for i, _ in tx) == list(range(QINQ_SUBS)), f"{what}: every lane answered")
+    for i, b in tx:
+        d = F.decode(b)
+        reply = F.decode_dhcp(d.payload)
+        pair = VLANPair(*d.vlans)
+        ok = (d.vlans == list(qinq_pair(i)) and reply.msg_type == F.OFFER
+              and reply.yiaddr == QINQ_NET + 2 + i
+              and mapper.get_subscriber(pair) == f"qinq-{i}"
+              and pair.key() == (qinq_pair(i)[0] << 16) | qinq_pair(i)[1])
+        check(ok, f"{what} lane {i}: an OFFER of its pair's address, both tags kept")
+
+
+def qinq_phase(card, device, err) -> dict:
+    """Phase 56: QINQ_SUBS 802.1ad DISCOVERs, each client known only by its
+    S/C pair (registered in `QinQMapper`, reached through the VLAN table),
+    through the fused step and the DHCP-only program on the card: OFFERs
+    from the VLAN probe, the card's bytes equal a CPU engine's, one step's
+    8 K1 (the VLAN probe among them) and 4 K2 bit-equal to their plain
+    versions; counts 0 then read."""
+    eng, mapper = qinq_stack(device)
+    cpu, _ = qinq_stack("cpu")
+    frames = qinq_discovers(0x10000)
+    names = table_names(eng.tables)
+    out = {}
+    rec = record_kernel_inputs(lambda: out.update(eng.process(frames, now=NOW + 1)), 8, 4,
+                               "qinq fused step", names)
+    check_qinq_offers(out["tx"], mapper, "qinq fused step")
+    check(out == cpu.process(frames, now=NOW + 1), "qinq fused step: the card's bytes == the CPU's")
+    vi = rec["table"].index("dhcp vlan")
+    va = rec["probe"][vi]
+    got = probe_mod.probe_cuda(*va)
+    ref = probe_mod.probe_plain(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in va))
+    check(bool(got[0].all()) and all(torch.equal(g.cpu(), r) for g, r in zip(got, ref)),
+          "qinq: the VLAN probe finds every pair, its found/slot/vals == the CPU's")
+    probes_vs_plain([("qinq step", a) for a in rec["probe"]], err)
+    segs_vs_plain([("qinq step", *a) for a in rec["seg_prefix"]], err)
+    frames = qinq_discovers(0x20000)
+    dhcp = eng.process_dhcp(frames, now=NOW + 2)
+    check_qinq_offers(dhcp["tx"], mapper, "qinq DHCP-only")
+    check(dhcp == cpu.process_dhcp(frames, now=NOW + 2),
+          "qinq DHCP-only: the card's bytes == the CPU's")
+    kernels.reset_launches()
+    rates = {}
+    for path, fn in (("fused", eng.process), ("dhcp", eng.process_dhcp)):
+        batches = [qinq_discovers(0x30000 + r * QINQ_SUBS) for r in range(QINQ_ROUNDS)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for k, b in enumerate(batches):
+            o = fn(b, now=NOW + 3 + k)
+            check(len(o["tx"]) == QINQ_SUBS, f"qinq {path} batch {k}: every DISCOVER answered")
+        rates[path] = QINQ_ROUNDS * QINQ_SUBS / (time.perf_counter() - t)
+    launches = dict(kernels.LAUNCHES)
+    check(launches == {"probe": QINQ_ROUNDS * (8 + 3), "seg_prefix": QINQ_ROUNDS * 4},
+          f"qinq: 8 K1 + 4 K2 a fused step, 3 K1 a DHCP-only batch ({launches})")
+    print(f"qinq: {QINQ_SUBS} 802.1ad DISCOVERs a batch, clients known only by their S/C "
+          f"pair (QinQMapper -> VLAN table): {rates['fused']:.1f} DISCOVERs/s through "
+          f"Engine.process, {rates['dhcp']:.1f} through process_dhcp (host included); the "
+          f"card's OFFERs == the CPU's; one step's 8 K1 (the VLAN probe found all "
+          f"{QINQ_SUBS}) and 4 K2 bit-equal to their plain versions; launches {launches} "
+          f"[{card}]", flush=True)
+    return {"qinq": launches}
+
+
+def alg_ip(i: int) -> int:
+    return ALG_NET + 2 + i
+
+
+def alg_hostport(ip: int, port: int) -> str:
+    return ",".join(str(b) for b in ip.to_bytes(4, "big")) + f",{port >> 8},{port & 0xFF}"
+
+
+def alg_stack(device):
+    """Phase 57's deployment: ALG_SUBS NAT subscribers (QoS on each), the
+    FTP and SIP ALGs on (ALG flags, `add_alg_port`)."""
+    from bng_tpu_torch.ops.nat44 import FLAG_ALG_FTP, FLAG_ALG_SIP
+
+    fp = FastPathTables(sub_nbuckets=1024, vlan_nbuckets=64, cid_nbuckets=64, max_pools=4)
+    fp.set_server_config(AC_MAC, SERVER_IP)
+    nat = NATManager(public_ips=ALG_PUBLIC, ports_per_subscriber=64,
+                     sessions_nbuckets=nbuckets_for(4 * ALG_SUBS),
+                     sub_nat_nbuckets=nbuckets_for(ALG_SUBS), update_slots=4 * ALG_SUBS)
+    nat.flags |= FLAG_ALG_FTP | FLAG_ALG_SIP
+    nat.add_alg_port(21, 6)
+    nat.add_alg_port(5060, 17)
+    qos = QoSTables(nbuckets=nbuckets_for(ALG_SUBS), update_slots=ALG_SUBS)
+    for i in range(ALG_SUBS):
+        nat.allocate_nat(alg_ip(i), NOW)
+        qos.set_subscriber(alg_ip(i), down_bps=100_000_000, up_bps=20_000_000)
+    return Engine(fp, nat, qos, batch_size=ALG_SUBS, pkt_slot=L, device=device)
+
+
+def alg_frames() -> list:
+    out = []
+    for i in range(ALG_SUBS):
+        ip, kind = alg_ip(i), ALG_KINDS[i % 4]
+        src = bytes([0x02, 0xA1, 0, 0, i >> 8, i & 0xFF])
+        if kind == "INVITE":
+            a = ".".join(str(b) for b in ip.to_bytes(4, "big"))
+            sdp = (f"INVITE sip:bob@example.com SIP/2.0\r\nVia: SIP/2.0/UDP {a}:5060\r\n"
+                   f"Contact: <sip:u{i}@{a}:5060>\r\n\r\nc=IN IP4 {a}\r\n"
+                   f"m=audio {20000 + 2 * i} RTP/AVP 0\r\n")
+            out.append(F.udp_packet(src, b"\x04" * 6, ip, ALG_SERVER, 5060, 5060, sdp.encode()))
+            continue
+        a = ".".join(str(b) for b in ip.to_bytes(4, "big"))
+        cmd = {"PORT": f"PORT {alg_hostport(ip, 5001)}\r\n",
+               "EPRT": f"EPRT |1|{a}|5001|\r\n", "PASV": "PASV\r\n"}[kind]
+        out.append(F.tcp_packet(src, b"\x04" * 6, ip, ALG_SERVER, 40000 + i, 21, cmd.encode()))
+    return out
+
+
+def alg_drive(eng, record: bool) -> dict:
+    """The ALG path on one engine: the control batch (every lane punted by
+    the NAT44 ALG trigger), the host rewrite with the data connections
+    pre-installed through the NAT manager, then the FTP servers' first data
+    packets toward the mapped public ports."""
+    from bng_tpu_torch.control.nat_alg import ALGConnection, ALGHandler
+    from bng_tpu_torch.ops.nat44 import NST_ALG
+    from bng_tpu_torch.utils.net import u32_to_ip
+
+    nat = eng.nat
+    frames = alg_frames()
+    alg0 = int(eng.stats.nat[NST_ALG])
+    o1 = {}
+    t = time.perf_counter()
+    rec = None
+    if record:
+        rec = record_kernel_inputs(lambda: o1.update(eng.process(frames, now=NOW + 1)), 8, 4,
+                                   "ALG step", table_names(eng.tables))
+    else:
+        o1.update(eng.process(frames, now=NOW + 1))
+    step_s = time.perf_counter() - t
+
+    def mapper_for(server_port, proto):
+        def mapper(ip, port):
+            got = nat.handle_new_flow(ip_to_u32(ip), ALG_SERVER, port, server_port, proto, 64,
+                                      NOW + 1)
+            return None if got is None else (u32_to_ip(got[0]), int(got[1]))
+        return mapper
+
+    ftp, sip = ALGHandler(mapper_for(20, 6)), ALGHandler(mapper_for(5060, 17))
+    rewritten, expect = [], []
+    t = time.perf_counter()
+    for lane, _ in o1["slow"]:  # a punted lane's frame is the host's to handle
+        d = F.decode(frames[lane])
+        sport, proto = (5060, 17) if d.dst_port == 5060 else (40000 + lane, 6)
+        row = nat.sessions.lookup(nat._key(d.src_ip, ALG_SERVER, sport, d.dst_port, proto))
+        conn = ALGConnection(private_ip=u32_to_ip(d.src_ip), private_port=sport,
+                             public_ip=u32_to_ip(int(row[0])), public_port=int(row[1]),
+                             protocol=proto)
+        rewritten.append((lane, (sip if proto == 17 else ftp).process(conn, d.dst_port,
+                                                                       d.payload, True)))
+    rewrite_s = time.perf_counter() - t
+    data = []
+    for lane, _ in rewritten:
+        kind = ALG_KINDS[lane % 4]
+        ip = alg_ip(lane)
+        if kind in ("PORT", "EPRT"):
+            row = nat.sessions.lookup(nat._key(ip, ALG_SERVER, 5001, 20, 6))
+            pub, port = int(row[0]), int(row[1])
+            p = u32_to_ip(pub)
+            expect.append((f"PORT {alg_hostport(pub, port)}\r\n" if kind == "PORT"
+                           else f"EPRT |1|{p}|{port}|\r\n").encode())
+            data.append((lane, pub, port))
+        elif kind == "PASV":
+            expect.append(b"PASV\r\n")
+        else:
+            d = F.decode(frames[lane])
+            row = nat.sessions.lookup(nat._key(ip, ALG_SERVER, 5060, 5060, 17))
+            expect.append(d.payload.replace(u32_to_ip(ip).encode(),
+                                            u32_to_ip(int(row[0])).encode()))
+    dframes = [F.tcp_packet(b"\x04" * 6, bytes([0x02, 0xA1, 0, 0, lane >> 8, lane & 0xFF]),
+                            ALG_SERVER, pub, 20, port, b"", flags=0x02)
+               for lane, pub, port in data]
+    t = time.perf_counter()
+    o2 = eng.process(dframes, from_access=False, now=NOW + 2)
+    data_s = time.perf_counter() - t
+    return dict(o1=o1, o2=o2, alg=int(eng.stats.nat[NST_ALG]) - alg0, rewritten=rewritten,
+                expect=expect, data=data, step_s=step_s, rewrite_s=rewrite_s, data_s=data_s,
+                rec=rec)
+
+
+def nat_alg_phase(card, device, err) -> dict:
+    """Phase 57: FTP PORT/EPRT/PASV and SIP INVITEs from ALG_SUBS NAT
+    subscribers through the engine on the card: every lane punted by the
+    NAT44 ALG trigger (`NST_ALG`), one step's 8 K1 and 4 K2 bit-equal; the
+    host rewrite equal to the expected bytes and to a CPU engine's; the
+    FTP data connections' first packets DNAT'd on the card after the
+    drain; counts 0 then read."""
+    kernels.reset_launches()
+    r = alg_drive(alg_stack(device), True)
+    launches = dict(kernels.LAUNCHES)
+    check(launches == {"probe": 16, "seg_prefix": 8},
+          f"ALG: 8 K1 + 4 K2 a fused step, two steps ({launches})")
+    probes_vs_plain([("ALG step", a) for a in r["rec"]["probe"]], err)
+    segs_vs_plain([("ALG step", *a) for a in r["rec"]["seg_prefix"]], err)
+    check(r["alg"] == ALG_SUBS and sorted(i for i, _ in r["o1"]["slow"]) == list(range(ALG_SUBS))
+          and r["o1"]["fwd"] == [] and r["o1"]["tx"] == [],
+          f"ALG: every control lane punted by the ALG trigger (NST_ALG +{r['alg']})")
+    check([b for _, b in r["rewritten"]] == r["expect"],
+          "ALG: PORT/EPRT rewritten to the data session's public endpoint, PASV untouched, "
+          "the INVITE's private address replaced by its public one")
+    fwd = dict(r["o2"]["fwd"])
+    check(sorted(fwd) == list(range(len(r["data"]))),
+          f"ALG: every data connection's first packet forwarded ({len(fwd)} of {len(r['data'])})")
+    for k, (lane, _, _) in enumerate(r["data"]):
+        d = F.decode(fwd[k])
+        check(d.dst_ip == alg_ip(lane) and d.dst_port == 5001 and F.l4_checksum_ok(fwd[k]),
+              f"ALG data lane {k}: DNAT'd to its client's port 5001, checksum valid")
+    c = alg_drive(alg_stack("cpu"), False)
+    for key in ("o1", "o2", "rewritten", "alg", "data"):
+        check(c[key] == r[key], f"ALG: the card's {key} == the CPU engine's")
+    print(f"nat ALG: {ALG_SUBS} control packets (FTP PORT/EPRT/PASV, SIP INVITE) in one batch: "
+          f"{r['alg']} punted by the ALG trigger, the step with the punts' host NAT work "
+          f"{r['step_s'] * 1e3:.3f} ms; host rewrite {r['rewrite_s'] * 1e6 / ALG_SUBS:.2f} us a "
+          f"payload ({len(r['data'])} data sessions pre-installed); {len(fwd)} first data "
+          f"packets DNAT'd in {r['data_s'] * 1e3:.3f} ms; the card == the CPU engine; one step's "
+          f"8 K1 and 4 K2 bit-equal; launches {launches} [{card}]", flush=True)
+    return {"nat_alg": launches}
+
+
+def verb_ledger(path: str, card: str, regress: bool) -> None:
+    lines = []
+    for i in range(6):
+        p99 = 100.0 * (1 + 0.02 * i) * (2.0 if regress and i == 5 else 1.0)
+        lines.append({"schema_version": 1, "run_id": f"smoke-{i}", "metric": "chip_smoke verbs",
+                      "value": 1.0, "unit": "Mpps", "batch": 64, "device": card,
+                      "env": {"platform": "gpu", "device_kind": card, "host": "chip"},
+                      "stage_breakdown": {"dispatch": {"count": 100, "p50_us": 50.0,
+                                                       "p99_us": p99}}})
+    with open(path, "w") as f:
+        f.writelines(json.dumps(ln) + "\n" for ln in lines)
+
+
+def host_verbs_phase(card) -> dict:
+    """Phase 58: `python -m bng_tpu_torch demo`, `perf gate` on ledgers the
+    phase writes (clean, then a planted regression) and `check`, each as a
+    subprocess with its output checked; host paths, no kernel launch."""
+    kernels.reset_launches()
+    secs = {}
+
+    def verb(*argv):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "bng_tpu_torch", *argv], capture_output=True,
+                           text=True, timeout=300, cwd=REPO)
+        secs[" ".join(a for a in argv if os.sep not in a)] = time.perf_counter() - t
+        return r
+
+    r = verb("demo", "--subscribers", str(VERB_DEMO_SUBS))
+    half = VERB_DEMO_SUBS // 2
+    check(r.returncode == 0 and r.stdout.splitlines()[-1]
+          == f"demo complete: {{'provisioned': {VERB_DEMO_SUBS}, 'active': {half}, "
+             f"'walled': {half}}}", f"demo: rc {r.returncode}, {r.stdout[-300:]}{r.stderr[-300:]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        led = os.path.join(tmp, "ledger.jsonl")
+        verb_ledger(led, card, regress=False)
+        r = verb("perf", "gate", "--ledger", led)
+        check(r.returncode == 0 and "CLEAN" in r.stdout, f"perf gate (clean): rc {r.returncode}")
+        verb_ledger(led, card, regress=True)
+        r = verb("perf", "gate", "--ledger", led, "--json")
+        check(r.returncode == 1 and json.loads(r.stdout)["rc"] == 1
+              and "REGRESSION in stage:dispatch" in r.stderr,
+              f"perf gate (planted regression): rc {r.returncode}, {r.stderr[-300:]}")
+    r = verb("check")
+    check(r.returncode == 0 and "0 finding(s)" in r.stderr and "(0 unjustified)" in r.stderr,
+          f"check: rc {r.returncode}, {r.stdout[-500:]}{r.stderr[-300:]}")
+    launches = dict(kernels.LAUNCHES)
+    check(launches == {"probe": 0, "seg_prefix": 0},
+          f"host verbs: no kernel launched ({launches})")
+    print("host verbs: " + ", ".join(f"`{k}` {v:.2f} s" for k, v in secs.items())
+          + f" as subprocesses (demo's lines, perf gate rc 0 then 1 naming the stage, check "
+            f"rc 0); no kernel launch [{card}]", flush=True)
+    return {"host_verbs": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6849,6 +7189,9 @@ def main(argv=None) -> int:
     more, _live = run_wire_if_phase(card, device, wire_want)
     launches.update(more)
     launches.update(cluster_phase(card))
+    launches.update(qinq_phase(card, device, err))
+    launches.update(nat_alg_phase(card, device, err))
+    launches.update(host_verbs_phase(card))
 
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",

@@ -91,6 +91,17 @@ SLICE_MODULES = (
     "bng_tpu_torch.cluster.fabric", "bng_tpu_torch.cluster.fabric.transport",
     "bng_tpu_torch.cluster.fabric.membership", "bng_tpu_torch.cluster.handoff",
     "bng_tpu_torch.cluster.handoff.protocol",
+    # the last library modules and bngcheck
+    "bng_tpu_torch.control.qinq", "bng_tpu_torch.control.nat_alg", "bng_tpu_torch.control.pon",
+    "bng_tpu_torch.control.direct", "bng_tpu_torch.control.wifi", "bng_tpu_torch.control.state",
+    "bng_tpu_torch.control.audit", "bng_tpu_torch.analysis.core",
+    "bng_tpu_torch.analysis.baseline", "bng_tpu_torch.analysis.facts",
+    "bng_tpu_torch.analysis.cli", "bng_tpu_torch.analysis.__main__",
+    "bng_tpu_torch.analysis.passes", "bng_tpu_torch.analysis.passes.hotpath",
+    "bng_tpu_torch.analysis.passes.jit_discipline", "bng_tpu_torch.analysis.passes.gather",
+    "bng_tpu_torch.analysis.passes.fencing", "bng_tpu_torch.analysis.passes.registry",
+    "bng_tpu_torch.analysis.passes.handlers", "bng_tpu_torch.analysis.passes.single_writer",
+    "bng_tpu_torch.analysis.passes.concurrency",
 ))
 
 
@@ -112,7 +123,9 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_ha_and_cluster_wire_modules_import_no_jax_and_no_torch(mod):
     """The HA pair, the store, the peer pool, the cluster wire, the
     allocators, partition resilience, device auth, ZTP, the agent, DNS, the
-    AF_XDP wire and the cluster of BNGs are host code: each imports, alone in a fresh interpreter, with no JAX,
+    AF_XDP wire, the cluster of BNGs, the last library modules (QinQ, the
+    NAT ALGs, PON, direct auth, WiFi, the state store, audit) and bngcheck
+    are host code: each imports, alone in a fresh interpreter, with no JAX,
     nothing of the JAX package and no torch."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "PYTHON"))}
     env["PYTHONPATH"] = str(REPO)
