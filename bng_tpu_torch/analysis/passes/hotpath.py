@@ -58,9 +58,8 @@ from bng_tpu_torch.analysis.core import (Finding, Pass, Project, call_name,
 # The retire-side siblings (_retire*, _apply_ring_verdicts, process*)
 # force deliberately and are NOT listed. Renamed in the port: the
 # reference's `_make_bulk_updates` and `_empty_updates` are one function,
-# `_update_batch` (real or empty delta per table). No counterpart: the
-# scheduler's `_copy_to_bulk` (the express lane on a second device is not
-# ported; `Engine._express_device` refuses another device).
+# `_update_batch` (real or empty delta per table), and the scheduler's
+# `_copy_to_bulk` is inlined in `_ensure_bulk_replica`, which is listed.
 DISPATCH_SCOPE: dict[str, set[str]] = {
     "bng_tpu_torch/runtime/engine.py": {
         "_dispatch_step", "_run_dhcp_batch", "dispatch_scheduled_bulk",

@@ -24,13 +24,17 @@ loudly) and its XDP redirect program, routing and BGP, Nexus,
 subscribers, policies, the metrics registry and its collector, the
 checkpointer (restore at start, the periodic cadence, the SIGTERM
 snapshot) and the ops controller. `--shards N` puts an N-shard
-`ShardedCluster` on the one card in the engine's place: every fast-path,
+`ShardedCluster` in the engine's place, its shards spread over the
+visible cards (one a card on a host with N; `--device cuda:i` keeps them
+on one card): every fast-path,
 QoS, NAT and garden write routes to its owner shard, the cluster builds
 the steered ring, and the features whose wiring is the engine's
 (scheduler, PPPoE, the fleet) degrade loudly (`sharded_blockers`). The one
 config the reference builds but cannot serve (an HA active under shards
-with NAT on) is refused at construction; nothing degrades silently. The
-reference's defaults build, so
+with NAT on) is refused at construction; nothing degrades silently. On a
+host with a second visible card the scheduler's express lane takes it
+(`express_device_index`); `--device cuda:i` keeps the lane on that one
+card too. The reference's defaults build, so
 
     python -m bng_tpu_torch run --once
 
@@ -336,10 +340,12 @@ class BNGApp:
                 self.log.info("slo monitor armed", window_s=cfg.slo_window_s,
                               burn_windows=cfg.slo_burn_windows, budgets=len(budgets))
 
-        # 1. device tables. --shards N puts an N-shard ShardedCluster on the
-        # card in the engine's place; every fast-path write routes to its
-        # owner shard through the ShardedFastPathSink facade. Its shards
-        # share the one card (DeviceLocalExchange): no host-device mesh
+        # 1. device tables. --shards N puts an N-shard ShardedCluster in the
+        # engine's place; every fast-path write routes to its owner shard
+        # through the ShardedFastPathSink facade. Its shards spread over the
+        # visible cards (shard i on card i mod min(cards, N); all on one card
+        # for --device cuda:i or a one-card host), the lookups' rows crossing
+        # cards through the copying exchange
         if cfg.shards > 1:
             fastpath = self._build_cluster()
         else:
@@ -580,7 +586,9 @@ class BNGApp:
                 express_aot=cfg.sched_express_aot,
                 bulk_batch=cfg.batch_size,
                 bulk_depth=cfg.sched_bulk_depth,
-                drain_every=cfg.sched_drain_every), clock=self.clock)
+                drain_every=cfg.sched_drain_every,
+                express_device_index=_express_index(self.device, bool(cfg.wire_if))),
+                clock=self.clock)
             self.log.info("scheduler built", express_batch=cfg.sched_express_batch,
                           express_aot=cfg.sched_express_aot, bulk_depth=cfg.sched_bulk_depth)
 
@@ -857,8 +865,9 @@ class BNGApp:
         dhcp.accounting_hook = _res_lease
 
     def _build_cluster(self):
-        """The N-shard cluster in the engine's place, on the app's device,
-        and the fast-path facade that routes each row to its owner shard.
+        """The N-shard cluster in the engine's place, its shards placed over
+        the app's cards (`parallel/sharded.place_shards`), and the fast-path
+        facade that routes each row to its owner shard.
         The engine-path features that do not follow (scheduler, PPPoE, the
         fleet) are turned off, logged and listed in `sharded_blockers`."""
         from bng_tpu_torch.parallel.sharded import ShardedCluster, ShardedFastPathSink
@@ -893,7 +902,8 @@ class BNGApp:
             server_mac=parse_mac(cfg.server_mac),
             device=self.device)
         self.log.info("sharded cluster built", shards=cfg.shards, batch_per_shard=cluster.b,
-                      nbuckets=cfg.shard_nbuckets, device=str(self.device))
+                      nbuckets=cfg.shard_nbuckets, device=str(self.device),
+                      shard_devices=[str(d) for d in cluster.shard_devices])
         # a resolver, not the object: a blue/green swap replaces
         # c["cluster"], and every later DHCP and pool write must follow it
         sink = c["fastpath_sink"] = ShardedFastPathSink(lambda: c["cluster"])
@@ -2003,7 +2013,8 @@ def run_loadtest(args, device) -> int:
     if args.scheduler:
         from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
 
-        target = TieredScheduler(engine, SchedulerConfig(bulk_batch=args.batch_size))
+        target = TieredScheduler(engine, SchedulerConfig(
+            bulk_batch=args.batch_size, express_device_index=_express_index(engine.device)))
 
     # --wire: drive the batches through the full wire loop (inject at
     # the far end -> kernel rings -> WirePump -> UMEM ring -> engine ->
@@ -2258,7 +2269,8 @@ def _trace_dora(args, device):
     if args.scheduler:
         from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
 
-        target = TieredScheduler(engine, SchedulerConfig(bulk_batch=args.batch_size))
+        target = TieredScheduler(engine, SchedulerConfig(
+            bulk_batch=args.batch_size, express_device_index=_express_index(engine.device)))
 
     recorder = FlightRecorder(RecorderConfig(out_dir=args.trace_dir))
     recorder.set_backend("gpu" if engine.device.type == "cuda" else "cpu")
@@ -2628,6 +2640,15 @@ def run_perf(args) -> int:
     return rep.rc
 
 
+def _express_index(device, bypassed: bool = False) -> int | None:
+    """The scheduler's express card for an engine on `device`: the engine's
+    own (-1) for a card named by index (`--device cuda:i`, one card) or for
+    a scheduler the drive loop bypasses (`--wire-if`: the native ring runs
+    the engine's fused loop, which wants the DHCP tables on the engine's
+    card); else the scheduler's pick, the second visible card if any."""
+    return -1 if device.index is not None or bypassed else None
+
+
 def _add_run_flags(p: argparse.ArgumentParser) -> None:
     defaults = BNGConfig()
     for f in dataclasses.fields(BNGConfig):
@@ -2933,7 +2954,9 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="bng-tpu-torch", description="BNG dataplane on an NVIDIA GPU (PyTorch/CUDA)")
     parser.add_argument("--device", default=None,
-                        help="where to run: the card (the default) or cpu")
+                        help="where to run: the card (the default; --shards N spreads over "
+                             "every visible card and the scheduler's express lane takes the "
+                             "second), one card for everything (cuda:i) or cpu")
     sub = parser.add_subparsers(dest="command")
 
     runp = sub.add_parser("run", help="run the BNG")

@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
 constexpr int kWays = 4;
@@ -178,9 +180,13 @@ __global__ void __launch_bounds__(kBlock) probe_kernel(
 
 }  // namespace
 
+// `stream` belongs to card `device`, where every pointer lives.
 extern "C" int bng_probe(const void* krows, const void* stash_rows, const void* vals,
                          const void* query, int B, int K, int KW, int V, int nbuckets,
-                         int stash, void* found, void* slot, void* vals_out, void* stream) {
+                         int stash, void* found, void* slot, void* vals_out, void* stream,
+                         int device) {
+  const bng::DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
   const int grid = (B + kLanesPerBlock - 1) / kLanesPerBlock;
   probe_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)krows, (const uint32_t*)stash_rows, (const uint32_t*)vals,

@@ -55,7 +55,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include <cub/block/block_scan.cuh>
+
+#include "device_scope.cuh"
 
 namespace {
 
@@ -387,15 +391,32 @@ __global__ void __launch_bounds__(kLanes * kParts) seg_sweep_kernel(
   }
 }
 
+// Route 1's shared-memory opt-in is an attribute of each card's context:
+// set once per card (a card past the table sets it at every call).
+constexpr int kMaxCards = 64;
+std::atomic<bool> g_scan_opted_in[kMaxCards];
+
+cudaError_t opt_in_scan_smem(int device) {
+  const bool tracked = device >= 0 && device < kMaxCards;
+  if (tracked && g_scan_opted_in[device].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      seg_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(ScanSmem));
+  if (e == cudaSuccess && tracked) g_scan_opted_in[device].store(true, std::memory_order_release);
+  return e;
+}
+
 }  // namespace
 
+// `stream` belongs to card `device`, where every pointer lives.
 extern "C" int bng_seg_prefix(const void* slot, const void* vec, int B, int want_prefix,
-                              int want_total, void* pref, void* tot, void* stream) {
+                              int want_total, void* pref, void* tot, void* stream,
+                              int device) {
+  const bng::DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
   const cudaStream_t s = (cudaStream_t)stream;
   if (B <= kBOne) {
-    // once per process: route 1 opts into more than 48 KiB of shared memory
-    static const cudaError_t e = cudaFuncSetAttribute(
-        seg_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(ScanSmem));
+    // route 1 opts into more than 48 KiB of shared memory on this card
+    const cudaError_t e = opt_in_scan_smem(device);
     if (e != cudaSuccess) return (int)e;
     seg_scan_kernel<<<1, kThreads, sizeof(ScanSmem), s>>>(
         (const int32_t*)slot, (const uint32_t*)vec, B, want_prefix, want_total,

@@ -13,8 +13,9 @@ per-batch lane's by construction; the ring's stats fold once.
 
 Dispatch: the reference runs the executable on a one-thread worker,
 which CPU XLA needed. Here a graph replay is already asynchronous, so
-the serving thread replays on the engine's stream, and readiness is an
-event query, as for the per-batch lane's `_InFlight`.
+the serving thread replays on the express lane's stream (the engine's
+card, or the lane's own), and readiness is an event query, as for the
+per-batch lane's `_InFlight`.
 
 Fallbacks are loud: a geometry miss or an injected `devloop.dispatch`
 fault serves every staged slot through the per-batch express path and
@@ -94,8 +95,9 @@ class DevloopPump:
 
     def __init__(self, sched, k: int, depth: int = 2):
         self.sched = sched
+        # staged on the express lane's card, where the ring program runs
         self.ring = DescriptorRing(k, sched.express.cfg.batch, depth,
-                                   device=sched.engine.device)
+                                   device=sched.engine._express_device(sched._express_dev))
         self._inflight = CompletionRing(depth)
         # a partial ring waits at most this long after its oldest slot was
         # staged: the express lane's own close deadline

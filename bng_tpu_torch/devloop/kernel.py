@@ -9,8 +9,10 @@ the slots becomes, on the card, one CUDA graph per (k, batch, key): k
 copies of `express_verdicts` over the slots of a static [k, B, XD_WORDS]
 ring buffer (3k K1 launches), captured when the scheduler starts and
 never on the dispatch path. A replay adds the graph's captured launches
-to `kernels.LAUNCHES`, as `runtime/engine.ExpressProgram` does. On the
-CPU it is a plain loop over the slots.
+to the counts, as `runtime/engine.ExpressProgram` does. The program, its
+ring buffer and its leading copy live on the express lane's card, where
+the graph is captured and replays. On the CPU it is a plain loop over the
+slots.
 
 Unfilled slots and lanes are zero rows: no XF_VALID flag, verdict 0, no
 stats, so one program serves partial rings.
@@ -42,7 +44,7 @@ from bng_tpu_torch.devloop.ring import CUR_EPOCH, CUR_SEQ, CUR_TAIL, CUR_WORDS
 from bng_tpu_torch.ops.express import XD_WORDS, express_verdicts
 from bng_tpu_torch.ops.hashing import MASK32
 from bng_tpu_torch.ops.table import to_device
-from bng_tpu_torch.runtime.tables import clone_dhcp, copy_dhcp_
+from bng_tpu_torch.runtime.tables import copy_dhcp_, dhcp_to
 
 
 class DevloopResult(NamedTuple):
@@ -55,20 +57,22 @@ class DevloopResult(NamedTuple):
 
 
 class DevloopProgram:
-    """The ring program for one (k, batch) over one engine's DHCP tables."""
+    """The ring program for one (k, batch) over one engine's DHCP tables, on
+    the express lane's card `dev` (the engine's, or a card of its own)."""
 
-    def __init__(self, eng, k: int, batch: int):
-        self.k, self.batch = k, batch
-        dev = eng.device
+    def __init__(self, eng, k: int, batch: int, dev: torch.device):
+        self.k, self.batch, self.device = k, batch, dev
         self.geom = eng.geom.dhcp
-        self.tables = clone_dhcp(eng.tables.dhcp)  # the leading copy
+        self.tables = dhcp_to(eng.tables.dhcp, dev)  # the leading copy
         self.ring = torch.zeros((k, batch, XD_WORDS), dtype=torch.int32, device=dev)
         self.n = torch.zeros((), dtype=torch.int64, device=dev)
         self.now = torch.zeros((), dtype=torch.int64, device=dev)
         self.cursors = torch.zeros((CUR_WORDS,), dtype=torch.int64, device=dev)
         self.graph, self.launches = None, {}
         if dev.type == "cuda":
-            self._capture(dev)
+            self.card = dev.index  # `_express_device` spells the index out
+            self.graph, self.out, self.launches = kernels.capture_graph(dev, self._run)
+            self.cursors.zero_()  # the warm-up advanced them
 
     def _run(self) -> DevloopResult:
         blocks, stats = [], None
@@ -82,25 +86,6 @@ class DevloopProgram:
         cur[CUR_SEQ] = seq
         cur[CUR_EPOCH] = epoch
         return DevloopResult(torch.stack(blocks), cur, stats)
-
-    def _capture(self, dev) -> None:
-        # warm on a side stream first (loads K1, fills the caching
-        # allocator), as CUDA graph capture asks
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._run()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = dict(kernels.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.out = self._run()
-        # the capture recorded these launches; they run at each replay
-        self.launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        kernels.LAUNCHES.update(before)
-        self.graph = graph
-        self.cursors.zero_()  # the warm-up advanced them
 
     def seed(self, dhcp_tables) -> None:
         """Leading copy <- the engine's published tables (in place)."""
@@ -123,7 +108,7 @@ class DevloopProgram:
             return self._run()
         self.graph.replay()
         for k, n in self.launches.items():
-            kernels.LAUNCHES[k] += n
+            kernels.count(k, self.card, n)
         return self.out
 
 
@@ -144,10 +129,13 @@ def get_compiled(engine, k: int, batch: int, device=None) -> DevloopProgram | No
 def compile_devloop(engine, k: int, batch: int, device=None) -> DevloopProgram:
     """Build the ring program for one geometry (on the card: capture its
     graph), at scheduler init or engine adoption, never on the dispatch
-    path. Kept per key, so a second call builds nothing new."""
+    path, on the express lane's card: the engine's DHCP tables move there
+    first. Kept per key, so a second call builds nothing new."""
+    engine._place_dhcp_chain(device)
     key = devloop_key(engine, k, batch, device)
     prog = engine._devloop_programs.get(key)
     if prog is None:
-        prog = engine._devloop_programs[key] = DevloopProgram(engine, k, batch)
+        prog = DevloopProgram(engine, k, batch, engine._express_device(device))
+        engine._devloop_programs[key] = prog
         engine.devloop_captures += 1
     return prog

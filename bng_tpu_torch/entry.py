@@ -122,7 +122,9 @@ def dryrun_multichip(n: int, device=None, nbuckets: int = 256, frames_per_shard:
     shard's [SNAT, SNAT, drop, DNAT]; PASS on a wrong shard; the
     pipelined two-window loop. `nbuckets` sizes every per-shard table,
     `frames_per_shard` the per-shard batch (floors keep the lane layout
-    valid). Returns the telemetry snapshot it prints."""
+    valid). On the card the shards spread over the visible cards by the
+    cluster's placement rule (`parallel/sharded.place_shards`: one shard
+    a card when there are n). Returns the telemetry snapshot it prints."""
     from bng_tpu_torch.ops.dhcp import ST_HIT
     from bng_tpu_torch.parallel.sharded import ShardedCluster
     from bng_tpu_torch.runtime.ring import FLAG_FROM_ACCESS

@@ -3,14 +3,22 @@
 Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface and loaded with `ctypes` (no PyTorch
 headers: a build takes seconds). Builds happen at first use, never at
-import, into `bng_tpu_torch/_build/`, keyed by a hash of the source and
-the flags, so a fresh checkout builds everything it needs by itself.
-The missing sources build together, one `nvcc` each, started at once.
+import, into `bng_tpu_torch/_build/`, keyed by a hash of the source, the
+shared headers (`csrc/*.cuh`) and the flags, so a fresh checkout builds
+everything it needs by itself. The missing sources build together, one
+`nvcc` each, started at once.
 
-`LAUNCHES` counts kernel launches per kernel name: each wrapper adds one
-where it launches, and a captured CUDA graph (`runtime/engine.py`'s
-`ExpressProgram`) adds the launches it recorded each time it replays
-(the capture itself counts none).
+`LAUNCHES` counts kernel launches per kernel name, and `LAUNCHES_ON` the
+same launches per card: each wrapper adds one (`count`) where it
+launches, and a captured CUDA graph (`runtime/engine.py`'s
+`ExpressProgram`, the devloop's ring program, both captured by
+`capture_graph`) adds the launches it recorded each time it replays (the
+capture itself counts none).
+
+Every C entry takes the index of the card its inputs live on and makes
+that card current for the launch, restoring the caller's after
+(`csrc/device_scope.cuh`), so a kernel runs on its inputs' card and
+stream whichever card the calling thread has current.
 """
 
 from __future__ import annotations
@@ -36,10 +44,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # cudaGetLastError() as an int
 SIGNATURES = {
     # krows, stash_rows, vals, query, B, K, KW, V, nbuckets, stash,
-    # found, slot, out, stream
-    "probe": ("bng_probe", [_P] * 4 + [_I] * 6 + [_P] * 4),
-    # slot, vec, B, want_prefix, want_total, pref, tot, stream
-    "seg_prefix": ("bng_seg_prefix", [_P, _P, _I, _I, _I, _P, _P, _P]),
+    # found, slot, out, stream, device
+    "probe": ("bng_probe", [_P] * 4 + [_I] * 6 + [_P] * 4 + [_I]),
+    # slot, vec, B, want_prefix, want_total, pref, tot, stream, device
+    "seg_prefix": ("bng_seg_prefix", [_P, _P, _I, _I, _I, _P, _P, _P, _I]),
 }
 
 # source name -> its -D macros; the Python side reads its numbers from here,
@@ -49,6 +57,8 @@ DEFINES = {
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
+LAUNCHES_ON: dict[int, dict[str, int]] = {}  # card index -> {name: launches there}
+_RECORDING: dict[str, int] | None = None  # a graph capture's launches, while it records
 
 _ENTRIES = {}  # source name -> its loaded C entry point
 
@@ -56,6 +66,46 @@ _ENTRIES = {}  # source name -> its loaded C entry point
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_ON.clear()
+
+
+def count(name: str, card: int, n: int = 1) -> None:
+    """Tally `n` launches of kernel `name` on card `card`; while a graph is
+    being captured, into the capture's record instead."""
+    if _RECORDING is not None:
+        _RECORDING[name] += n
+        return
+    LAUNCHES[name] += n
+    per = LAUNCHES_ON.get(card)
+    if per is None:
+        per = LAUNCHES_ON[card] = {k: 0 for k in SIGNATURES}
+    per[name] += n
+
+
+def capture_graph(dev, run):
+    """Capture `run()` as a CUDA graph on card `dev`. It is warmed twice on a
+    side stream first (loads the kernels, fills the caching allocator), as
+    CUDA graph capture asks, then captured under that card on a capture
+    stream of it: torch's default capture stream is made once, on the card
+    current at the process's first capture. Returns (graph, its outputs,
+    {kernel: launches it recorded}): those run, and are counted, at each
+    replay; the capture itself counts none."""
+    global _RECORDING
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        _RECORDING = recorded = {k: 0 for k in SIGNATURES}
+        try:
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+                out = run()
+        finally:
+            _RECORDING = None
+    return graph, out, recorded
 
 
 def nvcc_path() -> str:
@@ -75,6 +125,7 @@ def _flags(name: str) -> list[str]:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # shared headers
     key = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
@@ -125,4 +176,6 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current stream of `device`'s card (a capture's stream while a
+    CUDA graph is captured there)."""
     return torch.cuda.current_stream(device).cuda_stream

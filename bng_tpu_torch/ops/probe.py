@@ -11,8 +11,9 @@ slot [B] int32 (bucket*4+way, or nbuckets*4+stash index; on a miss
 b1*4) and vals [B, V] int32 words (zeros on a miss).
 
 `probe` is the wrapper: a CUDA tensor launches `csrc/probe.cu` (or the
-launch raises), a CPU tensor takes `probe_plain`. There is no fallback
-from the kernel to the plain version.
+launch raises) on the card and stream its tensors live on, a CPU tensor
+takes `probe_plain`. There is no fallback from the kernel to the plain
+version.
 """
 
 from __future__ import annotations
@@ -91,11 +92,12 @@ def probe_cuda(krows, stash_rows, vals, query, nbuckets: int, stash: int):
     out = torch.empty((B, V), dtype=torch.int32, device=dev)
     if B == 0:
         return found, slot, out
+    card = dev.index  # a tensor's CUDA device always names its card
     err = kernels.entry("probe")(krows.data_ptr(), stash_rows.data_ptr(), vals.data_ptr(), query.data_ptr(),
              B, K, KW, V, nbuckets, stash,
-             found.data_ptr(), slot.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
+             found.data_ptr(), slot.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev), card)
     kernels.check(err, "probe")
-    kernels.LAUNCHES["probe"] += 1
+    kernels.count("probe", card)
     return found, slot, out
 
 

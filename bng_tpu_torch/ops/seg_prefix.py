@@ -15,7 +15,8 @@ Unique negative slot ids group with nobody. `compute` is "prefix",
 "total" or "both"; the output not asked for is zeros.
 
 `seg_prefix_total` is the wrapper: a CUDA tensor launches
-`csrc/seg_prefix.cu` (or raises), a CPU tensor takes `seg_prefix_plain`.
+`csrc/seg_prefix.cu` (or raises) on its tensors' card and stream, a CPU
+tensor takes `seg_prefix_plain`.
 The kernel takes one of two routes by B alone: up to `B_ONE` lanes one
 CTA settles the lanes alone in their slot and sorts and scans the rest;
 above it an equality sweep.
@@ -81,11 +82,12 @@ def seg_prefix_cuda(slot, vec, compute: str = "both"):
     tot = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
         return pref, tot
+    card = dev.index  # a tensor's CUDA device always names its card
     err = kernels.entry("seg_prefix")(slot.data_ptr(), vec.data_ptr(), B, int(compute != "total"),
              int(compute != "prefix"), pref.data_ptr(), tot.data_ptr(),
-             kernels.stream_ptr(dev))
+             kernels.stream_ptr(dev), card)
     kernels.check(err, "seg_prefix")
-    kernels.LAUNCHES["seg_prefix"] += 1
+    kernels.count("seg_prefix", card)
     return pref, tot
 
 

@@ -17,8 +17,9 @@ implementation selector.
 A table may be hash-sharded over N shards (`TableGeom.axis`/`n_shards`,
 as in the reference): each shard holds an independent cuckoo table of
 the keys `shard_owner` gives it, and `sharded_lookup` probes each key on
-its owner through a bounded exchange (`parallel/exchange.py`), with the
-reference's per-destination capacity and punt semantics.
+its owner, on the owner's card, through a bounded exchange
+(`parallel/exchange.py`), with the reference's per-destination capacity
+and punt semantics.
 """
 
 from __future__ import annotations
@@ -188,9 +189,10 @@ def sharded_lookup(state: ShardedTable, query, g: TableGeom) -> ShardedLookupRes
        exchange_capacity(b). A lane's position counts the earlier lanes of
        this shard bound for the same owner; lanes at position >= C punt
        (found=False, punted=True) and are not probed;
-    3. the exchange carries each owner its [C, K] rows, the owner probes
-       its own table with K1 (padding rows are zero keys, probed too), and
-       the results come back packed as V+2 words (vals, found, slot);
+    3. the exchange carries each owner its [C, K] rows onto the owner's
+       card, the owner probes its own table there with K1 (padding rows
+       are zero keys, probed too), and the results come back onto this
+       shard's card packed as V+2 words (vals, found, slot);
     4. lane i reads its (owner, position) cell.
     Bit for bit the reference's result, slot words of punted lanes
     included (the cell at position C-1)."""
@@ -284,7 +286,8 @@ class PinnedStage:
 
     def _guard(self) -> None:
         if self._event is not None:
-            self._event.record()
+            # behind the copy, on the stream of the card it was queued on
+            self._event.record(torch.cuda.current_stream(self.device))
             self._pending = True
 
     def upload_into(self, dst: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """N-shard BNG (port of `bng_tpu/parallel/sharded.py`).
 
 The reference's scale-out design, with the shards of its mesh kept as N
-logical shards of one process:
+shards of one process, spread over the visible cards (`place_shards`, the
+counterpart of `make_mesh`):
 
 - **Packets are data-parallel.** The host ring steers each subscriber's
   traffic to its affinity shard (`runtime/ring.py` `shard_of`: upstream
@@ -20,13 +21,19 @@ logical shards of one process:
   `psum` of uint32 does.
 
 Each shard is an `Engine` over its own host tables (one `PipelineTables`
-per shard, on the device the shard-to-device map gives it; one device
-for every shard here, `parallel/exchange.py`). A step first applies
-every shard's bounded update drain, then runs the shards' steps in turn:
-a lookup reads other shards' DHCP tables, so a row drained on one shard
-is visible to every other shard's lanes of the same step, as under the
-reference's barrier. Running the shards in turn is sound because no
-stage writes a DHCP table during the step.
+per shard, on the card the shard-to-device map gives it: shard i on card
+i mod C, C = min(visible cards, N), so one shard a card when there are
+enough, every shard on the one card of a one-card host). The lookups'
+rows cross cards through the exchange (`parallel/exchange.py`: a copying
+exchange when the map names several cards); each shard's lanes and `now`
+go up to its own card, and a step's lanes and summed stats are gathered
+on the home card, shard 0's. A step first applies every shard's bounded
+update drain, then queues the shards' steps in turn: a lookup reads other
+shards' DHCP tables, so a row drained on one shard is visible to every
+other shard's lanes of the same step, as under the reference's barrier
+(the cards' streams are ordered by the exchange's events). Running the
+shards in turn is sound because no stage writes a DHCP table during the
+step.
 
 Host side: `ShardedCluster` routes every control-plane write to its
 owner shard (DHCP rows by key hash, the rest by subscriber affinity),
@@ -59,7 +66,7 @@ from bng_tpu_torch.ops.pipeline import (
     VERDICT_DROP, VERDICT_PASS, VERDICT_TX, PipelineGeom, PipelineResult, pipeline_step,
 )
 from bng_tpu_torch.ops.table import ShardedTable, shard_owner, to_device
-from bng_tpu_torch.parallel.exchange import DeviceLocalExchange
+from bng_tpu_torch.parallel.exchange import exchange_for
 from bng_tpu_torch.runtime.engine import (
     _STAT_FIELDS, AntispoofTables, DhcpBatchResult, Engine, EngineStats, GardenTables, QoSTables,
     _apply_all_updates, _InFlight,
@@ -95,9 +102,47 @@ def _sharded_geom(geom: PipelineGeom, n: int) -> PipelineGeom:
     return geom._replace(dhcp=dhcp)
 
 
+def place_shards(n_shards: int, device, devices=None, visible: int | None = None) -> list:
+    """The shard-to-device map (the counterpart of the reference's
+    `make_mesh`, one shard per device): shard i on card i mod C, C =
+    min(visible cards, N), for a bare "cuda" `device`; with one visible
+    card every shard shares it (`device` itself). A card named by index,
+    or the CPU, takes every shard. An explicit `devices` list (one per
+    shard) overrides the rule; a card in it that is not visible raises.
+    `visible` defaults to torch's count of visible cards."""
+    device = torch.device(device)
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != n_shards:
+            raise ValueError(f"devices= names {len(devices)} devices for {n_shards} shards")
+        cards = [d for d in devices if d.type == "cuda" and d.index is not None]
+        if cards:
+            visible = torch.cuda.device_count() if visible is None else visible
+            if max(d.index for d in cards) >= visible:
+                raise ValueError(f"devices= names cuda:{max(d.index for d in cards)} for "
+                                 f"{n_shards} shards, but {visible} card(s) are visible")
+        return devices
+    if device.type != "cuda" or device.index is not None:
+        return [device] * n_shards
+    visible = torch.cuda.device_count() if visible is None else visible
+    c = min(visible, n_shards)
+    if c <= 1:
+        return [device] * n_shards
+    return [torch.device("cuda", i % c) for i in range(n_shards)]
+
+
 def _sum_stats(parts):
-    """Per-shard uint32 stats summed with the reference's psum wrap."""
-    return torch.stack(parts).sum(0) & MASK32
+    """Per-shard uint32 stats summed on the first part's device (the home
+    card) with the reference's psum wrap."""
+    home = parts[0].device
+    return torch.stack([p.to(home, non_blocking=True) for p in parts]).sum(0) & MASK32
+
+
+def _gather(parts):
+    """Per-shard lane outputs concatenated in shard order on the first
+    part's device (the home card)."""
+    home = parts[0].device
+    return torch.cat([p.to(home, non_blocking=True) for p in parts])
 
 
 def _shard_dhcp(dhcp: list[DHCPTables], i: int, exchange) -> DHCPTables:
@@ -113,18 +158,20 @@ def _shard_dhcp(dhcp: list[DHCPTables], i: int, exchange) -> DHCPTables:
 def sharded_step(tables: list, exchange, pkt: list, length: list, from_access: list,
                  geom_sharded: PipelineGeom, now_s, now_us) -> PipelineResult:
     """The sharded fused step over already-drained tables: each shard's
-    `pipeline_step` on its lanes (pkt[i] etc.), its DHCP lookups through
-    the exchange, in shard order. One `PipelineResult` for the whole
-    batch: lanes concatenated in shard order, stats summed (uint32 wrap);
-    its `tables` are the shards' tables, updated in place."""
+    `pipeline_step` on its lanes (pkt[i] etc., on its card), its DHCP
+    lookups through the exchange, in shard order. `now_s`/`now_us` hold
+    one tensor per shard, on its card. One `PipelineResult` for
+    the whole batch, on the home card (shard 0's): lanes concatenated in
+    shard order, stats summed (uint32 wrap); its `tables` are the shards'
+    tables, updated in place."""
     dhcp = [t.dhcp for t in tables]
     res = [pipeline_step(t._replace(dhcp=_shard_dhcp(dhcp, i, exchange)), pkt[i], length[i],
-                         from_access[i], geom_sharded, now_s, now_us)
+                         from_access[i], geom_sharded, now_s[i], now_us[i])
            for i, t in enumerate(tables)]
     out = {}
     for f in _LANE_FIELDS:
         if getattr(res[0], f) is not None:
-            out[f] = torch.cat([getattr(r, f) for r in res])
+            out[f] = _gather([getattr(r, f) for r in res])
     for _, f in _STAT_FIELDS:
         if getattr(res[0], f) is not None:
             out[f] = _sum_stats([getattr(r, f) for r in res])
@@ -134,16 +181,17 @@ def sharded_step(tables: list, exchange, pkt: list, length: list, from_access: l
 def sharded_dhcp_step(dhcp: list[DHCPTables], exchange, pkt: list, length: list,
                       geom_sharded: PipelineGeom, now_s) -> DhcpBatchResult:
     """The sharded DHCP-only program over already-drained tables: parse and
-    the responder per shard, lookups through the exchange; TX where a
-    shard answered, else PASS; stats summed."""
+    the responder per shard on its card, lookups through the exchange; TX
+    where a shard answered, else PASS; lanes and summed stats on the home
+    card. `now_s` holds one tensor per shard, on its card."""
     res = [dhcp_fastpath(pkt[i], length[i], parse_batch(pkt[i], length[i]),
-                         _shard_dhcp(dhcp, i, exchange), geom_sharded.dhcp, now_s)
+                         _shard_dhcp(dhcp, i, exchange), geom_sharded.dhcp, now_s[i])
            for i in range(len(dhcp))]
-    is_reply = torch.cat([r.is_reply for r in res])
+    is_reply = _gather([r.is_reply for r in res])
     return DhcpBatchResult(
         verdict=torch.where(is_reply, VERDICT_TX, VERDICT_PASS).to(torch.int32),
-        out_pkt=torch.cat([r.out_pkt for r in res]),
-        out_len=torch.cat([r.out_len for r in res]),
+        out_pkt=_gather([r.out_pkt for r in res]),
+        out_len=_gather([r.out_len for r in res]),
         dhcp_stats=_sum_stats([r.stats for r in res]))
 
 
@@ -257,7 +305,9 @@ class ShardTelemetry:
 
 
 class ShardedCluster:
-    """N-shard BNG on one device. Control-plane writes route to their owners."""
+    """N-shard BNG over the visible cards (`place_shards`; `devices=` names
+    one device per shard instead). Control-plane writes route to their
+    owners."""
 
     def __init__(
         self,
@@ -281,15 +331,17 @@ class ShardedCluster:
         device=None,
         nat_sub_nbuckets: int = 256,
         public_ips_per_shard: int = 1,
+        devices=None,
     ):
         # every argument but the shard count, for clone_empty
         self._ctor_kwargs = {k: v for k, v in locals().items() if k not in ("self", "n_shards")}
         self.n = n_shards
         self.b = batch_per_shard
         self.device = resolve_device(device)
-        # the shard-to-device map: every shard on the one device here
-        self.shard_devices = [self.device] * n_shards
-        self.exchange = DeviceLocalExchange(self.shard_devices)
+        # the shard-to-device map; shard 0's card is the home the steps
+        # gather their outputs on
+        self.shard_devices = place_shards(n_shards, self.device, devices)
+        self.exchange = exchange_for(self.shard_devices)
         self.fastpath = [
             FastPathTables(sub_nbuckets=sub_nbuckets, vlan_nbuckets=vlan_nbuckets,
                            cid_nbuckets=cid_nbuckets, max_pools=max_pools)
@@ -609,14 +661,38 @@ class ShardedCluster:
             if upd is not None:
                 apply_fastpath_updates(e.tables.dhcp, upd)
 
+    def _by_device(self) -> dict:
+        """{device: the shards it holds}, in first-shard order."""
+        out: dict = {}
+        for i, d in enumerate(self.shard_devices):
+            out.setdefault(d, []).append(i)
+        return out
+
     def _now(self, now_s: int, now_us: int):
-        return (torch.full((), int(now_s) & MASK32, dtype=torch.int64, device=self.device),
-                torch.full((), int(now_us) & MASK32, dtype=torch.int64, device=self.device))
+        """`now` in seconds and microseconds, one pair of tensors per card,
+        as per-shard lists."""
+        ts, tus = [None] * self.n, [None] * self.n
+        for dev, shards in self._by_device().items():
+            s = torch.full((), int(now_s) & MASK32, dtype=torch.int64, device=dev)
+            us = torch.full((), int(now_us) & MASK32, dtype=torch.int64, device=dev)
+            for i in shards:
+                ts[i], tus[i] = s, us
+        return ts, tus
 
     def _lanes(self, a: np.ndarray) -> list[torch.Tensor]:
-        """One upload of a [N*b, ...] host array, as each shard's lane slice."""
-        t = to_device(np.ascontiguousarray(a), self.device)
-        return list(t.split(self.b))
+        """A [N*b, ...] host array as each shard's lane slice on its card:
+        one upload per card of the rows of the shards it holds."""
+        groups = self._by_device()
+        if len(groups) == 1:
+            t = to_device(np.ascontiguousarray(a), self.shard_devices[0])
+            return list(t.split(self.b))
+        rows = a.reshape(self.n, self.b, *a.shape[1:])
+        out = [None] * self.n
+        for dev, shards in groups.items():
+            part = to_device(np.ascontiguousarray(rows[shards]), dev)
+            for i, t in zip(shards, part.unbind(0)):
+                out[i] = t
+        return out
 
     def _dispatch_fused(self, pkt, length, from_access, now_s: int, now_us: int):
         """Drain every shard, then queue the sharded step (`sharded_step`)."""
@@ -937,6 +1013,10 @@ class ShardedCluster:
         if kw["public_ips"] is not None and len(kw["public_ips"]) < n * kw["public_ips_per_shard"]:
             raise ValueError(f"cannot re-shard to {n} shards: only "
                              f"{len(kw['public_ips'])} public IPs configured")
+        if kw["devices"] is not None and n != self.n:
+            # the same cards, dealt round to the new shard count
+            cards = list(self._by_device())
+            kw["devices"] = [cards[i % len(cards)] for i in range(n)]
         return ShardedCluster(n, **kw)
 
     def adopt_authorities(self, other: "ShardedCluster") -> None:

@@ -37,7 +37,14 @@ devloop's ring program (`compile_devloop_aot` / `prepare_devloop_dispatch`
 / `call_devloop_aot` / `adopt_devloop_chain`: k express batches per
 dispatch, `devloop/`) and the bulk lane (`dispatch_scheduled_bulk`: the
 fused step over a read replica of the DHCP tables, with the drain
-cadence the scheduler sets).
+cadence the scheduler sets). The express lane may run on a card of its
+own: `compile_express_aot(batch, device)` moves the authoritative DHCP
+tables there first (`_place_dhcp_chain`), the express and ring programs
+are captured and replayed there, and the fastpath drain lands there; the
+bulk step reads the replica the scheduler copies to the engine's card. A
+resync's upload goes back to that card (`_rebind`). The engine's own
+fused step (`process`, the ring loops: a drive that bypasses the
+scheduler) brings the tables home to the engine's card first.
 
 Host path (`BNG_HOST_PATH`, resolved at construction): `vector` packs
 frames through a `runtime/hostpath.StagingPool`, whose pinned buffers
@@ -112,9 +119,10 @@ from bng_tpu_torch.ops.table import (
 from bng_tpu_torch.runtime import hostpath
 from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS
 from bng_tpu_torch.runtime.tables import (
-    FastPathTables, PPPoEFastPathTables, apply_fastpath_updates, copy_dhcp_,
+    FastPathTables, PPPoEFastPathTables, apply_fastpath_updates, copy_dhcp_, dhcp_to,
 )
 from bng_tpu_torch.telemetry import spans as tele
+from bng_tpu_torch.utils.devenv import card_of
 from bng_tpu_torch.utils.net import mac_to_u64, split_u64
 from bng_tpu_torch.utils.structlog import ErrorLog
 
@@ -167,13 +175,15 @@ class ExpressProgram:
     """The express program for one fixed batch, over one engine's DHCP tables.
 
     On the card it is a CUDA graph of `express_verdicts` (three K1 launches
-    and the selects) captured over static buffers: the descriptor rows,
-    `now`, and the block and stats it writes. The table tensors are baked
-    in by address, which in-place drains keep and `resync_tables` does not:
+    and the selects) captured over static buffers on the program's card
+    (the express lane's: the engine's, or a card of its own): the
+    descriptor rows, `now`, and the block and stats it writes. The table
+    tensors are baked in by address, which in-place drains keep and
+    `resync_tables` (or moving the DHCP tables to another card) does not:
     `key` carries the engine's resync count, and a program whose key is
     stale is never replayed. A replay calls no wrapper, so the kernel
-    launches counted while it was captured are added to `kernels.LAUNCHES`
-    on every replay instead. On the CPU it is a plain call.
+    launches counted while it was captured are added to the counts on
+    every replay instead. On the CPU it is a plain call.
 
     The descriptors go up from a few persistent pinned buffers, cycled, each
     rewritten only after the event behind its last copy (`PinnedStage`): a
@@ -181,9 +191,8 @@ class ExpressProgram:
 
     STAGES = 4  # the express lane's dispatches in flight, and one staging
 
-    def __init__(self, eng: "Engine", batch: int, key: tuple):
-        self.key, self.batch = key, batch
-        dev = eng.device
+    def __init__(self, eng: "Engine", batch: int, key: tuple, dev: torch.device):
+        self.key, self.batch, self.device = key, batch, dev
         self.desc = torch.zeros((batch, XD_WORDS), dtype=torch.int32, device=dev)
         self.now = torch.zeros((), dtype=torch.int64, device=dev)
         self.tables, self.geom = eng.tables.dhcp, eng.geom.dhcp
@@ -191,28 +200,11 @@ class ExpressProgram:
         self.stages = [PinnedStage((batch, XD_WORDS), np.uint32, dev) for _ in range(self.STAGES)]
         self._stage_i = 0
         if dev.type == "cuda":
-            self._capture(dev)
+            self.card = dev.index  # `_express_device` spells the index out
+            self.graph, self.out, self.launches = kernels.capture_graph(dev, self._run)
 
     def _run(self):
         return express_verdicts(self.tables, self.desc, self.geom, self.now)
-
-    def _capture(self, dev) -> None:
-        # warm on a side stream first (builds and loads K1, fills the
-        # caching allocator), as CUDA graph capture asks
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._run()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = dict(kernels.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.out = self._run()
-        # the capture recorded these launches; they run at each replay
-        self.launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        kernels.LAUNCHES.update(before)
-        self.graph = graph
 
     def __call__(self, desc: np.ndarray, now: float):
         stage = self.stages[self._stage_i]
@@ -224,7 +216,7 @@ class ExpressProgram:
             return self._run()
         self.graph.replay()
         for k, n in self.launches.items():
-            kernels.LAUNCHES[k] += n
+            kernels.count(k, self.card, n)
         return self.out
 
 
@@ -232,10 +224,12 @@ class _InFlight:
     """A dispatched batch's outputs on their way to the host.
 
     On the card every output is copied into pinned host memory by an async
-    copy queued behind the batch, and an event is recorded after the
-    copies; `wait` blocks on that event alone, so a batch dispatched
-    later keeps the card busy meanwhile, and `ready` asks the event
-    without blocking. On the CPU the outputs are already there."""
+    copy queued behind the batch on its card's stream, and an event is
+    recorded after the copies on the stream of every card that holds an
+    output (a result gathered from several cards waits on each); `wait`
+    blocks on those events alone, so a batch dispatched later keeps the
+    cards busy meanwhile, and `ready` asks the events without blocking.
+    On the CPU the outputs are already there."""
 
     LANES = ("verdict", "out_pkt", "out_len", "nat_punt", "spoof_violation", "mirror", "block")
 
@@ -245,19 +239,22 @@ class _InFlight:
         self.stat_names = [name for name, _ in present]
         leaves = {k: getattr(res, k) for k in self.LANES if getattr(res, k, None) is not None}
         leaves["stats"] = torch.cat([t for _, t in present])
+        self._events = []
         if leaves["stats"].device.type == "cuda":
             self._host = {k: v.to("cpu", non_blocking=True) for k, v in leaves.items()}
-            self._event = torch.cuda.Event()
-            self._event.record()
+            for dev in dict.fromkeys(v.device for v in leaves.values()):
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                self._events.append(ev)
         else:
-            self._host, self._event = leaves, None
+            self._host = leaves
 
     def ready(self) -> bool:
-        return self._event is None or self._event.query()
+        return all(ev.query() for ev in self._events)
 
     def wait(self) -> dict[str, np.ndarray]:
-        if self._event is not None:
-            self._event.synchronize()
+        for ev in self._events:
+            ev.synchronize()
         host = {k: v.numpy() for k, v in self._host.items()}
         if "verdict" in host:  # the express program has a block instead
             B = host["verdict"].shape[0]
@@ -420,6 +417,9 @@ class Engine:
                  mirror_sink: Callable[[int, bytes, int], None] | None = None,
                  device=None, device_tables: PipelineTables | None = None):
         self.device = resolve_device(device)
+        # its index spelled out once: a bare "cuda" is the card current now, not
+        # whichever is current at a later call
+        self.card = card_of(self.device)
         self.fastpath = fastpath
         self.nat = nat
         self.qos = qos or QoSTables()
@@ -460,6 +460,9 @@ class Engine:
         self.express_captures = 0  # express programs built (graphs captured on the card)
         self._devloop_programs: dict = {}  # devloop/kernel.py's ring programs, per key
         self.devloop_captures = 0
+        # the card the authoritative DHCP tables belong on: the engine's, or
+        # the express lane's once `_place_dhcp_chain` moved them
+        self._dhcp_home = self.card
         if device_tables is not None:
             # a standby's snapshot-built chain, in place of the init upload
             # (two engines' tables already share the card during a swap)
@@ -528,14 +531,19 @@ class Engine:
 
     def _rebind(self, tables: PipelineTables) -> None:
         """New device tensors invalidate every captured express program: each
-        is dropped and built again over them, under a key with the new
-        resync count (which also marks a devloop leading copy seeded before
-        it, so its retires publish it whole)."""
+        is dropped, and those of the DHCP tables' card are built again over
+        them, under a key with the new resync count (which also marks a
+        devloop leading copy seeded before it, so its retires publish it
+        whole). DHCP tables uploaded to another card than their home (a
+        resync after the express lane moved them) go home first."""
+        if card_of(tables.dhcp.sub.krows.device) != self._dhcp_home:
+            tables = tables._replace(dhcp=dhcp_to(tables.dhcp, self._dhcp_home))
         self.tables = tables
         self.resync_count += 1
         stale, self._express_programs = self._express_programs, {}
         for prog in stale.values():  # rebuilt (re-captured) over the new tensors
-            self.compile_express_aot(prog.batch)
+            if card_of(prog.device) == self._dhcp_home:
+                self.compile_express_aot(prog.batch, prog.device)
 
     def host_mirror_tables(self) -> dict:
         """{name: HostTable | HostQTable} of every sparse mirror the engine
@@ -627,12 +635,12 @@ class Engine:
             return None
         self._dense_sent["pools"] = fp.pools.copy()
         self._dense_sent["server"] = fp.server.copy()
-        return fp.make_updates(self.device)
+        return fp.make_updates(self.dhcp_device)
 
     # -- dispatch (no host round trip) --
-    def _now_tensors(self, now: float):
+    def _now_tensors(self, now: float, dev=None):
         # fills, not host copies
-        dev = self.device
+        dev = self.device if dev is None else dev
         return (torch.full((), int(now) & MASK32, dtype=torch.int64, device=dev),
                 torch.full((), int(now * 1e6) & MASK32, dtype=torch.int64, device=dev))
 
@@ -659,8 +667,12 @@ class Engine:
 
     def _dispatch_step(self, pkt: np.ndarray, length: np.ndarray, fa: np.ndarray,
                        now: float) -> PipelineResult:
-        """Drain + apply updates and queue one fused step."""
+        """Drain + apply updates and queue one fused step. The step reads
+        every table on the engine's card: DHCP tables that an express lane
+        moved to its own card come home first (a drive that bypasses the
+        scheduler, such as the native ring's)."""
         self._dispatch_fault()
+        self._place_dhcp_chain(None)
         upd = self._drain_updates()
         if upd is not None:
             _apply_all_updates(self.tables, upd)
@@ -672,16 +684,23 @@ class Engine:
         return res
 
     def _run_dhcp_batch(self, pkt: np.ndarray, length: np.ndarray,
-                        now: float) -> DhcpBatchResult:
+                        now: float, device=None) -> DhcpBatchResult:
         """Drain the fastpath tables and queue the DHCP-only program (parse +
         the DHCP responder on the dhcp tables the fused step also uses):
-        3 K1 probes, no K2 call."""
+        3 K1 probes, no K2 call. `device` (the scheduler's express lane)
+        runs it on that card, the DHCP tables moved there first."""
         self._dispatch_fault()
+        if device is not None:
+            self._place_dhcp_chain(device)
         upd = self._drain_fastpath_updates()
         if upd is not None:
             apply_fastpath_updates(self.tables.dhcp, upd)
-        pkt_d, len_d = self._upload(pkt), self._upload(length)
-        now_s, _ = self._now_tensors(now)
+        dev = self.dhcp_device
+        if card_of(dev) == self.card:
+            pkt_d, len_d = self._upload(pkt), self._upload(length)
+        else:
+            pkt_d, len_d = to_device(pkt, dev), to_device(length, dev)
+        now_s, _ = self._now_tensors(now, dev)
         res = dhcp_fastpath(pkt_d, len_d, parse_batch(pkt_d, len_d), self.tables.dhcp,
                             self.geom.dhcp, now_s)
         self.stats.batches += 1
@@ -721,20 +740,35 @@ class Engine:
         return res
 
     # -- the express program (runtime/scheduler.py's express lane) --
-    def _express_device(self, device):
-        """The express lane shares the engine's device and stream; another
-        device (the reference's second-chip express lane) is not ported."""
+    @property
+    def dhcp_device(self) -> torch.device:
+        """The device the authoritative DHCP tables live on."""
+        return self.tables.dhcp.sub.krows.device
+
+    def _express_device(self, device) -> torch.device:
+        """The express lane's device: the engine's (None), or another card
+        of the engine's kind (the reference's second-chip express lane),
+        its index spelled out."""
         if device is None:
-            return self.device
-        want, dev = torch.device(device), self.device
-        index = dev.index
-        if dev.type == "cuda" and index is None:
-            index = torch.cuda.current_device()
-        if want.type != dev.type or want.index not in (None, index):
-            raise NotImplementedError(
-                f"an express lane on {want}, apart from the engine's {dev}, is not ported "
-                "(ROADMAP Queue 1, item 9: the express lane on its own device)")
-        return dev
+            return self.card
+        want = card_of(device)
+        if want.type != self.device.type:
+            raise ValueError(f"an express lane on {want} beside an engine on {self.device}: "
+                             "the lane takes a card of the engine's kind")
+        return want
+
+    def _place_dhcp_chain(self, device) -> None:
+        """Move the authoritative DHCP tables to the express lane's card (its
+        dispatches then queue on that card's stream, never behind a bulk
+        step on the engine's), as the reference's `_place_dhcp_chain`.
+        Idempotent; a resync that uploads them to the engine's card again
+        brings them back (`_rebind`). Moving them is new device tensors:
+        like a resync it re-captures the express programs of that card and
+        moves `resync_count`."""
+        want = self._express_device(device)
+        self._dhcp_home = want
+        if card_of(self.dhcp_device) != want:
+            self._rebind(self.tables)
 
     def _express_aot_key(self, batch: int, device=None) -> tuple:
         # the table shapes and update-batch shapes the program reads, the
@@ -751,12 +785,15 @@ class Engine:
     def compile_express_aot(self, batch: int, device=None) -> ExpressProgram:
         """Build the express program for one fixed batch (on the card:
         capture its CUDA graph), at scheduler init, never on the dispatch
-        path. Kept per key, so a second call captures nothing new. A
-        capture that fails raises."""
+        path, on the express lane's card: the DHCP tables move there first.
+        Kept per key, so a second call captures nothing new. A capture that
+        fails raises."""
+        self._place_dhcp_chain(device)
         key = self._express_aot_key(batch, device)
         prog = self._express_programs.get(key)
         if prog is None:
-            prog = self._express_programs[key] = ExpressProgram(self, batch, key)
+            prog = ExpressProgram(self, batch, key, self._express_device(device))
+            self._express_programs[key] = prog
             self.express_captures += 1
         return prog
 
@@ -765,8 +802,9 @@ class Engine:
         """Dispatch one staged descriptor batch ([batch, XD_WORDS] uint32)
         to the express program: the fastpath delta drains first (an OFFER
         sees the newest lease), then the descriptors go up and the program
-        runs (the graph replays). A resync inside the drain re-keys: the
-        program is rebuilt for the new tables and the stale one never
+        runs (the graph replays) on its card. A resync inside the drain
+        re-keys (its upload goes back to the express card in `_rebind`):
+        the program is rebuilt for the new tables and the stale one never
         replays. The outputs are the program's own buffers, rewritten by
         the next dispatch: take them with `_InFlight` before that."""
         self._dispatch_fault()
@@ -797,9 +835,10 @@ class Engine:
 
     def prepare_devloop_dispatch(self):
         """The ordered half of a ring dispatch: the `engine.dispatch` chaos
-        point and the fastpath drain. Returns (deltas or None, resynced):
-        `resynced` says a resync inside the drain replaced the published
-        tables, so the pump must re-seed the leading copy."""
+        point and the fastpath drain (onto the DHCP tables' card, the ring
+        program's). Returns (deltas or None, resynced): `resynced` says a
+        resync inside the drain replaced the published tables, so the pump
+        must re-seed the leading copy."""
         self._dispatch_fault()
         before = self.tables.dhcp
         upd = self._drain_fastpath_updates()
@@ -1228,8 +1267,9 @@ class Engine:
         the stream has applied every queued table write, so a checkpoint
         reads no row mid-scatter. Returns the frames retired."""
         n = self.flush_pipeline()
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        for dev in dict.fromkeys((self.card, card_of(self.dhcp_device))):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
         return n
 
     def adopt_device_tables(self, tables: PipelineTables) -> None:

@@ -42,8 +42,15 @@ every express fallback fire their flight-recorder triggers. With
 retire also feeds the `bng_sched_*` histograms and counters. No hook
 reads a device tensor.
 
-With one card the express lane shares the engine's device and stream;
-the reference's second-device express lane is not ported.
+- **Express card** (`express_device_index`, the reference's
+  `_pick_express_device`): on a host with a second visible card the
+  express lane takes it, so an express dispatch queues on a stream of its
+  own card and never behind a bulk step. The engine moves the
+  authoritative DHCP tables there (`Engine._place_dhcp_chain`), the
+  express and ring programs are captured there, and the bulk lane reads a
+  replica transferred to the engine's card at each refresh. With one card
+  the lane shares the engine's card and stream.
+
 Single-threaded and poll-driven: `submit()` frames and `poll()` each
 beat, or call `process()`, the batch-synchronous facade.
 """
@@ -74,12 +81,26 @@ from bng_tpu_torch.runtime.lanes import (
     CLOSE_FLUSH, LANE_BULK, LANE_EXPRESS, CompletionRing, InflightEntry, Lane, LaneConfig,
 )
 from bng_tpu_torch.runtime.ring import classify_dhcp
-from bng_tpu_torch.runtime.tables import clone_dhcp
+from bng_tpu_torch.runtime.tables import dhcp_to
 from bng_tpu_torch.telemetry import spans as tele
 from bng_tpu_torch.telemetry.recorder import TRIG_EXPRESS_AOT_MISS, TRIG_EXPRESS_FALLBACK
 from bng_tpu_torch.utils.net import prefix_to_mask
 
 log = logging.getLogger("bng.scheduler")
+
+
+def pick_express_device(index: int | None, n_cards: int):
+    """The express lane's card (the reference's `_pick_express_device`):
+    None shares the engine's card. `index` None takes the second of
+    `n_cards` visible cards when there is one; -1 (any negative) shares;
+    i pins `cuda:i` and raises when no such card is visible."""
+    if index is None:
+        return torch.device("cuda", 1) if n_cards > 1 else None
+    if index < 0:
+        return None
+    if index >= n_cards:
+        raise ValueError(f"express_device_index {index} names no card: {n_cards} visible")
+    return torch.device("cuda", index)
 
 
 @dataclass
@@ -102,8 +123,8 @@ class SchedulerConfig:
     dhcp_refresh_every: int = 16  # bulk DHCP-replica refresh cadence
     express_max_queue: int = 1 << 14
     bulk_max_queue: int = 1 << 16
-    # None or -1: the express lane shares the engine's device; i: cuda:i,
-    # which must be the engine's device (a second-device lane is not ported)
+    # None: the second visible card when there is one, else share the
+    # engine's; -1: share; i: cuda:i (the engine's own card shares too)
     express_device_index: int | None = None
     # "aot" = the per-batch express program, "devloop" = k batches per ring
     # dispatch (devloop/), "auto" = devloop when its program builds, else
@@ -163,8 +184,8 @@ class TieredScheduler:
         # _flush_prefetched() ships it when no step comes
         self._prefetched_upd = None
         self._replica_refreshes = 0
-        idx = self.cfg.express_device_index
-        self._express_dev = None if idx is None or idx < 0 else torch.device("cuda", idx)
+        n_cards = torch.cuda.device_count() if engine.device.type == "cuda" else 0
+        self._express_dev = pick_express_device(self.cfg.express_device_index, n_cards)
         # the express program is built here (never on the dispatch path); a
         # failure to build it counts, logs, and leaves the DHCP-only rung
         # serving every express batch as a counted miss
@@ -318,11 +339,9 @@ class TieredScheduler:
 
     def quiesce(self, now: float | None = None) -> int:
         """Flush, then wait until the device has applied every table write
-        queued so far (the engine's stream synchronised)."""
+        queued so far (the engine's card and the DHCP tables' card)."""
         retired = self.flush(now)
-        dev = self.engine.device
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
+        self.engine.quiesce()
         return retired
 
     def adopt_engine(self, engine) -> int:
@@ -406,7 +425,7 @@ class TieredScheduler:
                 tele.set_meta("express_program", "aot-express")
             else:
                 pkt, length = eng._pack_frames([p.frame for p in pend], self.express.cfg.batch)
-                res = _InFlight(eng._run_dhcp_batch(pkt, length, now))
+                res = _InFlight(eng._run_dhcp_batch(pkt, length, now, self._express_dev))
                 self.express_jit_dispatches += 1
                 tele.set_meta("express_program", "jit-full")
         except BaseException:
@@ -542,7 +561,11 @@ class TieredScheduler:
         if (self._bulk_dhcp is not None and not refresh_due
                 and self._replica_resync == eng.resync_count):
             return
-        self._bulk_dhcp = clone_dhcp(eng.tables.dhcp)
+        # the reference's `_copy_to_bulk`: a transfer to the engine's card
+        # when the authority lives on the express card (behind the express
+        # lane's writes, ordered by events between the cards' streams), a
+        # fresh copy otherwise; never a tensor the express chain holds
+        self._bulk_dhcp = dhcp_to(eng.tables.dhcp, eng.device)
         self._replica_resync = eng.resync_count
         self._replica_refreshes += 1
 

@@ -54,13 +54,14 @@ def apply_fastpath_updates(tables: DHCPTables, upd: FastPathUpdates) -> DHCPTabl
     return tables
 
 
-def clone_dhcp(t: DHCPTables) -> DHCPTables:
-    """A copy of the DHCP tables on their device (the bulk lane's replica,
-    the devloop's leading copy)."""
+def dhcp_to(t: DHCPTables, device) -> DHCPTables:
+    """A copy of the DHCP tables on `device`, never aliasing `t`: a transfer
+    when they live on another card (queued on the two cards' streams,
+    ordered by events), a fresh copy on their own."""
     def st(x: TableState) -> TableState:
-        return TableState(*(a.clone() for a in x))
+        return TableState(*(a.to(device, copy=True) for a in x))
     return DHCPTables(sub=st(t.sub), vlan=st(t.vlan), cid=st(t.cid),
-                      pools=t.pools.clone(), server=t.server.clone())
+                      pools=t.pools.to(device, copy=True), server=t.server.to(device, copy=True))
 
 
 def copy_dhcp_(dst: DHCPTables, src: DHCPTables) -> DHCPTables:

@@ -19,7 +19,7 @@ the reference's `CHECKS` (`REFERENCE_NAMES`):
 | express_aot[plain] | express_aot[xla] | the express program on the CPU == `express_verdicts` |
 | express_aot[cuda] | express_aot[pallas] | the express graph == its eager replay and the CPU dispatch |
 | fused_pipeline_step | fused_pipeline_step | the fused step (garden on); on the card, GPU == CPU |
-| sharded_step | sharded_step | the sharded step and DHCP-only step at N = 2; on the card, GPU == CPU |
+| sharded_step | sharded_step | the sharded step and DHCP-only step, one shard a visible card (N = 2 on one card); on the card, GPU == CPU |
 
 `verify_cuda_kernels(cuda=False)` runs the checks that are not CUDA-only
 on the CPU, so the tier-1 suite catches drift in the gate's own harness
@@ -281,13 +281,18 @@ def _check_pipeline(device: str) -> None:
 
 
 def _check_sharded(device: str) -> None:
+    """The sharded step and DHCP-only step over every visible card (one
+    shard a card, as the reference's check runs one shard a device; 2
+    shards sharing the card of a one-card host), equal to the CPU."""
     from bng_tpu_torch.parallel.sharded import ShardedCluster
 
+    n = max(2, torch.cuda.device_count()) if device == "cuda" else 2
+
     def run(dev):
-        cl = ShardedCluster(2, batch_per_shard=B, device=dev)
-        pkt = np.zeros((2 * B, 512), dtype=np.uint8)
-        ln = np.zeros((2 * B,), dtype=np.uint32)
-        fa = np.ones((2 * B,), dtype=bool)
+        cl = ShardedCluster(n, batch_per_shard=B, device=dev)
+        pkt = np.zeros((n * B, 512), dtype=np.uint8)
+        ln = np.zeros((n * B,), dtype=np.uint32)
+        fa = np.ones((n * B,), dtype=bool)
         return cl.step(pkt, ln, fa, 1, 1), cl.dhcp_step(pkt, ln, 1)
 
     got = run(device)

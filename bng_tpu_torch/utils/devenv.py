@@ -76,3 +76,17 @@ def resolve_device(device=None):
                 "the command line) to run the plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def card_of(device):
+    """The memory `device` names, as a `torch.device` that compares equal
+    for two spellings of it: a bare "cuda" is the current card (its index
+    spelled out), and every "cpu:i" is the one host memory, "cpu"."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cpu":
+        return torch.device("cpu")
+    return device

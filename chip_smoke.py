@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA H100, or
+the paths that need several cards on a host with N of them.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile]      # exactly one visible card
+    python3 chip_smoke.py --cards N        # exactly N >= 2 visible cards
 
 Phases (any failure exits non-zero; no phase's error is swallowed):
 
@@ -476,9 +478,46 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 58. The host verbs as subprocesses: `demo`, `perf gate` on a clean and a
     regressed ledger the phase writes (rc 0, then 1 naming the stage) and
     `check` (rc 0); no kernel launch. Printed: each verb's seconds.
+59. The copying exchange on one card (inside phase 25, on its skewed
+    batch): the batch through `sharded_step` with `CopyingExchange` over
+    the cluster's map (every shard on this card) equals the same batch
+    through `DeviceLocalExchange`, run before and after it (lanes, summed
+    stats, punts); counts 0, then 240 K1 + 32 K2, every call bit-equal to
+    its plain version.
 
-The line before the last is the card's name and power limit; the one
-before it the kernels JSON (each kernel's launches by path, `loadtest`,
+With `--cards N` (N >= 2 visible cards) only these run, after the build
+and a line per card (name, power limit) and `nvidia-smi topo -m`:
+C1. K1 and K2 on every case of `kernel_cases.py` on each card, card 0
+    current: bit-equal to their plain versions there; launches by card.
+C2. Phase 24's sharded deployment spread over the cards (shard i on card
+    i mod N, the copying exchange): a ring batch through `step` (every
+    lane, every K1/K2 call bit-equal on its card, launches by card), the
+    skewed batch, the DHCP-only step; two batches against the same tables
+    on card 0 and on the CPU (every leaf and word equal); the spread and
+    the one-card step's p50/p99 in turns; the pipelined loop; shard 0's
+    and the last card's K1/K2 times; expire; a checkpoint over the cards
+    restored onto card 0 (every word equal, the audit clean, the next
+    step equal).
+C3. `python -m bng_tpu_torch run --once --shards N --batch-size 4096
+    --shard-nbuckets 8192` over the cards and with `--device cuda:0`
+    (rc 0, the placement its log reports); phase 47's `run --shards 4`
+    drive over the cards == on card 0 == on the CPU.
+C4. The scheduler with the express lane on cuda:1 beside the shared lane
+    (-1), over the headline's host tables in turn: the express graph and
+    the DHCP tables on the express card, the bulk replica on cuda:0, a
+    DORA storm of 1,024 new clients, OFFER p50/p99 for bursts of 64 idle
+    and right after a bulk dispatch (the EXPRESS-CARDS line), the same
+    reply bytes from both; the k = 8 ring program captured on cuda:1 and
+    a devloop scheduler there giving the same bytes; the engine's own
+    fused step (`Engine.process`, the drive that bypasses the scheduler)
+    on cuda:0 with the DHCP tables home, and the next burst back on
+    cuda:1.
+C5. The kernel gate, `verify_cuda_kernels(cuda=True)`, with each card
+    current in turn.
+
+The line before the last is the card's name and power limit (the first
+card's with `--cards N`); the one before it the kernels JSON (each
+kernel's launches by path, `sharded_copy`, `loadtest`,
 `run`, `pppoe`, `v6`, `radius`, `ipoe_traced`, `run_observed`,
 `run_restored`, `fleet`, `chaos`, `run_sharded`, `run_shards1`,
 `ha_pair`, `run_nexus`, `fleet_nexus`, `run_dns`, `wire_headline`,
@@ -542,7 +581,7 @@ from bng_tpu_torch.runtime.ring import PyRing
 from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
 from bng_tpu_torch.runtime.tables import FastPathTables, PPPoEFastPathTables
 from bng_tpu_torch import entry as entry_mod
-from bng_tpu_torch.parallel.exchange import DeviceLocalExchange
+from bng_tpu_torch.parallel.exchange import CopyingExchange, DeviceLocalExchange
 from bng_tpu_torch.parallel.sharded import ShardedCluster, sharded_step
 from bng_tpu_torch.telemetry import FlightRecorder, RecorderConfig
 from bng_tpu_torch.telemetry import slo as slo_mod
@@ -2633,6 +2672,12 @@ def staged_lanes(cl, pkt, length, fa, device):
             [torch.from_numpy(fa[i * b:(i + 1) * b]).to(device) for i in range(cl.n)])
 
 
+def now_on(n: int, dev, now_s: int, now_us: int):
+    """`now` in seconds and microseconds on one device, as per-shard lists."""
+    s, us = torch.tensor(now_s, device=dev), torch.tensor(now_us, device=dev)
+    return [s] * n, [us] * n
+
+
 def sharded_gpu_equals_cpu(cl, batches, device):
     """The sharded step on the card and on the CPU (plain versions, a copy of
     every shard's tables, the CPU exchange), batch after batch: every result
@@ -2642,9 +2687,9 @@ def sharded_gpu_equals_cpu(cl, batches, device):
     for k, (pkt, length, fa) in enumerate(batches):
         now = [NOW + 40 + k, (NOW + 40 + k) * 10**6 & 0xFFFFFFFF]
         g = sharded_step(cl.tables, cl.exchange, *staged_lanes(cl, pkt, length, fa, device),
-                         cl.geom_sharded, *(torch.tensor(x, device=device) for x in now))
+                         cl.geom_sharded, *now_on(cl.n, device, *now))
         c = sharded_step(cpu_tables, cpu_ex, *staged_lanes(cl, pkt, length, fa, "cpu"),
-                         cl.geom_sharded, *(torch.tensor(x) for x in now))
+                         cl.geom_sharded, *now_on(cl.n, "cpu", *now))
         for f in g._fields:
             a, b = getattr(g, f), getattr(c, f)
             if f == "tables" or (a is None and b is None):
@@ -2797,6 +2842,8 @@ def sharded_phases(card, device, err):
                         sub_ip(skew_groups[s][r]))
     say(f"skewed batch (every DISCOVER owned by shard 0): exchange capacity {cap} of {B_SHARD} "
         f"lanes; per region {cap} OFFERs with the right yiaddr, {B_SHARD - cap} punted (PASS)")
+    copy_launches = copy_exchange_phase(cl, spkt, slen, (sflags & ring_mod.FLAG_FROM_ACCESS) != 0,
+                                        card, err)
 
     # 3. GPU == CPU on two batches, then no sync in a sharded dispatch
     two = []
@@ -2849,7 +2896,7 @@ def sharded_phases(card, device, err):
 
     # 5. times
     lanes = staged_lanes(cl, *two[0], device)
-    tn = (torch.tensor(NOW + 50, device=device), torch.tensor(50 * 10**6, device=device))
+    tn = now_on(cl.n, device, NOW + 50, 50 * 10**6)
 
     def step():
         return sharded_step(cl.tables, cl.exchange, *lanes, cl.geom_sharded, *tn)
@@ -2903,7 +2950,49 @@ def sharded_phases(card, device, err):
     kernels.reset_launches()
     snap = entry_mod.dryrun_multichip(N_SHARDS)
     check(snap["steps"] == 7 and snap["psum_dhcp_hits"] == 4 * N_SHARDS, "dryrun_multichip(8)")
-    return {"sharded": sh, "sharded_dhcp": shd, **more}
+    return {"sharded": sh, "sharded_dhcp": shd, **copy_launches, **more}
+
+
+def copy_exchange_phase(cl, pkt, length, fa, card, err) -> dict:
+    """Phase 59: the skewed batch of phase 25 through the copying exchange
+    (`CopyingExchange` over the cluster's map, every shard on this card):
+    its lanes, summed stats and punts bit-equal to the same batch through
+    `DeviceLocalExchange`, run before it and again after it (the step
+    writes no table these lanes read); counts 0, then every K1 and K2 call
+    of the copying run bit-equal to its plain version."""
+    t0 = time.perf_counter()
+    lanes = (cl._lanes(pkt), cl._lanes(np.asarray(length).astype(np.int64)), cl._lanes(fa))
+    now = cl._now(NOW + 3, 2000)
+
+    def run(ex):
+        return sharded_step(cl.tables, ex, *lanes, cl.geom_sharded, *now)
+
+    before = run(cl.exchange)
+    per = sharded_launches(cl.n, 6)
+    kernels.reset_launches()
+    box = {}
+    rec = record_kernel_inputs(lambda: box.update(out=run(CopyingExchange(cl.shard_devices))),
+                               per["probe"], per["seg_prefix"], "copying exchange step")
+    launches = dict(kernels.LAUNCHES)
+    after = run(cl.exchange)
+    got = box["out"]
+    for f in got._fields:
+        a = getattr(got, f)
+        if f == "tables" or a is None:
+            continue
+        check(torch.equal(a, getattr(before, f)) and torch.equal(a, getattr(after, f)),
+              f"copying exchange: {f} == DeviceLocalExchange's, bit for bit")
+    check_launches(launches, 1, per, "copying exchange step")
+    probes_vs_plain([("copying exchange", a) for a in rec["probe"]], err)
+    segs_vs_plain([("copying exchange", s, v, c) for s, v, c in rec["seg_prefix"]], err)
+    punted = int((got.verdict == 0).sum())
+    n_rec = (len(rec["probe"]), len(rec["seg_prefix"]))
+    del rec
+    say(f"copying exchange on one card: the skewed batch's {B} lanes ({punted} punted), summed "
+        f"stats and punts == DeviceLocalExchange's; {per['probe']} K1 + {per['seg_prefix']} K2, "
+        f"bit-equal to their plain versions on all {n_rec[0]} and {n_rec[1]} calls; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return {"sharded_copy": launches}
 
 
 # ------------------------------------------- checkpoint, warm restart and swap
@@ -7109,21 +7198,567 @@ def host_verbs_phase(card) -> dict:
     return {"host_verbs": launches}
 
 
+# ------------------------------------------------- several cards (--cards N)
+
+CARDS_STEPS = 10  # timed sharded steps over the cards, and on one card, in turns
+CARDS_BATCHES = 3  # mixed batches through process_ring_pipelined over the cards
+CARDS_CLIENTS = 1024  # new clients DORAed through each express placement
+CARDS_BURSTS = 200  # bursts of 64 cached DISCOVERs, the bulk lane idle, per placement
+CARDS_BUSY = 8  # bursts right after a bulk dispatch of B flows, per placement
+
+
+def cards_lines(n: int) -> str:
+    """Every card's name and power limit, the interconnect as `nvidia-smi
+    topo -m` and `nvlink -s` report it (or their failure), and which card
+    pairs torch reports peer access between."""
+    out = []
+    for cmd in (["--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+                ["topo", "-m"], ["nvlink", "-s"]):
+        r = subprocess.run(["nvidia-smi", *cmd], capture_output=True, text=True, timeout=60)
+        text = (r.stdout.strip() or r.stderr.strip())[:3000]
+        out.append(f"nvidia-smi {' '.join(cmd)} (rc {r.returncode}):\n{text}")
+    peer = [[int(i != j and torch.cuda.can_device_access_peer(i, j)) for j in range(n)]
+            for i in range(n)]
+    out.append(f"peer access (torch.cuda.can_device_access_peer): {peer}")
+    return "\n".join(out)
+
+
+def sync_cards(n: int) -> None:
+    for i in range(n):
+        torch.cuda.synchronize(i)
+
+
+def card_launches() -> dict:
+    return {i: dict(v) for i, v in sorted(kernels.LAUNCHES_ON.items())}
+
+
+def cards_kernel_phase(n: int, card: str, err) -> dict:
+    """Phase C1: K1 and K2 launched on every card, with card 0 current (the
+    C entries make their inputs' card current for the launch), bit-equal to
+    their plain versions there on every case of `kernel_cases.py`; K2's
+    cases take route 1 (the shared-memory opt-in, set on each card) and
+    route 2; counts 0, then each card's."""
+    check(torch.cuda.current_device() == 0, "card 0 is current")
+    kernels.reset_launches()
+    n_probe = n_seg = 0
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        cases = []
+        for name in kernel_cases.PROBE_SPECS:
+            c = kernel_cases.probe_case(name)
+            cases.append((f"{name} on cuda:{i}", tuple(torch.from_numpy(a).to(dev) for a in c[:4])
+                          + (c.nbuckets, c.stash)))
+        probes_vs_plain(cases, err)
+        seg_cases = []
+        for name in kernel_cases.SEG_SPECS:
+            c = kernel_cases.seg_case(name)
+            seg_cases.append((f"{name} on cuda:{i}", torch.from_numpy(c.slot).to(dev),
+                              torch.from_numpy(c.vec).to(dev), c.compute))
+        check(min(s.shape[0] for _, s, _, _ in seg_cases) <= seg_mod.B_ONE
+              < max(s.shape[0] for _, s, _, _ in seg_cases), f"K2's two routes on cuda:{i}")
+        segs_vs_plain(seg_cases, err)
+        n_probe, n_seg = len(cases), len(seg_cases)
+    sync_cards(n)
+    per = card_launches()
+    check(per == {i: {"probe": n_probe, "seg_prefix": n_seg} for i in range(n)},
+          f"every case launched on its own card ({per})")
+    check(torch.cuda.current_device() == 0, "the launches left card 0 current")
+    say(f"K1 on {n_probe} cases and K2 on {n_seg} (both routes) launched on each of {n} cards "
+        f"with card 0 current, bit-equal to their plain versions there; launches by card {per} "
+        f"[{card}]")
+    return {"cards_kernels": dict(kernels.LAUNCHES)}
+
+
+def spread_launches(cl, fused: bool) -> dict:
+    """K1/K2 launches by card of one sharded step: a shard's local probes
+    and K2 calls run on its card, and so do the owner probes every source
+    shard sends it (3 lookups from each of the N shards)."""
+    out = {}
+    for i, dev in enumerate(cl.shard_devices):
+        c = out.setdefault(dev.index, {"probe": 0, "seg_prefix": 0})
+        c["probe"] += (6 + 3 * cl.n) if fused else 3 * cl.n
+        c["seg_prefix"] += 4 if fused else 0
+    return out
+
+
+def one_card_copy(cl, dev):
+    """Every shard's tables copied onto one device, with the exchange it takes."""
+    tables = [convert.tables_from_numpy(convert.tables_to_numpy(t), dev) for t in cl.tables]
+    return tables, DeviceLocalExchange([dev] * cl.n)
+
+
+def cards_sharded_phase(n: int, card: str, err) -> dict:
+    """Phase C2: phase 24's sharded deployment (1M subscribers, 8 shards x 1,024
+    lanes) spread over the n cards by the placement rule, the copying
+    exchange between them. One ring batch through `step` (every lane, K1/K2
+    bit-equal on every call, launches by card), the skewed batch (punts),
+    the DHCP-only step; two batches of the spread step against the same
+    tables copied onto card 0 (`DeviceLocalExchange`) and onto the CPU:
+    every result leaf and table word equal; the spread step's and the
+    one-card step's host-clock p50/p99 in turns; the pipelined ring loop;
+    expire; then a checkpoint taken over the cards restored onto card 0,
+    every table word equal, the audit clean, the next step equal."""
+    from bng_tpu_torch.chaos.invariants import audit_invariants
+
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    cl, flows, drop_ips, owners = build_sharded(device)
+    sync_cards(n)
+    want = [torch.device("cuda", i % n) for i in range(N_SHARDS)]
+    check(cl.shard_devices == want and isinstance(cl.exchange, CopyingExchange),
+          f"shard i on cuda:(i mod {n}), the copying exchange ({cl.shard_devices})")
+    mem = {i: torch.cuda.memory_allocated(i) / 2**30 for i in range(n)}
+    say(f"sharded deployment over {n} cards ({N_SHARDS} shards x {B_SHARD} lanes, "
+        f"{[str(d) for d in cl.shard_devices]}) built and uploaded in "
+        f"{time.perf_counter() - t0:.1f}s; device tables by card (GiB) "
+        f"{ {i: round(v, 3) for i, v in mem.items()} }")
+    rng = np.random.default_rng(8)
+    groups = steer_groups(rng.integers(N_SUBS, size=40_000))
+    ring = cl.make_ring(nframes=4 * B, frame_size=L, depth=2 * B)
+    per = sharded_launches(N_SHARDS, 6)
+
+    # 1. one ring batch through step(): every lane, every call, launches by card
+    frames, expect = sharded_frames(rng, flows, groups)
+    pkt, length, flags = assemble_full(cl, ring, frames)
+    fa = (flags & ring_mod.FLAG_FROM_ACCESS) != 0
+    kernels.reset_launches()
+    box = {}
+    rec = record_kernel_inputs(lambda: box.update(out=cl.step(pkt, length, fa, NOW + 1, 1000)),
+                               per["probe"], per["seg_prefix"], "spread sharded step",
+                               sharded_names(cl))
+    by_card = card_launches()
+    check(by_card == spread_launches(cl, True), f"spread step: launches by card {by_card}")
+    out = box["out"]
+    ring.complete(out["verdict"].astype(np.uint8), np.ascontiguousarray(out["out_pkt"]),
+                  out["out_len"].astype(np.uint32), B)
+    drain_ring(ring)
+    n_drop = check_sharded_outputs(out, expect, drop_ips)
+    check(int(out["dhcp_stats"][1]) == N_SHARDS * SH_DISC, "summed DHCP hits = DISCOVER lanes")
+    on_cards = sorted({a[3].device.index for a in rec["probe"]})
+    check(on_cards == list(range(n)), f"the recorded K1 calls ran on every card ({on_cards})")
+    probes_vs_plain([("spread", a) for a in rec["probe"]], err)
+    segs_vs_plain([("spread", s, v, c) for s, v, c in rec["seg_prefix"]], err)
+    # the first calls on card 0 and on the last card are timed later
+    on = {}
+    for i, k in ((0, 12), (n - 1, 6)):
+        calls = [(a, t) for a, t in zip(rec["probe"], rec["table"]) if a[3].device.index == i]
+        on[i] = {"probe": [a for a, _ in calls][:k], "table": [t for _, t in calls][:k],
+                 "seg_prefix": [a for a in rec["seg_prefix"] if a[0].device.index == i][:k // 3]}
+    del rec
+    say(f"spread sharded step: every lane as the deployment implies ({N_SHARDS * SH_DISC} OFFERs, "
+        f"{n_drop} QoS drops, the rest SNAT); K1/K2 bit-equal on every call on its card; "
+        f"launches by card {by_card}")
+
+    # 2. the skewed batch and the DHCP-only step
+    cap = table_mod.exchange_capacity(B_SHARD, cl.geom_sharded.dhcp.sub)
+    skew = steer_groups(np.nonzero(owners == 0)[0][:60_000])
+    sframes = [F.discover_frame(sub_mac(skew[s][j]), 0x4000 + j)
+               for s in range(N_SHARDS) for j in range(B_SHARD)]
+    spkt, slen, sflags = assemble_full(cl, ring, sframes)
+    sout = cl.step(spkt, slen, (sflags & ring_mod.FLAG_FROM_ACCESS) != 0, NOW + 3, 2000)
+    ring.complete(sout["verdict"].astype(np.uint8), np.ascontiguousarray(sout["out_pkt"]),
+                  sout["out_len"].astype(np.uint32), B)
+    drain_ring(ring)
+    for s in range(N_SHARDS):
+        v = sout["verdict"][s * B_SHARD:(s + 1) * B_SHARD]
+        check((v[:cap] == 2).all() and (v[cap:] == 0).all(),
+              f"spread skewed region {s}: {cap} OFFERs, the rest PASS")
+    dframes = [F.discover_frame(sub_mac(groups[s][j]), 0x3000 + s * B_SHARD + j)
+               for s in range(N_SHARDS) for j in range(B_SHARD)]
+    dpkt, dlen, _ = assemble_full(cl, ring, dframes)
+    kernels.reset_launches()
+    dout = cl.dhcp_step(dpkt, dlen, NOW + 2)
+    dby = card_launches()
+    ring.complete(np.where(dout["is_reply"], 2, 0).astype(np.uint8),
+                  np.ascontiguousarray(dout["out_pkt"]), dout["out_len"].astype(np.uint32), B)
+    drain_ring(ring)
+    check(bool(dout["is_reply"].all()) and dby == spread_launches(cl, False),
+          f"spread DHCP-only step: every lane answered, launches by card {dby}")
+    say(f"spread skewed batch: per region {cap} OFFERs, {B_SHARD - cap} punted; spread DHCP-only "
+        f"step: {B} OFFERs, launches by card {dby}")
+
+    # 3. the spread step == one card == the CPU, two batches
+    two = []
+    for _ in range(2):
+        fr, _ = sharded_frames(rng, flows, groups)
+        p_, l_, f_ = assemble_full(cl, ring, fr)
+        ring.complete(np.zeros((B,), np.uint8), p_, l_, B)
+        drain_ring(ring)
+        two.append((p_, l_.astype(np.int64), (f_ & ring_mod.FLAG_FROM_ACCESS) != 0))
+    sync_cards(n)
+    one_tables, one_ex = one_card_copy(cl, torch.device("cuda", 0))
+    cpu_tables, cpu_ex = one_card_copy(cl, torch.device("cpu"))
+    one_lanes = [staged_lanes(cl, *b_, torch.device("cuda", 0)) for b_ in two]
+    for k, (p_, l_, f_) in enumerate(two):
+        now = [NOW + 40 + k, (NOW + 40 + k) * 10**6 & 0xFFFFFFFF]
+        g = sharded_step(cl.tables, cl.exchange, cl._lanes(p_), cl._lanes(l_), cl._lanes(f_),
+                         cl.geom_sharded, *cl._now(*now))
+        o = sharded_step(one_tables, one_ex, *one_lanes[k], cl.geom_sharded,
+                         *now_on(cl.n, "cuda:0", *now))
+        c = sharded_step(cpu_tables, cpu_ex, *staged_lanes(cl, p_, l_, f_, "cpu"),
+                         cl.geom_sharded, *now_on(cl.n, "cpu", *now))
+        check(g.verdict.device == torch.device("cuda", 0), "the spread step gathers on card 0")
+        for f in g._fields:
+            a = getattr(g, f)
+            if f == "tables" or a is None:
+                continue
+            check(torch.equal(a, getattr(o, f)) and torch.equal(a.cpu(), getattr(c, f)),
+                  f"batch {k}: the spread step's {f} == one card's == the CPU's")
+        for i in range(N_SHARDS):
+            w = convert.tables_to_numpy(cl.tables[i])
+            words_equal(w, convert.tables_to_numpy(one_tables[i]), f"batch {k} shard {i} vs one card")
+            words_equal(w, convert.tables_to_numpy(cpu_tables[i]), f"batch {k} shard {i} vs the CPU")
+    del cpu_tables
+    say(f"spread sharded step == the same tables on one card == on the CPU, 2 batches (every "
+        f"result leaf and every word of all {N_SHARDS} shards' tables)")
+
+    # 4. times: the spread step and the one-card step in turns (host clock, every card synced)
+    sp_lanes = (cl._lanes(two[0][0]), cl._lanes(two[0][1]), cl._lanes(two[0][2]))
+    sp_now = cl._now(NOW + 50, 50 * 10**6)
+    one_now = now_on(cl.n, "cuda:0", NOW + 50, 50 * 10**6)
+    steps = {
+        f"spread over {n} cards": lambda: sharded_step(cl.tables, cl.exchange, *sp_lanes,
+                                                       cl.geom_sharded, *sp_now),
+        "one card": lambda: sharded_step(one_tables, one_ex, *one_lanes[0], cl.geom_sharded,
+                                         *one_now),
+    }
+    for step in steps.values():
+        for _ in range(2):
+            step()
+    sync_cards(n)
+    lat = {k: [] for k in steps}
+    names = list(steps)
+    for r in range(CARDS_STEPS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            t1 = time.perf_counter()
+            steps[name]()
+            sync_cards(n)
+            lat[name].append((time.perf_counter() - t1) * 1e3)
+    p50 = {}
+    for name, ms in lat.items():
+        ms = np.array(ms)
+        p50[name] = float(np.percentile(ms, 50))
+        say(f"sharded device step N={N_SHARDS} x {B_SHARD} lanes, {name}: "
+            f"{B / (ms.mean() / 1e3) / 1e6:.4f} Mpps, p50 {p50[name]:.3f} ms, "
+            f"p99 {np.percentile(ms, 99):.3f} ms over {len(ms)} steps (host clock, every card "
+            f"synced) [{card}]")
+    ratio = p50[names[0]] / p50[names[1]]
+    say(f"spread / one-card step p50: {ratio:.3f} (prediction 0.8-1.3) [{card}]")
+    del one_tables
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the pipelined ring loop over the cards
+    kernels.reset_launches()
+    call_ms, done = [], 0
+    for k in range(CARDS_BATCHES):
+        fr, _ = sharded_frames(rng, flows, groups)
+        check(ring.rx_push_batch(fr, from_access=True) == B, "ring took the batch")
+        t1 = time.perf_counter()
+        done += cl.process_ring_pipelined(ring, NOW + 60 + k, (60 + k) * 10**6, pkt_slot=L)
+        call_ms.append((time.perf_counter() - t1) * 1e3)
+        drain_ring(ring)
+    done += cl.flush_pipeline()
+    drain_ring(ring)
+    pipe = dict(kernels.LAUNCHES)
+    check(done == CARDS_BATCHES * B, f"pipelined loop over the cards retired every frame ({done})")
+    check_launches(pipe, CARDS_BATCHES, per, "spread pipelined loop")
+    check(cl.telemetry.snapshot()["missteer_total"] == 0, "no missteer")
+    say(f"spread process_ring_pipelined per batch of {B}: mean {np.mean(call_ms):.2f} ms over "
+        f"{CARDS_BATCHES} batches; launches by card {card_launches()} [{card}]")
+    kern = time_kernels(on[0], card, "spread (card 0)")
+    with torch.cuda.device(n - 1):
+        time_kernels(on[n - 1], card, f"spread (card {n - 1})")
+    del on
+
+    # 6. expire (its deletions drain to every card with the next batch),
+    # then a checkpoint over the cards restored onto card 0
+    n_exp = cl.expire(NOW + 100)
+    check(n_exp == N_AGED, f"expire swept the aged flows on every shard ({n_exp})")
+    fr, _ = sharded_frames(rng, flows, groups)
+    check(ring.rx_push_batch(fr, from_access=True) == B, "ring took the batch")
+    cl.process_ring(ring, NOW + 101, 101 * 10**6, pkt_slot=L)
+    drain_ring(ring)
+    check(cl.pending_dirty() == 0, "the expired rows drained to every card")
+    t1 = time.perf_counter()
+    data = ckpt_mod.encode_checkpoint(ckpt_mod.build_sharded_checkpoint(
+        cl, 1, float(NOW + 200), node_id="chip-smoke"))
+    build_s = time.perf_counter() - t1
+    one = ShardedCluster(cl.n, **{**cl._ctor_kwargs, "device": "cuda:0", "devices": None})
+    t1 = time.perf_counter()
+    ckpt_mod.restore_sharded_checkpoint(ckpt_mod.decode_checkpoint(data), one, now=NOW + 200)
+    torch.cuda.synchronize(0)
+    restore_s = time.perf_counter() - t1
+    check(one.shard_devices == [torch.device("cuda", 0)] * N_SHARDS, "the restore target is card 0")
+    for i in range(N_SHARDS):
+        tables_equal(cl.tables[i], one.tables[i], f"shard {i} restored from the cards onto card 0")
+    rep = audit_invariants(cluster=one, check_roundtrip=False)
+    check(rep.ok, f"the restored cluster audits clean ({rep.violations_by_kind()})")
+    fr, _ = sharded_frames(rng, flows, groups)
+    p_, l_, f_ = assemble_full(cl, ring, fr)
+    ring.complete(np.zeros((B,), np.uint8), p_, l_, B)
+    drain_ring(ring)
+    f_ = (f_ & ring_mod.FLAG_FROM_ACCESS) != 0
+    a, b_ = cl.step(p_, l_, f_, NOW + 201, 1000), one.step(p_, l_, f_, NOW + 201, 1000)
+    for k, v in a.items():
+        check(np.array_equal(v, b_[k]), f"the restored one-card cluster's step {k} == the cards'")
+    say(f"sharded checkpoint over {n} cards ({len(data) / 2**20:.1f} MiB, fold + build + encode "
+        f"{build_s:.3f} s) restored onto card 0 in {restore_s:.3f} s: every word of the "
+        f"{N_SHARDS} shards' tables equal, the audit clean, the next step equal [{card}]")
+    del one, data, cl, ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cards_sharded": by_card_total(by_card), "cards_pipelined": pipe,
+            "cards_sharded_dhcp": by_card_total(dby)}, kern
+
+
+def by_card_total(by_card: dict) -> dict:
+    return {k: sum(c[k] for c in by_card.values()) for k in kernels.SIGNATURES}
+
+
+def cards_run_phase(n: int, card: str) -> None:
+    """Phase C3: `python -m bng_tpu_torch run --once --shards n --batch-size
+    4096 --shard-nbuckets 8192` over the cards (the default device: one
+    shard a card) and with `--device cuda:0` (every shard on card 0), each
+    a subprocess: rc 0, the shard placement its log reports, seconds; then
+    `run --shards 4` in-process (phase 47's drive: DISCOVERs, leases,
+    renewals and flows) over the cards, on card 0 and on the CPU: the same
+    TX and FWD bytes, stats and every shard's table words."""
+    secs = {}
+    for label, pre in (("cards", []), ("card 0", ["--device", "cuda:0"])):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "bng_tpu_torch", *pre, "run", "--once",
+                            "--shards", str(n), "--batch-size", "4096", "--shard-nbuckets",
+                            "8192"], capture_output=True, text=True, timeout=600, cwd=REPO)
+        secs[label] = time.perf_counter() - t
+        check(r.returncode == 0, f"run --once --shards {n} on {label}: rc {r.returncode}\n"
+              f"{r.stderr[-2000:]}")
+        built = [json.loads(ln) for ln in r.stderr.splitlines()
+                 if ln.startswith("{") and "sharded cluster built" in ln]
+        check(len(built) == 1, f"run --shards {n} on {label}: one cluster built")
+        want = ([f"cuda:{i % n}" for i in range(n)] if label == "cards" else ["cuda:0"] * n)
+        check(built[0]["shard_devices"] == want,
+              f"run --shards {n} on {label}: shards on {built[0]['shard_devices']}")
+        stats = json.loads(r.stdout)
+        check(stats["sharded"]["shards"] == n, f"run --shards {n} on {label}: stats")
+    say(f"run --once --shards {n} --batch-size 4096 --shard-nbuckets 8192: over the cards "
+        f"{secs['cards']:.1f} s, on card 0 {secs['card 0']:.1f} s (subprocesses, rc 0, "
+        f"shards placed as the log reports) [{card}]")
+    t0 = time.perf_counter()
+    cmp = [sharded_run_cmp(dev) for dev in ("cuda", "cuda:0", "cpu")]
+    for other, name in ((cmp[1], "card 0"), (cmp[2], "the CPU")):
+        check(cmp[0][0] == other[0] and cmp[0][1] == other[1],
+              f"run --shards {SH_RUN_SHARDS} over the cards: TX and FWD bytes == {name}'s")
+        check(cmp[0][2] == other[2], f"run --shards {SH_RUN_SHARDS} over the cards: stats == "
+              f"{name}'s")
+        for i, (g, c) in enumerate(zip(cmp[0][3], other[3])):
+            check(g[1:] == c[1:], f"shard {i}'s host rows == {name}'s")
+            words_equal(g[0], c[0], f"shard {i}'s device tables == {name}'s")
+    say(f"run --shards {SH_RUN_SHARDS} in-process over the cards == on card 0 == on the CPU "
+        f"({len(cmp[0][0])} TX, {len(cmp[0][1])} FWD frames, stats and every shard's table "
+        f"words; {time.perf_counter() - t0:.1f} s)")
+
+
+def burst_bytes(sched, macs, xid0: int) -> list:
+    """One burst of cached DISCOVERs through the express lane, flushed (a
+    held clock closes no deadline); reply bytes in submit order."""
+    for j, i in enumerate(macs):
+        check(sched.submit(F.discover_frame(sub_mac(int(i)), xid0 + j), True,
+                           tag=("b", j)) == "express", "burst on the express lane")
+    sched.flush()
+    done = sched.drain_completions()
+    check(len(done) == len(macs) and all(c.verdict == "tx" for c in done),
+          "every burst DISCOVER answered on the device")
+    return [c.frame for c in sorted(done, key=lambda c: c.tag[1])]
+
+
+def cards_express_phase(card: str) -> dict:
+    """Phase C4: the scheduler with the express lane on cuda:1 (the default
+    pick with two or more cards) beside the shared lane (-1), each over the
+    headline's host tables, in turn: the express program and a devloop
+    ring (k = 8) captured on cuda:1 and launching there; the authoritative
+    DHCP tables on cuda:1 and the bulk replica on cuda:0; a DORA storm of
+    new clients (the leases drain onto cuda:1, renewals answered there) with
+    IPoE batches; bursts of 64 cached DISCOVERs with the bulk lane idle and
+    right after a bulk dispatch of B flows: OFFER p50/p99 of both lanes,
+    and the same reply bytes from both for the same bursts; beside the
+    lane on cuda:1, the engine's own fused step on cuda:0."""
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    eng, flows, drop_ips = build_deployment(device)
+    hosts = (eng.fastpath, eng.nat, eng.qos, eng.antispoof)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"headline host tables built in {time.perf_counter() - t0:.1f}s")
+    flow_frames = [flow_frame(flows[int(i)])
+                   for i in np.random.default_rng(3).integers(len(flows), size=B)]
+    lat, replies, launches = {}, {}, {}
+    for turn, (label, idx) in enumerate((("shared", -1), ("cuda:1", None))):
+        clk = StackClock()
+        sched, server, capture_s = build_serving_stack(hosts, device, clock=clk,
+                                                       express_device_index=idx)
+        eng = sched.engine
+        own = label != "shared"
+        want = torch.device("cuda", 1) if own else None
+        check(sched._express_dev == want, f"{label}: the express lane's card {sched._express_dev}")
+        prog = eng.express_aot(64, sched._express_dev)
+        check(prog is not None and prog.graph is not None
+              and prog.launches == {"probe": 3, "seg_prefix": 0},
+              f"{label}: the express program is a captured graph of 3 K1")
+        home = torch.device("cuda", 1 if own else 0)
+        check(prog.device == home and eng.dhcp_device == home,
+              f"{label}: the express graph and the DHCP tables on {home}")
+        rng = np.random.default_rng(21)
+        kernels.reset_launches()
+        n0 = sched.express_aot_dispatches
+        storm_s, n_bulk = dora_storm(sched, rng, flows, drop_ips, clients=CARDS_CLIENTS,
+                                     first=turn * CARDS_CLIENTS)
+        n_exp = sched.express_aot_dispatches - n0
+        check(sched._bulk_dhcp.sub.krows.device == torch.device("cuda", 0),
+              f"{label}: the bulk replica on cuda:0")
+        snap = sched.stats_snapshot()["express"]
+        check(snap["aot_misses"] == 0 and snap["fallbacks"] == {}, f"{label}: no miss ({snap})")
+        storm_by = card_launches()
+        want_by = ({0: {"probe": 8 * n_bulk, "seg_prefix": 4 * n_bulk},
+                    1: {"probe": 3 * n_exp, "seg_prefix": 0}} if own else
+                   {0: {"probe": 8 * n_bulk + 3 * n_exp, "seg_prefix": 4 * n_bulk}})
+        check(storm_by == want_by, f"{label}: 3 K1 per express dispatch on the express card, "
+              f"8 K1 + 4 K2 per bulk step on cuda:0 ({storm_by})")
+        kernels.reset_launches()
+        idle, _ = express_latency(sched, rng, CARDS_BURSTS, 64)
+        idle_by = card_launches()
+        check(idle_by == {1 if own else 0: {"probe": 3 * CARDS_BURSTS, "seg_prefix": 0}},
+              f"{label}: 3 K1 per burst on the express card ({idle_by})")
+        busy, _ = express_latency(sched, rng, CARDS_BUSY, 64, busy_flows=flow_frames)
+        lat[label] = (idle, busy)
+        clk.fixed = float(NOW + 500)  # held: the reply bytes carry the lease time left
+        replies[label] = burst_bytes(sched, np.random.default_rng(5).integers(N_SUBS, size=64),
+                                     0x7100000)
+        launches[label] = idle_by
+        say(f"express lane {label}: graph captured in {capture_s * 1e3:.1f} ms; DORA storm of "
+            f"{CARDS_CLIENTS} new clients in {storm_s:.2f} s ({CARDS_CLIENTS / storm_s:.1f} "
+            f"DORAs/s, {n_bulk} IPoE batches), launches by card {storm_by} [{card}]")
+        for name, x in (("bulk idle", idle), ("right after a bulk dispatch", busy)):
+            say(f"express OFFER latency, lane {label}, 64 cached DISCOVERs {name}: p50 "
+                f"{np.percentile(x, 50):.3f} ms, p99 {np.percentile(x, 99):.3f} ms, max "
+                f"{x.max():.3f} ms over {len(x)} frames [{card}]")
+        if own:
+            sched.quiesce()
+            t1 = time.perf_counter()
+            ring_prog = eng.compile_devloop_aot(8, 64, sched._express_dev)
+            check(ring_prog.graph is not None and ring_prog.device == torch.device("cuda", 1)
+                  and ring_prog.tables.sub.krows.device == torch.device("cuda", 1)
+                  and ring_prog.launches == {"probe": 24, "seg_prefix": 0},
+                  "the k = 8 ring program captured on cuda:1 (24 K1)")
+            say(f"devloop ring k = 8 captured on cuda:1 in {(time.perf_counter() - t1) * 1e3:.1f} "
+                f"ms; one replay {cuda_ms_on(1, lambda: ring_prog.graph.replay()):.4f} ms device "
+                f"[{card}]")
+            dl = TieredScheduler(eng, SchedulerConfig(
+                express_batch=64, express_max_wait_us=200.0, bulk_batch=B,
+                express_loop="devloop", devloop_k=8))
+            check(dl.express_loop == "devloop" and dl._express_dev == torch.device("cuda", 1),
+                  "a devloop scheduler on cuda:1")
+            kernels.reset_launches()
+            got = burst_bytes(dl, np.random.default_rng(5).integers(N_SUBS, size=64), 0x7100000)
+            dl.flush()
+            check(got == replies[label], "the devloop lane on cuda:1 gives the aot lane's bytes")
+            check(dl._devloop.audit()["consistent"], "the ring's cursor audit after flush")
+            launches["devloop"] = card_launches()
+            check(set(launches["devloop"]) == {1}, f"the ring replayed on cuda:1 "
+                  f"({launches['devloop']})")
+            del dl
+            # the engine's own fused step (the native ring's drive, which
+            # bypasses the scheduler) brings the DHCP tables home to cuda:0;
+            # the next express burst takes them back to cuda:1
+            kernels.reset_launches()
+            out = eng.process(flow_frames)
+            fused_by = card_launches()
+            check(eng.dhcp_device == torch.device("cuda", 0) and set(fused_by) == {0}
+                  and len(out["tx"]) + len(out["fwd"]) + len(out["dropped"]) + len(out["slow"])
+                  == len(flow_frames),
+                  f"the engine's fused step on cuda:0 with the DHCP tables home ({fused_by})")
+            got = burst_bytes(sched, np.random.default_rng(5).integers(N_SUBS, size=64),
+                              0x7100000)
+            check(got == replies[label] and eng.dhcp_device == torch.device("cuda", 1),
+                  "the express lane on cuda:1 again after the fused step, the same bytes")
+            say(f"engine fused step with the express lane on cuda:1: DHCP tables home on "
+                f"cuda:0, launches by card {fused_by}; the next burst back on cuda:1 [{card}]")
+        sched.quiesce()
+        del sched, server, eng, prog
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(replies["shared"] == replies["cuda:1"],
+          "the same bursts give the same reply bytes on both express placements")
+    (si, sb), (oi, ob) = lat["shared"], lat["cuda:1"]
+    say("EXPRESS-CARDS " + json.dumps({
+        "shared": {"idle_p50": float(np.percentile(si, 50)), "idle_p99": float(np.percentile(si, 99)),
+                   "busy_p50": float(np.percentile(sb, 50)), "busy_p99": float(np.percentile(sb, 99))},
+        "cuda:1": {"idle_p50": float(np.percentile(oi, 50)), "idle_p99": float(np.percentile(oi, 99)),
+                   "busy_p50": float(np.percentile(ob, 50)), "busy_p99": float(np.percentile(ob, 99))},
+        "card": card}))
+    return {"cards_express_shared": by_card_total(launches["shared"]),
+            "cards_express_own": by_card_total(launches["cuda:1"]),
+            "cards_devloop": by_card_total(launches["devloop"])}
+
+
+def cuda_ms_on(i: int, fn) -> float:
+    with torch.cuda.device(i):
+        return cuda_ms(fn)
+
+
+def cards_gate_phase(n: int, card: str) -> None:
+    """Phase C5: the kernel gate, `verify_cuda_kernels(cuda=True)`, with each
+    card current in turn: every check passes on every card (its sharded
+    check spreads one shard a card)."""
+    from bng_tpu_torch.runtime.verify import verify_cuda_kernels
+
+    for i in range(n):
+        with torch.cuda.device(i):
+            t = time.perf_counter()
+            res = verify_cuda_kernels(verbose=False, cuda=True)
+            bad = [(name, e) for name, e in res if e is not None]
+            check(not bad, f"kernel gate on cuda:{i}: {bad}")
+            say(f"kernel gate on cuda:{i}: {len(res)} checks pass in "
+                f"{time.perf_counter() - t:.1f} s [{card}]")
+
+
+def cards_main(n: int, card: str):
+    """--cards n: the phases that need several cards, alone. Returns the
+    launches by path, the max |kernel - plain| and card 0's kernel times."""
+    t_all = time.perf_counter()
+    err = {"probe": 0.0, "seg_prefix": 0.0}
+    launches = cards_kernel_phase(n, card, err)
+    more, kern = cards_sharded_phase(n, card, err)
+    launches.update(more)
+    cards_run_phase(n, card)
+    launches.update(cards_express_phase(card))
+    cards_gate_phase(n, card)
+    say(f"--cards {n}: every phase passed in {time.perf_counter() - t_all:.1f} s")
+    return launches, err, kern
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few device steps with torch.profiler")
+    ap.add_argument("--cards", type=int, default=None, metavar="N",
+                    help="run only the phases that need several cards, on exactly N >= 2")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
-    check(torch.cuda.device_count() == 1,
-          f"one visible card (found {torch.cuda.device_count()}; set CUDA_VISIBLE_DEVICES)")
+    want = args.cards if args.cards is not None else 1
+    check(args.cards is None or args.cards >= 2, f"--cards takes N >= 2 (got {args.cards})")
+    check(torch.cuda.device_count() == want,
+          f"{want} visible card(s) (found {torch.cuda.device_count()}; set CUDA_VISIBLE_DEVICES)")
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.cards is not None:
+        say(f"cards:\n{cards_lines(args.cards)}")
 
     t0 = time.perf_counter()
     for name, (cmd, log) in kernels.build().items():
@@ -7134,6 +7769,9 @@ def main(argv=None) -> int:
     for name in kernels.SIGNATURES:
         kernels.entry(name)
     say(f"built and loaded {list(kernels.SIGNATURES)} in {time.perf_counter() - t0:.1f}s")
+    if args.cards is not None:
+        launches, err, kern = cards_main(args.cards, card)
+        return finish(launches, launches["cards_sharded"], err, kern, card)
 
     t0 = time.perf_counter()
     eng, flows, drop_ips = build_deployment(device)
@@ -7192,13 +7830,19 @@ def main(argv=None) -> int:
     launches.update(qinq_phase(card, device, err))
     launches.update(nat_alg_phase(card, device, err))
     launches.update(host_verbs_phase(card))
+    return finish(launches, launches["full"], err, kern, card)
 
+
+def finish(launches, main_path, err, kern, card) -> int:
+    """The kernels line (each kernel's launches on the main path and by
+    path, its max |err| and its times against its bound), the card line,
+    the result line."""
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",
                           "bng_tpu/ops/pallas_qos.py:127")}
     line = {"kernels": [
         {"name": name, "route": src[name][0], "source": src[name][1], "replaces": src[name][2],
-         "launches": launches["full"][name], "max_abs_err": err[name],
+         "launches": main_path[name], "max_abs_err": err[name],
          "ms": float(np.mean(kern[name]["ms"])), "plain_ms": float(np.mean(kern[name]["plain"])),
          "bound_ms": float(np.mean(kern[name]["bound"])),
          "bound_by": "bytes", "library_ms": None,

@@ -271,8 +271,8 @@ def test_sharded_cluster_and_dryrun_need_cuda_unless_cpu(monkeypatch):
         dryrun_multichip(2)
     cl = ShardedCluster(2, device="cpu")
     assert cl.shard_devices == [torch.device("cpu")] * 2
-    # the exchange keeps every shard on one device
-    with pytest.raises(NotImplementedError, match="several devices"):
+    # the local exchange is a view: shards on several devices need the copying one
+    with pytest.raises(ValueError, match="several devices"):
         DeviceLocalExchange(["cpu", "meta"])
 
 
