@@ -21,8 +21,9 @@ The dataplane's latency discipline has two halves:
   disarmed path is one global load + `is None` compare. BNG003 flags a
   hook whose first effective statement is not that guard; BNG002 flags
   an allocation (literal, comprehension, f-string, lambda) reachable
-  before the guard. Hooks are discovered, not listed: any module-level
-  function in spans.py/faults.py that delegates to `_ACTIVE.<attr>`.
+  before the guard. Hooks are discovered: any module-level function in
+  spans.py/faults.py that delegates to `_ACTIVE.<attr>`, and the stage
+  hook `region` by name (it hands back a span object instead).
 
 * **The serving path is batch-native.** The vector host path rebuilt the
   ring->dispatch->reply host path as vectorized NumPy over
@@ -94,6 +95,11 @@ DISPATCH_CALLS = {"_step", "_dhcp_step", "_dispatch_step",
                   "_run_dhcp_batch", "_run_step", "dispatch_scheduled_bulk",
                   "pipeline_step", "dhcp_fastpath"}
 SCALAR_FORCES = {"float", "int", "bool"}
+
+# hooks held to the disarmed-path rule by name: `spans.region` hands back
+# a span object rather than delegating to `_ACTIVE.<attr>`, so discovery
+# alone would not find it
+NAMED_HOOKS = {"region"}
 
 ALLOC_NODES = (ast.List, ast.Dict, ast.Set, ast.ListComp, ast.DictComp,
                ast.SetComp, ast.GeneratorExp, ast.Lambda, ast.JoinedStr)
@@ -291,7 +297,7 @@ class HotPathPass(Pass):
     def _hooks(self, tree: ast.Module):
         """Module-level functions that delegate to `_ACTIVE.<attr>`
         without declaring `global _ACTIVE` (arm/disarm mutate it and are
-        not hot)."""
+        not hot), and the NAMED_HOOKS."""
         for node in tree.body:
             if not isinstance(node, ast.FunctionDef):
                 continue
@@ -299,7 +305,7 @@ class HotPathPass(Pass):
                              "_ACTIVE" in s.names for s in node.body)
             if has_global:
                 continue
-            delegates = any(
+            delegates = node.name in NAMED_HOOKS or any(
                 isinstance(n, ast.Attribute)
                 and isinstance(n.value, ast.Name)
                 and n.value.id == "_ACTIVE"

@@ -32,7 +32,7 @@ from bng_tpu_torch.analysis.core import (Finding, Pass, Project, call_name,
 
 # hook name -> which positional arg carries the stage / lane constant
 STAGE_HOOKS = {"lap": 0, "stamp": 0, "observe": 0, "observe_many": 0,
-               "span": 0, "merge_stage": 0}
+               "span": 0, "merge_stage": 0, "region": 0}
 LANE_HOOKS = {"begin_batch": 0}
 FAULT_HOOKS = {"fault_point": 0, "mutate_point": 0}
 

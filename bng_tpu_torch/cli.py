@@ -2315,7 +2315,8 @@ def run_trace(args, device) -> int:
     subsystem. `status` lists the flight dumps in the trace dir; `dump`
     runs a traced DORA exchange and writes a flight-recorder dump;
     `export --format chrome` writes the exchange's spans as Chrome-trace
-    JSON (Perfetto, chrome://tracing)."""
+    JSON (Perfetto, chrome://tracing) on a torch profiler trace's timebase
+    (`--base-ns` takes that trace's `baseTimeNanoseconds`)."""
     from bng_tpu_torch.telemetry import chrome_trace, default_trace_dir
 
     if args.trace_cmd == "status":
@@ -2354,7 +2355,7 @@ def run_trace(args, device) -> int:
         print(f"trace export: unknown format {args.format!r} (supported: chrome)",
               file=sys.stderr)
         return 2
-    trace = chrome_trace(tracer, label="bng-tpu-torch DORA")
+    trace = chrome_trace(tracer, label="bng-tpu-torch DORA", base_ns=args.base_ns)
     out_path = args.out or os.path.join(args.trace_dir or default_trace_dir(),
                                         "dora-trace.json")
     if os.path.dirname(out_path):
@@ -3034,6 +3035,11 @@ def main(argv: list[str] | None = None) -> int:
                              "trace threads)")
         vp.add_argument("--workers", type=int, default=1,
                         help="inline fleet workers (>1 adds the worker stage to the trace)")
+        if verb == "export":
+            vp.add_argument("--base-ns", type=int, default=None,
+                            help="the trace's baseTimeNanoseconds: a torch profiler "
+                                 "trace's, so both files' ts agree (default: the first "
+                                 "span's wall-clock second)")
 
     ckptp = sub.add_parser("checkpoint", help="save/restore/inspect warm-restart "
                                               "snapshots of the device tables")

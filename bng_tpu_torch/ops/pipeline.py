@@ -17,9 +17,11 @@ out of place. K1 probes per step: antispoof 1, DHCP 3, NAT44 4, garden
 1, PPPoE 2 (decap by_sid, encap by_ip), tap 1, route 1: 8 for the IPoE
 step and 13 with every stage. K2 calls: 4 (2 per QoS direction).
 
-Each stage runs inside a `torch.profiler.record_function` range
-("bng::parse", "bng::antispoof", ...), so a profiler trace of the step
-attributes host and device time per stage.
+Each stage runs inside the stage hook `telemetry/spans.region` (PARSE,
+ANTISPOOF, ...): armed, the tracer laps the host time issuing each stage;
+while a torch profiler records, the stage is the range "bng::parse",
+"bng::antispoof", ..., so a profiler trace attributes host and device
+time per stage; neither, the hook is a flag check.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from bng_tpu_torch.edge.ops import route_rewrite, tap_match
 from bng_tpu_torch.ops import bytes as B_
@@ -41,6 +42,7 @@ from bng_tpu_torch.ops.pppoe import pppoe_decap, pppoe_encap
 from bng_tpu_torch.ops.qos import QoSGeom, qos_kernel
 from bng_tpu_torch.ops.qtable import QTableState
 from bng_tpu_torch.ops.table import TableGeom, TableState
+from bng_tpu_torch.telemetry import spans as tele
 
 VERDICT_PASS, VERDICT_DROP, VERDICT_TX, VERDICT_FWD = 0, 1, 2, 3
 
@@ -105,7 +107,7 @@ def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: Pipeli
     # discovery and unknown sessions keep their bytes and PASS
     pppoe_dec = None
     if tables.pppoe_by_sid is not None:
-        with record_function("bng::pppoe_decap"):
+        with tele.region(tele.PPPOE_DECAP):
             vo, et = eth_vlan(pkt)
             # access side only: a session ethertype from the core is foreign
             et_gated = torch.where(from_access, et, 0)
@@ -113,15 +115,15 @@ def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: Pipeli
             pkt = torch.where(pppoe_dec.done[:, None], pppoe_dec.out_pkt, pkt)
             length = torch.where(pppoe_dec.done, pppoe_dec.out_len, length)
 
-    with record_function("bng::parse"):
+    with tele.region(tele.PARSE):
         parsed = parse_batch(pkt, length)
 
-    with record_function("bng::antispoof"):
+    with tele.region(tele.ANTISPOOF):
         spoof = antispoof_kernel(pkt, parsed, tables.spoof, geom.spoof,
                                  tables.spoof_ranges, tables.spoof_config)
         spoof_drop = spoof.dropped & from_access
 
-    with record_function("bng::dhcp"):
+    with tele.region(tele.DHCP):
         dhcp = dhcp_fastpath(pkt, length, parsed, tables.dhcp, geom.dhcp, now_s)
         dhcp_tx = dhcp.is_reply & from_access
         spoof_drop = spoof_drop & ~dhcp.is_dhcp
@@ -131,13 +133,13 @@ def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: Pipeli
     garden_drop = None
     garden_stats = None
     if tables.garden is not None:
-        with record_function("bng::garden"):
+        with tele.region(tele.GARDEN):
             garden = garden_kernel(parsed, from_access & parsed.is_ipv4 & ~dhcp.is_dhcp,
                                    tables.garden, geom.garden, tables.garden_allowed)
             garden_drop = garden.gate_drop
             garden_stats = garden.stats
 
-    with record_function("bng::nat44"):
+    with tele.region(tele.NAT44):
         nat = nat44_kernel(pkt, length, parsed, tables.nat, geom.nat, now_s)
         natable = ~dhcp.is_dhcp & ~spoof_drop
         if garden_drop is not None:
@@ -145,7 +147,7 @@ def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: Pipeli
         nat_fwd = nat.translated & natable
         nat_punt = nat.punted & natable
 
-    with record_function("bng::qos"):
+    with tele.region(tele.QOS):
         up = qos_kernel(parsed.src_ip, length, from_access & parsed.is_ipv4 & ~dhcp.is_dhcp,
                         tables.qos_up, geom.qos, now_us)
         # download keys on the POST-DNAT dst ip, read from the rewritten bytes
@@ -162,7 +164,7 @@ def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: Pipeli
     data_pkt = nat.out_pkt
     route_fwd = None
     if tables.tap is not None:
-        with record_function("bng::edge"):
+        with tele.region(tele.EDGE):
             sub_ip = torch.where(from_access, parsed.src_ip, dnat_dst)
             peer_ip = torch.where(from_access, parsed.dst_ip, parsed.src_ip)
             data_lane = parsed.is_ipv4 & ~dhcp.is_dhcp
@@ -181,12 +183,12 @@ def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: Pipeli
     # are never route-rewritten), joined below by the enc_done select
     pppoe_enc = None
     if tables.pppoe_by_ip is not None:
-        with record_function("bng::pppoe_encap"):
+        with tele.region(tele.PPPOE_ENCAP):
             enc_et = torch.where(~from_access, parsed.ethertype, 0)
             pppoe_enc = pppoe_encap(nat.out_pkt, length, parsed.vlan_offset, enc_et, dnat_dst,
                                     tables.pppoe_by_ip, geom.pppoe, tables.pppoe_server_mac)
 
-    with record_function("bng::verdict"):
+    with tele.region(tele.VERDICT):
         drop = spoof_drop | qos_drop
         if garden_drop is not None:
             drop = drop | garden_drop
@@ -207,7 +209,7 @@ def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: Pipeli
             torch.where(drop, VERDICT_DROP, torch.where(fwd, VERDICT_FWD, VERDICT_PASS)),
         ).to(torch.int32)
 
-    with record_function("bng::nat_accounting"):
+    with tele.region(tele.NAT_ACCOUNTING):
         # only lanes that forward advance the session counters
         nat44_update_sessions(tables.nat.sessions, nat, parsed, length,
                               keep=nat_fwd & ~drop, now_s=now_s)

@@ -67,13 +67,24 @@ like `resync_tables` this re-captures the express programs and moves
 copy and publishes it whole at retire). `Engine(..., device_tables=...)`
 adopts such a chain through it at construction, with no upload of its own.
 
-Telemetry (`telemetry/spans.py`) is the reference's: `process`,
-`process_dhcp` and both ring loops open a flight record per batch and lap
-`ring`, `dispatch`, `device_wait` (around the event wait behind the
-batch's output copies, the one wait a batch makes), `reply` and
-`slow_path`; a failed dispatch cancels its record. Disarmed, each hook
-is one global load and one `is None` compare; armed, it reads the host
-clock only, never a device tensor.
+Telemetry (`telemetry/spans.py`): `process`, `process_dhcp` and both
+ring loops open a flight record per batch; every region of a batch goes
+through the stage hook `tele.region`, which laps the stage on the batch's
+record when armed and opens the range `bng::<stage>` while a torch
+profiler records. The reference's stages: `ring` (the assemble),
+`dispatch`, `device_wait` (the event wait behind the batch's output
+copies, the one wait a batch makes), `reply` and `slow_path`. The port's,
+inside `dispatch`: `drain` (the DHCP chain's placement, the update drain
+and its apply), `upload` (the staged batch, lane flags and `now`),
+`issue` (the device program, its stages lapped inside it: the fused
+step's in `ops/pipeline.py`, the DHCP-only program's `parse`, `dhcp` and
+`verdict`) and `collect` (the output copies and their events). The
+express program laps `drain`, `upload` and `issue`, and while armed on
+the card times its graph replay with a CUDA event pair, which the
+scheduler observes into `device` at the batch's retire. A failed
+dispatch cancels its record, and a region that raises is not timed.
+Disarmed, a hook is a global load and a flag check; armed, it reads the
+host clock only, never a device tensor.
 """
 
 from __future__ import annotations
@@ -169,6 +180,9 @@ class ExpressAotResult(NamedTuple):
 
     block: torch.Tensor  # [B, XD_WORDS] int32 words (ops/express VB_* columns)
     dhcp_stats: torch.Tensor
+    # (start, end) CUDA events around the graph replay, recorded while a
+    # tracer is armed on the card (the `device` stage's samples), else None
+    device_events: tuple | None = None
 
 
 class ExpressProgram:
@@ -197,6 +211,7 @@ class ExpressProgram:
         self.now = torch.zeros((), dtype=torch.int64, device=dev)
         self.tables, self.geom = eng.tables.dhcp, eng.geom.dhcp
         self.graph, self.launches = None, {}
+        self.events = None  # the last replay's timing events (armed only)
         self.stages = [PinnedStage((batch, XD_WORDS), np.uint32, dev) for _ in range(self.STAGES)]
         self._stage_i = 0
         if dev.type == "cuda":
@@ -207,17 +222,27 @@ class ExpressProgram:
         return express_verdicts(self.tables, self.desc, self.geom, self.now)
 
     def __call__(self, desc: np.ndarray, now: float):
-        stage = self.stages[self._stage_i]
-        self._stage_i = (self._stage_i + 1) % len(self.stages)
-        np.copyto(stage.acquire(), desc)
-        stage.upload_into(self.desc)
-        self.now.fill_(int(now) & MASK32)
-        if self.graph is None:
-            return self._run()
-        self.graph.replay()
-        for k, n in self.launches.items():
-            kernels.count(k, self.card, n)
-        return self.out
+        with tele.region(tele.UPLOAD):
+            stage = self.stages[self._stage_i]
+            self._stage_i = (self._stage_i + 1) % len(self.stages)
+            np.copyto(stage.acquire(), desc)
+            stage.upload_into(self.desc)
+            self.now.fill_(int(now) & MASK32)
+        with tele.region(tele.ISSUE):
+            if self.graph is None:
+                return self._run()
+            self.events = None
+            if tele.enabled():
+                stream = torch.cuda.current_stream(self.device)
+                self.events = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+                self.events[0].record(stream)
+            self.graph.replay()
+            if self.events is not None:
+                self.events[1].record(stream)
+            for k, n in self.launches.items():
+                kernels.count(k, self.card, n)
+            return self.out
 
 
 class _InFlight:
@@ -240,6 +265,7 @@ class _InFlight:
         leaves = {k: getattr(res, k) for k in self.LANES if getattr(res, k, None) is not None}
         leaves["stats"] = torch.cat([t for _, t in present])
         self._events = []
+        self.device_events = getattr(res, "device_events", None)
         if leaves["stats"].device.type == "cuda":
             self._host = {k: v.to("cpu", non_blocking=True) for k, v in leaves.items()}
             for dev in dict.fromkeys(v.device for v in leaves.values()):
@@ -261,6 +287,13 @@ class _InFlight:
             for k in ("nat_punt", "spoof_violation"):  # absent on the DHCP-only program
                 host.setdefault(k, np.zeros((B,), dtype=bool))
         return host
+
+
+def _in_flight(res) -> _InFlight:
+    """Queue a dispatched batch's output copies and their events (the
+    `collect` region)."""
+    with tele.region(tele.COLLECT):
+        return _InFlight(res)
 
 
 def _mac_key(mac) -> list[int]:
@@ -672,14 +705,17 @@ class Engine:
         moved to its own card come home first (a drive that bypasses the
         scheduler, such as the native ring's)."""
         self._dispatch_fault()
-        self._place_dhcp_chain(None)
-        upd = self._drain_updates()
-        if upd is not None:
-            _apply_all_updates(self.tables, upd)
-        dev = self.device
-        now_s, now_us = self._now_tensors(now)
-        res = pipeline_step(self.tables, self._upload(pkt), self._upload(length),
-                            to_device(fa, dev), self.geom, now_s, now_us)
+        with tele.region(tele.DRAIN):
+            self._place_dhcp_chain(None)
+            upd = self._drain_updates()
+            if upd is not None:
+                _apply_all_updates(self.tables, upd)
+        with tele.region(tele.UPLOAD):
+            now_s, now_us = self._now_tensors(now)
+            pkt_d, len_d = self._upload(pkt), self._upload(length)
+            fa_d = to_device(fa, self.device)
+        with tele.region(tele.ISSUE):
+            res = pipeline_step(self.tables, pkt_d, len_d, fa_d, self.geom, now_s, now_us)
         self.stats.batches += 1
         return res
 
@@ -690,21 +726,28 @@ class Engine:
         3 K1 probes, no K2 call. `device` (the scheduler's express lane)
         runs it on that card, the DHCP tables moved there first."""
         self._dispatch_fault()
-        if device is not None:
-            self._place_dhcp_chain(device)
-        upd = self._drain_fastpath_updates()
-        if upd is not None:
-            apply_fastpath_updates(self.tables.dhcp, upd)
+        with tele.region(tele.DRAIN):
+            if device is not None:
+                self._place_dhcp_chain(device)
+            upd = self._drain_fastpath_updates()
+            if upd is not None:
+                apply_fastpath_updates(self.tables.dhcp, upd)
         dev = self.dhcp_device
-        if card_of(dev) == self.card:
-            pkt_d, len_d = self._upload(pkt), self._upload(length)
-        else:
-            pkt_d, len_d = to_device(pkt, dev), to_device(length, dev)
-        now_s, _ = self._now_tensors(now, dev)
-        res = dhcp_fastpath(pkt_d, len_d, parse_batch(pkt_d, len_d), self.tables.dhcp,
-                            self.geom.dhcp, now_s)
+        with tele.region(tele.UPLOAD):
+            if card_of(dev) == self.card:
+                pkt_d, len_d = self._upload(pkt), self._upload(length)
+            else:
+                pkt_d, len_d = to_device(pkt, dev), to_device(length, dev)
+            now_s, _ = self._now_tensors(now, dev)
+        with tele.region(tele.ISSUE):
+            with tele.region(tele.PARSE):
+                parsed = parse_batch(pkt_d, len_d)
+            with tele.region(tele.DHCP):
+                res = dhcp_fastpath(pkt_d, len_d, parsed, self.tables.dhcp, self.geom.dhcp,
+                                    now_s)
+            with tele.region(tele.VERDICT):
+                verdict = torch.where(res.is_reply, VERDICT_TX, VERDICT_PASS).to(torch.int32)
         self.stats.batches += 1
-        verdict = torch.where(res.is_reply, VERDICT_TX, VERDICT_PASS).to(torch.int32)
         return DhcpBatchResult(verdict=verdict, out_pkt=res.out_pkt, out_len=res.out_len,
                                dhcp_stats=res.stats)
 
@@ -717,18 +760,17 @@ class Engine:
 
     def _collect(self, res) -> dict[str, np.ndarray]:
         """Wait for one batch's outputs and fold its stats."""
-        fl = _InFlight(res)
+        fl = _in_flight(res)
         host = fl.wait()
         self._fold_stats(fl.stat_names, host["stats"])
         return host
 
-    def _wait(self, fl: "_InFlight", tok) -> dict[str, np.ndarray]:
-        """Wait for a dispatched batch's outputs (the `device_wait` lap:
+    def _wait(self, fl: "_InFlight") -> dict[str, np.ndarray]:
+        """Wait for a dispatched batch's outputs (the `device_wait` region:
         the event behind its copies, the one wait a batch makes) and fold
         its stats."""
-        t0 = tele.t()
-        host = fl.wait()
-        tele.lap(tele.DEVICE_WAIT, t0, tok)
+        with tele.region(tele.DEVICE_WAIT):
+            host = fl.wait()
         self._fold_stats(fl.stat_names, host["stats"])
         return host
 
@@ -808,14 +850,16 @@ class Engine:
         replays. The outputs are the program's own buffers, rewritten by
         the next dispatch: take them with `_InFlight` before that."""
         self._dispatch_fault()
-        upd = self._drain_fastpath_updates()
-        if upd is not None:
-            apply_fastpath_updates(self.tables.dhcp, upd)
+        with tele.region(tele.DRAIN):
+            upd = self._drain_fastpath_updates()
+            if upd is not None:
+                apply_fastpath_updates(self.tables.dhcp, upd)
         if prog.key != self._express_aot_key(prog.batch, device):
             prog = self.compile_express_aot(prog.batch, device)
-        res = prog(desc, now)
+        res = prog(desc, now)  # its upload and issue regions
         self.stats.batches += 1
-        return ExpressAotResult(block=res.block, dhcp_stats=res.stats)
+        return ExpressAotResult(block=res.block, dhcp_stats=res.stats,
+                                device_events=prog.events)
 
     # -- the devloop's ring program (devloop/host.py's pump) --
     #
@@ -950,40 +994,33 @@ class Engine:
         drain goes on."""
         if not items:
             return []
-        t0 = tele.t()
-        if t0 is None:
-            return self._handle_slow_lanes_inner(items, path)
         tele.stamp(tele.SLOW)
-        out = self._handle_slow_lanes_inner(items, path)
-        tele.lap(tele.SLOW, t0)
-        return out
-
-    def _handle_slow_lanes_inner(self, items: list, path: str) -> list:
-        fp = fault_point("engine.slow_drain")
-        if fp is not None and fp.kind == "fail":
-            # chaos: the whole slow batch is lost before any handler runs (no
-            # half-allocation); clients retransmit
-            self.stats.slow_errors += 1
-            return [(item[0], None) for item in items]
-        if self.slow_path_batch is not None:
-            try:
-                out = self.slow_path_batch(items)
-            except Exception as e:  # noqa: BLE001 — the batched handler can fail whole
+        with tele.region(tele.SLOW):
+            fp = fault_point("engine.slow_drain")
+            if fp is not None and fp.kind == "fail":
+                # chaos: the whole slow batch is lost before any handler runs (no
+                # half-allocation); clients retransmit
                 self.stats.slow_errors += 1
-                self._slow_err_log.report(e, path=path, lane=-1)
                 return [(item[0], None) for item in items]
-            return sorted(out, key=lambda t: t[0])
-        results = []
-        for lane, frame in ((item[0], item[1]) for item in items):
-            reply = None
-            try:
-                if self.slow_path is not None:
-                    reply = self.slow_path(frame)
-            except Exception as e:  # noqa: BLE001 — slow path is untrusted input
-                self.stats.slow_errors += 1
-                self._slow_err_log.report(e, path=path, lane=lane)
-            results.append((lane, reply))
-        return results
+            if self.slow_path_batch is not None:
+                try:
+                    out = self.slow_path_batch(items)
+                except Exception as e:  # noqa: BLE001 — the batched handler can fail whole
+                    self.stats.slow_errors += 1
+                    self._slow_err_log.report(e, path=path, lane=-1)
+                    return [(item[0], None) for item in items]
+                return sorted(out, key=lambda t: t[0])
+            results = []
+            for lane, frame in ((item[0], item[1]) for item in items):
+                reply = None
+                try:
+                    if self.slow_path is not None:
+                        reply = self.slow_path(frame)
+                except Exception as e:  # noqa: BLE001 — slow path is untrusted input
+                    self.stats.slow_errors += 1
+                    self._slow_err_log.report(e, path=path, lane=lane)
+                results.append((lane, reply))
+            return results
 
     def _punt(self, frame: bytes, now: float, lane: int, path: str = "punt") -> None:
         try:
@@ -1008,14 +1045,13 @@ class Engine:
             fa[: len(from_access)] = from_access
 
         tok = tele.begin_batch(tele.LANE_ENGINE, len(frames))
-        t0 = tele.t()
         try:
-            fl = _InFlight(self._dispatch_step(pkt, length, fa, now))
+            with tele.region(tele.DISPATCH):
+                fl = _in_flight(self._dispatch_step(pkt, length, fa, now))
         except BaseException:
             tele.cancel_batch(tok)  # a failed dispatch must not leak a slot
             raise
-        tele.lap(tele.DISPATCH, t0, tok)
-        h = self._wait(fl, tok)
+        h = self._wait(fl)
         n = len(frames)
         verdict, out_len, out_rows = h["verdict"][:n], h["out_len"], h["out_pkt"]
         punt, viol = h["nat_punt"], h["spoof_violation"]
@@ -1023,30 +1059,29 @@ class Engine:
 
         out = {"tx": [], "fwd": [], "dropped": [], "slow": []}
         slow_items, punt_lanes = [], []
-        t0 = tele.t()
-        for i, v in enumerate(verdict):
-            if v == VERDICT_TX:
-                out["tx"].append((i, bytes(out_rows[i, : int(out_len[i])])))
-                self.stats.tx += 1
-            elif v == VERDICT_FWD:
-                out["fwd"].append((i, bytes(out_rows[i, : int(out_len[i])])))
-                self.stats.fwd += 1
-            elif v == VERDICT_DROP:
-                out["dropped"].append(i)
-                self.stats.dropped += 1
-            else:
-                self.stats.passed += 1
-                if punt[i]:
-                    self._punt(frames[i], now, i)
-                    punt_lanes.append(i)
+        with tele.region(tele.REPLY):
+            for i, v in enumerate(verdict):
+                if v == VERDICT_TX:
+                    out["tx"].append((i, bytes(out_rows[i, : int(out_len[i])])))
+                    self.stats.tx += 1
+                elif v == VERDICT_FWD:
+                    out["fwd"].append((i, bytes(out_rows[i, : int(out_len[i])])))
+                    self.stats.fwd += 1
+                elif v == VERDICT_DROP:
+                    out["dropped"].append(i)
+                    self.stats.dropped += 1
                 else:
-                    slow_items.append((i, frames[i]))
-            if viol[i] and self.violation_sink is not None:
-                self.violation_sink(i, frames[i])
-            if mir is not None and mir[i] and self.mirror_sink is not None:
-                # interception sees the ORIGINAL frame, whatever the verdict
-                self.mirror_sink(i, frames[i], int(mir[i]))
-        tele.lap(tele.REPLY, t0, tok)
+                    self.stats.passed += 1
+                    if punt[i]:
+                        self._punt(frames[i], now, i)
+                        punt_lanes.append(i)
+                    else:
+                        slow_items.append((i, frames[i]))
+                if viol[i] and self.violation_sink is not None:
+                    self.violation_sink(i, frames[i])
+                if mir is not None and mir[i] and self.mirror_sink is not None:
+                    # interception sees the ORIGINAL frame, whatever the verdict
+                    self.mirror_sink(i, frames[i], int(mir[i]))
         out["slow"] = sorted([(i, None) for i in punt_lanes]
                              + self._handle_slow_lanes(slow_items, "process"),
                              key=lambda t: t[0])
@@ -1075,25 +1110,23 @@ class Engine:
         now = now if now is not None else self.clock()
         pkt, length = self._pack_frames(frames, B)
         tok = tele.begin_batch(tele.LANE_ENGINE, len(frames))
-        t0 = tele.t()
         try:
-            fl = _InFlight(self._run_dhcp_batch(pkt, length, now))
+            with tele.region(tele.DISPATCH):
+                fl = _in_flight(self._run_dhcp_batch(pkt, length, now))
         except BaseException:
             tele.cancel_batch(tok)  # a failed dispatch must not leak a slot
             raise
-        tele.lap(tele.DISPATCH, t0, tok)
-        h = self._wait(fl, tok)
+        h = self._wait(fl)
         out = {"tx": [], "slow": []}
         slow_items = []
-        t0 = tele.t()
-        for i, v in enumerate(h["verdict"][: len(frames)]):
-            if v == VERDICT_TX:
-                out["tx"].append((i, bytes(h["out_pkt"][i, : int(h["out_len"][i])])))
-                self.stats.tx += 1
-            else:
-                self.stats.passed += 1
-                slow_items.append((i, frames[i]))
-        tele.lap(tele.REPLY, t0, tok)
+        with tele.region(tele.REPLY):
+            for i, v in enumerate(h["verdict"][: len(frames)]):
+                if v == VERDICT_TX:
+                    out["tx"].append((i, bytes(h["out_pkt"][i, : int(h["out_len"][i])])))
+                    self.stats.tx += 1
+                else:
+                    self.stats.passed += 1
+                    slow_items.append((i, frames[i]))
         out["slow"] = self._handle_slow_lanes(slow_items, "process_dhcp")
         tele.end_batch(tok)
         return out
@@ -1118,69 +1151,75 @@ class Engine:
         pkt = np.zeros((self.B, self.L), dtype=np.uint8)
         length = np.zeros((self.B,), dtype=np.uint32)
         flags = np.zeros((self.B,), dtype=np.uint32)
-        t0 = tele.t()
-        n = ring.assemble(pkt, length, flags)
+        n, tok = self._assemble(ring, pkt, length, flags)
         if n == 0:
             return 0
-        tok = tele.begin_batch(tele.LANE_RING_L, n)
-        tele.lap(tele.RING, t0, tok)
         now = now if now is not None else self.clock()
-        t0 = tele.t()
         try:
-            fl = _InFlight(self._dispatch_ring_batch(pkt, length, flags, n, now))
+            with tele.region(tele.DISPATCH):
+                fl = _in_flight(self._dispatch_ring_batch(pkt, length, flags, n, now))
         except BaseException:
             tele.cancel_batch(tok)  # a failed dispatch must not leak a slot
             raise
-        tele.lap(tele.DISPATCH, t0, tok)
         h = self._apply_ring_verdicts(ring, fl, pkt, length, n, now)
         self._fold_stats(fl.stat_names, h["stats"])
         tele.end_batch(tok)
         return n
 
+    @staticmethod
+    def _assemble(ring, pkt, length, flags) -> tuple[int, int | None]:
+        """The next batch off the ring into the staging buffers (the `ring`
+        region) and its flight record: (frames, record token). An empty
+        poll opens no record and is left out of the stage."""
+        with tele.region(tele.RING) as span:
+            n = ring.assemble(pkt, length, flags)
+            if n == 0:
+                span.discard()
+                return 0, None
+            return n, tele.begin_batch(tele.LANE_RING_L, n)
+
     def _apply_ring_verdicts(self, ring, fl: _InFlight, pkt, length, n: int,
                              now: float) -> dict:
         """Wait for one batch's outputs and demux them back to the ring it
         came from; returns the host outputs."""
-        t0 = tele.t()
-        h = fl.wait()
-        tele.lap(tele.DEVICE_WAIT, t0)
-        t0 = tele.t()
-        vv = h["verdict"][:n]
-        ring.complete(vv.astype(np.uint8), np.ascontiguousarray(h["out_pkt"]),
-                      h["out_len"].astype(np.uint32), n)
-        self.stats.tx += int((vv == VERDICT_TX).sum())
-        self.stats.fwd += int((vv == VERDICT_FWD).sum())
-        self.stats.dropped += int((vv == VERDICT_DROP).sum())
-        self.stats.passed += int((vv == VERDICT_PASS).sum())
+        with tele.region(tele.DEVICE_WAIT):
+            h = fl.wait()
+        with tele.region(tele.REPLY):
+            vv = h["verdict"][:n]
+            ring.complete(vv.astype(np.uint8), np.ascontiguousarray(h["out_pkt"]),
+                          h["out_len"].astype(np.uint32), n)
+            self.stats.tx += int((vv == VERDICT_TX).sum())
+            self.stats.fwd += int((vv == VERDICT_FWD).sum())
+            self.stats.dropped += int((vv == VERDICT_DROP).sum())
+            self.stats.passed += int((vv == VERDICT_PASS).sum())
 
-        if self.violation_sink is not None:
-            for lane in np.nonzero(h["spoof_violation"][:n])[0]:
-                self.violation_sink(int(lane), bytes(pkt[lane, : int(length[lane])]))
-        mir = h.get("mirror")
-        if mir is not None and self.mirror_sink is not None:
-            for lane in np.nonzero(mir[:n])[0]:
-                # the frame as it arrived, whatever the verdict
-                self.mirror_sink(int(lane), bytes(pkt[lane, : int(length[lane])]),
-                                 int(mir[lane]))
+            if self.violation_sink is not None:
+                for lane in np.nonzero(h["spoof_violation"][:n])[0]:
+                    self.violation_sink(int(lane), bytes(pkt[lane, : int(length[lane])]))
+            mir = h.get("mirror")
+            if mir is not None and self.mirror_sink is not None:
+                for lane in np.nonzero(mir[:n])[0]:
+                    # the frame as it arrived, whatever the verdict
+                    self.mirror_sink(int(lane), bytes(pkt[lane, : int(length[lane])]),
+                                     int(mir[lane]))
 
-        # The slow ring holds PASS frames in lane order: pop one per PASS lane
-        # to recover its punt flag. Every PASS frame is popped even when a
-        # handler fails, or later batches would misalign.
-        punt = h["nat_punt"][:n]
-        slow_items, slow_fa = [], {}
-        punts = 0
-        for lane in np.nonzero(vv == VERDICT_PASS)[0]:
-            got = ring.slow_pop()
-            if got is None:
-                break  # the slow ring overflowed during complete()
-            frame, rfl = got
-            if punt[lane]:
-                punts += 1
-                self._punt(frame, now, int(lane))
-            else:
-                slow_items.append((int(lane), frame))
-                slow_fa[int(lane)] = (rfl & FLAG_FROM_ACCESS) != 0
-        tele.lap(tele.REPLY, t0)
+            # The slow ring holds PASS frames in lane order: pop one per PASS lane
+            # to recover its punt flag. Every PASS frame is popped even when a
+            # handler fails, or later batches would misalign.
+            punt = h["nat_punt"][:n]
+            slow_items, slow_fa = [], {}
+            punts = 0
+            for lane in np.nonzero(vv == VERDICT_PASS)[0]:
+                got = ring.slow_pop()
+                if got is None:
+                    break  # the slow ring overflowed during complete()
+                frame, rfl = got
+                if punt[lane]:
+                    punts += 1
+                    self._punt(frame, now, int(lane))
+                else:
+                    slow_items.append((int(lane), frame))
+                    slow_fa[int(lane)] = (rfl & FLAG_FROM_ACCESS) != 0
         tele.add(punt=punts)
         for lane, reply in self._handle_slow_lanes(slow_items, "ring"):
             if reply is not None:
@@ -1208,14 +1247,11 @@ class Engine:
         try:
             idx = 1 - self._stage_idx
             pkt, length, flags = self._staging(idx)
-            t0 = tele.t()
-            n = ring.assemble(pkt, length, flags)
+            n, tok = self._assemble(ring, pkt, length, flags)
             if n:
-                tok = tele.begin_batch(tele.LANE_RING_L, n)
-                tele.lap(tele.RING, t0, tok)
-                t0 = tele.t()
                 try:
-                    fl = _InFlight(self._dispatch_ring_batch(pkt, length, flags, n, now))
+                    with tele.region(tele.DISPATCH):
+                        fl = _in_flight(self._dispatch_ring_batch(pkt, length, flags, n, now))
                 except BaseException:
                     # fail closed: complete() retires FIFO, so the older window
                     # retires first, then this one drops
@@ -1224,7 +1260,6 @@ class Engine:
                     prev = None
                     ring.complete(np.full((n,), VERDICT_DROP, dtype=np.uint8), pkt, length, n)
                     raise
-                tele.lap(tele.DISPATCH, t0, tok)
                 self._inflight = (ring, fl, pkt, length, n, now, tok)
                 self._stage_idx = idx
         finally:

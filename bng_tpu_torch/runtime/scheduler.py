@@ -36,8 +36,11 @@ of `bng_tpu/runtime/scheduler.py`).
 Telemetry is the reference's: each dispatched batch opens a flight
 record (`telemetry/spans.begin_batch`) with its lane wait, its dispatch,
 its `device_wait` (the event wait behind its output copies, the only
-wait the lanes make) and its reply laps; an express geometry miss and
-every express fallback fire their flight-recorder triggers. With
+wait the lanes make) and its reply laps; an express batch served by the
+express program's graph while armed on the card also observes the
+replay's CUDA-event time into `device` at its retire (the `device` SLO's
+samples). An express geometry miss and every express fallback fire
+their flight-recorder triggers. With
 `metrics` (BNGMetrics, set by the composition root) each dispatch and
 retire also feeds the `bng_sched_*` histograms and counters. No hook
 reads a device tensor.
@@ -454,6 +457,11 @@ class TieredScheduler:
         t0 = tele.t()
         h = entry.res.wait()
         tele.lap(tele.DEVICE_WAIT, t0, entry.trace)
+        ev = getattr(entry.res, "device_events", None)  # a devloop slot has none
+        if ev is not None:
+            # the graph replay's own time, from its CUDA event pair (armed,
+            # on the card): done once the copies queued behind it are
+            tele.observe(tele.DEVICE, ev[0].elapsed_time(ev[1]) * 1e3, entry.trace)
         eng._fold_stats(entry.res.stat_names, h["stats"])
         if entry.meta is not None:  # the express program's verdict block
             block = h["block"][:n].view(np.uint32)

@@ -232,16 +232,27 @@ class FlightRecorder:
 # Chrome-trace / Perfetto export
 # ---------------------------------------------------------------------------
 
-def chrome_trace(tracer, label: str = "bng-tpu") -> dict:
+def chrome_trace(tracer, label: str = "bng-tpu", base_ns: int | None = None) -> dict:
     """Convert a Tracer's span-event log (built with keep_events > 0)
     into Chrome Trace Event JSON — loads in chrome://tracing and
     Perfetto. One pid (this process), one tid per lane, "X" complete
-    events with ts/dur in microseconds (the format's unit)."""
+    events with ts/dur in microseconds (the format's unit).
+
+    The events sit on a torch profiler trace's timebase: each event's
+    wall-clock time (the tracer's anchor pair) is `baseTimeNanoseconds +
+    ts * 1000` ns since the epoch, as in torch's `export_chrome_trace`.
+    `base_ns` is that base: give a profiler trace's `baseTimeNanoseconds`
+    and the two files' `ts` agree, so they open together in Perfetto;
+    by default it is the first event's wall-clock second. Durations are
+    the span clock's."""
     if tracer.events is None:
         raise ValueError("tracer was built without keep_events — "
                          "no span events to export")
     events = list(tracer.events)
-    t_origin = min((t0 for _s, _l, t0, _d in events), default=0)
+    if base_ns is None:
+        first = min((t0 for _s, _l, t0, _d in events), default=tracer.anchor[0])
+        base_ns = tracer.wall_ns(first) // 10**9 * 10**9
+    shift = tracer.wall_ns(0) - base_ns  # span clock -> ns since the base
     out = [{"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
             "args": {"name": label}}]
     lanes = sorted({lane for _s, lane, _t, _d in events})
@@ -257,12 +268,13 @@ def chrome_trace(tracer, label: str = "bng-tpu") -> dict:
             "ph": "X",
             "pid": 0,
             "tid": int(lane),
-            "ts": (t0 - t_origin) / 1000.0,
+            "ts": (int(t0) + shift) / 1000.0,
             "dur": max(dur_ns, 1) / 1000.0,
         })
     return {
         "traceEvents": out,
         "displayTimeUnit": "ms",
+        "baseTimeNanoseconds": int(base_ns),
         "otherData": {"tool": label,
                       "stages": list(STAGE_NAMES),
                       "records": tracer.seq},

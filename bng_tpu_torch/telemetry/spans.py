@@ -15,9 +15,11 @@ Design constraints, in order:
        admit       admission verdicts
        lane_wait   scheduler lane enqueue -> dispatch (oldest frame)
        dispatch    host-side dispatch (update drain + enqueue on the stream)
-       device      device execution, fed only from CUDA events
-                   (utils/profiling.profile_step_durations), never from
-                   host wall time
+       device      device execution, fed only from CUDA events, never
+                   from host wall time: the event pair around the
+                   express program's graph replay, observed at the
+                   express lane's retire (armed, on the card; the CPU
+                   has no graph and gives no sample)
        device_wait host blocked on the device's outputs (the event wait
                    behind a batch's copies; report next to `device`,
                    never as it)
@@ -27,6 +29,19 @@ Design constraints, in order:
        reply       verdict demux + reply encode/inject
        wire_rx     wire pump ingress
        wire_tx     wire pump egress
+       drain       inside a dispatch: the DHCP chain's placement, the
+                   host->device update drain and its apply
+       upload      inside a dispatch: the staged batch, lane flags,
+                   `now` and descriptors onto the device
+       issue       inside a dispatch: the device program's ops issued
+                   (the fused step, the DHCP-only program, the express
+                   graph's replay); its stages below lap inside it
+       collect     the batch's output copies and their events queued
+                   (engine._InFlight)
+       parse .. nat_accounting
+                   the device program's stages, host time issuing each
+                   (ops/pipeline.py; the DHCP-only program laps parse,
+                   dhcp and verdict)
        total       batch begin -> end (the client-visible wall time)
 
 3. **Tracing is observation.** A span never mutates subsystem state;
@@ -35,12 +50,20 @@ Design constraints, in order:
    host clock (`time.perf_counter_ns`) only, never a device tensor, so it
    never synchronizes the stream.
 
-Two granularities:
+Three granularities:
 
 - `t()` / `lap(stage, t0)`: the hot-path pair: `t()` returns None when
   disarmed, `lap` no-ops on a None origin. Two hook calls per
   instrumented region.
 - `span(stage)`: context-manager sugar for coarse paths (CLI, tests).
+- `region(stage)`: the program's stage hook, one `with` around a region
+  of the engine or the device program. Armed, it laps the stage on the
+  current record (the batch being dispatched or retired); while a torch
+  profiler records (`torch.autograd.profiler._is_profiler_enabled`), it
+  also opens the range `bng::<stage>`, so a profiler trace shows the
+  program's own stages; neither, it is a global load, a flag read and
+  the shared no-op. This module imports no torch: the flag's module is
+  bound at the first `region` call.
 
 Per-batch flight records: `begin_batch(lane, n)` opens a record slot
 (preallocated pool, allocation-free), `stamp`/`lap`/`add` fill it, and
@@ -66,13 +89,24 @@ from bng_tpu_torch.telemetry.hist import LatencyHist
 # stages attribute the devloop ring pump (devloop/host.py): fill = rows
 # into the ring slot, wait = slot staged -> ring dispatch (the latency
 # the k-amortization trades away), retire = ring force + per-slot demux.
+# The stages after wire_tx are the port's own (the reference has none of
+# them): the dispatch's parts and the device program's stages, each lapped
+# by `region`. Their ids come after the reference's and before TOTAL, so
+# every id the reference has but TOTAL's is the same in both.
 (RING, ADMIT, LANE_WAIT, DISPATCH, LOOP_FILL, LOOP_WAIT, LOOP_RETIRE,
  DEVICE, DEVICE_WAIT, FLEET, WORKER, SLOW, REPLY, OPS, WIRE_RX, WIRE_TX,
- TOTAL) = range(17)
+ DRAIN, UPLOAD, ISSUE, COLLECT, PARSE, ANTISPOOF, DHCP, GARDEN, NAT44, QOS,
+ EDGE, PPPOE_DECAP, PPPOE_ENCAP, VERDICT, NAT_ACCOUNTING,
+ TOTAL) = range(32)
 STAGE_NAMES = ("ring", "admit", "lane_wait", "dispatch", "loop_fill",
                "loop_wait", "loop_retire", "device", "device_wait",
                "fleet", "worker", "slow_path", "reply", "ops", "wire_rx",
-               "wire_tx", "total")
+               "wire_tx", "drain", "upload", "issue", "collect", "parse",
+               "antispoof", "dhcp", "garden", "nat44", "qos", "edge",
+               "pppoe_decap", "pppoe_encap", "verdict", "nat_accounting",
+               "total")
+# the torch profiler range each stage's region opens
+RANGE_NAMES = tuple(f"bng::{name}" for name in STAGE_NAMES)
 NSTAGES = len(STAGE_NAMES)
 
 # lane ids for batch records
@@ -103,6 +137,16 @@ class Tracer:
         # (stage, lane, t0_ns, dur_ns) span events for trace export
         self.events: deque | None = (deque(maxlen=keep_events)
                                      if keep_events else None)
+        # one anchor pair, read together: the spans' clock
+        # (perf_counter_ns) and the wall clock a torch profiler stamps its
+        # trace with (time.time_ns()), so an export lays the spans on the
+        # profiler's timebase (recorder.chrome_trace)
+        self.anchor = (time.perf_counter_ns(), time.time_ns())
+
+    def wall_ns(self, t_ns: int) -> int:
+        """A span-clock reading on the wall clock (ns since the epoch),
+        through the anchor pair; durations stay on the span clock."""
+        return self.anchor[1] + (int(t_ns) - self.anchor[0])
 
     # -- batch records ----------------------------------------------------
 
@@ -329,6 +373,9 @@ class _NoopSpan:
     def __enter__(self):
         return self
 
+    def discard(self) -> None:
+        pass
+
     def __exit__(self, *exc):
         return False
 
@@ -358,6 +405,61 @@ def span(stage: int, tok: int | None = None):
     if _ACTIVE is None:
         return _NOOP
     return _Span(stage, tok)
+
+
+# torch.autograd.profiler once the first region() has bound it: this module
+# imports no torch (a spawned slow-path worker imports telemetry alone)
+_profiler = None
+
+
+def _bind_profiler():
+    global _profiler
+    import torch.autograd.profiler as prof
+
+    _profiler = prof
+    return prof
+
+
+class _Region:
+    __slots__ = ("stage", "t0", "rf")
+
+    def __init__(self, stage: int):
+        self.stage = stage
+
+    def __enter__(self):
+        self.rf = None
+        prof = _profiler or _bind_profiler()
+        if prof._is_profiler_enabled:
+            self.rf = prof.record_function(RANGE_NAMES[self.stage])
+            self.rf.__enter__()
+        # timed inside the range: the range's own cost is not the stage's
+        self.t0 = _ACTIVE.clock() if _ACTIVE is not None else None
+        return self
+
+    def discard(self) -> None:
+        """Leave this region out of its stage (an empty ring poll holds no
+        batch); a profiler range still closes."""
+        self.t0 = None
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:  # a failed region is not timed
+            lap(self.stage, self.t0)
+        if self.rf is not None:
+            self.rf.__exit__(exc_type, exc, tb)
+        return False
+
+
+def region(stage: int):
+    """The program's stage hook: `with tele.region(tele.DHCP): ...`.
+
+    Armed, the region laps `stage` on the current record (the batch being
+    dispatched or retired: `begin_batch` and `focus` set it, so no token
+    is threaded through). While a torch profiler records, it also opens
+    the range `bng::<stage>`. Neither: a global load, a flag read and the
+    shared no-op, with no allocation and no profiler call."""
+    if _ACTIVE is None and not (_profiler or _bind_profiler())._is_profiler_enabled:
+        return _NOOP
+    return _Region(stage)
 
 
 def arm(tr: Tracer) -> Tracer:

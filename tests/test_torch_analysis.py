@@ -17,7 +17,9 @@ analyzer (`bng_tpu/analysis/`).
   fixtures, CLI subprocesses, baseline mechanics and the clean-corpus
   gates over the port's tree, with the port's baseline.
 - **Torch readings.** BNG001, BNG010, BNG014 and BNG050 each get a
-  planted violation and a clean twin in torch idiom; BNG011 and BNG012
+  planted violation and a clean twin in torch idiom, and so does the
+  stage hook `region` (a stray stage: BNG030; an allocation on its
+  disarmed path: BNG002); BNG011 and BNG012
   are listed by `--codes` as not applying to the port, and are never
   emitted.
 - **The real tree.** `check` exits 0 on the port, no baseline entry is
@@ -190,6 +192,27 @@ def _run(tmp_path, files, select):
 
 
 ENGINE = "bng_tpu_torch/runtime/engine.py"
+SPANS = "bng_tpu_torch/telemetry/spans.py"
+# the registries the registry pass reads besides the stages
+REGISTRIES = {"bng_tpu_torch/chaos/faults.py": ref_an.MINI_FAULTS,
+              "bng_tpu_torch/telemetry/recorder.py": ref_an.MINI_RECORDER,
+              "bng_tpu_torch/runtime/checkpoint.py": ref_an.MINI_CKPT}
+REGION_SPANS = """\
+(RING, DISPATCH, DHCP, TOTAL) = range(4)
+STAGE_NAMES = ("ring", "dispatch", "dhcp", "total")
+(LANE_ENGINE, LANE_BENCH) = range(2)
+LANE_NAMES = ("engine", "bench")
+
+_ACTIVE = None
+_NOOP = None
+_profiler = None
+
+
+def region(stage):
+    if _ACTIVE is None and not _profiler:
+        return _NOOP
+    return (stage, _ACTIVE)
+"""
 TORCH_READINGS = {
     "BNG001-dispatch-forces": ({ENGINE: """\
         import numpy as np
@@ -304,6 +327,28 @@ TORCH_READINGS = {
                 fn()
             return graph
         """}, {"jit-discipline"}, {}),
+    # the stage hook `region`: BNG030 reads its stage, BNG002 its disarmed path
+    "BNG030-region-stray-stage": ({**REGISTRIES, SPANS: REGION_SPANS, ENGINE: """\
+        from bng_tpu_torch.telemetry import spans as tele
+
+
+        def dispatch(eng):
+            with tele.region(tele.DISPATCH):
+                with tele.region(tele.NOSUCH):
+                    return eng.step()
+        """}, {"registry"}, {"BNG030": 1}),
+    "BNG002-region-allocates-disarmed": ({SPANS: REGION_SPANS.replace(
+        "    if _ACTIVE is None", "    names = [stage]\n    if _ACTIVE is None")},
+        {"hotpath"}, {"BNG002": 1}),
+    "BNG002-BNG030-region-clean": ({**REGISTRIES, SPANS: REGION_SPANS, ENGINE: """\
+        from bng_tpu_torch.telemetry import spans as tele
+
+
+        def dispatch(eng):
+            with tele.region(tele.DISPATCH):
+                with tele.region(tele.DHCP):
+                    return eng.step()
+        """}, {"hotpath", "registry"}, {}),
     "BNG011-BNG012-never-emitted": ({ENGINE: """\
         import torch
 

@@ -49,6 +49,7 @@ Tolerance: exact (bytes, dicts).
 
 import argparse
 import dataclasses
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -57,10 +58,13 @@ import torch
 
 from bng_tpu import cli as j_cli
 from bng_tpu.runtime.ring import PyRing as JRing
+from bng_tpu.telemetry import spans as j_sp
 from bng_tpu_torch import cli as t_cli
 from bng_tpu_torch import frames as F
 from bng_tpu_torch.runtime.ring import PyRing as TRing
 from bng_tpu_torch.utils.net import ip_to_u32
+
+from test_torch_telemetry import split_stages
 
 pytestmark = pytest.mark.torch_port
 
@@ -562,8 +566,25 @@ def test_observability_at_the_run_defaults_matches_reference(loop, tmp_path, mon
     # TX bytes; the reference's ring pump also retires on that schedule, so
     # the beat a ring's replies leave on may differ
     assert sorted(got[0]) == sorted(ref[0])
-    assert got[1] == ref[1]  # the exposition
-    assert got[2:] == ref[2:]  # stage counts, flight records, lane counts, program
+    stages, own = split_stages(got[2])
+    # the port's own stages are exposed beside the reference's, with the
+    # counts the tracer had at the collect
+    own_samples = {k: v for k, v in got[1].items()
+                   if k.startswith("bng_stage_latency_us_count{") and
+                   k.split('"')[1] not in j_sp.STAGE_NAMES}
+    assert {k: v for k, v in got[1].items() if k not in own_samples} == ref[1]  # the exposition
+    assert (stages,) + got[3:] == ref[2:]  # stage counts, flight records, lane counts, program
+    # each bulk step laps the fused step's stages (the garden gate is on);
+    # each express batch served by the express program laps its dispatch's
+    # parts, and the devloop's ring program none
+    n = {lane: sum(r[0] == lane for r in got[3]) for lane in ("express", "bulk")}
+    want = {s: n["bulk"] for s in ("parse", "antispoof", "dhcp", "garden", "nat44", "qos",
+                                    "verdict", "nat_accounting")}
+    if loop == "aot":
+        want.update({s: n["express"] for s in ("drain", "upload", "issue")})
+    assert own == want and n["bulk"] > 0
+    assert own_samples == {f'bng_stage_latency_us_count{{stage="{s}"}}': str(c)
+                           for s, c in own.items()}
     tx, expo, stages, records, lanes, program = got
     assert program == ("devloop" if loop == "devloop" else "aot-express")
     assert {"lane_wait", "dispatch", "device_wait", "reply", "slow_path", "total"} <= set(stages)
@@ -643,13 +664,28 @@ def test_trace_verbs_on_cpu(tmp_path, capsys):
         trace = json.load(f)
     threads = {e["args"]["name"] for e in trace["traceEvents"] if e["name"] == "thread_name"}
     assert "lane:express" in threads and exp["events"] > 0
+    # the spans sit on the wall clock: a base of its own, or one given
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    wall = [trace["baseTimeNanoseconds"] + e["ts"] * 1e3 for e in spans]
+    assert abs(min(wall) - time.time_ns()) < 60e9
+    assert t_cli.main(["--device", "cpu", "trace", "export", "--trace-dir", d, "--out",
+                       str(tmp_path / "b.json"), "--base-ns", str(10**18),
+                       "--macs", "8", "--batch-size", "8"]) == 0
+    capsys.readouterr()
+    rebased = json.loads((tmp_path / "b.json").read_text())
+    assert rebased["baseTimeNanoseconds"] == 10**18
+    assert abs(10**18 + min(e["ts"] for e in rebased["traceEvents"] if e["ph"] == "X") * 1e3
+               - time.time_ns()) < 60e9
     assert t_cli.main(["trace", "status", "--trace-dir", d]) == 0
     st = json.loads(capsys.readouterr().out)
     assert [x["backend"] for x in st["dumps"]] == ["cpu"]
     # an inline fleet behind the slow path adds its admission and fan-out
-    # spans to the trace (the reference's export shows the same stages)
+    # spans to the trace (the reference's export shows the same stages); the
+    # port's adds its fused step's dispatch parts and stages
     assert t_cli.main(["--device", "cpu", "trace", "export", "--trace-dir", d, "--workers", "2",
                        "--macs", "8", "--batch-size", "8"]) == 0
     exp = json.loads(capsys.readouterr().out)
-    assert exp["stages"] == ["admit", "device_wait", "dispatch", "fleet", "reply", "slow_path",
-                             "total"]
+    assert exp["stages"] == sorted(
+        ["admit", "device_wait", "dispatch", "fleet", "reply", "slow_path", "total"]
+        + ["drain", "upload", "issue", "collect", "parse", "antispoof", "dhcp", "nat44", "qos",
+           "verdict", "nat_accounting"])

@@ -53,6 +53,7 @@ from test_torch_scheduler import (
     JAX, PORT, SERVER_IP, T0, FakeClock, build_stack, data_frame, dhcp, engines_equal, mac,
 )
 from test_torch_stages import assert_tuple_equal
+from test_torch_telemetry import split_stages
 
 pytestmark = pytest.mark.torch_port
 
@@ -372,9 +373,13 @@ def test_pump_telemetry_matches_reference(fault, tmp_path):
         got.append((out, {s: v["count"] for s, v in tr.breakdown().items()}, records,
                     dict(rec.triggers), rec.meta.get("express_program"),
                     rec.meta.get("devloop_ring"), len(tr._free)))
-    assert got[1] == got[0]
-    out, stages, records, triggers, program, ring, free = got[1]
+    stages, own = split_stages(got[1][1])
+    assert (got[1][0], stages) + got[1][2:] == got[0]
+    out, _, records, triggers, program, ring, free = got[1]
     n_batches, fallen = 7, 3 if fault else 0
+    # the ring program laps none of the port's own stages; a fallen-back
+    # batch's express program laps its dispatch's parts
+    assert own == ({s: fallen for s in ("drain", "upload", "issue")} if fault else {})
     assert stages["total"] == len(records) == n_batches and free == t_sp.Tracer.OPEN_SLOTS
     assert stages["loop_fill"] == stages["dispatch"] == stages["device_wait"] == n_batches
     # a fallen-back slot's second record laps its own lane wait, and no ring

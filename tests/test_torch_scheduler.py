@@ -56,6 +56,7 @@ from bng_tpu_torch.runtime.tables import FastPathTables as TFastPath
 from bng_tpu_torch.utils.net import ip_to_u32
 
 from test_torch_stages import assert_tuple_equal
+from test_torch_telemetry import split_stages
 
 pytestmark = pytest.mark.torch_port
 
@@ -387,8 +388,17 @@ def test_traced_serving_and_metrics_match_reference(geometry_miss, tmp_path):
             sched.flush()
             sched.drain_completions()
         got.append(observed_state(sched, tr, met))
-    assert got[1] == got[0]
-    stages, records, triggers, program, samples = got[1]
+    stages, own = split_stages(got[1][0])
+    assert (stages,) + got[1][1:] == got[0]
+    _, records, triggers, program, samples = got[1]
+    # the port's own stages: the express program's dispatch parts (a
+    # geometry miss: the DHCP-only program's, and its parse, dhcp and
+    # verdict) and each bulk step's fused-step stages
+    n_ex, n_bulk = (sum(r[1] == lane for r in records) for lane in ("express", "bulk"))
+    want = {s: n_ex for s in ("drain", "upload", "issue")}
+    want.update({s: n_bulk for s in ("antispoof", "nat44", "qos", "nat_accounting")})
+    want.update({s: n_bulk + (n_ex if geometry_miss else 0) for s in ("parse", "dhcp", "verdict")})
+    assert own == want
     assert {"lane_wait", "dispatch", "device_wait", "reply", "slow_path", "total"} <= set(stages)
     assert {r[1] for r in records} == {"express", "bulk"} and stages["total"] == len(records)
     assert samples['bng_sched_frames_total{lane="express"}'] == "3"

@@ -2,15 +2,23 @@
 
 - A seeded sequence of hook calls (`begin_batch`, `lap`, `stamp`,
   `observe`, `Tracer.observe_many`, `add`, `focus`, `end_batch`, `cancel_batch`,
-  `set_meta`, `trigger`, `span`) under one injected nanosecond clock and
-  one injected wall clock gives the same `breakdown()`, tracer snapshot,
-  span-event log, flight-record ring, trigger counts and dump JSON in
-  both packages (the backend name is masked: each process names its own).
+  `set_meta`, `trigger`, `span`) on the reference's stages, under one
+  injected nanosecond clock and one injected wall clock, gives the same
+  `breakdown()`, tracer snapshot, span-event log (stages by name: the
+  port's `total` has another id), flight-record ring, trigger counts and
+  dump JSON in both packages (the backend name is masked: each process
+  names its own).
 - The ring keeps the last `capacity` records, oldest first, after it
   wraps; dumps are rate-limited by `min_dump_interval_s` and capped at
   `max_dumps`; an unwritable dump directory is counted, never raised.
 - `chrome_trace` gives the same Chrome Trace Event JSON, with one thread
-  per lane and "X" events carrying ts/dur in microseconds.
+  per lane and "X" events carrying ts/dur in microseconds; the port's
+  `ts` sit on a torch profiler trace's timebase (each event's wall-clock
+  ns is `baseTimeNanoseconds + ts * 1000`): exported on the base of the
+  first event's wall time they are the reference's, and by default the
+  base is a whole second.
+- The port's vocabulary is the reference's with its own stages (the
+  dispatch's parts and the device program's stages) before `total`.
 - Disarmed, every hook is a no-op that returns None (`span` the shared
   no-op), and a tracer whose open-slot pool is full counts the drop.
 
@@ -30,6 +38,21 @@ from bng_tpu_torch.telemetry import spans as t_sp
 pytestmark = pytest.mark.torch_port
 
 PKGS = (("jax", j_sp, j_rec), ("port", t_sp, t_rec))
+# the port's own stages, between the reference's and `total`
+PORT_STAGES = ("drain", "upload", "issue", "collect", "parse", "antispoof", "dhcp", "garden",
+               "nat44", "qos", "edge", "pppoe_decap", "pppoe_encap", "verdict", "nat_accounting")
+
+
+def split_stages(counts: dict) -> tuple[dict, dict]:
+    """A breakdown's per-stage counts split into the reference's stages and
+    the port's own: the reference records none of the latter."""
+    ref = {s: n for s, n in counts.items() if s in j_sp.STAGE_NAMES}
+    return ref, {s: n for s, n in counts.items() if s not in j_sp.STAGE_NAMES}
+
+
+def first_wall_ns(tr) -> int:
+    """The wall-clock ns of a tracer's earliest span event."""
+    return tr.wall_ns(min(t0 for _s, _l, t0, _d in tr.events))
 
 
 class StepClock:
@@ -60,7 +83,7 @@ def _drive(sp, rec_mod, seed: int, out_dir, capacity: int = 8):
         for _ in range(400):
             op = int(rng.integers(12))
             tok = toks[int(rng.integers(len(toks)))] if toks and rng.random() < 0.7 else None
-            stage = int(rng.integers(sp.NSTAGES - 1))
+            stage = int(rng.integers(j_sp.NSTAGES - 1))  # the stages both packages have
             if op in (0, 1):
                 got = sp.begin_batch(int(rng.integers(len(sp.LANE_NAMES))),
                                      int(rng.integers(1, 64)))
@@ -99,10 +122,16 @@ def _drive(sp, rec_mod, seed: int, out_dir, capacity: int = 8):
     snap = tr.snapshot()
     snap["recorder"]["dumps"] = [p.rsplit("/", 1)[-1] for p in snap["recorder"]["dumps"]]
     snap["recorder"].pop("backend")
-    return {"breakdown": tr.breakdown(), "snapshot": snap, "events": list(tr.events),
+    # the port's export on the base of its first event: the reference's ts
+    chrome = (rec_mod.chrome_trace(tr, label="seeded") if sp is j_sp else
+              rec_mod.chrome_trace(tr, label="seeded", base_ns=first_wall_ns(tr)))
+    if sp is t_sp:
+        assert chrome.pop("baseTimeNanoseconds") == first_wall_ns(tr)
+    assert chrome["otherData"].pop("stages") == list(sp.STAGE_NAMES)
+    return {"breakdown": tr.breakdown(), "snapshot": snap,
+            "events": [(sp.STAGE_NAMES[s], lane, t0, d) for s, lane, t0, d in tr.events],
             "records": rec.records(), "triggers": dict(rec.triggers), "dumps": dumps,
-            "dump_errors": rec.dump_errors, "chrome": rec_mod.chrome_trace(tr, label="seeded"),
-            "free": sorted(tr._free)}
+            "dump_errors": rec.dump_errors, "chrome": chrome, "free": sorted(tr._free)}
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
@@ -166,7 +195,15 @@ def test_chrome_trace_schema(tmp_path):
                 sp.lap(sp.DISPATCH, sp.t(), tok)
                 sp.lap(sp.DEVICE_WAIT, sp.t(), tok)
                 sp.end_batch(tok)
-        traces.append(rec_mod.chrome_trace(tr, label="dora"))
+        if sp is j_sp:
+            traces.append(rec_mod.chrome_trace(tr, label="dora"))
+            continue
+        port_tr = tr
+        t = rec_mod.chrome_trace(tr, label="dora", base_ns=first_wall_ns(tr))
+        assert t.pop("baseTimeNanoseconds") == first_wall_ns(tr)
+        traces.append(t)
+    assert traces[1]["otherData"].pop("stages") == list(t_sp.STAGE_NAMES)
+    assert traces[0]["otherData"].pop("stages") == list(j_sp.STAGE_NAMES)
     assert traces[1] == traces[0]
     t = traces[1]
     meta = [e for e in t["traceEvents"] if e["ph"] == "M"]
@@ -176,6 +213,12 @@ def test_chrome_trace_schema(tmp_path):
     assert all(set(e) == {"name", "cat", "ph", "pid", "tid", "ts", "dur"} for e in xs)
     assert min(e["ts"] for e in xs) == 0.0 and all(e["dur"] > 0 for e in xs)
     assert t["otherData"]["records"] == 3 and t["displayTimeUnit"] == "ms"
+    # by default the base is the first event's wall-clock second
+    own = t_rec.chrome_trace(port_tr, label="dora")
+    base = own["baseTimeNanoseconds"]
+    assert base == first_wall_ns(port_tr) // 10**9 * 10**9
+    assert [e["ts"] for e in own["traceEvents"] if e["ph"] == "X"] == \
+        [(port_tr.wall_ns(t0) - base) / 1000.0 for _s, _l, t0, _d in port_tr.events]
     with pytest.raises(ValueError, match="keep_events"):
         t_rec.chrome_trace(t_sp.Tracer())
 
@@ -200,8 +243,10 @@ def test_disarmed_hooks_are_noops_and_full_slot_pool_counts_drops():
 
 
 def test_stage_and_lane_vocabulary_matches():
-    assert t_sp.STAGE_NAMES == j_sp.STAGE_NAMES and t_sp.LANE_NAMES == j_sp.LANE_NAMES
-    assert (t_sp.TOTAL, t_sp.DEVICE, t_sp.LANE_BENCH) == (j_sp.TOTAL, j_sp.DEVICE, j_sp.LANE_BENCH)
+    assert t_sp.STAGE_NAMES == j_sp.STAGE_NAMES[:-1] + PORT_STAGES + ("total",)
+    assert t_sp.LANE_NAMES == j_sp.LANE_NAMES
+    assert (t_sp.DEVICE, t_sp.LANE_BENCH) == (j_sp.DEVICE, j_sp.LANE_BENCH)
+    assert t_sp.TOTAL == t_sp.NSTAGES - 1 == j_sp.TOTAL + len(PORT_STAGES)
     for name in dir(j_rec):
         if name.startswith("TRIG_"):
             assert getattr(t_rec, name) == getattr(j_rec, name)
