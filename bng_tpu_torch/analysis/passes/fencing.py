@@ -20,7 +20,8 @@ The pass finds function-local timing windows:
 and flags windows that contain a dispatch to one of the async step
 surfaces (`_step`, `_dhcp_step`, `_dispatch_step`, `_run_dhcp_batch`,
 `dispatch_scheduled_bulk`, `submit`/`poll`, `process_ring_pipelined`,
-and in the port `pipeline_step`, `dhcp_fastpath` and a graph's `replay`)
+and in the port `pipeline_step`, `dhcp_fastpath`, a graph's or a ring
+program's `replay` and the engine's `_replay`)
 but no fence (`synchronize`, `.item`/`.cpu`/`.tolist`/`.numpy`,
 `np.asarray`, `flush`/`flush_pipeline`/`quiesce`, `wait`,
 `profile_step_durations`). The reference's jax fences
@@ -41,10 +42,12 @@ CLOCK_CALLS = {"time.time", "time.perf_counter", "time.perf_counter_ns",
 # the reference's surfaces, and what launches directly in the port: the
 # fused step and the DHCP-only program are plain calls that queue their
 # kernels, and a CUDA graph's `replay()` returns once it is queued
+# (a ring program's `replay` and the engine's `_replay` around it queue a
+# tape of graphs and kernel launches, and return once it is queued)
 ASYNC_DISPATCH = {"_step", "_dhcp_step", "_dispatch_step",
                   "_run_dhcp_batch", "dispatch_scheduled_bulk",
                   "submit", "poll", "process_ring_pipelined", "step_fn",
-                  "pipeline_step", "dhcp_fastpath", "replay"}
+                  "pipeline_step", "dhcp_fastpath", "replay", "_replay"}
 FENCES = {"synchronize", "item", "cpu", "tolist", "numpy", "asarray",
           "array", "flush", "flush_pipeline", "quiesce",
           "profile_step_durations", "drain_completions_blocking", "wait"}

@@ -64,9 +64,13 @@ from bng_tpu_torch.analysis.core import (Finding, Pass, Project, call_name,
 DISPATCH_SCOPE: dict[str, set[str]] = {
     "bng_tpu_torch/runtime/engine.py": {
         "_dispatch_step", "_run_dhcp_batch", "dispatch_scheduled_bulk",
-        "_drain_updates", "_update_batch",
+        "_drain_step", "_drain_dhcp", "_drain_updates", "_update_batch",
         "_pack_frames", "_dispatch_fault", "_staging",
+        "_ring_program", "_replay",
     },
+    # a ring program's dispatch: the staged batch into its static inputs
+    # and the tape's replay (its build, off the per-batch path, may wait)
+    "bng_tpu_torch/runtime/ringprog.py": {"upload", "replay"},
     "bng_tpu_torch/runtime/scheduler.py": {
         "submit", "classify", "_dispatch_express", "_dispatch_bulk",
         "_ensure_bulk_replica", "_entry_ready",

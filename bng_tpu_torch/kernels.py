@@ -13,7 +13,9 @@ same launches per card: each wrapper adds one (`count`) where it
 launches, and a captured CUDA graph (`runtime/engine.py`'s
 `ExpressProgram`, the devloop's ring program, both captured by
 `capture_graph`) adds the launches it recorded each time it replays (the
-capture itself counts none).
+capture itself counts none). A ring program (`runtime/ringprog.py`)
+launches its kernels eagerly at each replay, where the wrappers count
+them; the runs that build it count none (`recording`).
 
 Every C entry takes the index of the card its inputs live on and makes
 that card current for the launch, restoring the caller's after
@@ -23,6 +25,7 @@ stream whichever card the calling thread has current.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -82,6 +85,22 @@ def count(name: str, card: int, n: int = 1) -> None:
     per[name] += n
 
 
+@contextlib.contextmanager
+def recording():
+    """Tally the launches made inside the block into a record of their own
+    (yielded), not into `LAUNCHES`: a graph's capture, and the runs that
+    build a ring program (`runtime/ringprog.py`), are no launches of the
+    path; a replay counts its own. The record is the process's, not the
+    thread's: a build must not overlap launches from other threads, whose
+    counts it would take out of `LAUNCHES`."""
+    global _RECORDING
+    outer, _RECORDING = _RECORDING, {k: 0 for k in SIGNATURES}
+    try:
+        yield _RECORDING
+    finally:
+        _RECORDING = outer
+
+
 def capture_graph(dev, run):
     """Capture `run()` as a CUDA graph on card `dev`. It is warmed twice on a
     side stream first (loads the kernels, fills the caching allocator), as
@@ -90,7 +109,6 @@ def capture_graph(dev, run):
     current at the process's first capture. Returns (graph, its outputs,
     {kernel: launches it recorded}): those run, and are counted, at each
     replay; the capture itself counts none."""
-    global _RECORDING
     with torch.cuda.device(dev):
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -99,12 +117,9 @@ def capture_graph(dev, run):
                 run()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        _RECORDING = recorded = {k: 0 for k in SIGNATURES}
-        try:
+        with recording() as recorded:
             with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
                 out = run()
-        finally:
-            _RECORDING = None
     return graph, out, recorded
 
 

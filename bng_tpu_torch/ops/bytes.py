@@ -79,10 +79,12 @@ def scatter_be32_at_masked(pkt, offs, val, mask):
 # ---- segment builders (reply compose by concatenation) ----
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _const_row(vals: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """One uploaded row per (constants, device): a per-step host-to-device
-    copy from pageable memory would stall the host mid-step."""
+    copy from pageable memory would stall the host mid-step. Never evicted
+    (the rows are the call sites' literals, a few dozen): a captured graph
+    reads its rows by address."""
     return torch.tensor(vals, dtype=torch.uint8, device=device)
 
 

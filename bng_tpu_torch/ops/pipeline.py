@@ -12,7 +12,7 @@ PASS=0, DROP=1, TX=2, FWD=3 (precedence TX > DROP > FWD > PASS); the
 mirror word (a warrant id, 0 = none) is a side array, not a verdict.
 
 The step updates its tables IN PLACE (NAT session counters and QoS token
-rows) and returns the same `PipelineTables` object. Packet bytes stay
+rows: `step_writes`) and returns the same `PipelineTables` object. Packet bytes stay
 out of place. K1 probes per step: antispoof 1, DHCP 3, NAT44 4, garden
 1, PPPoE 2 (decap by_sid, encap by_ip), tap 1, route 1: 8 for the IPoE
 step and 13 with every stage. K2 calls: 4 (2 per QoS direction).
@@ -95,6 +95,12 @@ class PipelineResult(NamedTuple):
     pppoe_stats: torch.Tensor | None = None  # [PPPOE_NSTATS]: decap + encap
     mirror: torch.Tensor | None = None  # [B] int64 warrant id (0 = not mirrored)
     edge_stats: torch.Tensor | None = None  # [EDGE_NSTATS] when edge is on
+
+
+def step_writes(tables: PipelineTables) -> list[torch.Tensor]:
+    """The table tensors `pipeline_step` writes in place: the NAT session
+    rows (counters, last_seen) and both QoS token tables."""
+    return [tables.nat.sessions.vals, tables.qos_up.rows, tables.qos_down.rows]
 
 
 def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: PipelineGeom,

@@ -252,6 +252,16 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device, copy=True)
 
 
+def upload_into(a: np.ndarray, dst: torch.Tensor) -> torch.Tensor:
+    """numpy -> into the existing tensor `dst` (same shape and dtype), sent
+    as `to_device` sends it: on the card through pinned memory with an
+    async copy, so `a` may be rewritten as soon as this returns."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dst.device.type == "cuda" and t.nbytes <= PINNED_UPLOAD_MAX:
+        return dst.copy_(t.pin_memory(), non_blocking=True)
+    return dst.copy_(t)
+
+
 class PinnedStage:
     """A persistent host staging buffer that uploads copy from.
 

@@ -15,7 +15,11 @@ new NAT flows punted to `NATManager.handle_new_flow`, mirrored lanes to
 - `process_ring(ring)` / `process_ring_pipelined(ring)`: batches
   assembled from a packet ring (`runtime/ring.py`); all-control batches
   take the DHCP-only program. The pipelined loop dispatches batch k+1
-  before it retires batch k.
+  before it retires batch k. On a card the ring loops replay each
+  program from a tape of CUDA graphs between its kernel launches
+  (`runtime/ringprog.py`), recorded on its first ring batch and dropped
+  with the tables it reads (`_rebind`); the other ways in run the
+  programs as plain calls (`_dispatch_ring_batch` says why).
 
 A dispatch makes no host round trip: uploads go through pinned memory
 (`ops/table.to_device`), and the outputs come back through async copies
@@ -109,7 +113,7 @@ from bng_tpu_torch.ops.antispoof import (
     VALID_V4, VALID_V6,
 )
 from bng_tpu_torch.ops.dhcp import NSTATS as DHCP_NSTATS
-from bng_tpu_torch.ops.dhcp import dhcp_fastpath
+from bng_tpu_torch.ops.dhcp import DHCPGeom, DHCPTables, dhcp_fastpath
 from bng_tpu_torch.ops.express import XD_WORDS, express_verdicts
 from bng_tpu_torch.ops.garden import GARDEN_NSTATS, GARDEN_WORDS, GV_FLAG
 from bng_tpu_torch.ops.hashing import MASK32
@@ -117,7 +121,7 @@ from bng_tpu_torch.ops.nat44 import NAT_NSTATS
 from bng_tpu_torch.ops.parse import parse_batch
 from bng_tpu_torch.ops.pipeline import (
     VERDICT_DROP, VERDICT_FWD, VERDICT_PASS, VERDICT_TX, PipelineGeom, PipelineResult,
-    PipelineTables, pipeline_step,
+    PipelineTables, pipeline_step, step_writes,
 )
 from bng_tpu_torch.ops.pppoe import PPPOE_NSTATS
 from bng_tpu_torch.ops.qos import QOS_NSTATS
@@ -129,6 +133,7 @@ from bng_tpu_torch.ops.table import (
 )
 from bng_tpu_torch.runtime import hostpath
 from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS
+from bng_tpu_torch.runtime.ringprog import RingProgram
 from bng_tpu_torch.runtime.tables import (
     FastPathTables, PPPoEFastPathTables, apply_fastpath_updates, copy_dhcp_, dhcp_to,
 )
@@ -138,6 +143,9 @@ from bng_tpu_torch.utils.net import mac_to_u64, split_u64
 from bng_tpu_torch.utils.structlog import ErrorLog
 
 PKT_SLOT = 1536  # default per-lane packet slot (full MTU + encap headroom)
+
+# the ring loops' two device programs (`Engine._ring_program`)
+_STEP, _DHCP_ONLY = "step", "dhcp"
 
 # EngineStats accumulator -> the result field it folds
 _STAT_FIELDS = (("dhcp", "dhcp_stats"), ("nat", "nat_stats"), ("qos", "qos_stats"),
@@ -172,6 +180,20 @@ class DhcpBatchResult(NamedTuple):
     out_pkt: torch.Tensor
     out_len: torch.Tensor
     dhcp_stats: torch.Tensor
+
+
+def dhcp_program(tables: DHCPTables, geom: DHCPGeom, pkt, length, now_s) -> DhcpBatchResult:
+    """The DHCP-only program: parse and the DHCP responder over the DHCP
+    tables alone (3 K1 probes, no K2 call); TX where the device answered,
+    else PASS."""
+    with tele.region(tele.PARSE):
+        parsed = parse_batch(pkt, length)
+    with tele.region(tele.DHCP):
+        res = dhcp_fastpath(pkt, length, parsed, tables, geom, now_s)
+    with tele.region(tele.VERDICT):
+        verdict = torch.where(res.is_reply, VERDICT_TX, VERDICT_PASS).to(torch.int32)
+    return DhcpBatchResult(verdict=verdict, out_pkt=res.out_pkt, out_len=res.out_len,
+                           dhcp_stats=res.stats)
 
 
 class ExpressAotResult(NamedTuple):
@@ -254,7 +276,10 @@ class _InFlight:
     output (a result gathered from several cards waits on each); `wait`
     blocks on those events alone, so a batch dispatched later keeps the
     cards busy meanwhile, and `ready` asks the events without blocking.
-    On the CPU the outputs are already there."""
+    A ring program's outputs are its own buffers, which its next replay
+    rewrites: taken here right after the replay, the copies are queued
+    on the same stream ahead of it. On the CPU the outputs are already
+    there."""
 
     LANES = ("verdict", "out_pkt", "out_len", "nat_punt", "spoof_violation", "mirror", "block")
 
@@ -493,6 +518,13 @@ class Engine:
         self.express_captures = 0  # express programs built (graphs captured on the card)
         self._devloop_programs: dict = {}  # devloop/kernel.py's ring programs, per key
         self.devloop_captures = 0
+        # the ring loops' device programs (runtime/ringprog.py), per program;
+        # on a card only (the CPU runs each ring batch as a plain call)
+        self._ring_programs: dict[str, RingProgram] = {}
+        self._replay_ring = self.device.type == "cuda"
+        self.ring_captures = 0  # ring programs built (tapes recorded on the card)
+        self.ring_replays = 0  # ring dispatches that replayed one
+        self.ring_eager = 0  # ring dispatches run as a plain call (the CPU)
         # the card the authoritative DHCP tables belong on: the engine's, or
         # the express lane's once `_place_dhcp_chain` moved them
         self._dhcp_home = self.card
@@ -567,10 +599,13 @@ class Engine:
         is dropped, and those of the DHCP tables' card are built again over
         them, under a key with the new resync count (which also marks a
         devloop leading copy seeded before it, so its retires publish it
-        whole). DHCP tables uploaded to another card than their home (a
-        resync after the express lane moved them) go home first."""
+        whole). The ring programs are dropped, the one invalidation they
+        need; the next ring batch of each program builds it again. DHCP
+        tables uploaded to another card than their home (a resync after the
+        express lane moved them) go home first."""
         if card_of(tables.dhcp.sub.krows.device) != self._dhcp_home:
             tables = tables._replace(dhcp=dhcp_to(tables.dhcp, self._dhcp_home))
+        self._drop_ring_programs()
         self.tables = tables
         self.resync_count += 1
         stale, self._express_programs = self._express_programs, {}
@@ -698,11 +733,10 @@ class Engine:
             if fp.kind == "delay":
                 time.sleep(min(max(fp.arg, 0.0), 0.05))
 
-    def _dispatch_step(self, pkt: np.ndarray, length: np.ndarray, fa: np.ndarray,
-                       now: float) -> PipelineResult:
-        """Drain + apply updates and queue one fused step. The step reads
-        every table on the engine's card: DHCP tables that an express lane
-        moved to its own card come home first (a drive that bypasses the
+    def _drain_step(self) -> None:
+        """Drain + apply updates before a fused step. The step reads every
+        table on the engine's card: DHCP tables that an express lane moved
+        to its own card come home first (a drive that bypasses the
         scheduler, such as the native ring's)."""
         self._dispatch_fault()
         with tele.region(tele.DRAIN):
@@ -710,6 +744,11 @@ class Engine:
             upd = self._drain_updates()
             if upd is not None:
                 _apply_all_updates(self.tables, upd)
+
+    def _dispatch_step(self, pkt: np.ndarray, length: np.ndarray, fa: np.ndarray,
+                       now: float) -> PipelineResult:
+        """Drain + apply updates (`_drain_step`) and queue one fused step."""
+        self._drain_step()
         with tele.region(tele.UPLOAD):
             now_s, now_us = self._now_tensors(now)
             pkt_d, len_d = self._upload(pkt), self._upload(length)
@@ -719,12 +758,9 @@ class Engine:
         self.stats.batches += 1
         return res
 
-    def _run_dhcp_batch(self, pkt: np.ndarray, length: np.ndarray,
-                        now: float, device=None) -> DhcpBatchResult:
-        """Drain the fastpath tables and queue the DHCP-only program (parse +
-        the DHCP responder on the dhcp tables the fused step also uses):
-        3 K1 probes, no K2 call. `device` (the scheduler's express lane)
-        runs it on that card, the DHCP tables moved there first."""
+    def _drain_dhcp(self, device=None) -> None:
+        """Drain the fastpath tables before a DHCP-only batch; `device` (the
+        scheduler's express lane) moves the DHCP tables to that card first."""
         self._dispatch_fault()
         with tele.region(tele.DRAIN):
             if device is not None:
@@ -732,6 +768,15 @@ class Engine:
             upd = self._drain_fastpath_updates()
             if upd is not None:
                 apply_fastpath_updates(self.tables.dhcp, upd)
+
+    def _run_dhcp_batch(self, pkt: np.ndarray, length: np.ndarray,
+                        now: float, device=None) -> DhcpBatchResult:
+        """Drain the fastpath tables (`_drain_dhcp`) and queue the DHCP-only
+        program (parse + the DHCP responder on the dhcp tables the fused
+        step also uses): 3 K1 probes, no K2 call. `device` (the scheduler's
+        express lane) runs it on that card, the DHCP tables moved there
+        first."""
+        self._drain_dhcp(device)
         dev = self.dhcp_device
         with tele.region(tele.UPLOAD):
             if card_of(dev) == self.card:
@@ -740,16 +785,55 @@ class Engine:
                 pkt_d, len_d = to_device(pkt, dev), to_device(length, dev)
             now_s, _ = self._now_tensors(now, dev)
         with tele.region(tele.ISSUE):
-            with tele.region(tele.PARSE):
-                parsed = parse_batch(pkt_d, len_d)
-            with tele.region(tele.DHCP):
-                res = dhcp_fastpath(pkt_d, len_d, parsed, self.tables.dhcp, self.geom.dhcp,
-                                    now_s)
-            with tele.region(tele.VERDICT):
-                verdict = torch.where(res.is_reply, VERDICT_TX, VERDICT_PASS).to(torch.int32)
+            res = dhcp_program(self.tables.dhcp, self.geom.dhcp, pkt_d, len_d, now_s)
         self.stats.batches += 1
-        return DhcpBatchResult(verdict=verdict, out_pkt=res.out_pkt, out_len=res.out_len,
-                               dhcp_stats=res.stats)
+        return res
+
+    # -- the ring loops' device programs (runtime/ringprog.py) --
+    def _ring_program(self, kind: str) -> RingProgram:
+        """The ring program of `kind`, built on its first ring batch (after
+        the drain, so it reads the tables the batch reads). A tape bakes in
+        the tables' tensors, the stages they hold and the cards they live
+        on; all of these change only through `_rebind`, which drops the
+        programs, and a ring batch is always [B, L]."""
+        prog = self._ring_programs.get(kind)
+        if prog is None:
+            if kind == _STEP:
+                tables, geom = self.tables, self.geom
+
+                def run(p):
+                    return pipeline_step(tables, p.pkt, p.length, p.fa, geom, p.now_s, p.now_us)
+
+                prog = RingProgram(self.card, run, step_writes(tables), self.B, self.L,
+                                   fused=True)
+            else:
+                dtables, dgeom = self.tables.dhcp, self.geom.dhcp
+                prog = RingProgram(card_of(self.dhcp_device),
+                                   lambda p: dhcp_program(dtables, dgeom, p.pkt, p.length, p.now_s),
+                                   [], self.B, self.L, fused=False)
+            self._ring_programs[kind] = prog
+            self.ring_captures += 1
+        return prog
+
+    def _replay(self, prog: RingProgram, pkt, length, fa, now: float):
+        """Upload a ring batch into its program's static inputs and replay
+        the program; returns the program's output buffers (see
+        `RingProgram`: take them with `_InFlight` before the next dispatch)."""
+        with tele.region(tele.UPLOAD):
+            prog.upload(pkt, length, fa, now)
+        with tele.region(tele.ISSUE):
+            res = prog.replay()
+        self.ring_replays += 1
+        self.stats.batches += 1
+        return res
+
+    def _drop_ring_programs(self) -> None:
+        """Drop every ring program, once the cards have run what is queued
+        (a dropped program's last replay included)."""
+        for dev in {str(p.device): p.device for p in self._ring_programs.values()}.values():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        self._ring_programs = {}
 
     def _fold_stats(self, names, stats: np.ndarray) -> None:
         off = 0
@@ -1135,11 +1219,30 @@ class Engine:
     def _dispatch_ring_batch(self, pkt, length, flags, n: int, now: float):
         """All-control batches take the DHCP-only program; mixed ones the
         fused step (one dispatch beats two). The ring stages lengths as
-        uint32; the programs take the port's int64 lanes."""
+        uint32; the programs take the port's int64 lanes.
+
+        On a card each program replays from its ring program: the ring
+        loops take a dispatch's outputs into `_InFlight` at once, before
+        they dispatch again, which a program's reused output buffers need.
+        The other ways in run the programs as plain calls: `step` and the
+        scheduler's bulk lane hold a result across the next dispatch,
+        `process_dhcp` sizes each batch to its frames (pow2 buckets), and
+        `process` stays the eager program on the card that the replay is
+        checked against (`chip_smoke.py`'s ring phases)."""
         length = length.astype(np.int64)
-        if bool(((flags[:n] & FLAG_DHCP_CTRL) != 0).all()):
-            return self._run_dhcp_batch(pkt, length, now)
-        return self._dispatch_step(pkt, length, (flags & FLAG_FROM_ACCESS) != 0, now)
+        control = bool(((flags[:n] & FLAG_DHCP_CTRL) != 0).all())
+        fa = None if control else (flags & FLAG_FROM_ACCESS) != 0
+        if not self._replay_ring:
+            self.ring_eager += 1
+            if control:
+                return self._run_dhcp_batch(pkt, length, now)
+            return self._dispatch_step(pkt, length, fa, now)
+        if control:
+            self._drain_dhcp()
+        else:
+            self._drain_step()
+        return self._replay(self._ring_program(_DHCP_ONLY if control else _STEP),
+                            pkt, length, fa, now)
 
     def process_ring(self, ring, now: float | None = None) -> int:
         """Drain one batch from a packet ring through the device and apply

@@ -61,9 +61,12 @@ Three granularities:
   current record (the batch being dispatched or retired); while a torch
   profiler records (`torch.autograd.profiler._is_profiler_enabled`), it
   also opens the range `bng::<stage>`, so a profiler trace shows the
-  program's own stages; neither, it is a global load, a flag read and
-  the shared no-op. This module imports no torch: the flag's module is
-  bound at the first `region` call.
+  program's own stages. While a ring program records
+  (`runtime/ringprog.py`), its recorder listens to every region's bounds
+  (`listen`), where the program's captured segments end. None of these,
+  it is two global loads, a flag read and the shared no-op. This module
+  imports no torch: the flag's module is bound at the first `region`
+  call.
 
 Per-batch flight records: `begin_batch(lane, n)` opens a record slot
 (preallocated pool, allocation-free), `stamp`/`lap`/`add` fill it, and
@@ -420,6 +423,18 @@ def _bind_profiler():
     return prof
 
 
+# a ring program's recorder while it records (`runtime/ringprog.Tape`): told
+# where each region opens and closes, so its segments end at stage bounds
+_LISTENER = None
+
+
+def listen(listener) -> None:
+    """Tell `listener` (`.enter(stage)` / `.exit(stage)`) of every region's
+    bounds until `listen(None)`."""
+    global _LISTENER
+    _LISTENER = listener
+
+
 class _Region:
     __slots__ = ("stage", "t0", "rf")
 
@@ -427,6 +442,9 @@ class _Region:
         self.stage = stage
 
     def __enter__(self):
+        ls = _LISTENER  # read once: `listen(None)` may run in another thread
+        if ls is not None:
+            ls.enter(self.stage)
         self.rf = None
         prof = _profiler or _bind_profiler()
         if prof._is_profiler_enabled:
@@ -444,6 +462,9 @@ class _Region:
     def __exit__(self, exc_type, exc, tb):
         if exc_type is None:  # a failed region is not timed
             lap(self.stage, self.t0)
+            ls = _LISTENER
+            if ls is not None:
+                ls.exit(self.stage)
         if self.rf is not None:
             self.rf.__exit__(exc_type, exc, tb)
         return False
@@ -455,9 +476,11 @@ def region(stage: int):
     Armed, the region laps `stage` on the current record (the batch being
     dispatched or retired: `begin_batch` and `focus` set it, so no token
     is threaded through). While a torch profiler records, it also opens
-    the range `bng::<stage>`. Neither: a global load, a flag read and the
-    shared no-op, with no allocation and no profiler call."""
-    if _ACTIVE is None and not (_profiler or _bind_profiler())._is_profiler_enabled:
+    the range `bng::<stage>`. A listener (`listen`) is told of its bounds.
+    None of these: two global loads, a flag read and the shared no-op,
+    with no allocation and no profiler call."""
+    if (_ACTIVE is None and _LISTENER is None
+            and not (_profiler or _bind_profiler())._is_profiler_enabled):
         return _NOOP
     return _Region(stage)
 

@@ -1263,8 +1263,12 @@ class HostSplit:
     PARTS = ("pack", "dispatch", "wait")
 
     def __init__(self, eng, ring=None):
-        self.sites = [(eng, "_pack_frames", "pack"), (eng, "_dispatch_step", "dispatch"),
-                      (eng, "_run_dhcp_batch", "dispatch"),
+        # the ring loops dispatch through `_dispatch_ring_batch`, which on a
+        # card replays a ring program and calls neither eager dispatch
+        dispatch = (["_dispatch_ring_batch"] if ring is not None else
+                    ["_dispatch_step", "_run_dhcp_batch"])
+        self.sites = [(eng, "_pack_frames", "pack"),
+                      *((eng, name, "dispatch") for name in dispatch),
                       (engine_mod._InFlight, "__init__", "dispatch"),
                       (engine_mod._InFlight, "wait", "wait")]
         if ring is not None:
@@ -4444,6 +4448,7 @@ OBS_LEASED = 32  # synthetic MACs leased before the snapshot: the restored app's
 # families computed from the wall clock (the checkpointer's age reads
 # time.time() at scrape): compared by presence only
 WALL_FAMILIES = ("bng_ckpt_last_success_age_seconds",)
+DEVICE_SAMPLE = 'bng_stage_latency_us_count{stage="device"}'  # recorded on the card alone
 
 
 def exposition_samples(text: str) -> dict:
@@ -4524,6 +4529,14 @@ def run_observed_phases(card, device, err) -> dict:
             finally:
                 app.close()
         g, cpu = out
+        # the express graph's own time (`device`, from its CUDA event pair) is
+        # recorded on the card alone: checked here, then left out of the
+        # comparisons with the CPU
+        n_dev = int(g.expo.pop(DEVICE_SAMPLE, 0))
+        check(DEVICE_SAMPLE not in cpu.expo and "device" not in cpu.stages
+              and 0 < n_dev == g.stages.pop("device", 0) <= g.lanes["express"]["dispatches"],
+              f"run observed: `device` samples on the card alone, at most one per express "
+              f"dispatch ({n_dev}, {g.lanes['express']['dispatches']} express dispatches)")
         check(g.tx == cpu.tx and len(g.tx) >= 16 * RUN_CMP_BEATS,
               f"run observed: the card's first {RUN_CMP_BEATS} beats' TX bytes == the CPU app's "
               f"({len(g.tx)} vs {len(cpu.tx)} frames)")
@@ -6426,10 +6439,10 @@ def sim_roundtrip(eng, ring, kern, pump, rounds: int = 6):
 @contextlib.contextmanager
 def count_dispatches(eng):
     """{"fused": steps, "dhcp": DHCP-only batches} the engine dispatched in
-    the block."""
+    the block: each drains once before it issues or replays its program."""
     n = {"fused": 0, "dhcp": 0}
     saved = {}
-    for name, kind in (("_dispatch_step", "fused"), ("_run_dhcp_batch", "dhcp")):
+    for name, kind in (("_drain_step", "fused"), ("_drain_dhcp", "dhcp")):
         orig = saved[name] = getattr(eng, name)
 
         def counted(*a, _orig=orig, _kind=kind, **kw):

@@ -8,7 +8,7 @@ package, bit for bit.
   garden, intercept taps, next-hop routes) on tables carried over with
   `convert.tables_from_numpy` gives identical leaves and tables.
 
-The full-stack deployment and batch here are shared with
+The full-stack deployment and batch (tests/torch_deploy.py) are shared with
 tests/test_torch_ring.py. Tolerance: bit-exact.
 """
 
@@ -41,81 +41,14 @@ from bng_tpu_torch.utils.net import ip_to_u32
 from test_torch_pipeline import PORT_PKG_GEOM
 from test_torch_stages import (JAX_PKG, NOW, PORT_PKG, REMOTE, assert_tuple_equal, batch,
                                bits, deploy, frame_mix, mac)
+from torch_deploy import (AC_MAC, DNS, GARDENED, GW, PORT_FULL, PORTAL, SESSIONS,  # noqa: F401
+                          TAPPED, deploy_full, full_batch, pppoe_frames)
 
 pytestmark = pytest.mark.torch_port
 
 CPU = torch.device("cpu")
-AC_MAC = bytes.fromhex("02aabbccdd01")
-PORTAL, DNS = ip_to_u32("10.9.9.9"), ip_to_u32("10.9.9.53")
-GW = bytes.fromhex("02475700000a")
-# PPPoE sessions: (session id, client MAC, address)
-SESSIONS = [(0x42, bytes.fromhex("02c0ffee0007"), ip_to_u32("10.0.0.77")),
-            (0x43, bytes.fromhex("02c0ffee0008"), ip_to_u32("10.0.0.78"))]
-GARDENED = ip_to_u32("10.0.0.12")
-TAPPED = {ip_to_u32("10.0.0.10"): 7, ip_to_u32("10.0.0.11"): 9}
-
 JAX_FULL = SimpleNamespace(**vars(JAX_PKG), GardenTables=JGardenTables,
                            PPPoEFastPathTables=JPPPoETables, EdgeTables=JEdgeTables)
-PORT_FULL = SimpleNamespace(**vars(PORT_PKG), GardenTables=TGardenTables,
-                            PPPoEFastPathTables=TPPPoETables, EdgeTables=TEdgeTables)
-
-
-def deploy_full(pkg):
-    """The IPoE deployment of test_torch_stages plus every optional stage."""
-    d = deploy(pkg)
-    d.garden = pkg.GardenTables(nbuckets=64, stash=8, update_slots=16)
-    d.garden.set_gardened(GARDENED, True)
-    d.garden.allow_destination(PORTAL, 80, 6)
-    d.garden.allow_destination(PORTAL, 443, 6)
-    d.garden.allow_destination(DNS, 53, 17)
-    d.garden.allow_destination(DNS, 53, 6)
-    d.pppoe = pkg.PPPoEFastPathTables(nbuckets=64, stash=8, update_slots=16, server_mac=AC_MAC)
-    for sid, m, ip in SESSIONS:
-        d.pppoe.session_up(SimpleNamespace(session_id=sid, client_mac=m, assigned_ip=ip))
-        d.nat.allocate_nat(ip, NOW)
-    # one established flow of the first PPPoE subscriber (downstream encap)
-    d.pppoe_nat = d.nat.handle_new_flow(SESSIONS[0][2], ip_to_u32(REMOTE), 6000, 53, 17, 80, NOW)
-    d.edge = pkg.EdgeTables(nbuckets=64, stash=8, update_slots=16, max_filters=8)
-    d.edge.arm_tap(ip_to_u32("10.0.0.10"), 7)
-    d.edge.arm_tap(ip_to_u32("10.0.0.11"), 9, [(80, 6, 0)])
-    for ip in ("10.0.0.10", "10.0.0.11", "10.0.0.12", "10.0.0.77"):
-        d.edge.set_route(ip_to_u32(ip), GW, table_id=100)
-    return d
-
-
-def pppoe_frames(d):
-    """(frames, from_access) exercising the PPPoE and garden stages."""
-    (sid, m, ip), (sid2, m2, ip2) = SESSIONS
-    rem = ip_to_u32(REMOTE)
-
-    def inner(src, dst, sport, dport, n):
-        return F.udp_packet(m, AC_MAC, src, dst, sport, dport, b"p" * n)[14:]
-
-    lcp = F.CPPacket(F.CP_ECHO_REQ, 1, data=b"\x00\x00\x00\x01").encode()
-    return [
-        (F.pppoe_session_frame(AC_MAC, m, sid, F.PROTO_IPV4, inner(ip, rem, 6000, 53, 40)),
-         True),  # established PPPoE flow: decap, SNAT
-        (F.pppoe_session_frame(AC_MAC, m2, sid2, F.PROTO_IPV4, inner(ip2, rem, 6001, 53, 30),
-                               vlans=[100, 200]), True),  # QinQ, new flow, no route: punt
-        (F.pppoe_session_frame(AC_MAC, m, sid, F.PROTO_LCP, lcp), True),  # control: PASS
-        (F.pppoe_padi_frame(m, host_uniq=b"u1"), True),  # discovery: PASS
-        (F.pppoe_session_frame(AC_MAC, m, 0x99, F.PROTO_IPV4, inner(ip, rem, 6000, 53, 8)),
-         True),  # unknown session: PASS
-        (F.pppoe_session_frame(AC_MAC, m, sid, F.PROTO_IPV4, inner(ip, rem, 6000, 53, 8)),
-         False),  # session ethertype from the core: untouched
-        (F.udp_packet(b"\x04" * 6, b"\x06" * 6, rem, d.pppoe_nat[0], 53, d.pppoe_nat[1],
-                      b"answer" * 4), False),  # downstream: DNAT, then encap
-        (F.tcp_packet(mac(0x12), b"\x04" * 6, GARDENED, PORTAL, 33000, 80, b"GET"),
-         True),  # gardened, allowed destination
-        (F.udp_packet(mac(0x12), b"\x04" * 6, GARDENED, rem, 33001, 443, b"q" * 20),
-         True),  # gardened, not allowed: DROP
-    ]
-
-
-def full_batch(d):
-    frames, fa = frame_mix(d.tcp_nat)
-    extra = pppoe_frames(d)
-    return frames + [f for f, _ in extra], fa + [a for _, a in extra]
 
 
 def jax_tables_numpy_full(d):
