@@ -1849,6 +1849,13 @@ class BNGApp:
                 "closed": pppoe.stats.sessions_closed,
                 "auth_failures": pppoe.stats.auth_failure,
                 "device": {"decap": int(eng.stats.pppoe[0]), "encap": int(eng.stats.pppoe[1])}}
+            from bng_tpu_torch.ops.pppoe import PSL_MISMATCH, PSL_STRIPPED, PSL_WRITTEN
+
+            line = eng.stats.pppoe_line
+            if line.any():  # sessions bound to QinQ lines have been served
+                out["pppoe"]["device"]["line"] = {
+                    "stripped": int(line[PSL_STRIPPED]), "written": int(line[PSL_WRITTEN]),
+                    "mismatch": int(line[PSL_MISMATCH])}
         nat = self.components.get("nat")
         if nat is not None:  # registered only when nat_enabled
             out["nat"] = {"sessions": nat.sessions.count, "blocks": len(nat.blocks)}

@@ -95,6 +95,7 @@ class PipelineResult(NamedTuple):
     pppoe_stats: torch.Tensor | None = None  # [PPPOE_NSTATS]: decap + encap
     mirror: torch.Tensor | None = None  # [B] int64 warrant id (0 = not mirrored)
     edge_stats: torch.Tensor | None = None  # [EDGE_NSTATS] when edge is on
+    pppoe_line_stats: torch.Tensor | None = None  # [PPPOE_LINE_NSTATS]: decap + encap
 
 
 def step_writes(tables: PipelineTables) -> list[torch.Tensor]:
@@ -219,10 +220,12 @@ def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: Pipeli
         # only lanes that forward advance the session counters
         nat44_update_sessions(tables.nat.sessions, nat, parsed, length,
                               keep=nat_fwd & ~drop, now_s=now_s)
-    pppoe_stats = None
+    pppoe_stats = pppoe_line_stats = None
     if pppoe_dec is not None:
-        pppoe_stats = pppoe_dec.stats if pppoe_enc is None else (
-            (pppoe_dec.stats + pppoe_enc.stats) & MASK32)
+        pppoe_stats, pppoe_line_stats = pppoe_dec.stats, pppoe_dec.line_stats
+        if pppoe_enc is not None:
+            pppoe_stats = (pppoe_stats + pppoe_enc.stats) & MASK32
+            pppoe_line_stats = (pppoe_line_stats + pppoe_enc.line_stats) & MASK32
     return PipelineResult(
         verdict=verdict,
         out_pkt=out_pkt,
@@ -237,6 +240,7 @@ def pipeline_step(tables: PipelineTables, pkt, length, from_access, geom: Pipeli
         spoof_violation=spoof.violation,
         garden_stats=garden_stats,
         pppoe_stats=pppoe_stats,
+        pppoe_line_stats=pppoe_line_stats,
         mirror=mirror,
         edge_stats=edge_stats,
     )

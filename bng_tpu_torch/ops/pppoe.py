@@ -10,9 +10,22 @@ Frame layouts:
 Decap validates ver/type 0x11, code 0, the declared length, and that the
 session id is in `by_sid` bound to the frame's source MAC (one K1
 probe); encap finds the session of the post-DNAT destination in `by_ip`
-(one K1 probe). Bytes move by one gather per op (`_shift_bytes`); header
-fields are masked selects. Lengths are int64 holding uint32 values and
+(one K1 probe). Bytes move by one gather per op (`_shift_bytes`); decap's
+ethertype is a masked select, encap's header and MACs are block writes
+(`_write_block`). Lengths are int64 holding uint32 values and
 are masked where the reference's uint32 arithmetic wraps.
+
+A session row flagged `PSF_LINE` is bound to its subscriber's 802.1ad
+access line (BBF TR-101 1:1 VLANs: an S-tag per access node, a C-tag per
+line), the VIDs in `PS_S_TAG`/`PS_C_TAG`. Its upstream data decaps only
+from that line (S- and C-tag VIDs equal to the row's; any other frame of
+the session is a miss and punts) and loses the tags with the PPPoE
+framing in the same shift: [eth][0x0800][IPv4...]. Its downstream data
+gets the line's tags written before the PPPoE framing, in place of any
+tags the frame came with: [eth][0x88a8 S][0x8100 C][0x8864]... Rows
+without the flag give the bytes the unflagged layouts above give. The
+line's work is counted in `line_stats` (`PSL_*`), beside the five
+`PST_*` stats.
 """
 
 from __future__ import annotations
@@ -33,12 +46,18 @@ PPP_IPV6 = 0x0057
 PPPOE_HDR = 8  # 6B PPPoE header + 2B PPP protocol
 
 # session table value words (8-word rows)
-(PS_SESSION_ID, PS_MAC_HI, PS_MAC_LO, PS_IP, PS_FLAGS) = range(5)
+(PS_SESSION_ID, PS_MAC_HI, PS_MAC_LO, PS_IP, PS_FLAGS, PS_S_TAG, PS_C_TAG) = range(7)
 PPPOE_WORDS = 8
+PSF_LINE = 0x1  # PS_FLAGS: bound to the QinQ line in PS_S_TAG / PS_C_TAG
 
 # stats
 (PST_DECAP, PST_ENCAP, PST_CTRL_PUNT, PST_BAD, PST_MISS) = range(5)
 PPPOE_NSTATS = 5
+# line stats: lanes whose line tags were stripped (decap) or written
+# (encap), and session data from another line than its row's (a miss)
+(PSL_STRIPPED, PSL_WRITTEN, PSL_MISMATCH) = range(3)
+PPPOE_LINE_NSTATS = 3
+VID_MASK = 0x0FFF
 
 
 class PPPoEResult(NamedTuple):
@@ -48,6 +67,7 @@ class PPPoEResult(NamedTuple):
     punt: torch.Tensor  # [B] bool — PPPoE control traffic for the host stack
     src_ip_hint: torch.Tensor  # [B] int64 session IP
     stats: torch.Tensor  # [PPPOE_NSTATS] int64 (uint32 values)
+    line_stats: torch.Tensor | None = None  # [PPPOE_LINE_NSTATS] int64 (uint32 values)
 
 
 def _shift_bytes(pkt, shift, gate, start):
@@ -63,11 +83,37 @@ def _shift_bytes(pkt, shift, gate, start):
     return torch.where(gate[:, None] & ~keep_head, moved, pkt)
 
 
-def _stats(device, **masks):
-    """[PPPOE_NSTATS] lane counts by name (one stack: no host copy)."""
+def _counts(device, names, masks):
+    """Lane counts by name, in `names` order (one stack: no host copy)."""
     zero = torch.zeros((), dtype=torch.int64, device=device)
-    return torch.stack([masks[n].sum() if n in masks else zero
-                        for n in ("decap", "encap", "ctrl_punt", "bad", "miss")]) & MASK32
+    return torch.stack([masks[n].sum() if n in masks else zero for n in names]) & MASK32
+
+
+def _stats(device, **masks):
+    """[PPPOE_NSTATS] lane counts by name."""
+    return _counts(device, ("decap", "encap", "ctrl_punt", "bad", "miss"), masks)
+
+
+def _line_stats(device, **masks):
+    """[PPPOE_LINE_NSTATS] lane counts by name."""
+    return _counts(device, ("stripped", "written", "mismatch"), masks)
+
+
+def _be_bytes(fields) -> torch.Tensor:
+    """[(values [B] int64, nbytes)] -> [B, sum(nbytes)] uint8, each value
+    big-endian."""
+    cols = [(v >> (8 * (n - 1 - k))) & 0xFF for v, n in fields for k in range(n)]
+    return torch.stack(cols, dim=1).to(torch.uint8)
+
+
+def _write_block(pkt, start, block, n, gate):
+    """Write the first n[b] bytes of block[b] at column start[b] of each
+    gated lane (one [B, L] gather from the block); columns past L are
+    never written."""
+    L, W = pkt.shape[1], block.shape[1]
+    rel = torch.arange(L, device=pkt.device)[None, :] - start.to(torch.int64)[:, None]
+    inside = gate[:, None] & (rel >= 0) & (rel < n.to(torch.int64)[:, None])
+    return torch.where(inside, block.gather(1, rel.clamp(0, W - 1)), pkt)
 
 
 def pppoe_decap(pkt, length, vlan_offset, ethertype, sessions: TableState,
@@ -100,58 +146,80 @@ def pppoe_decap(pkt, length, vlan_offset, ethertype, sessions: TableState,
     src_mac_lo = B_.be32_at(pkt, zero + 8)
     res = lookup(sessions, session_id[:, None], geom)
     vals = u32(res.vals)
-    bound = res.found & (vals[:, PS_MAC_HI] == src_mac_hi) & (vals[:, PS_MAC_LO] == src_mac_lo)
+    mac_ok = res.found & (vals[:, PS_MAC_HI] == src_mac_hi) & (vals[:, PS_MAC_LO] == src_mac_lo)
+    # a line-bound row takes its session's frames from its own S/C tags only
+    line = (vals[:, PS_FLAGS] & PSF_LINE) != 0
+    on_line = ((vlan_offset == 8) & ((B_.be16_at(pkt, zero + 14) & VID_MASK) == vals[:, PS_S_TAG])
+               & ((B_.be16_at(pkt, zero + 18) & VID_MASK) == vals[:, PS_C_TAG]))
+    bound = mac_ok & (~line | on_line)
     ok = is_data & bound
-    miss = is_data & ~bound  # unknown or foreign session -> punt
+    miss = is_data & ~bound  # unknown or foreign session, or another line -> punt
+    strip = ok & line
 
-    out = _shift_bytes(pkt, torch.where(ok, PPPOE_HDR, 0), ok, et_off)
+    # the inner ethertype lands where the frame's was, or right after the
+    # MACs when the line's tags go with the PPPoE framing
+    head = torch.where(strip, 12, et_off)
+    shift = torch.where(strip, PPPOE_HDR + vlan_offset.to(torch.int64), PPPOE_HDR)
+    out = _shift_bytes(pkt, torch.where(ok, shift, 0), ok, head)
     inner_et = torch.where(ppp_proto == PPP_IPV4, ETH_P_IP, ETH_P_IPV6)
-    out = B_.scatter_be16_at_masked(out, et_off, inner_et, ok)
+    out = B_.scatter_be16_at_masked(out, head, inner_et, ok)
     # L2 up to the ethertype + the IP bytes; Ethernet padding past plen drops
-    out_len = torch.where(ok, et_off + plen, length)
+    out_len = torch.where(ok, head + plen, length)
 
     # disjoint buckets: a malformed frame counts only as BAD
     stats = _stats(pkt.device, decap=ok, ctrl_punt=is_disc | (well_formed & ~is_data),
                    bad=is_malformed, miss=miss)
+    line_stats = _line_stats(pkt.device, stripped=strip,
+                             mismatch=is_data & mac_ok & line & ~on_line)
     return PPPoEResult(out_pkt=out, out_len=out_len, done=ok, punt=is_ctrl | miss,
-                       src_ip_hint=torch.where(ok, vals[:, PS_IP], 0), stats=stats)
+                       src_ip_hint=torch.where(ok, vals[:, PS_IP], 0), stats=stats,
+                       line_stats=line_stats)
 
 
 def pppoe_encap(pkt, length, vlan_offset, ethertype, dst_ip, by_ip: TableState,
                 geom: TableGeom, server_mac) -> PPPoEResult:
-    """Add PPPoE+PPP framing to downstream IPv4 data for PPPoE subscribers.
+    """Add PPPoE+PPP framing to downstream IPv4 data for PPPoE subscribers
+    (and a line-bound session's S/C tags, see the module docstring).
 
     server_mac: [2] int32 words (hi16, lo32), the access concentrator's MAC
     written as the L2 source of every encapsulated frame; None declares
     the frames pre-stamped (no default, as in the reference)."""
     Bsz, L = pkt.shape
     length = length.to(torch.int64)
-    et_off = 12 + vlan_offset.to(torch.int64)
+    vo = vlan_offset.to(torch.int64)
+    et_off = 12 + vo
 
     res = lookup(by_ip, dst_ip[:, None], geom)
     vals = u32(res.vals)
-    ok = (ethertype == ETH_P_IP) & res.found & (((length + PPPOE_HDR) & MASK32) <= L)
+    line = (vals[:, PS_FLAGS] & PSF_LINE) != 0
+    # a line-bound lane's tags replace the frame's: its head block starts
+    # right after the MACs and holds the 8 tag bytes before the framing
+    head = torch.where(line, 12, et_off)
+    grow = torch.where(line, 8 - vo, 0) + PPPOE_HDR
+    out_len = (length + grow) & MASK32
+    ok = (ethertype == ETH_P_IP) & res.found & (out_len <= L)
 
-    out = _shift_bytes(pkt, torch.where(ok, -PPPOE_HDR, 0), ok, et_off)
-    ph = et_off + 2
+    out = _shift_bytes(pkt, torch.where(ok, -grow, 0), ok, head)
     zero = torch.zeros_like(et_off)
-    out = B_.scatter_be16_at_masked(out, et_off, zero + ETH_PPPOE_SESSION, ok)
-    out = B_.scatter_be16_at_masked(out, ph, zero + 0x1100, ok)
-    out = B_.scatter_be16_at_masked(out, ph + 2, vals[:, PS_SESSION_ID], ok)
-    out = B_.scatter_be16_at_masked(out, ph + 4, (length - et_off) & MASK32, ok)
-    out = B_.scatter_be16_at_masked(out, ph + 6, zero + PPP_IPV4, ok)
-    # L2 destination: the subscriber's MAC from the session row
-    out = B_.scatter_be16_at_masked(out, zero, vals[:, PS_MAC_HI], ok)
-    out = B_.scatter_be32_at_masked(out, zero + 2, vals[:, PS_MAC_LO], ok)
+    framing = [(zero + ETH_PPPOE_SESSION, 2), (zero + 0x1100, 2), (vals[:, PS_SESSION_ID], 2),
+               ((length - et_off) & MASK32, 2), (zero + PPP_IPV4, 2)]
+    tags = [(zero + ETH_P_8021AD, 2), (vals[:, PS_S_TAG] & VID_MASK, 2),
+            (zero + ETH_P_8021Q, 2), (vals[:, PS_C_TAG] & VID_MASK, 2)]
+    block = torch.where(line[:, None], _be_bytes(tags + framing),
+                        _be_bytes(framing + [(zero, 8)]))
+    out = _write_block(out, head, block, torch.where(line, 18, 10), ok)
+    # L2 destination: the subscriber's MAC from the session row; source: the AC's
+    macs = [(vals[:, PS_MAC_HI], 2), (vals[:, PS_MAC_LO], 4)]
     if server_mac is not None:
         sm = u32(server_mac)
-        out = B_.scatter_be16_at_masked(out, zero + 6, sm[0].expand(Bsz), ok)
-        out = B_.scatter_be32_at_masked(out, zero + 8, sm[1].expand(Bsz), ok)
-    out_len = torch.where(ok, (length + PPPOE_HDR) & MASK32, length)
+        macs += [(sm[0].expand(Bsz), 2), (sm[1].expand(Bsz), 4)]
+    out = _write_block(out, zero, _be_bytes(macs), zero + (12 if server_mac is not None else 6),
+                       ok)
 
-    return PPPoEResult(out_pkt=out, out_len=out_len, done=ok,
+    return PPPoEResult(out_pkt=out, out_len=torch.where(ok, out_len, length), done=ok,
                        punt=torch.zeros_like(ok), src_ip_hint=torch.zeros_like(length),
-                       stats=_stats(pkt.device, encap=ok))
+                       stats=_stats(pkt.device, encap=ok),
+                       line_stats=_line_stats(pkt.device, written=ok & line))
 
 
 def qinq_push(pkt, length, s_tag, c_tag, gate):

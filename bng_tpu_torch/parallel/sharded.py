@@ -83,6 +83,9 @@ AXIS = "shard"
 
 # lane outputs concatenated over shards; the stats are summed instead
 _LANE_FIELDS = ("verdict", "out_pkt", "out_len", "nat_punt", "spoof_violation", "mirror")
+# the PPPoE line counters stay the single box's: the cluster's outputs keep
+# the reference's stats
+_SUMMED_STATS = tuple(f for name, f in _STAT_FIELDS if name != "pppoe_line")
 _STAT_LEN = {name: len(getattr(EngineStats(), name)) for name, _ in _STAT_FIELDS}
 
 
@@ -172,7 +175,7 @@ def sharded_step(tables: list, exchange, pkt: list, length: list, from_access: l
     for f in _LANE_FIELDS:
         if getattr(res[0], f) is not None:
             out[f] = _gather([getattr(r, f) for r in res])
-    for _, f in _STAT_FIELDS:
+    for f in _SUMMED_STATS:
         if getattr(res[0], f) is not None:
             out[f] = _sum_stats([getattr(r, f) for r in res])
     return PipelineResult(tables=tables, priority=None, **out)

@@ -123,7 +123,7 @@ from bng_tpu_torch.ops.pipeline import (
     VERDICT_DROP, VERDICT_FWD, VERDICT_PASS, VERDICT_TX, PipelineGeom, PipelineResult,
     PipelineTables, pipeline_step, step_writes,
 )
-from bng_tpu_torch.ops.pppoe import PPPOE_NSTATS
+from bng_tpu_torch.ops.pppoe import PPPOE_LINE_NSTATS, PPPOE_NSTATS
 from bng_tpu_torch.ops.qos import QOS_NSTATS
 from bng_tpu_torch.ops.qtable import (
     QW_FLAGS, QW_LAST_US, QW_TOKENS, HostQTable, QTableGeom, apply_qupdate,
@@ -150,7 +150,8 @@ _STEP, _DHCP_ONLY = "step", "dhcp"
 # EngineStats accumulator -> the result field it folds
 _STAT_FIELDS = (("dhcp", "dhcp_stats"), ("nat", "nat_stats"), ("qos", "qos_stats"),
                 ("spoof", "spoof_stats"), ("garden", "garden_stats"),
-                ("pppoe", "pppoe_stats"), ("edge", "edge_stats"))
+                ("pppoe", "pppoe_stats"), ("edge", "edge_stats"),
+                ("pppoe_line", "pppoe_line_stats"))
 
 
 @dataclass
@@ -165,6 +166,9 @@ class EngineStats:
     pppoe: np.ndarray = field(default_factory=lambda: np.zeros(PPPOE_NSTATS, dtype=np.uint64))
     # tap mirror + route rewrite (edge/ops.py EST_*)
     edge: np.ndarray = field(default_factory=lambda: np.zeros(EDGE_NSTATS, dtype=np.uint64))
+    # PPPoE line tags stripped, written, mismatched (ops/pppoe.py PSL_*)
+    pppoe_line: np.ndarray = field(
+        default_factory=lambda: np.zeros(PPPOE_LINE_NSTATS, dtype=np.uint64))
     batches: int = 0
     tx: int = 0
     fwd: int = 0

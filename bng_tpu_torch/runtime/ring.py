@@ -245,6 +245,13 @@ def _configure(lib: C.CDLL) -> None:
         fn.argtypes = []
 
 
+def _configure_submit_each(lib: C.CDLL) -> None:
+    lib.bng_rx_submit_each.restype = C.c_uint32
+    lib.bng_rx_submit_each.argtypes = [
+        C.c_void_p, C.c_void_p, C.POINTER(C.c_uint64), C.POINTER(C.c_uint32),
+        C.POINTER(C.c_uint32), C.POINTER(C.c_uint8), C.c_uint32]
+
+
 def load_native():
     """Load (building if needed) the native library, or None."""
     return nativelib.load("bngring", _configure)
@@ -343,12 +350,27 @@ class NativeRing:
             self._h, _u64p(out_addrs), len(out_addrs)))
 
     def rx_submit_batch(self, addrs: np.ndarray, lens: np.ndarray,
-                        flags: int, out_ok: np.ndarray, n: int) -> int:
-        """Headroom-aware batch submit (see bngring.h): every failed
-        frame is already recycled to the fill pool. Returns count
-        submitted; out_ok[:n] marks per-frame outcomes."""
-        return int(self._lib.bng_ring_rx_submit_batch(
-            self._h, _u64p(addrs), _u32p(lens), flags, _u8p(out_ok), n))
+                        flags, out_ok: np.ndarray, n: int) -> int:
+        """Submit n received frames. Returns count submitted; out_ok[:n]
+        marks per-frame outcomes.
+
+        `flags` one word for the whole batch: the headroom-aware batch
+        submit (see bngring.h), every failed frame already recycled to
+        the fill pool. `flags` a uint32 array of one word a frame (a
+        two-port box's RX, access and core frames interleaved): each
+        frame in order as the scalar `rx_submit` takes it (one C loop,
+        csrc/ringsubmit.cpp), so the ring holds what `rx_push` of each
+        frame with its own direction gives."""
+        if np.ndim(flags) == 0:
+            return int(self._lib.bng_ring_rx_submit_batch(
+                self._h, _u64p(addrs), _u32p(lens), flags, _u8p(out_ok), n))
+        each = nativelib.load("ringsubmit", _configure_submit_each)
+        if each is None:
+            raise RuntimeError("native per-frame submit library unavailable")
+        fl = np.ascontiguousarray(flags[:n], dtype=np.uint32)
+        return int(each.bng_rx_submit_each(
+            self._h, C.cast(self._lib.bng_ring_rx_submit, C.c_void_p), _u64p(addrs),
+            _u32p(lens), _u32p(fl), _u8p(out_ok), n))
 
     def frame_free_batch(self, addrs: np.ndarray, n: int) -> int:
         """Return n frames to the fill pool (chunk-base normalized)."""

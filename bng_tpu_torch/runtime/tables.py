@@ -23,7 +23,8 @@ from bng_tpu_torch.ops.dhcp import (
     CID_KEY_LEN, POOL_WORDS, PV_DNS1, PV_DNS2, PV_GATEWAY, PV_LEASE_T, PV_NETWORK,
     PV_PREFIX, PV_VALID, SC_IP, SC_MAC_HI, SC_MAC_LO, SERVER_WORDS, DHCPGeom, DHCPTables,
 )
-from bng_tpu_torch.ops.pppoe import PPPOE_WORDS, PS_IP, PS_MAC_HI, PS_MAC_LO, PS_SESSION_ID
+from bng_tpu_torch.ops.pppoe import (PPPOE_WORDS, PS_C_TAG, PS_FLAGS, PS_IP, PS_MAC_HI, PS_MAC_LO,
+                                     PS_S_TAG, PS_SESSION_ID, PSF_LINE, VID_MASK)
 from bng_tpu_torch.ops.table import (
     HostTable, TableGeom, TableState, TableUpdate, apply_update, words_to_device,
 )
@@ -274,12 +275,18 @@ class PPPoEFastPathTables:
 
     def session_up(self, sess) -> None:
         """Publish an OPEN session (any object with session_id, client_mac
-        and assigned_ip)."""
+        and assigned_ip). A session negotiated over a QinQ line (`vlans`
+        holding its [S, C] VIDs, as the PPPoE server records the PADR's)
+        is bound to that line (`ops/pppoe.py` PSF_LINE)."""
         row = np.zeros((PPPOE_WORDS,), dtype=np.uint32)
         row[PS_SESSION_ID] = sess.session_id
         row[PS_MAC_HI] = int.from_bytes(sess.client_mac[:2], "big")
         row[PS_MAC_LO] = int.from_bytes(sess.client_mac[2:], "big")
         row[PS_IP] = sess.assigned_ip or 0
+        vlans = list(getattr(sess, "vlans", None) or ())
+        if len(vlans) == 2:
+            row[PS_FLAGS] = PSF_LINE
+            row[PS_S_TAG], row[PS_C_TAG] = (v & VID_MASK for v in vlans)
         self.by_sid.insert([sess.session_id], row)
         if sess.assigned_ip:
             self.by_ip.insert([sess.assigned_ip], row)
@@ -290,9 +297,12 @@ class PPPoEFastPathTables:
         if sess.assigned_ip:
             self.by_ip.delete([sess.assigned_ip])
 
-    def bulk_sessions_up(self, session_ids, client_macs_u64, ips) -> None:
+    def bulk_sessions_up(self, session_ids, client_macs_u64, ips, s_tags=None,
+                         c_tags=None) -> None:
         """Vectorized install of many new sessions (ids, MACs and IPs unique,
-        IPs non-zero). Follow with a full upload (the engine resyncs)."""
+        IPs non-zero), each bound to its QinQ line where `s_tags` and
+        `c_tags` (VIDs) are given. Follow with a full upload (the engine
+        resyncs)."""
         sids = np.asarray(session_ids, dtype=np.uint32)
         macs = np.asarray(client_macs_u64, dtype=np.uint64)
         rows = np.zeros((len(sids), PPPOE_WORDS), dtype=np.uint32)
@@ -300,6 +310,12 @@ class PPPoEFastPathTables:
         rows[:, PS_MAC_HI] = (macs >> np.uint64(32)).astype(np.uint32)
         rows[:, PS_MAC_LO] = (macs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
         rows[:, PS_IP] = np.asarray(ips, dtype=np.uint32)
+        if (s_tags is None) != (c_tags is None):
+            raise ValueError("a QinQ line needs both its S- and its C-tags")
+        if s_tags is not None:
+            rows[:, PS_FLAGS] = PSF_LINE
+            rows[:, PS_S_TAG] = np.asarray(s_tags, dtype=np.uint32) & VID_MASK
+            rows[:, PS_C_TAG] = np.asarray(c_tags, dtype=np.uint32) & VID_MASK
         self.by_sid.bulk_insert(sids[:, None], rows)
         self.by_ip.bulk_insert(rows[:, PS_IP: PS_IP + 1], rows)
 
