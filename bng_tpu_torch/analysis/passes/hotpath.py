@@ -66,11 +66,13 @@ DISPATCH_SCOPE: dict[str, set[str]] = {
         "_dispatch_step", "_run_dhcp_batch", "dispatch_scheduled_bulk",
         "_drain_step", "_drain_dhcp", "_drain_updates", "_update_batch",
         "_pack_frames", "_dispatch_fault", "_staging",
-        "_ring_program", "_replay",
+        "_ring_program", "_replay", "_pick_ring_program", "_dispatch_ring",
+        "_ring_umem",
     },
-    # a ring program's dispatch: the staged batch into its static inputs
-    # and the tape's replay (its build, off the per-batch path, may wait)
-    "bng_tpu_torch/runtime/ringprog.py": {"upload", "replay"},
+    # a ring program's dispatch: the staged batch (or the descriptors and
+    # the gather) into its static inputs, the tape's replay and the
+    # zero-copy loop's scatter (its build, off the per-batch path, may wait)
+    "bng_tpu_torch/runtime/ringprog.py": {"upload", "upload_desc", "replay", "scatter"},
     "bng_tpu_torch/runtime/scheduler.py": {
         "submit", "classify", "_dispatch_express", "_dispatch_bulk",
         "_ensure_bulk_replica", "_entry_ready",

@@ -53,6 +53,25 @@ SIGNATURES = {
     "seg_prefix": ("bng_seg_prefix", [_P, _P, _I, _I, _I, _P, _P, _P, _I]),
 }
 
+# The ring's UMEM movers and their registration (`csrc/umem.cu`,
+# `ops/umem.py`): entry name -> (source, C entry point, argument types).
+# They move frames, not table rows: `LAUNCHES` counts K1 and K2 alone, and
+# `ops/umem.LAUNCHES` the movers.
+_L = ctypes.c_longlong
+MOVERS = {
+    # umem, desc_host, desc, n, B, L, pkt, length, fa, now_s, its value, now_us, its value,
+    # stream, device
+    "umem_gather": ("umem", "bng_umem_gather",
+                    [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _P, _L, _P, _I]),
+    # umem, addrs, n, L, frame_size, verdict, out_pkt, out_len, stream, device
+    "umem_scatter": ("umem", "bng_umem_scatter", [_P, _P] + [_I] * 3 + [_P] * 4 + [_I]),
+    # host, size, &device pointer, device
+    "umem_register": ("umem", "bng_umem_register", [_P, ctypes.c_size_t, _P, _I]),
+    "umem_unregister": ("umem", "bng_umem_unregister", [_P]),
+}
+# every CUDA source, built together
+SOURCES = (*SIGNATURES, *dict.fromkeys(src for src, _, _ in MOVERS.values()))
+
 # source name -> its -D macros; the Python side reads its numbers from here,
 # so the kernel and its callers agree on them by construction
 DEFINES = {
@@ -150,7 +169,7 @@ def build() -> dict[str, tuple[list[str], str]]:
 
     Returns {name: (nvcc command, compiler output)} for what it compiled;
     raises with the compiler output if any build fails."""
-    missing = [n for n in SIGNATURES if not _lib_path(n).exists()]
+    missing = [n for n in SOURCES if not _lib_path(n).exists()]
     if not missing:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -174,12 +193,12 @@ def build() -> dict[str, tuple[list[str], str]]:
 
 
 def entry(name: str):
-    """The C entry point of one kernel source, its argument types declared
-    (builds the sources on first use)."""
+    """The C entry point of one kernel source, or of a mover (`MOVERS`), its
+    argument types declared (builds the sources on first use)."""
     if name not in _ENTRIES:
         build()
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+        source, symbol, argtypes = MOVERS[name] if name in MOVERS else (name, *SIGNATURES[name])
+        fn = getattr(ctypes.CDLL(str(_lib_path(source))), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _ENTRIES[name] = fn
     return _ENTRIES[name]

@@ -294,7 +294,10 @@ class PinnedStage:
                 self._event.synchronize()
         return self.host
 
-    def _guard(self) -> None:
+    def guard(self) -> None:
+        """Mark the buffer read by the work queued so far on its card's
+        current stream (an upload, or a kernel reading it in place):
+        `acquire` waits for that work."""
         if self._event is not None:
             # behind the copy, on the stream of the card it was queued on
             self._event.record(torch.cuda.current_stream(self.device))
@@ -303,13 +306,13 @@ class PinnedStage:
     def upload_into(self, dst: torch.Tensor) -> torch.Tensor:
         """Copy the buffer into the device tensor `dst` (same shape and dtype)."""
         dst.copy_(self.tensor, non_blocking=True)
-        self._guard()
+        self.guard()
         return dst
 
     def upload(self) -> torch.Tensor:
         """A new device tensor holding the buffer (never aliasing it)."""
         out = self.tensor.to(self.device, non_blocking=True, copy=True)
-        self._guard()
+        self.guard()
         return out
 
 

@@ -19,11 +19,18 @@ new NAT flows punted to `NATManager.handle_new_flow`, mirrored lanes to
   program from a tape of CUDA graphs between its kernel launches
   (`runtime/ringprog.py`), recorded on its first ring batch and dropped
   with the tables it reads (`_rebind`); the other ways in run the
-  programs as plain calls (`_dispatch_ring_batch` says why).
+  programs as plain calls (`_dispatch_ring_batch` says why). There a
+  `NativeRing`'s frames move by descriptor (the zero-copy loop;
+  `_ring_umem` says when): the ring's UMEM is mapped into the card's
+  address space, the ring hands over each batch's descriptors
+  (`assemble_desc`), a gather kernel fills the program's inputs from the
+  UMEM and a scatter kernel writes the TX/FWD lanes back over their
+  frames (`ops/umem.py`), so the host copies no frame byte.
 
 A dispatch makes no host round trip: uploads go through pinned memory
 (`ops/table.to_device`), and the outputs come back through async copies
-queued behind the step with an event recorded after them (`_InFlight`).
+queued behind the step with an event recorded after them (`_InFlight`;
+in the zero-copy loop behind the scatter, and without the output frames).
 Only the retire waits, and only on its own batch's event.
 
 The engine owns its device tensors and updates them IN PLACE: applied
@@ -79,16 +86,19 @@ profiler records. The reference's stages: `ring` (the assemble),
 `dispatch`, `device_wait` (the event wait behind the batch's output
 copies, the one wait a batch makes), `reply` and `slow_path`. The port's,
 inside `dispatch`: `drain` (the DHCP chain's placement, the update drain
-and its apply), `upload` (the staged batch, lane flags and `now`),
-`issue` (the device program, its stages lapped inside it: the fused
-step's in `ops/pipeline.py`, the DHCP-only program's `parse`, `dhcp` and
-`verdict`) and `collect` (the output copies and their events). The
-express program laps `drain`, `upload` and `issue`, and while armed on
-the card times its graph replay with a CUDA event pair, which the
-scheduler observes into `device` at the batch's retire. A failed
-dispatch cancels its record, and a region that raises is not timed.
-Disarmed, a hook is a global load and a flag check; armed, it reads the
-host clock only, never a device tensor.
+and its apply), `upload` (the staged batch, lane flags and `now`; in the
+zero-copy loop `ring_dma` inside it: the gather's one call, which copies
+the descriptors and launches the kernel that also sets `now`), `issue`
+(the device program, its stages lapped inside it: the fused step's in
+`ops/pipeline.py`, the DHCP-only program's `parse`, `dhcp` and
+`verdict`) and `collect` (the output copies and their events; in the
+zero-copy loop the scatter's launch first). The express program laps
+`drain`, `upload` and `issue`, and while armed on the card times its
+graph replay with a CUDA event pair, which the scheduler observes into
+`device` at the batch's retire. A failed dispatch cancels its record,
+and a region that raises is not timed. Disarmed, a hook is a global load
+and a flag check; armed, it reads the host clock only, never a device
+tensor.
 """
 
 from __future__ import annotations
@@ -131,6 +141,7 @@ from bng_tpu_torch.ops.qtable import (
 from bng_tpu_torch.ops.table import (
     HostTable, PinnedStage, TableGeom, apply_update, to_device, words_to_device,
 )
+from bng_tpu_torch.ops.umem import DescStage
 from bng_tpu_torch.runtime import hostpath
 from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS
 from bng_tpu_torch.runtime.ringprog import RingProgram
@@ -286,12 +297,14 @@ class _InFlight:
     there."""
 
     LANES = ("verdict", "out_pkt", "out_len", "nat_punt", "spoof_violation", "mirror", "block")
+    # the zero-copy ring loop's: its output frames are in the ring's UMEM already
+    LANES_BY_DESC = tuple(k for k in LANES if k != "out_pkt")
 
-    def __init__(self, res):
+    def __init__(self, res, lanes: tuple[str, ...] = LANES):
         present = [(name, getattr(res, f)) for name, f in _STAT_FIELDS
                    if getattr(res, f, None) is not None]
         self.stat_names = [name for name, _ in present]
-        leaves = {k: getattr(res, k) for k in self.LANES if getattr(res, k, None) is not None}
+        leaves = {k: getattr(res, k) for k in lanes if getattr(res, k, None) is not None}
         leaves["stats"] = torch.cat([t for _, t in present])
         self._events = []
         self.device_events = getattr(res, "device_events", None)
@@ -323,6 +336,24 @@ def _in_flight(res) -> _InFlight:
     `collect` region)."""
     with tele.region(tele.COLLECT):
         return _InFlight(res)
+
+
+def _all_control(flags, n: int) -> bool:
+    """Whether lanes [0, n) all hold DHCP control frames (the ring's flags)."""
+    return bool(((flags[:n] & FLAG_DHCP_CTRL) != 0).all())
+
+
+class _RingBatch(NamedTuple):
+    """A ring batch as the ring loops hold it (`Engine._take_ring_batch`):
+    staged, its frames in `pkt` and `length` / `flags` beside them; or by
+    descriptor (the zero-copy loop), `desc` and the `umem` it points into,
+    `pkt` None and `length` / `flags` the descriptors' own."""
+
+    pkt: np.ndarray | None
+    length: np.ndarray
+    flags: np.ndarray
+    desc: DescStage | None = None
+    umem: object = None
 
 
 def _mac_key(mac) -> list[int]:
@@ -529,6 +560,9 @@ class Engine:
         self.ring_captures = 0  # ring programs built (tapes recorded on the card)
         self.ring_replays = 0  # ring dispatches that replayed one
         self.ring_eager = 0  # ring dispatches run as a plain call (the CPU)
+        self.ring_zero_copy = 0  # ring batches on a card moved by descriptor (`_ring_umem`)
+        self.ring_copied = 0  # ring batches on a card staged and copied instead
+        self._desc_stages = None  # the zero-copy loop's descriptor buffers (ping-pong)
         # the card the authoritative DHCP tables belong on: the engine's, or
         # the express lane's once `_place_dhcp_chain` moved them
         self._dhcp_home = self.card
@@ -819,12 +853,13 @@ class Engine:
             self.ring_captures += 1
         return prog
 
-    def _replay(self, prog: RingProgram, pkt, length, fa, now: float):
-        """Upload a ring batch into its program's static inputs and replay
+    def _replay(self, prog: RingProgram, upload: Callable[[RingProgram], None]):
+        """Write a ring batch into its program's static inputs (`upload`:
+        `prog.upload` of a staged batch or `prog.upload_desc`) and replay
         the program; returns the program's output buffers (see
         `RingProgram`: take them with `_InFlight` before the next dispatch)."""
         with tele.region(tele.UPLOAD):
-            prog.upload(pkt, length, fa, now)
+            upload(prog)
         with tele.region(tele.ISSUE):
             res = prog.replay()
         self.ring_replays += 1
@@ -1234,19 +1269,85 @@ class Engine:
         `process` stays the eager program on the card that the replay is
         checked against (`chip_smoke.py`'s ring phases)."""
         length = length.astype(np.int64)
-        control = bool(((flags[:n] & FLAG_DHCP_CTRL) != 0).all())
+        control = _all_control(flags, n)
         fa = None if control else (flags & FLAG_FROM_ACCESS) != 0
         if not self._replay_ring:
             self.ring_eager += 1
             if control:
                 return self._run_dhcp_batch(pkt, length, now)
             return self._dispatch_step(pkt, length, fa, now)
+        self.ring_copied += 1
+        return self._replay(self._pick_ring_program(control),
+                            lambda prog: prog.upload(pkt, length, fa, now))
+
+    def _pick_ring_program(self, control: bool) -> RingProgram:
+        """The ring program a batch takes, its tables drained first."""
         if control:
             self._drain_dhcp()
         else:
             self._drain_step()
-        return self._replay(self._ring_program(_DHCP_ONLY if control else _STEP),
-                            pkt, length, fa, now)
+        return self._ring_program(_DHCP_ONLY if control else _STEP)
+
+    def _dispatch_ring(self, batch: _RingBatch, n: int, now: float) -> _InFlight:
+        """Dispatch a ring batch (`_take_ring_batch`) and queue its output
+        copies. A staged batch goes through `_dispatch_ring_batch`. A batch
+        by descriptor (the zero-copy loop) takes the program that would
+        pick, its inputs gathered from the ring's mapped UMEM, its TX/FWD
+        lanes scattered back over their frames: its `_InFlight`'s event is
+        recorded behind the scatter, and no output frame comes to the host."""
+        if batch.umem is None:
+            return _in_flight(self._dispatch_ring_batch(batch.pkt, batch.length, batch.flags,
+                                                        n, now))
+        desc, umem = batch.desc, batch.umem
+        prog = self._pick_ring_program(_all_control(batch.flags, n))
+        res = self._replay(prog, lambda p: p.upload_desc(desc, umem, n, now))
+        self.ring_zero_copy += 1
+        with tele.region(tele.COLLECT):
+            prog.scatter(umem, n, res)
+            return _InFlight(res, _InFlight.LANES_BY_DESC)
+
+    def _ring_umem(self, ring):
+        """The ring's UMEM as this engine's card reads it when its ring
+        batches move by descriptor, else None (they are staged and
+        copied). By descriptor when the engine replays its ring programs
+        (on a card), the ring maps its UMEM there (`map_umem`: a
+        `NativeRing`, which registers it with the card), no sink reads the
+        arriving frames from a staged batch (`violation_sink`,
+        `mirror_sink`), and the DHCP tables are on the engine's card, where
+        the descriptors go. The ring loops take one queue's batches
+        (`assemble`); `ShardedCluster` serves its rings itself."""
+        if (not self._replay_ring or self.violation_sink is not None
+                or self.mirror_sink is not None or card_of(self.dhcp_device) != self.card):
+            return None
+        map_umem = getattr(ring, "map_umem", None)
+        return map_umem(self.card) if map_umem is not None else None
+
+    def _desc_stage(self, idx: int) -> DescStage:
+        """The zero-copy loop's ping-pong descriptor buffers (allocated
+        once, pinned), each handed back once the copy the gather last
+        queued from it has run."""
+        if self._desc_stages is None:
+            self._desc_stages = [DescStage(self.B, self.card) for _ in range(2)]
+        return self._desc_stages[idx].acquire()
+
+    def _take_ring_batch(self, ring, idx: int, fresh: bool = False):
+        """The next batch off `ring` (`_assemble`) into buffer `idx` of the
+        ping-pong pair: (frames, record token, `_RingBatch`). By descriptor
+        where `_ring_umem` says so, else staged (`fresh`: into new zeroed
+        buffers rather than `_staging`'s)."""
+        umem = self._ring_umem(ring)
+        if umem is not None:
+            desc = self._desc_stage(idx)
+            batch = _RingBatch(None, desc.lens, desc.flags, desc, umem)
+            return (*self._assemble(ring.assemble_desc, desc.addrs, desc.lens, desc.flags),
+                    batch)
+        if fresh:
+            batch = _RingBatch(np.zeros((self.B, self.L), dtype=np.uint8),
+                               np.zeros((self.B,), dtype=np.uint32),
+                               np.zeros((self.B,), dtype=np.uint32))
+        else:
+            batch = _RingBatch(*self._staging(idx))
+        return (*self._assemble(ring.assemble, batch.pkt, batch.length, batch.flags), batch)
 
     def process_ring(self, ring, now: float | None = None) -> int:
         """Drain one batch from a packet ring through the device and apply
@@ -1255,31 +1356,30 @@ class Engine:
         if self._inflight is not None:
             # a pipelined batch holds one of its ring's assemble windows
             self.flush_pipeline()
-        pkt = np.zeros((self.B, self.L), dtype=np.uint8)
-        length = np.zeros((self.B,), dtype=np.uint32)
-        flags = np.zeros((self.B,), dtype=np.uint32)
-        n, tok = self._assemble(ring, pkt, length, flags)
+        n, tok, batch = self._take_ring_batch(ring, 0, fresh=True)
         if n == 0:
             return 0
         now = now if now is not None else self.clock()
         try:
             with tele.region(tele.DISPATCH):
-                fl = _in_flight(self._dispatch_ring_batch(pkt, length, flags, n, now))
+                fl = self._dispatch_ring(batch, n, now)
         except BaseException:
             tele.cancel_batch(tok)  # a failed dispatch must not leak a slot
             raise
-        h = self._apply_ring_verdicts(ring, fl, pkt, length, n, now)
+        h = self._apply_ring_verdicts(ring, fl, batch.pkt, batch.length, n, now)
         self._fold_stats(fl.stat_names, h["stats"])
         tele.end_batch(tok)
         return n
 
     @staticmethod
-    def _assemble(ring, pkt, length, flags) -> tuple[int, int | None]:
-        """The next batch off the ring into the staging buffers (the `ring`
-        region) and its flight record: (frames, record token). An empty
-        poll opens no record and is left out of the stage."""
+    def _assemble(take, *bufs) -> tuple[int, int | None]:
+        """The next batch off the ring, `take(*bufs)` (the ring's `assemble`
+        into the staging buffers, or `assemble_desc` into a descriptor
+        buffer), in the `ring` region, and its flight record: (frames,
+        record token). An empty poll opens no record and is left out of
+        the stage."""
         with tele.region(tele.RING) as span:
-            n = ring.assemble(pkt, length, flags)
+            n = take(*bufs)
             if n == 0:
                 span.discard()
                 return 0, None
@@ -1288,12 +1388,15 @@ class Engine:
     def _apply_ring_verdicts(self, ring, fl: _InFlight, pkt, length, n: int,
                              now: float) -> dict:
         """Wait for one batch's outputs and demux them back to the ring it
-        came from; returns the host outputs."""
+        came from; returns the host outputs. A batch moved by descriptor
+        brings no output frame (and has no staged `pkt`): the card wrote
+        them into the ring's UMEM already."""
         with tele.region(tele.DEVICE_WAIT):
             h = fl.wait()
         with tele.region(tele.REPLY):
             vv = h["verdict"][:n]
-            ring.complete(vv.astype(np.uint8), np.ascontiguousarray(h["out_pkt"]),
+            out = h.get("out_pkt")
+            ring.complete(vv.astype(np.uint8), None if out is None else np.ascontiguousarray(out),
                           h["out_len"].astype(np.uint32), n)
             self.stats.tx += int((vv == VERDICT_TX).sum())
             self.stats.fwd += int((vv == VERDICT_FWD).sum())
@@ -1353,21 +1456,21 @@ class Engine:
         prev, self._inflight = self._inflight, None
         try:
             idx = 1 - self._stage_idx
-            pkt, length, flags = self._staging(idx)
-            n, tok = self._assemble(ring, pkt, length, flags)
+            n, tok, batch = self._take_ring_batch(ring, idx)
             if n:
                 try:
                     with tele.region(tele.DISPATCH):
-                        fl = _in_flight(self._dispatch_ring_batch(pkt, length, flags, n, now))
+                        fl = self._dispatch_ring(batch, n, now)
                 except BaseException:
                     # fail closed: complete() retires FIFO, so the older window
                     # retires first, then this one drops
                     tele.cancel_batch(tok)
                     self._retire(prev)
                     prev = None
-                    ring.complete(np.full((n,), VERDICT_DROP, dtype=np.uint8), pkt, length, n)
+                    ring.complete(np.full((n,), VERDICT_DROP, dtype=np.uint8), batch.pkt,
+                                  batch.length, n)
                     raise
-                self._inflight = (ring, fl, pkt, length, n, now, tok)
+                self._inflight = (ring, fl, batch.pkt, batch.length, n, now, tok)
                 self._stage_idx = idx
         finally:
             retired = self._retire(prev)

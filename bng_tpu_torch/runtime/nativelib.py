@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes as C
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -30,13 +31,27 @@ _libs: dict[str, object] = {}
 _lock = threading.Lock()
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: set[Path]) -> None:
+    """`path` and every csrc file it includes with quotes, in include order."""
+    if path in seen or not path.exists():
+        return
+    seen.add(path)
+    for name in _INCLUDE.findall(path.read_bytes()):
+        _sources(CSRC / name.decode(), seen)
+
+
 def lib_path(src_name: str) -> Path:
-    """Where the library of csrc/<src_name>.cpp is built (hash-keyed)."""
+    """Where the library of csrc/<src_name>.cpp is built (hash-keyed by
+    its flags, its source, its header and every csrc file they include)."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    seen: set[Path] = set()
     for suffix in (".cpp", ".h"):
-        src = CSRC / f"{src_name}{suffix}"
-        if src.exists():
-            h.update(src.read_bytes())
+        _sources(CSRC / f"{src_name}{suffix}", seen)
+    for src in sorted(seen):
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{src_name}-{h.hexdigest()[:16]}.so"
 
 

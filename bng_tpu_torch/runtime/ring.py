@@ -14,6 +14,14 @@
 - `make_ring` gives a `NativeRing` when the library loads, else a
   `PyRing`.
 
+The engine's zero-copy ring loop (`runtime/engine.py`) reads a
+`NativeRing`'s frames where they lie: `map_umem` registers the UMEM with
+the card once (pinned, mapped for every card; `close` unregisters it),
+`assemble_desc` takes a batch's descriptors off RX with no frame copied
+(`csrc/ringdesc.cpp`), and `complete(..., out=None, ...)` retires a batch
+whose TX/FWD bytes the card already wrote back (`ops/umem.py`). A `PyRing`
+has no UMEM and maps none.
+
 A ring has `n_shards` RX queues: `shard_of` steers each frame to its
 owner shard (the sharded step's placement: upstream by FNV-1a32 of the
 source IP, downstream by NAT public-IP ownership, else by the destination
@@ -252,6 +260,13 @@ def _configure_submit_each(lib: C.CDLL) -> None:
         C.POINTER(C.c_uint32), C.POINTER(C.c_uint8), C.c_uint32]
 
 
+def _configure_desc(lib: C.CDLL) -> None:
+    lib.bng_batch_assemble_desc.restype = C.c_uint32
+    lib.bng_batch_assemble_desc.argtypes = [
+        C.c_void_p, C.POINTER(C.c_uint64), C.POINTER(C.c_uint32), C.POINTER(C.c_uint32),
+        C.c_uint32]
+
+
 def load_native():
     """Load (building if needed) the native library, or None."""
     return nativelib.load("bngring", _configure)
@@ -286,6 +301,8 @@ class NativeRing:
         self.frame_size = frame_size
         self.depth = depth
         self.n_shards = n_shards
+        self._desc_lib = None  # csrc/ringdesc.cpp, loaded at the first assemble_desc
+        self._umem_map = None  # ops/umem.Umem once registered with the card
 
     @property
     def umem_ptr(self):
@@ -298,8 +315,33 @@ class NativeRing:
 
     def close(self) -> None:
         if self._h:
-            self._lib.bng_ring_destroy(self._h)
-            self._h = None
+            try:
+                if self._umem_map is not None:  # the card lets go of the UMEM before it is freed
+                    from bng_tpu_torch.ops import umem as umem_ops
+
+                    self._umem_map = None
+                    umem_ops.unregister(C.cast(self.umem_ptr, C.c_void_p).value)
+            finally:
+                self._lib.bng_ring_destroy(self._h)
+                self._h = None
+
+    def map_umem(self, device):
+        """The UMEM as `device` reads it (`ops/umem.Umem`), for the engine's
+        zero-copy ring loop. The CPU reads it where it lies. On a card it is
+        registered once, at the first call, as pinned host memory mapped for
+        every card (the whole page-rounded allocation `bng_ring_create`
+        makes; `close` unregisters it); raises with the CUDA error if the
+        card refuses."""
+        from bng_tpu_torch.ops import umem as umem_ops
+
+        if device.type == "cpu":
+            return umem_ops.Umem(0, self.umem_view(), self.frame_size)
+        if self._umem_map is None:
+            page = 4096
+            size = (self.umem_size + page - 1) & ~(page - 1)
+            base = umem_ops.register(C.cast(self.umem_ptr, C.c_void_p).value, size, device)
+            self._umem_map = umem_ops.Umem(base, self.umem_view(), self.frame_size)
+        return self._umem_map
 
     def __del__(self):  # pragma: no cover
         try:
@@ -422,12 +464,28 @@ class NativeRing:
             self._h, _u8p(out), _u32p(out_len), _u32p(out_flags),
             B // self.n_shards, slot))
 
-    def complete(self, verdict: np.ndarray, out: np.ndarray,
+    def assemble_desc(self, addrs: np.ndarray, lens: np.ndarray,
+                      flags: np.ndarray) -> int:
+        """The next batch's descriptors off RX (uint64 UMEM offsets, uint32
+        lengths and flags; up to len(addrs) lanes), opening the window
+        `assemble` opens, with no frame copied: the card reads the frames
+        from the mapped UMEM. Returns the count."""
+        if self._desc_lib is None:
+            self._desc_lib = nativelib.load("ringdesc", _configure_desc)
+            if self._desc_lib is None:
+                raise RuntimeError("native descriptor-assemble library unavailable")
+        return int(self._desc_lib.bng_batch_assemble_desc(
+            self._h, _u64p(addrs), _u32p(lens), _u32p(flags), len(addrs)))
+
+    def complete(self, verdict: np.ndarray, out: np.ndarray | None,
                  out_len: np.ndarray, n: int) -> None:
-        slot = out.shape[1]
+        """Retire the oldest batch. `out` [B, slot] holds the TX/FWD lanes'
+        bytes, copied back over their frames; None when they are already
+        there (the zero-copy loop), and the ring copies nothing."""
         rc = self._lib.bng_batch_complete(
-            self._h, _u8p(verdict.astype(np.uint8, copy=False)), _u8p(out),
-            _u32p(out_len), n, slot)
+            self._h, _u8p(verdict.astype(np.uint8, copy=False)),
+            None if out is None else _u8p(out), _u32p(out_len), n,
+            0 if out is None else out.shape[1])
         if rc != 0:
             raise RuntimeError("batch_complete: no batch in flight / n mismatch")
 
@@ -581,6 +639,11 @@ class PyRing:
 
     def close(self) -> None:
         pass
+
+    def map_umem(self, device):
+        """None: the frames live in Python objects or numpy rows, not in a
+        UMEM a card could map, so the engine's ring loops copy them."""
+        return None
 
     # -- steering --
     def steer_pub_ip(self, ip: int, shard: int) -> bool:

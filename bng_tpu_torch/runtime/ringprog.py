@@ -38,6 +38,7 @@ call.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import warnings
 
@@ -47,6 +48,7 @@ import torch
 from bng_tpu_torch import kernels
 from bng_tpu_torch.ops import qos as qos_mod
 from bng_tpu_torch.ops import table as table_mod
+from bng_tpu_torch.ops import umem as umem_ops
 from bng_tpu_torch.ops.hashing import MASK32
 from bng_tpu_torch.ops.table import upload_into
 from bng_tpu_torch.telemetry import spans as tele
@@ -93,12 +95,18 @@ class Tape:
         for mod, name, fn in sites:
             setattr(mod, name, self._kernel_call(mod, name, fn))
         tele.listen(self)
+        # no garbage is collected mid-capture: a cycle freed there could
+        # release pinned memory or an event, a call the capture refuses
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with _card(self.device):
                 self._begin()
                 out = run()
                 self._cut()
         finally:
+            if gc_on:
+                gc.enable()
             tele.listen(None)
             for mod, name, fn in sites:
                 setattr(mod, name, fn)
@@ -221,9 +229,14 @@ class RingProgram:
     table word as it was, and its launches count none
     (`kernels.recording`).
 
-    A dispatch writes the staged batch into the static inputs (`upload`)
-    and replays the tape (`replay`), which returns the program's own
-    output buffers. The next replay rewrites them, so the caller queues
+    A dispatch writes the staged batch into the static inputs (`upload`),
+    or, in the zero-copy ring loop, its descriptors into `desc` and the
+    frames straight from the ring's mapped UMEM into the inputs
+    (`upload_desc`, `ops/umem.gather`), and replays the tape
+    (`replay`), which returns the program's own output buffers; the
+    zero-copy loop then writes the TX/FWD lanes' bytes back over their
+    frames (`scatter`) before it takes the outputs. The next replay
+    rewrites them, so the caller queues
     their copies to the host (`engine._InFlight`) right after the replay,
     on the same stream, before it dispatches again: the pipelined ring
     loop's next replay then runs behind those copies. The table tensors
@@ -240,6 +253,7 @@ class RingProgram:
         self.fa = torch.zeros((batch,), dtype=torch.bool, device=dev) if fused else None
         self.now_s = torch.zeros((), dtype=torch.int64, device=dev)
         self.now_us = torch.zeros((), dtype=torch.int64, device=dev) if fused else None
+        self.desc = torch.zeros((umem_ops.DESC_BYTES * batch,), dtype=torch.uint8, device=dev)
         self.tape = Tape(dev)
         saved = [t.clone() for t in writes]
         try:
@@ -260,6 +274,22 @@ class RingProgram:
         self.now_s.fill_(int(now) & MASK32)
         if self.now_us is not None:
             self.now_us.fill_(int(now * 1e6) & MASK32)
+
+    def upload_desc(self, desc: umem_ops.DescStage, umem: umem_ops.Umem, n: int,
+                    now: float) -> None:
+        """A ring batch by descriptor: its descriptors into `desc` and its n
+        frames from the mapped UMEM into `pkt`, `length` and `fa`, and
+        `now`: one gather call, a copy and a launch (the `ring_dma` region)."""
+        with tele.region(tele.RING_DMA):
+            umem_ops.gather(umem, desc, self.desc, n, self.pkt, self.length, self.fa, self.now_s,
+                            int(now) & MASK32, self.now_us, int(now * 1e6) & MASK32)
+
+    def scatter(self, umem: umem_ops.Umem, n: int, res) -> None:
+        """The TX/FWD lanes of `res`, the last replay's outputs, written back
+        over their frames (queued behind it; the descriptors are the last
+        `upload_desc`'s)."""
+        umem_ops.scatter(umem, umem_ops.desc_addrs(self.desc, self.pkt.shape[0]), n,
+                         res.verdict, res.out_pkt, res.out_len)
 
     def replay(self):
         return self.tape.replay()

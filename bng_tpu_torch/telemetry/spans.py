@@ -42,6 +42,8 @@ Design constraints, in order:
                    the device program's stages, host time issuing each
                    (ops/pipeline.py; the DHCP-only program laps parse,
                    dhcp and verdict)
+       ring_dma    inside `upload`: the zero-copy ring loop's gather of a
+                   batch's frames from the mapped UMEM (its launch)
        total       batch begin -> end (the client-visible wall time)
 
 3. **Tracing is observation.** A span never mutates subsystem state;
@@ -99,15 +101,15 @@ from bng_tpu_torch.telemetry.hist import LatencyHist
 (RING, ADMIT, LANE_WAIT, DISPATCH, LOOP_FILL, LOOP_WAIT, LOOP_RETIRE,
  DEVICE, DEVICE_WAIT, FLEET, WORKER, SLOW, REPLY, OPS, WIRE_RX, WIRE_TX,
  DRAIN, UPLOAD, ISSUE, COLLECT, PARSE, ANTISPOOF, DHCP, GARDEN, NAT44, QOS,
- EDGE, PPPOE_DECAP, PPPOE_ENCAP, VERDICT, NAT_ACCOUNTING,
- TOTAL) = range(32)
+ EDGE, PPPOE_DECAP, PPPOE_ENCAP, VERDICT, NAT_ACCOUNTING, RING_DMA,
+ TOTAL) = range(33)
 STAGE_NAMES = ("ring", "admit", "lane_wait", "dispatch", "loop_fill",
                "loop_wait", "loop_retire", "device", "device_wait",
                "fleet", "worker", "slow_path", "reply", "ops", "wire_rx",
                "wire_tx", "drain", "upload", "issue", "collect", "parse",
                "antispoof", "dhcp", "garden", "nat44", "qos", "edge",
                "pppoe_decap", "pppoe_encap", "verdict", "nat_accounting",
-               "total")
+               "ring_dma", "total")
 # the torch profiler range each stage's region opens
 RANGE_NAMES = tuple(f"bng::{name}" for name in STAGE_NAMES)
 NSTAGES = len(STAGE_NAMES)

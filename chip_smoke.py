@@ -23,7 +23,12 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    (scattered stash rows, no stash, an empty table, K = 8, V = 16, B from
    1 to 8192); K2 (seg_prefix) on the step's inputs and every shared K2
    case, which take both of its routes (B up to and past B_ONE), for
-   prefix, total and both. Bit-equal or fail.
+   prefix, total and both. Bit-equal or fail. Before them the ring's
+   movers (`ops/umem.py`): the gather and the scatter at B = 8,192 with
+   L = 512 and L = 1,536 (the IPoE, wire and PPPoE rings' geometries),
+   full and partial batches, headroom-offset descriptors, every output
+   byte against their plain versions, one launch of each a call, then
+   each timed against live bytes over the host link (the `umem` path).
 4. The IPoE path: counts set to 0, 20 batches through `Engine.process`
    (DISCOVER lanes TX with the subscriber's yiaddr, flow lanes FWD with
    the SNAT source and valid IP and UDP checksums, QoS drops, a fresh
@@ -517,7 +522,8 @@ C5. The kernel gate, `verify_cuda_kernels(cuda=True)`, with each card
 
 The line before the last is the card's name and power limit (the first
 card's with `--cards N`); the one before it the kernels JSON (each
-kernel's launches by path, `sharded_copy`, `loadtest`,
+kernel's launches by path, the movers' beside K1 and K2, `umem`,
+`sharded_copy`, `loadtest`,
 `run`, `pppoe`, `v6`, `radius`, `ipoe_traced`, `run_observed`,
 `run_restored`, `fleet`, `chaos`, `run_sharded`, `run_shards1`,
 `ha_pair`, `run_nexus`, `fleet_nexus`, `run_dns`, `wire_headline`,
@@ -562,6 +568,7 @@ from bng_tpu_torch.ops import probe as probe_mod
 from bng_tpu_torch.ops import qos as qos_mod
 from bng_tpu_torch.ops import seg_prefix as seg_mod
 from bng_tpu_torch.ops import table as table_mod
+from bng_tpu_torch.ops import umem as umem_ops
 from bng_tpu_torch.ops.antispoof import MODE_LOOSE, MODE_STRICT
 from bng_tpu_torch.ops.express import XD_WORDS, express_verdicts, parse_express
 from bng_tpu_torch.ops.garden import GARDEN_WORDS, GV_FLAG
@@ -642,6 +649,20 @@ def say(msg: str) -> None:
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def reset_launches() -> None:
+    """Zero the launch counts of K1 and K2 (`kernels.LAUNCHES`) and of the
+    ring's movers (`ops/umem.LAUNCHES`) before a path's run."""
+    kernels.reset_launches()
+    for name in umem_ops.LAUNCHES:
+        umem_ops.LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since `reset_launches`: K1 (`probe`), K2
+    (`seg_prefix`) and the ring's movers (`umem_gather`, `umem_scatter`)."""
+    return {**kernels.LAUNCHES, **{f"umem_{k}": v for k, v in umem_ops.LAUNCHES.items()}}
 
 
 def card_line() -> str:
@@ -1352,7 +1373,7 @@ def ipoe_phases(eng, flows, drop_ips, card, device, profile: bool, err):
              if int(flows[i, 0]) not in drop_ips]
     batches[3] = make_batch(rng, flows, fresh)
     batches[4] = make_batch(rng, flows, fresh)
-    kernels.reset_launches()
+    reset_launches()
     proc_ms, n_drop = [], 0
     split = HostSplit(eng)
     for k, (frames, expect) in enumerate(batches):
@@ -1361,7 +1382,7 @@ def ipoe_phases(eng, flows, drop_ips, card, device, profile: bool, err):
             out = eng.process(frames, from_access=True, now=NOW + 2 + k * 0.01)
             proc_ms.append((time.perf_counter() - t1) * 1e3)
         n_drop += check_outputs(out, expect, drop_ips, fresh_ok=(k == 4))
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check_launches(launches, BATCHES, {"probe": 8, "seg_prefix": 4}, "IPoE path")
     check(n_drop > 0 and eng.stats.dropped == n_drop, "QoS drops on policed subscribers")
@@ -1475,7 +1496,7 @@ def ipoe_telemetry_phase(eng, flows, card, device, device_us, err) -> dict:
         torch.cuda.synchronize()
         before = engine_counts(eng)
         outs, ms = [], []
-        kernels.reset_launches()
+        reset_launches()
         ctx = tracer_armed() if armed else contextlib.nullcontext()
         with ctx as tr, first_kernel_calls(8, 4) as rec:
             for k, frames in enumerate(batches):
@@ -1485,7 +1506,7 @@ def ipoe_telemetry_phase(eng, flows, card, device, device_us, err) -> dict:
             if armed:
                 tr.observe_many(tele.DEVICE, device_us)
                 bd, records = tr.breakdown(), tr.recorder.records()
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         after = engine_counts(eng)
         delta = {k: (after[k] - before[k]) for k in after}
         runs.append((outs, {k: v.tolist() if isinstance(v, np.ndarray) else v
@@ -1591,7 +1612,7 @@ def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
     # ---- the full stack through Engine.process
     torch.cuda.reset_peak_memory_stats()
     batches = [make_full_batch(rng, ctx) for _ in range(FULL_BATCHES)]
-    kernels.reset_launches()
+    reset_launches()
     proc_ms, seen = [], {}
     split = HostSplit(eng)
     for k, (bf, bfa, bexp) in enumerate(batches):
@@ -1602,7 +1623,7 @@ def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
             proc_ms.append((time.perf_counter() - t1) * 1e3)
         for kind, n in check_full_outputs(out, bexp, ctx, drop_ips, ctx.mirrors).items():
             seen[kind] = seen.get(kind, 0) + n
-    launches_full = dict(kernels.LAUNCHES)
+    launches_full = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check_launches(launches_full, FULL_BATCHES, {"probe": 13, "seg_prefix": 4}, "full-stack path")
     st = eng.stats
@@ -1619,7 +1640,7 @@ def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
     say("  (and again with a tracer armed)")
 
     # ---- the DHCP-only lane
-    kernels.reset_launches()
+    reset_launches()
     dhcp_ms = []
     dsplit = HostSplit(eng)
     for k in range(DHCP_BATCHES):
@@ -1632,7 +1653,7 @@ def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
         tx = dict(out["tx"])
         for lane, i in enumerate(ids):
             check_offer(tx, lane, sub_ip(int(i)))
-    launches_dhcp = dict(kernels.LAUNCHES)
+    launches_dhcp = launch_counts()
     check_launches(launches_dhcp, DHCP_BATCHES, {"probe": 3, "seg_prefix": 0}, "DHCP-only lane")
     say(f"DHCP-only lane: {DHCP_BATCHES} batches of {B} DISCOVERs, all OFFERed on the device; "
         f"launches {launches_dhcp}")
@@ -1715,7 +1736,7 @@ def ring_phases(eng, ctx, rng):
     def expected(outs):
         return ([f for o in outs for _, f in o["tx"]], [f for o in outs for _, f in o["fwd"]])
 
-    kernels.reset_launches()
+    reset_launches()
     ring = PyRing(nframes=6 * B, frame_size=L, depth=4 * B)  # holds 3 undrained batches
     ctrl = [F.discover_frame(sub_mac(i), 0x9000 + j)
             for j, i in enumerate(rng.integers(N_SUBS, size=B))]
@@ -1723,20 +1744,20 @@ def ring_phases(eng, ctx, rng):
     check(eng.process_ring(ring, now=NOW + 10) == B, "process_ring took the control batch")
     check(ring.tx_pending() == B and ring.stats()["slow"] == 0, "every DISCOVER OFFERed")
     pops(ring)
-    launches_ctrl = dict(kernels.LAUNCHES)
+    launches_ctrl = launch_counts()
     check_launches(launches_ctrl, 1, {"probe": 3, "seg_prefix": 0}, "ring control batch")
 
-    kernels.reset_launches()
+    reset_launches()
     for k, (bf, bfa, _) in enumerate(batches):
         for f, a in zip(bf, bfa):
             check(ring.rx_push(f, from_access=a), "ring push")
         check(eng.process_ring(ring, now=NOW + 10 + k) == B, "process_ring took the batch")
     got = pops(ring)
     check((got["tx"], got["fwd"]) == expected(want), "process_ring TX/FWD == process")
-    launches_sync = dict(kernels.LAUNCHES)
+    launches_sync = launch_counts()
     check_launches(launches_sync, RING_BATCHES, {"probe": 13, "seg_prefix": 4}, "process_ring")
 
-    kernels.reset_launches()
+    reset_launches()
     runs = {}
     for kind in RING_KINDS:
         ring = make_ring_of(kind)
@@ -1755,9 +1776,14 @@ def ring_phases(eng, ctx, rng):
               f"process_ring_pipelined over the {kind} ring: TX/FWD == process")
         runs[kind] = (call_ms, split, ring.stats(), got)
         ring.close()
-    launches_pipe = dict(kernels.LAUNCHES)
+    launches_pipe = launch_counts()
     check_launches(launches_pipe, RING_BATCHES * len(RING_KINDS), {"probe": 13, "seg_prefix": 4},
                    "process_ring_pipelined")
+    # the full stack's mirror sink reads the arriving frames from a staged
+    # batch, so even the native ring takes the copying loop here
+    check(eng.mirror_sink is not None and launches_sync["umem_gather"] == 0
+          and launches_pipe["umem_gather"] == launches_pipe["umem_scatter"] == 0,
+          f"ring loops with a mirror sink: no mover launched ({launches_sync}, {launches_pipe})")
     stats = runs["PyRing scalar"][2]
     n = {v: sum(len(o[v]) for o in want) for v in ("tx", "fwd", "dropped", "slow")}
     check(stats["rx"] == RING_BATCHES * B and stats["tx"] == n["tx"] and stats["fwd"] == n["fwd"]
@@ -1772,6 +1798,120 @@ def ring_phases(eng, ctx, rng):
         f"{launches_pipe}")
     return runs, {"ring_control": launches_ctrl, "ring_sync": launches_sync,
                   "ring_pipelined": launches_pipe}
+
+
+# ------------------------------------------------------- the ring's movers
+
+PCIE_BYTES_PER_S = 64e9  # H100 SXM host link, PCIe Gen5 x16, one direction (data sheet)
+
+
+def umem_cases() -> dict:
+    """name: (frame_size, slot L, lanes n of B, headroom offsets): the main
+    path's geometries, the IPoE cells' ring (512-B frames, L = 512), the
+    wire's (2,048-B chunks, frames at base + WIRE_HEADROOM) and the PPPoE
+    cell's (2,048, L = 1,536), with partial batches and misaligned heads."""
+    return {"ipoe": (512, L, B, (0,)),
+            "ipoe_partial": (512, L, B - 1237, (0,)),
+            "wire_headroom": (2048, L, B, (WIRE_HEADROOM,)),
+            "pppoe": (2048, 1536, B, (0,)),
+            "pppoe_partial_headroom": (2048, 1536, B - 1237, (0, 3, 17, WIRE_HEADROOM))}
+
+
+def umem_case(rng, ring, umem, frame_size: int, L_: int, n: int, offs, card_dev):
+    """One batch through the gather and the scatter on the card and through
+    their plain versions on the CPU: (differing bytes of the gather's
+    outputs, of the UMEM after the scatter, live bytes each way, the
+    descriptor buffer and the card's inputs for timing)."""
+    host = ring.umem_view()
+    host[:] = rng.integers(0, 256, host.shape, dtype=np.uint8)
+    nframes = host.shape[0] // frame_size
+    off = rng.choice(np.array(offs, dtype=np.uint64), B)
+    desc = umem_ops.DescStage(B, card_dev).acquire()
+    desc.addrs[:] = rng.permutation(nframes)[:B].astype(np.uint64) * np.uint64(frame_size) + off
+    # lengths up to the chunk's room: runts, full slots, frames longer than L
+    desc.lens[:] = np.minimum(rng.integers(0, frame_size + 1, B), frame_size - off.astype(np.int64))
+    desc.flags[:] = rng.integers(0, 4, B)
+    outs, ins = {}, {}
+    for dev in ("cpu", card_dev):
+        t = dict(pkt=torch.full((B, L_), 0xEE, dtype=torch.uint8, device=dev),
+                 length=torch.full((B,), 7, dtype=torch.int64, device=dev),
+                 fa=torch.ones((B,), dtype=torch.bool, device=dev),
+                 desc=torch.full((umem_ops.DESC_BYTES * B,), 9, dtype=torch.uint8, device=dev),
+                 now_s=torch.zeros((), dtype=torch.int64, device=dev),
+                 now_us=torch.zeros((), dtype=torch.int64, device=dev))
+        umem_ops.gather(umem, desc, t["desc"], n, t["pkt"], t["length"], t["fa"], t["now_s"],
+                        NOW + 1, t["now_us"], (NOW + 1) * 10**6 + 17)
+        torch.cuda.synchronize()
+        outs[str(dev)], ins[str(dev)] = [v.cpu() for v in t.values()], t
+        desc.acquire()
+    gather_off = sum(int((a != b).sum()) for a, b in zip(outs["cpu"], outs[str(card_dev)]))
+    live_in = int(np.minimum(desc.lens[:n], L_).sum())
+    verdict = torch.from_numpy(rng.integers(0, 4, B).astype(np.int32))
+    out_pkt = torch.from_numpy(rng.integers(0, 256, (B, L_), dtype=np.uint8))
+    out_len = torch.from_numpy(rng.integers(0, frame_size + 64, B).astype(np.int64))
+    addrs = umem_ops.desc_addrs(outs["cpu"][3], B)
+    want = torch.from_numpy(host.copy())
+    umem_ops.scatter_plain(want, addrs, n, frame_size, verdict, out_pkt, out_len)
+    dv = {k: v.to(card_dev) for k, v in
+          dict(addrs=addrs, verdict=verdict, out_pkt=out_pkt, out_len=out_len).items()}
+    umem_ops.scatter(umem, dv["addrs"], n, dv["verdict"], dv["out_pkt"], dv["out_len"])
+    torch.cuda.synchronize()
+    scatter_off = int((torch.from_numpy(host) != want).sum())
+    a, v = addrs[:n], verdict[:n]
+    room = frame_size - a % frame_size
+    w = torch.clamp(torch.minimum(out_len[:n], room), max=L_)
+    live_out = int(w[(v == engine_mod.VERDICT_TX) | (v == engine_mod.VERDICT_FWD)].sum())
+    return gather_off, scatter_off, live_in, live_out, desc, ins[str(card_dev)], dv
+
+
+def umem_phase(card, err) -> tuple[dict, dict]:
+    """The ring's movers (`ops/umem.py`, `csrc/umem.cu`) at the main path's
+    shapes, B = 8,192 with L = 512 and L = 1,536, full and partial batches,
+    headroom-offset descriptors: every output byte equal to the plain
+    versions', one launch of each a call; then each timed on the full
+    batches against its bound, live bytes over the host link. Returns
+    ({"umem": launches}, the movers' times)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    err["umem_gather"] = err["umem_scatter"] = 0
+    times = {"umem_gather": {"ms": [], "bound": []}, "umem_scatter": {"ms": [], "bound": []}}
+    rng = np.random.default_rng(22)
+    cases = umem_cases()
+    reset_launches()
+    timed = []
+    for name, (frame_size, L_, n, offs) in cases.items():
+        ring = ring_mod.NativeRing(nframes=4 * B, frame_size=frame_size, depth=2 * B)
+        umem = ring.map_umem(dev)
+        g_off, s_off, live_in, live_out, desc, t, dv = umem_case(rng, ring, umem, frame_size, L_,
+                                                                 n, offs, dev)
+        err["umem_gather"] = max(err["umem_gather"], g_off)
+        err["umem_scatter"] = max(err["umem_scatter"], s_off)
+        check(g_off == 0 and s_off == 0,
+              f"umem {name}: gather {g_off} and scatter {s_off} bytes off their plain versions")
+        say(f"  umem {name} (frame {frame_size}, L {L_}, n {n} of {B}, offsets {offs}): gather "
+            f"and scatter equal their plain versions byte for byte ({live_in} B in, "
+            f"{live_out} B out)")
+        if n == B:
+            timed.append((name, ring, umem, desc, t, dv, live_in, live_out))
+        else:
+            ring.close()
+    launches = launch_counts()
+    check(launches["umem_gather"] == launches["umem_scatter"] == len(cases),
+          f"umem: one gather and one scatter launch a call ({launches})")
+    for name, ring, umem, desc, t, dv, live_in, live_out in timed:
+        g = cuda_ms(lambda: umem_ops.gather_cuda(umem, desc, t["desc"], B, t["pkt"], t["length"],
+                                                 t["fa"], t["now_s"], NOW, t["now_us"], NOW))
+        sc = cuda_ms(lambda: umem_ops.scatter_cuda(umem, dv["addrs"], B, dv["verdict"],
+                                                   dv["out_pkt"], dv["out_len"]))
+        gb, sb = live_in / PCIE_BYTES_PER_S * 1e3, live_out / PCIE_BYTES_PER_S * 1e3
+        for k, ms, bound in (("umem_gather", g, gb), ("umem_scatter", sc, sb)):
+            times[k]["ms"].append(ms)
+            times[k]["bound"].append(bound)
+        say(f"  umem {name}: gather {g:.4f} ms (bound {gb:.4f}, {live_in / g / 1e6:.1f} GB/s), "
+            f"scatter {sc:.4f} ms (bound {sb:.4f}, {live_out / sc / 1e6:.1f} GB/s) [{card}]")
+        ring.close()
+    say(f"ring movers: {len(cases)} cases bit-equal to their plain versions; launches "
+        f"{launches}")
+    return {"umem": launches}, times
 
 
 # ------------------------------------------------------- the serving stack
@@ -2156,9 +2296,9 @@ def serving_stack_phases(hosts, flows, drop_ips, card, device, err):
 
     # ---- the DORA storm with cached DISCOVERs and the IPoE mix
     snap0 = sched.stats_snapshot()
-    kernels.reset_launches()
+    reset_launches()
     storm_s, n_bulk = dora_storm(sched, rng, flows, drop_ips)
-    launches_storm = dict(kernels.LAUNCHES)
+    launches_storm = launch_counts()
     snap = sched.stats_snapshot()
     ex = snap["express"]
     n_aot = ex["aot_dispatches"] - snap0["express"]["aot_dispatches"]
@@ -2185,13 +2325,13 @@ def serving_stack_phases(hosts, flows, drop_ips, card, device, err):
     say("  (and again with a tracer armed: an express and a bulk flight record)")
 
     # ---- express OFFER latency, the bulk lane idle: counts 0, express only
-    kernels.reset_launches()
+    reset_launches()
     split, beat = ExpressSplit(sched), BeatSplit()
     n0 = sched.express_aot_dispatches
     with split, beat:
         lat, _ = express_latency(sched, rng, LAT_ROUNDS, 64)
     n_lat = sched.express_aot_dispatches - n0
-    launches_express = dict(kernels.LAUNCHES)
+    launches_express = launch_counts()
     check(n_lat == LAT_ROUNDS, f"one express dispatch per round ({n_lat})")
     check_launches(launches_express, n_lat, {"probe": 3, "seg_prefix": 0}, "express lane")
     lone, _ = express_latency(sched, rng, LONE_ROUNDS, 1)
@@ -2342,13 +2482,13 @@ def ring_dispatch_counts(sched, rng, rounds: int) -> dict:
     pump = sched._devloop
     k = pump.ring.k
     d0, b0 = pump.dispatches, pump.batches
-    kernels.reset_launches()
+    reset_launches()
     for r in range(rounds):
         for j, i in enumerate(rng.integers(N_SUBS, size=64 * k)):
             sched.submit(F.discover_frame(sub_mac(i), 0xE000 + j), True, tag=("count", int(i)))
         for c in run_until(sched, 64 * k):
             check(c.verdict == "tx", "cached DISCOVER answered by the ring")
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     nd, nb = pump.dispatches - d0, pump.batches - b0
     check(nd == rounds and nb == rounds * k, f"k={k}: {rounds} ring dispatches for {nb} batches")
     check_launches(launches, nd, {"probe": 3 * k, "seg_prefix": 0}, f"devloop k={k}")
@@ -2450,12 +2590,12 @@ def devloop_phases(hosts, flows, drop_ips, card, device, err):
     # ---- the DORA storm and the latencies through the devloop (counts 0)
     snap0 = sched.stats_snapshot()
     d0 = pump.dispatches
-    kernels.reset_launches()
+    reset_launches()
     split = DevloopSplit(sched)
     with split:
         storm_s, n_bulk = dora_storm(sched, rng, flows, drop_ips, clients=DL_STORM_CLIENTS,
                                      first=DL_CLIENT0 + DL_CLIENTS)
-    launches_storm = dict(kernels.LAUNCHES)
+    launches_storm = launch_counts()
     n_ring, snap = pump.dispatches - d0, sched.stats_snapshot()
     n_bdisp = snap["bulk"]["batches"] - snap0["bulk"]["batches"]
     check(snap["express"]["fallbacks"] == snap0["express"]["fallbacks"]
@@ -2869,7 +3009,7 @@ def sharded_phases(card, device, err):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
+    reset_launches()
     split = ShardSplit(cl, ring)
     call_ms, done = [], 0
     for k, fr in enumerate(mixed):
@@ -2881,14 +3021,14 @@ def sharded_phases(card, device, err):
         drain_ring(ring)
     done += cl.flush_pipeline()
     drain_ring(ring)
-    sh = dict(kernels.LAUNCHES)
+    sh = launch_counts()
     check(done == SH_BATCHES * B, f"pipelined loop retired every frame ({done})")
     check_launches(sh, SH_BATCHES, per, "sharded path")
-    kernels.reset_launches()
+    reset_launches()
     check(ring.rx_push_batch(dframes, from_access=True) == B, "ring took the control batch")
     check(cl.process_ring(ring, NOW + 30, 30 * 10**6, pkt_slot=L) == B, "control batch retired")
     drain_ring(ring)
-    shd = dict(kernels.LAUNCHES)
+    shd = launch_counts()
     check_launches(shd, 1, {"probe": 3 * N_SHARDS * N_SHARDS, "seg_prefix": 0}, "sharded DHCP path")
     say(f"sharded launches: {per['probe']} K1 + {per['seg_prefix']} K2 per fused step "
         f"(N x (6 local + 3N) and 4N at N = {N_SHARDS}), {3 * N_SHARDS * N_SHARDS} K1 per DHCP-only "
@@ -2951,7 +3091,7 @@ def sharded_phases(card, device, err):
     torch.cuda.empty_cache()
 
     # 7. the reference's dryrun on the card
-    kernels.reset_launches()
+    reset_launches()
     snap = entry_mod.dryrun_multichip(N_SHARDS)
     check(snap["steps"] == 7 and snap["psum_dhcp_hits"] == 4 * N_SHARDS, "dryrun_multichip(8)")
     return {"sharded": sh, "sharded_dhcp": shd, **copy_launches, **more}
@@ -2973,11 +3113,11 @@ def copy_exchange_phase(cl, pkt, length, fa, card, err) -> dict:
 
     before = run(cl.exchange)
     per = sharded_launches(cl.n, 6)
-    kernels.reset_launches()
+    reset_launches()
     box = {}
     rec = record_kernel_inputs(lambda: box.update(out=run(CopyingExchange(cl.shard_devices))),
                                per["probe"], per["seg_prefix"], "copying exchange step")
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     after = run(cl.exchange)
     got = box["out"]
     for f in got._fields:
@@ -3102,13 +3242,13 @@ def restart_phases(hosts, flows, drop_ips, card, device, err):
                   pkt_slot=L, slow_path=slow_calls.append, device=device)
     torch.cuda.synchronize()
     t["upload"] = time.perf_counter() - t1
-    kernels.reset_launches()
+    reset_launches()
     outs2 = [eng2.process(batches[0][0], now=nows[0])]
     t["serve"] = t["read"] + time.perf_counter() - t0
     first_tables = host_words(eng2.tables)
     outs2 += [eng2.process(f, now=n) for (f, _), n in zip(batches[1:], nows[1:])]
     out_ren2 = eng2.process(ren, now=NOW + 60)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     check_launches(launches, RS_BATCHES + 1, {"probe": 8, "seg_prefix": 4}, "restored engine")
     for out, (_, expect) in zip(outs2, batches):
         check_outputs(out, expect, drop_ips, False)
@@ -3217,7 +3357,7 @@ def swap_phases(hosts, flows, drop_ips, card, device, err):
 
     new = writes(0)
     snap0, d_old = sched.stats_snapshot(), pump.dispatches
-    kernels.reset_launches()
+    reset_launches()
     box, real = patched(new, record=False)
     try:
         rep = ops_mod.blue_green_swap(comps)
@@ -3249,7 +3389,7 @@ def swap_phases(hosts, flows, drop_ips, card, device, err):
         "the rows written between the snapshot and the flip answer on the standby's device")
     lat_after, _ = express_latency(sched, rng, SWAP_ROUNDS, 64)
     check_ring_dispatch_makes_no_sync(sched, rng)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     snap = sched.stats_snapshot()
     n_bulk = snap["bulk"]["batches"] - snap0["bulk"]["batches"]
     check(launches["seg_prefix"] == 4 * (rep["delta_steps"] + n_bulk)
@@ -3393,12 +3533,12 @@ def sharded_checkpoint_phases(cl, flows, groups, ring, rng, per, card, device, e
     ring.complete(np.zeros((B,), np.uint8), pkt, length, B)
     drain_ring(ring)
     fa = (flags & ring_mod.FLAG_FROM_ACCESS) != 0
-    kernels.reset_launches()
+    reset_launches()
     box = {}
     rec = record_kernel_inputs(lambda: box.update(out=twin.step(pkt, length, fa, NOW + 201, 1000)),
                                per["probe"], per["seg_prefix"], "restored sharded step",
                                sharded_names(twin))
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     check_launches(launches, 1, per, "restored sharded step")
     ref = cl.step(pkt, length, fa, NOW + 201, 1000)
     for k, v in ref.items():
@@ -3496,10 +3636,10 @@ def loadtest_phases(card, err) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             log = f"{tmp}/bench.jsonl"
             buf = io.StringIO()
-            kernels.reset_launches()
+            reset_launches()
             with first_kernel_calls(6, 0) as rec, contextlib.redirect_stdout(buf):
                 rc = cli.main(["loadtest", *LT_ARGS, "--bench-log", log, *extra])
-            launches = dict(kernels.LAUNCHES)
+            launches = launch_counts()
             line = ledger.read(log)[-1]
         check(rc == 0, f"{path}: exit code {rc}")
         res = json.loads(buf.getvalue())
@@ -3682,7 +3822,7 @@ def run_phases(card, device, err) -> dict:
                  for k, (m, ip) in enumerate(sorted(acks.items()))]
         obs0 = {k: dict(v) for k, v in sched.observed.items()}
         tx0, disc0 = eng.stats.tx, dhcp.stats.discover
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         for k in range(0, RUN_FLOWS, 64):
             for f in flows[k: k + 64]:
@@ -3690,7 +3830,7 @@ def run_phases(card, device, err) -> dict:
             drive_app(app, clk, 2)
         tx = drive_app(app, clk, RUN_SUBS // 16 - 2 * (RUN_FLOWS // 64)) + settle(app)
         dt = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         n_ex = sched.observed["express"]["dispatches"] - obs0["express"]["dispatches"]
         n_bulk = sched.observed["bulk"]["dispatches"] - obs0["bulk"]["dispatches"]
         device_answered, slow = eng.stats.tx - tx0, dhcp.stats.discover - disc0
@@ -4015,7 +4155,7 @@ def pppoe_phases(card, device, err) -> dict:
         # the second forwards), then downstream to each session's address
         up = [peers.data(m, 40000, b"u" * 64) for m in macs]
         obs0, dev0 = observed(sched), eng.stats.pppoe.copy()
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         serve_frames(app, clk, up)
         drain_tables(app, clk)
@@ -4038,7 +4178,7 @@ def pppoe_phases(card, device, err) -> dict:
                 for ip, port in snat]
         out = serve_frames(app, clk, down, fa=False)
         dt = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         enc = [f for f in out if f[12:14] == b"\x88\x64" and f[20:22] == b"\x00\x21"]
         ok = 0
         for f in enc:
@@ -4119,7 +4259,7 @@ def v6_phases(card, device, err) -> dict:
             return got
 
         obs0 = observed(sched)
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         adv = replies(serve_frames(app, clk, [frame(m, msg(m, p6.SOLICIT, k))
                                               for k, m in enumerate(macs)]), p6.ADVERTISE)
@@ -4145,7 +4285,7 @@ def v6_phases(card, device, err) -> dict:
                       + bytes.fromhex("ff020000000000000000000000000002") + icmp)
         ra = [f for f in serve_frames(app, clk, rs) if f[12:14] == b"\x86\xdd" and f[20] == 58
               and f[54] == 134]
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         check(len(ra) == RS_CLIENTS and len({f[:6] for f in ra}) == RS_CLIENTS,
               f"v6: every RS answered with a unicast RA ({len(ra)})")
         launches_of(sched, obs0, launches, "v6", 9)
@@ -4336,7 +4476,7 @@ def radius_phases(card, device, err) -> dict:
         seed_pppoe(app, 38)
         sched, eng, ring, dhcp = c["scheduler"], c["engine"], c["ring"], c["dhcp"]
         obs0 = observed(sched)
-        kernels.reset_launches()
+        reset_launches()
         peers = PPPoEPeers(ppp_macs)
         negotiate(app, clk, peers, ppp_macs)
         check(all(p.open for p in peers.peer.values()),
@@ -4374,7 +4514,7 @@ def radius_phases(card, device, err) -> dict:
                    for ip in sub_ips)
         check(good == 2 * RADIUS_SUBS, f"radius: every interim carries the octets the device's "
               f"NAT session words hold ({good} of {2 * RADIUS_SUBS})")
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         launches_of(sched, obs0, launches, "radius", 11)
 
         # CoA: one DHCP subscriber to a lower rate; K2's decision drops its excess
@@ -4509,10 +4649,10 @@ def run_observed_phases(card, device, err) -> dict:
             c = app.components
             try:
                 app.tick(clk.t)
-                kernels.reset_launches()
+                reset_launches()
                 with first_kernel_calls(9, 4) as rec:
                     tx = obs_drive(app, clk, RUN_CMP_BEATS)
-                launches = dict(kernels.LAUNCHES)
+                launches = launch_counts()
                 t0 = time.perf_counter()
                 c["collector"].collect_once()
                 collect_ms = (time.perf_counter() - t0) * 1e3
@@ -4636,9 +4776,9 @@ def run_observed_card(app, clk, card, device, tmp: str, tx) -> dict:
               f"the fresh app restored {OBS_LEASED} leases ({rows})")
         feng, fdhcp = fc["engine"], fc["dhcp"]
         tx0, disc0 = feng.stats.tx, fdhcp.stats.discover
-        kernels.reset_launches()
+        reset_launches()
         tx = drive_app(fresh, clk2, OBS_LEASED // 16) + settle(fresh)
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         got = dhcp_replies(tx)
         check(feng.stats.tx - tx0 == OBS_LEASED and fdhcp.stats.discover == disc0
               and sorted(m for t, m, _ in got if t == F.OFFER)
@@ -4879,11 +5019,11 @@ def fleet_phases(card, device, err) -> dict:
         try:
             c = app.components
             fleet_storm(app, clk, 1_000_000, FLEET_WARM)
-            kernels.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             tx, acks = fleet_storm(app, clk, 0, FLEET_CLIENTS)
             dt = time.perf_counter() - t0
-            launches[name] = dict(kernels.LAUNCHES)
+            launches[name] = launch_counts()
             torch.cuda.synchronize()
             used = free0 - torch.cuda.mem_get_info()[0]
             check(len(acks) == FLEET_CLIENTS and len(set(acks.values())) == FLEET_CLIENTS,
@@ -5057,7 +5197,7 @@ def chaos_phases(card, device, err) -> dict:
     from bng_tpu_torch.chaos import runner
 
     check(len(runner.ALL_SCENARIOS) == 23, "chaos: the sweep runs all 23 entries")
-    kernels.reset_launches()
+    reset_launches()
     report = {"schema": runner.REPORT_SCHEMA, "seed": CHAOS_SEED, "scenarios": {},
               "storm_scale": CHAOS_SCALE}
     secs, recs = {}, {}
@@ -5080,7 +5220,7 @@ def chaos_phases(card, device, err) -> dict:
     t0 = time.perf_counter()
     report["soak"] = runner.soak(CHAOS_SEED, epochs=CHAOS_SOAK)
     secs["soak"] = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     report["ok"] = (all(r.get("ok", False) for r in report["scenarios"].values())
                     and report["soak"]["ok"])
     mine = runner.canonical_json(report)
@@ -5359,7 +5499,7 @@ def run_sharded_phases(card, device, err) -> dict:
             disc0 = dhcp.stats.discover
             tx_dev0 = (c["cluster"].stats_summary()["tx"] if shards > 1
                        else c["engine"].stats.tx)
-            kernels.reset_launches()
+            reset_launches()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             beats, tx, fwd, n_flow = 0, [], [], 0
@@ -5372,7 +5512,7 @@ def run_sharded_phases(card, device, err) -> dict:
             t, f = ring_settle(app)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t1
-            launches[shards] = dict(kernels.LAUNCHES)
+            launches[shards] = launch_counts()
             tx, fwd = tx + t, fwd + f
             slow = dhcp.stats.discover - disc0
             dev_tx = ((c["cluster"].stats_summary()["tx"] if shards > 1 else c["engine"].stats.tx)
@@ -5527,7 +5667,7 @@ def ha_pair_phases(card, device, err) -> dict:
             push_t[ha_a._seq] = t
 
         ha_a.push_change = timed_push
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         fleet_storm(act, clk, 0, HA_BEFORE)
         t_storm1 = time.perf_counter() - t0
@@ -5576,7 +5716,7 @@ def ha_pair_phases(card, device, err) -> dict:
             time.sleep(0.01)
         check(ha_b.connected and ha_b.stats["full_syncs"] == 1 and ha_b.last_seq == ha_a._seq,
               f"ha: the reconnect healed by replay_since with no full sync ({ha_b.stats})")
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         # K1 on the active's own last express dispatch: the program's
         # buffers still hold its descriptors, `now` and tables
         sched, eng = act.components["scheduler"], act.components["engine"]
@@ -5781,7 +5921,7 @@ def nexus_drive(device, card: str | None, err) -> dict:
               "nexus: PSK device authentication built from the key file, its signature verifies")
         fleet_storm(app, clk, 1_000_000, FLEET_WARM)  # the express graph, first batches
         obs0 = observed(sched)
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         _tx, acks = fleet_storm(app, clk, 0, NEXUS_CLIENTS)
         tm["storm"] = time.perf_counter() - t0
@@ -5860,7 +6000,7 @@ def nexus_drive(device, card: str | None, err) -> dict:
               f"{NEXUS_PART - NEXUS_CONFLICTS} are answered on the device ({on_dev} on the "
               f"device, {slow} slow)")
         out["renumbered"] = sorted((m, offers[m]) for m in losers)
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         out["stats"] = app.stats()["resilience"]
         if card is not None:
             launches_of(sched, obs0, launches, "run_nexus", 9, bulk=False)
@@ -5992,11 +6132,11 @@ def nexus_fleet_runs(device, card) -> tuple[dict, dict]:
                       == [f"bng0-w{i}" for i in range(4)], "nexus fleet: one allocator a worker")
             fleet_storm(app, clk, 1_000_000, FLEET_WARM)
             obs0, calls0 = observed(c["scheduler"]), backend.calls
-            kernels.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             _tx, acks = fleet_storm(app, clk, 0, NEXUS_CLIENTS)
             dt = time.perf_counter() - t0
-            got = dict(kernels.LAUNCHES)
+            got = launch_counts()
             snap = c["fleet"].stats_snapshot()
             central = sum(backend.lookup(m.hex()) == u32_to_ip(ip) for m, ip in acks.items())
             check(len(acks) == NEXUS_CLIENTS and len(set(acks.values())) == NEXUS_CLIENTS
@@ -6202,11 +6342,11 @@ def dns_phases(card, device, err) -> dict:
         frames = (gate_frames(acks, gardened, ("dns", "portal", "other"))
                   + gate_frames(acks, provisioned, ("other",)))
         obs0 = observed(sched)
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         verdicts, gstats = gate_verdicts(app, frames)
         dt = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         n_ex, n_bulk = launches_of(sched, obs0, launches, "run_dns", 9)
         dropped = {key for key, v in verdicts.items() if v == "drop"}
         check(dropped == {("other", m) for m in gardened}
@@ -6462,7 +6602,7 @@ def wire_scenario_phase(card, device, err) -> tuple[dict, dict]:
     under both pumps and once on a CPU engine: the far-end bytes equal.
     Returns ({"wire_scenarios": launches}, the card's egress)."""
     outs, per = {}, {}
-    kernels.reset_launches()
+    reset_launches()
     for path in WIRE_PUMPS:
         eng = wire_stack(device)
         ring, kern, pump = sim_wire(path)
@@ -6474,7 +6614,7 @@ def wire_scenario_phase(card, device, err) -> tuple[dict, dict]:
         check(pump.last_path == path and st["rx_submit_fail"] == 0 and st["tx_overflow"] == 0,
               f"wire {path} pump: ran its own path, no failed submit, no overflow ({st})")
         ring.close()
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     check(outs["scalar"] == outs["vector"], "wire: far-end bytes equal across the two pumps")
     fused = sum(p["fused"] for p in per.values())
     dhcp = sum(p["dhcp"] for p in per.values())
@@ -6491,9 +6631,10 @@ def wire_scenario_phase(card, device, err) -> tuple[dict, dict]:
     probes_vs_plain([("wire step", a) for a in rec["probe"]], err)
     segs_vs_plain([("wire step", *a) for a in rec["seg_prefix"]], err)
     ring.close()
-    check(launches["probe"] == 10 * fused + 3 * dhcp and launches["seg_prefix"] == 4 * fused,
-          f"wire: 10 K1 + 4 K2 a fused step and 3 K1 a DHCP-only batch ({launches}; {fused} "
-          f"fused, {dhcp} DHCP-only)")
+    check(launches["probe"] == 10 * fused + 3 * dhcp and launches["seg_prefix"] == 4 * fused
+          and launches["umem_gather"] == launches["umem_scatter"] == fused + dhcp,
+          f"wire: 10 K1 + 4 K2 a fused step and 3 K1 a DHCP-only batch, every batch by "
+          f"descriptor ({launches}; {fused} fused, {dhcp} DHCP-only)")
     # the same drive on a CPU engine
     eng = wire_stack("cpu")
     ring, kern, pump = sim_wire("scalar")
@@ -6571,14 +6712,16 @@ def wire_headline_phase(eng, flows, card, err) -> dict:
         ring.close()
         return egress, secs, st
 
-    kernels.reset_launches()
+    reset_launches()
     runs = {}
     with first_kernel_calls(8, 4) as rec:
         for i, name in enumerate(WIRE_PUMPS + ("no wire",)):
             t_base = NOW + 1000 * (i + 1)  # the QoS buckets refill between runs
             runs[name] = wire(name, t_base) if name in WIRE_PUMPS else plain(t_base)
-    launches = dict(kernels.LAUNCHES)
-    check_launches(launches, 3 * WIRE_BATCHES, {"probe": 8, "seg_prefix": 4}, "wire headline")
+    launches = launch_counts()
+    check_launches(launches, 3 * WIRE_BATCHES, {"probe": 8, "seg_prefix": 4,
+                                                "umem_gather": 1, "umem_scatter": 1},
+                   "wire headline (every batch by descriptor)")
     held = first_calls_vs_plain(rec, "wire headline", err)
     check(runs["scalar"][0] == runs["vector"][0], "wire headline: egress equal across the pumps")
     check(sorted(runs["scalar"][0]) == sorted(runs["no wire"][0]) and runs["scalar"][0],
@@ -6732,7 +6875,7 @@ def run_wire_if_phase(card, device, want: dict) -> tuple[dict, bool]:
         check(dumps, f"run --wire-if nosuchif0: a {rec_mod.TRIG_WIRE_FALLBACK} flight dump "
                      f"({os.listdir(tmp)})")
     with tempfile.TemporaryDirectory() as tmp:
-        kernels.reset_launches()
+        reset_launches()
         app = BNGApp(BNGConfig(wire_if="nosuchif0", telemetry_enabled=True, trace_dir=tmp,
                                metrics_port=0), device=device)
         try:
@@ -6754,7 +6897,7 @@ def run_wire_if_phase(card, device, want: dict) -> tuple[dict, bool]:
                   f"run --wire-if app: the engine on {device} ({c['engine'].device})")
         finally:
             app.close()
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
     say(f"run --wire-if nosuchif0 on the card: the memory rung, loudly (the warning, a "
         f"{rec_mod.TRIG_WIRE_FALLBACK} flight dump, bng_wire_rung{{mode=\"memory\"}} 1); no "
         f"frame touched a wire, so none counts as wire serving [{card}]")
@@ -6843,7 +6986,7 @@ def cluster_phase(card) -> dict:
     process`, `cluster status --from-checkpoint F`; the wave's DORAs/s and
     the failover's re-DORA time in-process. The cluster is host code: it
     launches no kernel (counts 0 before, read after)."""
-    kernels.reset_launches()
+    reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         for mode in ("inline", "process"):
             ck = os.path.join(tmp, f"{mode}.ckpt")
@@ -6878,8 +7021,8 @@ def cluster_phase(card) -> dict:
               f"cluster wave ({mode}): {wave}")
         rates[mode] = CLUSTER_SUBS / secs
     fo = cluster_failover_timed()
-    launches = dict(kernels.LAUNCHES)
-    check(launches == {"probe": 0, "seg_prefix": 0},
+    launches = launch_counts()
+    check(launches == {"probe": 0, "seg_prefix": 0, "umem_gather": 0, "umem_scatter": 0},
           f"cluster: host code, no kernel launched ({launches})")
     print(f"cluster: {CLUSTER_SUBS}-subscriber DORA wave through the front door of "
           f"{CLUSTER_INSTANCES} instances: {rates['inline']:.1f} DORAs/s inline, "
@@ -6978,7 +7121,7 @@ def qinq_phase(card, device, err) -> dict:
     check_qinq_offers(dhcp["tx"], mapper, "qinq DHCP-only")
     check(dhcp == cpu.process_dhcp(frames, now=NOW + 2),
           "qinq DHCP-only: the card's bytes == the CPU's")
-    kernels.reset_launches()
+    reset_launches()
     rates = {}
     for path, fn in (("fused", eng.process), ("dhcp", eng.process_dhcp)):
         batches = [qinq_discovers(0x30000 + r * QINQ_SUBS) for r in range(QINQ_ROUNDS)]
@@ -6988,8 +7131,9 @@ def qinq_phase(card, device, err) -> dict:
             o = fn(b, now=NOW + 3 + k)
             check(len(o["tx"]) == QINQ_SUBS, f"qinq {path} batch {k}: every DISCOVER answered")
         rates[path] = QINQ_ROUNDS * QINQ_SUBS / (time.perf_counter() - t)
-    launches = dict(kernels.LAUNCHES)
-    check(launches == {"probe": QINQ_ROUNDS * (8 + 3), "seg_prefix": QINQ_ROUNDS * 4},
+    launches = launch_counts()
+    check(launches == {"probe": QINQ_ROUNDS * (8 + 3), "seg_prefix": QINQ_ROUNDS * 4,
+                      "umem_gather": 0, "umem_scatter": 0},
           f"qinq: 8 K1 + 4 K2 a fused step, 3 K1 a DHCP-only batch ({launches})")
     print(f"qinq: {QINQ_SUBS} 802.1ad DISCOVERs a batch, clients known only by their S/C "
           f"pair (QinQMapper -> VLAN table): {rates['fused']:.1f} DISCOVERs/s through "
@@ -7125,10 +7269,10 @@ def nat_alg_phase(card, device, err) -> dict:
     host rewrite equal to the expected bytes and to a CPU engine's; the
     FTP data connections' first packets DNAT'd on the card after the
     drain; counts 0 then read."""
-    kernels.reset_launches()
+    reset_launches()
     r = alg_drive(alg_stack(device), True)
-    launches = dict(kernels.LAUNCHES)
-    check(launches == {"probe": 16, "seg_prefix": 8},
+    launches = launch_counts()
+    check(launches == {"probe": 16, "seg_prefix": 8, "umem_gather": 0, "umem_scatter": 0},
           f"ALG: 8 K1 + 4 K2 a fused step, two steps ({launches})")
     probes_vs_plain([("ALG step", a) for a in r["rec"]["probe"]], err)
     segs_vs_plain([("ALG step", *a) for a in r["rec"]["seg_prefix"]], err)
@@ -7174,7 +7318,7 @@ def host_verbs_phase(card) -> dict:
     """Phase 58: `python -m bng_tpu_torch demo`, `perf gate` on ledgers the
     phase writes (clean, then a planted regression) and `check`, each as a
     subprocess with its output checked; host paths, no kernel launch."""
-    kernels.reset_launches()
+    reset_launches()
     secs = {}
 
     def verb(*argv):
@@ -7202,8 +7346,8 @@ def host_verbs_phase(card) -> dict:
     r = verb("check")
     check(r.returncode == 0 and "0 finding(s)" in r.stderr and "(0 unjustified)" in r.stderr,
           f"check: rc {r.returncode}, {r.stdout[-500:]}{r.stderr[-300:]}")
-    launches = dict(kernels.LAUNCHES)
-    check(launches == {"probe": 0, "seg_prefix": 0},
+    launches = launch_counts()
+    check(launches == {"probe": 0, "seg_prefix": 0, "umem_gather": 0, "umem_scatter": 0},
           f"host verbs: no kernel launched ({launches})")
     print("host verbs: " + ", ".join(f"`{k}` {v:.2f} s" for k, v in secs.items())
           + f" as subprocesses (demo's lines, perf gate rc 0 then 1 naming the stage, check "
@@ -7252,7 +7396,7 @@ def cards_kernel_phase(n: int, card: str, err) -> dict:
     cases take route 1 (the shared-memory opt-in, set on each card) and
     route 2; counts 0, then each card's."""
     check(torch.cuda.current_device() == 0, "card 0 is current")
-    kernels.reset_launches()
+    reset_launches()
     n_probe = n_seg = 0
     for i in range(n):
         dev = torch.device("cuda", i)
@@ -7279,7 +7423,7 @@ def cards_kernel_phase(n: int, card: str, err) -> dict:
     say(f"K1 on {n_probe} cases and K2 on {n_seg} (both routes) launched on each of {n} cards "
         f"with card 0 current, bit-equal to their plain versions there; launches by card {per} "
         f"[{card}]")
-    return {"cards_kernels": dict(kernels.LAUNCHES)}
+    return {"cards_kernels": launch_counts()}
 
 
 def spread_launches(cl, fused: bool) -> dict:
@@ -7334,7 +7478,7 @@ def cards_sharded_phase(n: int, card: str, err) -> dict:
     frames, expect = sharded_frames(rng, flows, groups)
     pkt, length, flags = assemble_full(cl, ring, frames)
     fa = (flags & ring_mod.FLAG_FROM_ACCESS) != 0
-    kernels.reset_launches()
+    reset_launches()
     box = {}
     rec = record_kernel_inputs(lambda: box.update(out=cl.step(pkt, length, fa, NOW + 1, 1000)),
                                per["probe"], per["seg_prefix"], "spread sharded step",
@@ -7379,7 +7523,7 @@ def cards_sharded_phase(n: int, card: str, err) -> dict:
     dframes = [F.discover_frame(sub_mac(groups[s][j]), 0x3000 + s * B_SHARD + j)
                for s in range(N_SHARDS) for j in range(B_SHARD)]
     dpkt, dlen, _ = assemble_full(cl, ring, dframes)
-    kernels.reset_launches()
+    reset_launches()
     dout = cl.dhcp_step(dpkt, dlen, NOW + 2)
     dby = card_launches()
     ring.complete(np.where(dout["is_reply"], 2, 0).astype(np.uint8),
@@ -7462,7 +7606,7 @@ def cards_sharded_phase(n: int, card: str, err) -> dict:
     torch.cuda.empty_cache()
 
     # 5. the pipelined ring loop over the cards
-    kernels.reset_launches()
+    reset_launches()
     call_ms, done = [], 0
     for k in range(CARDS_BATCHES):
         fr, _ = sharded_frames(rng, flows, groups)
@@ -7473,7 +7617,7 @@ def cards_sharded_phase(n: int, card: str, err) -> dict:
         drain_ring(ring)
     done += cl.flush_pipeline()
     drain_ring(ring)
-    pipe = dict(kernels.LAUNCHES)
+    pipe = launch_counts()
     check(done == CARDS_BATCHES * B, f"pipelined loop over the cards retired every frame ({done})")
     check_launches(pipe, CARDS_BATCHES, per, "spread pipelined loop")
     check(cl.telemetry.snapshot()["missteer_total"] == 0, "no missteer")
@@ -7623,7 +7767,7 @@ def cards_express_phase(card: str) -> dict:
         check(prog.device == home and eng.dhcp_device == home,
               f"{label}: the express graph and the DHCP tables on {home}")
         rng = np.random.default_rng(21)
-        kernels.reset_launches()
+        reset_launches()
         n0 = sched.express_aot_dispatches
         storm_s, n_bulk = dora_storm(sched, rng, flows, drop_ips, clients=CARDS_CLIENTS,
                                      first=turn * CARDS_CLIENTS)
@@ -7638,7 +7782,7 @@ def cards_express_phase(card: str) -> dict:
                    {0: {"probe": 8 * n_bulk + 3 * n_exp, "seg_prefix": 4 * n_bulk}})
         check(storm_by == want_by, f"{label}: 3 K1 per express dispatch on the express card, "
               f"8 K1 + 4 K2 per bulk step on cuda:0 ({storm_by})")
-        kernels.reset_launches()
+        reset_launches()
         idle, _ = express_latency(sched, rng, CARDS_BURSTS, 64)
         idle_by = card_launches()
         check(idle_by == {1 if own else 0: {"probe": 3 * CARDS_BURSTS, "seg_prefix": 0}},
@@ -7672,7 +7816,7 @@ def cards_express_phase(card: str) -> dict:
                 express_loop="devloop", devloop_k=8))
             check(dl.express_loop == "devloop" and dl._express_dev == torch.device("cuda", 1),
                   "a devloop scheduler on cuda:1")
-            kernels.reset_launches()
+            reset_launches()
             got = burst_bytes(dl, np.random.default_rng(5).integers(N_SUBS, size=64), 0x7100000)
             dl.flush()
             check(got == replies[label], "the devloop lane on cuda:1 gives the aot lane's bytes")
@@ -7684,7 +7828,7 @@ def cards_express_phase(card: str) -> dict:
             # the engine's own fused step (the native ring's drive, which
             # bypasses the scheduler) brings the DHCP tables home to cuda:0;
             # the next express burst takes them back to cuda:1
-            kernels.reset_launches()
+            reset_launches()
             out = eng.process(flow_frames)
             fused_by = card_launches()
             check(eng.dhcp_device == torch.device("cuda", 0) and set(fused_by) == {0}
@@ -7793,8 +7937,9 @@ def main(argv=None) -> int:
         f"(device tables {torch.cuda.memory_allocated() / 2**30:.3f} GiB)")
 
     err = {"probe": 0.0, "seg_prefix": 0.0}  # max |kernel - plain| over every comparison
+    launches, movers = umem_phase(card, err)
     ipoe, ipoe_traced = ipoe_phases(eng, flows, drop_ips, card, device, args.profile, err)
-    launches = {"ipoe": ipoe, "ipoe_traced": ipoe_traced}
+    launches.update({"ipoe": ipoe, "ipoe_traced": ipoe_traced})
     launches.update(wire_headline_phase(eng, flows, card, err))
     # the full-stack engine drains the same host tables: retire this one first
     hosts = (eng.fastpath, eng.nat, eng.qos, eng.antispoof)
@@ -7843,24 +7988,32 @@ def main(argv=None) -> int:
     launches.update(qinq_phase(card, device, err))
     launches.update(nat_alg_phase(card, device, err))
     launches.update(host_verbs_phase(card))
-    return finish(launches, launches["full"], err, kern, card)
+    return finish(launches, launches["full"], err, {**kern, **movers}, card,
+                  {"umem_gather": launches["wire_headline"],
+                   "umem_scatter": launches["wire_headline"]})
 
 
-def finish(launches, main_path, err, kern, card) -> int:
+def finish(launches, main_path, err, kern, card, main_of=None) -> int:
     """The kernels line (each kernel's launches on the main path and by
     path, its max |err| and its times against its bound), the card line,
-    the result line."""
+    the result line. K1 and K2's main path is `main_path`; the ring's
+    movers (timed only on one card) name theirs in `main_of`, the
+    headline's ring loop, and replace no TPU kernel."""
     src = {"probe": ("cuda", "bng_tpu_torch/csrc/probe.cu", "bng_tpu/ops/pallas_table.py:261"),
            "seg_prefix": ("cuda", "bng_tpu_torch/csrc/seg_prefix.cu",
-                          "bng_tpu/ops/pallas_qos.py:127")}
+                          "bng_tpu/ops/pallas_qos.py:127"),
+           "umem_gather": ("cuda", "bng_tpu_torch/csrc/umem.cu", None),
+           "umem_scatter": ("cuda", "bng_tpu_torch/csrc/umem.cu", None)}
+    main_of = {"probe": main_path, "seg_prefix": main_path, **(main_of or {})}
     line = {"kernels": [
         {"name": name, "route": src[name][0], "source": src[name][1], "replaces": src[name][2],
-         "launches": main_path[name], "max_abs_err": err[name],
-         "ms": float(np.mean(kern[name]["ms"])), "plain_ms": float(np.mean(kern[name]["plain"])),
+         "launches": main_of[name][name], "max_abs_err": err[name],
+         "ms": float(np.mean(kern[name]["ms"])),
+         "plain_ms": float(np.mean(kern[name]["plain"])) if "plain" in kern[name] else None,
          "bound_ms": float(np.mean(kern[name]["bound"])),
          "bound_by": "bytes", "library_ms": None,
-         "launches_by_path": {p: v[name] for p, v in launches.items()}}
-        for name in ("probe", "seg_prefix")]}
+         "launches_by_path": {p: v.get(name, 0) for p, v in launches.items()}}
+        for name in src if name in kern]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,8 +24,18 @@ leaves every table word as it was; a replayed step launches 8 K1 and 4 K2
 makes no synchronising CUDA call. A tape whose bounds leave captures with
 no work between them leaves those out, keeps them alive (the shared
 pool's count), and replays what the eager code computes.
+
+The zero-copy ring loop on a card (a `NativeRing` whose UMEM the card
+maps; `ops/umem.py`): bit for bit the copying loop over the same full
+batches, both programs, every optional stage, and L = 1,536 with
+line-bound PPPoE sessions (verdicts, every TX/FWD frame's UMEM bytes, the
+slow ring's frames, the counts, every table word); `ring_zero_copy`
+counts its batches and `ring_copied` none; a sink-bearing engine copies;
+the UMEM is registered at the first zero-copy bind and unregistered by
+`close`; the gather and scatter kernels equal their plain versions.
 """
 
+import ctypes
 import warnings
 
 import numpy as np
@@ -40,7 +50,7 @@ from bng_tpu_torch.ops.pipeline import pipeline_step, step_writes
 from bng_tpu_torch.runtime import engine as engine_mod
 from bng_tpu_torch.runtime import ringprog
 from bng_tpu_torch.runtime.engine import Engine, _InFlight, dhcp_program
-from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS, PyRing
+from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS, NativeRing, PyRing
 from bng_tpu_torch.telemetry import spans as tele
 from bng_tpu_torch.utils.net import ip_to_u32
 
@@ -425,3 +435,212 @@ def test_empty_segments_between_bounds(card):
         x.add_(k + 1)
         assert tape.replay() is out and again.replay() is out2
         assert torch.equal(out, x * 2 + 1) and torch.equal(out2, x * 2 + 1)
+
+
+# ---- the zero-copy ring loop on the card --------------------------------------
+
+def _zc_engine(stack: str, device, **kw):
+    """(engine, ring batches [(frames, flags)]) of a stack whose batches are
+    all full: the engine's batch is the mix's width (the copying loop re-runs
+    a partial batch's stale tail lanes, the zero-copy loop runs them empty:
+    PERF.md, open questions)."""
+    if stack == "pppoe":
+        from test_torch_pppoe_qinq import B as PB
+        from test_torch_pppoe_qinq import L as PL
+        from test_torch_pppoe_qinq import stack as pppoe_stack
+
+        _, traffic, _, eng = pppoe_stack(17, device=device)
+        for k, v in kw.items():
+            setattr(eng, k, v)
+        batches = [([traffic.rows[i, : traffic.lens[i]].tobytes() for i in range(g, g + PB)],
+                    traffic.flags[g: g + PB].astype(np.uint32))
+                   for g in range(0, len(traffic.lens), PB)]
+        assert eng.L == PL == 1536
+        return eng, batches
+    d = deploy_full(PORT_FULL) if stack == "full" else deploy(PORT_PKG)
+    frames, fa = full_batch(d) if stack == "full" else frame_mix(d.tcp_nat)
+    opt = dict(garden=d.garden, pppoe=d.pppoe, edge=d.edge) if stack == "full" else {}
+    eng = Engine(d.fp, d.nat, d.qos, d.spoof, batch_size=len(frames), pkt_slot=L,
+                 device=device, **opt, **kw)
+    mix = (frames, np.where(fa, FLAG_FROM_ACCESS, 0).astype(np.uint32))
+    ctrl = ([F.discover_frame(mac(0x80 + k), 0x800 + k) for k in range(len(frames))],
+            np.full(len(frames), FLAG_FROM_ACCESS, np.uint32))
+    return eng, [mix, ctrl, mix, mix]
+
+
+def _zc_serve(eng, ring, batches, loop: str) -> dict:
+    """Each batch pushed with its frames' own directions and served; the
+    verdicts, the TX/FWD frames as the ring hands them out (their UMEM
+    bytes), the slow ring's frames, the ring's and the engine's counts."""
+    got = {"verdicts": [], "out": [], "slow": []}
+    apply, slow_pop = eng._apply_ring_verdicts, ring.slow_pop
+
+    def spy(ring_, fl, pkt, length, n, now):
+        h = apply(ring_, fl, pkt, length, n, now)
+        got["verdicts"].append(h["verdict"][:n].copy())
+        return h
+
+    def tap():
+        item = slow_pop()
+        if item is not None:
+            got["slow"].append(item)
+        return item
+
+    eng._apply_ring_verdicts, ring.slow_pop = spy, tap
+    umem = ring.umem_view()
+    run = eng.process_ring if loop == "sync" else eng.process_ring_pipelined
+    for k, (frames, flags) in enumerate(batches):
+        addrs = np.zeros(len(frames), dtype=np.uint64)
+        assert ring.rx_reserve_batch(addrs) == len(frames)
+        lens = np.array([len(f) for f in frames], dtype=np.uint32)
+        for a, f in zip(addrs, frames):
+            umem[int(a): int(a) + len(f)] = np.frombuffer(f, dtype=np.uint8)
+        ok = np.zeros(len(frames), dtype=np.uint8)
+        assert ring.rx_submit_batch(addrs, lens, flags, ok, len(frames)) == len(frames)
+        run(ring, now=NOW + 1 + k)
+        for pop in (ring.tx_pop, ring.fwd_pop):
+            while (item := pop()) is not None:
+                got["out"].append(item)
+    eng.flush_pipeline()
+    for pop in (ring.tx_pop, ring.fwd_pop):
+        while (item := pop()) is not None:
+            got["out"].append(item)
+    torch.cuda.synchronize()
+    got["counts"] = (ring.stats(), [getattr(eng.stats, f).tolist()
+                                    if isinstance(getattr(eng.stats, f), np.ndarray)
+                                    else getattr(eng.stats, f) for f in vars(eng.stats)])
+    return got
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("stack, loop", [("ipoe", "sync"), ("ipoe", "pipelined"),
+                                         ("full", "pipelined"), ("pppoe", "pipelined")])
+def test_zero_copy_loop_equals_the_copying_loop_bit_for_bit(card, stack, loop):
+    """Both programs, every stage, and L = 1,536 with line-bound PPPoE
+    sessions: verdicts, every TX/FWD frame's UMEM bytes, the slow ring's
+    frames, the counts and every table word, the copying loop against the
+    zero-copy loop."""
+    got, engines = {}, {}
+    for path in ("copy", "zero_copy"):
+        eng, batches = _zc_engine(stack, card)
+        nb = len(batches)
+        ring = NativeRing(nframes=1024, frame_size=2048, depth=512)
+        if path == "copy":
+            ring.map_umem = lambda device: None  # the copying loop, held against the other
+        got[path] = _zc_serve(eng, ring, batches, loop)
+        engines[path] = eng
+        ring.close()
+    for key in ("verdicts", "out", "slow", "counts"):
+        assert len(got["zero_copy"][key]) == len(got["copy"][key]), key
+        for a, b in zip(got["zero_copy"][key], got["copy"][key]):
+            assert np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b, key
+    assert_same(snapshot(engines["zero_copy"]), snapshot(engines["copy"]), "tables")
+    zc, cp = engines["zero_copy"], engines["copy"]
+    assert (zc.ring_zero_copy, zc.ring_copied, cp.ring_copied, cp.ring_zero_copy) == (nb, 0, nb, 0)
+    verdicts = np.concatenate(got["copy"]["verdicts"])
+    assert (verdicts == engine_mod.VERDICT_FWD).any() and got["copy"]["out"]
+    if stack == "pppoe":
+        assert zc.stats.pppoe_line[0] > 0 and zc.stats.pppoe_line[1] > 0
+
+
+def _registered(ring, card) -> bool:
+    """Whether the driver holds the ring's UMEM as registered host memory:
+    registering it again is then refused (cudaErrorHostMemoryAlreadyRegistered,
+    712); else the probe's own registration is undone."""
+    from bng_tpu_torch.ops import umem as umem_ops
+
+    ptr = ctypes.cast(ring.umem_ptr, ctypes.c_void_p).value
+    size = (ring.umem_size + 4095) & ~4095
+    try:
+        umem_ops.register(ptr, size, torch.device(card))
+    except RuntimeError as e:
+        assert "CUDA error 712" in str(e), e
+        return True
+    umem_ops.unregister(ptr)
+    return False
+
+
+class _WatchDestroy:
+    """A ring's library, calling `before` ahead of `bng_ring_destroy`."""
+
+    def __init__(self, lib, before):
+        self._lib, self._before = lib, before
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def bng_ring_destroy(self, h):
+        self._before()
+        return self._lib.bng_ring_destroy(h)
+
+
+@pytest.mark.card
+def test_zero_copy_engages_only_where_it_can_and_close_unregisters(card):
+    # a sink reads the arriving frames from the staged batch: the copying path
+    eng, batches = _zc_engine("ipoe", card, violation_sink=lambda lane, frame: None)
+    ring = NativeRing(nframes=1024, frame_size=2048, depth=512)
+    _zc_serve(eng, ring, batches[:2], "pipelined")
+    assert (eng.ring_copied, eng.ring_zero_copy) == (2, 0)
+    # the UMEM is registered at the first zero-copy bind and let go at close,
+    # before the ring frees it; the engine names its card as the benchmark
+    # does, without an index
+    assert not _registered(ring, card)
+    eng2, _ = _zc_engine("ipoe", "cuda")
+    _zc_serve(eng2, ring, batches[:2], "pipelined")
+    assert (eng2.ring_zero_copy, eng2.ring_copied) == (2, 0)
+    assert _registered(ring, card)
+    at_free = []
+    ring._lib = _WatchDestroy(ring._lib, lambda: at_free.append(_registered(ring, card)))
+    ring.close()
+    assert at_free == [False]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("frame_size, L, offs", [(512, 512, (0,)), (2048, 1536, (0,)),
+                                                 (2048, 1536, (0, 3, 17, 256)),
+                                                 (512, 500, (0, 5))])
+def test_umem_kernels_equal_their_plain_versions(card, frame_size, L, offs):
+    """The gather and the scatter on the card against `ops/umem.py`'s plain
+    versions: full and partial batches, headroom offsets, frames longer
+    than the slot, a ragged slot, every verdict."""
+    from bng_tpu_torch.ops import umem as umem_ops
+
+    rng = np.random.default_rng(frame_size + L + len(offs))
+    Bk = 512
+    ring = NativeRing(nframes=1024, frame_size=frame_size, depth=512)
+    umem = ring.map_umem(card)
+    host = ring.umem_view()
+    host[:] = rng.integers(0, 256, host.shape, dtype=np.uint8)
+    for n in (Bk, Bk - 37):
+        chunks = rng.permutation(1024)[:Bk].astype(np.uint64)
+        off = rng.choice(np.array(offs, dtype=np.uint64), Bk)
+        desc = umem_ops.DescStage(Bk, card).acquire()
+        desc.addrs[:] = chunks * np.uint64(frame_size) + off
+        desc.lens[:] = np.minimum(rng.integers(0, frame_size + 1, Bk),
+                                  frame_size - off.astype(np.int64))
+        desc.flags[:] = rng.integers(0, 4, Bk)
+        outs = {}
+        for dev in ("cpu", card):
+            pkt = torch.full((Bk, L), 0xEE, dtype=torch.uint8, device=dev)
+            length = torch.full((Bk,), 7, dtype=torch.int64, device=dev)
+            fa = torch.ones((Bk,), dtype=torch.bool, device=dev)
+            d = torch.full((umem_ops.DESC_BYTES * Bk,), 9, dtype=torch.uint8, device=dev)
+            now_s = torch.zeros((), dtype=torch.int64, device=dev)
+            now_us = torch.zeros((), dtype=torch.int64, device=dev)
+            umem_ops.gather(umem, desc, d, n, pkt, length, fa, now_s, 1_753_000_001,
+                            now_us, 3_000_000_017)
+            outs[str(dev)] = [t.cpu() for t in (pkt, length, fa, d, now_s, now_us)]
+            desc.acquire()  # the copy on the card has read the descriptors
+        for a, b in zip(outs["cpu"], outs[str(card)]):
+            assert torch.equal(a, b), n
+        verdict = torch.from_numpy(rng.integers(0, 4, Bk).astype(np.int32))
+        out_pkt = torch.from_numpy(rng.integers(0, 256, (Bk, L), dtype=np.uint8))
+        out_len = torch.from_numpy(rng.integers(0, frame_size + 64, Bk).astype(np.int64))
+        want = torch.from_numpy(host.copy())
+        kept = umem_ops.desc_addrs(outs["cpu"][3], Bk)
+        umem_ops.scatter_plain(want, kept, n, frame_size, verdict, out_pkt, out_len)
+        umem_ops.scatter(umem, kept.to(card), n, verdict.to(card), out_pkt.to(card),
+                         out_len.to(card))
+        torch.cuda.synchronize()
+        assert np.array_equal(host, want.numpy()), n
+    ring.close()

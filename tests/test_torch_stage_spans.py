@@ -236,7 +236,7 @@ def test_the_references_stages_keep_their_ids_and_the_ports_follow():
     assert tele.STAGE_NAMES[:len(shared)] == shared and tele.STAGE_NAMES[-1] == "total"
     assert tele.STAGE_NAMES[len(shared):-1] == DISPATCH_PARTS + (
         "parse", "antispoof", "dhcp", "garden", "nat44", "qos", "edge", "pppoe_decap",
-        "pppoe_encap", "verdict", "nat_accounting")
+        "pppoe_encap", "verdict", "nat_accounting", "ring_dma")
     for name in ("RING", "LANE_WAIT", "DISPATCH", "DEVICE", "DEVICE_WAIT", "REPLY", "WIRE_TX"):
         assert getattr(tele, name) == getattr(j_sp, name)
     assert tele.RANGE_NAMES[tele.NAT_ACCOUNTING] == "bng::nat_accounting"

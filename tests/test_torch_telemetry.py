@@ -40,7 +40,8 @@ pytestmark = pytest.mark.torch_port
 PKGS = (("jax", j_sp, j_rec), ("port", t_sp, t_rec))
 # the port's own stages, between the reference's and `total`
 PORT_STAGES = ("drain", "upload", "issue", "collect", "parse", "antispoof", "dhcp", "garden",
-               "nat44", "qos", "edge", "pppoe_decap", "pppoe_encap", "verdict", "nat_accounting")
+               "nat44", "qos", "edge", "pppoe_decap", "pppoe_encap", "verdict", "nat_accounting",
+               "ring_dma")
 
 
 def split_stages(counts: dict) -> tuple[dict, dict]:
