@@ -25,20 +25,18 @@ The dataplane's latency discipline has two halves:
   spans.py/faults.py that delegates to `_ACTIVE.<attr>`, and the stage
   hook `region` by name (it hands back a span object instead).
 
-* **The serving path is batch-native.** The vector host path rebuilt the
-  ring->dispatch->reply host path as vectorized NumPy over
-  structure-of-arrays staging; a reintroduced `for frame in batch`
-  loop in one of those functions silently re-caps host throughput at
-  per-frame-Python speed. BNG004 flags any `for`/`while` statement in
-  the BATCH_SCOPE functions, EXCEPT `for ... in range(<int literal>)`
-  (bounded vectorized iteration — the 2-tag VLAN walk, the 64-step TLV
-  scan — iterates a constant, never the batch). Comprehensions are
-  deliberately NOT flagged: a list comprehension feeding one stacked
-  NumPy assignment is the batch-native staging idiom, and the
-  per-frame handler boundaries (worker scatter, fallback demux) live
-  behind them. Surviving per-frame loops — the scalar oracle twins the
-  vector path is pinned against, and the pressured-path fallbacks with
-  genuine sequential coupling — are baselined with justifications.
+* **The serving path is batch-native.** A new `for frame in batch` loop
+  in a per-batch ring->dispatch->reply function silently re-caps host
+  throughput at per-frame-Python speed. BNG004 flags any `for`/`while`
+  statement in the BATCH_SCOPE functions, EXCEPT
+  `for ... in range(<int literal>)` (bounded iteration — the 2-tag VLAN
+  walk, the 64-step TLV scan — iterates a constant, never the batch).
+  Comprehensions are deliberately NOT flagged: a list comprehension
+  feeding one stacked NumPy assignment is the batch-native staging
+  idiom, and the per-frame handler boundaries (worker scatter, fallback
+  demux) live behind them. The per-frame loops that remain (the PyRing
+  and the ctypes bindings of the native ring, the fleet's per-frame
+  admission) are baselined with justifications.
 
 Taint for BNG001 is function-local and deliberately simple: a name
 assigned from a dispatch call (`self._step(...)`, `_run_dhcp_batch`,
@@ -113,27 +111,16 @@ ALLOC_CALLS = {"list", "dict", "set", "zeros", "empty", "ones", "full",
                "deque", "defaultdict"}
 
 # batch-native scope (BNG004): the per-BATCH serving-path functions that
-# must not loop per frame. file suffix -> function (simple) names; both
-# the vector implementations (loop-free, enforced) and their scalar
-# oracle twins (baselined) are listed — a NEW loop in either shows up.
+# must not loop per frame. file suffix -> function (simple) names; the
+# per-frame loops they hold today are baselined — a NEW loop shows up.
 BATCH_SCOPE: dict[str, set[str]] = {
     "bng_tpu_torch/runtime/ring.py": {
-        "rx_push_batch", "_rx_push_batch_vec", "_push_scalar",
-        "assemble", "_assemble_vec",
-        "assemble_sharded", "_assemble_sharded_vec", "complete",
-        "_complete_vec", "_scatter_frames", "_scatter_rows_from",
-        "_gather_rows", "tx_pop_batch",
+        "rx_push_batch", "assemble", "assemble_sharded", "complete",
+        "tx_pop_batch",
     },
     "bng_tpu_torch/runtime/engine.py": {"_pack_frames"},
-    "bng_tpu_torch/runtime/scheduler.py": {"_dispatch_express",
-                                     "_express_replies_vec"},
-    "bng_tpu_torch/control/admission.py": {"admit_batch", "is_known_batch",
-                                     "_admit_scalar_fallback"},
-    "bng_tpu_torch/control/fleet.py": {"handle_batch", "_admit_vec"},
-    "bng_tpu_torch/runtime/hostpath.py": {
-        "pack_into", "classify_dhcp_batch", "shard_of_batch",
-        "peek_dhcp_batch", "bootp_off_batch", "fnv1a32_cols", "stage",
-    },
+    "bng_tpu_torch/runtime/scheduler.py": {"_dispatch_express"},
+    "bng_tpu_torch/control/fleet.py": {"handle_batch"},
 }
 
 
@@ -249,9 +236,9 @@ class HotPathPass(Pass):
                 yield Finding(
                     "BNG004", path, node.lineno,
                     f"`while` loop in batch-native serving function "
-                    f"`{fn.name}` — the vectorized host path must not "
-                    f"iterate per frame; express the work as "
-                    f"a NumPy pass or baseline the scalar oracle",
+                    f"`{fn.name}` — a per-batch serving function must "
+                    f"not iterate per frame; express the work as "
+                    f"a NumPy pass or baseline the loop",
                     scope=scope, detail="while")
             elif isinstance(node, ast.For):
                 if self._const_range(node.iter):
@@ -259,9 +246,9 @@ class HotPathPass(Pass):
                 yield Finding(
                     "BNG004", path, node.lineno,
                     f"`for` loop in batch-native serving function "
-                    f"`{fn.name}` — the vectorized host path must not "
-                    f"iterate per frame; express the work as "
-                    f"a NumPy pass or baseline the scalar oracle",
+                    f"`{fn.name}` — a per-batch serving function must "
+                    f"not iterate per frame; express the work as "
+                    f"a NumPy pass or baseline the loop",
                     scope=scope,
                     detail=f"for:{ast.unparse(node.target)}")
 

@@ -221,9 +221,9 @@ _ACTIVE: FaultInjector | None = None
 
 
 def any_armed() -> bool:
-    """Is ANY fault plan armed? The vectorized host paths
-    check this once per batch and fall back to their per-frame scalar
-    twins when chaos is live: fault plans count per-call hits, so a
+    """Is ANY fault plan armed? The vector wire pump checks this once
+    per round and falls back to its per-frame scalar twin when chaos is
+    live: fault plans count per-call hits, so a
     batched path that skipped N-1 of N fault_point() visits would
     silently shift every later hit in the plan. Disarmed (production):
     one global load + None compare, same contract as fault_point."""

@@ -33,9 +33,6 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
-import numpy as np
-
-from bng_tpu_torch.chaos import faults
 from bng_tpu_torch.chaos.faults import fault_point
 from bng_tpu_torch.control import dhcp_codec
 
@@ -172,13 +169,6 @@ class AdmissionController:
         self._offered: dict[int, float] = {}
         # mac_u64 -> True, insertion-ordered for FIFO eviction at cap
         self._leased: dict[int, bool] = {}
-        # lazily rebuilt sorted-array mirrors of the known-client sets —
-        # the vectorized membership lookup. Rebuilt only when
-        # a BATCH query finds them stale: the unpressured fast-admit
-        # path never queries membership, so steady-state note_* churn
-        # costs one dirty flag, not a re-sort.
-        self._known_dirty = True
-        self._leased_arr = self._offered_arr = self._offered_ts = None
 
     # -- observations from worker results --------------------------------
 
@@ -188,7 +178,6 @@ class AdmissionController:
         self._offered[mac_u64] = now
         while len(self._offered) > self.cfg.offer_cap:
             self._offered.pop(next(iter(self._offered)))
-        self._known_dirty = True
 
     def note_ack(self, mac_u64: int) -> None:
         self._offered.pop(mac_u64, None)
@@ -196,12 +185,10 @@ class AdmissionController:
         self._leased[mac_u64] = True
         while len(self._leased) > self.cfg.lease_cap:
             self._leased.pop(next(iter(self._leased)))
-        self._known_dirty = True
 
     def note_release(self, mac_u64: int) -> None:
         self._offered.pop(mac_u64, None)
         self._leased.pop(mac_u64, None)
-        self._known_dirty = True
 
     def is_known(self, mac_u64: int, now: float | None = None) -> bool:
         """Client with a live OFFER or lease — its lease-mutating
@@ -214,7 +201,6 @@ class AdmissionController:
         now = now if now is not None else self.clock()
         if now - ts > self.cfg.offer_ttl_s:
             del self._offered[mac_u64]
-            self._known_dirty = True
             return False
         return True
 
@@ -269,148 +255,6 @@ class AdmissionController:
     def _shed(self, reason: str) -> tuple[bool, str]:
         self.stats.shed[reason] = self.stats.shed.get(reason, 0) + 1
         return False, reason
-
-    # -- the batched decision ----------------------------------
-    #
-    # Design thesis (PERF_NOTES §16): the vector path decides exactly the
-    # cases with NO sequential cross-frame coupling — unpressured inbox
-    # depth (proven by a worst-case per-worker bound) with at most
-    # deadline shedding, which is depth-independent. Anything else (a
-    # worker whose inbox could cross a capacity mid-batch, or an armed
-    # chaos plan whose per-call hit accounting a batched path would
-    # shift) runs the per-frame scalar oracle on the SAME inputs, so the
-    # two paths can never disagree on a single verdict or counter.
-
-    def _known_arrays(self):
-        """Sorted-array mirrors of (_leased, _offered) for vectorized
-        membership. Rebuilt lazily on a stale batch query."""
-        if self._known_dirty:
-            self._leased_arr = np.sort(np.fromiter(
-                self._leased.keys(), dtype=np.uint64,
-                count=len(self._leased)))
-            ok = np.fromiter(self._offered.keys(), dtype=np.uint64,
-                             count=len(self._offered))
-            ts = np.fromiter(self._offered.values(), dtype=np.float64,
-                             count=len(self._offered))
-            order = np.argsort(ok)
-            self._offered_arr, self._offered_ts = ok[order], ts[order]
-            self._known_dirty = False
-        return self._leased_arr, self._offered_arr, self._offered_ts
-
-    @staticmethod
-    def _member(sorted_arr: np.ndarray, keys: np.ndarray) -> np.ndarray:
-        if len(sorted_arr) == 0:
-            return np.zeros(len(keys), dtype=bool)
-        pos = np.minimum(np.searchsorted(sorted_arr, keys),
-                         len(sorted_arr) - 1)
-        return sorted_arr[pos] == keys
-
-    def is_known_batch(self, macs: np.ndarray, now: float) -> np.ndarray:
-        """Vectorized is_known over mac_u64 keys — sorted-array
-        membership plus the scalar's exact TTL semantics: every QUERIED
-        expired offer is evicted (and only those), so the controller
-        state after a batch matches the per-frame walk."""
-        leased, offered, ots = self._known_arrays()
-        known = self._member(leased, macs)
-        # leased macs short-circuit in the scalar walk (is_known returns
-        # before the _offered lookup), so the TTL check — and crucially
-        # its EVICTION — must never run for them: a leased client's
-        # stale re-offer entry stays put, exactly like scalar, or the
-        # two paths' offer_cap FIFO evictions silently diverge
-        off_m = self._member(offered, macs) & ~known
-        if off_m.any():
-            pos = np.searchsorted(offered, macs[off_m])
-            fresh = (now - ots[pos]) <= self.cfg.offer_ttl_s
-            live = off_m.copy()
-            live[off_m] = fresh
-            known |= live
-            if not fresh.all():
-                for mac in np.unique(macs[off_m][~fresh]).tolist():
-                    self._offered.pop(int(mac), None)
-                self._known_dirty = True
-        return known
-
-    def admit_batch(self, frames: list, workers: np.ndarray,
-                    buf: np.ndarray | None, lens: np.ndarray,
-                    now: float, enq_t: np.ndarray | None = None,
-                    depth0=None) -> np.ndarray:
-        """Batched admit over a frame batch: [n] admitted mask,
-        bit-identical (verdicts AND counters) to calling admit() per
-        frame in order with the fleet's running-depth bookkeeping.
-        `workers` are the frames' target shards, `depth0` the current
-        per-worker backlogs (mapping or None). `buf` (packed rows,
-        runtime/hostpath.pack_into) may be None — the peek that needs
-        it only runs for deadline-breached lanes, and those rows are
-        packed lazily: the unpressured fast path never pays a byte of
-        staging."""
-        n = len(frames)
-        out = np.ones(n, dtype=bool)
-        if n == 0:
-            return out
-        d0 = np.zeros(int(workers.max()) + 1, dtype=np.int64)
-        if depth0:
-            for w, d in depth0.items():
-                if w <= int(workers.max()):
-                    d0[w] = d
-        counts = np.bincount(workers, minlength=len(d0))
-        cap = min(self.cfg.inbox_capacity, self.cfg.request_hard_capacity)
-        if faults.any_armed() or ((d0 + counts) > cap).any():
-            return self._admit_scalar_fallback(frames, workers, now, enq_t)
-        breached = (np.zeros(n, dtype=bool) if enq_t is None else
-                    (now - enq_t) * 1000.0 > self.cfg.deadline_ms)
-        nb = int(breached.sum())
-        if nb == 0:
-            # the unpressured fast-admit path: no peek, no membership,
-            # no per-frame Python — exactly the scalar fast path taken
-            # n times
-            self.stats.admitted += n
-            return out
-        # deadline-pressured, depth-unpressured: the peek decides WHAT
-        # to shed, vectorized over only the breached lanes
-        from bng_tpu_torch.runtime import hostpath
-
-        bl = np.nonzero(breached)[0]
-        if buf is None:
-            bbuf, _bl2 = hostpath.pack_rows([frames[i] for i in bl.tolist()])
-            blens = lens[bl]
-        else:
-            bbuf, blens = buf[bl], lens[bl]
-        msg, mac, parsed = hostpath.peek_dhcp_batch(bbuf, blens)
-        protected = parsed & np.isin(msg, self._PROTECTED)
-        # scalar parity: is_known is queried (and its TTL eviction
-        # fires) only for protected-type frames
-        known = np.zeros(len(bl), dtype=bool)
-        if protected.any():
-            known[protected] = self.is_known_batch(mac[protected], now)
-        # protected (known or not — depth is proven under the hard cap)
-        # and unparsed frames admit; the rest shed on the deadline
-        shed = parsed & ~protected
-        out[bl[shed]] = False
-        n_shed = int(shed.sum())
-        self.stats.unparsed += int((~parsed).sum())
-        self.stats.admitted += n - n_shed
-        if n_shed:
-            self.stats.shed[SHED_DEADLINE] = (
-                self.stats.shed.get(SHED_DEADLINE, 0) + n_shed)
-        return out
-
-    def _admit_scalar_fallback(self, frames, workers, now,
-                               enq_t) -> np.ndarray:
-        """The pressured path: per-frame admit() with the fleet's exact
-        running-depth bookkeeping (sequential coupling: every admitted
-        frame changes its worker's depth for every later frame)."""
-        n = len(frames)
-        out = np.zeros(n, dtype=bool)
-        depth: dict[int, int] = {}
-        wl = workers.tolist()
-        el = enq_t.tolist() if enq_t is not None else [None] * n
-        for i, frame in enumerate(frames):
-            w = wl[i]
-            ok, _reason = self.admit(frame, depth.get(w, 0), now, el[i])
-            if ok:
-                out[i] = True
-                depth[w] = depth.get(w, 0) + 1
-        return out
 
     def shed_total(self) -> int:
         """Cumulative shed count across every reason — the watermark the

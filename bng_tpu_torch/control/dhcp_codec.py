@@ -4,7 +4,7 @@ express lane's reply templates.
 A copy of `bng_tpu/control/dhcp_codec.py`: `DHCPPacket` (with its
 pre-encoded option and payload fast paths), `encode_options`,
 `ReplyTemplate`, `decode`, `build_request`, `ExpressWireTemplate`
-(`render`, `render_batch`) and `ExpressTemplateCache`. The port keeps
+(`render`) and `ExpressTemplateCache`. The port keeps
 one `DHCPPacket`; `frames.py` re-exports it. Byte-identical output.
 """
 
@@ -12,8 +12,6 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
-
-import numpy as np
 
 from bng_tpu_torch.utils.net import ipv4_header, udp_header
 
@@ -315,71 +313,6 @@ class ExpressWireTemplate:
             l3b = self._l3
             dst_mac = b"\xff" * 6 if use_bcast else chaddr[:6]
         return dst_mac + self._src_mac + frame[12: 14 + vlan_off] + l3b + payload
-
-    def render_batch(self, fmat, vlan_off: int, dhcp_off: int,
-                     relayed: bool, use_bcast: bool, yiaddrs) -> list:
-        """`render` over one group of requests that share vlan_off,
-        dhcp_off, relayed and use_bcast: the per-client words are column
-        copies from the packed request matrix `fmat` ([n, >= dhcp_off+240]
-        uint8), the relayed IPv4 checksum is refolded per row, and the
-        result is n bytes objects cut from one buffer. Byte-identical to
-        `render`."""
-        n = fmat.shape[0]
-        proto = self._bootp._proto
-        plen = len(proto)
-        eth_l3 = 14 + vlan_off
-        pb = eth_l3 + 28  # payload base (20-byte IPv4 + 8-byte UDP)
-        out = np.empty((n, pb + plen), dtype=np.uint8)
-        if relayed:
-            out[:, 0:6] = fmat[:, 6:12]  # the relay's source MAC
-        elif use_bcast:
-            out[:, 0:6] = 0xFF
-        else:
-            out[:, 0:6] = fmat[:, dhcp_off + 28: dhcp_off + 34]  # chaddr
-        out[:, 6:12] = np.frombuffer(self._src_mac, dtype=np.uint8)
-        out[:, 12: eth_l3] = fmat[:, 12: eth_l3]
-        if not relayed:
-            out[:, eth_l3: pb] = np.frombuffer(self._l3, dtype=np.uint8)
-        else:
-            gi = ((fmat[:, dhcp_off + 24].astype(np.int64) << 24)
-                  | (fmat[:, dhcp_off + 25].astype(np.int64) << 16)
-                  | (fmat[:, dhcp_off + 26].astype(np.int64) << 8)
-                  | fmat[:, dhcp_off + 27])
-            total = 20 + self._udp_len
-            # ipv4_header's checksum over each row's destination
-            s = (0x4500 + total + ((64 << 8) | 17)
-                 + (self._server_ip >> 16) + (self._server_ip & 0xFFFF)
-                 + (gi >> 16) + (gi & 0xFFFF))
-            s = (s & 0xFFFF) + (s >> 16)
-            s = (s & 0xFFFF) + (s >> 16)
-            csum = (~s) & 0xFFFF
-            hdr = np.zeros((n, 20), dtype=np.uint8)
-            hdr[:, 0] = 0x45
-            hdr[:, 2] = total >> 8
-            hdr[:, 3] = total & 0xFF
-            hdr[:, 8] = 64
-            hdr[:, 9] = 17
-            hdr[:, 10] = csum >> 8
-            hdr[:, 11] = csum & 0xFF
-            hdr[:, 12:16] = np.frombuffer(self._server_ip.to_bytes(4, "big"), dtype=np.uint8)
-            hdr[:, 16:20] = fmat[:, dhcp_off + 24: dhcp_off + 28]
-            out[:, eth_l3: eth_l3 + 20] = hdr
-            out[:, eth_l3 + 20: pb] = np.frombuffer(udp_header(67, 67, plen), dtype=np.uint8)
-        out[:, pb:] = np.frombuffer(proto, dtype=np.uint8)
-        # xid + secs + flags in one copy, then ciaddr, yiaddr, giaddr, chaddr
-        out[:, pb + _OFF_XID: pb + _OFF_CIADDR] = (
-            fmat[:, dhcp_off + _OFF_XID: dhcp_off + _OFF_CIADDR])
-        out[:, pb + _OFF_CIADDR: pb + _OFF_YIADDR] = (
-            fmat[:, dhcp_off + _OFF_CIADDR: dhcp_off + _OFF_YIADDR])
-        out[:, pb + _OFF_YIADDR: pb + _OFF_YIADDR + 4] = (
-            np.asarray(yiaddrs, dtype=">u4").view(np.uint8).reshape(n, 4))
-        out[:, pb + _OFF_GIADDR: pb + _OFF_GIADDR + 4] = (
-            fmat[:, dhcp_off + _OFF_GIADDR: dhcp_off + _OFF_GIADDR + 4])
-        out[:, pb + _OFF_CHADDR: pb + _OFF_CHADDR + 16] = (
-            fmat[:, dhcp_off + _OFF_CHADDR: dhcp_off + _OFF_CHADDR + 16])
-        big = out.tobytes()
-        w = pb + plen
-        return [big[i * w: (i + 1) * w] for i in range(n)]
 
 
 class ExpressTemplateCache:

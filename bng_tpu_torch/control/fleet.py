@@ -58,9 +58,6 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
 
-import numpy as np
-
-from bng_tpu_torch.chaos import faults
 from bng_tpu_torch.chaos.faults import fault_point
 from bng_tpu_torch.control import dhcp_codec
 from bng_tpu_torch.telemetry import spans as tele
@@ -68,7 +65,6 @@ from bng_tpu_torch.telemetry.hist import LatencyHist
 from bng_tpu_torch.control.admission import (AdmissionConfig, AdmissionController,
                                        peek_reply)
 from bng_tpu_torch.control.pool import PoolExhaustedError, PoolManager
-from bng_tpu_torch.runtime import hostpath
 from bng_tpu_torch.runtime.ring import classify_dhcp
 from bng_tpu_torch.utils.net import fnv1a32, prefix_to_mask
 from bng_tpu_torch.utils.structlog import SlowPathErrorLog, get_logger
@@ -770,11 +766,6 @@ class SlowPathFleet:
         self.nat_hook = nat_hook
         self.lease_hook = lease_hook
         self.fallback = fallback
-        # host-path snapshot: vector = batched classify /
-        # steer / admit pre-pass in handle_batch; resolved once at
-        # construction like Engine.table_impl
-        self.host_path = hostpath.resolved_host_path()
-        self._vec = self.host_path == "vector"
         self.refills = 0
         self.refill_ips_granted = 0
         self.fallback_frames = 0
@@ -1066,34 +1057,31 @@ class SlowPathFleet:
         results: list[tuple[int, bytes | None]] = []
         shed_n = 0
         t0 = tele.t()
-        if self._vec and len(items) > 1 and not faults.any_armed():
-            shed_n = self._admit_vec(items, now, groups, results)
-        else:
-            depth: dict[int, int] = {}
-            for item in items:
-                lane, frame = item[0], item[1]
-                enq_t = item[2] if len(item) > 2 else None
-                if self.fallback is not None and not classify_dhcp(frame):
-                    # non-DHCPv4 slow traffic (v6 / SLAAC / PPPoE /
-                    # poison) stays on the parent's demux — the fleet
-                    # shards DHCPv4
-                    self.fallback_frames += 1
-                    try:
-                        results.append((lane, self.fallback(frame)))
-                    except Exception as e:  # noqa: BLE001 — untrusted wire input
-                        self.fallback_errors += 1
-                        self._fallback_err_log.report(e, lane=lane)
-                        results.append((lane, None))
-                    continue
-                w = shard_for_frame(frame, self.n)
-                ok, _reason = self.admission.admit(
-                    frame, depth.get(w, 0), now, enq_t)
-                if not ok:
-                    shed_n += 1
+        depth: dict[int, int] = {}
+        for item in items:
+            lane, frame = item[0], item[1]
+            enq_t = item[2] if len(item) > 2 else None
+            if self.fallback is not None and not classify_dhcp(frame):
+                # non-DHCPv4 slow traffic (v6 / SLAAC / PPPoE /
+                # poison) stays on the parent's demux — the fleet
+                # shards DHCPv4
+                self.fallback_frames += 1
+                try:
+                    results.append((lane, self.fallback(frame)))
+                except Exception as e:  # noqa: BLE001 — untrusted wire input
+                    self.fallback_errors += 1
+                    self._fallback_err_log.report(e, lane=lane)
                     results.append((lane, None))
-                    continue
-                groups.setdefault(w, []).append((lane, frame))
-                depth[w] = depth.get(w, 0) + 1
+                continue
+            w = shard_for_frame(frame, self.n)
+            ok, _reason = self.admission.admit(
+                frame, depth.get(w, 0), now, enq_t)
+            if not ok:
+                shed_n += 1
+                results.append((lane, None))
+                continue
+            groups.setdefault(w, []).append((lane, frame))
+            depth[w] = depth.get(w, 0) + 1
         tele.lap(tele.ADMIT, t0)
         tele.add(shed=shed_n)
         t0 = tele.t()
@@ -1135,88 +1123,6 @@ class SlowPathFleet:
         tele.lap(tele.FLEET, t0)
         results.sort(key=lambda t: t[0])
         return results
-
-    def _admit_vec(self, items: list, now: float, groups: dict,
-                   results: list) -> int:
-        """Vectorized classify->shard->admit pre-pass: one
-        packed matrix, one classify_dhcp_batch for the fallback demux,
-        one FNV pass for worker steering, one admit_batch for the
-        admission verdicts — bit-identical to the per-frame loop
-        (pinned by tests/test_hostpath.py), with per-frame Python left
-        only where a handler must run per frame (the fallback demux and
-        the worker scatter protocol). Returns the shed count."""
-        frames = [item[1] for item in items]
-        lens = hostpath.frame_lens(frames)
-        buf = None
-        if self.fallback is not None:
-            # the fallback demux needs the classifier, which needs the
-            # packed matrix; without a fallback nothing here reads a
-            # payload byte (admit_batch packs its breached subset
-            # lazily), so the matrix is never built
-            buf = np.empty((len(frames), max(int(lens.max()), 1)),
-                           dtype=np.uint8)
-            hostpath.pack_into(frames, buf,
-                               np.empty((len(frames),), np.uint32),
-                               lens=lens)
-            dhcp_m = hostpath.classify_dhcp_batch(buf, lens) != 0
-        else:
-            dhcp_m = np.ones(len(frames), dtype=bool)
-        if self.n > 1:
-            if buf is not None:
-                mac6 = buf[:, 6:12]
-            elif int(lens.min()) >= 12:
-                # steering needs ONLY frame[6:12]: one join of 6-byte
-                # slices beats packing whole payloads
-                mac6 = np.frombuffer(
-                    b"".join([f[6:12] for f in frames]),
-                    dtype=np.uint8).reshape(len(frames), 6)
-            else:
-                mac6 = np.zeros((len(frames), 6), dtype=np.uint8)
-                for i in np.nonzero(lens >= 12)[0].tolist():
-                    mac6[i] = np.frombuffer(frames[i][6:12], np.uint8)
-            workers = (hostpath.fnv1a32_cols(mac6)
-                       % np.uint32(self.n)).astype(np.int64)
-            workers[lens < 12] = 0  # shard_for_frame's runt guard
-        else:
-            workers = np.zeros(len(frames), dtype=np.int64)
-        all_dhcp = bool(dhcp_m.all())
-        di = np.arange(len(frames)) if all_dhcp else np.nonzero(dhcp_m)[0]
-        enq = None
-        if len(items[0]) > 2 and len(di):
-            enq = (np.fromiter((it[2] for it in items), dtype=np.float64,
-                               count=len(items)) if all_dhcp else
-                   np.fromiter((items[i][2] for i in di.tolist()),
-                               dtype=np.float64, count=len(di)))
-        admitted = self.admission.admit_batch(
-            frames if all_dhcp else [frames[i] for i in di.tolist()],
-            workers if all_dhcp else workers[di],
-            None if buf is None else (buf if all_dhcp else buf[di]),
-            lens if all_dhcp else lens[di], now, enq)
-        shed_n = 0
-        if admitted.all() and self.n == 1:
-            # the unpressured single-worker fast path: ONE group append
-            g = groups.setdefault(0, [])
-            g.extend((items[i][0], frames[i]) for i in di.tolist())
-        else:
-            wl = workers.tolist()
-            al = admitted.tolist()
-            for k, i in enumerate(di.tolist()):
-                if al[k]:
-                    groups.setdefault(wl[i], []).append(
-                        (items[i][0], frames[i]))
-                else:
-                    shed_n += 1
-                    results.append((items[i][0], None))
-        for i in np.nonzero(~dhcp_m)[0].tolist():
-            lane, frame = items[i][0], frames[i]
-            self.fallback_frames += 1
-            try:
-                results.append((lane, self.fallback(frame)))
-            except Exception as e:  # noqa: BLE001 — untrusted wire input
-                self.fallback_errors += 1
-                self._fallback_err_log.report(e, lane=lane)
-                results.append((lane, None))
-        return shed_n
 
     def _note_worker_failure(self, w: int) -> None:
         """One dead/failed worker batch: counted AND surfaced to the

@@ -57,10 +57,7 @@ resync's upload goes back to that card (`_rebind`). The engine's own
 fused step (`process`, the ring loops: a drive that bypasses the
 scheduler) brings the tables home to the engine's card first.
 
-Host path (`BNG_HOST_PATH`, resolved at construction): `vector` packs
-frames through a `runtime/hostpath.StagingPool`, whose pinned buffers
-the upload copies from directly; `scalar` packs into fresh arrays. The
-ring loops serve a `NativeRing` as they serve a `PyRing`.
+The ring loops serve a `NativeRing` as they serve a `PyRing`.
 
 Chaos points (`chaos/faults.py`): `engine.dispatch` (fail | delay) before
 every dispatch of the fused step, the DHCP-only program, the express
@@ -142,7 +139,6 @@ from bng_tpu_torch.ops.table import (
     HostTable, PinnedStage, TableGeom, apply_update, to_device, words_to_device,
 )
 from bng_tpu_torch.ops.umem import DescStage
-from bng_tpu_torch.runtime import hostpath
 from bng_tpu_torch.runtime.ring import FLAG_DHCP_CTRL, FLAG_FROM_ACCESS
 from bng_tpu_torch.runtime.ringprog import RingProgram
 from bng_tpu_torch.runtime.tables import (
@@ -572,10 +568,6 @@ class Engine:
             self.adopt_device_tables(device_tables)
         else:
             self.tables: PipelineTables = self._device_tables()
-        # host path, resolved once: vector packs through pooled pinned buffers
-        self.host_path = hostpath.resolved_host_path()
-        self._stage_pool = (hostpath.StagingPool(self.L, device=self.device)
-                            if self.host_path == "vector" else None)
 
     # -- device state --
     def _dense_host(self) -> dict[str, np.ndarray]:
@@ -750,15 +742,6 @@ class Engine:
         return (torch.full((), int(now) & MASK32, dtype=torch.int64, device=dev),
                 torch.full((), int(now * 1e6) & MASK32, dtype=torch.int64, device=dev))
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A staged array on the device: straight from its pinned pool buffer
-        when the vector host path staged it, else through `to_device`."""
-        if self._stage_pool is not None:
-            t = self._stage_pool.upload(a)
-            if t is not None:
-                return t
-        return to_device(a, self.device)
-
     @staticmethod
     def _dispatch_fault() -> None:
         """The chaos point on every device dispatch: `delay` sleeps (a slow
@@ -789,7 +772,7 @@ class Engine:
         self._drain_step()
         with tele.region(tele.UPLOAD):
             now_s, now_us = self._now_tensors(now)
-            pkt_d, len_d = self._upload(pkt), self._upload(length)
+            pkt_d, len_d = to_device(pkt, self.device), to_device(length, self.device)
             fa_d = to_device(fa, self.device)
         with tele.region(tele.ISSUE):
             res = pipeline_step(self.tables, pkt_d, len_d, fa_d, self.geom, now_s, now_us)
@@ -817,10 +800,7 @@ class Engine:
         self._drain_dhcp(device)
         dev = self.dhcp_device
         with tele.region(tele.UPLOAD):
-            if card_of(dev) == self.card:
-                pkt_d, len_d = self._upload(pkt), self._upload(length)
-            else:
-                pkt_d, len_d = to_device(pkt, dev), to_device(length, dev)
+            pkt_d, len_d = to_device(pkt, dev), to_device(length, dev)
             now_s, _ = self._now_tensors(now, dev)
         with tele.region(tele.ISSUE):
             res = dhcp_program(self.tables.dhcp, self.geom.dhcp, pkt_d, len_d, now_s)
@@ -1072,26 +1052,18 @@ class Engine:
         tables_in = self.tables._replace(dhcp=dhcp_replica)
         _apply_all_updates(tables_in, upd)
         now_s, now_us = self._now_tensors(now)
-        res = pipeline_step(tables_in, self._upload(pkt), self._upload(length),
+        res = pipeline_step(tables_in, to_device(pkt, self.device),
+                            to_device(length, self.device),
                             to_device(fa, self.device), self.geom, now_s, now_us)
         self.stats.batches += 1
         return res, dhcp_replica
 
     # -- frames in, verdicts out --
     def _pack_frames(self, frames: list[bytes], B: int):
-        """Stage a frame list into [B, L] uint8 + [B] lengths (numpy): the
-        vector host path packs into a pooled pinned pair with one ragged
-        gather, the scalar path into fresh arrays with one scatter."""
+        """Stage a frame list into fresh [B, L] uint8 + [B] lengths (numpy)
+        with one scatter."""
         if len(frames) > B:
             raise ValueError(f"batch of {len(frames)} exceeds batch size {B}")
-        if self._stage_pool is not None:
-            if not frames:
-                return self._stage_pool.stage(frames, B)
-            lens = hostpath.frame_lens(frames)
-            if int(lens.max()) > self.L:
-                raise ValueError(
-                    f"frame of {int(lens.max())} bytes exceeds engine pkt_slot {self.L}")
-            return self._stage_pool.stage(frames, B, lens=lens)
         pkt = np.zeros((B, self.L), dtype=np.uint8)
         length = np.zeros((B,), dtype=np.int64)
         if not frames:

@@ -5,12 +5,7 @@
   byte-for-byte copy of `native/bngring.{h,cpp}`), an AF_XDP-style UMEM
   with SPSC descriptor rings, bound with ctypes. `runtime/nativelib.py`
   builds it with `g++` at first use into `bng_tpu_torch/_build/`.
-- `PyRing`: the same API in Python, with two host paths
-  (`BNG_HOST_PATH` or the `host_path` argument): `scalar`, the per-frame
-  oracle over deques, and `vector`, a structure-of-arrays store that
-  classifies, steers, stages and demuxes whole batches with numpy
-  (`runtime/hostpath.py`) and falls back to the scalar decisions under
-  pressure exactly where the reference does.
+- `PyRing`: the same API in Python, per frame over deques.
 - `make_ring` gives a `NativeRing` when the library loads, else a
   `PyRing`.
 
@@ -36,7 +31,7 @@ from collections import deque
 
 import numpy as np
 
-from bng_tpu_torch.runtime import hostpath, nativelib
+from bng_tpu_torch.runtime import nativelib
 from bng_tpu_torch.utils.net import fnv1a32
 
 FLAG_FROM_ACCESS = 0x1
@@ -44,11 +39,6 @@ FLAG_FROM_ACCESS = 0x1
 # consumer may route an all-control batch through the DHCP-only device
 # program (BNG_DESC_F_DHCP_CTRL in bngring.h)
 FLAG_DHCP_CTRL = 0x2
-
-# the vectorized kernels redeclare the flag bits (circular-import break);
-# a drift here would silently mis-classify the whole vector path
-assert hostpath.FLAG_FROM_ACCESS == FLAG_FROM_ACCESS
-assert hostpath.FLAG_DHCP_CTRL == FLAG_DHCP_CTRL
 
 VERDICT_PASS, VERDICT_DROP, VERDICT_TX, VERDICT_FWD = 0, 1, 2, 3
 
@@ -358,10 +348,8 @@ class NativeRing:
     def rx_push_batch(self, frames: list[bytes],
                       from_access: bool = True) -> int:
         """Batch producer: classification/steering already happen in C++
-        per push, so the native ring just loops; the PyRing vector path
-        overrides this with one vectorized classify+steer+stage pass.
-        Returns frames accepted (stops at the first refusal, like a
-        filling RX ring)."""
+        per push, so the native ring just loops. Returns frames accepted
+        (stops at the first refusal, like a filling RX ring)."""
         n = 0
         for f in frames:
             if not self.rx_push(f, from_access=from_access):
@@ -516,8 +504,7 @@ class NativeRing:
 
     def tx_pop_batch(self, limit: int | None = None) -> list:
         """Drain up to `limit` TX frames as [(bytes, flags)] — the C side
-        pops per frame either way; the PyRing vector path overrides this
-        with one gather."""
+        pops per frame."""
         out = []
         while limit is None or len(out) < limit:
             got = self.tx_pop()
@@ -570,79 +557,35 @@ def wire_pump(a, b, budget: int = 256) -> int:
 
 
 class PyRing:
-    """Pure-Python ring with the NativeRing API.
-
-    Two host paths, selected per instance by BNG_HOST_PATH (or the
-    `host_path` argument):
-
-    - ``scalar`` (default) — the per-frame implementation: frames live
-      as bytes in deques, classify/steer run the scalar functions per
-      push, assemble/complete loop per frame. It is the oracle the
-      vector path is pinned bit-identical against.
-    - ``vector`` — batch-native structure-of-arrays staging: every
-      frame lives in one preallocated [nframes, frame_size] uint8
-      matrix with length/flag columns; `rx_push_batch` classifies and
-      steers the whole batch with vectorized field extraction
-      (runtime/hostpath.py), and assemble/assemble_sharded/complete
-      are vectorized gathers/scatters. Pressured edge cases (free-pool
-      exhaustion or per-shard backpressure mid-batch) fall back to the
-      per-frame scalar decisions, so the two paths can never disagree.
-    """
+    """Pure-Python ring with the NativeRing API: frames live as bytes in
+    deques, classify/steer run the scalar functions per push, and
+    assemble/complete loop per frame."""
 
     def __init__(self, nframes: int = 4096, frame_size: int = 2048,
-                 depth: int = 1024, n_shards: int = 1,
-                 host_path: str | None = None):
+                 depth: int = 1024, n_shards: int = 1):
         if not 1 <= n_shards <= 64:
             raise RuntimeError("1 <= n_shards <= 64")
         self.frame_size = frame_size
         self.depth = depth
         self.n_shards = n_shards
-        self.nframes = nframes
-        self.host_path = host_path or hostpath.resolved_host_path()
-        if self.host_path not in hostpath.HOST_PATHS:
-            raise ValueError(f"unknown host path {self.host_path!r}")
-        self._vec = self.host_path == "vector"
         self._free = nframes
         self._tx: deque = deque()
         self._fwd: deque = deque()
         self._slow: deque = deque()
-        # FIFO of batches; scalar entries are [(frame, fl) | None] lists
-        # (None = sharded-assemble padding lane), vector entries are
-        # (slot-id array, valid-lane mask) pairs
+        # FIFO of batches, each a [(frame, fl) | None] list (None =
+        # sharded-assemble padding lane)
         self._inflight: list = []
         self._pub_ips: dict[int, int] = {}
-        self._pub_sorted = None  # (keys u64 sorted, vals i64) mirror
         self._stats = {k: 0 for k, _ in RingStats._fields_}
-        if self._vec:
-            # SoA frame store: slot-indexed, preallocated once. The
-            # invariant: a slot reachable from an RX queue is ZERO
-            # beyond its _len (assemble gathers full-width rows, so a
-            # stale tail would leak prior occupants into the device).
-            # _ext tracks each slot's possibly-nonzero extent so every
-            # writer restores the invariant with a plain rectangular
-            # copy — no masked scatters on the hot path.
-            self._buf = np.zeros((nframes, frame_size), dtype=np.uint8)
-            self._len = np.zeros((nframes,), dtype=np.uint32)
-            self._ext = np.zeros((nframes,), dtype=np.uint32)
-            self._fl = np.zeros((nframes,), dtype=np.uint32)
-            self._slot_stack = np.arange(nframes, dtype=np.uint32)
-            # per-shard RX as bounded circular slot queues (depth each):
-            # assemble converts queue slices to gathers with no
-            # per-frame conversion cost
-            self._rxq = np.zeros((n_shards, depth), dtype=np.uint32)
-            self._rxh = np.zeros((n_shards,), dtype=np.int64)  # heads
-            self._rxc = np.zeros((n_shards,), dtype=np.int64)  # counts
-            self._spill: dict[int, bytes] = {}  # replies > frame_size
-        else:
-            self._rx: list[deque[tuple[bytes, int]]] = [
-                deque() for _ in range(n_shards)]
+        self._rx: list[deque[tuple[bytes, int]]] = [
+            deque() for _ in range(n_shards)]
 
     def close(self) -> None:
         pass
 
     def map_umem(self, device):
-        """None: the frames live in Python objects or numpy rows, not in a
-        UMEM a card could map, so the engine's ring loops copy them."""
+        """None: the frames live in Python objects, not in a UMEM a card
+        could map, so the engine's ring loops copy them."""
         return None
 
     # -- steering --
@@ -650,23 +593,10 @@ class PyRing:
         if shard >= self.n_shards:
             return False
         self._pub_ips[ip] = shard
-        self._pub_sorted = None
         return True
 
     def shard_of(self, frame: bytes, flags: int) -> int:
         return shard_of(frame, flags, self.n_shards, self._pub_ips)
-
-    def _pub_arrays(self):
-        """Sorted-array mirror of the pub-IP steer map (rebuilt lazily
-        after steer_pub_ip) — the vector path's O(log n) membership."""
-        if self._pub_sorted is None:
-            keys = np.fromiter(self._pub_ips.keys(), dtype=np.uint64,
-                               count=len(self._pub_ips))
-            vals = np.fromiter(self._pub_ips.values(), dtype=np.int64,
-                               count=len(self._pub_ips))
-            order = np.argsort(keys)
-            self._pub_sorted = (keys[order], vals[order])
-        return self._pub_sorted
 
     # -- producer ---------------------------------------------------------
 
@@ -678,31 +608,16 @@ class PyRing:
         if from_access:  # direction gate — see classify_dhcp docstring
             fl |= classify_dhcp(frame)
         shard = self.shard_of(frame, fl)
-        if self._free == 0 or self._shard_depth(shard) >= self.depth:
+        if self._free == 0 or len(self._rx[shard]) >= self.depth:
             self._stats["fill_empty" if self._free == 0 else "rx_full"] += 1
             return False
         self._free -= 1
-        if self._vec:
-            self._enqueue_slot(shard, self._stage_slot(frame, fl))
-        else:
-            self._rx[shard].append((frame, fl))
+        self._rx[shard].append((frame, fl))
         return True
 
     def rx_push_batch(self, frames: list[bytes],
                       from_access: bool = True) -> int:
-        """Batch producer. Scalar: the per-frame loop. Vector: ONE
-        vectorized classify+steer pass over the whole batch, staged
-        into the SoA store with a single ragged scatter — per-frame
-        Python only on the pressured fallback (free-pool or per-shard
-        backpressure mid-batch), where admission order matters."""
-        if not self._vec:
-            return self._push_scalar(frames, from_access)
-        return self._rx_push_batch_vec(frames, from_access)
-
-    def _push_scalar(self, frames: list[bytes], from_access: bool) -> int:
-        """Per-frame push loop — the scalar batch producer AND the
-        vector path's pressured fallback (one copy of the stop-at-
-        first-refusal semantics)."""
+        """Per-frame push loop; stops at the first refusal."""
         n = 0
         for f in frames:
             if not self.rx_push(f, from_access=from_access):
@@ -710,136 +625,14 @@ class PyRing:
             n += 1
         return n
 
-    def _rx_push_batch_vec(self, frames: list[bytes],
-                           from_access: bool) -> int:
-        n = len(frames)
-        if n == 0:
-            return 0
-        lens = hostpath.frame_lens(frames)
-        if (int(lens.max()) > self.frame_size or self._free < n
-                or n > self.nframes):
-            # size rejection / free-pool pressure: per-frame decisions
-            # (a rejected frame frees no slot; order matters) — the
-            # scalar oracle takes over for the WHOLE batch
-            return self._push_scalar(frames, from_access)
-        # width floor 1: an all-empty batch must classify (to nothing)
-        # instead of indexing a zero-width matrix — the scalar oracle
-        # ACCEPTS zero-length frames (they hash to shard 0 and ride the
-        # slow path), so the vector path must too
-        buf = np.empty((n, max(int(lens.max()), 1)), dtype=np.uint8)
-        hostpath.pack_into(frames, buf, np.empty((n,), np.uint32),
-                           lens=lens)
-        fl = np.full(n, FLAG_FROM_ACCESS if from_access else 0,
-                     dtype=np.uint32)
-        if from_access:
-            fl |= hostpath.classify_dhcp_batch(buf, lens)
-        if self.n_shards > 1:
-            keys, vals = self._pub_arrays()
-            shards = hostpath.shard_of_batch(buf, lens, fl, self.n_shards,
-                                             keys, vals)
-        else:
-            shards = np.zeros(n, dtype=np.int64)
-        counts = np.bincount(shards, minlength=self.n_shards)
-        if ((self._rxc + counts) > self.depth).any():
-            # per-shard backpressure mid-batch: scalar decisions
-            return self._push_scalar(frames, from_access)
-        slots = self._alloc_slots(n)
-        self._scatter_frames(slots, buf, lens)
-        self._fl[slots] = fl
-        for s in np.nonzero(counts)[0]:
-            self._enqueue_slots(int(s), slots[shards == s])
-        self._free -= n
-        return n
-
     def tx_inject(self, frame: bytes, from_access: bool = True) -> bool:
         if (len(frame) > self.frame_size or self._free == 0
                 or len(self._tx) >= self.depth):
             return False
         self._free -= 1
-        fl = FLAG_FROM_ACCESS if from_access else 0
-        if self._vec:
-            slot = self._stage_slot(frame, fl)
-            self._tx.append(int(slot))
-        else:
-            self._tx.append((frame, fl))
+        self._tx.append((frame, FLAG_FROM_ACCESS if from_access else 0))
         self._stats["tx"] += 1
         return True
-
-    # -- vector SoA plumbing ---------------------------------------------
-
-    def _alloc_slots(self, k: int) -> np.ndarray:
-        free = self.nframes - self._used_slots
-        assert k <= free
-        out = self._slot_stack[free - k: free].copy()
-        self._used_slots += k
-        return out
-
-    def _release_slots(self, slots: np.ndarray) -> None:
-        k = len(slots)
-        if k == 0:
-            return
-        free = self.nframes - self._used_slots
-        self._slot_stack[free: free + k] = slots
-        self._used_slots -= k
-
-    def _release_slot(self, slot: int) -> None:
-        """Single-slot release — the per-frame pop fast path (no array
-        ceremony)."""
-        self._slot_stack[self.nframes - self._used_slots] = slot
-        self._used_slots -= 1
-
-    _used_slots = 0
-
-    def _stage_slot(self, frame: bytes, fl: int) -> int:
-        """Single-frame SoA staging (the per-frame producer APIs)."""
-        slot = int(self._alloc_slots(1)[0])
-        row = self._buf[slot]
-        prev = int(self._ext[slot])
-        row[: len(frame)] = np.frombuffer(frame, dtype=np.uint8)
-        if prev > len(frame):
-            row[len(frame): prev] = 0  # restore the zero-tail invariant
-        self._len[slot] = len(frame)
-        self._ext[slot] = len(frame)
-        self._fl[slot] = fl
-        return slot
-
-    def _scatter_frames(self, slots: np.ndarray, buf: np.ndarray,
-                        lens: np.ndarray) -> None:
-        """Packed rows -> SoA slots in ONE rectangular copy. `buf` rows
-        are already zero beyond each frame's length (pack_into), so
-        copying through the previous occupants' extent both stages the
-        frames and restores the zero-tail invariant — no mask."""
-        prev = self._ext[slots]
-        w = min(int(max(int(lens.max()), int(prev.max()))), self.frame_size)
-        src = buf[:, :w] if buf.shape[1] >= w else np.pad(
-            buf, ((0, 0), (0, w - buf.shape[1])))
-        self._buf[slots, :w] = src
-        self._len[slots] = lens
-        self._ext[slots] = lens
-
-    def _enqueue_slot(self, shard: int, slot: int) -> None:
-        pos = (self._rxh[shard] + self._rxc[shard]) % self.depth
-        self._rxq[shard, pos] = slot
-        self._rxc[shard] += 1
-
-    def _enqueue_slots(self, shard: int, slots: np.ndarray) -> None:
-        k = len(slots)
-        pos = (self._rxh[shard] + self._rxc[shard]
-               + np.arange(k)) % self.depth
-        self._rxq[shard, pos] = slots
-        self._rxc[shard] += k
-
-    def _peek_slots(self, shard: int, k: int) -> np.ndarray:
-        pos = (self._rxh[shard] + np.arange(k)) % self.depth
-        return self._rxq[shard, pos]
-
-    def _advance(self, shard: int, k: int) -> None:
-        self._rxh[shard] = (self._rxh[shard] + k) % self.depth
-        self._rxc[shard] -= k
-
-    def _shard_depth(self, shard: int) -> int:
-        return (int(self._rxc[shard]) if self._vec
-                else len(self._rx[shard]))
 
     MAX_INFLIGHT = 2  # two assemble..complete windows (double buffering)
 
@@ -857,8 +650,6 @@ class PyRing:
                  out_flags: np.ndarray) -> int:
         if len(self._inflight) >= self.MAX_INFLIGHT:
             return 0
-        if self._vec:
-            return self._assemble_vec(out, out_len, out_flags)
         B, slot = out.shape
         batch = []
         n = 0
@@ -879,54 +670,6 @@ class PyRing:
         self._stats["rx"] += n
         return n
 
-    def _assemble_vec(self, out, out_len, out_flags) -> int:
-        """Vectorized assemble: the scalar round-robin drain order is
-        exactly lexicographic (queue position, shard) starting at shard
-        0 — one lexsort reproduces it bit-for-bit, then one gather
-        stages the whole batch."""
-        B, slot_w = out.shape
-        total = int(self._rxc.sum())
-        if total == 0:
-            return 0
-        if self.n_shards == 1:
-            n = min(B, total)
-            chosen = self._peek_slots(0, n).astype(np.int64)
-            self._advance(0, n)
-        else:
-            live = np.nonzero(self._rxc)[0]
-            # a shard can contribute at most B lanes to this batch: in
-            # the (round, shard) lex order any item with per-shard index
-            # >= B can never make the first B, so clipping bounds the
-            # sort at B*n_live instead of the whole backlog (identical
-            # drain order; deep queues made this O(total log total))
-            counts = np.minimum(self._rxc[live], B)
-            total = int(counts.sum())
-            pend = [self._peek_slots(int(s), int(c))
-                    for s, c in zip(live, counts)]
-            shards_rep = np.repeat(live, counts)
-            offs = np.concatenate(([0], np.cumsum(counts[:-1])))
-            rounds = np.arange(total) - np.repeat(offs, counts)
-            order = np.lexsort((shards_rep, rounds))[:B]
-            n = len(order)
-            chosen = np.concatenate(pend).astype(np.int64)[order]
-            popped = np.bincount(shards_rep[order],
-                                 minlength=self.n_shards)
-            for s in np.nonzero(popped)[0]:
-                self._advance(int(s), int(popped[s]))
-        self._gather_rows(chosen, out, out_len, out_flags, 0, n, slot_w)
-        self._inflight.append((chosen, np.ones(n, dtype=bool)))
-        self._stats["rx"] += n
-        return n
-
-    def _gather_rows(self, slots, out, out_len, out_flags, base, n,
-                     slot_w) -> None:
-        w = min(slot_w, self.frame_size)
-        out[base: base + n, :w] = self._buf[slots, :w]
-        if slot_w > w:
-            out[base: base + n, w:] = 0
-        out_len[base: base + n] = np.minimum(self._len[slots], slot_w)
-        out_flags[base: base + n] = self._fl[slots]
-
     def assemble_sharded(self, out: np.ndarray, out_len: np.ndarray,
                          out_flags: np.ndarray) -> int:
         """Per-shard lane ranges — see NativeRing.assemble_sharded."""
@@ -938,9 +681,6 @@ class PyRing:
         b = B // self.n_shards
         if b > self.depth:  # NativeRing parity: geometry error, not "empty"
             raise ValueError(f"b_per_shard {b} exceeds ring depth {self.depth}")
-        if self._vec:
-            return self._assemble_sharded_vec(out, out_len, out_flags, b,
-                                              slot)
         batch: list[tuple[bytes, int] | None] = []
         got = 0
         for s in range(self.n_shards):
@@ -961,41 +701,9 @@ class PyRing:
         self._stats["rx"] += got
         return got
 
-    def _assemble_sharded_vec(self, out, out_len, out_flags, b,
-                              slot_w) -> int:
-        """Vectorized sharded assemble: one gather per LIVE shard (bound
-        by n_shards, never by frames), padding lanes zeroed wholesale."""
-        B = b * self.n_shards
-        slots = np.zeros(B, dtype=np.int64)
-        valid = np.zeros(B, dtype=bool)
-        got = 0
-        for s in range(self.n_shards):
-            k = min(int(self._rxc[s]), b)
-            base = s * b
-            if k:
-                sl = self._peek_slots(s, k).astype(np.int64)
-                self._advance(s, k)
-                self._gather_rows(sl, out, out_len, out_flags, base, k,
-                                  slot_w)
-                slots[base: base + k] = sl
-                valid[base: base + k] = True
-                got += k
-            if k < b:
-                out[base + k: base + b] = 0
-                out_len[base + k: base + b] = 0
-                out_flags[base + k: base + b] = 0
-        if got:
-            self._inflight.append((slots, valid))
-        self._stats["rx"] += got
-        return got
-
     def complete(self, verdict: np.ndarray, out: np.ndarray,
                  out_len: np.ndarray, n: int) -> None:
         # retires the OLDEST outstanding batch (FIFO, like the C side)
-        if self._vec:
-            if not self._inflight or n != len(self._inflight[0][0]):
-                raise RuntimeError("batch_complete: n mismatch")
-            return self._complete_vec(verdict, out, out_len, n)
         if not self._inflight or n != len(self._inflight[0]):
             raise RuntimeError("batch_complete: n mismatch")
         batch = self._inflight.pop(0)
@@ -1020,97 +728,11 @@ class PyRing:
                 self._stats["tx_full"] += 1
                 self._free += 1
 
-    def _complete_vec(self, verdict, out, out_len, n) -> None:
-        """Vectorized verdict demux: masked rank accounting reproduces
-        the scalar lane-order queue-capacity semantics (the first
-        `room` lanes of each verdict class are accepted), and TX/FWD
-        payloads scatter back into the SoA store in one ragged write —
-        no per-frame reply-buffer rebuild."""
-        slots, valid = self._inflight.pop(0)
-        vv = np.asarray(verdict)[:n]
-        ol = np.asarray(out_len)[:n].astype(np.int64)
-        freed = np.zeros(n, dtype=bool)
-        for code, dst, stat in ((VERDICT_TX, self._tx, "tx"),
-                                (VERDICT_FWD, self._fwd, "fwd"),
-                                (VERDICT_PASS, self._slow, "slow")):
-            m = valid & (vv == code)
-            cnt = int(m.sum())
-            if not cnt:
-                continue
-            room = self.depth - len(dst)
-            if cnt > room:
-                rank = np.cumsum(m) - 1
-                acc = m & (rank < room)
-                over = m & ~acc
-                self._stats["tx_full"] += int(over.sum())
-                freed |= over
-                m = acc
-                cnt = room
-                if cnt <= 0:
-                    continue
-            if code != VERDICT_PASS:
-                lanes = np.nonzero(m)[0]
-                sl = slots[lanes]
-                ll = ol[lanes]
-                fit = ll <= self.frame_size
-                if fit.all():
-                    self._scatter_rows_from(out, lanes, sl, ll)
-                else:
-                    self._scatter_rows_from(out, lanes[fit], sl[fit],
-                                            ll[fit])
-                    for lane, slot in zip(lanes[~fit], sl[~fit]):
-                        # reply wider than the UMEM slot: spill to bytes
-                        # (per-frame on exactly these lanes; scalar
-                        # parity — it stores the bytes either way)
-                        self._spill[int(slot)] = bytes(
-                            out[int(lane), : int(ol[lane])])
-                dst.extend(sl.tolist())
-            else:
-                dst.extend(slots[m].tolist())
-            self._stats[stat] += cnt
-        drop = valid & ~np.isin(vv, (VERDICT_TX, VERDICT_FWD, VERDICT_PASS))
-        ndrop = int(drop.sum())
-        if ndrop:
-            self._stats["drop"] += ndrop
-            freed |= drop
-        if freed.any():
-            self._release_slots(slots[freed])
-            self._free += int(freed.sum())
-
-    def _scatter_rows_from(self, out, lanes, sl, ll) -> None:
-        """TX/FWD payload write-back: out rows -> SoA slots in one
-        rectangular copy. Device rows carry no zero guarantee beyond
-        out_len, so the written width becomes the slot's possibly-dirty
-        extent (_ext): pops read only [:len], and the next RX occupant
-        zeroes through _ext before the slot can reach assemble again."""
-        n_l = len(lanes)
-        if n_l == 0:
-            return
-        prev = self._ext[sl]
-        w = min(int(max(int(ll.max()), int(prev.max()))), self.frame_size)
-        src = out if n_l == len(out) else out[lanes]
-        if src.shape[1] >= w:
-            src = src[:, :w]
-        else:
-            src = np.pad(src, ((0, 0), (0, w - src.shape[1])))
-        self._buf[sl, :w] = src
-        self._len[sl] = ll
-        self._ext[sl] = w
-
     def _pop(self, q: deque):
         if not q:
             return None
-        item = q.popleft()
         self._free += 1
-        if not self._vec:
-            return item
-        slot = item
-        sp = self._spill.pop(slot, None) if self._spill else None
-        payload = (sp if sp is not None
-                   else bytes(self._buf[slot, : self._len[slot]]))
-        fl = int(self._fl[slot])
-        self._release_slot(slot)
-        return payload, fl
+        return q.popleft()
 
     def tx_pop(self):
         return self._pop(self._tx)
@@ -1122,34 +744,13 @@ class PyRing:
         return self._pop(self._slow)
 
     def tx_pop_batch(self, limit: int | None = None) -> list:
-        """Drain up to `limit` TX frames as [(bytes, flags)]. Vector:
-        one SoA gather + one tobytes for the whole drain (the reply
-        consumer's per-frame bytes() rebuild was ~5x the scalar pop
-        cost); scalar: the per-frame loop."""
+        """Drain up to `limit` TX frames as [(bytes, flags)]."""
         k = len(self._tx)
         if limit is not None:
             k = min(k, limit)
-        if k == 0:
-            return []
-        if not self._vec:
-            out = []
-            for _ in range(k):
-                out.append(self._pop(self._tx))
-            return out
-        slots = np.fromiter((self._tx.popleft() for _ in range(k)),
-                            dtype=np.int64, count=k)
-        lens = self._len[slots].tolist()
-        fls = self._fl[slots].tolist()
-        W = self.frame_size
-        big = self._buf[slots].tobytes()
-        out = [(big[i * W: i * W + lens[i]], fls[i]) for i in range(k)]
-        if self._spill:
-            for i, s in enumerate(slots.tolist()):
-                sp = self._spill.pop(int(s), None)
-                if sp is not None:
-                    out[i] = (sp, fls[i])
-        self._release_slots(slots.astype(np.uint32))
-        self._free += k
+        out = []
+        for _ in range(k):
+            out.append(self._pop(self._tx))
         return out
 
     def rx_pop(self):
@@ -1162,16 +763,9 @@ class PyRing:
         engine's pipelined loop instead."""
         for off in range(self.n_shards):
             s = (self._rx_pop_next + off) % self.n_shards
-            if self._shard_depth(s):
+            if self._rx[s]:
                 self._rx_pop_next = (s + 1) % self.n_shards
-                if self._vec:
-                    slot = int(self._peek_slots(s, 1)[0])
-                    self._advance(s, 1)
-                    frame = bytes(self._buf[slot, : int(self._len[slot])])
-                    fl = int(self._fl[slot])
-                    self._release_slot(slot)
-                else:
-                    frame, fl = self._rx[s].popleft()
+                frame, fl = self._rx[s].popleft()
                 self._free += 1
                 self._stats["rx"] += 1
                 return frame, fl
@@ -1180,11 +774,10 @@ class PyRing:
     _rx_pop_next = 0  # round-robin cursor for rx_pop
 
     def rx_pending(self) -> int:
-        return (int(self._rxc.sum()) if self._vec
-                else sum(len(q) for q in self._rx))
+        return sum(len(q) for q in self._rx)
 
     def shard_rx_pending(self, shard: int) -> int:
-        return self._shard_depth(shard) if shard < self.n_shards else 0
+        return len(self._rx[shard]) if shard < self.n_shards else 0
 
     def tx_pending(self) -> int:
         return len(self._tx)

@@ -28,10 +28,6 @@ of `bng_tpu/runtime/scheduler.py`).
   in flight; `auto` takes the devloop when its program builds and `aot`
   otherwise. An explicit `devloop` that cannot arm degrades to `aot`
   loudly (counted in `express_fallbacks`), `auto` quietly.
-- **Host path** (`BNG_HOST_PATH=vector`): the express retire renders the
-  replies of each group of lanes that share a template in one vectorized
-  patch (`ExpressWireTemplate.render_batch`), byte-identical to the
-  per-frame render.
 
 Telemetry is the reference's: each dispatched batch opens a flight
 record (`telemetry/spans.begin_batch`) with its lane wait, its dispatch,
@@ -78,7 +74,6 @@ from bng_tpu_torch.ops.express import (
     VB_LEASE_T, VB_POOL, VB_VERDICT, VB_YIADDR, XD_WORDS, parse_express,
 )
 from bng_tpu_torch.ops.pipeline import VERDICT_DROP, VERDICT_FWD, VERDICT_TX
-from bng_tpu_torch.runtime import hostpath
 from bng_tpu_torch.runtime.engine import _InFlight
 from bng_tpu_torch.runtime.lanes import (
     CLOSE_FLUSH, LANE_BULK, LANE_EXPRESS, CompletionRing, InflightEntry, Lane, LaneConfig,
@@ -202,23 +197,12 @@ class TieredScheduler:
         # whether submit() parses descriptors: only while a program exists
         self._aot_ready = False
         self._express_templates = ExpressTemplateCache()
-        # vector host path: batched template render at the express retire
-        self._vec = hostpath.resolved_host_path() == "vector"
         # descriptor staging: the express program copies it into its own
         # pinned buffer before it returns, so one buffer serves every dispatch
         self._desc_buf = np.zeros((self.cfg.express_batch, XD_WORDS), dtype=np.uint32)
-        self._ensure_engine_staging()
         if self._aot_enabled:
             self._compile_express_aot()
         self._setup_devloop()
-
-    def _ensure_engine_staging(self) -> None:
-        """Declare the dispatches this scheduler may keep in flight to the
-        engine's staging pool (vector host path), so a pooled buffer comes
-        round only after them."""
-        pool = self.engine._stage_pool
-        if pool is not None:
-            pool.ensure_depth(self.cfg.express_depth + self.cfg.bulk_depth + 2)
 
     def _compile_express_aot(self) -> None:
         self._aot_ready = False
@@ -356,7 +340,6 @@ class TieredScheduler:
         self.engine = engine
         self._bulk_dhcp = None
         self._replica_resync = -1
-        self._ensure_engine_staging()
         if self._aot_enabled:
             self._compile_express_aot()
         self._setup_devloop()  # the ring program for the new engine, built here
@@ -467,14 +450,9 @@ class TieredScheduler:
             block = h["block"][:n].view(np.uint32)
             answered = block[:, VB_VERDICT] != 0
             pools, server = entry.meta
-            if self._vec:
-                txr = self._express_replies_vec(entry.pending, block, pools, server)
 
-                def reply(i, p):
-                    return txr[i]
-            else:
-                def reply(i, p):
-                    return self._express_reply(p, block[i], pools, server)
+            def reply(i, p):
+                return self._express_reply(p, block[i], pools, server)
         else:  # the DHCP-only program's reply frames
             answered = h["verdict"][:n] == VERDICT_TX
 
@@ -496,34 +474,6 @@ class TieredScheduler:
         tele.end_batch(entry.trace)
         self._observe_retire(LANE_EXPRESS, entry, now)
         return n
-
-    def _express_replies_vec(self, pend, block: np.ndarray, pools: np.ndarray,
-                             server: np.ndarray) -> dict[int, bytes]:
-        """The batched render: TX lanes grouped by template and addressing
-        (a storm batch is typically one group), each group's per-client
-        words patched in one vectorized pass, byte-identical to
-        `_express_reply`. Returns lane -> bytes."""
-        server_ip0 = int(server[SC_IP])
-        server_mac = (int(server[SC_MAC_HI]).to_bytes(2, "big")
-                      + int(server[SC_MAC_LO]).to_bytes(4, "big"))
-        groups: dict[tuple, list] = {}
-        for i, p in enumerate(pend):
-            if block[i, VB_VERDICT]:
-                d = p.desc
-                groups.setdefault((int(block[i, VB_POOL]), int(block[i, VB_LEASE_T]), d.msg_type,
-                                   d.vlan_off, d.dhcp_off, d.relayed, d.use_bcast), []).append(i)
-        out: dict[int, bytes] = {}
-        for (pool_id, lease_t, msg, vlan_off, dhcp_off, relayed, use_bcast), lanes in groups.items():
-            prow = pools[pool_id]
-            tmpl = self._express_templates.get(
-                server_mac, server_ip0 or int(prow[PV_GATEWAY]), int(prow[PV_GATEWAY]),
-                int(prow[PV_DNS1]), int(prow[PV_DNS2]), lease_t,
-                prefix_to_mask(int(prow[PV_PREFIX])), OFFER if msg == DISCOVER else ACK)
-            fmat, _ = hostpath.pack_rows([pend[i].frame for i in lanes])
-            reps = tmpl.render_batch(fmat, vlan_off, dhcp_off, relayed, use_bcast,
-                                     block[np.asarray(lanes, dtype=np.int64), VB_YIADDR])
-            out.update(zip(lanes, reps))
-        return out
 
     def _express_reply(self, p, row: np.ndarray, pools: np.ndarray, server: np.ndarray) -> bytes:
         """One verdict row -> reply bytes, from the dispatch's pool and

@@ -20,8 +20,8 @@ The WIRE PUMP is the glue loop on a live rung: feed the
 kernel fill ring from the ring's free pool, drain kernel RX into the
 ring (classification/steering happen there), move TX/FWD verdict
 descriptors to the kernel TX ring, and reap completions back to the
-pool. Two implementations behind ``BNG_WIRE_PUMP`` (the BNG_HOST_PATH
-mold — resolved at construction, snapshotted per pump):
+pool. Two implementations behind ``BNG_WIRE_PUMP`` (resolved at
+construction, snapshotted per pump):
 
 - ``scalar`` (default) — the original per-frame ctypes loop: reserve
   per frame, normalize copy-mode headroom with a per-frame memmove,
@@ -70,7 +70,7 @@ _ERRS = {
 }
 
 # ---------------------------------------------------------------------------
-# pump path selection (the BNG_HOST_PATH / BNG_TABLE_IMPL mold)
+# pump path selection (the BNG_TABLE_IMPL mold)
 # ---------------------------------------------------------------------------
 
 WIRE_PUMPS = ("scalar", "vector")
@@ -83,9 +83,8 @@ WIRE_PUMP = os.environ.get("BNG_WIRE_PUMP", "scalar")
 
 def resolved_wire_pump() -> str:
     """The pump path WirePump constructions resolve against. Resolution
-    happens at CONSTRUCTION time (snapshotted per pump instance, like
-    PyRing.host_path): an env flip after construction needs a new
-    attach."""
+    happens at CONSTRUCTION time (snapshotted per pump instance): an
+    env flip after construction needs a new attach."""
     if WIRE_PUMP not in WIRE_PUMPS:
         raise ValueError(
             f"BNG_WIRE_PUMP={WIRE_PUMP!r}: expected one of {WIRE_PUMPS}")

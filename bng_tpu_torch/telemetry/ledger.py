@@ -108,9 +108,6 @@ def environment_fingerprint(device=None) -> dict:
         env["platform"] = "cpu"
         env["device_kind"] = "cpu"
         env["table_impl"] = "plain"
-    hp = sys.modules.get("bng_tpu_torch.runtime.hostpath")
-    if hp is not None:
-        env["host_path"] = hp.resolved_host_path()
     # the wire pump (scalar | vector): a batch-pump run never trends
     # against per-frame pump history (cohort_key keys on it)
     wp = sys.modules.get("bng_tpu_torch.runtime.xsk")
@@ -221,12 +218,12 @@ def express_loop(line: dict) -> str:
 
 def host_path(line: dict) -> str:
     """Which HOST serving path staged the run: `scalar` (the
-    original per-frame ring/admission/pack loops) vs `vector` (the
-    batch-native SoA path behind BNG_HOST_PATH). The top-level stamp
-    wins (`bench.py --host-ab` records it per cohort), then the env
-    fingerprint. Unstamped lines predate the vector path and ran the
-    per-frame loops — defaulting to `scalar` keeps existing history one
-    cohort. The two paths do the same work with different host
+    per-frame ring/admission/pack loops, the port's only host path) vs
+    `vector` (the reference package's batch-native SoA path, which
+    recorded lines may carry). The top-level stamp wins
+    (`bench.py --host-ab` records it per cohort), then the env
+    fingerprint. Unstamped lines ran the per-frame loops — defaulting
+    to `scalar` keeps that history one cohort. The two paths do the same work with different host
     machinery: a host-stage trend across them is an architecture
     comparison, not a regression signal (rc=3 refusal, the table_impl
     discipline)."""

@@ -40,9 +40,7 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    the calls; each kernel also with L2 flushed before every call), K2 at
    B = 32, K2's sweep route past B_ONE, a one-thread launch floor, the
    device step (Mpps, p50/p99), `Engine.process` per batch with the host
-   (split into pack / dispatch / wait / demux). Then IPoE batches through
-   `Engine.process` under the scalar and the vector host path in turns
-   (`runtime/hostpath.StagingPool`): identical outputs, the split of each.
+   (split into pack / dispatch / wait / demux).
 7. The full-stack deployment, on the headline's host tables (the IPoE
    engine is retired first): 65,534 PPPoE sessions under one access
    concentrator, each with one NAT44 flow; 10,000 gardened subscribers
@@ -68,11 +66,10 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     DISCOVERs per batch, counts read: K1 3 and K2 0 per batch.
 12. The ring loops: an all-control batch (the DHCP-only program) and the
     full-stack mix through `process_ring` and `process_ring_pipelined` +
-    `flush_pipeline`, the latter over the scalar `PyRing`, the vector
-    `PyRing` and the `NativeRing` (built by g++ into
-    `bng_tpu_torch/_build/` and loaded, or the run fails); TX/FWD frames
-    equal `process` on the same frames, and frames and stats are identical
-    across the three rings; counts read.
+    `flush_pipeline`, the latter over the `PyRing` and the `NativeRing`
+    (built by g++ into `bng_tpu_torch/_build/` and loaded, or the run
+    fails); TX/FWD frames equal `process` on the same frames, and frames
+    and stats are identical across the two rings; counts read.
 13. Full-stack times: the device step in turns with the IPoE-only step
     on the same tables and batch (Mpps, p50/p99, their ratio);
     `Engine.process`, `process_dhcp` and `process_ring_pipelined` (over
@@ -104,9 +101,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     replay, wait, render, slow path) and, idle and busy, each lane's
     dispatch and retire time per round; DORAs/s; bulk frames/s with the
     host; the express descriptor upload, a fresh pinned buffer against the
-    program's persistent ones; the render of bursts under the scalar and
-    the vector host path (identical bytes), for one template group and
-    for many.
+    program's persistent ones; the render of bursts, for one template
+    group and for many.
 17. The express graph's device time and K1's at each express probe.
 18. The devloop (`express_loop="devloop"`, k = 8): two fresh serving
     stacks, the aot lane's and the devloop's, from the same host tables
@@ -582,7 +578,7 @@ from bng_tpu_torch.runtime import checkpoint as ckpt_mod
 from bng_tpu_torch.runtime import ops as ops_mod
 from bng_tpu_torch.devloop.host import DevloopPump
 from bng_tpu_torch.ops.table import PinnedStage
-from bng_tpu_torch.runtime import hostpath, nativelib
+from bng_tpu_torch.runtime import nativelib
 from bng_tpu_torch.runtime import ring as ring_mod
 from bng_tpu_torch.runtime.ring import PyRing
 from bng_tpu_torch.runtime.scheduler import SchedulerConfig, TieredScheduler
@@ -606,7 +602,6 @@ N_NAT_SUBS = 250_000
 N_QOS = 10_000
 N_BINDINGS = 10_000
 BATCHES = 20
-HOST_AB_BATCHES = 6  # IPoE batches run under both host paths
 TELE_BATCHES = 6  # IPoE batches run with a tracer armed, and again disarmed
 # the full-stack deployment, on top of the headline
 N_PPPOE = 65_534  # RFC 2516's 16-bit SESSION_ID, 0xFFFF reserved
@@ -632,7 +627,7 @@ STORM_BULK_EVERY = 16  # storm cycles per bulk batch of the IPoE mix
 LAT_ROUNDS = 200  # express batches of 64 cached DISCOVERs, the bulk lane idle
 LONE_ROUNDS = 50  # lone cached DISCOVERs (each closed by the deadline)
 BUSY_ROUNDS = 8  # express batches right after a bulk dispatch of B flows
-RENDER_ROUNDS = 50  # express bursts rendered under each host path
+RENDER_ROUNDS = 50  # express bursts rendered
 UPLOAD_ROUNDS = 500  # express descriptor uploads timed each way
 RELAY_IP = ip_to_u32("10.9.9.9")  # a relay agent's giaddr (a template group of its own)
 DL_CLIENT0 = 1 << 20  # first client MAC of the devloop phases (apart from the storm's)
@@ -1391,7 +1386,6 @@ def ipoe_phases(eng, flows, drop_ips, card, device, profile: bool, err):
         f"dropped {eng.stats.dropped} passed {eng.stats.passed}; launches {launches}")
 
     gpu_step_equals_cpu_step(eng, pkt, length, fa, "IPoE")
-    host_path_ab(eng, batches[5:5 + HOST_AB_BATCHES], card)
 
     time_kernels(rec, card, "IPoE")
     s1, v1 = rec["seg_prefix"][0][0][:32].contiguous(), rec["seg_prefix"][0][1][:32].contiguous()
@@ -1547,38 +1541,6 @@ def ipoe_telemetry_phase(eng, flows, card, device, device_us, err) -> dict:
     return {k: runs[1][3][k] + runs[3][3][k] for k in runs[1][3]}
 
 
-def set_host_path(eng, path: str, pool) -> None:
-    """Point the engine at a host path. The engine resolves BNG_HOST_PATH
-    once, at construction; the smoke compares both paths on one engine and
-    one set of device tables, so it swaps the staging here."""
-    eng.host_path = path
-    eng._stage_pool = pool if path == "vector" else None
-
-
-def host_path_ab(eng, batches, card) -> None:
-    """Each batch through `Engine.process` under the scalar and the vector
-    host path in turns, at one `now`: identical outputs; the host split
-    (pack, dispatch, wait, demux) of each path."""
-    split = {p: HostSplit(eng) for p in ("scalar", "vector")}
-    ms = {p: [] for p in split}
-    pool = hostpath.StagingPool(eng.L, device=eng.device)
-    for k, (frames, _) in enumerate(batches):
-        outs = {}
-        for path in (("scalar", "vector") if k % 2 == 0 else ("vector", "scalar")):
-            set_host_path(eng, path, pool)
-            with split[path]:
-                t1 = time.perf_counter()
-                outs[path] = eng.process(frames, from_access=True, now=NOW + 5 + k * 0.01)
-                ms[path].append((time.perf_counter() - t1) * 1e3)
-        check(outs["vector"] == outs["scalar"], f"IPoE batch {k}: vector host path == scalar")
-    check(pool.waits == 0, "no vector staging waited for an upload")
-    set_host_path(eng, "scalar", pool)
-    for path in ("scalar", "vector"):
-        say(f"IPoE Engine.process, {path} host path: mean {np.mean(ms[path]):.2f} ms over "
-            f"{len(batches)} batches, outputs identical across the paths "
-            f"({split[path].report(ms[path])}) [{card}]")
-
-
 # ------------------------------------------------------- the full-stack paths
 
 def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
@@ -1688,7 +1650,7 @@ def full_stack_phases(hosts, flows, drop_ips, card, device, profile: bool, err):
     return kern, {"full": launches_full, "dhcp_only": launches_dhcp, **launches_ring}
 
 
-RING_KINDS = ("PyRing scalar", "PyRing vector", "NativeRing")
+RING_KINDS = ("PyRing", "NativeRing")
 
 
 def make_ring_of(kind: str):
@@ -1699,7 +1661,7 @@ def make_ring_of(kind: str):
         check(lib is not None and str(nativelib.lib_path("bngring")) == lib._name,
               "the port's bngring built by g++ into bng_tpu_torch/_build/ and loaded")
         return ring_mod.NativeRing(**kw)
-    return ring_mod.PyRing(host_path=kind.split()[1], **kw)
+    return ring_mod.PyRing(**kw)
 
 
 def push_runs(ring, frames, fa) -> int:
@@ -1719,7 +1681,7 @@ def ring_phases(eng, ctx, rng):
     process_ring_pipelined over RING_BATCHES mixed batches through each of
     RING_KINDS, each against `process` on the same frames: the same TX/FWD
     frames, drops and PASS lanes, and ring stats that count them, identical
-    across the three rings."""
+    across the two rings."""
     batches = [make_full_batch(rng, ctx) for _ in range(RING_BATCHES)]
     want = []
     for k, (bf, bfa, _) in enumerate(batches):
@@ -1784,14 +1746,14 @@ def ring_phases(eng, ctx, rng):
     check(eng.mirror_sink is not None and launches_sync["umem_gather"] == 0
           and launches_pipe["umem_gather"] == launches_pipe["umem_scatter"] == 0,
           f"ring loops with a mirror sink: no mover launched ({launches_sync}, {launches_pipe})")
-    stats = runs["PyRing scalar"][2]
+    stats = runs["PyRing"][2]
     n = {v: sum(len(o[v]) for o in want) for v in ("tx", "fwd", "dropped", "slow")}
     check(stats["rx"] == RING_BATCHES * B and stats["tx"] == n["tx"] and stats["fwd"] == n["fwd"]
           and stats["drop"] == n["dropped"] and stats["slow"] == n["slow"],
           f"ring stats {stats} count process's verdicts {n}")
     for kind, (_, _, st, got) in runs.items():
-        check(st == stats and got == runs["PyRing scalar"][3],
-              f"the {kind} ring's frames and stats == the scalar PyRing's ({st})")
+        check(st == stats and got == runs["PyRing"][3],
+              f"the {kind} ring's frames and stats == the PyRing's ({st})")
     say(f"ring loops: control batch on the DHCP-only program {launches_ctrl}; process_ring and "
         f"process_ring_pipelined on {RING_BATCHES} mixed batches each equal process, over "
         f"{', '.join(RING_KINDS)} alike (stats {stats}); launches {launches_sync} and "
@@ -2186,7 +2148,6 @@ class ExpressSplit(HostSplit):
                       (torch.cuda.CUDAGraph, "replay", "replay"),
                       (engine_mod._InFlight, "wait", "wait"),
                       (TieredScheduler, "_express_reply", "render"),
-                      (TieredScheduler, "_express_replies_vec", "render"),
                       (eng, "_handle_slow_lanes", "slow")]
         self.ms = {k: 0.0 for k in self.PARTS}
 
@@ -2197,23 +2158,21 @@ class ExpressSplit(HostSplit):
 
 
 class RenderSplit(HostSplit):
-    """Host time of the express retire's template render, per host path."""
+    """Host time of the express retire's template render."""
 
-    PARTS = ("scalar", "vector")
+    PARTS = ("render",)
 
     def __init__(self):
-        self.sites = [(TieredScheduler, "_express_reply", "scalar"),
-                      (TieredScheduler, "_express_replies_vec", "vector")]
+        self.sites = [(TieredScheduler, "_express_reply", "render")]
         self.ms = {k: 0.0 for k in self.PARTS}
 
 
-def express_render_ab(sched, rng, card, rounds: int, one_group: bool) -> None:
-    """The same bursts of 64 cached DISCOVERs through the express lane under
-    the scalar render (a template patch per frame) and the vector one (one
-    batched patch per template group), in turns: identical reply bytes; the
-    render's host ms per dispatch of 64 for each. `one_group`: untagged
-    subscribers of one pool (one template group); else subscribers of every
-    pool, a quarter VLAN-tagged and an eighth relayed (many small groups)."""
+def express_render(sched, rng, card, rounds: int, one_group: bool) -> None:
+    """Bursts of 64 cached DISCOVERs through the express lane, each reply
+    rendered by a template patch per frame: every lane answered; the
+    render's host ms per dispatch of 64. `one_group`: untagged subscribers
+    of one pool (one template group); else subscribers of every pool, a
+    quarter VLAN-tagged and an eighth relayed (many small groups)."""
     split = RenderSplit()
     with split:
         for r in range(rounds):
@@ -2225,17 +2184,11 @@ def express_render_ab(sched, rng, card, rounds: int, one_group: bool) -> None:
                                            vlans=[5] if j % 4 == 0 else None,
                                            giaddr=RELAY_IP if j % 8 == 1 else 0)
                           for j, i in enumerate(rng.integers(N_SUBS, size=64))]
-            got = {}
-            for path in (("scalar", "vector") if r % 2 == 0 else ("vector", "scalar")):
-                sched._vec = path == "vector"
-                got[path] = sched.process(frames)
-            check(got["vector"] == got["scalar"] and len(got["scalar"]["tx"]) == 64,
-                  f"burst {r}: the vector render's bytes == the scalar render's")
-    sched._vec = False
+            got = sched.process(frames)
+            check(len(got["tx"]) == 64, f"burst {r}: every lane answered on the express lane")
     what = "one template group" if one_group else "every pool, tagged and relayed lanes mixed"
-    say(f"express render per dispatch of 64 ({what}), bytes identical over {rounds} bursts: "
-        f"scalar {split.ms['scalar'] / rounds:.4f} ms, vector {split.ms['vector'] / rounds:.4f} ms "
-        f"[{card}]")
+    say(f"express render per dispatch of 64 ({what}), over {rounds} bursts: "
+        f"{split.ms['render'] / rounds:.4f} ms [{card}]")
 
 
 def express_upload_ab(eng, card, rounds: int) -> None:
@@ -2350,8 +2303,8 @@ def serving_stack_phases(hosts, flows, drop_ips, card, device, err):
     say(f"bulk lane with the host (submit, dispatch, retire, {BUSY_ROUNDS} batches of {B} flows "
         f"with an express batch each): {bulk_fps:.0f} frames/s [{card}]")
     express_upload_ab(eng, card, UPLOAD_ROUNDS)
-    express_render_ab(sched, rng, card, RENDER_ROUNDS, one_group=False)
-    express_render_ab(sched, rng, card, RENDER_ROUNDS, one_group=True)
+    express_render(sched, rng, card, RENDER_ROUNDS, one_group=False)
+    express_render(sched, rng, card, RENDER_ROUNDS, one_group=True)
 
     # ---- device times
     say(f"express graph replay (3 K1 + selects, B=64): {express_graph_ms(eng):.4f} ms "
@@ -2519,7 +2472,6 @@ class DevloopSplit(HostSplit):
                       (engine_mod._InFlight, "wait", "wait"),
                       (DevloopPump, "_retire", "retire"),
                       (TieredScheduler, "_express_reply", "render"),
-                      (TieredScheduler, "_express_replies_vec", "render"),
                       (eng, "_handle_slow_lanes", "slow")]
         self.ms = {k: 0.0 for k in self.PARTS}
 

@@ -42,7 +42,7 @@ SLICE_MODULES = (
     "bng_tpu_torch.control.dhcp_codec", "bng_tpu_torch.control.pool",
     "bng_tpu_torch.control.dhcp_server", "bng_tpu_torch.ops.express", "bng_tpu_torch.runtime.lanes",
     "bng_tpu_torch.runtime.scheduler", "bng_tpu_torch.utils.structlog",
-    "bng_tpu_torch.chaos", "bng_tpu_torch.chaos.faults", "bng_tpu_torch.runtime.hostpath",
+    "bng_tpu_torch.chaos", "bng_tpu_torch.chaos.faults",
     "bng_tpu_torch.runtime.nativelib", "bng_tpu_torch.devloop", "bng_tpu_torch.devloop.ring",
     "bng_tpu_torch.devloop.kernel", "bng_tpu_torch.devloop.host",
     "bng_tpu_torch.parallel", "bng_tpu_torch.parallel.sharded", "bng_tpu_torch.parallel.exchange",

@@ -1,5 +1,5 @@
-"""The port's `NativeRing` and its `PyRing` host paths against the JAX
-package's rings.
+"""The port's `NativeRing` and its `PyRing` against the JAX package's
+rings.
 
 - The port builds its own byte-for-byte copy of `native/bngring.{h,cpp}`
   (`bng_tpu_torch/csrc/`) with `g++` into `bng_tpu_torch/_build/`; the ctypes
@@ -7,15 +7,15 @@ package's rings.
 - On the ring corpus of tests/test_torch_ring.py plus random frames, and
   on the pressure cases of tests/test_hostpath.py::TestRingIdentity (a
   free pool too small for the pushes, a per-shard queue too shallow, a
-  full TX ring at complete), five rings give the same log: what every push
+  full TX ring at complete), four rings give the same log: what every push
   took, every `assemble` / `assemble_sharded` matrix with its lengths and
   flags, the frames out of `tx_pop`, `fwd_pop` and `slow_pop`, `stats()`
-  and the free count. The five: the port's vector `PyRing`, its scalar
-  `PyRing`, its `NativeRing`, and the reference's `NativeRing` and `PyRing`.
+  and the free count. The four: the port's `PyRing` and `NativeRing`, and
+  the reference's `NativeRing` and scalar `PyRing`.
 - `shard_of` of the native ring equals the Python steering; `wire_pump`
   moves the same frames between two native rings as between two PyRings.
 - `Engine.process_ring_pipelined` over a `NativeRing` gives the frames,
-  stats and tables it gives over the scalar `PyRing` (the full stack).
+  stats and tables it gives over the `PyRing` (the full stack).
 
 Tolerance: bit-exact.
 """
@@ -56,8 +56,7 @@ def _corpus(seed: int = 5) -> list:
 def _rings(nframes, frame_size, depth, n_shards):
     kw = dict(nframes=nframes, frame_size=frame_size, depth=depth, n_shards=n_shards)
     return {
-        "port vector": t_ring.PyRing(host_path="vector", **kw),
-        "port scalar": t_ring.PyRing(host_path="scalar", **kw),
+        "port py": t_ring.PyRing(**kw),
         "port native": t_ring.NativeRing(**kw),
         "jax native": j_ring.NativeRing(**kw),
         "jax py": j_ring.PyRing(host_path="scalar", **kw),
@@ -114,8 +113,8 @@ def test_five_rings_identical(n_shards, sharded):
 def test_pressure_paths():
     """A free pool smaller than the push, per-shard queues of 4, a TX ring
     that fills at complete (the reference's pressure cases at the native
-    ring's power-of-two sizes): the vector path falls back to the scalar
-    decisions exactly where the reference does."""
+    ring's power-of-two sizes): every ring refuses and drops exactly where
+    the reference does."""
     src = [f for f in _corpus(9) if 0 < len(f) <= 500]
     logs = {}
     for name, r in _rings(16, 600, 4, 2).items():
@@ -184,15 +183,15 @@ def test_shard_of_and_wire_pump_match_python():
 
 @pytest.mark.parametrize("loop", ["sync", "pipelined"])
 def test_engine_ring_loops_over_native_ring(loop):
-    """The full-stack mix through the ring loops: over the NativeRing and
-    the vector PyRing as over the scalar PyRing."""
+    """The full-stack mix through the ring loops: over the NativeRing as
+    over the PyRing."""
     got = {}
-    for kind in ("scalar", "vector", "native"):
+    for kind in ("py", "native"):
         d = deploy_full(PORT_FULL)
         eng = TEngine(d.fp, d.nat, d.qos, d.spoof, d.garden, d.pppoe, edge=d.edge, batch_size=48,
                       pkt_slot=512, device="cpu")
         r = (t_ring.NativeRing(256, 512, 128) if kind == "native"
-             else t_ring.PyRing(256, 512, 128, host_path=kind))
+             else t_ring.PyRing(256, 512, 128))
         frames, fa = full_batch(d)
         ctrl = [F.discover_frame(bytes([2, 0, 0, 0, 0, k]), 0x600 + k) for k in (1, 2, 3, 7)]
         rec = []
@@ -210,6 +209,5 @@ def test_engine_ring_loops_over_native_ring(loop):
                     eng.stats.dhcp.tolist(), eng.stats.nat.tolist()))
         got[kind] = rec
         r.close()
-    assert got["native"] == got["scalar"]
-    assert got["vector"] == got["scalar"]
-    assert got["scalar"][-1][0]["fwd"] > 0 and got["scalar"][-1][0]["tx"] > 0
+    assert got["native"] == got["py"]
+    assert got["py"][-1][0]["fwd"] > 0 and got["py"][-1][0]["tx"] > 0

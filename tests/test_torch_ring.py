@@ -4,6 +4,10 @@ package.
 - `classify_dhcp` and `PyRing` against the JAX `PyRing(host_path="scalar")`:
   the same pushes, assembles, completes, injects and pops give the same
   frames, flags, pending counts and stats.
+- Over the corpus of tests/test_hostpath.py (runts, truncated headers,
+  QinQ, PPPoE LCP/IPCP, relayed giaddr, fragments, junk), `classify_dhcp`,
+  `shard_of` at 1, 2 and 4 shards, the admission `peek_dhcp` and
+  `fnv1a32` give the reference's answers frame by frame.
 - The JAX `Engine` and the port's `Engine(device="cpu")`, both with every
   stage (PPPoE, walled garden, taps, routes) and built by the same host
   calls, give identical output and tables from `process_dhcp` (a DORA
@@ -22,18 +26,23 @@ import jax
 import numpy as np
 import pytest
 
+from bng_tpu.control.admission import peek_dhcp as j_peek_dhcp
 from bng_tpu.runtime.engine import Engine as JEngine
 from bng_tpu.runtime.ring import PyRing as JRing
 from bng_tpu.runtime.ring import classify_dhcp as j_classify
+from bng_tpu.runtime.ring import shard_of as j_shard_of
+from bng_tpu.utils.net import fnv1a32 as j_fnv1a32
 from bng_tpu_torch import convert
 from bng_tpu_torch import frames as F
+from bng_tpu_torch.control.admission import peek_dhcp
 from bng_tpu_torch.ops.nat44 import SV_NAT_IP, SV_NAT_PORT
 from bng_tpu_torch.runtime.engine import Engine as TEngine
-from bng_tpu_torch.runtime.ring import VERDICT_FWD
+from bng_tpu_torch.runtime.ring import FLAG_FROM_ACCESS, shard_of
 from bng_tpu_torch.runtime.ring import PyRing as TRing
 from bng_tpu_torch.runtime.ring import classify_dhcp as t_classify
-from bng_tpu_torch.utils.net import ip_to_u32
+from bng_tpu_torch.utils.net import fnv1a32, ip_to_u32
 
+from test_hostpath import CORPUS, PUB_IPS
 from test_torch_entry import JAX_FULL, PORT_FULL, SESSIONS, deploy_full, full_batch
 from test_torch_stages import NOW, REMOTE, assert_tuple_equal, mac
 
@@ -101,28 +110,23 @@ def test_pyring_matches_reference():
     assert stats["bad_desc"] and stats["fill_empty"] and stats["drop"] and stats["slow"]
 
 
+def test_classify_bootp_peek_fnv_match_reference():
+    flags = [t_classify(f) for f in CORPUS]
+    assert flags == [j_classify(f) for f in CORPUS]
+    peeks = [peek_dhcp(f) for f in CORPUS]
+    assert peeks == [j_peek_dhcp(f) for f in CORPUS]
+    keys = [f[:6].ljust(6, b"\0") for f in CORPUS if f]
+    assert [fnv1a32(k) for k in keys] == [j_fnv1a32(k) for k in keys]
+    # the corpus reaches every branch
+    assert sum(p is not None for p in peeks) > 50 and sum(x != 0 for x in flags) > 30
+
+
 @pytest.mark.parametrize("n_shards", [1, 2, 4])
-def test_vector_pyring_and_shard_steering_match_reference(n_shards):
-    """The port's vector `PyRing` and the reference's, on this file's corpus
-    pushed in batches (one vectorized classify and steer per push), then
-    drained through `assemble_sharded` windows and `rx_pop`."""
-    corpus = classify_corpus()
-    got = []
-    for cls in (JRing, TRing):
-        r = cls(nframes=64, frame_size=400, depth=16, n_shards=n_shards, host_path="vector")
-        r.steer_pub_ip(ip_to_u32(REMOTE), n_shards - 1)
-        rec = [r.rx_push_batch(corpus, from_access=True),
-               r.rx_push_batch(corpus[:6], from_access=False),
-               [r.shard_rx_pending(s) for s in range(n_shards)]]
-        pkt = np.zeros((4 * n_shards, 300), np.uint8)
-        ln, fl = np.zeros(4 * n_shards, np.uint32), np.zeros(4 * n_shards, np.uint32)
-        n = r.assemble_sharded(pkt, ln, fl)
-        rec.append((n, pkt.tobytes(), ln.tolist(), fl.tolist()))
-        r.complete(np.full(4 * n_shards, VERDICT_FWD, np.uint8), pkt, ln, 4 * n_shards)
-        rec += [r.rx_pop() for _ in range(4)]
-        rec.append((r.tx_pop_batch(), r.fwd_pending(), r.free_frames(), r.stats()))
-        got.append(rec)
-    assert got[1] == got[0]
+@pytest.mark.parametrize("from_access", [True, False])
+def test_shard_of_matches_reference(n_shards, from_access):
+    for i, f in enumerate(CORPUS):
+        fl = (FLAG_FROM_ACCESS | t_classify(f)) if from_access else 0
+        assert shard_of(f, fl, n_shards, PUB_IPS) == j_shard_of(f, fl, n_shards, PUB_IPS), i
 
 
 def test_dhcp_batch_buckets_match_reference():
